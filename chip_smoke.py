@@ -1,0 +1,534 @@
+#!/usr/bin/env python3
+"""Drive unmicst_tpu_torch on one NVIDIA GPU and check it, end to end.
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; with no CUDA device it exits 2 before
+printing any result):
+
+1. build the CUDA kernels from ``unmicst_tpu_torch/csrc`` with nvcc;
+2. hold K1 (softmax x blend window) and K2 (gather overlap-add, both
+   entry points) against their plain PyTorch versions on the card, at the
+   shapes of a 4096^2 slide through the legacy net (T 1849 tiles, K 3,
+   P 128, float32), and time kernel, plain version and a one-call
+   PyTorch yardstick (``torch.softmax``, ``torch.nn.functional.fold``);
+3. run the CLI on ``models/blobDemo`` (real TF1 weights) over a seeded
+   blob slide: three output pages, blobs inside > 0.8, background < 0.3,
+   both main-path kernels launched; and the engine on the card against
+   the engine on the CPU (plain versions) on a small slide, float32 and
+   bfloat16, at the bar of the CPU tests against the JAX package;
+4. run the full-width legacy net (the nucleiDAPI hyper-parameters with
+   seeded weights) over a seeded 4096^2 uint16 slide through
+   ``InferenceEngine.infer_slide``, float32 and bfloat16, with Mpx/s and
+   peak device memory (and the peak one tile adds, against the estimate
+   the tile batch is chosen from); the launch counters are set to 0 just
+   before the float32 run and read just after, and the engine must leave
+   the process's TF32 flags as it found them; one more slide in each
+   precision runs under ``torch.profiler`` for the device time by kernel
+   and the idle share; both precisions on the card against the CPU;
+5. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+   and the ``{"ok": true, ...}`` line last.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+# H100 SXM peaks (NVIDIA data sheet): device memory and float32 outside
+# the tensor cores, the rate of the kernels' elementwise arithmetic
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+SLIDE = 4096  # the full-width legacy slide side
+SEED = 0
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` in ms, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, n_ops: float) -> tuple:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def legacy_hp():
+    """nucleiDAPI's published hyper-parameters (SURVEY.md section 2.4)."""
+    from unmicst_tpu_torch.core.hp import HParams
+
+    return HParams(im_size=128, n_channels=1, n_classes=3, n_out0=16,
+                   feat_maps_fact=2, down_samp_fact=2, ks=5, n_extra_convs=1,
+                   std_dev0=0.03, n_layers=2, batch_size=16)
+
+
+LEGACY_MEAN, LEGACY_STD = 0.19808, 0.16236
+
+
+def seeded_state(hp, variant: str, seed: int) -> dict:
+    """Random weights for ``UNet(hp, variant)``: He-scaled kernels and
+    plausible BN statistics, from a torch.Generator."""
+    import torch
+
+    from unmicst_tpu_torch.core.unet import UNet
+
+    g = torch.Generator().manual_seed(seed)
+    state = {}
+    for name, p in UNet(hp, variant).state_dict().items():
+        if name.endswith(("gamma", "moving_variance")):
+            v = 0.5 + torch.rand(p.shape, generator=g)
+        elif name.endswith(("beta", "moving_mean")):
+            v = 0.1 * torch.randn(p.shape, generator=g)
+        else:
+            # OIHW conv kernels; transposed ones are [in, out, ks, ks]
+            transposed = name.startswith("up.") and name.endswith("kernel1")
+            fan_in = p.shape[0] * p[0, 0].numel() if transposed else p[0].numel()
+            v = torch.randn(p.shape, generator=g) * (2.0 / fan_in) ** 0.5
+        state[name] = v
+    return state
+
+
+def blob_slide(rng, h: int, w: int, n_blobs: int):
+    """The tests/test_demo_model.py blob recipe at a larger size."""
+    import numpy as np
+
+    img = rng.rand(h, w).astype(np.float32) * 0.15
+    for _ in range(n_blobs):
+        r, c = rng.randint(20, h - 20), rng.randint(20, w - 20)
+        rad = rng.randint(5, 9)
+        r0, c0 = r - rad - 2, c - rad - 2
+        rr, cc = np.ogrid[r0 : r + rad + 3, c0 : c + rad + 3]
+        d2 = (rr - r) ** 2 + (cc - c) ** 2
+        win = img[r0 : r + rad + 3, c0 : c + rad + 3]
+        win[d2 < rad ** 2] = 0.7
+        win[(d2 < (rad + 2) ** 2) & (d2 >= rad ** 2)] = 0.4
+    return img
+
+
+def maps_agree(a, b, compute_dtype) -> tuple:
+    """(ok, max level difference, share of pixels that differ) of two uint8
+    map stacks, at the bar the CPU tests hold the port to against the JAX
+    package (tests/test_torch_infer.py): float32 at most 1 level; bfloat16
+    at most 2 levels on at most 5% of pixels, since summation order can
+    move a conv output across a bf16 rounding step."""
+    import numpy as np
+
+    if a.shape != b.shape:
+        return False, None, 1.0
+    d = np.abs(a.astype(int) - b.astype(int))
+    worst, share = int(d.max()), float((d > 0).mean())
+    if compute_dtype is None:
+        return worst <= 1, worst, share
+    return worst <= 2 and share <= 0.05, worst, share
+
+
+# -- phases ---------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from unmicst_tpu_torch.kernels import _build
+
+    secs = _build.build_all()
+    log(f"[build] nvcc {secs:.2f}s (parallel, one process per source) "
+        f"-> {_build.build_dir()}")
+    for name in _build.sources():
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {name}: {line.strip()}")
+
+
+def phase_kernels(dev) -> dict:
+    """K1 and K2 against their plain versions at the main-path shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unmicst_tpu_torch import kernels
+    from unmicst_tpu_torch.core import tiler
+
+    hp = legacy_hp()
+    grid = tiler.make_grid(SLIDE, SLIDE, hp.im_size, hp.margin)
+    t, k, p = grid.num_tiles, hp.n_classes, hp.im_size
+    check(t == 1849, f"expected 1849 tiles, got {t}")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    logits = 3 * torch.randn((t, k, p, p), generator=g, device=dev)
+    window = torch.from_numpy(tiler.ramp_window(p, hp.margin)).to(dev)
+    mask = (torch.rand((t,), generator=g, device=dev) > 0.05).float()
+    ones = torch.ones(t, device=dev)
+
+    k1 = kernels.softmax_blend(logits, window, mask)
+    k1_plain = kernels.softmax_blend_plain(logits, window, mask)
+    torch.cuda.synchronize()
+    err1 = (k1 - k1_plain).abs().max().item()
+    log(f"[K1] T {t} K {k} P {p}: max |kernel - plain| {err1:.3e} "
+        "(atol 1e-6)")
+    check(err1 <= 1e-6, f"K1 disagrees with its plain version: {err1}")
+    # as the engine calls it: one 256-tile chunk into a slice of the buffer
+    buf = torch.zeros_like(logits)
+    kernels.softmax_blend(logits[256:512], window, mask[256:512],
+                          out=buf[256:512])
+    torch.cuda.synchronize()
+    err1c = (buf[256:512] - k1_plain[256:512]).abs().max().item()
+    untouched = buf[:256].abs().max().item() + buf[512:].abs().max().item()
+    log(f"[K1] one 256-tile chunk into out=: max |kernel - plain| "
+        f"{err1c:.3e}, outside the slice {untouched}")
+    check(err1c <= 1e-6 and untouched == 0,
+          f"K1 into a slice: err {err1c}, wrote outside it: {untouched}")
+    del buf
+
+    # K2 (a): the Pallas contract, on K1's output read as [npr,npc,P,P,K]
+    # through strides (no copy)
+    t5 = k1.reshape(grid.npr, grid.npc, k, p, p).permute(0, 1, 3, 4, 2)
+    a = kernels.blend_fold(t5, window, grid)
+    a_plain = kernels.blend_fold_plain(t5, window, grid)
+    torch.cuda.synchronize()
+    err2a = (a - a_plain).abs().max().item()
+    log(f"[K2a] fold {tuple(a.shape)}: max |kernel - plain| {err2a:.3e} "
+        "(atol 1e-5)")
+    check(err2a <= 1e-5, f"K2 (a) disagrees with its plain version: {err2a}")
+
+    # K2 (b): the main-path epilogue on real tiles (mask 1)
+    weighted = kernels.softmax_blend(logits, window, ones)
+    b = kernels.blend_fold_epilogue(weighted, window, grid)
+    b_plain = kernels.blend_fold_epilogue_plain(weighted, window, grid)
+    torch.cuda.synchronize()
+    diff = (b.int() - b_plain.int()).abs()
+    err2b = diff.max().item()
+    share = (diff > 0).float().mean().item()
+    log(f"[K2b] maps {tuple(b.shape)} uint8: max |kernel - plain| {err2b} "
+        f"level(s), {share:.3e} of pixels differ (bar: 1 level)")
+    check(err2b <= 1, f"K2 (b) disagrees with its plain version: {err2b}")
+
+    # timing at the main-path shapes (inputs of 363 MB: the 50 MB L2
+    # cannot hold them between launches)
+    k1_ms = cuda_ms(lambda: kernels.softmax_blend(logits, window, ones))
+    k1_plain_ms = cuda_ms(
+        lambda: kernels.softmax_blend_plain(logits, window, ones), iters=5)
+    k1_lib_ms = cuda_ms(lambda: torch.softmax(logits, dim=1))
+    n = t * k * p * p
+    k1_bound, k1_by = bound_ms(2 * 4 * n + 4 * p * p + 4 * t, 8 * n)
+
+    k2_ms = cuda_ms(lambda: kernels.blend_fold_epilogue(weighted, window,
+                                                        grid))
+    k2_plain_ms = cuda_ms(lambda: kernels.blend_fold_epilogue_plain(
+        weighted, window, grid), iters=3)
+    cols = weighted.reshape(t, k * p * p).t().unsqueeze(0).contiguous()
+    size = (grid.padded_height, grid.padded_width)
+    k2_lib_ms = cuda_ms(lambda: F.fold(cols, size, p, stride=grid.sub))
+    # elements of the tiles that land inside the cropped slide
+    def covered(n_tiles):
+        m, sub = grid.margin, grid.sub
+        return sum(max(0, min(p, m + SLIDE - i * sub) - max(0, m - i * sub))
+                   for i in range(n_tiles))
+    n_read = covered(grid.npr) * covered(grid.npc) * k
+    n_out = k * SLIDE * SLIDE
+    k2_bound, k2_by = bound_ms(4 * n_read + 4 * p * p + n_out,
+                               4 * n_read + 7 * n_out)
+    for name, ms, pl, lib, bd in [
+        ("K1", k1_ms, k1_plain_ms, k1_lib_ms, k1_bound),
+        ("K2b", k2_ms, k2_plain_ms, k2_lib_ms, k2_bound),
+    ]:
+        log(f"[{name}] kernel {ms:.4f} ms | plain {pl:.4f} ms | library "
+            f"{lib:.4f} ms | bound {bd:.4f} ms")
+    del cols, logits, k1, k1_plain, a, a_plain, weighted, b, b_plain
+    torch.cuda.empty_cache()
+    return {
+        "softmax_blend": dict(
+            route="cuda", source="unmicst_tpu_torch/csrc/softmax_blend.cu",
+            replaces="exhibits/pallas/fused_tail.py:44",
+            max_abs_err=err1, ms=k1_ms, plain_ms=k1_plain_ms,
+            bound_ms=k1_bound, bound_by=k1_by, library_ms=k1_lib_ms),
+        "blend_fold_epilogue": dict(
+            route="cuda", source="unmicst_tpu_torch/csrc/blend_fold.cu",
+            replaces="exhibits/pallas/blend.py:76",
+            max_abs_err=float(err2b), ms=k2_ms, plain_ms=k2_plain_ms,
+            bound_ms=k2_bound, bound_by=k2_by, library_ms=k2_lib_ms,
+            mode_a_max_abs_err=err2a),
+    }
+
+
+def phase_cli(dev) -> None:
+    """The CLI on the committed blobDemo model, and card vs CPU."""
+    import numpy as np
+
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.core.checkpoint import load_params_for_bundle
+    from unmicst_tpu_torch.core.hp import load_model_dir
+    from unmicst_tpu_torch.infer import InferenceEngine
+    from unmicst_tpu_torch.io.tiff import TiffWriter, imread, num_pages
+
+    rng = np.random.RandomState(42)
+    img = blob_slide(rng, 1024, 1024, 256)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "s", "registration", "blobs.tif")
+        os.makedirs(os.path.dirname(src))
+        with TiffWriter(src, bigtiff=False) as tw:
+            tw.write((np.clip(img, 0, 1) * 65535).astype(np.uint16))
+        out = os.path.join(tmp, "out")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([src, "--tool", "unmicst-solo", "--model", "blobDemo",
+                       "--modelRoot", os.path.join(ROOT, "models"),
+                       "--outputPath", out, "--stackOutput", "--stats"])
+        secs = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        check(rc == 0, f"CLI returned {rc}")
+        prob = os.path.join(out, "blobs_Probabilities_1.tif")
+        check(num_pages(prob) == 3, "expected 3 probability pages")
+        nuclei = imread(prob, 0).astype(float) / 255
+        inside = nuclei[img > 0.6].mean()
+        background = nuclei[img < 0.2].mean()
+    log(f"[cli] blobDemo 1024^2 stack: {secs:.2f}s, inside {inside:.3f} "
+        f"background {background:.3f}, launches {counts}")
+    check(inside > 0.8 and background < 0.3,
+          f"blob segmentation off: inside {inside}, background {background}")
+    check(counts["softmax_blend"] > 0 and counts["blend_fold_epilogue"] > 0,
+          f"the CLI did not run both kernels: {counts}")
+
+    bundle = load_model_dir(os.path.join(ROOT, "models", "blobDemo"))
+    params = load_params_for_bundle(bundle)
+    raw = (np.clip(img[:300, :260], 0, 1) * 65535).astype(np.uint16)
+    for dt in (None, torch.bfloat16):
+        on_card = InferenceEngine.from_bundle(bundle, params, device=dev,
+                                              compute_dtype=dt)
+        on_cpu = InferenceEngine.from_bundle(bundle, params, device="cpu",
+                                             compute_dtype=dt)
+        for kw in ({"rescale": False}, {"outlier": 99.5}):
+            a = on_card.infer_slide(raw, **kw)
+            ok, worst, share = maps_agree(a, on_cpu.infer_slide(raw, **kw), dt)
+            name = "float32" if dt is None else "bfloat16"
+            log(f"[cli] engine {name} card vs CPU {kw}: max "
+                f"{worst} level(s), {share:.3e} of pixels differ")
+            check(ok, f"card and CPU engines disagree: {worst} levels on "
+                      f"{share:.3e} of pixels")
+
+
+def phase_legacy(dev) -> dict:
+    """The full-width legacy net over a 4096^2 slide; returns launches."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import kernels
+    from unmicst_tpu_torch.infer import InferenceEngine, tile_bytes
+
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    g = torch.Generator().manual_seed(SEED + 1)
+    raw = torch.randint(0, 65536, (SLIDE, SLIDE), generator=g,
+                        dtype=torch.int32).numpy().astype(np.uint16)
+
+    f32 = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                          device=dev)
+    tf32_before = (torch.backends.cudnn.allow_tf32,
+                   torch.backends.cuda.matmul.allow_tf32,
+                   torch.backends.cudnn.benchmark)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    maps = f32.infer_slide(raw)
+    first = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    log(f"[legacy] float32 first call {first:.3f}s (cuDNN autotune "
+        f"included), tile batch {f32.tile_batch}, launches {launches}")
+    check(maps.shape == (3, SLIDE, SLIDE) and maps.dtype == np.uint8,
+          f"bad maps {maps.shape} {maps.dtype}")
+    check(launches["softmax_blend"] > 0 and
+          launches["blend_fold_epilogue"] > 0,
+          f"the main path did not run both kernels: {launches}")
+    # a probability partition: the three uint8 planes sum to <= 255
+    total = maps.astype(np.int32).sum(axis=0)
+    check(total.max() <= 255 and total.min() >= 252,
+          f"class planes do not sum to ~255: [{total.min()}, {total.max()}]")
+
+    def rate(engine, reps=5):
+        """Host wall seconds of whole ``infer_slide`` calls (uint16 plane
+        in, uint8 maps on the host out), warm; Mpx/s at the median."""
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            engine.infer_slide(raw)
+            times.append(time.perf_counter() - t)
+        med = float(np.median(times))
+        return SLIDE * SLIDE / 1e6 / med, med, times
+
+    tf32_after = (torch.backends.cudnn.allow_tf32,
+                  torch.backends.cuda.matmul.allow_tf32,
+                  torch.backends.cudnn.benchmark)
+    check(tf32_after == tf32_before,
+          f"the engine left the TF32/benchmark flags changed: {tf32_before} "
+          f"-> {tf32_after}")
+
+    def peak(engine):
+        """Peak device bytes of one ``infer_slide`` above what was
+        allocated before it."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        engine.infer_slide(raw)
+        return torch.cuda.max_memory_allocated() - base
+
+    mpx, med, times = rate(f32)
+    peak_f32 = peak(f32)
+    log(f"[legacy] float32 4096^2: {mpx:.2f} Mpx/s (median {med:.4f}s of "
+        f"{[round(x, 4) for x in times]}), peak device memory "
+        f"{peak_f32 / 2**30:.2f} GiB at tile batch {f32.tile_batch}")
+    # the tile-batch choice rests on tile_bytes: hold it against what one
+    # tile adds to the peak (256 against 128 tiles per forward)
+    half = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                           tile_batch=f32.tile_batch // 2, device=dev)
+    half.infer_slide(raw)  # cuDNN's autotune workspaces out of the peak
+    per_tile = (peak_f32 - peak(half)) / (f32.tile_batch - half.tile_batch)
+    log(f"[legacy] peak memory per tile {per_tile / 2**20:.3f} MiB "
+        f"measured, tile_bytes estimate {tile_bytes(hp) / 2**20:.3f} MiB "
+        f"({tile_bytes(hp) / per_tile:.2f}x)")
+    check(tile_bytes(hp) >= per_tile,
+          "tile_bytes underestimates the memory one tile takes")
+    del half
+    profile_slide(f32, raw, "float32")
+    bf16 = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                           compute_dtype=torch.bfloat16, device=dev)
+    maps_bf = bf16.infer_slide(raw)
+    mpx_bf, med_bf, times_bf = rate(bf16)
+    d = np.abs(maps.astype(int) - maps_bf.astype(int))
+    log(f"[legacy] bfloat16 4096^2: {mpx_bf:.2f} Mpx/s (median "
+        f"{med_bf:.4f}s of {[round(x, 4) for x in times_bf]}), peak device "
+        f"memory {peak(bf16) / 2**30:.2f} GiB; vs float32 max {d.max()} "
+        f"levels, {(d > 0).mean():.3e} of pixels differ, {(d > 1).mean():.3e}"
+        " by >1")
+    profile_slide(bf16, raw, "bfloat16")
+
+    # the same weights on the CPU (plain versions) over a small slide
+    small = raw[:300, :300]
+    card, cpu = {}, {}
+    for engine in (f32, bf16):
+        dt = engine.compute_dtype
+        card[dt] = engine.infer_slide(small)
+        cpu[dt] = InferenceEngine(hp, state, "legacy", LEGACY_MEAN,
+                                  LEGACY_STD, compute_dtype=dt,
+                                  device="cpu").infer_slide(small)
+    ok, worst, share = maps_agree(card[None], cpu[None], None)
+    log(f"[legacy] float32 card vs CPU on 300^2: max {worst} level(s), "
+        f"{share:.3e} of pixels differ")
+    check(ok, f"float32 card and CPU disagree by {worst} levels")
+    # bfloat16 with seeded weights: summation order (cuDNN against the
+    # CPU) moves some conv outputs across a bf16 rounding step, and this
+    # untrained net amplifies such steps, so no level bar holds here (the
+    # bar holds on trained blobDemo weights, phase 3).  What must hold is
+    # that the card's bf16 maps are nearer the CPU's bf16 maps than the
+    # card's float32 maps.
+    bf = torch.bfloat16
+    _, worst, share = maps_agree(card[bf], cpu[bf], bf)
+    _, worst_m, share_m = maps_agree(card[bf], card[None], None)
+    log(f"[legacy] bfloat16 card vs CPU on 300^2: max {worst} level(s), "
+        f"{share:.3e} of pixels differ; card bfloat16 vs float32: max "
+        f"{worst_m}, {share_m:.3e}")
+    check(share < share_m, "bfloat16 on the card is no nearer the CPU's "
+                           "bfloat16 than the card's float32")
+    return launches
+
+
+def profile_slide(engine, raw, label: str) -> None:
+    """Where one slide's device time goes: torch.profiler over one
+    ``infer_slide``, device kernels summed by name, and the device's busy
+    and idle shares of the call's wall time (profiler on)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.infer_slide(raw)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        log("[profile] not measured: the profiler saw no device events")
+        return
+    busy = sum(ms for ms, _ in by_name.values())
+    groups = {"K1 softmax_blend": ("softmax_blend",),
+              "K2 blend_fold": ("fold_epilogue", "fold_weighted")}
+    kernel_ms = {g: sum(ms for name, (ms, _) in by_name.items()
+                        if any(s in name for s in keys))
+                 for g, keys in groups.items()}
+    log(f"[profile] {label} slide: wall {wall_ms:.2f} ms (profiler on), "
+        f"device busy {busy:.2f} ms ({busy / wall_ms:.3f}), idle share "
+        f"{1 - busy / wall_ms:.3f}; "
+        + ", ".join(f"{g} {ms:.3f} ms" for g, ms in kernel_ms.items()))
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[profile] {ms:9.3f} ms {ms / busy:6.3f} x{n:<4d} {name[:100]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    import unmicst_tpu_torch  # noqa: F401  (fails outside a checkout)
+
+    dev = torch.device("cuda", 0)
+    log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    phase_build()
+    stats = phase_kernels(dev)
+    phase_cli(dev)
+    launches = phase_legacy(dev)
+    log(f"[done] {time.perf_counter() - t0:.1f}s")
+    rows = []
+    for name, row in stats.items():
+        rows.append({"name": name, **{k: row[k] for k in (
+            "route", "source", "replaces")}, "launches": launches[name],
+            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")}})
+    print(json.dumps({"kernels": rows}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+    )
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+          else f"nvidia-smi unavailable (rc {smi.returncode})")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,319 @@
+"""Command line: a single-channel slide to probability-map TIFFs on the GPU.
+
+The main path of ``unmicst_tpu/cli.py`` (``:797-862`` and
+``_write_outputs`` at ``:323-367``) for ``--tool unmicst-solo``,
+``unmicst-legacy`` and ``UnMicstCyto2``::
+
+    python -m unmicst_tpu_torch IMAGE --tool unmicst-legacy --model nucleiDAPI
+        --outputPath OUT [--stackOutput] [--channel N] [--classOrder A B C]
+        [--outlier F] [--precision float32|highest|bfloat16] [--tileBatch N]
+        [--modelRoot DIR] [--GPU N] [--stats]
+
+Output contract: ``<stem>_Probabilities_<chan+1>.tif`` (classOrder pages
+reversed) plus ``qc/<stem>_Preview_<chan+1>.tif`` with ``--stackOutput``;
+otherwise ``<stem>_ContoursPM_<chan+1>.tif`` (map, raw preview) and
+``<stem>_NucleiPM_<chan+1>.tif``.  Cyto2 uses the 0-based channel suffix
+and writes its preview beside the maps.  The v2 solo tool feeds the
+un-rescaled image to the net (``UnMicst1-5.py:815-816,848``).
+
+Paths not ported yet fail loudly and name their ROADMAP item: the duo
+tool (M6), ``--scalingFactor`` other than 1 (M7), slides above 64 Mpx and
+``--engine streaming|sharded`` (M8), ``--precision int8`` (M11),
+pyramid input and output and zstd output, CZI and ND2 inputs, and
+inputs other than uint8/uint16 (or float32 through the parity cast).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+DEFAULT_MODEL_ROOTS = [
+    os.environ.get("UNMICST_TPU_MODEL_ROOT", ""),
+    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                 "models"),
+]
+
+TOOL_DEFAULT_MODEL = {
+    "unmicst-legacy": "nucleiDAPI",  # UnMicst.py:547
+    "unmicst-solo": "nucleiDAPI1-5",  # UnMicst1-5.py:716
+    "unmicst-duo": "nucleiDAPILAMIN",  # UnMicst2.py:695
+    "UnMicstCyto2": "nucleiDAPI",  # UnMicstCyto2.py:695
+}
+
+# the whole-slide engine's bound; larger slides stream in the JAX package
+MAX_WHOLE_SLIDE_PX = 64_000_000
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m unmicst_tpu_torch",
+        description="UnMICST probability maps on an NVIDIA GPU (PyTorch/CUDA)",
+    )
+    p.add_argument("imagePath", help="path to the image (.tif/.ome.tif/.btf)")
+    p.add_argument("--tool", default="unmicst-solo",
+                   choices=list(TOOL_DEFAULT_MODEL))
+    p.add_argument("--model", help="model directory name (or absolute path)")
+    p.add_argument("--outputPath", help="output path of probability map")
+    p.add_argument("--channel", nargs="+", type=int, default=[1],
+                   help="channel to perform inference on, 1-based")
+    p.add_argument("--channelName", nargs="+", metavar="NAME",
+                   help="select the channel by OME-XML Channel Name")
+    p.add_argument("--classOrder", nargs="+", type=int, default=-1,
+                   help="background, contours, foreground (1-based)")
+    p.add_argument("--mean", type=float, default=-1)
+    p.add_argument("--std", type=float, default=-1)
+    p.add_argument("--scalingFactor", type=float, default=1)
+    p.add_argument("--stackOutput", action="store_true")
+    p.add_argument("--GPU", type=int, default=-1,
+                   help="CUDA device index; -1 picks the card with the most "
+                   "free memory (UnMicst.py:577-595)")
+    p.add_argument("--outlier", type=float, default=-1)
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--modelRoot", help="directory containing model subdirs")
+    p.add_argument("--precision", default="float32",
+                   choices=["float32", "highest", "bfloat16", "int8"],
+                   help="float32 and highest: full float32 convolutions "
+                   "(TF32 off); bfloat16: bf16 operands, float32 sums")
+    p.add_argument("--tileBatch", type=int, default=0,
+                   help="tiles per forward batch; 0 = from the card's free "
+                   "memory, at most 256")
+    p.add_argument("--stats", action="store_true",
+                   help="print stage timings + Mpx/s")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "whole", "streaming", "sharded"])
+    p.add_argument("--usePyramid", action="store_true")
+    p.add_argument("--pyramidOutput", action="store_true")
+    p.add_argument("--compressOutput", nargs="?", const="deflate",
+                   default=None, choices=["deflate", "zstd"])
+    p.add_argument("--intensityRange", nargs="+", metavar="LO,HI",
+                   help="pin the rescale range (raw pixel units)")
+    return p
+
+
+def _not_ported(what: str, item: str) -> SystemExit:
+    return SystemExit(
+        f"{what} is not ported to unmicst_tpu_torch yet (ROADMAP {item}); "
+        "use unmicst_tpu for it"
+    )
+
+
+def _reject_unported(args) -> None:
+    if args.tool == "unmicst-duo":
+        raise _not_ported("--tool unmicst-duo", "M6")
+    if len(args.channel) > 1:
+        raise _not_ported("multi-channel input (--channel A B)", "M6")
+    if args.scalingFactor != 1:
+        raise _not_ported("--scalingFactor other than 1", "M7")
+    if args.engine in ("streaming", "sharded"):
+        raise _not_ported(f"--engine {args.engine}", "M8")
+    if args.precision == "int8":
+        raise _not_ported("--precision int8", "M11")
+    if args.usePyramid or args.pyramidOutput:
+        raise _not_ported("--usePyramid / --pyramidOutput", "M14")
+    if args.compressOutput == "zstd":
+        raise _not_ported("--compressOutput zstd", "M14")
+
+
+def resolve_model_dir(model: str, model_root: Optional[str]) -> str:
+    if os.path.isabs(model) and os.path.isdir(model):
+        return model
+    roots = [model_root] if model_root else [r for r in DEFAULT_MODEL_ROOTS if r]
+    for root in roots:
+        cand = os.path.join(root, model)
+        if os.path.isdir(cand):
+            return cand
+    raise FileNotFoundError(
+        f"model dir '{model}' not found under {roots}; set --modelRoot"
+    )
+
+
+def parse_stem(file_name: str, tool: str):
+    """Stem/extension parsing, per-tool parity."""
+    if tool == "unmicst-solo":
+        parts = file_name.split(os.extsep)  # UnMicst1-5.py:783-792
+        if len(parts) < 2:
+            raise ValueError("Input filename has no extension")
+        if parts[-2] == "ome":
+            return os.extsep.join(parts[:-2]), os.extsep.join(parts[-2:])
+        return os.extsep.join(parts[:-1]), parts[-1]
+    parts = file_name.split(os.extsep, 1)  # UnMicst.py:603-605
+    return parts[0], parts[1] if len(parts) > 1 else ""
+
+
+def _pinned_range(args, tool: str):
+    """``--intensityRange`` -> one raw-unit (lo, hi) pair, or None."""
+    if not args.intensityRange:
+        return None
+    if tool == "unmicst-solo":
+        raise SystemExit(
+            "--intensityRange has no effect on unmicst-solo: its net input "
+            "is deliberately un-rescaled (the reference quirk)"
+        )
+    if len(args.intensityRange) != 1:
+        raise SystemExit("--intensityRange: one LO,HI pair for one channel")
+    from unmicst_tpu_torch.infer import _normalize_in_range
+
+    try:
+        lo, hi = (float(v) for v in args.intensityRange[0].split(","))
+        return tuple(_normalize_in_range((lo, hi), 1)[0].tolist())
+    except ValueError as e:
+        raise SystemExit(f"--intensityRange: {e}")
+
+
+def _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
+                   get_page, raw_preview_u8) -> None:
+    """The output-file contract (``unmicst_tpu/cli.py:323-367``).
+    ``get_page(i_class) -> uint8 [H, W]``."""
+    from unmicst_tpu_torch.io.tiff import imwrite
+
+    compression = args.compressOutput
+    chan_suffix = str(dapi_channel if cyto else dapi_channel + 1)
+    qc_dir = out_path if cyto else os.path.join(out_path, "qc")
+
+    def out_file(kind: str) -> str:
+        return os.path.join(out_path, f"{stem}_{kind}_{chan_suffix}.tif")
+
+    def put(path, page, append):
+        imwrite(path, page, bigtiff=True, append=append,
+                compression=compression)
+
+    if args.stackOutput:
+        prob_file = out_file("Probabilities")
+        preview_file = os.path.join(qc_dir, f"{stem}_Preview_{chan_suffix}.tif")
+        for slice_idx, i_class in enumerate(class_order[::-1]):
+            pm = get_page(i_class)
+            put(prob_file, pm, slice_idx > 0)
+            if slice_idx == 1:
+                put(preview_file, pm, False)
+                put(preview_file, raw_preview_u8, True)
+    else:
+        f = out_file("ContoursPM")
+        put(f, get_page(class_order[1]), False)
+        put(f, raw_preview_u8, True)
+        put(out_file("NucleiPM"), get_page(class_order[2]), False)
+
+
+def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
+    """Run the CLI.  ``device``: ``"cuda"`` (the default; ``--GPU`` picks
+    the card, and no card raises) or ``"cpu"``, which only a caller may
+    ask for."""
+    args = build_parser().parse_args(argv)
+    _reject_unported(args)
+    t_start = time.perf_counter()
+
+    import torch
+
+    from unmicst_tpu_torch.core.checkpoint import load_params_for_bundle
+    from unmicst_tpu_torch.core.hp import load_model_dir
+    from unmicst_tpu_torch.infer import PRECISIONS, InferenceEngine
+    from unmicst_tpu_torch.io import preprocess as pp
+    from unmicst_tpu_torch.io.slides import TIFF_LIKE, channel_names, read_channel
+    from unmicst_tpu_torch.runtime.devices import describe, resolve_device, select_device
+
+    dev = torch.device(device)
+    dev = select_device(args.GPU) if dev.type == "cuda" else resolve_device(dev)
+    print(f"Using device {describe(dev)}")
+
+    tool = args.tool
+    model_dir = resolve_model_dir(args.model or TOOL_DEFAULT_MODEL[tool],
+                                  args.modelRoot)
+    bundle = load_model_dir(model_dir, args.mean, args.std)
+    hp = bundle.hp
+
+    dapi_channel = args.channel[0] - 1  # wrapper 1-based -> 0-based
+    if args.classOrder == -1:
+        class_order = list(range(hp.n_classes))
+    else:
+        class_order = [c - 1 for c in args.classOrder]
+    if not args.stackOutput and len(class_order) < 3:
+        raise SystemExit(
+            "non-stack output needs 3 classes (contours+nuclei); this model "
+            "has fewer — use --stackOutput (the reference tool crashes with "
+            "an IndexError here)"
+        )
+
+    stem, file_type = parse_stem(os.path.basename(args.imagePath), tool)
+    if args.channelName:
+        from unmicst_tpu_torch.io import ome
+
+        names = channel_names(args.imagePath) if file_type in TIFF_LIKE else None
+        if names is None:
+            raise SystemExit("--channelName: the input carries no channel names")
+        try:
+            dapi_channel = ome.resolve_name(names, args.channelName[0])
+        except ValueError as e:
+            raise SystemExit(f"--channelName: {e}")
+    parent = os.path.dirname(os.path.dirname(args.imagePath))
+    out_path = args.outputPath or os.path.join(parent, "probability_maps")
+    os.makedirs(out_path, exist_ok=True)
+    cyto = tool == "UnMicstCyto2"
+    if not cyto:
+        os.makedirs(os.path.join(out_path, "qc"), exist_ok=True)
+    pinned = _pinned_range(args, tool)
+
+    # ---- read + preview ----------------------------------------------------
+    t_read = time.perf_counter()
+    try:
+        raw = read_channel(args.imagePath, file_type, dapi_channel)
+    except NotImplementedError as e:
+        raise SystemExit(str(e))
+    if raw.ndim != 2:
+        raise SystemExit(f"expected a single-sample plane, got {raw.shape}")
+    if raw.shape[0] * raw.shape[1] > MAX_WHOLE_SLIDE_PX and args.engine != "whole":
+        raise _not_ported(
+            f"a {raw.shape[0]}x{raw.shape[1]} slide (above 64 Mpx, the "
+            "streaming engine's range)", "M8"
+        )
+    if raw.dtype == np.float32 and cyto:
+        raise _not_ported(
+            "float32 input for UnMicstCyto2 (no parity cast: the host float "
+            "path)", "'host float path'"
+        )
+    if raw.dtype not in (np.uint8, np.uint16, np.float32):
+        raise _not_ported(f"{raw.dtype} input (the host float path)",
+                          "'host float path'")
+    preview = pp.preview_u8_from_raw(raw)
+
+    # ---- inference (single pass, all classes) ------------------------------
+    t_pre = time.perf_counter()
+    params = load_params_for_bundle(bundle)
+    engine = InferenceEngine.from_bundle(
+        bundle, params, compute_dtype=PRECISIONS[args.precision],
+        tile_batch=args.tileBatch or None, device=dev,
+    )
+    t_load = time.perf_counter()
+    # non-stack output needs only the contour and nuclei planes
+    classes = (None if args.stackOutput or len(class_order) < 3
+               else (class_order[1], class_order[2]))
+    maps = engine.infer_slide(
+        raw, outlier=args.outlier, rescale=tool != "unmicst-solo",
+        classes=classes, in_range=pinned,
+    )
+    idx = {c: i for i, c in enumerate(classes)} if classes else None
+    t_infer = time.perf_counter()
+
+    _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
+                   lambda c: maps[idx[c] if idx else c], preview)
+    t_write = time.perf_counter()
+    if args.stats or args.verbose:
+        h, w = raw.shape
+        infer_s = t_infer - t_load
+        print(
+            f"[unmicst-tpu-torch] read {t_pre - t_read:.2f}s | model load "
+            f"{t_load - t_pre:.2f}s | infer {infer_s:.2f}s "
+            f"({h * w / 1e6 / infer_s:.1f} Mpx/s, all {hp.n_classes} "
+            f"classes) | write {t_write - t_infer:.2f}s | total "
+            f"{t_write - t_start:.2f}s",
+            file=sys.stderr,
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

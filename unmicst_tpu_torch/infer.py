@@ -1,0 +1,309 @@
+"""Whole-slide tiled inference on the GPU — the ``singleImageInference``
+successor, ported from ``unmicst_tpu/infer.py``.
+
+One slide runs as (``infer.py:520-751`` of the JAX package, scale 1):
+
+1. the raw plane goes to the device as 16-bit integers; im2double, the
+   min/max (or outlier-percentile) rescale to [0, 0.983] or a pinned
+   range, the zero-padded canvas and the mean/std normalisation run there;
+2. the canvas is cut into ``imSize`` tiles at stride ``imSize - 2*margin``
+   (a strided view), which the UNet runs in ``tile_batch`` chunks, all
+   classes in one pass, returning logits;
+3. kernel K1 turns each chunk's logits into ``softmax x window x mask``
+   (the chunk padding's phantom tiles get mask 0);
+4. kernel K2 gathers the overlap-add, the blend count, divides, crops the
+   margin, keeps the requested classes and stores ``uint8(255 * p)``.
+
+Only the uint8 maps come back to the host.  Accumulation is float32 (the
+reference accumulates in float16, ``PartitionOfImage.py:86-90``).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import numpy as np
+import torch
+
+from unmicst_tpu_torch.core import tiler
+from unmicst_tpu_torch.core.checkpoint import State
+from unmicst_tpu_torch.core.hp import HParams, ModelBundle
+from unmicst_tpu_torch.core.unet import UNet
+from unmicst_tpu_torch.kernels import blend_fold_epilogue, softmax_blend
+from unmicst_tpu_torch.runtime.devices import Device, resolve_device
+from unmicst_tpu_torch.utils.batching import chunks, round_up
+
+DEFAULT_TILE_BATCH = 256
+
+# --precision -> UNet compute dtype (None = float32).  On the GPU
+# "float32" and "highest" both run full float32 with TF32 off.
+PRECISIONS = {"float32": None, "highest": None, "bfloat16": torch.bfloat16}
+
+_IM2DOUBLE = {np.dtype(np.uint8): 255.0, np.dtype(np.uint16): 65535.0}
+
+
+def _reciprocal(c: float) -> float:
+    """``1 / c`` rounded to float32.  XLA compiles the JAX engine's
+    division by a constant (the im2double scale, the model's std) into a
+    multiply by this reciprocal.  The port does the same, so its rescaled
+    plane agrees with the JAX engine's bit for bit.  That matters in the
+    bfloat16 mode, where one float32 ulp can move a pixel of the net input
+    to the next bfloat16 value."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def _normalize_in_range(in_range, n: int) -> np.ndarray:
+    """A pinned rescale range -> float64 [n, 2] raw-unit array; one
+    ``(lo, hi)`` pair broadcasts over ``n`` channels; every pair must be
+    finite with ``lo < hi`` (``infer.py:55-78``)."""
+    arr = np.asarray(in_range, dtype=np.float64)
+    if arr.ndim == 1:
+        arr = arr[None]
+    if arr.shape == (1, 2) and n > 1:
+        arr = np.repeat(arr, n, axis=0)
+    if arr.shape != (n, 2):
+        raise ValueError(
+            f"in_range must be one (lo, hi) pair or {n} pairs, got "
+            f"shape {arr.shape}"
+        )
+    if not np.all(np.isfinite(arr)) or not np.all(arr[:, 0] < arr[:, 1]):
+        raise ValueError(
+            f"in_range pairs must be finite with lo < hi, got {arr.tolist()}"
+        )
+    return arr
+
+
+def percentile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """``jnp.percentile(x, q)`` (method ``linear``) over all of ``x``,
+    with JAX's float32 arithmetic for the position and the weights.
+    Uses two ``kthvalue`` selections: ``torch.quantile`` refuses inputs
+    above 2**24 elements."""
+    if not 0 <= q <= 100:
+        raise ValueError(f"outlier percentile {q} not in [0, 100] (or -1)")
+    flat = x.reshape(-1)
+    n = flat.numel()
+    nf = np.float32(n)
+    pos = (np.float32(q) / np.float32(100.0)) * (nf - np.float32(1.0))
+    low, high = np.floor(pos), np.ceil(pos)
+    hw = np.float32(pos - low)
+    lw = np.float32(np.float32(1.0) - hw)
+    low = int(min(max(low, 0), nf - 1))
+    high = int(min(max(high, 0), nf - 1))
+    v_low = torch.kthvalue(flat, low + 1).values
+    v_high = torch.kthvalue(flat, high + 1).values if high != low else v_low
+    return v_low * float(lw) + v_high * float(hw)
+
+
+def tile_bytes(hp: HParams) -> int:
+    """Upper estimate of the device bytes one tile adds to a forward: six
+    float32 tensors of every level's in + out width at that level's
+    resolution (activations are float32 in both precision modes).
+    ``chip_smoke.py`` holds it against the measured growth of peak memory
+    per tile."""
+    w, p = hp.n_out_x, hp.im_size
+    per_level = sum(
+        (w[i + 1] + w[i]) * (p >> i) ** 2 for i in range(hp.n_layers + 1)
+    )
+    return 6 * per_level * 4
+
+
+def pick_tile_batch(hp: HParams, device: torch.device) -> int:
+    """256 tiles per forward, fewer when 40% of the card's free memory
+    cannot hold that chunk."""
+    if device.type != "cuda":
+        return DEFAULT_TILE_BATCH
+    free, _ = torch.cuda.mem_get_info(device)
+    return max(1, min(DEFAULT_TILE_BATCH, int(0.4 * free) // tile_bytes(hp)))
+
+
+@contextlib.contextmanager
+def _conv_precision(tf32: bool):
+    """cuDNN and matmul TF32 set for the engine's work only, and restored
+    after.  The float32 modes run with TF32 off (cuDNN convolutions default
+    to TF32; the JAX float32 modes are 3-pass or full f32, ``cli.py:237-
+    254``, ``unet.py:115-134``).  The bfloat16 mode convolves float32
+    tensors that hold bf16 values, which TF32 represents exactly, so it
+    lets cuDNN use the TF32 tensor cores.  Every chunk has the same shape,
+    so cuDNN benchmarks its algorithms once."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = tf32
+    try:
+        with torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                        deterministic=False,
+                                        allow_tf32=tf32):
+            yield
+    finally:
+        matmul.allow_tf32 = saved
+
+
+class InferenceEngine:
+    """Tiled whole-slide inference for one loaded model.
+
+    ``device``: ``None`` or ``"cuda"`` runs on the card (and raises when
+    there is none); ``"cpu"`` runs the same path with the kernels' plain
+    versions.  ``compute_dtype``: ``None`` (float32, TF32 off) or
+    ``torch.bfloat16``.  ``tile_batch``: tiles per forward (default from
+    the card's free memory, at most 256).
+    """
+
+    def __init__(self, hp: HParams, params: State, variant: str,
+                 mean: float, std: float, *, compute_dtype=None,
+                 tile_batch: Optional[int] = None, device: Device = None):
+        self.device = resolve_device(device)
+        self.hp, self.variant = hp, variant
+        self.mean, self.std = float(mean), float(std)
+        self.compute_dtype = compute_dtype
+        self.model = UNet(hp, variant, compute_dtype)
+        self.model.load_state_dict(params)
+        self.model.to(self.device).eval()
+        self.tile_batch = int(tile_batch or pick_tile_batch(hp, self.device))
+        self.window = torch.from_numpy(
+            tiler.ramp_window(hp.im_size, hp.margin)
+        ).to(self.device)
+
+    @classmethod
+    def from_bundle(cls, bundle: ModelBundle, params: State, **kw):
+        return cls(bundle.hp, params, bundle.variant, bundle.mean,
+                   bundle.std, **kw)
+
+    def _check_classes(self, classes):
+        if classes is None:
+            return None
+        classes = tuple(int(c) for c in classes)
+        bad = [c for c in classes if not 0 <= c < self.hp.n_classes]
+        if bad:
+            raise ValueError(
+                f"class index(es) {bad} out of range for a "
+                f"{self.hp.n_classes}-class model"
+            )
+        return classes
+
+    # -- the device pipeline -------------------------------------------------
+
+    def _maps(self, planes: torch.Tensor, classes, quantize: bool):
+        """``planes``: [C0, H, W] float32 on the device, the net input
+        before mean/std (C0 == 1 broadcasts into every net channel).
+        Returns ``[Kc, H, W]`` uint8 (``quantize``) or float32 maps."""
+        hp = self.hp
+        _, height, width = planes.shape
+        grid = tiler.make_grid(height, width, hp.im_size, hp.margin)
+        n_ch, patch, m = hp.n_channels, hp.im_size, grid.margin
+        canvas = torch.zeros((n_ch, grid.padded_height, grid.padded_width),
+                             dtype=torch.float32, device=self.device)
+        canvas[:, m : m + height, m : m + width] = planes
+        canvas = (canvas - self.mean) * _reciprocal(self.std)
+        if self.compute_dtype is not None:
+            canvas = canvas.to(self.compute_dtype)
+        # [npr, npc, C, P, P] strided view of the canvas, no copy
+        tiles = tiler.unfold(canvas.permute(1, 2, 0), grid).permute(
+            0, 1, 4, 2, 3)
+        n_tiles, npc = grid.num_tiles, grid.npc
+        batch = min(self.tile_batch, n_tiles)
+        n_pad = round_up(n_tiles, batch)
+        weighted = torch.empty((n_pad, hp.n_classes, patch, patch),
+                               dtype=torch.float32, device=self.device)
+        mask = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+        mask[:n_tiles] = 1.0
+        staging = torch.zeros((batch, n_ch, patch, patch),
+                              dtype=canvas.dtype, device=self.device)
+        flags = (_conv_precision(self.compute_dtype is not None)
+                 if self.device.type == "cuda" else contextlib.nullcontext())
+        with torch.inference_mode(), flags:
+            for t0, t1 in chunks(n_pad, batch):
+                real = min(t1, n_tiles) - t0
+                if real < batch:
+                    staging[real:].zero_()  # phantom tiles of the last chunk
+                # copy the chunk's tiles row segment by row segment
+                t = t0
+                while t < t0 + real:
+                    i, j = divmod(t, npc)
+                    n = min(npc - j, t0 + real - t)
+                    staging[t - t0 : t - t0 + n].copy_(tiles[i, j : j + n])
+                    t += n
+                logits = self.model.forward_nchw(staging, return_logits=True)
+                softmax_blend(logits, self.window, mask[t0:t1],
+                              out=weighted[t0:t1])
+            return blend_fold_epilogue(weighted[:n_tiles], self.window, grid,
+                                       classes, quantize)
+
+    def _upload(self, raw: np.ndarray) -> torch.Tensor:
+        """Host plane -> float32 on the device; uint16 travels as int16 and
+        is widened and masked there (torch's uint16 support is partial)."""
+        if raw.dtype == np.uint16:
+            x = torch.from_numpy(np.ascontiguousarray(raw).view(np.int16))
+            x = x.to(self.device).to(torch.int32) & 0xFFFF
+        elif raw.dtype == np.uint8:
+            x = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
+        else:
+            x = torch.from_numpy(np.ascontiguousarray(raw, np.float32))
+            x = x.to(self.device)
+        return x.to(torch.float32)
+
+    # -- public API ----------------------------------------------------------
+
+    def infer(self, image: np.ndarray,
+              channel_mode: str = "broadcast") -> np.ndarray:
+        """Float net input ``[H, W]`` (broadcast) or ``[C, H, W]`` (stack)
+        -> ``[K, H, W]`` float32 probability maps (``infer.py:504-516``)."""
+        img = np.asarray(image, np.float32)
+        if img.ndim == 2:
+            img = img[None]
+        if img.ndim != 3:
+            raise ValueError("image must be [H, W] or [C, H, W]")
+        if channel_mode == "broadcast" and img.shape[0] != 1:
+            raise ValueError("broadcast mode expects a single plane")
+        if channel_mode == "stack" and img.shape[0] != self.hp.n_channels:
+            raise ValueError(
+                f"model expects {self.hp.n_channels} channels, got "
+                f"{img.shape[0]}"
+            )
+        planes = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        return self._maps(planes, None, quantize=False).cpu().numpy()
+
+    def infer_slide(self, raw: np.ndarray, outlier: float = -1,
+                    rescale: bool = True, classes=None,
+                    scaling_factor: float = 1.0,
+                    in_range=None) -> np.ndarray:
+        """Raw single-channel slide -> uint8 ``[K, H, W]`` maps
+        (``infer.py:696-751`` at scale 1).
+
+        ``outlier``: percentile for the rescale's upper limit (-1: max).
+        ``rescale=False``: the v2-solo quirk, im2double only.
+        ``classes``: class indexes to return, in that order.
+        ``in_range``: pinned ``(lo, hi)`` rescale range in raw units (after
+        the float32 -> uint16 parity cast); overrides ``outlier``.
+        """
+        if scaling_factor != 1.0:
+            raise NotImplementedError(
+                "scaling_factor != 1 is not ported yet (ROADMAP M7)"
+            )
+        if raw.ndim != 2:
+            raise ValueError(f"raw slide must be [H, W], got {raw.shape}")
+        if raw.dtype == np.float32:
+            raw = raw.astype(np.uint16)  # parity cast (UnMicst1-5.py:807-808)
+        classes = self._check_classes(classes)
+        scale = _IM2DOUBLE.get(np.dtype(raw.dtype))
+        if scale is None and not rescale:
+            raise ValueError(
+                f"rescale=False requires uint8/uint16 input, got {raw.dtype}"
+            )
+        if in_range is not None:
+            if not rescale:
+                raise ValueError("in_range requires rescale=True")
+            ir = _normalize_in_range(in_range, 1)[0] / (scale or 1.0)
+        x = self._upload(raw)
+        if scale is not None:
+            x = x * _reciprocal(scale)  # im2double
+        if rescale:
+            if in_range is not None:
+                lo = torch.tensor(np.float32(ir[0]), device=self.device)
+                hi = torch.tensor(np.float32(ir[1]), device=self.device)
+            else:
+                lo = x.min()
+                hi = percentile_linear(x, outlier) if outlier != -1 else x.max()
+            x = torch.minimum(torch.maximum(x, lo), hi)
+            x = (x - lo) / torch.clamp(hi - lo, min=1e-12) * 0.983
+        maps = self._maps(x[None], classes, quantize=True)
+        return maps.cpu().numpy()
