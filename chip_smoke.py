@@ -26,7 +26,22 @@ printing any result):
    the process's TF32 flags as it found them; one more slide in each
    precision runs under ``torch.profiler`` for the device time by kernel
    and the idle share; both precisions on the card against the CPU;
-5. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+5. halo: K3 (``ring_shift``) and the K4a/K4b pair (``ring_shift_start`` /
+   ``ring_shift_wait``) bit-equal to their plain versions on rings of 1, 2
+   and 4 ranks sharing the card, shifts +1 and -1, on the seam buffers of
+   a 4096^2 slide and one of an odd byte size, timed beside the plain
+   copy and ``Tensor.copy_``; then ``runtime.halo.spatial_infer`` over a
+   seeded 4096^2 plane on 4 ranks of the card with every seam
+   implementation (the counters set to 0 before each), against each other
+   and against ``InferenceEngine.infer``, with K2's fold-only entry timed
+   at a band's shapes;
+6. streaming: a seeded 8192^2 uint16 slide (67 Mpx) through
+   ``StreamingEngine.infer`` against ``InferenceEngine.infer_slide``,
+   ``infer_sharded`` over 4 ranks of the card (ring seams) against
+   ``infer``, and the CLI's ``--engine auto`` and ``--engine sharded`` on
+   a TIFF of it, with Mpx/s,
+   and K2's stripe entry timed at a stripe's shapes;
+7. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and the ``{"ok": true, ...}`` line last.
 """
 
@@ -47,6 +62,8 @@ sys.path.insert(0, ROOT)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 SLIDE = 4096  # the full-width legacy slide side
+BIG = 8192  # the streaming phase's slide side (67 Mpx, above the 64 Mpx line)
+RANKS = 4  # ranks sharing the card in the multi-rank phases
 SEED = 0
 
 
@@ -73,6 +90,28 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, names, iters: int = 20) -> float:
+    """Device time per call of the kernels whose names contain one of
+    ``names``, summed from ``torch.profiler`` over ``iters`` calls: the
+    kernels' own time, without the gaps in which the card waits for the
+    host to issue them.  NaN when the profiler sees no device events."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA
+          and any(n in e.name for n in names)]
+    return sum(us) / 1e3 / iters if us else float("nan")
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
@@ -482,7 +521,7 @@ def profile_slide(engine, raw, label: str) -> None:
         return
     busy = sum(ms for ms, _ in by_name.values())
     groups = {"K1 softmax_blend": ("softmax_blend",),
-              "K2 blend_fold": ("fold_epilogue", "fold_weighted")}
+              "K2 blend_fold": ("fold_region", "fold_weighted")}
     kernel_ms = {g: sum(ms for name, (ms, _) in by_name.items()
                         if any(s in name for s in keys))
                  for g, keys in groups.items()}
@@ -492,6 +531,366 @@ def profile_slide(engine, raw, label: str) -> None:
         + ", ".join(f"{g} {ms:.3f} ms" for g, ms in kernel_ms.items()))
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         log(f"[profile] {ms:9.3f} ms {ms / busy:6.3f} x{n:<4d} {name[:100]}")
+
+
+def covered(n_tiles: int, sub: int, patch: int, lo: int, hi: int) -> int:
+    """(tile, pixel) pairs along one axis whose canvas coordinate lies in
+    [lo, hi): the tile elements a fold over that window reads."""
+    return sum(max(0, min(i * sub + patch, hi) - max(i * sub, lo))
+               for i in range(n_tiles))
+
+
+def phase_halo(dev) -> dict:
+    """K3/K4a/K4b against their plain versions, then spatial_infer on 4
+    ranks of the card with every seam implementation."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import kernels
+    from unmicst_tpu_torch.core import tiler
+    from unmicst_tpu_torch.infer import InferenceEngine
+    from unmicst_tpu_torch.kernels import halo_ring
+    from unmicst_tpu_torch.runtime import halo
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+
+    hp = legacy_hp()
+    grid = tiler.make_grid(SLIDE, SLIDE, hp.im_size, hp.margin)
+    two_m, wp = 2 * hp.margin, grid.padded_width
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shapes = [((two_m, wp, 1), torch.float32), ((two_m, wp, 3), torch.float32),
+              ((7, 13), torch.int16)]  # 182 bytes: not a multiple of 16
+    k3_err = k4_err = 0.0  # max |kernel - plain| over every ring checked
+    for n in (1, 2, 4):
+        for shape, dtype in shapes:
+            xs = [torch.randint(-30000, 30000, shape, generator=g, device=dev,
+                                dtype=torch.int32).to(dtype)
+                  if dtype == torch.int16 else
+                  torch.randn(shape, generator=g, device=dev)
+                  for _ in range(n)]
+            for shift in (1, -1):
+                ref = kernels.ring_shift_plain(xs, shift)
+                k3 = kernels.ring_shift(xs, shift, kind="output")
+                k4 = kernels.ring_shift_wait(kernels.ring_shift_start(xs, shift))
+                torch.cuda.synchronize()
+                for a, b, r in zip(k3, k4, ref):
+                    k3_err = max(k3_err, (a.double() - r.double()).abs()
+                                 .max().item())
+                    k4_err = max(k4_err, (b.double() - r.double()).abs()
+                                 .max().item())
+                same = all(torch.equal(a, r) and torch.equal(b, r)
+                           for a, b, r in zip(k3, k4, ref))
+                check(same, f"ring n {n} {shape} shift {shift}: K3 or K4 "
+                            "differs from the plain copy")
+        log(f"[halo] ring of {n}: K3 and K4a+K4b bit-equal to the plain copy "
+            f"on {[s for s, _ in shapes]}, shifts +1 and -1")
+    log(f"[halo] max |kernel - plain| over every ring: K3 {k3_err} | "
+        f"K4a+K4b {k4_err}")
+
+    # times on the output hop's buffers, 4 ranks on the card
+    xs = [torch.randn((two_m, wp, 3), generator=g, device=dev)
+          for _ in range(RANKS)]
+    dst = [torch.empty_like(x) for x in xs]
+    n_bytes = sum(x.numel() * 4 for x in xs)
+    ring = halo_ring._ring(tuple(x.device for x in xs))
+    side = ring.side_stream(dev)
+
+    def start_joined():
+        kernels.ring_shift_start(xs, 1)
+        torch.cuda.current_stream().wait_stream(side)
+
+    landed = kernels.ring_shift_start(xs, 1)
+    torch.cuda.synchronize()
+    k3_ms = cuda_ms(lambda: kernels.ring_shift(xs, 1, kind="output"))
+    k4a_ms = cuda_ms(start_joined)
+    k4b_ms = cuda_ms(lambda: kernels.ring_shift_wait(landed))
+    plain_ms = cuda_ms(lambda: kernels.ring_shift_plain(xs, 1))
+    plain_handle = kernels.RingShiftHandle(landed.bufs, landed.kind, 1,
+                                           landed.epochs, True)
+    plain_wait_ms = cuda_ms(lambda: kernels.ring_shift_wait(plain_handle))
+    copy_ms = cuda_ms(lambda: [d.copy_(xs[(i - 1) % RANKS])
+                               for i, d in enumerate(dst)])
+    hop_bound, hop_by = bound_ms(2 * n_bytes, 0)
+    wait_bound, wait_by = bound_ms(4 * RANKS, 0)
+    log(f"[halo] hop of {RANKS} x {(two_m, wp, 3)} f32 ({n_bytes / 1e6:.2f} "
+        f"MB), CUDA events around each call: K3 {k3_ms:.4f} ms | K4a (stores, "
+        f"side streams joined) {k4a_ms:.4f} ms | K4b (hop landed) "
+        f"{k4b_ms:.4f} ms | plain {plain_ms:.4f} ms | Tensor.copy_ "
+        f"{copy_ms:.4f} ms | bound {hop_bound:.4f} ms")
+    dev_k3 = kernel_device_ms(lambda: kernels.ring_shift(xs, 1, kind="output"),
+                              ("ring_store", "ring_wait"))
+    dev_k4a = kernel_device_ms(start_joined, ("ring_store",))
+    dev_k4b = kernel_device_ms(lambda: kernels.ring_shift_wait(landed),
+                               ("ring_wait",))
+    dev_copy = kernel_device_ms(
+        lambda: [d.copy_(xs[(i - 1) % RANKS]) for i, d in enumerate(dst)],
+        ("copy", "Memcpy"))
+    log(f"[halo] the same calls, kernels' own device time (profiler): K3 "
+        f"{dev_k3:.4f} ms | K4a {dev_k4a:.4f} ms | K4b {dev_k4b:.4f} ms | "
+        f"Tensor.copy_ {dev_copy:.4f} ms")
+
+    # spatial_infer at full width: 4096^2, 4 ranks on the card
+    state = seeded_state(hp, "legacy", SEED)
+    plane = torch.rand((SLIDE, SLIDE), generator=torch.Generator()
+                       .manual_seed(SEED + 2)).numpy()
+    canvas = halo.build_canvas(plane, hp, RANKS)
+    mesh = make_mesh(devices=[dev] * RANKS)
+    npr_pad = -(-grid.npr // RANKS) * RANKS
+    R = npr_pad // RANKS
+    log(f"[halo] spatial_infer 4096^2 on {RANKS} ranks: npr {grid.npr} -> "
+        f"{npr_pad}, R {R} tile rows, {R * grid.npc} tiles per rank")
+    single = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                             device=dev).infer(plane)
+    outs, launches = {}, {}
+    for impl in ("ppermute", "ring", "ring_overlap"):
+        run = lambda: halo.spatial_infer(  # noqa: E731
+            state, canvas, SLIDE, SLIDE, hp, "legacy", mesh,
+            mean=LEGACY_MEAN, std=LEGACY_STD, halo_impl=impl)
+        run()  # cuDNN autotune at these shapes
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[impl] = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[impl] = kernels.launch_counts()
+        got = outs[impl].cpu().numpy()
+        err = float(np.abs(np.moveaxis(got, -1, 0) - single).max())
+        log(f"[halo] {impl}: wall {wall:.4f} s ({SLIDE * SLIDE / 1e6 / wall:.2f}"
+            f" Mpx/s), max |halo - engine| {err:.3e} (bar 2e-5), launches "
+            f"{ {k: v for k, v in launches[impl].items() if v} }")
+        check(got.shape == (SLIDE, SLIDE, 3) and np.isfinite(got).all(),
+              f"{impl}: bad maps {got.shape}")
+        check(err <= 2e-5, f"{impl} disagrees with the engine: {err}")
+    for impl in ("ring", "ring_overlap"):
+        d = (outs[impl] - outs["ppermute"]).abs().max().item()
+        log(f"[halo] {impl} vs ppermute: max |diff| {d:.3e} (bar 1e-6)")
+        check(d <= 1e-6, f"{impl} disagrees with ppermute: {d}")
+    ring_l, ov_l = launches["ring"], launches["ring_overlap"]
+    check(ring_l["ring_shift"] == 2 * RANKS and ring_l["blend_fold_strip"] > 0
+          and ring_l["softmax_blend"] > 0, f"ring launches {ring_l}")
+    check(ov_l["ring_shift_start"] == RANKS and ov_l["ring_shift_wait"] == RANKS
+          and ov_l["ring_shift"] == RANKS, f"ring_overlap launches {ov_l}")
+    check(launches["ppermute"]["ring_shift"] == 0, "ppermute ran K3")
+
+    # K2's fold-only entry at a band's shapes: [R*npc, 3, 128, 128]
+    band = tiler.make_grid(R * grid.sub, SLIDE, hp.im_size, hp.margin)
+    t = R * grid.npc
+    logits = 3 * torch.randn((t, 3, hp.im_size, hp.im_size), generator=g,
+                             device=dev)
+    window = torch.from_numpy(tiler.ramp_window(hp.im_size, hp.margin)).to(dev)
+    weighted = kernels.softmax_blend(logits, window, torch.ones(t, device=dev))
+    strip = kernels.blend_fold_strip(weighted, band)
+    t5 = weighted.reshape(band.npr, band.npc, 3, hp.im_size, hp.im_size)
+    strip_plain = tiler.fold(t5.permute(0, 1, 3, 4, 2), band)
+    strip_err = (strip - strip_plain).abs().max().item()
+    check(strip_err <= 1e-5, f"K2 strip disagrees with its plain version: "
+                             f"{strip_err}")
+    strip_ms = cuda_ms(lambda: kernels.blend_fold_strip(weighted, band))
+    strip_plain_ms = cuda_ms(lambda: tiler.fold(t5.permute(0, 1, 3, 4, 2),
+                                                band), iters=3)
+    cols = weighted.reshape(t, -1).t().unsqueeze(0).contiguous()
+    strip_lib_ms = cuda_ms(lambda: torch.nn.functional.fold(
+        cols, (band.padded_height, band.padded_width), hp.im_size,
+        stride=band.sub))
+    n_el = t * 3 * hp.im_size ** 2
+    strip_bound, strip_by = bound_ms(
+        4 * n_el + 4 * strip.numel(), n_el)
+    log(f"[K2 strip] {tuple(weighted.shape)} -> {tuple(strip.shape)}: max "
+        f"|kernel - plain| {strip_err:.3e} | kernel {strip_ms:.4f} ms | plain "
+        f"{strip_plain_ms:.4f} ms | library {strip_lib_ms:.4f} ms | bound "
+        f"{strip_bound:.4f} ms")
+    del logits, weighted, cols, strip, strip_plain, outs
+    torch.cuda.empty_cache()
+    hop = dict(route="cuda", source="unmicst_tpu_torch/csrc/halo_ring.cu")
+    return {
+        "blend_fold_strip": dict(
+            route="cuda", source="unmicst_tpu_torch/csrc/blend_fold.cu",
+            replaces="exhibits/pallas/blend.py:76", max_abs_err=strip_err,
+            ms=strip_ms, plain_ms=strip_plain_ms, bound_ms=strip_bound,
+            bound_by=strip_by, library_ms=strip_lib_ms,
+            launches=ring_l["blend_fold_strip"]),
+        "ring_shift": dict(
+            hop, replaces="unmicst_tpu/kernels/halo_rdma.py:80",
+            max_abs_err=k3_err, ms=k3_ms,
+            plain_ms=plain_ms, bound_ms=hop_bound, bound_by=hop_by,
+            library_ms=copy_ms, launches=ring_l["ring_shift"]),
+        "ring_shift_start": dict(
+            hop, replaces="unmicst_tpu/kernels/halo_rdma.py:198",
+            max_abs_err=k4_err, ms=k4a_ms,
+            plain_ms=plain_ms, bound_ms=hop_bound, bound_by=hop_by,
+            library_ms=copy_ms, launches=ov_l["ring_shift_start"]),
+        "ring_shift_wait": dict(
+            hop, replaces="unmicst_tpu/kernels/halo_rdma.py:236",
+            max_abs_err=k4_err, ms=k4b_ms,
+            plain_ms=plain_wait_ms, bound_ms=wait_bound, bound_by=wait_by,
+            library_ms=None, launches=ov_l["ring_shift_wait"]),
+    }
+
+
+def phase_streaming(dev) -> dict:
+    """The 8192^2 slide through the streaming engine, its column-sharded
+    form and the CLI's auto route."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.core import tiler
+    from unmicst_tpu_torch.infer import InferenceEngine
+    from unmicst_tpu_torch.io.tiff import TiffWriter, imread
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    g = torch.Generator().manual_seed(SEED + 3)
+    raw = torch.randint(0, 65536, (BIG, BIG), generator=g,
+                        dtype=torch.int32).numpy().astype(np.uint16)
+    mpx = BIG * BIG / 1e6
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    whole_engine = InferenceEngine(hp, state, "legacy", LEGACY_MEAN,
+                                   LEGACY_STD, device=dev)
+    whole, secs = timed(lambda: whole_engine.infer_slide(raw))
+    log(f"[stream] whole engine 8192^2: {secs:.3f} s ({mpx / secs:.2f} Mpx/s, "
+        "first call)")
+    del whole_engine
+    torch.cuda.empty_cache()
+    stream = StreamingEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                             compute_dtype=None, device=dev)
+    plan = stream._plan(BIG, BIG)
+    kernels.reset_launch_counts()
+    got, secs = timed(lambda: stream.infer(raw))
+    launches = kernels.launch_counts()
+    d = np.abs(got.astype(int) - whole.astype(int))
+    log(f"[stream] StreamingEngine.infer 8192^2 float32: {secs:.3f} s "
+        f"({mpx / secs:.2f} Mpx/s, first call), S {plan.S}, {plan.n_stripes} "
+        f"stripes; vs infer_slide max {d.max()} level(s), {(d > 0).mean():.3e}"
+        f" of pixels differ; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    check(got.shape == (3, BIG, BIG) and d.max() <= 1,
+          f"stream disagrees with the whole engine: {d.max()} levels")
+    check(launches["blend_fold_stripe"] == plan.n_stripes
+          and launches["softmax_blend"] > 0
+          and launches["blend_fold_epilogue"] == 0,
+          f"the stream did not run K1 and K2's stripe entry: {launches}")
+    _, secs = timed(lambda: stream.infer(raw))
+    log(f"[stream] StreamingEngine.infer again: {secs:.3f} s "
+        f"({mpx / secs:.2f} Mpx/s)")
+    mesh = make_mesh(devices=[dev] * RANKS)
+    _, first = timed(lambda: stream.infer_sharded(raw, mesh))
+    kernels.reset_launch_counts()
+    sharded, secs = timed(lambda: stream.infer_sharded(raw, mesh))
+    sh_launches = kernels.launch_counts()
+    log(f"[stream] infer_sharded first call {first:.3f} s (cuDNN autotune "
+        "included)")
+    d = np.abs(sharded.astype(int) - got.astype(int))
+    log(f"[stream] infer_sharded over {RANKS} ranks (ring seams): {secs:.3f} s "
+        f"({mpx / secs:.2f} Mpx/s); vs infer max {d.max()} level(s), "
+        f"{(d > 0).mean():.3e} of pixels differ; launches "
+        f"{ {k: v for k, v in sh_launches.items() if v} }")
+    check(d.max() <= 1, f"sharded disagrees with the stream: {d.max()}")
+    check(sh_launches["ring_shift"] == 2 * RANKS * plan.n_stripes,
+          f"sharded seams did not run K3: {sh_launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "s", "registration", "big.tif")
+        os.makedirs(os.path.dirname(src))
+        with TiffWriter(src, bigtiff=True) as tw:
+            tw.write(raw)
+        out = os.path.join(tmp, "out")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                       os.path.join(ROOT, "models", "blobDemo"),
+                       "--outputPath", out, "--stackOutput", "--stats"])
+        secs = time.perf_counter() - t0
+        cli_launches = kernels.launch_counts()
+        pages = [imread(os.path.join(out, "big_Probabilities_1.tif"), k)
+                 for k in range(3)]
+        # --engine sharded over every visible card (one here: one rank)
+        out_sh = os.path.join(tmp, "out_sharded")
+        kernels.reset_launch_counts()
+        t1 = time.perf_counter()
+        rc_sh = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                          os.path.join(ROOT, "models", "blobDemo"),
+                          "--outputPath", out_sh, "--stackOutput",
+                          "--engine", "sharded", "--stats"])
+        secs_sh = time.perf_counter() - t1
+        cli_sh_launches = kernels.launch_counts()
+        sh_diff = max(int(np.abs(imread(os.path.join(
+            out_sh, "big_Probabilities_1.tif"), k).astype(int)
+            - pages[k].astype(int)).max()) for k in range(3))
+    check(rc == 0 and all(p.shape == (BIG, BIG) for p in pages),
+          f"CLI --engine auto failed: rc {rc}")
+    log(f"[stream] CLI --engine sharded ({torch.cuda.device_count()} "
+        f"rank(s)) on the same TIFF: {secs_sh:.2f} s end to end; vs --engine "
+        f"auto max {sh_diff} level(s); launches "
+        f"{ {k: v for k, v in cli_sh_launches.items() if v} }")
+    check(rc_sh == 0 and sh_diff <= 1,
+          f"CLI --engine sharded: rc {rc_sh}, {sh_diff} levels from auto")
+    check(cli_sh_launches["ring_shift"] > 0
+          and cli_sh_launches["blend_fold_stripe"] > 0,
+          f"--engine sharded did not run K3 and K2's stripe entry: "
+          f"{cli_sh_launches}")
+    check(cli_launches["blend_fold_stripe"] > 0
+          and cli_launches["blend_fold_epilogue"] == 0,
+          f"--engine auto did not stream the 67 Mpx slide: {cli_launches}")
+    total = sum(p.astype(np.int32) for p in pages)
+    check(total.max() <= 255 and total.min() >= 252,
+          f"CLI class pages do not sum to ~255: [{total.min()}, {total.max()}]")
+    log(f"[stream] CLI --engine auto (blobDemo) on a 8192^2 TIFF: {secs:.2f} s "
+        f"end to end ({mpx / secs:.2f} Mpx/s, read, stats, stream, preview "
+        f"and write), streamed: {cli_launches['blend_fold_stripe']} stripes")
+
+    # K2's stripe entry at a stripe's shapes
+    grid = plan.grid
+    sub, m = grid.sub, grid.margin
+    band = tiler.make_grid((plan.S + 1) * sub, BIG, hp.im_size, hp.margin)
+    t = band.num_tiles
+    gd = torch.Generator(device=dev).manual_seed(SEED)
+    logits = 3 * torch.randn((t, 3, hp.im_size, hp.im_size), generator=gd,
+                             device=dev)
+    window = torch.from_numpy(tiler.ramp_window(hp.im_size, hp.margin)).to(dev)
+    rmask = torch.ones(plan.S + 1, device=dev)
+    rmask[0] = 0.0  # the first stripe's phantom row above the slide
+    weighted = kernels.softmax_blend(
+        logits, window, rmask.repeat_interleave(band.npc))
+    rows, cols = (sub, plan.band_rows), (m, BIG)
+    args = (weighted, window, band, rows, cols)
+    st = kernels.blend_fold_stripe(*args, row_mask=rmask)
+    st_plain = kernels.fold_region_plain(weighted, window, band, rows, cols,
+                                         [0, 1, 2], "u8", rmask)
+    st_err = (st.int() - st_plain.int()).abs().max().item()
+    check(st_err <= 1, f"K2 stripe disagrees with its plain version: {st_err}")
+    st_ms = cuda_ms(lambda: kernels.blend_fold_stripe(*args, row_mask=rmask))
+    st_plain_ms = cuda_ms(lambda: kernels.fold_region_plain(
+        weighted, window, band, rows, cols, [0, 1, 2], "u8", rmask), iters=3)
+    flat = weighted.reshape(t, -1).t().unsqueeze(0).contiguous()
+    st_lib_ms = cuda_ms(lambda: torch.nn.functional.fold(
+        flat, (band.padded_height, band.padded_width), hp.im_size,
+        stride=band.sub))
+    n_read = (covered(band.npr, sub, hp.im_size, rows[0], rows[0] + rows[1])
+              * covered(band.npc, sub, hp.im_size, m, m + BIG) * 3)
+    n_out = 3 * rows[1] * BIG
+    st_bound, st_by = bound_ms(4 * n_read + 4 * hp.im_size ** 2 + n_out,
+                               4 * n_read + 7 * n_out)
+    log(f"[K2 stripe] {tuple(weighted.shape)} -> {tuple(st.shape)} uint8: max "
+        f"|kernel - plain| {st_err} level(s) | kernel {st_ms:.4f} ms | plain "
+        f"{st_plain_ms:.4f} ms | library {st_lib_ms:.4f} ms | bound "
+        f"{st_bound:.4f} ms")
+    del logits, weighted, flat, st, st_plain
+    torch.cuda.empty_cache()
+    return {"blend_fold_stripe": dict(
+        route="cuda", source="unmicst_tpu_torch/csrc/blend_fold.cu",
+        replaces="exhibits/pallas/blend.py:76", max_abs_err=float(st_err),
+        ms=st_ms, plain_ms=st_plain_ms, bound_ms=st_bound, bound_by=st_by,
+        library_ms=st_lib_ms, launches=launches["blend_fold_stripe"])}
 
 
 def main() -> int:
@@ -510,13 +909,16 @@ def main() -> int:
     stats = phase_kernels(dev)
     phase_cli(dev)
     launches = phase_legacy(dev)
+    for name in stats:
+        stats[name]["launches"] = launches[name]
+    stats.update(phase_halo(dev))
+    stats.update(phase_streaming(dev))
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
         rows.append({"name": name, **{k: row[k] for k in (
-            "route", "source", "replaces")}, "launches": launches[name],
-            **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                   "bound_ms", "bound_by", "library_ms")}})
+            "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(json.dumps({"kernels": rows}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -119,8 +119,10 @@ def test_cli_ome_channel_name_matches_jax_cli(tmp_path):
     (["--tool", "unmicst-duo"], "M6"),
     (["--channel", "1", "2"], "M6"),
     (["--scalingFactor", "0.5"], "M7"),
-    (["--engine", "streaming"], "M8"),
+    (["--engine", "sharded", "--tool", "unmicst-duo"], "M6"),
     (["--precision", "int8"], "M11"),
+    (["--engine", "streaming", "--precision", "int8"], "M11"),
+    (["--engine", "streaming", "--scalingFactor", "0.5"], "M7"),
     (["--pyramidOutput"], "M14"),
 ])
 def test_cli_unported_paths_fail_loudly(tmp_path, flags, item):

@@ -8,6 +8,7 @@ The main path of ``unmicst_tpu/cli.py`` (``:797-862`` and
         --outputPath OUT [--stackOutput] [--channel N] [--classOrder A B C]
         [--outlier F] [--precision float32|highest|bfloat16] [--tileBatch N]
         [--modelRoot DIR] [--GPU N] [--stats]
+        [--engine auto|whole|streaming|sharded] [--meshShape N]
 
 Output contract: ``<stem>_Probabilities_<chan+1>.tif`` (classOrder pages
 reversed) plus ``qc/<stem>_Preview_<chan+1>.tif`` with ``--stackOutput``;
@@ -16,11 +17,19 @@ otherwise ``<stem>_ContoursPM_<chan+1>.tif`` (map, raw preview) and
 and writes its preview beside the maps.  The v2 solo tool feeds the
 un-rescaled image to the net (``UnMicst1-5.py:815-816,848``).
 
+Engines (``cli.py:735`` of the JAX package): ``--engine auto`` streams
+single-channel TIFF/OME-TIFF slides above 64 Mpx through the
+``StreamingEngine`` (bounded memory, read in windows) and runs smaller
+ones through the whole-slide engine; ``streaming`` and ``sharded`` force
+the stream, ``sharded`` with every stripe column-sharded over a mesh of
+``--meshShape`` ranks (default: every visible card; on the CPU, ranks that
+share it).
+
 Paths not ported yet fail loudly and name their ROADMAP item: the duo
-tool (M6), ``--scalingFactor`` other than 1 (M7), slides above 64 Mpx and
-``--engine streaming|sharded`` (M8), ``--precision int8`` (M11),
-pyramid input and output and zstd output, CZI and ND2 inputs, and
-inputs other than uint8/uint16 (or float32 through the parity cast).
+tool and stack streaming (M6), ``--scalingFactor`` other than 1 (M7),
+``--precision int8`` (M11), pyramid input and output and zstd output,
+CZI and ND2 inputs, and inputs other than uint8/uint16 (or float32
+through the parity cast; int16 streams with a rescale).
 """
 
 from __future__ import annotations
@@ -46,7 +55,7 @@ TOOL_DEFAULT_MODEL = {
     "UnMicstCyto2": "nucleiDAPI",  # UnMicstCyto2.py:695
 }
 
-# the whole-slide engine's bound; larger slides stream in the JAX package
+# --engine auto streams slides above this many pixels
 MAX_WHOLE_SLIDE_PX = 64_000_000
 
 
@@ -86,7 +95,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true",
                    help="print stage timings + Mpx/s")
     p.add_argument("--engine", default="auto",
-                   choices=["auto", "whole", "streaming", "sharded"])
+                   choices=["auto", "whole", "streaming", "sharded"],
+                   help="auto: stream slides > 64 Mpx (bounded memory); "
+                   "whole: one device-resident pass; sharded: stream with "
+                   "each stripe column-sharded over the rank mesh")
+    p.add_argument("--meshShape", type=int, metavar="N",
+                   help="with --engine sharded: ranks along the column "
+                   "axis (default: every visible card)")
     p.add_argument("--usePyramid", action="store_true")
     p.add_argument("--pyramidOutput", action="store_true")
     p.add_argument("--compressOutput", nargs="?", const="deflate",
@@ -110,8 +125,6 @@ def _reject_unported(args) -> None:
         raise _not_ported("multi-channel input (--channel A B)", "M6")
     if args.scalingFactor != 1:
         raise _not_ported("--scalingFactor other than 1", "M7")
-    if args.engine in ("streaming", "sharded"):
-        raise _not_ported(f"--engine {args.engine}", "M8")
     if args.precision == "int8":
         raise _not_ported("--precision int8", "M11")
     if args.usePyramid or args.pyramidOutput:
@@ -199,6 +212,100 @@ def _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
         put(out_file("NucleiPM"), get_page(class_order[2]), False)
 
 
+def _use_streaming(args, tool: str, cyto: bool, file_type: str,
+                   channel: int) -> bool:
+    """Whether the slide streams: ``--engine streaming|sharded``, or
+    ``auto`` above 64 Mpx, when the plane can stream (a TIFF; uint8 or
+    uint16 for the un-rescaled solo tool; uint8, uint16 or int16 for an
+    exact streamed histogram; no float32 for Cyto2, which never takes the
+    parity cast)."""
+    from unmicst_tpu_torch.io.slides import TIFF_LIKE, open_channel_source
+
+    explicit = args.engine in ("streaming", "sharded")
+    if file_type not in TIFF_LIKE:
+        if explicit:
+            raise SystemExit(f"--engine {args.engine} supports TIFF inputs")
+        return False
+    try:
+        with open_channel_source(args.imagePath, file_type, channel) as src:
+            px, dtype, raw_dtype = (src.height * src.width, src.dtype,
+                                    src.raw_dtype)
+    except (ValueError, NotImplementedError, IndexError, OSError):
+        return explicit  # the stream raises the reader's own error
+    if tool == "unmicst-solo":
+        ok = dtype in (np.dtype(np.uint8), np.dtype(np.uint16))
+        why = f"rescale-free streaming needs uint8/uint16, got {dtype}"
+    else:
+        ok = dtype in (np.dtype(np.uint8), np.dtype(np.uint16),
+                       np.dtype(np.int16))
+        why = f"streamed stats need an integer plane, got {dtype}"
+    if cyto and raw_dtype == np.float32:
+        ok, why = False, "Cyto2 float32 input must not take the parity cast"
+    if not ok:
+        if explicit:
+            raise SystemExit(f"--engine {args.engine}: {why}; use --engine "
+                             "whole")
+        return False
+    return explicit or (args.engine == "auto" and px > MAX_WHOLE_SLIDE_PX)
+
+
+def _run_streaming(args, bundle, tool, channel, class_order, file_type, stem,
+                   out_path, cyto, pinned, dev, t_start) -> int:
+    """The large-slide path (``_run_streaming``, ``cli.py:370`` of the JAX
+    package, single channel): the ``StreamingEngine``, bounded memory,
+    uint8 maps end to end."""
+    from unmicst_tpu_torch.core.checkpoint import load_params_for_bundle
+    from unmicst_tpu_torch.infer import PRECISIONS
+    from unmicst_tpu_torch.io.slides import open_channel_source, preview_u8
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    stream = StreamingEngine.from_bundle(
+        bundle, load_params_for_bundle(bundle),
+        compute_dtype=PRECISIONS[args.precision],
+        tile_batch=args.tileBatch or None, device=dev,
+    )
+    classes = (None if args.stackOutput or len(class_order) < 3
+               else (class_order[1], class_order[2]))
+    mesh = None
+    if args.engine == "sharded":
+        if dev.type == "cuda":
+            mesh = make_mesh(data=args.meshShape or None)
+        else:  # ranks that share the CPU
+            mesh = make_mesh(devices=[dev] * (args.meshShape or 1))
+        if args.verbose or args.stats:
+            print(f"[unmicst-tpu-torch] sharded engine: {mesh.shape['data']}"
+                  " rank(s) on the column axis", file=sys.stderr)
+    rescale = tool != "unmicst-solo"  # the v2-solo quirk
+    t0 = time.perf_counter()
+    with open_channel_source(args.imagePath, file_type, channel) as src:
+        stats, vmax = pinned, None
+        if rescale and pinned is None:
+            # one histogram pass gives the range and the preview's max
+            lo, hi, vmax = src.stats(args.outlier, with_max=True)
+            stats = (lo, hi)
+        kw = dict(outlier=args.outlier, rescale=rescale, classes=classes,
+                  stats=stats)
+        maps = (stream.infer_sharded(src, mesh, **kw) if mesh is not None
+                else stream.infer(src, **kw))
+        t_infer = time.perf_counter()
+        raw_u8 = preview_u8(src, vmax=vmax)
+        shape = (src.height, src.width)
+    idx = ({c: i for i, c in enumerate(classes)} if classes is not None
+           else {c: c for c in class_order})
+    _write_outputs(args, stem, out_path, cyto, channel, class_order,
+                   lambda c: maps[idx[c]], raw_u8)
+    if args.stats or args.verbose:
+        infer_s = t_infer - t0
+        print(
+            f"[unmicst-tpu-torch] streaming infer {infer_s:.2f}s "
+            f"({shape[0] * shape[1] / 1e6 / infer_s:.1f} Mpx/s) | total "
+            f"{time.perf_counter() - t_start:.2f}s",
+            file=sys.stderr,
+        )
+    return 0
+
+
 def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     """Run the CLI.  ``device``: ``"cuda"`` (the default; ``--GPU`` picks
     the card, and no card raises) or ``"cpu"``, which only a caller may
@@ -257,6 +364,12 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         os.makedirs(os.path.join(out_path, "qc"), exist_ok=True)
     pinned = _pinned_range(args, tool)
 
+    # ---- engine choice (cli.py:735-800 of the JAX package) -----------------
+    if _use_streaming(args, tool, cyto, file_type, dapi_channel):
+        return _run_streaming(args, bundle, tool, dapi_channel, class_order,
+                              file_type, stem, out_path, cyto, pinned, dev,
+                              t_start)
+
     # ---- read + preview ----------------------------------------------------
     t_read = time.perf_counter()
     try:
@@ -265,11 +378,6 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         raise SystemExit(str(e))
     if raw.ndim != 2:
         raise SystemExit(f"expected a single-sample plane, got {raw.shape}")
-    if raw.shape[0] * raw.shape[1] > MAX_WHOLE_SLIDE_PX and args.engine != "whole":
-        raise _not_ported(
-            f"a {raw.shape[0]}x{raw.shape[1]} slide (above 64 Mpx, the "
-            "streaming engine's range)", "M8"
-        )
     if raw.dtype == np.float32 and cyto:
         raise _not_ported(
             "float32 input for UnMicstCyto2 (no parity cast: the host float "

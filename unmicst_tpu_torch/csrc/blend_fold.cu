@@ -16,11 +16,21 @@
 //  (a) blend_fold_f32: out[r, c, k] = sum over covering tiles of
 //      tile[k, y, x] * window[y, x] on the padded canvas [H', W', K]
 //      (the Pallas contract, tiler.fold(tiles * window));
-//  (b) blend_fold_epilogue: the main path's tail.  Tiles arrive already
-//      weighted by K1; the kernel also sums the blend count from the window
-//      over the real tiles, divides, crops the margin, keeps a class subset
-//      and stores either float32 or uint8(255 * p) truncated, the JAX
-//      `.astype(jnp.uint8)`.  Output [Kc, H, W].
+//  (b) blend_fold_region: the tail of every path that folds K1-weighted
+//      tiles, over one rectangle [r0, r0 + H) x [c0, c0 + W) of the tile
+//      canvas.  Tiles arrive already weighted by K1.  Per pixel it sums the
+//      covering tiles of a class subset and, with a window, the blend count
+//      (the window times optional per-tile-row and per-tile-column masks),
+//      adds an optional addend (a neighbour's fold tail, for the first
+//      add_cols canvas columns), and stores one of:
+//        mode 0/1: p = sum / max(count, 1e-12) as float32 or as
+//                  uint8(255 * p) truncated (the JAX `.astype(jnp.uint8)`),
+//                  output [Kc, H, W];
+//        mode 2:   the raw sums (and the count, with a window), output
+//                  [H, W, Kc (+1)] float32 -- the fold without its epilogue.
+//      The whole slide is the rectangle at (margin, margin) of size H x W
+//      with no masks; a halo band is mode 2 over the padded band canvas;
+//      a streamed stripe is its finished rows with its row mask.
 // Sums pair up as the JAX fold's shifted adds do: (rows of the upper tile +
 // rows of the lower tile) per tile column, then the two columns.
 //
@@ -99,27 +109,57 @@ __device__ __forceinline__ unsigned char store<unsigned char>(float p) {
   return (unsigned char)q;
 }
 
-template <typename OutT>
-__global__ void fold_epilogue(Tiles t, const float* __restrict__ window,
-                              const int* __restrict__ classes, int n_cls,
-                              OutT* __restrict__ out, int margin, int H,
-                              int W) {
-  int w = blockIdx.x * blockDim.x + threadIdx.x;
-  int h = blockIdx.y * blockDim.y + threadIdx.y;
-  if (h >= H || w >= W) return;
-  const Cover rc = cover(h + margin, t.sub, t.npr, t.patch);
-  const Cover cc = cover(w + margin, t.sub, t.npc, t.patch);
-  const float count = gather(rc, cc, [&](int, int, int y, int x) {
-    return window[y * t.patch + x];
-  });
-  const long long plane = (long long)H * W;
-  const long long o = (long long)h * W + w;
+// The rectangle of the tile canvas a region entry computes, its optional
+// masks and addend.
+struct Region {
+  const float* rmask;   // [npr] per tile row, or null (all 1)
+  const float* cmask;   // [npc] per tile column, or null (all 1)
+  const float* addend;  // [H, add_cols, Kc + 1] by canvas column, or null
+  int add_cols;
+  int r0, c0, H, W;
+};
+
+template <typename OutT, bool kRaw>
+__global__ void fold_region(Tiles t, const float* __restrict__ window,
+                            const int* __restrict__ classes, int n_cls,
+                            Region g, OutT* __restrict__ out) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  const int h = blockIdx.y * blockDim.y + threadIdx.y;
+  if (h >= g.H || w >= g.W) return;
+  const int c = g.c0 + w;
+  const Cover rc = cover(g.r0 + h, t.sub, t.npr, t.patch);
+  const Cover cc = cover(c, t.sub, t.npc, t.patch);
+  float count = 0.0f;
+  if (window) {
+    count = gather(rc, cc, [&](int i, int j, int y, int x) {
+      float v = window[y * t.patch + x];
+      if (g.rmask) v *= g.rmask[i];
+      if (g.cmask) v *= g.cmask[j];
+      return v;
+    });
+  }
+  const float* add = nullptr;
+  if (g.addend && c < g.add_cols) {
+    add = g.addend + ((long long)h * g.add_cols + c) * (n_cls + 1);
+    count += add[n_cls];
+  }
+  const long long plane = (long long)g.H * g.W;
+  const long long o = (long long)h * g.W + w;
+  const int stride = n_cls + (window ? 1 : 0);
   for (int kc = 0; kc < n_cls; ++kc) {
     const int k = classes[kc];
-    const float v = gather(rc, cc, [&](int i, int j, int y, int x) {
+    float v = gather(rc, cc, [&](int i, int j, int y, int x) {
       return tile_at(t, i, j, k, y, x);
     });
-    out[kc * plane + o] = store<OutT>(v / count);
+    if (add) v += add[kc];
+    if constexpr (kRaw) {
+      out[o * stride + kc] = v;
+    } else {
+      out[kc * plane + o] = store<OutT>(v / fmaxf(count, 1e-12f));
+    }
+  }
+  if constexpr (kRaw) {
+    if (window) out[o * stride + n_cls] = count;
   }
 }
 
@@ -161,26 +201,40 @@ extern "C" int blend_fold_f32(const float* tiles, long long si, long long sj,
   return (int)cudaGetLastError();
 }
 
-// (b) K1-weighted tiles (strided) -> out [n_cls, H, W], float32 when
-// out_u8 == 0, else uint8(255 * p).  classes: device int32 [n_cls].
-extern "C" int blend_fold_epilogue(const float* tiles, long long si,
-                                   long long sj, long long sk, long long sy,
-                                   long long sx, const float* window,
-                                   const int* classes, int n_cls, void* out,
-                                   int out_u8, int npr, int npc, int patch,
-                                   int sub, int H, int W, void* stream) {
-  if (bad_geometry(npr, npc, patch, sub) || n_cls < 1 || H < 1 || W < 1)
+// (b) K1-weighted tiles (strided) -> the rectangle (r0, c0, H, W) of the
+// tile canvas.  mode 0: float32 maps [n_cls, H, W]; 1: uint8(255 * p) maps;
+// 2: raw float32 sums [H, W, n_cls (+1 count with a window)].  classes:
+// device int32 [n_cls].  window may be null only in mode 2.
+extern "C" int blend_fold_region(const float* tiles, long long si,
+                                 long long sj, long long sk, long long sy,
+                                 long long sx, const float* window,
+                                 const int* classes, int n_cls,
+                                 const float* rmask, const float* cmask,
+                                 const float* addend, int add_cols, int r0,
+                                 int c0, int H, int W, void* out, int mode,
+                                 int npr, int npc, int patch, int sub,
+                                 void* stream) {
+  if (bad_geometry(npr, npc, patch, sub) || n_cls < 1 || H < 1 || W < 1 ||
+      r0 < 0 || c0 < 0 || r0 + H > npr * sub + (patch - sub) ||
+      c0 + W > npc * sub + (patch - sub) || mode < 0 || mode > 2 ||
+      (mode != 2 && !window) || (addend && add_cols < 1))
     return (int)cudaErrorInvalidValue;
-  const int margin = (patch - sub) / 2;
   Tiles t = make_tiles(tiles, si, sj, sk, sy, sx, npr, npc, patch, sub);
+  Region g;
+  g.rmask = rmask; g.cmask = cmask; g.addend = addend;
+  g.add_cols = addend ? add_cols : 0;
+  g.r0 = r0; g.c0 = c0; g.H = H; g.W = W;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_u8) {
-    fold_epilogue<unsigned char><<<grid_for(H, W), dim3(kBx, kBy), 0, s>>>(
-        t, window, classes, n_cls, static_cast<unsigned char*>(out), margin,
-        H, W);
+  const dim3 grid = grid_for(H, W), block(kBx, kBy);
+  if (mode == 1) {
+    fold_region<unsigned char, false><<<grid, block, 0, s>>>(
+        t, window, classes, n_cls, g, static_cast<unsigned char*>(out));
+  } else if (mode == 0) {
+    fold_region<float, false><<<grid, block, 0, s>>>(
+        t, window, classes, n_cls, g, static_cast<float*>(out));
   } else {
-    fold_epilogue<float><<<grid_for(H, W), dim3(kBx, kBy), 0, s>>>(
-        t, window, classes, n_cls, static_cast<float*>(out), margin, H, W);
+    fold_region<float, true><<<grid, block, 0, s>>>(
+        t, window, classes, n_cls, g, static_cast<float*>(out));
   }
   return (int)cudaGetLastError();
 }

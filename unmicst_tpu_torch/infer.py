@@ -32,7 +32,7 @@ from unmicst_tpu_torch.core.hp import HParams, ModelBundle
 from unmicst_tpu_torch.core.unet import UNet
 from unmicst_tpu_torch.kernels import blend_fold_epilogue, softmax_blend
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
-from unmicst_tpu_torch.utils.batching import chunks, round_up
+from unmicst_tpu_torch.utils.batching import chunks
 
 DEFAULT_TILE_BATCH = 256
 
@@ -138,6 +138,51 @@ def _conv_precision(tf32: bool):
         matmul.allow_tf32 = saved
 
 
+def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
+                window: torch.Tensor, mask: torch.Tensor, tile_batch: int,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The UNet and K1 over every tile of a canvas: ``[T, K, P, P]``
+    float32 ``softmax(logits) * window * mask[t]``, in row-major tile order.
+
+    ``canvas``: ``[C, H', W']`` net input (after mean/std, in the model's
+    compute dtype) on the model's device, cut into ``grid``'s tiles (a
+    strided view).  Every forward runs exactly ``tile_batch`` tiles: the
+    last chunk is padded with zero tiles, so every forward has one shape.
+    Callers pick the chunk (capped at the tile count, or split evenly).
+    ``mask``: ``[T]`` float32 per-tile factor (0 drops a phantom tile from
+    the blend).  ``out``: optional contiguous ``[T, K, P, P]`` destination.
+    """
+    hp = model.hp
+    device = canvas.device
+    n_ch, patch = canvas.shape[0], grid.patch
+    # [npr, npc, C, P, P] strided view of the canvas, no copy
+    tiles = tiler.unfold(canvas.permute(1, 2, 0), grid).permute(0, 1, 4, 2, 3)
+    n_tiles, npc = grid.num_tiles, grid.npc
+    if out is None:
+        out = torch.empty((n_tiles, hp.n_classes, patch, patch),
+                          dtype=torch.float32, device=device)
+    staging = torch.zeros((tile_batch, n_ch, patch, patch),
+                          dtype=canvas.dtype, device=device)
+    flags = (_conv_precision(model.compute_dtype is not None)
+             if device.type == "cuda" else contextlib.nullcontext())
+    with torch.inference_mode(), flags:
+        for t0, t1 in chunks(n_tiles, tile_batch):
+            real = t1 - t0
+            if real < tile_batch:
+                staging[real:].zero_()  # phantom tiles of the last chunk
+            # copy the chunk's tiles row segment by row segment
+            t = t0
+            while t < t1:
+                i, j = divmod(t, npc)
+                n = min(npc - j, t1 - t)
+                staging[t - t0 : t - t0 + n].copy_(tiles[i, j : j + n])
+                t += n
+            logits = model.forward_nchw(staging, return_logits=True)
+            softmax_blend(logits[:real], window, mask[t0:t1],
+                          out=out[t0:t1])
+    return out
+
+
 class InferenceEngine:
     """Tiled whole-slide inference for one loaded model.
 
@@ -182,6 +227,12 @@ class InferenceEngine:
 
     # -- the device pipeline -------------------------------------------------
 
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """``(x - mean) / std`` (as the JAX engine compiles it), in the
+        compute dtype: the net input of a canvas."""
+        x = (x - self.mean) * _reciprocal(self.std)
+        return x if self.compute_dtype is None else x.to(self.compute_dtype)
+
     def _maps(self, planes: torch.Tensor, classes, quantize: bool):
         """``planes``: [C0, H, W] float32 on the device, the net input
         before mean/std (C0 == 1 broadcasts into every net channel).
@@ -189,44 +240,18 @@ class InferenceEngine:
         hp = self.hp
         _, height, width = planes.shape
         grid = tiler.make_grid(height, width, hp.im_size, hp.margin)
-        n_ch, patch, m = hp.n_channels, hp.im_size, grid.margin
-        canvas = torch.zeros((n_ch, grid.padded_height, grid.padded_width),
+        m = grid.margin
+        canvas = torch.zeros((hp.n_channels, grid.padded_height,
+                              grid.padded_width),
                              dtype=torch.float32, device=self.device)
         canvas[:, m : m + height, m : m + width] = planes
-        canvas = (canvas - self.mean) * _reciprocal(self.std)
-        if self.compute_dtype is not None:
-            canvas = canvas.to(self.compute_dtype)
-        # [npr, npc, C, P, P] strided view of the canvas, no copy
-        tiles = tiler.unfold(canvas.permute(1, 2, 0), grid).permute(
-            0, 1, 4, 2, 3)
-        n_tiles, npc = grid.num_tiles, grid.npc
-        batch = min(self.tile_batch, n_tiles)
-        n_pad = round_up(n_tiles, batch)
-        weighted = torch.empty((n_pad, hp.n_classes, patch, patch),
-                               dtype=torch.float32, device=self.device)
-        mask = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
-        mask[:n_tiles] = 1.0
-        staging = torch.zeros((batch, n_ch, patch, patch),
-                              dtype=canvas.dtype, device=self.device)
-        flags = (_conv_precision(self.compute_dtype is not None)
-                 if self.device.type == "cuda" else contextlib.nullcontext())
-        with torch.inference_mode(), flags:
-            for t0, t1 in chunks(n_pad, batch):
-                real = min(t1, n_tiles) - t0
-                if real < batch:
-                    staging[real:].zero_()  # phantom tiles of the last chunk
-                # copy the chunk's tiles row segment by row segment
-                t = t0
-                while t < t0 + real:
-                    i, j = divmod(t, npc)
-                    n = min(npc - j, t0 + real - t)
-                    staging[t - t0 : t - t0 + n].copy_(tiles[i, j : j + n])
-                    t += n
-                logits = self.model.forward_nchw(staging, return_logits=True)
-                softmax_blend(logits, self.window, mask[t0:t1],
-                              out=weighted[t0:t1])
-            return blend_fold_epilogue(weighted[:n_tiles], self.window, grid,
-                                       classes, quantize)
+        mask = torch.ones(grid.num_tiles, dtype=torch.float32,
+                          device=self.device)
+        weighted = weigh_tiles(self.model, self.normalize(canvas), grid,
+                               self.window, mask,
+                               min(self.tile_batch, grid.num_tiles))
+        return blend_fold_epilogue(weighted, self.window, grid, classes,
+                                   quantize)
 
     def _upload(self, raw: np.ndarray) -> torch.Tensor:
         """Host plane -> float32 on the device; uint16 travels as int16 and

@@ -323,35 +323,56 @@ class TiffFile:
             np.cumsum(arr, axis=1, dtype=arr.dtype, out=arr)
         return arr
 
-    def read_page(self, index: int = 0) -> np.ndarray:
-        """Decode a full page to ``(H, W)`` or ``(H, W, S)``."""
-        page = self.pages[index]
+    def _check_readable(self, page: TiffPage) -> None:
         if page.planar != 1 and page.samples > 1:
             raise NotImplementedError("planar TIFF not supported")
         if page.predictor not in (1, 2):
             raise NotImplementedError(f"TIFF predictor {page.predictor}")
+
+    def read_page(self, index: int = 0) -> np.ndarray:
+        """Decode a full page to ``(H, W)`` or ``(H, W, S)``."""
+        page = self.pages[index]
+        self._check_readable(page)
         if page.height * page.width * page.samples > 1 << 31:
             raise PageTooLargeError(
                 f"TIFF page {page.height}x{page.width} is too large to read "
                 "whole"
             )
-        out = np.empty((page.height, page.width, page.samples), page.dtype)
+        return self.read_region(index, 0, 0, page.height, page.width)
+
+    def read_region(self, index: int, r0: int, c0: int, nrows: int,
+                    ncols: int) -> np.ndarray:
+        """Decode only the strips or tiles under a window: rows
+        ``[r0, r0 + nrows)``, columns ``[c0, c0 + ncols)``, zero outside
+        the page (``unmicst_tpu/io/tiff.py:805``).  The streaming engine
+        reads a slide this way, so it never sits whole in host RAM."""
+        page = self.pages[index]
+        self._check_readable(page)
+        if r0 < 0 or c0 < 0 or nrows < 0 or ncols < 0:
+            raise ValueError(f"bad region ({r0}, {c0}, {nrows}, {ncols})")
+        out = np.zeros((nrows, ncols, page.samples), page.dtype)
+        r1 = min(r0 + nrows, page.height)
+        c1 = min(c0 + ncols, page.width)
         if page.tiled:
             th, tw = page.tile_length, page.tile_width
             across = -(-page.width // tw)
-            for ti in range(-(-page.height // th)):
-                for tj in range(across):
+            for ti in range(r0 // th, -(-r1 // th)):
+                for tj in range(c0 // tw, -(-c1 // tw)):
                     arr = self._segment(page, ti * across + tj, th, tw)
-                    r0, c0 = ti * th, tj * tw
-                    r1 = min(r0 + th, page.height)
-                    c1 = min(c0 + tw, page.width)
-                    out[r0:r1, c0:c1] = arr[: r1 - r0, : c1 - c0]
+                    tr0, tc0 = ti * th, tj * tw
+                    a, b = max(r0, tr0), min(r1, tr0 + th)
+                    c, d = max(c0, tc0), min(c1, tc0 + tw)
+                    out[a - r0 : b - r0, c - c0 : d - c0] = arr[
+                        a - tr0 : b - tr0, c - tc0 : d - tc0]
         else:
             rps = max(1, min(page.rows_per_strip, page.height))
-            for s in range(-(-page.height // rps)):
-                r0 = s * rps
-                rows = min(rps, page.height - r0)
-                out[r0 : r0 + rows] = self._segment(page, s, rows, page.width)
+            for st in range(r0 // rps, -(-r1 // rps)):
+                sr0 = st * rps
+                rows = min(rps, page.height - sr0)
+                arr = self._segment(page, st, rows, page.width)
+                a, b = max(r0, sr0), min(r1, sr0 + rows)
+                out[a - r0 : b - r0, : max(0, c1 - c0)] = arr[
+                    a - sr0 : b - sr0, c0:c1]
         return out[:, :, 0] if page.samples == 1 else out
 
 
