@@ -27,11 +27,14 @@ printing any result):
    precision runs under ``torch.profiler`` for the device time by kernel
    and the idle share; both precisions on the card against the CPU;
 5. halo: K3 (``ring_shift``) and the K4a/K4b pair (``ring_shift_start`` /
-   ``ring_shift_wait``) bit-equal to their plain versions on rings of 1, 2
-   and 4 ranks sharing the card, shifts +1 and -1, on the seam buffers of
-   a 4096^2 slide and one of an odd byte size, timed beside the plain
-   copy and ``Tensor.copy_``; then ``runtime.halo.spatial_infer`` over a
-   seeded 4096^2 plane on 4 ranks of the card with every seam
+   ``ring_shift_wait``) bit-equal to their plain versions on rings of 1,
+   2, 4 and 8 ranks sharing the card, shifts +1 and -1, on the seam
+   buffers of a 4096^2 slide, one of an odd byte size and a view 4 bytes
+   off 16-byte alignment, one launch each per hop; timed by CUDA events
+   and by the profiler per launch beside the plain copy, ``Tensor.copy_``
+   and (for K4b) ``Stream.wait_event``, with the host's issue time per
+   call; then ``runtime.halo.spatial_infer`` over a seeded 4096^2 plane
+   on 4 ranks of the card with every seam
    implementation (the counters set to 0 before each), against each other
    and against ``InferenceEngine.infer``, with K2's fold-only entry timed
    at a band's shapes;
@@ -92,11 +95,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, names, iters: int = 20) -> float:
+def kernel_device_ms(fn, names, iters: int = 20) -> dict:
     """Device time per call of the kernels whose names contain one of
-    ``names``, summed from ``torch.profiler`` over ``iters`` calls: the
-    kernels' own time, without the gaps in which the card waits for the
-    host to issue them.  NaN when the profiler sees no device events."""
+    ``names``, from ``torch.profiler`` over ``iters`` calls: the kernels'
+    own time, without the gaps in which the card waits for the host to
+    issue them.  Returns ``{name: (ms per call, launches per call)}`` for
+    each of ``names`` (NaN ms where the profiler saw none of its events)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -108,10 +112,13 @@ def kernel_device_ms(fn, names, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA
-          and any(n in e.name for n in names)]
-    return sum(us) / 1e3 / iters if us else float("nan")
+    out = {}
+    for n in names:
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA and n in e.name]
+        out[n] = (sum(us) / 1e3 / iters if us else float("nan"),
+                  len(us) / iters)
+    return out
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
@@ -558,20 +565,37 @@ def phase_halo(dev) -> dict:
     two_m, wp = 2 * hp.margin, grid.padded_width
     g = torch.Generator(device=dev).manual_seed(SEED)
     shapes = [((two_m, wp, 1), torch.float32), ((two_m, wp, 3), torch.float32),
-              ((7, 13), torch.int16)]  # 182 bytes: not a multiple of 16
+              ((7, 13), torch.int16),  # 182 bytes: not a multiple of 16
+              ("view", torch.float32)]  # 4 bytes off 16-byte alignment
+
+    def ring_of(n, shape, dtype):
+        if shape == "view":
+            return [torch.randn((1 + two_m * wp * 3,), generator=g,
+                                device=dev)[1:].view(two_m, wp, 3)
+                    for _ in range(n)]
+        if dtype == torch.int16:
+            return [torch.randint(-30000, 30000, shape, generator=g,
+                                  device=dev, dtype=torch.int32).to(dtype)
+                    for _ in range(n)]
+        return [torch.randn(shape, generator=g, device=dev) for _ in range(n)]
+
     k3_err = k4_err = 0.0  # max |kernel - plain| over every ring checked
-    for n in (1, 2, 4):
+    for n in (1, 2, 4, 8):
         for shape, dtype in shapes:
-            xs = [torch.randint(-30000, 30000, shape, generator=g, device=dev,
-                                dtype=torch.int32).to(dtype)
-                  if dtype == torch.int16 else
-                  torch.randn(shape, generator=g, device=dev)
-                  for _ in range(n)]
+            xs = ring_of(n, shape, dtype)
             for shift in (1, -1):
                 ref = kernels.ring_shift_plain(xs, shift)
+                before = kernels.launch_counts()
                 k3 = kernels.ring_shift(xs, shift, kind="output")
                 k4 = kernels.ring_shift_wait(kernels.ring_shift_start(xs, shift))
                 torch.cuda.synchronize()
+                after = kernels.launch_counts()
+                # ranks on one card: one store launch per hop, no K3 wait
+                for name in ("ring_shift", "ring_shift_start",
+                             "ring_shift_wait"):
+                    check(after[name] - before[name] == 1,
+                          f"ring n {n}: {name} launched "
+                          f"{after[name] - before[name]} kernels for one hop")
                 for a, b, r in zip(k3, k4, ref):
                     k3_err = max(k3_err, (a.double() - r.double()).abs()
                                  .max().item())
@@ -582,7 +606,8 @@ def phase_halo(dev) -> dict:
                 check(same, f"ring n {n} {shape} shift {shift}: K3 or K4 "
                             "differs from the plain copy")
         log(f"[halo] ring of {n}: K3 and K4a+K4b bit-equal to the plain copy "
-            f"on {[s for s, _ in shapes]}, shifts +1 and -1")
+            f"on {[s for s, _ in shapes]}, shifts +1 and -1; one launch each "
+            "of K3, K4a and K4b per hop")
     log(f"[halo] max |kernel - plain| over every ring: K3 {k3_err} | "
         f"K4a+K4b {k4_err}")
 
@@ -591,42 +616,85 @@ def phase_halo(dev) -> dict:
           for _ in range(RANKS)]
     dst = [torch.empty_like(x) for x in xs]
     n_bytes = sum(x.numel() * 4 for x in xs)
-    ring = halo_ring._ring(tuple(x.device for x in xs))
-    side = ring.side_stream(dev)
+    side = halo_ring._ring((dev.index,) * RANKS).side_stream(dev.index)
 
     def start_joined():
         kernels.ring_shift_start(xs, 1)
         torch.cuda.current_stream().wait_stream(side)
 
+    def copies():
+        for i, d in enumerate(dst):
+            d.copy_(xs[(i - 1) % RANKS])
+
     landed = kernels.ring_shift_start(xs, 1)
     torch.cuda.synchronize()
+    # K4b's yardstick: the current stream waits for an event recorded on
+    # another stream after the four copies (the hop landed)
+    with torch.cuda.stream(side):
+        copies()
+        copied = side.record_event()
+    torch.cuda.synchronize()
+    cur = torch.cuda.current_stream()
     k3_ms = cuda_ms(lambda: kernels.ring_shift(xs, 1, kind="output"))
     k4a_ms = cuda_ms(start_joined)
     k4b_ms = cuda_ms(lambda: kernels.ring_shift_wait(landed))
+    wait_event_ms = cuda_ms(lambda: cur.wait_event(copied))
     plain_ms = cuda_ms(lambda: kernels.ring_shift_plain(xs, 1))
-    plain_handle = kernels.RingShiftHandle(landed.bufs, landed.kind, 1,
-                                           landed.epochs, True)
+    plain_handle = landed._replace(plain=True)
     plain_wait_ms = cuda_ms(lambda: kernels.ring_shift_wait(plain_handle))
-    copy_ms = cuda_ms(lambda: [d.copy_(xs[(i - 1) % RANKS])
-                               for i, d in enumerate(dst)])
+    copy_ms = cuda_ms(copies)
     hop_bound, hop_by = bound_ms(2 * n_bytes, 0)
     wait_bound, wait_by = bound_ms(4 * RANKS, 0)
     log(f"[halo] hop of {RANKS} x {(two_m, wp, 3)} f32 ({n_bytes / 1e6:.2f} "
         f"MB), CUDA events around each call: K3 {k3_ms:.4f} ms | K4a (stores, "
-        f"side streams joined) {k4a_ms:.4f} ms | K4b (hop landed) "
-        f"{k4b_ms:.4f} ms | plain {plain_ms:.4f} ms | Tensor.copy_ "
-        f"{copy_ms:.4f} ms | bound {hop_bound:.4f} ms")
+        f"side stream joined) {k4a_ms:.4f} ms | K4b (hop landed) "
+        f"{k4b_ms:.4f} ms | plain {plain_ms:.4f} ms | Tensor.copy_ x{RANKS} "
+        f"{copy_ms:.4f} ms | Stream.wait_event {wait_event_ms:.4f} ms | "
+        f"bound {hop_bound:.4f} ms")
+
+    def host_ms(fn, iters=200):
+        """Host wall time of one call, the card left to run behind."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t = (time.perf_counter() - t0) / iters * 1e3
+        torch.cuda.synchronize()
+        return t
+
+    log(f"[halo] host issue time per call: K3 "
+        f"{host_ms(lambda: kernels.ring_shift(xs, 1, kind='output')):.4f} ms"
+        f" | K4a (side stream joined) {host_ms(start_joined):.4f} ms | K4b "
+        f"{host_ms(lambda: kernels.ring_shift_wait(landed)):.4f} ms | "
+        f"Tensor.copy_ x{RANKS} {host_ms(copies):.4f} ms | Stream.wait_event "
+        f"{host_ms(lambda: cur.wait_event(copied)):.4f} ms")
+    names = ("ring_store", "ring_wait")
     dev_k3 = kernel_device_ms(lambda: kernels.ring_shift(xs, 1, kind="output"),
-                              ("ring_store", "ring_wait"))
-    dev_k4a = kernel_device_ms(start_joined, ("ring_store",))
-    dev_k4b = kernel_device_ms(lambda: kernels.ring_shift_wait(landed),
-                               ("ring_wait",))
-    dev_copy = kernel_device_ms(
-        lambda: [d.copy_(xs[(i - 1) % RANKS]) for i, d in enumerate(dst)],
-        ("copy", "Memcpy"))
-    log(f"[halo] the same calls, kernels' own device time (profiler): K3 "
-        f"{dev_k3:.4f} ms | K4a {dev_k4a:.4f} ms | K4b {dev_k4b:.4f} ms | "
-        f"Tensor.copy_ {dev_copy:.4f} ms")
+                              names)
+    dev_k4a = kernel_device_ms(start_joined, names)
+    dev_k4b = kernel_device_ms(lambda: kernels.ring_shift_wait(landed), names)
+    dev_copy = kernel_device_ms(copies, ("copy", "Memcpy"))
+    copy_dev_ms = sum(ms for ms, n in dev_copy.values() if n)
+    copy_dev_n = sum(n for _, n in dev_copy.values())
+
+    def per_launch(ms_n):
+        ms, n = ms_n
+        return f"{n:g} x {ms / n:.4f} ms" if n else "none"
+
+    for label, d in (("K3 ring_shift", dev_k3), ("K4a ring_shift_start", dev_k4a),
+                     ("K4b ring_shift_wait", dev_k4b)):
+        log(f"[halo] {label}, kernels' own device time per call (profiler): "
+            f"store {per_launch(d['ring_store'])} | wait "
+            f"{per_launch(d['ring_wait'])}")
+    log(f"[halo] Tensor.copy_ x{RANKS} device time per call (profiler): "
+        f"{copy_dev_ms:.4f} ms in {copy_dev_n:g} launches; Stream.wait_event "
+        "launches no kernel")
+    for label, d, want in (("K3", dev_k3, (1, 0)), ("K4a", dev_k4a, (1, 0)),
+                           ("K4b", dev_k4b, (0, 1))):
+        check((d["ring_store"][1], d["ring_wait"][1]) == want,
+              f"{label} on one card: expected {want[0]} store and {want[1]} "
+              f"wait launch(es) per hop, the profiler saw {d}")
 
     # spatial_infer at full width: 4096^2, 4 ranks on the card
     state = seeded_state(hp, "legacy", SEED)
@@ -665,11 +733,13 @@ def phase_halo(dev) -> dict:
         d = (outs[impl] - outs["ppermute"]).abs().max().item()
         log(f"[halo] {impl} vs ppermute: max |diff| {d:.3e} (bar 1e-6)")
         check(d <= 1e-6, f"{impl} disagrees with ppermute: {d}")
+    # the ranks share one card: each hop is one store launch (K3 with no
+    # wait; K4a's stores, then one K4b wait)
     ring_l, ov_l = launches["ring"], launches["ring_overlap"]
-    check(ring_l["ring_shift"] == 2 * RANKS and ring_l["blend_fold_strip"] > 0
+    check(ring_l["ring_shift"] == 2 and ring_l["blend_fold_strip"] > 0
           and ring_l["softmax_blend"] > 0, f"ring launches {ring_l}")
-    check(ov_l["ring_shift_start"] == RANKS and ov_l["ring_shift_wait"] == RANKS
-          and ov_l["ring_shift"] == RANKS, f"ring_overlap launches {ov_l}")
+    check(ov_l["ring_shift_start"] == 1 and ov_l["ring_shift_wait"] == 1
+          and ov_l["ring_shift"] == 1, f"ring_overlap launches {ov_l}")
     check(launches["ppermute"]["ring_shift"] == 0, "ppermute ran K3")
 
     # K2's fold-only entry at a band's shapes: [R*npc, 3, 128, 128]
@@ -723,7 +793,7 @@ def phase_halo(dev) -> dict:
             hop, replaces="unmicst_tpu/kernels/halo_rdma.py:236",
             max_abs_err=k4_err, ms=k4b_ms,
             plain_ms=plain_wait_ms, bound_ms=wait_bound, bound_by=wait_by,
-            library_ms=None, launches=ov_l["ring_shift_wait"]),
+            library_ms=wait_event_ms, launches=ov_l["ring_shift_wait"]),
     }
 
 
@@ -735,6 +805,7 @@ def phase_streaming(dev) -> dict:
 
     from unmicst_tpu_torch import cli, kernels
     from unmicst_tpu_torch.core import tiler
+    from unmicst_tpu_torch.core.hp import load_model_dir
     from unmicst_tpu_torch.infer import InferenceEngine
     from unmicst_tpu_torch.io.tiff import TiffWriter, imread
     from unmicst_tpu_torch.runtime.mesh import make_mesh
@@ -795,8 +866,9 @@ def phase_streaming(dev) -> dict:
         f"{(d > 0).mean():.3e} of pixels differ; launches "
         f"{ {k: v for k, v in sh_launches.items() if v} }")
     check(d.max() <= 1, f"sharded disagrees with the stream: {d.max()}")
-    check(sh_launches["ring_shift"] == 2 * RANKS * plan.n_stripes,
-          f"sharded seams did not run K3: {sh_launches}")
+    # two hops per stripe, one K3 store launch each (the ranks share a card)
+    check(sh_launches["ring_shift"] == 2 * plan.n_stripes,
+          f"sharded seams did not run K3 once per hop: {sh_launches}")
 
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "s", "registration", "big.tif")
@@ -834,10 +906,16 @@ def phase_streaming(dev) -> dict:
         f"{ {k: v for k, v in cli_sh_launches.items() if v} }")
     check(rc_sh == 0 and sh_diff <= 1,
           f"CLI --engine sharded: rc {rc_sh}, {sh_diff} levels from auto")
-    check(cli_sh_launches["ring_shift"] > 0
-          and cli_sh_launches["blend_fold_stripe"] > 0,
-          f"--engine sharded did not run K3 and K2's stripe entry: "
-          f"{cli_sh_launches}")
+    # per stripe two hops; one rank makes each hop one K3 store launch (n
+    # ranks on n cards: a store and a wait per card)
+    cards = torch.cuda.device_count()
+    cli_plan = StreamingEngine.from_bundle(
+        load_model_dir(os.path.join(ROOT, "models", "blobDemo")), {},
+        device=dev)._plan(BIG, BIG)
+    per_hop = 1 if cards == 1 else 2 * cards
+    check(cli_sh_launches["ring_shift"] == 2 * cli_plan.n_stripes * per_hop,
+          f"--engine sharded: expected {per_hop} K3 launch(es) per hop, two "
+          f"hops for each of {cli_plan.n_stripes} stripes: {cli_sh_launches}")
     check(cli_launches["blend_fold_stripe"] > 0
           and cli_launches["blend_fold_epilogue"] == 0,
           f"--engine auto did not stream the 67 Mpx slide: {cli_launches}")

@@ -73,14 +73,21 @@ def _ring(n, shape, dtype, device, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 4])
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
 @pytest.mark.parametrize("shift", [1, -1])
-def test_ring_kernels_match_plain_on_card(cuda, n, shift):
+def test_ring_kernels_match_plain_on_card(cuda, n, shift, monkeypatch):
     """K3 and the K4a/K4b pair, ranks sharing the card: bit-equal to the
-    plain copy, for an aligned float buffer and one whose byte size is not
-    a multiple of 16."""
-    for shape, dtype in [((32, 70, 3), torch.float32), ((7, 13), torch.int16)]:
-        xs = _ring(n, shape, dtype, cuda, seed=n)
+    plain copy, for an aligned float buffer, one whose byte size is not a
+    multiple of 16 and a view 4 bytes off 16-byte alignment, then over 1000
+    back-to-back hops whose completion words start 10 hops short of 2^32.
+    On one card a hop is one store launch, K3 launches no wait and K4b one."""
+    from unmicst_tpu_torch.kernels import halo_ring
+
+    views = [t[1:].view(32, 70, 3)  # 4 bytes past the allocation's start
+             for t in _ring(n, (1 + 32 * 70 * 3,), torch.float32, cuda, 7)]
+    assert all(v.data_ptr() % 16 == 4 for v in views)
+    for xs in (_ring(n, (32, 70, 3), torch.float32, cuda, seed=n),
+               _ring(n, (7, 13), torch.int16, cuda, seed=n), views):
         ref = kernels.ring_shift_plain(xs, shift)
         before = kernels.launch_counts()
         got = kernels.ring_shift(xs, shift, kind="output")
@@ -88,9 +95,116 @@ def test_ring_kernels_match_plain_on_card(cuda, n, shift):
         torch.cuda.synchronize()
         after = kernels.launch_counts()
         for name in ("ring_shift", "ring_shift_start", "ring_shift_wait"):
-            assert after[name] == before[name] + n
+            assert after[name] == before[name] + 1, name
         for a, b, r in zip(got, pair, ref):
             assert torch.equal(a, r) and torch.equal(b, r)
+
+    xs = _ring(n, (32, 70, 3), torch.float32, cuda, seed=n + 1)
+    ref = kernels.ring_shift_plain(xs, shift)
+    cards = (cuda.index or 0,) * n
+    blocks = halo_ring.blocks_per_segment(xs[0].numel() * 4, n)
+    start = 2**32 - 10 * blocks
+    ring = halo_ring._Ring(cards)  # a fresh ring, its words set near 2^32
+    for i in range(n):
+        ring.words[i].fill_(start - 2**32)  # the int32 of start
+        for k in halo_ring.KINDS.values():
+            for j in range(n):
+                ring.counters.value[(k, i, j)] = start
+    torch.cuda.synchronize()
+    monkeypatch.setitem(halo_ring._rings, cards, ring)
+    for hop in range(1000):
+        got = kernels.ring_shift(xs, shift, kind="input")
+        pair = kernels.ring_shift_wait(kernels.ring_shift_start(xs, shift))
+        for a, b, r in zip(got, pair, ref):
+            assert torch.equal(a, r) and torch.equal(b, r), hop
+    torch.cuda.synchronize()
+    target = (start + 1000 * blocks) % 2**32
+    assert target < start  # the counts crossed 2^32
+    for i in range(n):  # rank i's words: only its source's has counted
+        row = ring.words[i][halo_ring.KINDS["start"]].cpu().numpy()
+        assert (row.astype(np.int64) % 2**32).tolist() == [
+            target if j == (i - shift) % n else start for j in range(n)]
+
+
+def _cards(cuda):
+    """Every visible card, or a skip: the peer-store path needs two."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: peer stores cross cards")
+    return [torch.device("cuda", c) for c in range(n)]
+
+
+def _sync(cards):
+    for d in cards:
+        torch.cuda.synchronize(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_card", [1, 2])
+def test_ring_kernels_across_cards(cuda, per_card):
+    """Ranks spread over every visible card: stores into a peer card's
+    memory released at system scope, waits on the destinations' streams,
+    events for the landing buffers' allocation points.  Bit-equal to the
+    plain copy; one store launch per card and, as each card receives
+    exactly one segment from another card, one wait per card (K3 and K4b)."""
+    cards = _cards(cuda)
+    devs = [d for d in cards for _ in range(per_card)]
+    n = len(devs)
+    views = [torch.from_numpy(np.arange(1 + 32 * 70 * 3, dtype=np.float32)
+                              * (k + 1)).to(d)[1:].view(32, 70, 3)
+             for k, d in enumerate(devs)]
+    for xs in ([x.to(d) for x, d in zip(
+                   _ring(n, (32, 70, 3), torch.float32, "cpu", seed=n), devs)],
+               [x.to(d) for x, d in zip(
+                   _ring(n, (7, 13), torch.int16, "cpu", seed=n), devs)],
+               views):
+        for shift in (1, -1):
+            ref = kernels.ring_shift_plain(xs, shift)
+            before = kernels.launch_counts()
+            got = kernels.ring_shift(xs, shift, kind="output")
+            pair = kernels.ring_shift_wait(kernels.ring_shift_start(xs, shift))
+            _sync(cards)
+            after = kernels.launch_counts()
+            assert after["ring_shift"] - before["ring_shift"] == 2 * len(cards)
+            assert (after["ring_shift_start"] - before["ring_shift_start"]
+                    == len(cards))
+            assert (after["ring_shift_wait"] - before["ring_shift_wait"]
+                    == len(cards))
+            for a, b, r, d in zip(got, pair, ref, devs):
+                assert a.device == d and b.device == d
+                assert torch.equal(a, r) and torch.equal(b, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("impl", ["ring", "ring_overlap"])
+def test_halo_and_sharded_stream_across_cards_match_cpu(cuda, impl):
+    """spatial_infer and the sharded stream with 4 ranks over every
+    visible card (peer stores) against the same on the CPU."""
+    from unmicst_tpu_torch.runtime import halo
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    cards = _cards(cuda)
+    ranks = [cards[k % len(cards)] for k in range(4)]
+    hp, state = _small_net()
+    img = np.random.RandomState(1).rand(400, 90).astype(np.float32)
+    canvas = halo.build_canvas(img, hp, 4)
+    kw = dict(mean=0.3, std=0.2, halo_impl=impl)
+    ref = halo.spatial_infer(state, canvas, 400, 90, hp, "legacy",
+                             make_mesh(devices=["cpu"] * 4), **kw)
+    got = halo.spatial_infer(state, canvas, 400, 90, hp, "legacy",
+                             make_mesh(devices=ranks), **kw)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=2e-5)
+    if impl == "ring":
+        raw = (np.random.RandomState(2).rand(300, 230) * 60000).astype(
+            np.uint16)
+        on = {d: StreamingEngine(hp, state, "legacy", 0.3, 0.2,
+                                 compute_dtype=None, stripe_tile_rows=3,
+                                 in_flight=2, device=d)
+              for d in ("cpu", cuda)}
+        want = on["cpu"].infer_sharded(raw, make_mesh(devices=["cpu"] * 4))
+        have = on[cuda].infer_sharded(raw, make_mesh(devices=ranks))
+        assert np.abs(have.astype(int) - want.astype(int)).max() <= 1
 
 
 @pytest.mark.cuda

@@ -7,44 +7,98 @@
 // semaphores.  Here all ranks live in one process (several ranks may share
 // one card), so the hop is two kernels:
 //
-//  * ring_store: one launch per source rank, on that rank's stream.  It
-//    copies the rank's seam buffer into the destination rank's landing
-//    buffer (on the same card, or on a peer card through its device
-//    pointer), 16 bytes per thread where both buffers are 16-byte aligned
-//    and byte by byte otherwise.  Every block fences its stores at system
-//    scope (once, by its first thread, after the block's barrier) and
-//    takes a ticket; the last block to finish does one release store of
-//    the hop's epoch into the destination's flag word.
-//  * ring_wait: one thread on the destination rank's stream.  It spins on
-//    acquire loads of its flag word until the flag reaches the epoch it
-//    expects, backing off with __nanosleep.  The spin is bounded by the
-//    global timer: past the limit it traps, so a hang becomes a launch
-//    error instead of a stuck process.
+//  * ring_store: ONE launch per source card (and store stream) and hop.  Its
+//    argument is a table of segments, one per source rank on that card:
+//    (source buffer, landing buffer on the same card or on a peer card,
+//    completion word).  Every segment has the same byte count (a ring has
+//    one shape and dtype) and gets `blocks` blocks; block b copies chunk
+//    b % blocks of segment b / blocks, so no block straddles two segments.
+//    The copy moves the widest unit (16, 8, 4, 2 or 1 bytes) that the
+//    segment's source and landing addresses share, after a head of at most
+//    15 bytes that brings both to that boundary: a view 4 bytes off
+//    alignment copies by words, an aligned buffer by 16-byte vectors, four
+//    in flight per thread.  Each block then adds 1 to its segment's word
+//    with one release-add: gpu scope where the landing buffer is on the
+//    source's card, system scope only where it is on a peer card.  A
+//    segment whose destination reads the landing buffer on the store's own
+//    stream has no word: stream order already publishes it.
+//  * ring_wait: one warp on a destination stream; lane k acquires word k
+//    until it reaches its target (the word's count of blocks after this
+//    hop), backing off with __nanosleep.  The spin is bounded by the global
+//    timer: past the limit it traps, so a hang becomes a launch error
+//    instead of a stuck process.
 //
-// A flag word is never reset: epochs only grow, so a reset cannot race with
-// the next hop's store.  Each (hop kind, destination, source) has its own
-// word, written by one source on one stream, so its epochs arrive in order;
-// one hop's signal never releases another hop's wait (the counterpart of
-// JAX's separate collective_ids).
+// A word is never reset: counts only grow (the comparison is the signed
+// 32-bit difference, so it survives the wrap at 2^32), and each word is
+// written by one source on one stream, so no reset can race a hop and one
+// hop kind never releases another's wait (the counterpart of JAX's
+// separate collective_ids).
 //
-// Bound: device memory (the buffer is read once and written once); at the
-// halo's sizes (a few MB per hop) the launches dominate.
+// Bound: device memory (each buffer read once, written once).  At the
+// halo's sizes (a few MB per hop) the fixed costs dominate, so the design
+// cuts them: one launch per card instead of one per rank, no ticket, no
+// system fence on one card, and no wait kernel where stream order suffices.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // 16-byte vectors in flight per thread
+constexpr int kMaxSegments = 32;
+constexpr int kMaxWaits = 32;  // one lane each
+constexpr unsigned kMaxSleepNs = 256;
+
+// the launch tables: global, since the C entry points take them
+struct Segment {
+  const unsigned char* src;
+  unsigned char* dst;
+  unsigned* word;  // null: no completion signal
+  int sys;         // the landing buffer is on a peer card
+  int pad;
+};
+
+struct StoreArgs {
+  Segment seg[kMaxSegments];
+  long long nbytes;  // per segment
+  int nseg;
+  int blocks;  // per segment
+};
+
+struct WaitEntry {
+  const unsigned* word;
+  unsigned target;
+  int sys;  // the word's source is on a peer card
+};
+
+struct WaitArgs {
+  WaitEntry entry[kMaxWaits];
+  int n;
+  int pad;
+  unsigned long long timeout_ns;
+};
+
 namespace {
 
-__device__ __forceinline__ void store_release_sys(unsigned* p, unsigned v) {
-  asm volatile("st.release.sys.global.u32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
+__device__ __forceinline__ void add_release(unsigned* p, int sys) {
+  if (sys)
+    asm volatile("red.release.sys.global.add.u32 [%0], 1;" ::"l"(p)
+                 : "memory");
+  else
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(p)
+                 : "memory");
 }
 
-__device__ __forceinline__ unsigned load_acquire_sys(const unsigned* p) {
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p, int sys) {
   unsigned v;
-  asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
+  if (sys)
+    asm volatile("ld.acquire.sys.global.u32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
+  else
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                 : "=r"(v)
+                 : "l"(p)
+                 : "memory");
   return v;
 }
 
@@ -54,47 +108,79 @@ __device__ __forceinline__ unsigned long long global_ns() {
   return t;
 }
 
-__global__ void ring_store_kernel(const unsigned char* __restrict__ src,
-                                  unsigned char* __restrict__ dst,
-                                  long long nbytes, int vec,
-                                  unsigned* __restrict__ tickets,
-                                  unsigned* __restrict__ flag,
-                                  unsigned epoch) {
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long step = (long long)gridDim.x * blockDim.x;
-  long long tail = 0;
-  if (vec) {
-    const long long n16 = nbytes >> 4;
-    const int4* s = reinterpret_cast<const int4*>(src);
-    int4* d = reinterpret_cast<int4*>(dst);
-    for (long long i = tid; i < n16; i += step) d[i] = s[i];
-    tail = n16 << 4;
+// units [lo, hi) of s into d, kUnroll loads in flight per thread, each
+// warp on consecutive units
+template <typename T>
+__device__ __forceinline__ void copy_units(const T* __restrict__ s,
+                                           T* __restrict__ d, long long lo,
+                                           long long hi) {
+  long long i = lo + threadIdx.x;
+  for (; i + (kUnroll - 1) * kThreads < hi; i += kUnroll * kThreads) {
+    T v[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) v[k] = s[i + k * kThreads];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) d[i + k * kThreads] = v[k];
   }
-  for (long long i = tail + tid; i < nbytes; i += step) dst[i] = src[i];
-  // the barrier orders the block's stores before its first thread's fence,
-  // which publishes them at system scope (fences are cumulative)
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    const unsigned ticket = atomicAdd(tickets, 1u);
-    if (ticket == gridDim.x - 1) {
-      // every block has fenced its stores: publish the hop
-      *tickets = 0;  // the next launch on this stream starts after us
-      __threadfence_system();
-      store_release_sys(flag, epoch);
-    }
-  }
+  for (; i < hi; i += kThreads) d[i] = s[i];
 }
 
-__global__ void ring_wait_kernel(const unsigned* __restrict__ flag,
-                                 unsigned epoch,
-                                 unsigned long long timeout_ns) {
+// chunk `chunk` of `chunks` of one segment, in units of T; src and dst
+// agree modulo sizeof(T)
+template <typename T>
+__device__ __forceinline__ void copy_chunk(const unsigned char* src,
+                                           unsigned char* dst, long long nbytes,
+                                           int chunk, int chunks) {
+  constexpr int W = sizeof(T);
+  long long head = (W - (long long)((uintptr_t)dst % W)) % W;
+  if (head > nbytes) head = nbytes;
+  const long long n = (nbytes - head) / W;
+  if (chunk == 0) {  // the ragged bytes at both ends
+    for (long long t = threadIdx.x; t < head; t += kThreads) dst[t] = src[t];
+    for (long long t = head + n * W + threadIdx.x; t < nbytes; t += kThreads)
+      dst[t] = src[t];
+  }
+  // chunk starts on 128-byte steps of the unit grid
+  constexpr long long kStep = 128 / W;
+  const long long per = ((n + chunks - 1) / chunks + kStep - 1) / kStep * kStep;
+  const long long lo = min(n, (long long)chunk * per);
+  const long long hi = min(n, lo + per);
+  copy_units(reinterpret_cast<const T*>(src + head),
+             reinterpret_cast<T*>(dst + head), lo, hi);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    ring_store_kernel(const __grid_constant__ StoreArgs a) {
+  const int s = blockIdx.x / a.blocks;
+  const int chunk = blockIdx.x - s * a.blocks;
+  const Segment& g = a.seg[s];
+  const unsigned rel = (unsigned)(((uintptr_t)g.src ^ (uintptr_t)g.dst) & 15);
+  if (rel == 0)
+    copy_chunk<int4>(g.src, g.dst, a.nbytes, chunk, a.blocks);
+  else if ((rel & 7) == 0)
+    copy_chunk<uint2>(g.src, g.dst, a.nbytes, chunk, a.blocks);
+  else if ((rel & 3) == 0)
+    copy_chunk<unsigned>(g.src, g.dst, a.nbytes, chunk, a.blocks);
+  else if ((rel & 1) == 0)
+    copy_chunk<unsigned short>(g.src, g.dst, a.nbytes, chunk, a.blocks);
+  else
+    copy_chunk<unsigned char>(g.src, g.dst, a.nbytes, chunk, a.blocks);
+  if (g.word == nullptr) return;
+  // the barrier orders every thread's stores before thread 0's release,
+  // and release is cumulative: the add publishes the whole block's chunk
+  __syncthreads();
+  if (threadIdx.x == 0) add_release(g.word, g.sys);
+}
+
+__global__ void ring_wait_kernel(const __grid_constant__ WaitArgs a) {
+  if ((int)threadIdx.x >= a.n) return;
+  const WaitEntry& e = a.entry[threadIdx.x];
   const unsigned long long t0 = global_ns();
   unsigned sleep_ns = 32;
-  while ((int)(load_acquire_sys(flag) - epoch) < 0) {
-    if (global_ns() - t0 > timeout_ns) __trap();
+  while ((int)(load_acquire(e.word, e.sys) - e.target) < 0) {
+    if (global_ns() - t0 > a.timeout_ns) __trap();
     __nanosleep(sleep_ns);
-    if (sleep_ns < 2048) sleep_ns <<= 1;
+    if (sleep_ns < kMaxSleepNs) sleep_ns <<= 1;
   }
 }
 
@@ -112,43 +198,32 @@ struct DeviceScope {
   }
 };
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 1024;
-
 }  // namespace
 
-// Copy nbytes from src (on `device`) into dst (on `device` or a peer), then
-// release `epoch` into *flag.  tickets: a zeroed word on `device`, owned by
-// this (source rank, hop kind).
-extern "C" int ring_store(const void* src, void* dst, long long nbytes,
-                          unsigned* tickets, unsigned* flag, unsigned epoch,
-                          int device, void* stream) {
-  if (nbytes < 0 || !tickets || !flag || (nbytes && (!src || !dst)))
+// One store launch on `stream` (on `device`): every segment of `a`.
+extern "C" int ring_store(const StoreArgs* a, int device, void* stream) {
+  if (!a || a->nseg < 1 || a->nseg > kMaxSegments || a->blocks < 1 ||
+      a->nbytes < 0)
     return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < a->nseg; ++s)
+    if (a->nbytes && (!a->seg[s].src || !a->seg[s].dst))
+      return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  const int vec = ((uintptr_t)src % 16 == 0) && ((uintptr_t)dst % 16 == 0);
-  const long long units = vec ? (nbytes >> 4) + (nbytes & 15) : nbytes;
-  long long blocks = (units + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  ring_store_kernel<<<(unsigned)blocks, kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(src), static_cast<unsigned char*>(dst),
-      nbytes, vec, tickets, flag, epoch);
+  ring_store_kernel<<<(unsigned)(a->nseg * a->blocks), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
 
-// Block `stream` (on `device`) until *flag reaches `epoch`; trap after
-// timeout_ns nanoseconds.
-extern "C" int ring_wait(const unsigned* flag, unsigned epoch,
-                         unsigned long long timeout_ns, int device,
-                         void* stream) {
-  if (!flag) return (int)cudaErrorInvalidValue;
+// One wait launch on `stream` (on `device`): block it until every word of
+// `a` reaches its target; trap after a->timeout_ns nanoseconds.
+extern "C" int ring_wait(const WaitArgs* a, int device, void* stream) {
+  if (!a || a->n < 1 || a->n > kMaxWaits) return (int)cudaErrorInvalidValue;
+  for (int k = 0; k < a->n; ++k)
+    if (!a->entry[k].word) return (int)cudaErrorInvalidValue;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
-  ring_wait_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
-      flag, epoch, timeout_ns);
+  ring_wait_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(*a);
   return (int)cudaGetLastError();
 }
 
