@@ -12,6 +12,9 @@ printing any result):
    shapes of a 4096^2 slide through the legacy net (T 1849 tiles, K 3,
    P 128, float32), and time kernel, plain version and a one-call
    PyTorch yardstick (``torch.softmax``, ``torch.nn.functional.fold``);
+   K2's device time per launch by the profiler beside its events time, and
+   K2 under ``torch.cuda.set_sync_debug_mode("error")`` (no call of it may
+   synchronise the host with the card);
 3. run the CLI on ``models/blobDemo`` (real TF1 weights) over a seeded
    blob slide: three output pages, blobs inside > 0.8, background < 0.3,
    both main-path kernels launched; and the engine on the card against
@@ -33,17 +36,20 @@ printing any result):
    off 16-byte alignment, one launch each per hop; timed by CUDA events
    and by the profiler per launch beside the plain copy, ``Tensor.copy_``
    and (for K4b) ``Stream.wait_event``, with the host's issue time per
-   call; then ``runtime.halo.spatial_infer`` over a seeded 4096^2 plane
+   call and the cost of K4b's current-stream check; then
+   ``runtime.halo.spatial_infer`` over a seeded 4096^2 plane
    on 4 ranks of the card with every seam
    implementation (the counters set to 0 before each), against each other
    and against ``InferenceEngine.infer``, with K2's fold-only entry timed
-   at a band's shapes;
+   at a band's shapes (events and profiler, and without synchronising);
 6. streaming: a seeded 8192^2 uint16 slide (67 Mpx) through
    ``StreamingEngine.infer`` against ``InferenceEngine.infer_slide``,
    ``infer_sharded`` over 4 ranks of the card (ring seams) against
    ``infer``, and the CLI's ``--engine auto`` and ``--engine sharded`` on
-   a TIFF of it, with Mpx/s,
-   and K2's stripe entry timed at a stripe's shapes;
+   a TIFF of it, with Mpx/s and the device's busy and idle share over one
+   warm ``infer`` (profiler), one ``StreamingEngine._stripe`` call and K2's
+   stripe entry without synchronising, and K2's stripe entry timed at a
+   stripe's shapes (events and profiler);
 7. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and the ``{"ok": true, ...}`` line last.
 """
@@ -116,9 +122,53 @@ def kernel_device_ms(fn, names, iters: int = 20) -> dict:
     for n in names:
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == DeviceType.CUDA and n in e.name]
-        out[n] = (sum(us) / 1e3 / iters if us else float("nan"),
-                  len(us) / iters)
+        # launches per call, rounded: the profiler may drop the odd event
+        # of a session; the time per call is then the mean launch's times
+        # the launches per call
+        per_call = round(len(us) / iters)
+        out[n] = (sum(us) / len(us) * per_call / 1e3 if us
+                  else float("nan"), per_call)
     return out
+
+
+def no_sync(fn, label: str):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: any
+    call in it that synchronises the host with the card raises."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[sync] {label}: no host synchronisation "
+        "(set_sync_debug_mode('error'))")
+    return res
+
+
+def fold_device_ms(fn, label: str) -> float:
+    """K2's own device time per launch (profiler); one launch per call."""
+    ms, n = kernel_device_ms(fn, ("fold_region",))["fold_region"]
+    check(n == 1, f"{label}: expected one fold_region launch per call, the "
+                  f"profiler saw {n}")
+    return ms
+
+
+def busy_ms(prof) -> float:
+    """Device busy time of a profile: the union of its device intervals
+    (kernels and copies on every stream), in ms."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in
+                   prof.events() if e.device_type == DeviceType.CUDA)
+    total, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple:
@@ -284,6 +334,11 @@ def phase_kernels(dev) -> dict:
 
     k2_ms = cuda_ms(lambda: kernels.blend_fold_epilogue(weighted, window,
                                                         grid))
+    k2_dev_ms = fold_device_ms(
+        lambda: kernels.blend_fold_epilogue(weighted, window, grid),
+        "K2 slide epilogue")
+    no_sync(lambda: kernels.blend_fold_epilogue(weighted, window, grid),
+            "K2 slide epilogue")
     k2_plain_ms = cuda_ms(lambda: kernels.blend_fold_epilogue_plain(
         weighted, window, grid), iters=3)
     cols = weighted.reshape(t, k * p * p).t().unsqueeze(0).contiguous()
@@ -304,6 +359,8 @@ def phase_kernels(dev) -> dict:
     ]:
         log(f"[{name}] kernel {ms:.4f} ms | plain {pl:.4f} ms | library "
             f"{lib:.4f} ms | bound {bd:.4f} ms")
+    log(f"[K2b] device time per launch (profiler) {k2_dev_ms:.4f} ms, "
+        f"events {k2_ms:.4f} ms, {k2_dev_ms / k2_bound:.2f}x the bound")
     del cols, logits, k1, k1_plain, a, a_plain, weighted, b, b_plain
     torch.cuda.empty_cache()
     return {
@@ -669,6 +726,14 @@ def phase_halo(dev) -> dict:
         f"{host_ms(lambda: kernels.ring_shift_wait(landed)):.4f} ms | "
         f"Tensor.copy_ x{RANKS} {host_ms(copies):.4f} ms | Stream.wait_event "
         f"{host_ms(lambda: cur.wait_event(copied)):.4f} ms")
+    dev_idx, waits = dev.index, landed.waits
+    log(f"[halo] K4b's parts, host time per call: current-stream check by "
+        f"stream id "
+        f"{host_ms(lambda: torch._C._cuda_getCurrentStream(dev_idx)):.4f} ms"
+        f" (torch.cuda.current_stream "
+        f"{host_ms(lambda: torch.cuda.current_stream(dev_idx)):.4f} ms) | "
+        "the bare ring_wait_all call (one wait warp) "
+        f"{host_ms(lambda: waits.launch(waits.addr, waits.n)):.4f} ms")
     names = ("ring_store", "ring_wait")
     dev_k3 = kernel_device_ms(lambda: kernels.ring_shift(xs, 1, kind="output"),
                               names)
@@ -756,6 +821,9 @@ def phase_halo(dev) -> dict:
     check(strip_err <= 1e-5, f"K2 strip disagrees with its plain version: "
                              f"{strip_err}")
     strip_ms = cuda_ms(lambda: kernels.blend_fold_strip(weighted, band))
+    strip_dev_ms = fold_device_ms(
+        lambda: kernels.blend_fold_strip(weighted, band), "K2 strip")
+    no_sync(lambda: kernels.blend_fold_strip(weighted, band), "K2 strip")
     strip_plain_ms = cuda_ms(lambda: tiler.fold(t5.permute(0, 1, 3, 4, 2),
                                                 band), iters=3)
     cols = weighted.reshape(t, -1).t().unsqueeze(0).contiguous()
@@ -768,7 +836,8 @@ def phase_halo(dev) -> dict:
     log(f"[K2 strip] {tuple(weighted.shape)} -> {tuple(strip.shape)}: max "
         f"|kernel - plain| {strip_err:.3e} | kernel {strip_ms:.4f} ms | plain "
         f"{strip_plain_ms:.4f} ms | library {strip_lib_ms:.4f} ms | bound "
-        f"{strip_bound:.4f} ms")
+        f"{strip_bound:.4f} ms | device time per launch (profiler) "
+        f"{strip_dev_ms:.4f} ms, {strip_dev_ms / strip_bound:.2f}x the bound")
     del logits, weighted, cols, strip, strip_plain, outs
     torch.cuda.empty_cache()
     hop = dict(route="cuda", source="unmicst_tpu_torch/csrc/halo_ring.cu")
@@ -853,6 +922,34 @@ def phase_streaming(dev) -> dict:
     _, secs = timed(lambda: stream.infer(raw))
     log(f"[stream] StreamingEngine.infer again: {secs:.3f} s "
         f"({mpx / secs:.2f} Mpx/s)")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(lambda: stream.infer(raw))
+    busy = busy_ms(prof)
+    log(f"[stream] StreamingEngine.infer under the profiler: wall "
+        f"{wall * 1e3:.2f} ms ({mpx / wall:.2f} Mpx/s, profiler on), device "
+        f"busy {busy:.2f} ms ({busy / (wall * 1e3):.3f}), idle share "
+        f"{1 - busy / (wall * 1e3):.3f}; warm without the profiler "
+        f"{mpx / secs:.2f} Mpx/s")
+    # one stripe of the loop, its rows already on the card: no call in it
+    # may wait for the host
+    from unmicst_tpu_torch.runtime.pipeline import _to_torch
+
+    lo_hi = tuple(np.float32(v) for v in stream.global_stats(raw))
+    s1 = min(1, plan.n_stripes - 1)
+    rows_dev = _to_torch(stream._read_rows(
+        raw, (s1 * plan.S - 1) * plan.grid.sub - plan.grid.margin,
+        plan.in_rows)).to(dev)
+    stripe_args = (rows_dev, plan, s1, np.dtype(np.uint16), True, lo_hi,
+                   [0, 1, 2])
+    ref_stripe = stream._stripe(*stripe_args)
+    got_stripe = no_sync(lambda: stream._stripe(*stripe_args),
+                         f"StreamingEngine._stripe (stripe {s1})")
+    d_stripe = (got_stripe.int() - ref_stripe.int()).abs().max().item()
+    check(d_stripe <= 1, f"_stripe under the sync check is {d_stripe} "
+                         "levels from the same call before it")
     mesh = make_mesh(devices=[dev] * RANKS)
     _, first = timed(lambda: stream.infer_sharded(raw, mesh))
     kernels.reset_launch_counts()
@@ -947,6 +1044,10 @@ def phase_streaming(dev) -> dict:
     st_err = (st.int() - st_plain.int()).abs().max().item()
     check(st_err <= 1, f"K2 stripe disagrees with its plain version: {st_err}")
     st_ms = cuda_ms(lambda: kernels.blend_fold_stripe(*args, row_mask=rmask))
+    st_dev_ms = fold_device_ms(
+        lambda: kernels.blend_fold_stripe(*args, row_mask=rmask), "K2 stripe")
+    no_sync(lambda: kernels.blend_fold_stripe(*args, row_mask=rmask),
+            "K2 stripe")
     st_plain_ms = cuda_ms(lambda: kernels.fold_region_plain(
         weighted, window, band, rows, cols, [0, 1, 2], "u8", rmask), iters=3)
     flat = weighted.reshape(t, -1).t().unsqueeze(0).contiguous()
@@ -961,7 +1062,8 @@ def phase_streaming(dev) -> dict:
     log(f"[K2 stripe] {tuple(weighted.shape)} -> {tuple(st.shape)} uint8: max "
         f"|kernel - plain| {st_err} level(s) | kernel {st_ms:.4f} ms | plain "
         f"{st_plain_ms:.4f} ms | library {st_lib_ms:.4f} ms | bound "
-        f"{st_bound:.4f} ms")
+        f"{st_bound:.4f} ms | device time per launch (profiler) "
+        f"{st_dev_ms:.4f} ms, {st_dev_ms / st_bound:.2f}x the bound")
     del logits, weighted, flat, st, st_plain
     torch.cuda.empty_cache()
     return {"blend_fold_stripe": dict(

@@ -7,6 +7,11 @@ on a GPU host without it:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import importlib
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -207,27 +212,91 @@ def test_halo_and_sharded_stream_across_cards_match_cpu(cuda, impl):
         assert np.abs(have.astype(int) - want.astype(int)).max() <= 1
 
 
+# (c0, W, vector path): an odd c0 on the scalar lanes; an aligned c0 on the
+# vector path; the same with a ragged last quad (W % 4 == 2)
+_REGIONS = [(5, 90, False), (8, 88, True), (8, 90, True)]
+
+
 @pytest.mark.cuda
-def test_k2_region_entries_match_plain_on_card(cuda):
+@pytest.mark.parametrize("c0,width,vector", _REGIONS)
+@pytest.mark.parametrize("classes", [(2, 0), (2, 0, 1, 1, 0)])
+def test_k2_region_entries_match_plain_on_card(cuda, c0, width, vector,
+                                               classes):
+    """The stripe entry with row and column masks, an addend and a class
+    subset (five entries: two groups of loads), in every mode, on the
+    vector path and on the scalar lanes; the strip and the epilogue on
+    their main-path layouts (vector) and the epilogue on tiles read
+    through a strided view (x stride K: the scalar lanes)."""
+    bf = importlib.import_module("unmicst_tpu_torch.kernels.blend_fold")
     g, logits, win = _weighted_case((100, 120), 64, 8, 3, seed=4)
     x, w = torch.from_numpy(logits), torch.from_numpy(win)
-    strip = kernels.blend_fold_strip(x.to(cuda), g)
+    xc, wc = x.to(cuda), w.to(cuda)
+    plan = bf.fold_launch(40, c0, width, (g.npc * xc.stride(0),
+                                          *xc.stride()), g.sub, g.patch,
+                          [xc.data_ptr(), wc.data_ptr()])
+    assert (plan.cols == bf.VEC) == vector
+    strip = kernels.blend_fold_strip(xc, g)
     np.testing.assert_allclose(strip.cpu().numpy(),
                                kernels.blend_fold_strip(x, g).numpy(),
                                atol=1e-5)
+    # K1's output read through a [npr, npc, P, P, K] layout: x stride K
+    t5 = xc.reshape(g.npr, g.npc, 3, 64, 64).permute(0, 1, 3, 4, 2)
+    strided = t5.contiguous().permute(0, 1, 4, 2, 3).reshape(-1, 3, 64, 64)
+    assert strided.stride(3) == 3
+    for tiles in (xc, strided):
+        got = kernels.blend_fold_epilogue(tiles, wc, g, classes=classes,
+                                          quantize=False)
+        ref = kernels.blend_fold_epilogue(x, w, g, classes=classes,
+                                          quantize=False)
+        np.testing.assert_allclose(got.cpu().numpy(), ref.numpy(), atol=1e-5)
     rmask = torch.tensor([0.0] + [1.0] * (g.npr - 1))
     cmask = torch.tensor([1.0] * (g.npc - 1) + [0.0])
-    add = torch.rand(40, 20, 3)
-    kw = dict(row_mask=rmask, col_mask=cmask, classes=(2, 0), addend=add)
+    add = torch.rand(40, 20, len(classes) + 1)
+    kw = dict(row_mask=rmask, col_mask=cmask, classes=classes, addend=add)
     for mode in ("u8", "f32", "raw"):
-        ref = kernels.blend_fold_stripe(x, w, g, (30, 40), (5, 90), mode=mode,
-                                        **kw)
+        ref = kernels.blend_fold_stripe(x, w, g, (30, 40), (c0, width),
+                                        mode=mode, **kw)
         got = kernels.blend_fold_stripe(
-            x.to(cuda), w.to(cuda), g, (30, 40), (5, 90), mode=mode,
+            xc, wc, g, (30, 40), (c0, width), mode=mode,
             **{k: v.to(cuda) if torch.is_tensor(v) else v
                for k, v in kw.items()})
         diff = (got.cpu().double() - ref.double()).abs().max().item()
         assert diff <= (1 if mode == "u8" else 1e-5), (mode, diff)
+
+
+@pytest.mark.cuda
+def test_k2_and_a_stripe_never_synchronise(cuda):
+    """K2's three entries and one StreamingEngine._stripe make no call that
+    synchronises the host with the card (no copy from the host, no wait):
+    under set_sync_debug_mode("error") any such call raises."""
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine, _to_torch
+
+    g, logits, win = _weighted_case((100, 120), 64, 8, 3, seed=5)
+    x, w = torch.from_numpy(logits).to(cuda), torch.from_numpy(win).to(cuda)
+    rmask = torch.ones(g.npr, device=cuda)
+    hp, state = _small_net()
+    engine = StreamingEngine(hp, state, "legacy", 0.3, 0.2,
+                             compute_dtype=None, stripe_tile_rows=3,
+                             device=cuda)
+    raw = (np.random.RandomState(2).rand(300, 230) * 60000).astype(np.uint16)
+    plan = engine._plan(*raw.shape)
+    rows = _to_torch(engine._read_rows(raw, (plan.S - 1) * plan.grid.sub
+                                       - plan.grid.margin, plan.in_rows))
+    args = (rows.to(cuda), plan, 1, np.dtype(np.uint16), True,
+            (np.float32(raw.min()), np.float32(raw.max())), [2, 0, 1])
+    want = engine._stripe(*args)  # the first call builds the model
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.blend_fold_epilogue(x, w, g)
+        kernels.blend_fold_strip(x, g)
+        kernels.blend_fold_stripe(x, w, g, (8, g.height), (8, g.width),
+                                  row_mask=rmask, classes=(1,))
+        got = engine._stripe(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.abs(got.cpu().numpy().astype(int)
+                  - want.cpu().numpy().astype(int)).max() <= 1
 
 
 def _small_net(seed=0):
@@ -277,3 +346,59 @@ def test_streaming_on_card_matches_cpu(cuda):
                 on[cuda].infer_sharded(raw, make_mesh(devices=[cuda] * 3))):
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
     assert kernels.launch_counts()["ring_shift"] > 0  # the seams ran K3
+
+
+@pytest.mark.cuda
+def test_k4b_waits_only_on_the_planned_stream(cuda):
+    """K4b's prepared launch goes to the streams the hop was planned for:
+    redeeming the handle under another current stream raises, and on the
+    planned one it lands the hop with one wait launch."""
+    xs = _ring(4, (32, 70, 3), torch.float32, cuda, seed=11)
+    ref = kernels.ring_shift_plain(xs, 1)
+    handle = kernels.ring_shift_start(xs, 1)
+    with torch.cuda.stream(torch.cuda.Stream()):
+        with pytest.raises(RuntimeError, match="current stream changed"):
+            kernels.ring_shift_wait(handle)
+    before = kernels.ring_shift_wait.launches
+    got = kernels.ring_shift_wait(handle)
+    torch.cuda.synchronize()
+    assert kernels.ring_shift_wait.launches == before + 1
+    assert all(torch.equal(a, r) for a, r in zip(got, ref))
+
+
+_NEVER_STORED = """
+import ctypes
+import os
+import torch
+from unmicst_tpu_torch import kernels
+from unmicst_tpu_torch.kernels import halo_ring
+halo_ring.WAIT_TIMEOUT_S = 0.5
+xs = [torch.ones(32, device="cuda") for _ in range(2)]
+handle = kernels.ring_shift_start(xs, 1)
+torch.cuda.synchronize()
+never = type(handle.waits.table).from_buffer_copy(handle.waits.table)
+for launch in never:  # targets no store will ever reach
+    for k in range(launch.args.n):
+        launch.args.entry[k].target += 1000
+waits = handle.waits._replace(table=never, addr=ctypes.addressof(never))
+kernels.ring_shift_wait(handle._replace(waits=waits))
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("trapped:", e, flush=True)
+    os._exit(0)  # the context is gone: skip the interpreter's teardown
+os._exit(3)
+"""
+
+
+@pytest.mark.cuda
+def test_a_wait_whose_store_never_runs_traps(cuda):
+    """K4b's wait warp on words that never reach their targets, as if the
+    store never ran, traps after its timeout: the fault surfaces at the
+    next synchronisation instead of hanging.  In a child process, since a
+    trap ends the CUDA context."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run([sys.executable, "-c", _NEVER_STORED], cwd=repo,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "trapped" in res.stdout

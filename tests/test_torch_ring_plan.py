@@ -147,3 +147,14 @@ def test_launch_tables_match_the_cuda_structs():
     assert ctypes.sizeof(hr._WaitEntry) == 16
     assert ctypes.sizeof(hr._WaitArgs) == 16 * hr.MAX_WAITS + 16
     assert hr._WaitArgs.timeout_ns.offset == 16 * hr.MAX_WAITS + 8
+
+
+def test_wait_launch_table_matches_the_cuda_struct():
+    """K4b's prepared table goes to ring_wait_all as an array of
+    WaitLaunch: a card's WaitArgs, its stream and its device index."""
+    assert ctypes.sizeof(hr._WaitLaunch) == ctypes.sizeof(hr._WaitArgs) + 16
+    assert hr._WaitLaunch.args.offset == 0
+    assert hr._WaitLaunch.stream.offset == 16 * hr.MAX_WAITS + 16
+    assert hr._WaitLaunch.device.offset == 16 * hr.MAX_WAITS + 24
+    table = (hr._WaitLaunch * 3)()
+    assert ctypes.sizeof(table) == 3 * (16 * hr.MAX_WAITS + 32)

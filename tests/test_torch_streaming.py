@@ -161,6 +161,33 @@ def test_sharded_matches_jax_sharded_and_stream(n):
     np.testing.assert_array_equal(sub, got[1:])
 
 
+@pytest.mark.parametrize("shape,stripe_rows", [((300, 230), 3),
+                                               ((130, 70), 2), ((97, 33), 7)])
+def test_row_and_column_masks_match_jax(shape, stripe_rows):
+    """The stripe's tile-row mask and the sharded ranks' tile-column masks,
+    now made on the device, hold the values of the JAX engine's
+    ``row_ids``/``col_ids`` masks (``pipeline.py:262-263,658-661``)."""
+    from unmicst_tpu_torch.runtime.pipeline import _col_mask
+
+    engine = StreamingEngine(HParams(**_KW), {}, "legacy", 0.3, 0.2,
+                             stripe_tile_rows=stripe_rows, device="cpu")
+    plan = engine._plan(*shape)
+    for s in range(plan.n_stripes):
+        row_ids = s * plan.S - 1 + np.arange(plan.S + 1)
+        want = ((row_ids >= 0) & (row_ids < plan.grid.npr)).astype(np.float32)
+        got = engine._row_mask(plan, s, torch.device("cpu"))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+    npc = plan.grid.npc
+    for n in (1, 3, 4):
+        c_dev = -(-npc // n)
+        for d in range(n):
+            want = (d * c_dev + np.arange(c_dev) < npc).astype(np.float32)
+            got = _col_mask(npc, c_dev, d, "cpu")
+            assert got.dtype == torch.float32
+            np.testing.assert_array_equal(got.numpy(), want)
+
+
 def _stripe_jax(w, win, grid, rmask, cmask, addend, cls):
     """The JAX composition of a column-sharded stripe's tail."""
     wt = (win[None, None] * rmask[:, None, None, None]

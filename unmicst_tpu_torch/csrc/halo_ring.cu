@@ -22,11 +22,15 @@
 //    source's card, system scope only where it is on a peer card.  A
 //    segment whose destination reads the landing buffer on the store's own
 //    stream has no word: stream order already publishes it.
-//  * ring_wait: one warp on a destination stream; lane k acquires word k
-//    until it reaches its target (the word's count of blocks after this
-//    hop), backing off with __nanosleep.  The spin is bounded by the global
-//    timer: past the limit it traps, so a hang becomes a launch error
-//    instead of a stuck process.
+//  * ring_wait_kernel: one warp on a destination stream; lane k acquires
+//    word k until it reaches its target (the word's count of blocks after
+//    this hop), backing off with __nanosleep.  The spin is bounded by the
+//    global timer: past the limit it traps, so a hang becomes a launch error
+//    instead of a stuck process.  ring_wait_all issues a hop's whole table
+//    of such warps, one per destination card, in one call: the host side
+//    prepares the table when the hop starts (words, targets, each card's
+//    stream), and the call switches the current device only for a card
+//    that is not already current.
 //
 // A word is never reset: counts only grow (the comparison is the signed
 // 32-bit difference, so it survives the wrap at 2^32), and each word is
@@ -40,6 +44,8 @@
 // system fence on one card, and no wait kernel where stream order suffices.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "device_scope.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kUnroll = 4;  // 16-byte vectors in flight per thread
@@ -74,6 +80,14 @@ struct WaitArgs {
   int n;
   int pad;
   unsigned long long timeout_ns;
+};
+
+// one destination card's wait warp: its words and the stream it blocks
+struct WaitLaunch {
+  WaitArgs args;
+  void* stream;
+  int device;
+  int pad;
 };
 
 namespace {
@@ -184,20 +198,6 @@ __global__ void ring_wait_kernel(const __grid_constant__ WaitArgs a) {
   }
 }
 
-struct DeviceScope {
-  int prev = -1;
-  cudaError_t err = cudaSuccess;
-  explicit DeviceScope(int device) {
-    err = cudaGetDevice(&prev);
-    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
-  }
-  ~DeviceScope() {
-    int now = -1;
-    if (prev >= 0 && cudaGetDevice(&now) == cudaSuccess && now != prev)
-      cudaSetDevice(prev);
-  }
-};
-
 }  // namespace
 
 // One store launch on `stream` (on `device`): every segment of `a`.
@@ -215,16 +215,32 @@ extern "C" int ring_store(const StoreArgs* a, int device, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// One wait launch on `stream` (on `device`): block it until every word of
-// `a` reaches its target; trap after a->timeout_ns nanoseconds.
-extern "C" int ring_wait(const WaitArgs* a, int device, void* stream) {
-  if (!a || a->n < 1 || a->n > kMaxWaits) return (int)cudaErrorInvalidValue;
-  for (int k = 0; k < a->n; ++k)
-    if (!a->entry[k].word) return (int)cudaErrorInvalidValue;
-  DeviceScope scope(device);
-  if (scope.err != cudaSuccess) return (int)scope.err;
-  ring_wait_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(*a);
-  return (int)cudaGetLastError();
+// The n wait launches of `w`, each on its own card's stream: block it until
+// every word of its table reaches its target; trap after timeout_ns.  The
+// current device changes only for a launch on another card, and is restored.
+extern "C" int ring_wait_all(const WaitLaunch* w, int n) {
+  if (!w || n < 1) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n; ++i) {
+    const WaitArgs& a = w[i].args;
+    if (a.n < 1 || a.n > kMaxWaits) return (int)cudaErrorInvalidValue;
+    for (int k = 0; k < a.n; ++k)
+      if (!a.entry[k].word) return (int)cudaErrorInvalidValue;
+  }
+  int prev = -1;
+  cudaError_t err = cudaGetDevice(&prev);
+  int cur = prev;
+  for (int i = 0; i < n && err == cudaSuccess; ++i) {
+    if (w[i].device != cur) {
+      err = cudaSetDevice(w[i].device);
+      if (err != cudaSuccess) break;
+      cur = w[i].device;
+    }
+    ring_wait_kernel<<<1, 32, 0, static_cast<cudaStream_t>(w[i].stream)>>>(
+        w[i].args);
+    err = cudaGetLastError();
+  }
+  if (prev >= 0 && cur != prev) cudaSetDevice(prev);
+  return (int)err;
 }
 
 // Let kernels on `device` store into `peer`'s memory.

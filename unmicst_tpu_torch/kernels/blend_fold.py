@@ -22,14 +22,19 @@ The port of the TPU kernel ``exhibits/pallas/blend.py:76``
 
 All but :func:`blend_fold` launch one entry, ``blend_fold_region``.  The
 kernel reads tiles through element strides, so every layout goes in
-without a copy.  CUDA tensors run the kernel (or raise); CPU tensors the
-plain versions (``*_plain``), built on ``tiler.fold``.
+without a copy.  Its launch is planned by :func:`fold_launch`, a pure
+function of the layout (the vector path of :data:`VEC` columns per thread,
+or the scalar lanes, the block and the grid), and its class subset travels
+by value in a :data:`MAX_CLASSES`-entry table (:func:`class_table`), so a
+launch makes no copy to the card and never waits for it.  CUDA tensors run
+the kernel (or raise); CPU tensors the plain versions (``*_plain``), built
+on ``tiler.fold``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,12 +42,23 @@ from unmicst_tpu_torch.core import tiler
 from unmicst_tpu_torch.core.tiler import TileGrid
 from unmicst_tpu_torch.kernels import _build
 
+# the launch shape and limits of csrc/blend_fold.cu
+VEC = 4  # output columns per thread on the vector path (kVec)
+BLOCK = (32, 8)  # threads per block along columns and rows (kBx, kBy)
+MAX_CLASSES = 8  # entries of the class table (kMaxClasses)
+
+
+class _Classes(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("idx", ctypes.c_int * MAX_CLASSES)]
+
+
 _P, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "blend_fold_f32": [_P, _LL, _LL, _LL, _LL, _LL, _P, _P, _I, _I, _I, _I,
                        _I, _P],
-    "blend_fold_region": [_P, _LL, _LL, _LL, _LL, _LL, _P, _P, _I, _P, _P,
-                          _P, _I, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I,
+    "blend_fold_region": [_P, _LL, _LL, _LL, _LL, _LL, _P,
+                          ctypes.POINTER(_Classes), _P, _P, _P, _I, _I, _I,
+                          _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                           _P],
 }
 
@@ -118,7 +134,54 @@ def _classes(classes: Optional[Sequence[int]], k: int) -> list:
     cls = list(range(k)) if classes is None else [int(c) for c in classes]
     if not cls or any(not 0 <= c < k for c in cls):
         raise ValueError(f"classes {cls} out of range for {k} classes")
+    if len(cls) > MAX_CLASSES:
+        raise ValueError(f"K2 takes at most {MAX_CLASSES} classes, got "
+                         f"{len(cls)}")
     return cls
+
+
+def class_table(cls: Sequence[int]) -> _Classes:
+    """The kernel's class table, passed by value: the count and the
+    class indexes in output order."""
+    if not 1 <= len(cls) <= MAX_CLASSES:
+        raise ValueError(f"K2 takes 1..{MAX_CLASSES} classes, got {len(cls)}")
+    return _Classes(len(cls), (ctypes.c_int * MAX_CLASSES)(*cls))
+
+
+class FoldLaunch(NamedTuple):
+    """One ``blend_fold_region`` launch: ``cols`` output columns per
+    thread (:data:`VEC` on the vector path, 1 on the scalar lanes), the
+    ``block`` and the ``grid`` as (columns, rows), and ``tail``, the
+    columns of each row that the scalar lanes compute (on the vector path
+    the ragged last quad's, else all of them)."""
+
+    cols: int
+    block: Tuple[int, int]
+    grid: Tuple[int, int]
+    tail: int
+
+
+def fold_launch(h: int, c0: int, w: int, strides: Sequence[int], sub: int,
+                patch: int, addresses: Sequence[int]) -> FoldLaunch:
+    """The launch of the region ``[r0, r0 + h) x [c0, c0 + w)`` over
+    tiles of element ``strides`` (tile row, tile column, class, y, x).
+
+    The vector path needs x stride 1, the other strides, ``c0``, ``sub``
+    and ``patch`` multiples of :data:`VEC` (a quad of columns then never
+    straddles a tile column, and its four columns share their covering
+    tiles), and every address read 16 bytes at a time (``addresses``: the
+    tiles and the window) on a 16-byte boundary.  Elsewhere each thread
+    runs the scalar lanes for one column.  Stores widen where the output
+    address allows, which the kernel decides per quad."""
+    si, sj, sk, sy, sx = strides
+    vector = (sx == 1
+              and all(v % VEC == 0 for v in (si, sj, sk, sy, c0, sub, patch))
+              and all(a % 16 == 0 for a in addresses))
+    cols = VEC if vector else 1
+    bx, by = BLOCK
+    threads = -(-w // cols)
+    return FoldLaunch(cols, BLOCK, (-(-threads // bx), -(-h // by)),
+                      w % VEC if vector else w)
 
 
 _MODES = {"f32": 0, "u8": 1, "raw": 2}
@@ -213,20 +276,26 @@ def _fold_region(wrapper, weighted, window, grid, rows, cols, cls, mode,
     elif (tuple(out.shape) != shape or out.dtype != dtype or out.device != dev
           or not out.is_contiguous()):
         raise ValueError(f"out must be contiguous {shape} {dtype} on {dev}")
-    cls_dev = torch.tensor(cls, dtype=torch.int32).to(dev)
+    table = class_table(cls)
     st, sk, sy, sx = weighted.stride()
+    strides = (grid.npc * st, st, sk, sy, sx)
 
     def ptr(x):
         return None if x is None else x.data_ptr()
 
-    with torch.cuda.device(dev):
-        rc = _lib().blend_fold_region(
-            weighted.data_ptr(), grid.npc * st, st, sk, sy, sx, ptr(window),
-            cls_dev.data_ptr(), len(cls), ptr(row_mask), ptr(col_mask),
-            ptr(addend), 0 if addend is None else addend.shape[1], r0, c0, h,
-            w, out.data_ptr(), _MODES[mode], grid.npr, grid.npc, grid.patch,
-            grid.sub, _stream(),
-        )
+    plan = fold_launch(h, c0, w, strides, grid.sub, grid.patch,
+                       [x.data_ptr() for x in (weighted, window)
+                        if x is not None])
+    # the device and its raw stream go to the C side, which switches the
+    # current device only when it must: cheaper than torch.cuda.device
+    rc = _lib().blend_fold_region(
+        weighted.data_ptr(), *strides, ptr(window), ctypes.byref(table),
+        ptr(row_mask), ptr(col_mask), ptr(addend),
+        0 if addend is None else addend.shape[1], r0, c0, h, w,
+        out.data_ptr(), _MODES[mode], grid.npr, grid.npc, grid.patch,
+        grid.sub, plan.cols, *plan.grid, dev.index,
+        torch._C._cuda_getCurrentRawStream(dev.index),
+    )
     if rc:
         raise RuntimeError(f"{wrapper.__name__} launch failed: cudaError {rc}")
     wrapper.launches += 1

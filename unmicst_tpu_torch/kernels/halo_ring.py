@@ -12,8 +12,8 @@ CUDA source: ``unmicst_tpu_torch/csrc/halo_ring.cu``.
 * :func:`ring_shift_start` (K4a) issues the stores on a side stream per
   source card, after the producer of each buffer; it returns a handle.
 * :func:`ring_shift_wait` (K4b) issues the waits on the destination cards'
-  current streams and returns the landing buffers.  Work issued between
-  the two calls overlaps the hop.
+  current streams, the ones the hop was planned for, and returns the
+  landing buffers.  Work issued between the two calls overlaps the hop.
 
 A hop is planned by :func:`hop_plan`, a pure function of the ranks' cards
 and streams: ONE store launch per source card (split above
@@ -21,7 +21,9 @@ and streams: ONE store launch per source card (split above
 wait launch per destination card, covering the segments whose landing
 buffer is read on another stream than the one that stores it.  Where the
 two streams are one (K3 with its ranks on one card), stream order
-publishes the landing buffer and no wait is launched.
+publishes the landing buffer and no wait is launched.  A hop's wait
+launches are prepared when its stores are issued (a table of words,
+targets, cards and streams) and go out in one call, ``ring_wait_all``.
 
 Ordering: in JAX an entry barrier keeps a chip from writing a landing
 buffer its neighbour has not allocated yet.  In one process every landing
@@ -49,7 +51,8 @@ which does the whole hop at start, as JAX's interpret mode does).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Hashable, List, NamedTuple, Sequence, Tuple
+from typing import (Callable, Dict, Hashable, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import torch
 
@@ -90,9 +93,14 @@ class _WaitArgs(ctypes.Structure):
                 ("pad", ctypes.c_int), ("timeout_ns", ctypes.c_ulonglong)]
 
 
+class _WaitLaunch(ctypes.Structure):
+    _fields_ = [("args", _WaitArgs), ("stream", ctypes.c_void_p),
+                ("device", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
 _SIGNATURES = {
     "ring_store": [ctypes.POINTER(_StoreArgs), ctypes.c_int, ctypes.c_void_p],
-    "ring_wait": [ctypes.POINTER(_WaitArgs), ctypes.c_int, ctypes.c_void_p],
+    "ring_wait_all": [ctypes.c_void_p, ctypes.c_int],  # WaitLaunch[n]
     "ring_enable_peer": [ctypes.c_int, ctypes.c_int],
 }
 
@@ -138,7 +146,7 @@ class StoreLaunch(NamedTuple):
 
 
 class WaitLaunch(NamedTuple):
-    """One ``ring_wait`` launch on a destination card's stream: the words
+    """One wait launch on a destination card's stream: the words
     ``(dst rank, src rank)`` it acquires."""
 
     card: Hashable
@@ -228,10 +236,12 @@ def enable_peer_access(devices: Sequence[torch.device]) -> None:
 class _Program:
     """One hop plan turned into launch arguments that stay fixed from hop
     to hop: the store tables with their words (the buffer pointers are
-    filled per hop), the wait tables' words, and the landing slots."""
+    filled per hop), the wait table with its words, cards and streams (the
+    targets are filled per hop), and the landing slots.  ``dst``: each
+    card's current stream, where its waits go."""
 
     def __init__(self, ring: "_Ring", plan: HopPlan, kind: int,
-                 x0: torch.Tensor):
+                 x0: torch.Tensor, dst: Dict[int, torch.cuda.Stream]):
         cards = ring.cards
         nbytes, size = x0.numel() * x0.element_size(), x0.element_size()
         self.plan = plan
@@ -267,15 +277,21 @@ class _Program:
                     keys[(i, j)] = ((kind, i, j), launch.blocks)
                 fill.append((seg, j, i))
             self.stores.append((launch.card, args, fill))
-        self.waits = []  # (card, args template, [word key, blocks])
-        for launch in plan.waits:
-            args = _WaitArgs(n=len(launch.words),
-                             timeout_ns=int(WAIT_TIMEOUT_S * 1e9))
+        # the wait table, and per launch its words' (key, blocks)
+        self.wait_table = (_WaitLaunch * len(plan.waits))()
+        self.wait_keys = []
+        for w, launch in zip(self.wait_table, plan.waits):
+            w.args.n = len(launch.words)
+            w.args.timeout_ns = int(WAIT_TIMEOUT_S * 1e9)
             for k, (i, j) in enumerate(launch.words):
-                args.entry[k].word = ring.word(kind, i, j)
-                args.entry[k].sys = int(cards[i] != cards[j])
-            self.waits.append((launch.card, args,
-                               [keys[w] for w in launch.words]))
+                w.args.entry[k].word = ring.word(kind, i, j)
+                w.args.entry[k].sys = int(cards[i] != cards[j])
+            w.stream = dst[launch.card].cuda_stream
+            w.device = launch.card
+            self.wait_keys.append([keys[wd] for wd in launch.words])
+        # (card, stream id) of the streams the waits were planned for
+        self.wait_streams = tuple((c, dst[c].stream_id) for c in
+                                  dict.fromkeys(w.card for w in plan.waits))
 
 
 class _Ring:
@@ -366,20 +382,33 @@ def ring_shift_plain(xs: Sequence[torch.Tensor], shift: int = 1
     return [xs[(i - shift) % n].to(xs[i].device, copy=True) for i in range(n)]
 
 
+class _Waits(NamedTuple):
+    """A hop's prepared wait launches: the table (kept alive here), its
+    address and length as ``ring_wait_all`` takes them, that entry point,
+    and the (card, stream id) pairs of the streams the table blocks."""
+
+    table: ctypes.Array
+    addr: int
+    n: int
+    launch: Callable
+    streams: Tuple[Tuple[int, int], ...]
+
+
 class RingShiftHandle(NamedTuple):
-    """A hop in flight: the landing buffers and the wait launches that
-    redeem them, ``(card, wait arguments)``."""
+    """A hop in flight: the landing buffers and the prepared wait launches
+    that redeem them (None where stream order suffices)."""
 
     bufs: List[torch.Tensor]
     kind: int
     shift: int
-    waits: tuple
+    waits: Optional[_Waits]
     plain: bool
 
 
 def _stores(xs, shift: int, kind: int, side: bool):
     """Allocate every landing buffer, then issue every store launch;
-    returns (landing buffers, store launches, wait launches)."""
+    returns (landing buffers, store launches, the prepared waits or
+    None)."""
     x0 = xs[0]
     cards = tuple(x.get_device() for x in xs)
     ring = _ring(cards)
@@ -394,7 +423,7 @@ def _stores(xs, shift: int, kind: int, side: bool):
     if prog is None:
         prog = ring.programs[key] = _Program(
             ring, hop_plan(cards, shift, nbytes, store_ids, cur_ids), kind,
-            x0)
+            x0, cur)
     # the landing slots of each card: one allocation on its current stream
     size = x0.element_size()
     slabs = {c: torch.empty(n, dtype=x0.dtype, device=c)
@@ -419,21 +448,23 @@ def _stores(xs, shift: int, kind: int, side: bool):
             x.record_stream(store[x.get_device()])
         for c, d in prog.crossing:
             slabs[d].record_stream(store[c])
-    waits = []
-    for c, template, keys in prog.waits:
-        args = _WaitArgs.from_buffer_copy(template)
+    if not prog.wait_keys:
+        return bufs, len(prog.stores), None
+    table = type(prog.wait_table).from_buffer_copy(prog.wait_table)
+    for w, keys in zip(table, prog.wait_keys):
         for k, (word, blocks) in enumerate(keys):
-            args.entry[k].target = ring.counters.advance(word, blocks)
-        waits.append((c, args))
-    return bufs, len(prog.stores), tuple(waits)
+            w.args.entry[k].target = ring.counters.advance(word, blocks)
+    return bufs, len(prog.stores), _Waits(
+        table, ctypes.addressof(table), len(table), lib.ring_wait_all,
+        prog.wait_streams)
 
 
-def _waits(waits) -> int:
-    lib = _lib()
-    for c, args in waits:
-        _raise(lib.ring_wait(args, c, torch.cuda.current_stream(c).cuda_stream),
-               "ring_wait launch")
-    return len(waits)
+def _waits(waits: Optional[_Waits]) -> int:
+    """Issue a hop's prepared wait launches in one call; their count."""
+    if waits is None:
+        return 0
+    _raise(waits.launch(waits.addr, waits.n), "ring_wait_all launch")
+    return waits.n
 
 
 def ring_shift(xs: Sequence[torch.Tensor], shift: int = 1, *,
@@ -459,7 +490,7 @@ def ring_shift_start(xs: Sequence[torch.Tensor], shift: int = 1, *,
     :func:`ring_shift_wait`.  On the CPU the whole hop runs here."""
     k = _kind(kind)
     if not _check(xs, shift):
-        return RingShiftHandle(ring_shift_plain(xs, shift), k, shift, (),
+        return RingShiftHandle(ring_shift_plain(xs, shift), k, shift, None,
                                True)
     bufs, n_stores, waits = _stores(xs, shift, k, side=True)
     ring_shift_start.launches += n_stores
@@ -471,9 +502,18 @@ ring_shift_start.launches = 0
 
 def ring_shift_wait(handle: RingShiftHandle) -> List[torch.Tensor]:
     """K4b: make each destination card's current stream wait until its
-    landing buffers are filled; returns the landing buffers."""
+    landing buffers are filled; returns the landing buffers.  The current
+    streams must be the ones :func:`ring_shift_start` saw."""
     if handle.plain:
         return handle.bufs
+    if handle.waits is not None:
+        for c, sid in handle.waits.streams:
+            # the stream id alone: cheaper than torch.cuda.current_stream
+            if torch._C._cuda_getCurrentStream(c)[0] != sid:
+                raise RuntimeError(
+                    f"ring_shift_wait: cuda:{c}'s current stream changed "
+                    "since ring_shift_start; the waits go to the stream the "
+                    "hop was planned for")
     ring_shift_wait.launches += _waits(handle.waits)
     return handle.bufs
 

@@ -131,6 +131,13 @@ def _raw_float(x: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
     return x.float()
 
 
+def _col_mask(npc: int, c_dev: int, d: int, device) -> torch.Tensor:
+    """1 for rank ``d``'s tile columns that exist (columns ``d * c_dev``
+    .. ``(d + 1) * c_dev - 1`` of the slide's tile grid), 0 for the phantom
+    ones; made on ``device``."""
+    return (torch.arange(c_dev, device=device) + d * c_dev < npc).float()
+
+
 @dataclasses.dataclass
 class _StripePlan:
     height: int
@@ -289,8 +296,9 @@ class StreamingEngine:
         included) -> ``[C, rows, cols]`` net input: the rescale (or
         im2double), mean/std, the compute dtype, broadcast over channels."""
         if rescale:
-            lo = torch.tensor(rng[0], device=x.device)
-            hi = torch.tensor(rng[1], device=x.device)
+            # made on the device: no copy from the host, no wait for it
+            lo = torch.full((), float(rng[0]), device=x.device)
+            hi = torch.full((), float(rng[1]), device=x.device)
             x = torch.minimum(torch.maximum(x, lo), hi)
             x = (x - lo) / torch.clamp(hi - lo, min=1e-12) * 0.983
         else:
@@ -302,9 +310,10 @@ class StreamingEngine:
 
     def _row_mask(self, plan: _StripePlan, s: int, device) -> torch.Tensor:
         """1 for the stripe's tile rows that exist (rows s*S-1 .. (s+1)*S-1
-        of the slide's tile grid), 0 for the phantom ones."""
-        ids = torch.arange(plan.S + 1) + (s * plan.S - 1)
-        return ((ids >= 0) & (ids < plan.grid.npr)).float().to(device)
+        of the slide's tile grid), 0 for the phantom ones; made on
+        ``device``, so the stripe never waits for a copy from the host."""
+        ids = torch.arange(plan.S + 1, device=device) + (s * plan.S - 1)
+        return ((ids >= 0) & (ids < plan.grid.npr)).float()
 
     def _stripe(self, raw: torch.Tensor, plan: _StripePlan, s: int,
                 dtype: np.dtype, rescale: bool, rng, cls,
@@ -455,8 +464,7 @@ class StreamingEngine:
         body_w = n_dev * cw
         dev_grid = tiler.make_grid((plan.S + 1) * sub, cw, self.hp.im_size,
                                    self.hp.margin)
-        cmasks = [(torch.arange(c_dev) + d * c_dev < npc).float().to(dev)
-                  for d, dev in enumerate(ranks)]
+        cmasks = [_col_mask(npc, c_dev, d, dev) for d, dev in enumerate(ranks)]
         if out is None:
             out = np.empty((len(cls), plan.height, plan.width), np.uint8)
         for s in range(plan.n_stripes):
