@@ -50,7 +50,25 @@ printing any result):
    warm ``infer`` (profiler), one ``StreamingEngine._stripe`` call and K2's
    stripe entry without synchronising, and K2's stripe entry timed at a
    stripe's shapes (events and profiler);
-7. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+7. duo and scale: the full-width duo net (nucleiDAPILAMIN's
+   hyper-parameters, seeded weights) over a seeded 4096^2 two-channel
+   uint16 slide through ``InferenceEngine.infer_slide_stack``, float32 and
+   bfloat16, with Mpx/s (median of 3), peak device memory, the launch
+   counters (set to 0 just before the float32 call), one profiled call's
+   idle share, and the card against the CPU on 256^2; the legacy net at
+   4096^2 through ``infer_slide`` at ``scaling_factor`` 0.5 and 0.65
+   (Mpx/s on raw pixels), K2's epilogue on the 0.65 grid (2662 columns,
+   its ragged scalar lanes) against its plain version (0 levels), and the
+   card against the CPU at 0.65; ``StreamingEngine.infer_stack`` and
+   ``infer_sharded_stack`` (4 ranks of the card) on a seeded 8192^2 duo
+   slide against ``infer_slide_stack``, with one stack stripe checked for
+   host synchronisation; ``StreamingEngine.infer`` on a
+   ``ResampledSource(tiff, 0.5)`` of the 4096^2 slide, upscaled with
+   ``upscale_pm``, against ``infer_slide(scaling_factor=0.5)``; the CLI's
+   ``--tool unmicst-duo --channel 1 2`` (the ``oracle_duo`` TF1 weights in
+   a temporary model directory) and ``--scalingFactor 0.5`` (blobDemo);
+   every number beside the card's name and power limit;
+8. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and the ``{"ok": true, ...}`` line last.
 """
 
@@ -58,6 +76,8 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -74,6 +94,21 @@ SLIDE = 4096  # the full-width legacy slide side
 BIG = 8192  # the streaming phase's slide side (67 Mpx, above the 64 Mpx line)
 RANKS = 4  # ranks sharing the card in the multi-rank phases
 SEED = 0
+
+
+_CARD = []
+
+
+def card_label() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    if not _CARD:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        _CARD.append(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+                     else f"nvidia-smi unavailable (rc {smi.returncode})")
+    return _CARD[0]
 
 
 def check(cond, msg: str) -> None:
@@ -113,15 +148,22 @@ def kernel_device_ms(fn, names, iters: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        # a session may come back without any device event (CUPTI dropped
+        # them all); the kernels still ran (their counters say so), so
+        # profile again rather than read "no launches"
+        log("[profile] the profiler saw no device event; profiling again")
     out = {}
     for n in names:
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA and n in e.name]
+        us = [e.time_range.elapsed_us() for e in events if n in e.name]
         # launches per call, rounded: the profiler may drop the odd event
         # of a session; the time per call is then the mean launch's times
         # the launches per call
@@ -517,7 +559,7 @@ def phase_legacy(dev) -> dict:
     check(tile_bytes(hp) >= per_tile,
           "tile_bytes underestimates the memory one tile takes")
     del half
-    profile_slide(f32, raw, "float32")
+    profile_slide(lambda: f32.infer_slide(raw), "float32")
     bf16 = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
                            compute_dtype=torch.bfloat16, device=dev)
     maps_bf = bf16.infer_slide(raw)
@@ -528,7 +570,7 @@ def phase_legacy(dev) -> dict:
         f"memory {peak(bf16) / 2**30:.2f} GiB; vs float32 max {d.max()} "
         f"levels, {(d > 0).mean():.3e} of pixels differ, {(d > 1).mean():.3e}"
         " by >1")
-    profile_slide(bf16, raw, "bfloat16")
+    profile_slide(lambda: bf16.infer_slide(raw), "bfloat16")
 
     # the same weights on the CPU (plain versions) over a small slide
     small = raw[:300, :300]
@@ -560,10 +602,10 @@ def phase_legacy(dev) -> dict:
     return launches
 
 
-def profile_slide(engine, raw, label: str) -> None:
-    """Where one slide's device time goes: torch.profiler over one
-    ``infer_slide``, device kernels summed by name, and the device's busy
-    and idle shares of the call's wall time (profiler on)."""
+def profile_slide(run, label: str) -> None:
+    """Where one slide's device time goes: torch.profiler over one call of
+    ``run`` (a whole-slide call), device kernels summed by name, and the
+    device's busy and idle shares of the call's wall time (profiler on)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -572,7 +614,7 @@ def profile_slide(engine, raw, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.infer_slide(raw)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -941,9 +983,9 @@ def phase_streaming(dev) -> dict:
     s1 = min(1, plan.n_stripes - 1)
     rows_dev = _to_torch(stream._read_rows(
         raw, (s1 * plan.S - 1) * plan.grid.sub - plan.grid.margin,
-        plan.in_rows)).to(dev)
-    stripe_args = (rows_dev, plan, s1, np.dtype(np.uint16), True, lo_hi,
-                   [0, 1, 2])
+        plan.in_rows))[None].to(dev)
+    stripe_args = (rows_dev, plan, s1, np.dtype(np.uint16), True,
+                   tuple(np.float32([v]) for v in lo_hi), [0, 1, 2])
     ref_stripe = stream._stripe(*stripe_args)
     got_stripe = no_sync(lambda: stream._stripe(*stripe_args),
                          f"StreamingEngine._stripe (stripe {s1})")
@@ -1073,6 +1115,342 @@ def phase_streaming(dev) -> dict:
         library_ms=st_lib_ms, launches=launches["blend_fold_stripe"])}
 
 
+DUO_MEAN, DUO_STD = 0.18, 0.17
+
+
+def duo_hp():
+    """nucleiDAPILAMIN's published hyper-parameters (SURVEY.md section
+    2.4): the duo tool's net, two input channels (DNA and lamin)."""
+    from unmicst_tpu_torch.core.hp import HParams
+
+    return HParams(im_size=128, n_channels=2, n_classes=3, n_out0=36,
+                   feat_maps_fact=2, down_samp_fact=2, ks=3, n_extra_convs=0,
+                   std_dev0=0.03, n_layers=5, batch_size=24)
+
+
+def wall(fn):
+    """(result, host seconds) of ``fn()``, the card drained on both ends."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def median_rate(fn, px: int, reps: int = 3) -> tuple:
+    """(Mpx/s at the median, median seconds, every time) of ``reps`` warm
+    calls of ``fn`` over ``px`` raw pixels."""
+    import numpy as np
+
+    times = [wall(fn)[1] for _ in range(reps)]
+    med = float(np.median(times))
+    return px / 1e6 / med, med, times
+
+
+def peak_bytes(fn) -> int:
+    """Peak device bytes of one ``fn()`` above what was allocated before."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def class_sum_ok(maps) -> bool:
+    """uint8 class planes of a probability partition sum to 252..255."""
+    import numpy as np
+
+    total = maps.astype(np.int32).sum(axis=0)
+    return bool(total.max() <= 255 and total.min() >= 252)
+
+
+def duo_model_dir(root: str) -> str:
+    """A nucleiDAPILAMIN model directory for the CLI: the oracle_duo TF1
+    checkpoint (tests/fixtures) with the reference's pickled sidecars
+    (``toolbox/ftools.py:32-35``), written by the standard library."""
+    fixture = os.path.join(ROOT, "tests", "fixtures", "oracle_duo")
+    d = os.path.join(root, "nucleiDAPILAMIN")
+    os.makedirs(d)
+    for f in os.listdir(fixture):
+        if f.startswith("model.ckpt"):
+            shutil.copy(os.path.join(fixture, f), d)
+    with open(os.path.join(fixture, "hp.json")) as f:
+        hp = json.load(f)
+    for name, obj in (("hp.data", hp), ("datasetMean.data", DUO_MEAN),
+                      ("datasetStDev.data", DUO_STD)):
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump(obj, f)
+    return d
+
+
+def phase_duo_scale(dev) -> None:
+    """The duo tool's net and --scalingFactor on the card: the whole
+    engine, the stack and resampled streams, and the CLI."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.core import tiler
+    from unmicst_tpu_torch.infer import InferenceEngine
+    from unmicst_tpu_torch.io import preprocess as pp
+    from unmicst_tpu_torch.io.tiff import TiffFile, TiffWriter, imread, num_pages
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine, _to_torch
+
+    card = card_label()
+    t_phase = time.perf_counter()
+
+    def seeded_planes(side, seed):
+        g = torch.Generator().manual_seed(seed)
+        return [torch.randint(0, top, (side, side), generator=g,
+                              dtype=torch.int32).numpy().astype(np.uint16)
+                for top in (65536, 30000)]
+
+    def launched(counts):
+        return {k: v for k, v in counts.items() if v}
+
+    # -- the duo net on the whole engine, 4096^2 --------------------------------
+    hp = duo_hp()
+    state = seeded_state(hp, "v2", SEED)
+    planes = seeded_planes(SLIDE, SEED + 4)
+    px = SLIDE * SLIDE
+    f32 = InferenceEngine(hp, state, "v2", DUO_MEAN, DUO_STD, device=dev)
+    _, first = wall(lambda: f32.infer_slide_stack(planes))
+    kernels.reset_launch_counts()
+    maps = f32.infer_slide_stack(planes)
+    duo_launches = kernels.launch_counts()
+    log(f"[duo] float32 first call {first:.3f}s (cuDNN autotune included), "
+        f"tile batch {f32.tile_batch}; launches of one 4096^2 call "
+        f"{launched(duo_launches)}")
+    check(maps.shape == (3, SLIDE, SLIDE) and maps.dtype == np.uint8,
+          f"duo maps {maps.shape} {maps.dtype}")
+    check(duo_launches["softmax_blend"] > 0
+          and duo_launches["blend_fold_epilogue"] == 1,
+          f"the duo slide did not run K1 and K2: {duo_launches}")
+    check(class_sum_ok(maps), "duo class planes do not sum to ~255")
+    mpx, med, times = median_rate(lambda: f32.infer_slide_stack(planes), px)
+    pk = peak_bytes(lambda: f32.infer_slide_stack(planes))
+    log(f"[duo] float32 infer_slide_stack 4096^2 x 2 channels: {mpx:.2f} "
+        f"Mpx/s (median {med:.4f}s of {[round(x, 4) for x in times]}), peak "
+        f"device memory {pk / 2**30:.2f} GiB [{card}]")
+    profile_slide(lambda: f32.infer_slide_stack(planes),
+                  f"duo float32 [{card}]")
+    bf16 = InferenceEngine(hp, state, "v2", DUO_MEAN, DUO_STD,
+                           compute_dtype=torch.bfloat16, device=dev)
+    maps_bf = bf16.infer_slide_stack(planes)
+    mpx_bf, med_bf, times_bf = median_rate(
+        lambda: bf16.infer_slide_stack(planes), px)
+    pk_bf = peak_bytes(lambda: bf16.infer_slide_stack(planes))
+    d = np.abs(maps.astype(int) - maps_bf.astype(int))
+    log(f"[duo] bfloat16 infer_slide_stack 4096^2: {mpx_bf:.2f} Mpx/s "
+        f"(median {med_bf:.4f}s of {[round(x, 4) for x in times_bf]}), peak "
+        f"device memory {pk_bf / 2**30:.2f} GiB; vs float32 max {d.max()} "
+        f"levels, {(d > 0).mean():.3e} of pixels differ [{card}]")
+    profile_slide(lambda: bf16.infer_slide_stack(planes),
+                  f"duo bfloat16 [{card}]")
+    del bf16, maps_bf, d
+    small = [p[:256, :256] for p in planes]
+    cpu = InferenceEngine(hp, state, "v2", DUO_MEAN, DUO_STD, device="cpu")
+    ok, worst, share = maps_agree(f32.infer_slide_stack(small),
+                                  cpu.infer_slide_stack(small), None)
+    log(f"[duo] float32 card vs CPU on 256^2: max {worst} level(s), "
+        f"{share:.3e} of pixels differ (bar: 1 level) [{card}]")
+    check(ok, f"duo card and CPU disagree by {worst} levels")
+
+    # -- --scalingFactor on the whole engine: the legacy net, 4096^2 ------------
+    lhp = legacy_hp()
+    lstate = seeded_state(lhp, "legacy", SEED)
+    g = torch.Generator().manual_seed(SEED + 1)
+    raw = torch.randint(0, 65536, (SLIDE, SLIDE), generator=g,
+                        dtype=torch.int32).numpy().astype(np.uint16)
+    eng = InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
+                          device=dev)
+    scaled = {}
+    for sf in (0.5, 0.65):
+        eng.infer_slide(raw, scaling_factor=sf)  # cuDNN autotune
+        kernels.reset_launch_counts()
+        scaled[sf] = eng.infer_slide(raw, scaling_factor=sf)
+        counts = kernels.launch_counts()
+        check(scaled[sf].shape == (3, SLIDE, SLIDE)
+              and counts["blend_fold_epilogue"] == 1
+              and counts["softmax_blend"] > 0,
+              f"scaled slide at {sf}: {scaled[sf].shape}, launches {counts}")
+        mpx, med, times = median_rate(
+            lambda: eng.infer_slide(raw, scaling_factor=sf), px)
+        pk = peak_bytes(lambda: eng.infer_slide(raw, scaling_factor=sf))
+        side = int(SLIDE * sf)
+        log(f"[scale] float32 infer_slide 4096^2 at scaling_factor {sf} "
+            f"(net at {side}^2): {mpx:.2f} Mpx/s on raw pixels (median "
+            f"{med:.4f}s of {[round(x, 4) for x in times]}), peak device "
+            f"memory {pk / 2**30:.2f} GiB; launches {launched(counts)} "
+            f"[{card}]")
+        profile_slide(lambda: eng.infer_slide(raw, scaling_factor=sf),
+                      f"scaled {sf} float32 [{card}]")
+    # K2's slide epilogue on the 0.65 grid: 2662 columns, not a multiple of
+    # 4, so every row ends on the scalar lanes
+    side = int(SLIDE * 0.65)
+    grid = tiler.make_grid(side, side, lhp.im_size, lhp.margin)
+    gd = torch.Generator(device=dev).manual_seed(SEED)
+    logits = 3 * torch.randn((grid.num_tiles, 3, lhp.im_size, lhp.im_size),
+                             generator=gd, device=dev)
+    window = torch.from_numpy(tiler.ramp_window(lhp.im_size,
+                                                lhp.margin)).to(dev)
+    weighted = kernels.softmax_blend(logits, window,
+                                     torch.ones(grid.num_tiles, device=dev))
+    k2 = kernels.blend_fold_epilogue(weighted, window, grid)
+    k2_plain = kernels.blend_fold_epilogue_plain(weighted, window, grid)
+    err = (k2.int() - k2_plain.int()).abs().max().item()
+    log(f"[scale] K2 epilogue on the 0.65 grid {tuple(k2.shape)} ({side} % 4 "
+        f"= {side % 4}): max |kernel - plain| {err} level(s) (bar: 0) "
+        f"[{card}]")
+    check(err == 0, f"K2 on the 0.65 grid is {err} levels from its plain "
+                    "version")
+    del logits, weighted, k2, k2_plain
+    cpu_l = InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
+                            device="cpu")
+    d = np.abs(eng.infer_slide(raw[:300, :300], scaling_factor=0.65)
+               .astype(int) - cpu_l.infer_slide(raw[:300, :300],
+                                                scaling_factor=0.65)
+               .astype(int))
+    log(f"[scale] float32 card vs CPU on 300^2 at 0.65: max {d.max()} "
+        f"level(s), {(d > 0).mean():.3e} of pixels differ (bar: 1 level on "
+        f"< 2%) [{card}]")
+    check(d.max() <= 1 and (d > 0).mean() < 0.02,
+          f"scaled card and CPU disagree: {d.max()} levels")
+
+    # -- the duo streams, 8192^2 ---------------------------------------------------
+    big = seeded_planes(BIG, SEED + 5)
+    mpx_big = BIG * BIG / 1e6
+    whole, secs = wall(lambda: f32.infer_slide_stack(big))
+    log(f"[duo stream] whole engine 8192^2: {secs:.3f} s "
+        f"({mpx_big / secs:.2f} Mpx/s, first call) [{card}]")
+    del f32
+    torch.cuda.empty_cache()
+    stream = StreamingEngine(hp, state, "v2", DUO_MEAN, DUO_STD,
+                             compute_dtype=None, device=dev)
+    plan = stream._plan(BIG, BIG)
+    kernels.reset_launch_counts()
+    got, first = wall(lambda: stream.infer_stack(big))
+    stack_launches = kernels.launch_counts()
+    d = np.abs(got.astype(int) - whole.astype(int))
+    check(d.max() <= 1, f"infer_stack disagrees with infer_slide_stack: "
+                        f"{d.max()} levels")
+    check(stack_launches["blend_fold_stripe"] == plan.n_stripes
+          and stack_launches["softmax_blend"] > 0,
+          f"infer_stack did not run K1 and K2's stripe entry: "
+          f"{stack_launches}")
+    _, secs = wall(lambda: stream.infer_stack(big))
+    log(f"[duo stream] infer_stack 8192^2 float32: {secs:.3f} s warm "
+        f"({mpx_big / secs:.2f} Mpx/s; first call {first:.3f} s), S "
+        f"{plan.S}, {plan.n_stripes} stripes; vs infer_slide_stack max "
+        f"{d.max()} level(s), {(d > 0).mean():.3e} of pixels differ; "
+        f"launches {launched(stack_launches)} [{card}]")
+    ranges = [stream.global_stats(p) for p in big]
+    s1 = min(1, plan.n_stripes - 1)
+    r0 = (s1 * plan.S - 1) * plan.grid.sub - plan.grid.margin
+    rows = _to_torch(np.stack([stream._read_rows(p, r0, plan.in_rows)
+                               for p in big])).to(dev)
+    stripe_args = (rows, plan, s1, np.dtype(np.uint16), True,
+                   tuple(np.float32([r[i] for r in ranges]) for i in (0, 1)),
+                   [0, 1, 2])
+    ref_stripe = stream._stripe(*stripe_args)
+    got_stripe = no_sync(lambda: stream._stripe(*stripe_args),
+                         f"StreamingEngine._stripe, duo stack (stripe {s1})")
+    check((got_stripe.int() - ref_stripe.int()).abs().max().item() <= 1,
+          "the stack stripe under the sync check moved")
+    del rows, ref_stripe, got_stripe
+    mesh = make_mesh(devices=[dev] * RANKS)
+    _, first = wall(lambda: stream.infer_sharded_stack(big, mesh))
+    kernels.reset_launch_counts()
+    sharded, secs = wall(lambda: stream.infer_sharded_stack(big, mesh))
+    sh_launches = kernels.launch_counts()
+    d = np.abs(sharded.astype(int) - got.astype(int))
+    log(f"[duo stream] infer_sharded_stack over {RANKS} ranks: {secs:.3f} s "
+        f"warm ({mpx_big / secs:.2f} Mpx/s; first call {first:.3f} s); vs "
+        f"infer_stack max {d.max()} level(s), {(d > 0).mean():.3e} of pixels "
+        f"differ; launches {launched(sh_launches)} [{card}]")
+    check(d.max() <= 1, f"infer_sharded_stack disagrees with infer_stack: "
+                        f"{d.max()} levels")
+    check(sh_launches["ring_shift"] == 2 * plan.n_stripes,
+          f"the stack's seams did not run K3 once per hop: {sh_launches}")
+    del big, whole, got, sharded, stream
+    torch.cuda.empty_cache()
+
+    # -- the resampled stream: ResampledSource of a 4096^2 TIFF ------------------
+    lstream = StreamingEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
+                              compute_dtype=None, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slide.tif")
+        with TiffWriter(path, bigtiff=True) as tw:
+            tw.write(raw)
+        with TiffFile(path) as tf:
+            src = pp.ResampledSource((tf, 0), 0.5)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            maps = lstream.infer(src)
+            t_stream = time.perf_counter() - t0
+            rs_launches = kernels.launch_counts()
+            up = np.stack([pp.upscale_pm(m, raw.shape) for m in maps])
+            t_all = time.perf_counter() - t0
+    d = np.abs(up.astype(int) - scaled[0.5].astype(int))
+    log(f"[scale stream] infer(ResampledSource(tiff, 0.5)) 4096^2: stream "
+        f"{t_stream:.3f} s ({px / 1e6 / t_stream:.2f} Mpx/s on raw pixels; "
+        f"the host resize and stats included), with upscale_pm "
+        f"{t_all:.3f} s; vs infer_slide(scaling_factor=0.5) max {d.max()} "
+        f"level(s), {(d > 0).mean():.3e} of pixels differ (bar: 1 level on "
+        f"< 2%); launches {launched(rs_launches)} [{card}]")
+    check(d.max() <= 1 and (d > 0).mean() < 0.02,
+          f"resampled stream disagrees: {d.max()} levels")
+    check(rs_launches["blend_fold_stripe"] > 0, "no stripe ran K2")
+
+    # -- the CLI: --tool unmicst-duo and --scalingFactor --------------------------
+    rng = np.random.RandomState(SEED)
+    img = blob_slide(rng, 1024, 1024, 256)
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo = os.path.join(tmp, "zoo")
+        duo_model_dir(zoo)
+        src = os.path.join(tmp, "s", "registration", "duo.tif")
+        os.makedirs(os.path.dirname(src))
+        with TiffWriter(src, bigtiff=False) as tw:
+            tw.write((np.clip(img, 0, 1) * 65535).astype(np.uint16))
+            tw.write((rng.rand(1024, 1024) * 30000).astype(np.uint16))
+        runs = {
+            "duo": ([src, "--tool", "unmicst-duo", "--modelRoot", zoo,
+                     "--channel", "1", "2"], "duo_Probabilities_1.tif"),
+            "scaled": ([src, "--tool", "unmicst-legacy", "--model",
+                        "blobDemo", "--modelRoot",
+                        os.path.join(ROOT, "models"), "--scalingFactor",
+                        "0.5"], "duo_Probabilities_1.tif"),
+        }
+        for name, (argv, prob) in runs.items():
+            out = os.path.join(tmp, "out_" + name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv + ["--outputPath", out, "--stackOutput"])
+            secs = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            prob_path = os.path.join(out, prob)
+            preview = os.path.join(out, "qc", "duo_Preview_1.tif")
+            check(rc == 0 and num_pages(prob_path) == 3
+                  and num_pages(preview) == 2,
+                  f"CLI {name}: rc {rc} or missing pages")
+            pages = [imread(prob_path, k) for k in range(3)]
+            check(all(p.shape == (1024, 1024) for p in pages),
+                  f"CLI {name}: pages {[p.shape for p in pages]}")
+            check(counts["softmax_blend"] > 0
+                  and counts["blend_fold_epilogue"] > 0,
+                  f"CLI {name} did not run both kernels: {counts}")
+            log(f"[cli] {' '.join(argv[1:])}: {secs:.2f} s, 3 probability "
+                f"pages and the 2-page preview of 1024^2, launches "
+                f"{launched(counts)} [{card}]")
+    log(f"[duo and scale] phase {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     import torch
 
@@ -1093,6 +1471,7 @@ def main() -> int:
         stats[name]["launches"] = launches[name]
     stats.update(phase_halo(dev))
     stats.update(phase_streaming(dev))
+    phase_duo_scale(dev)
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -1100,12 +1479,7 @@ def main() -> int:
             "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")}})
     print(json.dumps({"kernels": rows}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-    )
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi unavailable (rc {smi.returncode})")
+    print(card_label())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -282,8 +282,8 @@ def test_k2_and_a_stripe_never_synchronise(cuda):
     plan = engine._plan(*raw.shape)
     rows = _to_torch(engine._read_rows(raw, (plan.S - 1) * plan.grid.sub
                                        - plan.grid.margin, plan.in_rows))
-    args = (rows.to(cuda), plan, 1, np.dtype(np.uint16), True,
-            (np.float32(raw.min()), np.float32(raw.max())), [2, 0, 1])
+    args = (rows[None].to(cuda), plan, 1, np.dtype(np.uint16), True,
+            (np.float32([raw.min()]), np.float32([raw.max()])), [2, 0, 1])
     want = engine._stripe(*args)  # the first call builds the model
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -402,3 +402,114 @@ def test_a_wait_whose_store_never_runs_traps(cuda):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert "trapped" in res.stdout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("height,width", [(58, 90), (45, 2662 // 20)])
+def test_k2_on_a_ragged_scaled_grid_matches_plain(cuda, height, width):
+    """A scaled slide's grid, width = 2 (mod 4) (``int(90 * 0.65)`` = 58
+    rows; 2662 / 20 = 133 columns, the 4096^2 slide at 0.65 cut down):
+    the slide epilogue and the stripe entry, whose rows end in a ragged
+    quad, against their plain versions."""
+    g, logits, win = _weighted_case((height, width), 64, 8, 3, seed=8)
+    x, w = torch.from_numpy(logits), torch.from_numpy(win)
+    xc, wc = x.to(cuda), w.to(cuda)
+    ref = kernels.blend_fold_epilogue(x, w, g)
+    got = kernels.blend_fold_epilogue(xc, wc, g)
+    assert np.abs(got.cpu().numpy().astype(int)
+                  - ref.numpy().astype(int)).max() <= 1
+    rmask = torch.tensor([0.0] + [1.0] * (g.npr - 1))
+    rows, cols = (g.sub, g.padded_height - g.sub), (g.margin, width)
+    for mode in ("u8", "f32"):
+        want = kernels.blend_fold_stripe(x, w, g, rows, cols, row_mask=rmask,
+                                         mode=mode)
+        have = kernels.blend_fold_stripe(xc, wc, g, rows, cols,
+                                         row_mask=rmask.to(cuda), mode=mode)
+        diff = (have.cpu().double() - want.double()).abs().max().item()
+        assert diff <= (1 if mode == "u8" else 1e-5), (mode, diff)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,out", [((300, 410), (195, 266)),
+                                       ((64, 90), (128, 180)),
+                                       ((8, 300), (1, 30))])
+def test_resize_plan_on_card_matches_cpu(cuda, shape, out):
+    from unmicst_tpu_torch.core.resize_dev import ResizePlan
+
+    x = torch.from_numpy(np.random.RandomState(shape[0]).rand(
+        2, *shape).astype(np.float32))
+    want = ResizePlan(shape, out, "cpu").apply(x)
+    got = ResizePlan(shape, out, cuda).apply(x.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-6)
+
+
+def _duo_net(seed=0):
+    from unmicst_tpu_torch.core.hp import HParams
+    from unmicst_tpu_torch.core.unet import UNet
+
+    hp = HParams(im_size=32, n_channels=2, n_classes=3, n_out0=4, ks=3,
+                 n_extra_convs=0, n_layers=2, batch_size=8)
+    g = torch.Generator().manual_seed(seed)
+    state = {k: (0.5 + torch.rand(v.shape, generator=g)
+                 if k.endswith(("gamma", "moving_variance"))
+                 else 0.2 * torch.randn(v.shape, generator=g))
+             for k, v in UNet(hp, "v2").state_dict().items()}
+    return hp, state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"outlier": 99.0, "classes": (2, 0)},
+                                {"scaling_factor": 0.65}])
+def test_infer_slide_stack_on_card_matches_cpu(cuda, kw):
+    from unmicst_tpu_torch.infer import InferenceEngine
+
+    hp, state = _duo_net()
+    rng = np.random.RandomState(3)
+    planes = [(rng.rand(150, 130) * top).astype(np.uint16)
+              for top in (60000, 30000)]
+    on = {d: InferenceEngine(hp, state, "v2", 0.18, 0.17, device=d)
+          for d in ("cpu", cuda)}
+    kernels.reset_launch_counts()
+    got = on[cuda].infer_slide_stack(planes, **kw)
+    counts = kernels.launch_counts()
+    assert counts["softmax_blend"] > 0 and counts["blend_fold_epilogue"] == 1
+    want = on["cpu"].infer_slide_stack(planes, **kw)
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1
+    if "scaling_factor" in kw:
+        assert (d > 0).mean() < 0.02
+
+
+@pytest.mark.cuda
+def test_a_stack_stripe_never_synchronises(cuda):
+    """One duo stripe (two channels, each with its own range) makes no
+    call that synchronises the host with the card."""
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine, _to_torch
+
+    hp, state = _duo_net()
+    engine = StreamingEngine(hp, state, "v2", 0.18, 0.17, compute_dtype=None,
+                             stripe_tile_rows=3, device=cuda)
+    rng = np.random.RandomState(4)
+    planes = [(rng.rand(300, 230) * top).astype(np.uint16)
+              for top in (60000, 30000)]
+    plan = engine._plan(300, 230)
+    r0 = (plan.S - 1) * plan.grid.sub - plan.grid.margin
+    rows = _to_torch(np.stack([engine._read_rows(p, r0, plan.in_rows)
+                               for p in planes]))
+    rng_ = (np.float32([p.min() for p in planes]),
+            np.float32([p.max() for p in planes]))
+    args = (rows.to(cuda), plan, 1, np.dtype(np.uint16), True, rng_,
+            [2, 0, 1])
+    want = engine._stripe(*args)  # the first call builds the model
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = engine._stripe(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert np.abs(got.cpu().numpy().astype(int)
+                  - want.cpu().numpy().astype(int)).max() <= 1
+    ref = StreamingEngine(hp, state, "v2", 0.18, 0.17, compute_dtype=None,
+                          stripe_tile_rows=3, device="cpu")
+    assert np.abs(engine.infer_stack(planes).astype(int)
+                  - ref.infer_stack(planes).astype(int)).max() <= 1

@@ -156,8 +156,6 @@ def test_rejects_unported_and_bad_arguments():
     port = InferenceEngine.from_bundle(tb, load_params_for_bundle(tb),
                                        device="cpu")
     raw = _slide(shape=(40, 40))
-    with pytest.raises(NotImplementedError, match="M7"):
-        port.infer_slide(raw, scaling_factor=0.5)
     with pytest.raises(ValueError, match="out of range"):
         port.infer_slide(raw, classes=(3,))
     with pytest.raises(ValueError, match="lo < hi"):

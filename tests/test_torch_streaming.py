@@ -318,19 +318,6 @@ def test_streaming_refuses_unported_paths():
                         device="cpu")
     ts = StreamingEngine(hp, state, "legacy", 0.3, 0.2, device="cpu")
     raw = _raw((40, 40))
-    with pytest.raises(NotImplementedError, match="M6"):
-        ts.infer_stack([raw])
-    with pytest.raises(NotImplementedError, match="M6"):
-        ts.infer_sharded_stack([raw], make_mesh(devices=["cpu"]))
-
-    class Virtual:  # a resampled source streams unit-scale float32
-        height, width, dtype = 40, 40, np.float32
-
-        def read_rows(self, r0, n):
-            return np.zeros((n, 40), np.float32)
-
-    with pytest.raises(NotImplementedError, match="M7"):
-        ts.infer(Virtual())
     with pytest.raises(ValueError, match="out of range"):
         ts.infer(raw, classes=(3,))
 

@@ -1,14 +1,23 @@
-"""Command line: a single-channel slide to probability-map TIFFs on the GPU.
+"""Command line: a slide to probability-map TIFFs on the GPU.
 
-The main path of ``unmicst_tpu/cli.py`` (``:797-862`` and
-``_write_outputs`` at ``:323-367``) for ``--tool unmicst-solo``,
-``unmicst-legacy`` and ``UnMicstCyto2``::
+The main path of ``unmicst_tpu/cli.py`` (``:770-862`` and
+``_write_outputs`` at ``:323-367``) for every tool, ``unmicst-solo``,
+``unmicst-legacy``, ``unmicst-duo`` and ``UnMicstCyto2``::
 
     python -m unmicst_tpu_torch IMAGE --tool unmicst-legacy --model nucleiDAPI
-        --outputPath OUT [--stackOutput] [--channel N] [--classOrder A B C]
-        [--outlier F] [--precision float32|highest|bfloat16] [--tileBatch N]
+        --outputPath OUT [--stackOutput] [--channel N [N2]]
+        [--channelName NAME [NAME2]] [--classOrder A B C] [--outlier F]
+        [--scalingFactor F] [--intensityRange LO,HI [LO,HI]]
+        [--precision float32|highest|bfloat16] [--tileBatch N]
         [--modelRoot DIR] [--GPU N] [--stats]
         [--engine auto|whole|streaming|sharded] [--meshShape N]
+
+``--tool unmicst-duo`` (nucleiDAPILAMIN) feeds two channels, ``--channel
+A B`` (one channel is fed twice), each rescaled with its own range; its
+preview page shows the last channel (``UnMicst2.py:776,792``).
+``--scalingFactor`` resizes the plane before the net and the maps back to
+the raw size after it (``UnMicst1-5.py:813-854``): on the card in the
+whole-slide engine, through a virtual resized source on the stream.
 
 Output contract: ``<stem>_Probabilities_<chan+1>.tif`` (classOrder pages
 reversed) plus ``qc/<stem>_Preview_<chan+1>.tif`` with ``--stackOutput``;
@@ -25,11 +34,11 @@ the stream, ``sharded`` with every stripe column-sharded over a mesh of
 ``--meshShape`` ranks (default: every visible card; on the CPU, ranks that
 share it).
 
-Paths not ported yet fail loudly and name their ROADMAP item: the duo
-tool and stack streaming (M6), ``--scalingFactor`` other than 1 (M7),
-``--precision int8`` (M11), pyramid input and output and zstd output,
-CZI and ND2 inputs, and inputs other than uint8/uint16 (or float32
-through the parity cast; int16 streams with a rescale).
+Paths not ported yet fail loudly and name their ROADMAP item:
+``--precision int8`` (M11), pyramid input and output and zstd output
+(M14), CZI and ND2 inputs, and what the JAX package sends to its host
+float path: inputs other than uint8/uint16 (or float32 through the parity
+cast; int16 streams with a rescale) and duo channels of mixed dtypes.
 """
 
 from __future__ import annotations
@@ -119,12 +128,6 @@ def _not_ported(what: str, item: str) -> SystemExit:
 
 
 def _reject_unported(args) -> None:
-    if args.tool == "unmicst-duo":
-        raise _not_ported("--tool unmicst-duo", "M6")
-    if len(args.channel) > 1:
-        raise _not_ported("multi-channel input (--channel A B)", "M6")
-    if args.scalingFactor != 1:
-        raise _not_ported("--scalingFactor other than 1", "M7")
     if args.precision == "int8":
         raise _not_ported("--precision int8", "M11")
     if args.usePyramid or args.pyramidOutput:
@@ -159,8 +162,9 @@ def parse_stem(file_name: str, tool: str):
     return parts[0], parts[1] if len(parts) > 1 else ""
 
 
-def _pinned_range(args, tool: str):
-    """``--intensityRange`` -> one raw-unit (lo, hi) pair, or None."""
+def _pinned_ranges(args, tool: str, n: int):
+    """``--intensityRange`` -> a list of ``n`` raw-unit (lo, hi) pairs (one
+    given pair serves every channel), or None (``cli.py:75-104``)."""
     if not args.intensityRange:
         return None
     if tool == "unmicst-solo":
@@ -168,15 +172,29 @@ def _pinned_range(args, tool: str):
             "--intensityRange has no effect on unmicst-solo: its net input "
             "is deliberately un-rescaled (the reference quirk)"
         )
-    if len(args.intensityRange) != 1:
-        raise SystemExit("--intensityRange: one LO,HI pair for one channel")
     from unmicst_tpu_torch.infer import _normalize_in_range
 
+    pairs = []
+    for text in args.intensityRange:
+        parts = text.split(",")
+        try:
+            if len(parts) != 2:
+                raise ValueError(f"expected LO,HI, got {text!r}")
+            pairs.append((float(parts[0]), float(parts[1])))
+        except ValueError as e:
+            raise SystemExit(f"--intensityRange: {e}")
     try:
-        lo, hi = (float(v) for v in args.intensityRange[0].split(","))
-        return tuple(_normalize_in_range((lo, hi), 1)[0].tolist())
+        arr = _normalize_in_range(pairs, n)
     except ValueError as e:
         raise SystemExit(f"--intensityRange: {e}")
+    return [tuple(p) for p in arr.tolist()]
+
+
+def _duo_chans(channels0):
+    """The duo tool's two channels: ``--channel A B``, else the first
+    channel twice (the wrapper forwards ``channel[0]`` unless exactly two
+    are given)."""
+    return channels0 if len(channels0) == 2 else channels0[:1] * 2
 
 
 def _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
@@ -213,12 +231,12 @@ def _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
 
 
 def _use_streaming(args, tool: str, cyto: bool, file_type: str,
-                   channel: int) -> bool:
+                   chans) -> bool:
     """Whether the slide streams: ``--engine streaming|sharded``, or
-    ``auto`` above 64 Mpx, when the plane can stream (a TIFF; uint8 or
-    uint16 for the un-rescaled solo tool; uint8, uint16 or int16 for an
-    exact streamed histogram; no float32 for Cyto2, which never takes the
-    parity cast)."""
+    ``auto`` above 64 Mpx, when every channel can stream (a TIFF; uint8 or
+    uint16 for the un-rescaled solo tool; one of uint8, uint16 or int16
+    across the channels for an exact streamed histogram; no float32 for
+    Cyto2, which never takes the parity cast)."""
     from unmicst_tpu_torch.io.slides import TIFF_LIKE, open_channel_source
 
     explicit = args.engine in ("streaming", "sharded")
@@ -226,20 +244,24 @@ def _use_streaming(args, tool: str, cyto: bool, file_type: str,
         if explicit:
             raise SystemExit(f"--engine {args.engine} supports TIFF inputs")
         return False
+    dtypes, raw_dtypes = [], []
     try:
-        with open_channel_source(args.imagePath, file_type, channel) as src:
-            px, dtype, raw_dtype = (src.height * src.width, src.dtype,
-                                    src.raw_dtype)
+        for c in dict.fromkeys(chans):
+            with open_channel_source(args.imagePath, file_type, c) as src:
+                px = src.height * src.width
+                dtypes.append(src.dtype)
+                raw_dtypes.append(src.raw_dtype)
     except (ValueError, NotImplementedError, IndexError, OSError):
         return explicit  # the stream raises the reader's own error
     if tool == "unmicst-solo":
-        ok = dtype in (np.dtype(np.uint8), np.dtype(np.uint16))
-        why = f"rescale-free streaming needs uint8/uint16, got {dtype}"
+        ok = dtypes[0] in (np.dtype(np.uint8), np.dtype(np.uint16))
+        why = f"rescale-free streaming needs uint8/uint16, got {dtypes[0]}"
     else:
-        ok = dtype in (np.dtype(np.uint8), np.dtype(np.uint16),
-                       np.dtype(np.int16))
-        why = f"streamed stats need an integer plane, got {dtype}"
-    if cyto and raw_dtype == np.float32:
+        ok = len(set(dtypes)) == 1 and dtypes[0] in (
+            np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.int16))
+        why = ("streamed stats need one integer dtype across channels, got "
+               f"{sorted(map(str, dtypes))}")
+    if cyto and np.dtype(np.float32) in raw_dtypes:
         ok, why = False, "Cyto2 float32 input must not take the parity cast"
     if not ok:
         if explicit:
@@ -249,13 +271,15 @@ def _use_streaming(args, tool: str, cyto: bool, file_type: str,
     return explicit or (args.engine == "auto" and px > MAX_WHOLE_SLIDE_PX)
 
 
-def _run_streaming(args, bundle, tool, channel, class_order, file_type, stem,
+def _run_streaming(args, bundle, tool, chans, class_order, file_type, stem,
                    out_path, cyto, pinned, dev, t_start) -> int:
-    """The large-slide path (``_run_streaming``, ``cli.py:370`` of the JAX
-    package, single channel): the ``StreamingEngine``, bounded memory,
-    uint8 maps end to end."""
+    """The large-slide path (``_run_streaming``, ``cli.py:370-517`` of the
+    JAX package): the ``StreamingEngine``, bounded memory, uint8 maps end
+    to end; at ``--scalingFactor`` other than 1 it streams virtual
+    resized sources and resizes the maps back as it writes them."""
     from unmicst_tpu_torch.core.checkpoint import load_params_for_bundle
     from unmicst_tpu_torch.infer import PRECISIONS
+    from unmicst_tpu_torch.io import preprocess as pp
     from unmicst_tpu_torch.io.slides import open_channel_source, preview_u8
     from unmicst_tpu_torch.runtime.mesh import make_mesh
     from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
@@ -276,25 +300,52 @@ def _run_streaming(args, bundle, tool, channel, class_order, file_type, stem,
         if args.verbose or args.stats:
             print(f"[unmicst-tpu-torch] sharded engine: {mesh.shape['data']}"
                   " rank(s) on the column axis", file=sys.stderr)
+    sf = args.scalingFactor
+    duo = tool == "unmicst-duo"
     rescale = tool != "unmicst-solo"  # the v2-solo quirk
     t0 = time.perf_counter()
-    with open_channel_source(args.imagePath, file_type, channel) as src:
-        stats, vmax = pinned, None
-        if rescale and pinned is None:
-            # one histogram pass gives the range and the preview's max
-            lo, hi, vmax = src.stats(args.outlier, with_max=True)
-            stats = (lo, hi)
-        kw = dict(outlier=args.outlier, rescale=rescale, classes=classes,
-                  stats=stats)
-        maps = (stream.infer_sharded(src, mesh, **kw) if mesh is not None
-                else stream.infer(src, **kw))
+    srcs = {}
+    try:
+        for c in dict.fromkeys(chans):
+            srcs[c] = open_channel_source(args.imagePath, file_type, c)
+        # at scale 1 one histogram pass per channel gives the range and
+        # the preview's max
+        shared, vmaxes = {}, {}
+        if sf == 1 and rescale:
+            for c, src in srcs.items():
+                lo, hi, vmaxes[c] = src.stats(args.outlier, with_max=True)
+                shared[c] = (lo, hi)
+        net_srcs = [pp.ResampledSource(srcs[c], sf) if sf != 1 else srcs[c]
+                    for c in chans]
+        if pinned:  # raw units -> the units each source streams
+            stats = [pp.pinned_to_source_units(p, s)
+                     for p, s in zip(pinned, net_srcs)]
+        else:
+            stats = [shared[c] for c in chans] if shared else None
+        kw = dict(outlier=args.outlier, classes=classes)
+        if duo:
+            maps = (stream.infer_sharded_stack(net_srcs, mesh, stats=stats,
+                                               **kw)
+                    if mesh is not None
+                    else stream.infer_stack(net_srcs, stats=stats, **kw))
+        else:
+            kw.update(rescale=rescale, stats=stats[0] if stats else None)
+            maps = (stream.infer_sharded(net_srcs[0], mesh, **kw)
+                    if mesh is not None else stream.infer(net_srcs[0], **kw))
         t_infer = time.perf_counter()
-        raw_u8 = preview_u8(src, vmax=vmax)
-        shape = (src.height, src.width)
+        raw_src = srcs[chans[-1]]  # the duo preview shows the last channel
+        shape = (raw_src.height, raw_src.width)
+        raw_u8 = preview_u8(raw_src, vmax=vmaxes.get(chans[-1]))
+    finally:
+        for src in srcs.values():
+            src.close()
     idx = ({c: i for i, c in enumerate(classes)} if classes is not None
            else {c: c for c in class_order})
-    _write_outputs(args, stem, out_path, cyto, channel, class_order,
-                   lambda c: maps[idx[c]], raw_u8)
+
+    def page(c):
+        return pp.upscale_pm(maps[idx[c]], shape) if sf != 1 else maps[idx[c]]
+    _write_outputs(args, stem, out_path, cyto, chans[0], class_order, page,
+                   raw_u8)
     if args.stats or args.verbose:
         infer_s = t_infer - t0
         print(
@@ -333,7 +384,7 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     bundle = load_model_dir(model_dir, args.mean, args.std)
     hp = bundle.hp
 
-    dapi_channel = args.channel[0] - 1  # wrapper 1-based -> 0-based
+    channels0 = [c - 1 for c in args.channel]  # wrapper 1-based -> 0-based
     if args.classOrder == -1:
         class_order = list(range(hp.n_classes))
     else:
@@ -353,40 +404,50 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         if names is None:
             raise SystemExit("--channelName: the input carries no channel names")
         try:
-            dapi_channel = ome.resolve_name(names, args.channelName[0])
+            channels0 = [ome.resolve_name(names, n) for n in args.channelName]
         except ValueError as e:
             raise SystemExit(f"--channelName: {e}")
+    duo = tool == "unmicst-duo"
+    chans = _duo_chans(channels0) if duo else channels0[:1]
     parent = os.path.dirname(os.path.dirname(args.imagePath))
     out_path = args.outputPath or os.path.join(parent, "probability_maps")
     os.makedirs(out_path, exist_ok=True)
     cyto = tool == "UnMicstCyto2"
     if not cyto:
         os.makedirs(os.path.join(out_path, "qc"), exist_ok=True)
-    pinned = _pinned_range(args, tool)
+    pinned = _pinned_ranges(args, tool, len(chans))
 
-    # ---- engine choice (cli.py:735-800 of the JAX package) -----------------
-    if _use_streaming(args, tool, cyto, file_type, dapi_channel):
-        return _run_streaming(args, bundle, tool, dapi_channel, class_order,
+    # ---- engine choice (cli.py:681-759 of the JAX package) -----------------
+    if _use_streaming(args, tool, cyto, file_type, chans):
+        return _run_streaming(args, bundle, tool, chans, class_order,
                               file_type, stem, out_path, cyto, pinned, dev,
                               t_start)
 
     # ---- read + preview ----------------------------------------------------
     t_read = time.perf_counter()
     try:
-        raw = read_channel(args.imagePath, file_type, dapi_channel)
+        by_chan = {c: read_channel(args.imagePath, file_type, c)
+                   for c in dict.fromkeys(chans)}
     except NotImplementedError as e:
         raise SystemExit(str(e))
-    if raw.ndim != 2:
-        raise SystemExit(f"expected a single-sample plane, got {raw.shape}")
-    if raw.dtype == np.float32 and cyto:
+    planes = [by_chan[c] for c in chans]
+    for raw in planes:
+        if raw.ndim != 2:
+            raise SystemExit(f"expected a single-sample plane, got {raw.shape}")
+        if raw.dtype == np.float32 and cyto:
+            raise _not_ported(
+                "float32 input for UnMicstCyto2 (no parity cast: the host "
+                "float path)", "'host float path'"
+            )
+        if raw.dtype not in (np.uint8, np.uint16, np.float32):
+            raise _not_ported(f"{raw.dtype} input (the host float path)",
+                              "'host float path'")
+    if len({p.dtype for p in planes}) != 1:
         raise _not_ported(
-            "float32 input for UnMicstCyto2 (no parity cast: the host float "
-            "path)", "'host float path'"
-        )
-    if raw.dtype not in (np.uint8, np.uint16, np.float32):
-        raise _not_ported(f"{raw.dtype} input (the host float path)",
-                          "'host float path'")
-    preview = pp.preview_u8_from_raw(raw)
+            "duo channels of mixed dtypes "
+            f"{sorted(str(p.dtype) for p in planes)} (the host float path)",
+            "'host float path'")
+    preview = pp.preview_u8_from_raw(planes[-1])  # duo: the last channel
 
     # ---- inference (single pass, all classes) ------------------------------
     t_pre = time.perf_counter()
@@ -399,18 +460,22 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     # non-stack output needs only the contour and nuclei planes
     classes = (None if args.stackOutput or len(class_order) < 3
                else (class_order[1], class_order[2]))
-    maps = engine.infer_slide(
-        raw, outlier=args.outlier, rescale=tool != "unmicst-solo",
-        classes=classes, in_range=pinned,
-    )
+    kw = dict(outlier=args.outlier, classes=classes,
+              scaling_factor=args.scalingFactor)
+    if duo:
+        maps = engine.infer_slide_stack(planes, in_range=pinned, **kw)
+    else:
+        maps = engine.infer_slide(
+            planes[0], rescale=tool != "unmicst-solo",
+            in_range=pinned[0] if pinned else None, **kw)
     idx = {c: i for i, c in enumerate(classes)} if classes else None
     t_infer = time.perf_counter()
 
-    _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
+    _write_outputs(args, stem, out_path, cyto, chans[0], class_order,
                    lambda c: maps[idx[c] if idx else c], preview)
     t_write = time.perf_counter()
     if args.stats or args.verbose:
-        h, w = raw.shape
+        h, w = planes[0].shape
         infer_s = t_infer - t_load
         print(
             f"[unmicst-tpu-torch] read {t_pre - t_read:.2f}s | model load "

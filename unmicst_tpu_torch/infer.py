@@ -1,18 +1,22 @@
 """Whole-slide tiled inference on the GPU — the ``singleImageInference``
 successor, ported from ``unmicst_tpu/infer.py``.
 
-One slide runs as (``infer.py:520-751`` of the JAX package, scale 1):
+One slide runs as (``infer.py:520-751,942-998`` of the JAX package):
 
-1. the raw plane goes to the device as 16-bit integers; im2double, the
-   min/max (or outlier-percentile) rescale to [0, 0.983] or a pinned
-   range, the zero-padded canvas and the mean/std normalisation run there;
+1. the raw plane (or the duo tool's channel planes) goes to the device as
+   8/16-bit integers; im2double, the ``--scalingFactor`` resize
+   (``core/resize_dev.py``), the min/max (or outlier-percentile) rescale
+   of each channel to [0, 0.983] or a pinned range, the zero-padded
+   canvas and the mean/std normalisation run there;
 2. the canvas is cut into ``imSize`` tiles at stride ``imSize - 2*margin``
    (a strided view), which the UNet runs in ``tile_batch`` chunks, all
    classes in one pass, returning logits;
 3. kernel K1 turns each chunk's logits into ``softmax x window x mask``
    (the chunk padding's phantom tiles get mask 0);
 4. kernel K2 gathers the overlap-add, the blend count, divides, crops the
-   margin, keeps the requested classes and stores ``uint8(255 * p)``.
+   margin, keeps the requested classes and stores ``uint8(255 * p)``;
+5. at a scale other than 1 the uint8 maps are resized back to the raw size
+   and quantised again (``UnMicst1-5.py:848-854``).
 
 Only the uint8 maps come back to the host.  Accumulation is float32 (the
 reference accumulates in float16, ``PartitionOfImage.py:86-90``).
@@ -29,6 +33,7 @@ import torch
 from unmicst_tpu_torch.core import tiler
 from unmicst_tpu_torch.core.checkpoint import State
 from unmicst_tpu_torch.core.hp import HParams, ModelBundle
+from unmicst_tpu_torch.core.resize_dev import ResizePlan
 from unmicst_tpu_torch.core.unet import UNet
 from unmicst_tpu_torch.kernels import blend_fold_epilogue, softmax_blend
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
@@ -51,6 +56,13 @@ def _reciprocal(c: float) -> float:
     bfloat16 mode, where one float32 ulp can move a pixel of the net input
     to the next bfloat16 value."""
     return float(np.float32(1.0) / np.float32(c))
+
+
+def _column(values, device) -> torch.Tensor:
+    """float32 ``[C, 1, 1]`` of ``values``, made on ``device``: filled
+    there, so the caller never waits for a copy from the host."""
+    return torch.cat([torch.full((1, 1, 1), float(v), device=device)
+                      for v in values])
 
 
 def _normalize_in_range(in_range, n: int) -> np.ndarray:
@@ -292,43 +304,98 @@ class InferenceEngine:
                     scaling_factor: float = 1.0,
                     in_range=None) -> np.ndarray:
         """Raw single-channel slide -> uint8 ``[K, H, W]`` maps
-        (``infer.py:696-751`` at scale 1).
+        (``infer.py:696-751``).
 
         ``outlier``: percentile for the rescale's upper limit (-1: max).
         ``rescale=False``: the v2-solo quirk, im2double only.
         ``classes``: class indexes to return, in that order.
+        ``scaling_factor``: the net sees the plane resized to
+        ``(int(H * sf), int(W * sf))`` and its maps come back to ``H x W``
+        through the reference's double quantisation.
         ``in_range``: pinned ``(lo, hi)`` rescale range in raw units (after
-        the float32 -> uint16 parity cast); overrides ``outlier``.
+        the float32 -> uint16 parity cast); overrides ``outlier``.  It
+        applies to the resized plane, as the derived range does.
         """
-        if scaling_factor != 1.0:
-            raise NotImplementedError(
-                "scaling_factor != 1 is not ported yet (ROADMAP M7)"
-            )
         if raw.ndim != 2:
             raise ValueError(f"raw slide must be [H, W], got {raw.shape}")
-        if raw.dtype == np.float32:
-            raw = raw.astype(np.uint16)  # parity cast (UnMicst1-5.py:807-808)
+        return self._slide([raw], outlier, rescale, classes, scaling_factor,
+                           in_range)
+
+    def infer_slide_stack(self, raws, outlier: float = -1,
+                          rescale: bool = True, classes=None,
+                          scaling_factor: float = 1.0,
+                          in_range=None) -> np.ndarray:
+        """Raw channel planes (``hp.n_channels`` of them, one dtype) ->
+        uint8 ``[K, H, W]`` maps, each channel rescaled with its own range
+        (the duo tool, ``UnMicst2.py:760-788``; ``infer.py:942-998``).
+        ``in_range``: one ``(lo, hi)`` pair for every channel, or one pair
+        per channel.  Otherwise :meth:`infer_slide`."""
+        planes = [np.asarray(r) for r in raws]
+        if len(planes) != self.hp.n_channels:
+            raise ValueError(
+                f"model expects {self.hp.n_channels} channels, got "
+                f"{len(planes)}"
+            )
+        dtypes = {np.dtype(np.uint16) if p.dtype == np.float32 else p.dtype
+                  for p in planes}
+        if len(dtypes) != 1:
+            # stacking would promote the narrow channel and im2double it
+            # by the wrong constant
+            raise ValueError(
+                f"channel planes disagree on dtype: {sorted(map(str, dtypes))}"
+            )
+        if any(p.ndim != 2 or p.shape != planes[0].shape for p in planes):
+            raise ValueError("channel planes must be [H, W] of one shape, got "
+                             f"{[p.shape for p in planes]}")
+        return self._slide(planes, outlier, rescale, classes, scaling_factor,
+                           in_range)
+
+    def _slide(self, planes, outlier, rescale, classes, scaling_factor,
+               in_range) -> np.ndarray:
+        """``[C0]`` raw planes -> uint8 maps, the order of ``_build_slide``
+        (``infer.py:520-631``): im2double, the forward resize, the range
+        of each resized channel, the canvas, net, K1 and K2's epilogue at
+        the scaled size, then the back resize of ``q8 / 255`` and
+        ``uint8(255 * r)``.  ``C0 == 1`` broadcasts into every channel."""
+        # parity cast (UnMicst1-5.py:807-808)
+        planes = [p.astype(np.uint16) if p.dtype == np.float32 else p
+                  for p in planes]
         classes = self._check_classes(classes)
-        scale = _IM2DOUBLE.get(np.dtype(raw.dtype))
+        scale = _IM2DOUBLE.get(np.dtype(planes[0].dtype))
         if scale is None and not rescale:
             raise ValueError(
-                f"rescale=False requires uint8/uint16 input, got {raw.dtype}"
+                f"rescale=False requires uint8/uint16 input, got "
+                f"{planes[0].dtype}"
             )
         if in_range is not None:
             if not rescale:
                 raise ValueError("in_range requires rescale=True")
-            ir = _normalize_in_range(in_range, 1)[0] / (scale or 1.0)
-        x = self._upload(raw)
+            ir = _normalize_in_range(in_range, len(planes)) / (scale or 1.0)
+        height, width = planes[0].shape
+        sh = int(float(height) * float(scaling_factor))
+        sw = int(float(width) * float(scaling_factor))
+        fwd = ResizePlan((height, width), (sh, sw), self.device)
+        x = torch.stack([self._upload(p) for p in planes])  # [C0, H, W]
         if scale is not None:
             x = x * _reciprocal(scale)  # im2double
+        x = fwd.apply(x)  # [C0, sh, sw]
         if rescale:
             if in_range is not None:
-                lo = torch.tensor(np.float32(ir[0]), device=self.device)
-                hi = torch.tensor(np.float32(ir[1]), device=self.device)
+                lo = _column(ir[:, 0], self.device)
+                hi = _column(ir[:, 1], self.device)
             else:
-                lo = x.min()
-                hi = percentile_linear(x, outlier) if outlier != -1 else x.max()
+                lo = x.amin(dim=(1, 2), keepdim=True)
+                hi = (torch.stack([percentile_linear(c, outlier) for c in x])
+                      .reshape(-1, 1, 1) if outlier != -1
+                      else x.amax(dim=(1, 2), keepdim=True))
             x = torch.minimum(torch.maximum(x, lo), hi)
             x = (x - lo) / torch.clamp(hi - lo, min=1e-12) * 0.983
-        maps = self._maps(x[None], classes, quantize=True)
-        return maps.cpu().numpy()
+        q8 = self._maps(x, classes, quantize=True)
+        if not fwd.identity:
+            # q8 / 255 as XLA compiles the JAX engine's division (see
+            # _reciprocal); a lerp of values in [0, 1] stays in [0, 1] up
+            # to rounding, so the truncating cast needs no clamp
+            back = ResizePlan((sh, sw), (height, width), self.device)
+            r = back.apply(q8.float() * _reciprocal(255.0))
+            q8 = (r * 255.0).to(torch.uint8)
+        return q8.cpu().numpy()

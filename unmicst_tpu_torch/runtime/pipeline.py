@@ -1,34 +1,38 @@
 """Streaming whole-slide inference: bounded host and device memory.
 
-The single-channel part of ``unmicst_tpu/runtime/pipeline.py``
-(``StreamingEngine``).  The slide is cut into independent overlapping
-stripes of ``S`` tile rows; a stripe recomputes one boundary tile row of
-its predecessor, so every output row is finished by exactly one stripe and
-nothing accumulates across stripes.  Per stripe:
+``unmicst_tpu/runtime/pipeline.py`` (``StreamingEngine``) for one source
+broadcast into every net channel (:meth:`StreamingEngine.infer`) or one
+source per channel, each with its own rescale range (the duo tool,
+:meth:`StreamingEngine.infer_stack`).  The slide is cut into independent
+overlapping stripes of ``S`` tile rows; a stripe recomputes one boundary
+tile row of its predecessor, so every output row is finished by exactly
+one stripe and nothing accumulates across stripes.  Per stripe:
 
 1. the raw rows (``(S + 1) * sub + 2m`` of them, zero outside the slide)
-   are read from the source (an array, a windowed TIFF source, or a
-   ``(TiffFile, page)`` pair) into a pinned host buffer and uploaded on a
-   copy stream;
-2. on the card: the canvas in raw units, the rescale with the slide's
-   global range (or im2double alone), mean/std, the UNet and K1 with the
-   stripe's tile-row mask, then K2's stripe entry, which folds, divides by
-   the fold of the *masked* window (the stripe's own blend count, not the
-   slide's), crops the finished rows and the margin columns and stores
-   ``uint8(255 * p)``;
+   of every channel are read from the sources (arrays, windowed TIFF
+   sources, ``(TiffFile, page)`` pairs, or the unit-scale float32 rows of
+   a :class:`~unmicst_tpu_torch.io.preprocess.ResampledSource` for
+   ``--scalingFactor``) into a pinned ``[C, rows, width]`` host buffer and
+   uploaded on a copy stream;
+2. on the card: the canvas in source units, the rescale with each
+   channel's global range (or im2double alone), mean/std, the UNet and K1
+   with the stripe's tile-row mask, then K2's stripe entry, which folds,
+   divides by the fold of the *masked* window (the stripe's own blend
+   count, not the slide's), crops the finished rows and the margin
+   columns and stores ``uint8(255 * p)``;
 3. the uint8 maps go back on a second copy stream into a pinned buffer,
    and stripes are drained into the output in stripe order, ``in_flight``
    stripes behind.
 
 :meth:`StreamingEngine.infer_sharded` cuts every stripe into column bands
 over a :class:`~unmicst_tpu_torch.runtime.mesh.Mesh`, the column-wise
-twin of ``runtime/halo.spatial_infer``: a raw-dtype input halo from the
-right-hand neighbour, and the fold tail (sums and count) of each band
-added into its right-hand neighbour's head, both through kernel K3
-(``kernels.ring_shift``; the plain copy for CPU ranks).
+twin of ``runtime/halo.spatial_infer``: a ``[C, rows, 2m]`` input halo
+in the sources' dtype from the right-hand neighbour, and the fold tail
+(sums and count) of each band added into its right-hand neighbour's head,
+both through kernel K3 (``kernels.ring_shift``; the plain copy for CPU
+ranks); :meth:`StreamingEngine.infer_sharded_stack` is its duo form.
 
-Not ported yet: the duo stack forms (ROADMAP M6), the int8 mode (M11) and
-virtual resampled sources (M7); each raises naming its item.
+Not ported yet: the int8 mode (ROADMAP M11), which raises naming it.
 """
 
 from __future__ import annotations
@@ -44,20 +48,23 @@ from unmicst_tpu_torch.core import tiler
 from unmicst_tpu_torch.core.checkpoint import State
 from unmicst_tpu_torch.core.hp import HParams, ModelBundle
 from unmicst_tpu_torch.core.unet import UNet
-from unmicst_tpu_torch.infer import _reciprocal, pick_tile_batch, weigh_tiles
+from unmicst_tpu_torch.infer import (_column, _reciprocal, pick_tile_batch,
+                                     weigh_tiles)
 from unmicst_tpu_torch.io.tiff import TiffFile
 from unmicst_tpu_torch.kernels import blend_fold_stripe, ring_shift
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
 from unmicst_tpu_torch.runtime.mesh import Mesh
 from unmicst_tpu_torch.utils.batching import even_chunk
 
-# im2double scale by dtype (rescale=False divides by it)
+# im2double scale by dtype (rescale=False divides by it); float32 rows
+# come only from unit-scale virtual sources (ResampledSource)
 _IM2DOUBLE_SCALE = {
     np.dtype(np.uint8): 255.0,
     np.dtype(np.uint16): 65535.0,
     np.dtype(np.int16): 32767.0,
+    np.dtype(np.float32): 1.0,
 }
-_STREAM_DTYPES = (np.dtype(np.uint8), np.dtype(np.uint16), np.dtype(np.int16))
+_STREAM_DTYPES = tuple(_IM2DOUBLE_SCALE)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -80,11 +87,7 @@ def _source_dims(src) -> Tuple[int, int]:
 def _source_dtype(src) -> np.dtype:
     """The dtype rows arrive as, after the float32 -> uint16 parity cast."""
     if hasattr(src, "read_rows"):
-        dt = np.dtype(src.dtype)
-        if dt == np.float32:  # a unit-scale virtual (resampled) source
-            raise _not_ported("a virtual resampled source (--scalingFactor)",
-                              "M7")
-        return dt
+        return np.dtype(src.dtype)
     dt = np.dtype(src.dtype if isinstance(src, np.ndarray)
                   else src[0].pages[src[1]].dtype)
     return np.dtype(np.uint16) if dt == np.float32 else dt
@@ -102,13 +105,15 @@ def _check_classes(classes, n_classes: int):
 
 
 def _check_dtype(dtype: np.dtype, rescale: bool) -> None:
+    """``_check_rescale_dtype`` of the JAX engine (``pipeline.py:80-93``),
+    one policy for every entry point."""
     if dtype not in _STREAM_DTYPES:
         raise ValueError(f"streaming takes uint8, uint16 or int16 slides "
-                         f"(float32 through the uint16 parity cast), got "
-                         f"{dtype}")
+                         f"(float32 through the uint16 parity cast) and "
+                         f"unit-scale float32 virtual sources, got {dtype}")
     if not rescale and dtype == np.dtype(np.int16):
         raise ValueError("streaming with rescale=False requires uint8/uint16"
-                         f" input, got {dtype}")
+                         f" (or unit-float virtual) input, got {dtype}")
 
 
 def _cast_raw(arr: np.ndarray) -> np.ndarray:
@@ -269,36 +274,63 @@ class StreamingEngine:
             lambda r0, n: self._read_rows(source, r0, n), h, w,
             _source_dtype(source), outlier)
 
-    def _prepare(self, source, outlier, rescale, classes, stats):
-        if isinstance(source, np.ndarray):
-            source = _cast_raw(source)  # once, not per stripe
-        elif not (hasattr(source, "read_rows") or (
-                isinstance(source, tuple) and len(source) == 2
-                and isinstance(source[0], TiffFile))):
-            raise TypeError(f"unsupported streaming source {type(source)}")
-        height, width = _source_dims(source)
-        dtype = _source_dtype(source)
+    def _prepare(self, sources, outlier, rescale, classes, stats, *,
+                 stack: bool):
+        """Check the sources (one per channel with ``stack``, else one),
+        cast float32 arrays, plan the stripes and fix each channel's
+        rescale range: ``(lo, hi)`` float32 arrays of one entry per
+        source."""
+        sources = [_cast_raw(s) if isinstance(s, np.ndarray) else s
+                   for s in sources]  # once, not per stripe
+        for src in sources:
+            if not (isinstance(src, np.ndarray) or hasattr(src, "read_rows")
+                    or (isinstance(src, tuple) and len(src) == 2
+                        and isinstance(src[0], TiffFile))):
+                raise TypeError(f"unsupported streaming source {type(src)}")
+        height, width = _source_dims(sources[0])
+        if any(_source_dims(s) != (height, width) for s in sources[1:]):
+            raise ValueError("channel sources must share dimensions")
+        dtypes = {_source_dtype(s) for s in sources}
+        if len(dtypes) != 1:
+            raise ValueError(f"channel sources disagree on dtype: "
+                             f"{sorted(map(str, dtypes))}")
+        dtype = dtypes.pop()
         _check_dtype(dtype, rescale)
         classes = _check_classes(classes, self.hp.n_classes)
         plan = self._plan(height, width)
-        if rescale:
-            lo, hi = (stats if stats is not None
-                      else self.global_stats(source, outlier))
+        if not rescale:
+            ranges = [(0.0, 1.0)] * len(sources)
+        elif stats is None:
+            ranges = [self.global_stats(s, outlier) for s in sources]
+        elif stack:
+            ranges = list(stats)
+            if len(ranges) != len(sources):
+                raise ValueError(
+                    f"stats has {len(ranges)} ranges for {len(sources)} "
+                    "channels (a short list would give channel 0's range to "
+                    "every channel)")
         else:
-            lo, hi = 0.0, 1.0
-        return source, dtype, classes, plan, (np.float32(lo), np.float32(hi))
+            ranges = [stats]
+        rng = tuple(np.asarray([r[i] for r in ranges], np.float32)
+                    for i in (0, 1))
+        return sources, dtype, classes, plan, rng
+
+    def _check_stack(self, sources) -> list:
+        if len(sources) != self.hp.n_channels:
+            raise ValueError(f"model expects {self.hp.n_channels} channels, "
+                             f"got {len(sources)}")
+        return list(sources)
 
     # -- device side -----------------------------------------------------------
 
     def _net_input(self, x: torch.Tensor, dtype: np.dtype, rescale: bool,
                    rng) -> torch.Tensor:
-        """Raw canvas ``[rows, cols]`` (float32 raw values, zero fill
-        included) -> ``[C, rows, cols]`` net input: the rescale (or
-        im2double), mean/std, the compute dtype, broadcast over channels."""
+        """Canvas ``[C0, rows, cols]`` (float32 source values, zero fill
+        included) -> ``[C, rows, cols]`` net input: each channel's rescale
+        (or im2double), mean/std, the compute dtype; ``C0 == 1``
+        broadcasts over the net's channels."""
         if rescale:
-            # made on the device: no copy from the host, no wait for it
-            lo = torch.full((), float(rng[0]), device=x.device)
-            hi = torch.full((), float(rng[1]), device=x.device)
+            lo, hi = (_column(v, x.device) for v in rng)
             x = torch.minimum(torch.maximum(x, lo), hi)
             x = (x - lo) / torch.clamp(hi - lo, min=1e-12) * 0.983
         else:
@@ -306,7 +338,7 @@ class StreamingEngine:
         x = (x - self.mean) * _reciprocal(self.std)
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        return x[None].expand(self.hp.n_channels, -1, -1)
+        return x.expand(self.hp.n_channels, -1, -1)
 
     def _row_mask(self, plan: _StripePlan, s: int, device) -> torch.Tensor:
         """1 for the stripe's tile rows that exist (rows s*S-1 .. (s+1)*S-1
@@ -318,14 +350,15 @@ class StreamingEngine:
     def _stripe(self, raw: torch.Tensor, plan: _StripePlan, s: int,
                 dtype: np.dtype, rescale: bool, rng, cls,
                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One stripe on ``raw``'s device: raw rows ``[in_rows, width]`` ->
-        uint8 maps ``[Kc, b - a, width]`` of its finished rows."""
+        """One stripe on ``raw``'s device: source rows ``[C0, in_rows,
+        width]`` -> uint8 maps ``[Kc, b - a, width]`` of its finished
+        rows."""
         grid, dev = plan.grid, raw.device
         m, sub = grid.margin, grid.sub
         model, window = self._model(dev)
-        canvas = torch.zeros((plan.in_rows, grid.padded_width),
+        canvas = torch.zeros((raw.shape[0], plan.in_rows, grid.padded_width),
                              dtype=torch.float32, device=dev)
-        canvas[:, m : m + plan.width] = _raw_float(raw, dtype)
+        canvas[:, :, m : m + plan.width] = _raw_float(raw, dtype)
         band_grid = tiler.make_grid((plan.S + 1) * sub, plan.width,
                                     self.hp.im_size, self.hp.margin)
         rmask = self._row_mask(plan, s, dev)
@@ -350,9 +383,24 @@ class StreamingEngine:
         """Stream the slide; returns uint8 ``[K, H, W]`` (or fills ``out``).
 
         ``classes``: class indexes to emit, in that order.  ``stats``:
-        a precomputed (lo, hi) in raw units (skips the stats pass)."""
-        source, dtype, classes, plan, rng = self._prepare(
-            source, outlier, rescale, classes, stats)
+        a precomputed (lo, hi) in source units (skips the stats pass)."""
+        return self._stream([source], outlier, rescale, out, classes, stats,
+                            stack=False)
+
+    def infer_stack(self, sources, outlier: float = -1, rescale: bool = True,
+                    out: Optional[np.ndarray] = None, classes=None,
+                    stats=None) -> np.ndarray:
+        """Multi-channel (duo) streaming: one source per net channel, each
+        rescaled with its own global range (``UnMicst2.py:784-788``).
+        ``stats``: one precomputed (lo, hi) per channel, in source units.
+        Otherwise :meth:`infer`."""
+        return self._stream(self._check_stack(sources), outlier, rescale,
+                            out, classes, stats, stack=True)
+
+    def _stream(self, sources, outlier, rescale, out, classes, stats, *,
+                stack: bool) -> np.ndarray:
+        sources, dtype, classes, plan, rng = self._prepare(
+            sources, outlier, rescale, classes, stats, stack=stack)
         cls = list(classes) if classes is not None else list(
             range(self.hp.n_classes))
         m = plan.grid.margin
@@ -364,20 +412,21 @@ class StreamingEngine:
 
         if self.device.type != "cuda":
             for s in range(plan.n_stripes):
-                rows = _to_torch(self._read_rows(source, raw_r0(s),
-                                                 plan.in_rows))
+                rows = _to_torch(np.stack([
+                    self._read_rows(src, raw_r0(s), plan.in_rows)
+                    for src in sources]))
                 a, b = plan.rows(s)
                 out[:, a - m : b - m] = self._stripe(
                     rows, plan, s, dtype, rescale, rng, cls).numpy()
             return out
-        return self._infer_cuda(source, plan, dtype, rescale, rng, cls, out,
+        return self._infer_cuda(sources, plan, dtype, rescale, rng, cls, out,
                                 raw_r0)
 
-    def _infer_cuda(self, source, plan, dtype, rescale, rng, cls, out,
+    def _infer_cuda(self, sources, plan, dtype, rescale, rng, cls, out,
                     raw_r0) -> np.ndarray:
-        """The stripe loop on the card: pinned host buffers, an upload and
-        a download stream, ``in_flight`` stripes in flight, drained in
-        stripe order."""
+        """The stripe loop on the card: pinned ``[C, rows, width]`` host
+        buffers in the sources' dtype, an upload and a download stream,
+        ``in_flight`` stripes in flight, drained in stripe order."""
         dev, m = self.device, plan.grid.margin
         k = min(self.in_flight, plan.n_stripes)
         tdt = _to_torch(np.zeros(1, dtype)).dtype
@@ -385,8 +434,9 @@ class StreamingEngine:
         with torch.cuda.device(dev):
             compute = torch.cuda.current_stream()
             up, down = torch.cuda.Stream(), torch.cuda.Stream()
-            host_in = [torch.empty((plan.in_rows, plan.width), dtype=tdt,
-                                   pin_memory=True) for _ in range(k)]
+            host_in = [torch.empty((len(sources), plan.in_rows, plan.width),
+                                   dtype=tdt, pin_memory=True)
+                       for _ in range(k)]
             dev_in = [torch.empty_like(h, device=dev) for h in host_in]
             host_out = [torch.empty(n_out, dtype=torch.uint8, pin_memory=True)
                         for _ in range(k)]
@@ -407,9 +457,9 @@ class StreamingEngine:
                 slot = s % k
                 if len(pending) == k:
                     drain()  # frees this slot's buffers
-                rows = _to_torch(self._read_rows(source, raw_r0(s),
-                                                 plan.in_rows))
-                host_in[slot].copy_(rows)
+                for c, src in enumerate(sources):
+                    host_in[slot][c].copy_(_to_torch(self._read_rows(
+                        src, raw_r0(s), plan.in_rows)))
                 with torch.cuda.stream(up):
                     dev_in[slot].copy_(host_in[slot], non_blocking=True)
                 compute.wait_stream(up)
@@ -428,13 +478,6 @@ class StreamingEngine:
                 drain()
         return out
 
-    def infer_stack(self, *args, **kw):
-        raise _not_ported("multi-channel (duo) streaming, infer_stack", "M6")
-
-    def infer_sharded_stack(self, *args, **kw):
-        raise _not_ported("multi-channel (duo) column-sharded streaming, "
-                          "infer_sharded_stack", "M6")
-
     # -- column-sharded streaming ---------------------------------------------
 
     def infer_sharded(self, source, mesh: Mesh, axis: str = "data",
@@ -446,14 +489,30 @@ class StreamingEngine:
         ranks; returns uint8 ``[K, H, W]`` like :meth:`infer`.
 
         Each rank takes ``ceil(npc / n)`` tile columns (phantom columns
-        masked); its input halo is the first ``2m`` raw columns of the
+        masked); its input halo is the first ``2m`` source columns of the
         right-hand neighbour (the last rank's is the canvas tail), and the
         fold tail of its last ``2m`` columns, sums and count, is added into
         the right-hand neighbour's head.  Both hops are kernel K3 on a
         card (the plain copy on the CPU)."""
+        return self._sharded([source], mesh, axis, outlier, rescale, out,
+                             classes, stats, stack=False)
+
+    def infer_sharded_stack(self, sources, mesh: Mesh, axis: str = "data",
+                            outlier: float = -1, rescale: bool = True,
+                            out: Optional[np.ndarray] = None, classes=None,
+                            stats=None) -> np.ndarray:
+        """Multi-channel (duo) column-sharded streaming: per-channel global
+        ranges (``UnMicst2.py:784-788``), ``[C, rows, 2m]`` input halos;
+        otherwise :meth:`infer_sharded`.  ``stats``: one (lo, hi) per
+        channel, in source units, like :meth:`infer_stack`."""
+        return self._sharded(self._check_stack(sources), mesh, axis, outlier,
+                             rescale, out, classes, stats, stack=True)
+
+    def _sharded(self, sources, mesh, axis, outlier, rescale, out, classes,
+                 stats, *, stack: bool) -> np.ndarray:
         ranks = mesh.ranks(axis)
-        source, dtype, classes, plan, rng = self._prepare(
-            source, outlier, rescale, classes, stats)
+        sources, dtype, classes, plan, rng = self._prepare(
+            sources, outlier, rescale, classes, stats, stack=stack)
         cls = list(classes) if classes is not None else list(
             range(self.hp.n_classes))
         grid = plan.grid
@@ -468,23 +527,24 @@ class StreamingEngine:
         if out is None:
             out = np.empty((len(cls), plan.height, plan.width), np.uint8)
         for s in range(plan.n_stripes):
-            raw = np.zeros((plan.in_rows, body_w + two_m), dtype)
-            raw[:, m : m + plan.width] = self._read_rows(
-                source, (s * plan.S - 1) * sub - m, plan.in_rows)
+            raw = np.zeros((len(sources), plan.in_rows, body_w + two_m), dtype)
+            for c, src in enumerate(sources):
+                raw[c, :, m : m + plan.width] = self._read_rows(
+                    src, (s * plan.S - 1) * sub - m, plan.in_rows)
             raw = _to_torch(raw)
-            blocks = [raw[:, d * cw : (d + 1) * cw].contiguous().to(dev)
+            blocks = [raw[:, :, d * cw : (d + 1) * cw].contiguous().to(dev)
                       for d, dev in enumerate(ranks)]
-            # input halo in the raw dtype: the right-hand neighbour's first
-            # 2m columns; the last rank takes the canvas tail
-            halos = ring_shift([b[:, :two_m].contiguous() for b in blocks],
+            # input halo in the sources' dtype: the right-hand neighbour's
+            # first 2m columns; the last rank takes the canvas tail
+            halos = ring_shift([b[:, :, :two_m].contiguous() for b in blocks],
                                -1, kind="input")
-            halos[-1] = raw[:, body_w:].contiguous().to(ranks[-1])
+            halos[-1] = raw[:, :, body_w:].contiguous().to(ranks[-1])
             a, b = plan.rows(s)
             rows = (sub + a - s * plan.band_rows, b - a)
             weighted, tails = [], []
             for d, dev in enumerate(ranks):
                 model, window = self._model(dev)
-                x = _raw_float(torch.cat([blocks[d], halos[d]], 1), dtype)
+                x = _raw_float(torch.cat([blocks[d], halos[d]], 2), dtype)
                 rmask = self._row_mask(plan, s, dev)
                 tile_mask = (rmask[:, None] * cmasks[d][None, :]).reshape(-1)
                 w = weigh_tiles(model, self._net_input(x, dtype, rescale,
