@@ -12,6 +12,9 @@ printing any result):
    shapes of a 4096^2 slide through the legacy net (T 1849 tiles, K 3,
    P 128, float32), and time kernel, plain version and a one-call
    PyTorch yardstick (``torch.softmax``, ``torch.nn.functional.fold``);
+   K2's slide epilogue in both modes, uint8 maps and the float32 maps of
+   the host float path (yardstick: ``fold`` of the tiles over ``fold``
+   of the window);
    K2's device time per launch by the profiler beside its events time, and
    K2 under ``torch.cuda.set_sync_debug_mode("error")`` (no call of it may
    synchronise the host with the card);
@@ -68,7 +71,24 @@ printing any result):
    ``--tool unmicst-duo --channel 1 2`` (the ``oracle_duo`` TF1 weights in
    a temporary model directory) and ``--scalingFactor 0.5`` (blobDemo);
    every number beside the card's name and power limit;
-8. print the ``{"kernels": [...]}`` line, the card's name and power limit,
+8. sweep and host float path: the legacy net at nucleiDAPI's widths with
+   seeded weights, written as a model directory by ``save_tf1_params`` and
+   read back bit for bit; ``python -m unmicst_tpu_torch.batch`` in a child
+   process over a root of two 4096^2 slides (whole engine), an 8192^2
+   one (streamed) and a truncated one (exit 2, that slide alone in
+   ``failed``), every page against the engines in this process, the
+   sweep's Mpx/s and each slide's seconds beside the bare engine call;
+   the same sweep again (every slide skipped, K1 never launched); the
+   8192^2 slide with ``--engine sharded --meshShape 4`` (K3 twice per
+   stripe); then ``cli.main`` on the host float path, a 4096^2 int16
+   legacy slide and a 4096^2 uint8 + uint16 duo slide (the duo net at
+   nucleiDAPILAMIN's widths, its model directory also written by
+   ``save_tf1_params``), beside the on-card path for the same slides in
+   uint16, with K2's float32 epilogue launched once per slide, the host
+   path's breakdown and the D2H of its float32 maps; the card against
+   the CPU at 1024^2, ``--check-numerics`` on seeded weights and on a NaN
+   weight, and ``--trace`` (a trace holding K1 and K2 events);
+9. print the ``{"kernels": [...]}`` line, the card's name and power limit,
    and the ``{"ok": true, ...}`` line last.
 """
 
@@ -386,6 +406,32 @@ def phase_kernels(dev) -> dict:
     cols = weighted.reshape(t, k * p * p).t().unsqueeze(0).contiguous()
     size = (grid.padded_height, grid.padded_width)
     k2_lib_ms = cuda_ms(lambda: F.fold(cols, size, p, stride=grid.sub))
+
+    # K2 (c): the same epilogue with float32 maps, the host float path's
+    # mode (InferenceEngine.infer)
+    f = kernels.blend_fold_epilogue(weighted, window, grid, quantize=False)
+    f_plain = kernels.blend_fold_epilogue_plain(weighted, window, grid,
+                                                quantize=False)
+    torch.cuda.synchronize()
+    err2f = (f - f_plain).abs().max().item()
+    log(f"[K2f] maps {tuple(f.shape)} float32: max |kernel - plain| "
+        f"{err2f:.3e} (atol 1e-5)")
+    check(f.dtype == torch.float32 and err2f <= 1e-5,
+          f"K2's float32 epilogue disagrees with its plain version: {err2f}")
+    del f, f_plain
+    f32_fn = lambda: kernels.blend_fold_epilogue(  # noqa: E731
+        weighted, window, grid, quantize=False)
+    k2f_ms = cuda_ms(f32_fn)
+    k2f_dev_ms = fold_device_ms(f32_fn, "K2 float32 slide epilogue")
+    no_sync(f32_fn, "K2 float32 slide epilogue")
+    k2f_plain_ms = cuda_ms(lambda: kernels.blend_fold_epilogue_plain(
+        weighted, window, grid, quantize=False), iters=3)
+    # F.fold of the tiles and of the window (the blend count), then divide
+    ones_cols = window.reshape(1, p * p, 1).expand(1, p * p, t).contiguous()
+    count = F.fold(ones_cols, size, p, stride=grid.sub)
+    k2f_lib_ms = cuda_ms(lambda: F.fold(cols, size, p, stride=grid.sub)
+                         / count)
+    del ones_cols, count
     # elements of the tiles that land inside the cropped slide
     def covered(n_tiles):
         m, sub = grid.margin, grid.sub
@@ -395,14 +441,19 @@ def phase_kernels(dev) -> dict:
     n_out = k * SLIDE * SLIDE
     k2_bound, k2_by = bound_ms(4 * n_read + 4 * p * p + n_out,
                                4 * n_read + 7 * n_out)
+    k2f_bound, k2f_by = bound_ms(4 * n_read + 4 * p * p + 4 * n_out,
+                                 4 * n_read + 7 * n_out)
     for name, ms, pl, lib, bd in [
         ("K1", k1_ms, k1_plain_ms, k1_lib_ms, k1_bound),
         ("K2b", k2_ms, k2_plain_ms, k2_lib_ms, k2_bound),
+        ("K2f", k2f_ms, k2f_plain_ms, k2f_lib_ms, k2f_bound),
     ]:
         log(f"[{name}] kernel {ms:.4f} ms | plain {pl:.4f} ms | library "
             f"{lib:.4f} ms | bound {bd:.4f} ms")
-    log(f"[K2b] device time per launch (profiler) {k2_dev_ms:.4f} ms, "
-        f"events {k2_ms:.4f} ms, {k2_dev_ms / k2_bound:.2f}x the bound")
+    for name, dev_ms, ms, bd in [("K2b", k2_dev_ms, k2_ms, k2_bound),
+                                 ("K2f", k2f_dev_ms, k2f_ms, k2f_bound)]:
+        log(f"[{name}] device time per launch (profiler) {dev_ms:.4f} ms, "
+            f"events {ms:.4f} ms, {dev_ms / bd:.2f}x the bound")
     del cols, logits, k1, k1_plain, a, a_plain, weighted, b, b_plain
     torch.cuda.empty_cache()
     return {
@@ -417,6 +468,11 @@ def phase_kernels(dev) -> dict:
             max_abs_err=float(err2b), ms=k2_ms, plain_ms=k2_plain_ms,
             bound_ms=k2_bound, bound_by=k2_by, library_ms=k2_lib_ms,
             mode_a_max_abs_err=err2a),
+        "blend_fold_epilogue_f32": dict(
+            route="cuda", source="unmicst_tpu_torch/csrc/blend_fold.cu",
+            replaces="exhibits/pallas/blend.py:76", max_abs_err=err2f,
+            ms=k2f_ms, plain_ms=k2f_plain_ms, bound_ms=k2f_bound,
+            bound_by=k2f_by, library_ms=k2f_lib_ms),
     }
 
 
@@ -1171,21 +1227,16 @@ def class_sum_ok(maps) -> bool:
 
 def duo_model_dir(root: str) -> str:
     """A nucleiDAPILAMIN model directory for the CLI: the oracle_duo TF1
-    checkpoint (tests/fixtures) with the reference's pickled sidecars
-    (``toolbox/ftools.py:32-35``), written by the standard library."""
+    weights (tests/fixtures) through :func:`write_model_dir`."""
+    from unmicst_tpu_torch.core.checkpoint import load_tf1_params
+    from unmicst_tpu_torch.core.hp import HParams
+
     fixture = os.path.join(ROOT, "tests", "fixtures", "oracle_duo")
-    d = os.path.join(root, "nucleiDAPILAMIN")
-    os.makedirs(d)
-    for f in os.listdir(fixture):
-        if f.startswith("model.ckpt"):
-            shutil.copy(os.path.join(fixture, f), d)
     with open(os.path.join(fixture, "hp.json")) as f:
-        hp = json.load(f)
-    for name, obj in (("hp.data", hp), ("datasetMean.data", DUO_MEAN),
-                      ("datasetStDev.data", DUO_STD)):
-        with open(os.path.join(d, name), "wb") as f:
-            pickle.dump(obj, f)
-    return d
+        hp = HParams.from_ref_dict(json.load(f))
+    state = load_tf1_params(os.path.join(fixture, "model.ckpt"), hp, "v2")
+    return write_model_dir(root, "nucleiDAPILAMIN", hp, state, "v2",
+                           DUO_MEAN, DUO_STD)
 
 
 def phase_duo_scale(dev) -> None:
@@ -1451,6 +1502,354 @@ def phase_duo_scale(dev) -> None:
     log(f"[duo and scale] phase {time.perf_counter() - t_phase:.1f}s")
 
 
+def write_model_dir(root: str, name: str, hp, state, variant: str,
+                    mean: float, std: float) -> str:
+    """A model directory of ``state`` as the reference ships one: a TF1
+    bundle written by ``save_tf1_params`` and the pickled sidecars
+    (``toolbox/ftools.py:32-35``), written by the standard library."""
+    from unmicst_tpu_torch.core.checkpoint import save_tf1_params
+    from unmicst_tpu_torch.core.hp import _REF_KEYS
+
+    d = os.path.join(root, name)
+    os.makedirs(d)
+    save_tf1_params(os.path.join(d, "model.ckpt"), state, hp, variant)
+    ref = {key: getattr(hp, ours) for key, ours in _REF_KEYS.items()}
+    for fname, obj in (("hp.data", ref), ("datasetMean.data", mean),
+                       ("datasetStDev.data", std)):
+        with open(os.path.join(d, fname), "wb") as f:
+            pickle.dump(obj, f)
+    return d
+
+
+def run_sweep_process(argv, label: str) -> tuple:
+    """``python -m unmicst_tpu_torch.batch ... --stats`` in a child process:
+    (exit code, its --stats record, wall seconds)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "unmicst_tpu_torch.batch",
+                        *argv, "--stats"], cwd=ROOT, capture_output=True,
+                       text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        if line.startswith("[sweep"):
+            log(f"[sweep] {label}: {line}")
+    records = [line for line in r.stdout.splitlines()
+               if line.startswith("{")]
+    check(records, f"sweep {label}: no --stats record (rc {r.returncode})\n"
+                   f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return r.returncode, json.loads(records[-1]), secs
+
+
+def phase_sweep(dev) -> int:
+    """The batch entry point and the CLI's host float path at full width;
+    returns the launches of K2's float32 epilogue on the host path's
+    4096^2 int16 slide."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.core.checkpoint import (load_params_for_bundle,
+                                                   save_tf1_params)
+    from unmicst_tpu_torch.core.hp import load_model_dir
+    from unmicst_tpu_torch.infer import InferenceEngine
+    from unmicst_tpu_torch.io import preprocess as pp
+    from unmicst_tpu_torch.io.tiff import TiffWriter, imread, num_pages
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the sweep's child processes share the card
+    hp, state = legacy_hp(), seeded_state(legacy_hp(), "legacy", SEED)
+    mpx = SLIDE * SLIDE / 1e6
+
+    def plane(side, seed, lo=0, hi=65536, dtype=np.uint16):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(lo, hi, (side, side), generator=g,
+                             dtype=torch.int32).numpy().astype(dtype)
+
+    def tiff(path, planes):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with TiffWriter(path, bigtiff=True) as tw:
+            for p in planes:
+                tw.write(p)
+        return path
+
+    def levels(a, b):
+        d = np.abs(a.astype(int) - b.astype(int))
+        return int(d.max()), float((d > 0).mean())
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    try:
+        # -- the model directory, through the TF1 writer ---------------------
+        zoo = os.path.join(tmp, "zoo")
+        t0 = time.perf_counter()
+        mdir = write_model_dir(zoo, "nucleiDAPI", hp, state, "legacy",
+                               LEGACY_MEAN, LEGACY_STD)
+        back = load_params_for_bundle(load_model_dir(mdir))
+        same = sorted(back) == sorted(state) and all(
+            torch.equal(back[k], state[k].float()) for k in state)
+        log(f"[sweep] nucleiDAPI model dir (save_tf1_params, "
+            f"{sum(v.numel() for v in state.values())} weights) written and "
+            f"read back in {time.perf_counter() - t0:.2f} s: bit-equal "
+            f"{same}")
+        check(same, "load_params_for_bundle did not give back the tensors "
+                    "save_tf1_params wrote")
+
+        # -- the sweep root --------------------------------------------------
+        root = os.path.join(tmp, "sweep")
+        reg = os.path.join(root, "exemplar-001", "registration")
+        whole = {os.path.join(reg, f"slide{i}.ome.tif"): plane(SLIDE, 60 + i)
+                 for i in range(2)}
+        for path, raw in whole.items():
+            tiff(path, [raw])
+        big_raw = plane(BIG, 62)
+        big = tiff(os.path.join(root, "exemplar-002", "registration",
+                                "big.ome.tif"), [big_raw])
+        bad = os.path.join(root, "exemplar-003", "registration",
+                           "bad.ome.tif")
+        os.makedirs(os.path.dirname(bad))
+        first = next(iter(whole))
+        with open(first, "rb") as f:
+            head = f.read(os.path.getsize(first) // 2)
+        with open(bad, "wb") as f:
+            f.write(head)  # truncated: the strips run past the file's end
+        argv = [root, "--model", "nucleiDAPI", "--modelRoot", zoo]
+
+        # run 1: two whole slides, one streamed, one failure
+        rc, rec, secs = run_sweep_process(argv, "run 1")
+        launches = rec["launches"]
+        stream = StreamingEngine(hp, state, "legacy", LEGACY_MEAN,
+                                 LEGACY_STD, compute_dtype=None, device=dev)
+        plan = stream._plan(BIG, BIG)
+        good = sorted(list(whole) + [big])
+        log(f"[sweep] run 1: rc {rc}, {len(rec['completed'])} completed, "
+            f"failed {rec['failed']}, {rec['mpx_total']:.2f} Mpx in "
+            f"{rec['wall_s']:.3f} s of sweep "
+            f"({rec['mpx_total'] / rec['wall_s']:.2f} Mpx/s, reads and "
+            f"writes included; process {secs:.2f} s); "
+            f"launches { {k: v for k, v in launches.items() if v} } [{card}]")
+        check(rc == 2 and rec["failed"] == [bad]
+              and sorted(rec["completed"]) == good,
+              f"sweep run 1: rc {rc}, failed {rec['failed']}, completed "
+              f"{rec['completed']}")
+        check(launches["blend_fold_epilogue"] == len(whole)
+              and launches["blend_fold_stripe"] == plan.n_stripes
+              and launches["softmax_blend"] > 0,
+              f"sweep run 1 did not run K1, K2's slide epilogue per whole "
+              f"slide and its stripe entry per stripe: {launches}")
+
+        # each page against the engines in this process
+        engine = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                                 device=dev)
+        outs = {}
+        for path, raw in list(whole.items()) + [(big, big_raw)]:
+            if path == big:
+                maps, bare = wall(lambda: stream.infer(raw, classes=(1, 2)))
+                maps, bare = wall(lambda: stream.infer(raw, classes=(1, 2)))
+            else:
+                engine.infer_slide(raw, classes=(1, 2))  # cuDNN autotune
+                maps, bare = wall(lambda: engine.infer_slide(raw,
+                                                             classes=(1, 2)))
+            out = os.path.join(os.path.dirname(os.path.dirname(path)),
+                               "prob_maps")
+            stem = os.path.basename(path).split(".")[0]
+            cfile = os.path.join(out, f"{stem}_ContoursPM_1.tif")
+            nfile = os.path.join(out, f"{stem}_NucleiPM_1.tif")
+            check(num_pages(cfile) == 2 and num_pages(nfile) == 1,
+                  f"{stem}: ContoursPM {num_pages(cfile)} pages, NucleiPM "
+                  f"{num_pages(nfile)}")
+            dc = levels(imread(cfile, 0), maps[0])
+            dn = levels(imread(nfile, 0), maps[1])
+            dp = levels(imread(cfile, 1), pp.preview_u8_from_raw(raw))
+            total, inf = rec["seconds"][path], rec["infer_seconds"][path]
+            extra = "cuDNN autotune" + (", and the stats pass"
+                                        if path == big else "")
+            log(f"[sweep] {stem}: {total:.3f} s in the sweep, of which "
+                f"infer {inf:.3f} s and TIFF read, preview and writes "
+                f"{total - inf:.3f} s; the warm bare "
+                f"{'stream' if path == big else 'infer_slide'} here "
+                f"{bare:.3f} s (the sweep's infer over it: the child's "
+                f"first call per shape: {extra}); "
+                f"vs this process: contours {dc[0]} level(s) on "
+                f"{dc[1]:.3e}, nuclei {dn[0]} on {dn[1]:.3e}, preview "
+                f"{dp[0]} [{card}]")
+            # the stream's preview takes a float32 table, the whole
+            # engine's float64 (as in the JAX package): 1 level apart at most
+            check(dc[0] <= 1 and dn[0] <= 1
+                  and dp[0] <= (1 if path == big else 0),
+                  f"{stem}: sweep pages differ from the engine's: {dc} {dn} "
+                  f"{dp}")
+            outs[path] = (imread(cfile, 0), imread(nfile, 0))
+        del engine
+
+        # run 2: everything done is skipped; K1 never launches
+        rc, rec, secs = run_sweep_process(argv, "run 2")
+        log(f"[sweep] run 2 (resume): rc {rc}, skipped "
+            f"{len(rec['skipped'])}, failed {rec['failed']}, launches "
+            f"{ {k: v for k, v in rec['launches'].items() if v} }, process "
+            f"{secs:.2f} s")
+        check(rc == 2 and sorted(rec["skipped"]) == good
+              and not rec["completed"] and rec["failed"] == [bad]
+              and rec["launches"]["softmax_blend"] == 0,
+              f"sweep run 2 did not skip the finished slides: {rec}")
+
+        # run 3: the 8192^2 slide, --engine sharded on 4 ranks of the card
+        root_big = os.path.join(tmp, "sweep_big")
+        big_link = os.path.join(root_big, "exemplar-002", "registration",
+                                "big.ome.tif")
+        os.makedirs(os.path.dirname(big_link))
+        os.link(big, big_link)
+        rc, rec, secs = run_sweep_process(
+            [root_big, "--model", "nucleiDAPI", "--modelRoot", zoo,
+             "--engine", "sharded", "--meshShape", str(RANKS)], "run 3")
+        out = os.path.join(root_big, "exemplar-002", "prob_maps")
+        dc = levels(imread(os.path.join(out, "big_ContoursPM_1.tif")),
+                    outs[big][0])
+        dn = levels(imread(os.path.join(out, "big_NucleiPM_1.tif")),
+                    outs[big][1])
+        log(f"[sweep] run 3 (--engine sharded --meshShape {RANKS}): rc {rc}, "
+            f"{BIG * BIG / 1e6 / rec['wall_s']:.2f} Mpx/s of sweep; vs the "
+            f"one-rank stream contours {dc[0]} level(s), nuclei {dn[0]}; "
+            f"launches { {k: v for k, v in rec['launches'].items() if v} } "
+            f"[{card}]")
+        check(rc == 0 and rec["completed"] == [big_link]
+              and dc[0] <= 1 and dn[0] <= 1,
+              f"sharded sweep: rc {rc}, {rec['completed']}, {dc} {dn}")
+        check(rec["launches"]["ring_shift"] == 2 * plan.n_stripes,
+              f"sharded sweep: expected {2 * plan.n_stripes} K3 launches "
+              f"(two seams per stripe): {rec['launches']}")
+        del stream, outs
+        shutil.rmtree(root)
+        shutil.rmtree(root_big)
+        torch.cuda.empty_cache()
+
+        # -- the host float path through cli.main ----------------------------
+        dhp = duo_hp()
+        dstate = seeded_state(dhp, "v2", SEED)
+        t0 = time.perf_counter()
+        write_model_dir(zoo, "nucleiDAPILAMIN", dhp, dstate, "v2", DUO_MEAN,
+                        DUO_STD)
+        log(f"[host] nucleiDAPILAMIN model dir "
+            f"({sum(v.numel() for v in dstate.values())} weights) written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        u16 = plane(SLIDE, 70, 0, 30000)
+        i16 = (u16.astype(np.int32) - 2000).astype(np.int16)
+        u8 = plane(SLIDE, 71, 0, 256, np.uint8)
+        d16 = plane(SLIDE, 72)
+        inputs = {
+            "legacy int16": (["--tool", "unmicst-legacy", "--model",
+                              "nucleiDAPI"], [i16]),
+            "legacy uint16": (["--tool", "unmicst-legacy", "--model",
+                               "nucleiDAPI"], [u16]),
+            "duo uint8+uint16": (["--tool", "unmicst-duo", "--channel", "1",
+                                  "2"], [u8, d16]),
+            "duo uint16": (["--tool", "unmicst-duo", "--channel", "1", "2"],
+                           [u8.astype(np.uint16) * 257, d16]),
+        }
+        f32_launches = None
+        for name, (flags, planes) in inputs.items():
+            src = tiff(os.path.join(tmp, name.replace(" ", "_"),
+                                    "registration", "s.tif"), planes)
+            argv = [src, "--modelRoot", zoo, "--stackOutput", *flags]
+            out = os.path.join(tmp, "out_" + name.replace(" ", "_"))
+            if "uint16" not in name or "+" in name:
+                cli.main(argv + ["--outputPath", out])  # the net's autotune
+            kernels.reset_launch_counts()
+            _, secs = wall(lambda: cli.main(argv + ["--outputPath", out]))
+            counts = kernels.launch_counts()
+            host = name == "legacy int16" or "+" in name
+            if name == "legacy int16":
+                f32_launches = counts["blend_fold_epilogue"]
+            log(f"[host] cli.main {name} {SLIDE}^2 "
+                f"({'host float path' if host else 'on-card path'}): "
+                f"{secs:.3f} s end to end, {mpx / secs:.2f} Mpx/s; launches "
+                f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+            check(counts["blend_fold_epilogue"] == 1
+                  and counts["softmax_blend"] > 0,
+                  f"{name}: expected K1 and one K2 epilogue: {counts}")
+            pages = [imread(os.path.join(out, "s_Probabilities_1.tif"), k)
+                     for k in range(3)]
+            check(all(p.shape == (SLIDE, SLIDE) for p in pages)
+                  and class_sum_ok(np.stack(pages)),
+                  f"{name}: pages {[p.shape for p in pages]} or class sum")
+        # where the host path's time goes: the legacy int16 slide
+        bundle = load_model_dir(mdir)
+        engine = InferenceEngine.from_bundle(
+            bundle, load_params_for_bundle(bundle), device=dev)
+        pc, t_pre = wall(lambda: pp.preprocess_channel(i16, 1.0, -1))
+        net = pc.net_input.astype(np.float32)
+        probs, t_infer = wall(lambda: engine.infer(net))
+        _, t_post = wall(lambda: [pp.postprocess_pm(probs[c], pc.raw_shape)
+                                  for c in range(3)])
+        x = torch.from_numpy(net)[None].to(dev)
+        f_dev = engine._maps(x, None, quantize=False)
+        q_dev = engine._maps(x, None, quantize=True)
+        _, d2h_f = wall(lambda: f_dev.cpu())
+        _, d2h_q = wall(lambda: q_dev.cpu())
+        log(f"[host] int16 {SLIDE}^2 host path: preprocess_channel "
+            f"{t_pre:.3f} s, engine.infer {t_infer:.3f} s (its D2H of the "
+            f"float32 maps, {f_dev.numel() * 4 / 1e6:.1f} MB: {d2h_f:.4f} s; "
+            f"the on-card path's uint8 maps, {q_dev.numel() / 1e6:.1f} MB: "
+            f"{d2h_q:.4f} s), postprocess_pm x3 {t_post:.3f} s [{card}]")
+        del f_dev, q_dev, x, probs, engine
+
+        # card against CPU at 1024^2, --check-numerics, --trace
+        small = {"legacy int16": [i16[:1024, :1024]],
+                 "duo uint8+uint16": [u8[:1024, :1024], d16[:1024, :1024]]}
+        for name, planes in small.items():
+            src = tiff(os.path.join(tmp, "small_" + name.replace(" ", "_"),
+                                    "registration", "s.tif"), planes)
+            argv = [src, "--modelRoot", zoo, "--stackOutput",
+                    *inputs[name][0]]
+            got = {}
+            for d in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"small_out_{d}_{name[:3]}")
+                check(cli.main(argv + ["--outputPath", out], device=d) == 0,
+                      f"{name} 1024^2 on {d}")
+                got[d] = np.stack([imread(os.path.join(
+                    out, "s_Probabilities_1.tif"), k) for k in range(3)])
+            worst, share = levels(got["cuda"], got["cpu"])
+            log(f"[host] {name} 1024^2 card vs CPU: max {worst} level(s), "
+                f"{share:.3e} of pixels differ (bar: 1 level) [{card}]")
+            check(worst <= 1, f"{name}: card and CPU {worst} levels apart")
+        src = os.path.join(tmp, "small_legacy_int16", "registration", "s.tif")
+        argv = [src, "--modelRoot", zoo, "--tool", "unmicst-legacy",
+                "--model", "nucleiDAPI", "--outputPath",
+                os.path.join(tmp, "out_checked")]
+        check(cli.main(argv + ["--check-numerics"]) == 0,
+              "--check-numerics failed on seeded weights")
+        nan_state = {k: v.clone() for k, v in state.items()}
+        nan_state["up.1.kernel2"].view(-1)[7] = float("nan")
+        nan_dir = os.path.join(tmp, "zoo_nan", "nucleiDAPI")
+        shutil.copytree(mdir, nan_dir)
+        save_tf1_params(os.path.join(nan_dir, "model.ckpt"), nan_state, hp,
+                        "legacy")
+        argv_nan = argv[:2] + [os.path.dirname(nan_dir)] + argv[3:]
+        try:
+            cli.main(argv_nan + ["--check-numerics"])
+            raised = None
+        except FloatingPointError as e:
+            raised = str(e)
+        log(f"[host] --check-numerics with a NaN in up.1.kernel2: "
+            f"{raised!r}")
+        check(raised and "up.1.kernel2" in raised,
+              "--check-numerics passed a NaN weight")
+        trace_dir = os.path.join(tmp, "trace")
+        check(cli.main(argv + ["--trace", trace_dir]) == 0, "--trace run")
+        (trace_file,) = os.listdir(trace_dir)
+        with open(os.path.join(trace_dir, trace_file)) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        k1_ev = sorted(n for n in names if "softmax_blend" in n)
+        k2_ev = sorted(n for n in names if "fold_region" in n)
+        log(f"[host] --trace: {trace_file}, {len(names)} event names, K1 "
+            f"{k1_ev[:2]}, K2 {k2_ev[:2]}")
+        check(k1_ev and k2_ev, "the --trace file holds no K1 or K2 event")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[sweep and host float path] phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    return f32_launches
+
+
 def main() -> int:
     import torch
 
@@ -1467,11 +1866,12 @@ def main() -> int:
     stats = phase_kernels(dev)
     phase_cli(dev)
     launches = phase_legacy(dev)
-    for name in stats:
+    for name in ("softmax_blend", "blend_fold_epilogue"):
         stats[name]["launches"] = launches[name]
     stats.update(phase_halo(dev))
     stats.update(phase_streaming(dev))
     phase_duo_scale(dev)
+    stats["blend_fold_epilogue_f32"]["launches"] = phase_sweep(dev)
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():

@@ -1,6 +1,7 @@
 """Port CLI (unmicst_tpu_torch.cli) against unmicst_tpu.cli, the port's
 import rule, and the rule that entry points never fall back to the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -127,6 +128,42 @@ def test_cli_unported_paths_fail_loudly(tmp_path, flags, item):
                   "--outputPath", str(tmp_path / "o"), *flags], device="cpu")
 
 
+@pytest.mark.parametrize("flag", ["--calibrationPercentile", "--trace",
+                                  "--check-numerics", "--listModels",
+                                  "--fetchModels"])
+def test_cli_takes_every_jax_flag(tmp_path, capsys, flag):
+    """Each flag the JAX parser has and the port's lacked: it runs, or it
+    refuses with a reason (never argparse's "unrecognized arguments")."""
+    _, src = _source(tmp_path)
+    out = str(tmp_path / "o")
+    common = [src, "--model", "blobDemo", "--modelRoot", MODELS,
+              "--outputPath", out, "--stackOutput"]
+    if flag == "--calibrationPercentile":
+        # it matters only under --precision int8, as in JAX
+        assert cli.main(common + [flag, "99.9"], device="cpu") == 0
+        with pytest.raises(SystemExit, match="M11"):
+            cli.main(common + [flag, "99.9", "--precision", "int8"],
+                     device="cpu")
+    elif flag == "--trace":
+        trace_dir = tmp_path / "trace"
+        assert cli.main(common + [flag, str(trace_dir)], device="cpu") == 0
+        (path,) = trace_dir.iterdir()
+        with open(path) as f:
+            assert "traceEvents" in json.load(f)
+    elif flag == "--check-numerics":
+        assert cli.main(common + [flag], device="cpu") == 0
+        assert num_pages(os.path.join(out, "blobs_Probabilities_1.tif")) == 3
+    elif flag == "--listModels":
+        assert cli.main([flag, "--modelRoot", MODELS]) == 0
+        assert "blobDemo: ready (local)" in capsys.readouterr().out
+    else:
+        with pytest.raises(SystemExit, match="download") as e:
+            cli.main([flag, "nucleiDAPI", "--modelRoot", MODELS])
+        assert e.value.code not in (0, None)
+    with pytest.raises(SystemExit, match="imagePath is required"):
+        cli.main(["--model", "blobDemo"], device="cpu")
+
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import unmicst_tpu_torch
@@ -139,7 +176,7 @@ banned = ("jax", "jaxlib", "flax", "ml_dtypes", "PIL", "unmicst_tpu",
           "exhibits", "scripts", "msgpack", "scipy")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
-sys.exit(1 if leaked or len(names) < 15 else 0)
+sys.exit(1 if leaked or len(names) < 31 else 0)
 """
 
 

@@ -513,3 +513,84 @@ def test_a_stack_stripe_never_synchronises(cuda):
                           stripe_tile_rows=3, device="cpu")
     assert np.abs(engine.infer_stack(planes).astype(int)
                   - ref.infer_stack(planes).astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,patch,margin,k", _GEOMS)
+def test_k2_float32_slide_epilogue_matches_plain_on_card(cuda, shape, patch,
+                                                         margin, k):
+    """K2's slide epilogue with float32 maps (the host float path's mode)
+    against ``blend_fold_epilogue_plain(quantize=False)``: within 1e-5
+    (float32 sums of at most four tiles, one divide), one launch."""
+    g, logits, win = _weighted_case(shape, patch, margin, k, seed=9)
+    x, w = torch.from_numpy(logits), torch.from_numpy(win)
+    before = kernels.blend_fold_epilogue.launches
+    got = kernels.blend_fold_epilogue(x.to(cuda), w.to(cuda), g,
+                                      quantize=False)
+    torch.cuda.synchronize()
+    assert kernels.blend_fold_epilogue.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (k,) + tuple(shape)
+    want = kernels.blend_fold_epilogue_plain(x, w, g, quantize=False)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-5)
+
+
+def _tiff(path, planes):
+    from unmicst_tpu_torch.io.tiff import TiffWriter
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with TiffWriter(path, bigtiff=True) as tw:
+        for p in planes:
+            tw.write(p)
+    return path
+
+
+def _pages_close(a_dir, b_dir):
+    from unmicst_tpu_torch.io.tiff import imread, num_pages
+
+    names = sorted(f for f in os.listdir(a_dir) if f.endswith(".tif"))
+    assert names and names == sorted(f for f in os.listdir(b_dir)
+                                     if f.endswith(".tif"))
+    for name in names:
+        for page in range(num_pages(os.path.join(a_dir, name))):
+            a = imread(os.path.join(a_dir, name), page).astype(int)
+            b = imread(os.path.join(b_dir, name), page).astype(int)
+            assert np.abs(a - b).max() <= 1, (name, page)
+
+
+@pytest.mark.cuda
+def test_sweep_and_host_float_path_on_card_match_cpu(cuda, tmp_path):
+    """A blobDemo sweep (whole, streamed and 3-rank sharded slides) and the
+    CLI's host float path (an int16 slide, --check-numerics) on the card,
+    within 1 level of the same calls on the CPU; the host path ran K2's
+    float32 epilogue once."""
+    from unmicst_tpu_torch import batch, cli
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+
+    model = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "models", "blobDemo")
+    rng = np.random.RandomState(11)
+    slides = [_tiff(str(tmp_path / f"exemplar-00{i}" / "registration" /
+                        "s.ome.tif"),
+                    [(rng.rand(*shape) * 60000).astype(np.uint16)])
+              for i, shape in enumerate([(200, 170), (300, 260)])]
+    for dev in ("cpu", cuda):
+        for kw, out in (({"stream_above_px": 50000}, "auto"),
+                        ({"mesh": make_mesh(devices=[dev] * 3)}, "sharded")):
+            rep = batch.run_sweep(slides, model, str(tmp_path / out /
+                                                     str(dev)),
+                                  device=dev, verbose=False, **kw)
+            assert rep.completed == slides
+    for out in ("auto", "sharded"):
+        _pages_close(str(tmp_path / out / "cpu"),
+                     str(tmp_path / out / str(cuda)))
+    src = _tiff(str(tmp_path / "h" / "registration" / "i16.tif"),
+                [(rng.rand(230, 190) * 30000 - 500).astype(np.int16)])
+    for extra in ([], ["--check-numerics"]):
+        argv = [src, "--tool", "unmicst-legacy", "--model", "blobDemo",
+                "--modelRoot", os.path.dirname(model), *extra]
+        cli.main(argv + ["--outputPath", str(tmp_path / "c")], device="cpu")
+        kernels.reset_launch_counts()
+        assert cli.main(argv + ["--outputPath", str(tmp_path / "g")]) == 0
+        counts = kernels.launch_counts()
+        assert counts["blend_fold_epilogue"] == 1, counts
+        _pages_close(str(tmp_path / "c"), str(tmp_path / "g"))

@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from tests.test_tiff import _write_predictor2_tiff
+from tests.test_tiff import _write_predictor2_tiff, _write_strip_tiff
 from unmicst_tpu.io import ome as jax_ome
 from unmicst_tpu.io import slides as jax_slides
 from unmicst_tpu.io import tiff as jax_tiff
@@ -124,3 +124,52 @@ def test_preview_matches_jax(dtype):
     raw = raw.astype(dtype)
     np.testing.assert_array_equal(preprocess.preview_u8_from_raw(raw),
                                   jax_pp.preview_u8_from_raw(raw))
+
+
+def _lzma(data):
+    import lzma
+
+    return lzma.compress(data)  # FORMAT_XZ, what libtiff writes
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_reads_lzma_strips_as_jax_does(tmp_path, dtype):
+    """LZMA (34925) strips, whole page and a window, equal to the JAX
+    reader on the same file."""
+    x = _image(dtype, (150, 97), seed=5)
+    fn = str(tmp_path / "l.tif")
+    _write_strip_tiff(fn, x, 34925, _lzma)
+    with jax_tiff.TiffFile(fn) as jf:
+        want = jf.read_page(0)
+    with tt.TiffFile(fn) as tf:
+        np.testing.assert_array_equal(tf.read_page(0), want)
+        np.testing.assert_array_equal(tf.read_region(0, 30, 10, 60, 50),
+                                      want[30:90, 10:60])
+    np.testing.assert_array_equal(want, x)
+
+
+def test_lzma_bomb_is_bounded(tmp_path):
+    """A strip that inflates far past its geometry stops at the bound, as
+    deflate does: the page reads its own bytes and no more."""
+    x = np.zeros((4, 4), np.uint8)
+    bomb = _lzma(bytes(16 << 20))
+    fn = str(tmp_path / "bomb.tif")
+    _write_strip_tiff(fn, x, 34925, lambda d: bomb, rows_per_strip=4)
+    assert len(tt._decode(bomb, tt.COMPRESSION_LZMA, 16)) <= 16 + 65536
+    np.testing.assert_array_equal(tt.imread(fn), x)
+
+
+def test_lzma_corrupt_and_zstd_refused(tmp_path):
+    x = _image(np.uint8, (40, 30), seed=6)
+    fn = str(tmp_path / "c.tif")
+    _write_strip_tiff(fn, x, 34925, _lzma, rows_per_strip=40)
+    blob = bytearray(open(fn, "rb").read())
+    blob[12] ^= 0xFF  # mid-stream corruption
+    open(fn, "wb").write(bytes(blob))
+    with pytest.raises(ValueError, match="LZMA"):
+        tt.imread(fn)
+    zs = str(tmp_path / "z.tif")
+    _write_strip_tiff(zs, x, 50000, lambda d: b"\x28\xb5\x2f\xfd" + d,
+                      rows_per_strip=40)
+    with pytest.raises(NotImplementedError, match="M14"):
+        tt.imread(zs)

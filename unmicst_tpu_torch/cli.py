@@ -11,6 +11,8 @@ The main path of ``unmicst_tpu/cli.py`` (``:770-862`` and
         [--precision float32|highest|bfloat16] [--tileBatch N]
         [--modelRoot DIR] [--GPU N] [--stats]
         [--engine auto|whole|streaming|sharded] [--meshShape N]
+        [--check-numerics] [--trace DIR]
+    python -m unmicst_tpu_torch --listModels [--modelRoot DIR]
 
 ``--tool unmicst-duo`` (nucleiDAPILAMIN) feeds two channels, ``--channel
 A B`` (one channel is fed twice), each rescaled with its own range; its
@@ -34,16 +36,29 @@ the stream, ``sharded`` with every stripe column-sharded over a mesh of
 ``--meshShape`` ranks (default: every visible card; on the CPU, ranks that
 share it).
 
+The whole engine runs on the card from the raw planes when every plane
+is uint8 or uint16, of one dtype, and ``--check-numerics`` is off
+(``_device_slide_ok``, ``cli.py:306-321`` of the JAX package).  Other
+inputs (int16, float32 and float64 planes, duo channels of mixed dtypes)
+and ``--check-numerics`` take the host float path (``cli.py:764-867``):
+``preprocess_channel`` on the host, ``InferenceEngine.infer`` on the card
+(the net, K1 and K2's float32 epilogue), then ``postprocess_pm`` per page.
+``--check-numerics`` scans the params and the float maps for NaN/Inf
+(under ``--engine streaming|sharded`` the params only: the stream's maps
+are uint8 on the card); ``--trace DIR`` leaves a ``torch.profiler``
+Chrome trace of the inference in ``DIR``; ``--listModels`` prints which
+zoo models each model root can load.
+
 Paths not ported yet fail loudly and name their ROADMAP item:
-``--precision int8`` (M11), pyramid input and output and zstd output
-(M14), CZI and ND2 inputs, and what the JAX package sends to its host
-float path: inputs other than uint8/uint16 (or float32 through the parity
-cast; int16 streams with a rescale) and duo channels of mixed dtypes.
+``--precision int8`` (M11; ``--calibrationPercentile`` only matters
+there), pyramid input and output and zstd output (M14), and CZI and ND2
+inputs.  ``--fetchModels`` is a download, which this package does not do.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -73,7 +88,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m unmicst_tpu_torch",
         description="UnMICST probability maps on an NVIDIA GPU (PyTorch/CUDA)",
     )
-    p.add_argument("imagePath", help="path to the image (.tif/.ome.tif/.btf)")
+    p.add_argument("imagePath", nargs="?",
+                   help="path to the image (.tif/.ome.tif/.btf)")
     p.add_argument("--tool", default="unmicst-solo",
                    choices=list(TOOL_DEFAULT_MODEL))
     p.add_argument("--model", help="model directory name (or absolute path)")
@@ -101,6 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tileBatch", type=int, default=0,
                    help="tiles per forward batch; 0 = from the card's free "
                    "memory, at most 256")
+    p.add_argument("--calibrationPercentile", type=float, default=99.99,
+                   help="int8 activation-scale clipping percentile (only "
+                   "with --precision int8)")
     p.add_argument("--stats", action="store_true",
                    help="print stage timings + Mpx/s")
     p.add_argument("--engine", default="auto",
@@ -117,6 +136,16 @@ def build_parser() -> argparse.ArgumentParser:
                    default=None, choices=["deflate", "zstd"])
     p.add_argument("--intensityRange", nargs="+", metavar="LO,HI",
                    help="pin the rescale range (raw pixel units)")
+    p.add_argument("--trace", metavar="DIR",
+                   help="write a torch.profiler trace of the inference "
+                   "into DIR")
+    p.add_argument("--check-numerics", action="store_true",
+                   help="scan params and probability maps for NaN/Inf "
+                   "(takes the host float path)")
+    p.add_argument("--listModels", action="store_true",
+                   help="print model zoo availability and exit")
+    p.add_argument("--fetchModels", nargs="*", metavar="NAME",
+                   help="download checkpoint blobs (not in this package)")
     return p
 
 
@@ -134,6 +163,40 @@ def _reject_unported(args) -> None:
         raise _not_ported("--usePyramid / --pyramidOutput", "M14")
     if args.compressOutput == "zstd":
         raise _not_ported("--compressOutput zstd", "M14")
+
+
+def _trace(args):
+    """``--trace DIR``: a profiler session around the inference."""
+    if not args.trace:
+        return contextlib.nullcontext()
+    from unmicst_tpu_torch.utils.profiling import trace
+
+    return trace(args.trace)
+
+
+def _list_models(model_root: Optional[str]) -> int:
+    """``--listModels`` (``unmicst_tpu/cli.py:524-538``)."""
+    from unmicst_tpu_torch.models.zoo import available_models
+
+    roots = [model_root] if model_root else [
+        r for r in DEFAULT_MODEL_ROOTS if r and os.path.isdir(r)]
+    bad = [r for r in roots if not os.path.isdir(r)]
+    if bad or not roots:
+        raise SystemExit(f"no such model root: {bad or DEFAULT_MODEL_ROOTS}")
+    for root in roots:
+        print(f"{root}:")
+        for name, status in sorted(available_models(root).items()):
+            print(f"  {name}: {status}")
+    return 0
+
+
+def _device_slide_ok(args, planes) -> bool:
+    """Whether the whole engine runs from the raw planes on the card: no
+    ``--check-numerics`` (uint8 maps would quantise NaN/Inf away), every
+    plane uint8 or uint16 (a known im2double on the card), one dtype."""
+    return (not args.check_numerics
+            and all(p.dtype in (np.uint8, np.uint16) for p in planes)
+            and len({p.dtype for p in planes}) == 1)
 
 
 def resolve_model_dir(model: str, model_root: Optional[str]) -> str:
@@ -268,7 +331,17 @@ def _use_streaming(args, tool: str, cyto: bool, file_type: str,
             raise SystemExit(f"--engine {args.engine}: {why}; use --engine "
                              "whole")
         return False
-    return explicit or (args.engine == "auto" and px > MAX_WHOLE_SLIDE_PX)
+    if not explicit and not (args.engine == "auto"
+                             and px > MAX_WHOLE_SLIDE_PX):
+        return False
+    if args.check_numerics:
+        # the stream's maps are uint8 on the card: auto takes the whole
+        # engine's float path, an explicit engine scans the params only
+        if not explicit:
+            return False
+        print(f"note: --check-numerics under --engine {args.engine} scans "
+              "params only (maps are uint8 on the card)")
+    return True
 
 
 def _run_streaming(args, bundle, tool, chans, class_order, file_type, stem,
@@ -284,8 +357,9 @@ def _run_streaming(args, bundle, tool, chans, class_order, file_type, stem,
     from unmicst_tpu_torch.runtime.mesh import make_mesh
     from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
 
+    params = load_params_for_bundle(bundle)
     stream = StreamingEngine.from_bundle(
-        bundle, load_params_for_bundle(bundle),
+        bundle, params,
         compute_dtype=PRECISIONS[args.precision],
         tile_batch=args.tileBatch or None, device=dev,
     )
@@ -323,22 +397,29 @@ def _run_streaming(args, bundle, tool, chans, class_order, file_type, stem,
         else:
             stats = [shared[c] for c in chans] if shared else None
         kw = dict(outlier=args.outlier, classes=classes)
-        if duo:
-            maps = (stream.infer_sharded_stack(net_srcs, mesh, stats=stats,
-                                               **kw)
-                    if mesh is not None
-                    else stream.infer_stack(net_srcs, stats=stats, **kw))
-        else:
-            kw.update(rescale=rescale, stats=stats[0] if stats else None)
-            maps = (stream.infer_sharded(net_srcs[0], mesh, **kw)
-                    if mesh is not None else stream.infer(net_srcs[0], **kw))
-        t_infer = time.perf_counter()
-        raw_src = srcs[chans[-1]]  # the duo preview shows the last channel
-        shape = (raw_src.height, raw_src.width)
-        raw_u8 = preview_u8(raw_src, vmax=vmaxes.get(chans[-1]))
+        with _trace(args):
+            if duo:
+                maps = (stream.infer_sharded_stack(net_srcs, mesh,
+                                                   stats=stats, **kw)
+                        if mesh is not None
+                        else stream.infer_stack(net_srcs, stats=stats, **kw))
+            else:
+                kw.update(rescale=rescale,
+                          stats=stats[0] if stats else None)
+                maps = (stream.infer_sharded(net_srcs[0], mesh, **kw)
+                        if mesh is not None
+                        else stream.infer(net_srcs[0], **kw))
+            t_infer = time.perf_counter()
+            raw_src = srcs[chans[-1]]  # the duo preview: the last channel
+            shape = (raw_src.height, raw_src.width)
+            raw_u8 = preview_u8(raw_src, vmax=vmaxes.get(chans[-1]))
     finally:
         for src in srcs.values():
             src.close()
+    if args.check_numerics:
+        from unmicst_tpu_torch.utils.profiling import check_numerics
+
+        check_numerics(params, "params")
     idx = ({c: i for i, c in enumerate(classes)} if classes is not None
            else {c: c for c in class_order})
 
@@ -362,6 +443,14 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     the card, and no card raises) or ``"cpu"``, which only a caller may
     ask for."""
     args = build_parser().parse_args(argv)
+    if args.listModels:
+        return _list_models(args.modelRoot)
+    if args.fetchModels is not None:
+        raise SystemExit(
+            "--fetchModels downloads checkpoint blobs; unmicst_tpu_torch "
+            "does not download (not ported): use unmicst_tpu --fetchModels")
+    if not args.imagePath:
+        raise SystemExit("imagePath is required (or use --listModels)")
     _reject_unported(args)
     t_start = time.perf_counter()
 
@@ -371,7 +460,7 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     from unmicst_tpu_torch.core.hp import load_model_dir
     from unmicst_tpu_torch.infer import PRECISIONS, InferenceEngine
     from unmicst_tpu_torch.io import preprocess as pp
-    from unmicst_tpu_torch.io.slides import TIFF_LIKE, channel_names, read_channel
+    from unmicst_tpu_torch.io.slides import read_channel, resolve_channel_names
     from unmicst_tpu_torch.runtime.devices import describe, resolve_device, select_device
 
     dev = torch.device(device)
@@ -398,14 +487,10 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
 
     stem, file_type = parse_stem(os.path.basename(args.imagePath), tool)
     if args.channelName:
-        from unmicst_tpu_torch.io import ome
-
-        names = channel_names(args.imagePath) if file_type in TIFF_LIKE else None
-        if names is None:
-            raise SystemExit("--channelName: the input carries no channel names")
         try:
-            channels0 = [ome.resolve_name(names, n) for n in args.channelName]
-        except ValueError as e:
+            channels0 = resolve_channel_names(args.imagePath, file_type,
+                                              args.channelName)
+        except (ValueError, NotImplementedError) as e:
             raise SystemExit(f"--channelName: {e}")
     duo = tool == "unmicst-duo"
     chans = _duo_chans(channels0) if duo else channels0[:1]
@@ -423,7 +508,7 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
                               file_type, stem, out_path, cyto, pinned, dev,
                               t_start)
 
-    # ---- read + preview ----------------------------------------------------
+    # ---- read + preprocess -------------------------------------------------
     t_read = time.perf_counter()
     try:
         by_chan = {c: read_channel(args.imagePath, file_type, c)
@@ -434,20 +519,21 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     for raw in planes:
         if raw.ndim != 2:
             raise SystemExit(f"expected a single-sample plane, got {raw.shape}")
-        if raw.dtype == np.float32 and cyto:
-            raise _not_ported(
-                "float32 input for UnMicstCyto2 (no parity cast: the host "
-                "float path)", "'host float path'"
-            )
-        if raw.dtype not in (np.uint8, np.uint16, np.float32):
-            raise _not_ported(f"{raw.dtype} input (the host float path)",
-                              "'host float path'")
-    if len({p.dtype for p in planes}) != 1:
-        raise _not_ported(
-            "duo channels of mixed dtypes "
-            f"{sorted(str(p.dtype) for p in planes)} (the host float path)",
-            "'host float path'")
-    preview = pp.preview_u8_from_raw(planes[-1])  # duo: the last channel
+    on_card = _device_slide_ok(args, planes)
+    if on_card:
+        preview = pp.preview_u8_from_raw(planes[-1])  # duo: the last channel
+    else:
+        # the host float path (cli.py:764-867 of the JAX package)
+        net, raw_norm = [], None
+        for i, raw in enumerate(planes):
+            pc = pp.preprocess_channel(
+                raw, args.scalingFactor, args.outlier,
+                use_rescaled=tool != "unmicst-solo", cast_float32=not cyto,
+                in_range=pinned[i] if pinned else None)
+            net.append(pc.net_input)
+            raw_norm, raw_shape = pc.raw_norm, pc.raw_shape  # last wins
+        net_image = np.stack(net).astype(np.float32)
+        preview = np.uint8(255 * raw_norm)
 
     # ---- inference (single pass, all classes) ------------------------------
     t_pre = time.perf_counter()
@@ -457,29 +543,44 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         tile_batch=args.tileBatch or None, device=dev,
     )
     t_load = time.perf_counter()
-    # non-stack output needs only the contour and nuclei planes
-    classes = (None if args.stackOutput or len(class_order) < 3
-               else (class_order[1], class_order[2]))
-    kw = dict(outlier=args.outlier, classes=classes,
-              scaling_factor=args.scalingFactor)
-    if duo:
-        maps = engine.infer_slide_stack(planes, in_range=pinned, **kw)
-    else:
-        maps = engine.infer_slide(
-            planes[0], rescale=tool != "unmicst-solo",
-            in_range=pinned[0] if pinned else None, **kw)
-    idx = {c: i for i, c in enumerate(classes)} if classes else None
+    with _trace(args):
+        if on_card:
+            # non-stack output needs only the contour and nuclei planes
+            classes = (None if args.stackOutput or len(class_order) < 3
+                       else (class_order[1], class_order[2]))
+            kw = dict(outlier=args.outlier, classes=classes,
+                      scaling_factor=args.scalingFactor)
+            if duo:
+                maps = engine.infer_slide_stack(planes, in_range=pinned, **kw)
+            else:
+                maps = engine.infer_slide(
+                    planes[0], rescale=tool != "unmicst-solo",
+                    in_range=pinned[0] if pinned else None, **kw)
+            idx = {c: i for i, c in enumerate(classes)} if classes else None
+
+            def get_page(c):
+                return maps[idx[c] if idx else c]
+        else:
+            maps = engine.infer(net_image, "stack" if duo else "broadcast")
+
+            def get_page(c):
+                return pp.postprocess_pm(maps[c], raw_shape)
+    if args.check_numerics:
+        from unmicst_tpu_torch.utils.profiling import check_numerics
+
+        check_numerics(params, "params")
+        check_numerics(maps, "probability maps")
     t_infer = time.perf_counter()
 
     _write_outputs(args, stem, out_path, cyto, chans[0], class_order,
-                   lambda c: maps[idx[c] if idx else c], preview)
+                   get_page, preview)
     t_write = time.perf_counter()
     if args.stats or args.verbose:
         h, w = planes[0].shape
         infer_s = t_infer - t_load
         print(
-            f"[unmicst-tpu-torch] read {t_pre - t_read:.2f}s | model load "
-            f"{t_load - t_pre:.2f}s | infer {infer_s:.2f}s "
+            f"[unmicst-tpu-torch] read+pre {t_pre - t_read:.2f}s | model "
+            f"load {t_load - t_pre:.2f}s | infer {infer_s:.2f}s "
             f"({h * w / 1e6 / infer_s:.1f} Mpx/s, all {hp.n_classes} "
             f"classes) | write {t_write - t_infer:.2f}s | total "
             f"{t_write - t_start:.2f}s",

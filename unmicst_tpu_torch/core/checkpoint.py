@@ -11,6 +11,8 @@ Two producers feed the same :class:`~unmicst_tpu_torch.core.unet.UNet`:
 Both return a ``state_dict`` for ``UNet.load_state_dict``.  Layouts:
 HWIO conv kernels become OIHW; TF1/JAX transposed-conv kernels
 ``[ks, ks, out, in]`` become PyTorch's ``[in, out, ks, ks]``.
+:func:`save_tf1_params` goes the other way: a state dict back to a TF1
+bundle under the reference's names, in TF's layouts.
 
 The JAX package's native msgpack format is not read here (no msgpack on
 the GPU host); model directories load from their TF1 files.
@@ -25,7 +27,7 @@ import numpy as np
 import torch
 
 from unmicst_tpu_torch.core.hp import HParams, ModelBundle
-from unmicst_tpu_torch.core.tf1_ckpt import TF1Checkpoint
+from unmicst_tpu_torch.core.tf1_ckpt import TF1Checkpoint, write_tf1_checkpoint
 from unmicst_tpu_torch.core.unet import get_variant
 
 State = Dict[str, torch.Tensor]
@@ -171,6 +173,77 @@ def params_from_jax(params_np: dict, hp: HParams, variant: str) -> State:
 def load_tf1_params(prefix: str, hp: HParams, variant: str) -> State:
     """Read a TF1 checkpoint into a validated ``UNet`` state dict."""
     return params_from_jax(_read_tf1_tree(prefix, hp, variant), hp, variant)
+
+
+def _hwio(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`_oihw`: OIHW (or ``[in, out, ks, ks]``) ->
+    HWIO (or ``[ks, ks, out, in]``), float32 numpy."""
+    return np.ascontiguousarray(
+        t.detach().to("cpu", torch.float32).numpy().transpose(2, 3, 1, 0))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy()
+
+
+def save_tf1_params(prefix: str, state: State, hp: HParams, variant: str,
+                    global_step: int = 0) -> None:
+    """Write a ``UNet`` state dict as a TF1 tensor bundle under the
+    reference's variable names, the inverse of :func:`load_tf1_params`
+    (``unmicst_tpu/core/checkpoint.py:230-293``): kernels back in TF's
+    HWIO (transposed: ``[ks, ks, out, in]``), BN statistics as vectors and
+    the global step as the int32 ``Variable``.  The reference tool's
+    ``Saver.restore`` reads the result (optimizer slots omitted)."""
+    legacy = get_variant(variant).legacy
+    nx = hp.n_extra_convs
+    tensors: Dict[str, np.ndarray] = {}
+
+    def put_bn(scope: str, prefix_: str) -> None:
+        for f in _BN_FIELDS:
+            tensors[f"{scope}/{f}"] = _np(state[f"{prefix_}.{f}"])
+
+    for i in range(hp.n_layers):
+        extra = [_hwio(state[f"down.{i}.extra.{j}"]) for j in range(nx)]
+        if legacy:
+            tensors[f"downsampling/ld{i}/kernel1"] = _hwio(
+                state[f"down.{i}.kernel1"])
+            for j, ke in enumerate(extra):
+                tensors[f"downsampling/ld{i}/kernelExtra{j}"] = ke
+            tensors[f"downsampling/ld{i}/shortcutWeights"] = _hwio(
+                state[f"down.{i}.shortcut"])
+            put_bn("batch_normalization" + (f"_{i}" if i else ""),
+                   f"down.{i}.bn")
+        else:
+            tensors[f"downsampling/ld{i}/kernelD{i}"] = _hwio(
+                state[f"down.{i}.kernel1"])
+            for j, ke in enumerate(extra):
+                tensors[f"ld{i}/kernelExtra{j}"] = ke
+            tensors[f"ld{i}/shortcutWeights"] = _hwio(
+                state[f"down.{i}.shortcut"])
+            put_bn(f"ld{i}/batch_normalization", f"down.{i}.bn")
+    tensors["lb/kernel1"] = _hwio(state["bottom.kernel1"])
+    if not legacy:
+        put_bn("conv", "bottom.bn")
+    for i in range(hp.n_layers):
+        k1, k2 = (_hwio(state[f"up.{i}.kernel{n}"]) for n in (1, 2))
+        extra = [_hwio(state[f"up.{i}.extra.{j}"]) for j in range(nx)]
+        if legacy:
+            tensors[f"upsampling/lu{i}/kernel1"] = k1
+            tensors[f"upsampling/lu{i}/kernel2"] = k2
+            for j, ke in enumerate(extra):
+                tensors[f"upsampling/lu{i}/kernel2Extra{j}"] = ke
+        else:
+            tensors[f"lu{i}/kernelU{i}"] = k1
+            tensors[f"lu{i}/kernel2"] = k2
+            for j, ke in enumerate(extra):
+                tensors[f"lu{i}/kernel2Extra{j}"] = ke
+            put_bn(f"lu{i}/conv2", f"up.{i}.bn")
+    tensors["lt/kernel"] = _hwio(state["top.kernel"])
+    if not legacy:
+        put_bn("batch_normalization", "top.bn")
+    # the schedule position (the reference's exponential_decay reads it)
+    tensors["Variable"] = np.asarray(global_step, np.int32)
+    write_tf1_checkpoint(prefix, tensors)
 
 
 def _find_ckpt_prefix(model_dir: str) -> Optional[str]:

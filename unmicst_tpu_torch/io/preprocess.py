@@ -1,10 +1,13 @@
 """Host-side pre/post-processing (numpy, float64).
 
 ``im2double`` is ``toolbox/imtools.py:42-53``; :func:`preview_u8_from_raw`
-is the QC preview page of ``unmicst_tpu/io/preprocess.py:514-536``.  The
-rescale and quantisation of the net input and the maps run on the device
-(``unmicst_tpu_torch/infer.py``), and so does the whole engine's resize
-(``core/resize_dev.py``).
+is the QC preview page of ``unmicst_tpu/io/preprocess.py:514-536``.  For
+8/16-bit slides the rescale and quantisation of the net input and the maps
+run on the device (``unmicst_tpu_torch/infer.py``), and so does the whole
+engine's resize (``core/resize_dev.py``).  The CLI's host float path
+(other dtypes, mixed duo dtypes, ``--check-numerics``) runs the reference
+chain here instead: :func:`preprocess_channel` (``UnMicst1-5.py:807-825``)
+before the net and :func:`postprocess_pm` after it.
 
 For ``--scalingFactor`` on the stream, this module keeps the host resize
 of ``unmicst_tpu/io/preprocess.py:86-388,539-554``: :func:`resize` is
@@ -21,6 +24,7 @@ order, without scipy.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -359,6 +363,94 @@ def postprocess_pm(pm: np.ndarray, raw_shape: Tuple[int, int]) -> np.ndarray:
         lut = np.uint8(255 * img_as_float(np.arange(256, dtype=np.uint8)))
         return lut[q]
     return np.uint8(255 * resize(q, raw_shape))
+
+
+def rescale_intensity(image: np.ndarray, in_range: Tuple[float, float],
+                      out_range: Tuple[float, float]) -> np.ndarray:
+    """``skimage.exposure.rescale_intensity`` for float input.  A
+    degenerate ``in_range`` clips to ``out_range`` (skimage >= 0.18, the
+    reference's era): a constant slide passes through."""
+    imin, imax = float(in_range[0]), float(in_range[1])
+    omin, omax = float(out_range[0]), float(out_range[1])
+    image = np.clip(image, imin, imax)
+    if imax == imin:
+        return np.clip(image, omin, omax).astype(np.float64)
+    return ((image - imin) / (imax - imin)) * (omax - omin) + omin
+
+
+@dataclass
+class PreprocessedChannel:
+    net_input: np.ndarray  # float64 [H*, W*]: what the net sees
+    raw_norm: np.ndarray  # float64 [H, W]: the preview plane (raw / max)
+    raw_shape: Tuple[int, int]
+
+
+def preprocess_channel(plane: np.ndarray, scaling_factor: float = 1.0,
+                       outlier: float = -1, use_rescaled: bool = True,
+                       cast_float32: bool = True,
+                       in_range=None) -> PreprocessedChannel:
+    """The CLI's host front half (``UnMicst1-5.py:807-825``): parity cast,
+    resize by ``scaling_factor``, rescale to [0, 0.983] by (min, max |
+    percentile(outlier)) or a pinned range, im2double.
+
+    ``use_rescaled=False``: the v2-solo quirk, the net sees the resized
+    plane un-rescaled.  ``cast_float32=False``: UnMicstCyto2, which alone
+    has no float32 -> uint16 parity cast.  ``in_range``: a pinned
+    ``(lo, hi)`` in raw units (after the cast), divided by 255 or 65535
+    for 8/16-bit planes; ``outlier`` is then ignored.  At scale 1 an
+    8/16-bit plane runs the float64 chain over a table of its values and
+    gathers, bit-equal to the whole-plane chain."""
+    if cast_float32 and plane.dtype == np.float32:
+        plane = plane.astype(np.uint16)  # UnMicst1-5.py:807-808
+    raw_shape = plane.shape
+    if in_range is not None:
+        lo_r, hi_r = (float(v) for v in in_range)
+        if not (np.isfinite(lo_r) and np.isfinite(hi_r) and lo_r < hi_r):
+            raise ValueError(
+                f"in_range must be finite with lo < hi, got {in_range}")
+        div = {np.dtype(np.uint8): 255.0,
+               np.dtype(np.uint16): 65535.0}.get(plane.dtype)
+        if div is not None:
+            lo_r, hi_r = lo_r / div, hi_r / div
+    h = int(float(raw_shape[0]) * float(scaling_factor))
+    w = int(float(raw_shape[1]) * float(scaling_factor))
+    if (h, w) == tuple(raw_shape) and plane.dtype in (
+            np.dtype(np.uint8), np.dtype(np.uint16)):
+        # scale 1: every per-pixel op is a function of the 8/16-bit value
+        values = np.arange(256 if plane.dtype == np.uint8 else 65536,
+                           dtype=plane.dtype)
+        lut_f = img_as_float(values)
+        vmin, vmax = int(plane.min()), int(plane.max())
+        resized = None
+        if in_range is not None:
+            min_limit, max_limit = lo_r, hi_r
+        elif outlier == -1:
+            min_limit, max_limit = lut_f[vmin], lut_f[vmax]
+        else:
+            resized = lut_f[plane]
+            min_limit, max_limit = lut_f[vmin], np.percentile(resized,
+                                                              outlier)
+        lut_net = im2double(rescale_intensity(
+            lut_f, (min_limit, max_limit), (0, 0.983)))
+        lut_raw = lut_f / lut_f[vmax] if lut_f[vmax] > 0 else lut_f
+        if use_rescaled:
+            net_input = lut_net[plane]
+        else:
+            net_input = resized if resized is not None else lut_f[plane]
+        return PreprocessedChannel(net_input, lut_raw[plane], raw_shape)
+    resized = resize(plane, (h, w))  # float64
+    if in_range is not None:
+        min_limit, max_limit = lo_r, hi_r
+    elif outlier == -1:
+        min_limit, max_limit = resized.min(), resized.max()
+    else:
+        min_limit, max_limit = resized.min(), np.percentile(resized, outlier)
+    rescaled = im2double(rescale_intensity(resized, (min_limit, max_limit),
+                                           (0, 0.983)))
+    raw_d = im2double(plane)
+    raw_norm = raw_d / raw_d.max() if raw_d.max() > 0 else raw_d
+    return PreprocessedChannel(rescaled if use_rescaled else resized,
+                               raw_norm, raw_shape)
 
 
 def preview_u8_from_raw(raw: np.ndarray) -> np.ndarray:

@@ -59,6 +59,22 @@ def channel_names(image_path: str):
     return ome.channel_names(desc)
 
 
+def resolve_channel_names(image_path: str, file_type: str, names):
+    """Channel names -> 0-based indexes, through the OME-XML
+    ``<Channel Name=...>`` elements of a TIFF/OME-TIFF
+    (``unmicst_tpu/io/slides.py:424``).  ValueError when the file declares
+    no names or a name does not resolve (the message lists the declared
+    ones)."""
+    _check_file_type(file_type)
+    declared = channel_names(image_path)
+    if declared is None:
+        raise ValueError(
+            f"this .{file_type} input carries no channel names; use a "
+            "channel index instead"
+        )
+    return [ome.resolve_name(declared, n) for n in names]
+
+
 def _streamed_int_stats(read_rows, height: int, width: int, dtype,
                         outlier: float, with_max: bool = False):
     """Exact ``(min, max | percentile[, max])`` of a windowed integer plane

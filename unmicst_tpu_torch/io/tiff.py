@@ -3,8 +3,9 @@
 A subset of ``unmicst_tpu/io/tiff.py`` with no native codec and no PIL:
 
 * :class:`TiffFile` reads classic and BigTIFF files in either byte order,
-  strip- or tile-organised pages, uncompressed, Deflate (zlib), LZW or
-  PackBits, with horizontal predictor 2, 8/16/32/64-bit samples;
+  strip- or tile-organised pages, uncompressed, Deflate (zlib), LZW,
+  PackBits or LZMA (xz), with horizontal predictor 2, 8/16/32/64-bit
+  samples; zstd strips raise, naming ROADMAP M14;
 * :class:`TiffWriter` writes grayscale pages, classic or BigTIFF,
   uncompressed or Deflate, appending to an existing file by re-chaining
   the IFD list — the reference's output contract (``UnMicst1-5.py:
@@ -15,6 +16,7 @@ A subset of ``unmicst_tpu/io/tiff.py`` with no native codec and no PIL:
 
 from __future__ import annotations
 
+import lzma
 import os
 import struct
 import zlib
@@ -46,6 +48,8 @@ COMPRESSION_LZW = 5
 COMPRESSION_DEFLATE_ADOBE = 8
 COMPRESSION_DEFLATE = 32946
 COMPRESSION_PACKBITS = 32773
+COMPRESSION_LZMA = 34925  # libtiff: one .xz stream per strip
+COMPRESSION_ZSTD = 50000  # libtiff/tifffile: one zstd frame per strip
 
 # TIFF field type -> (struct char, size)
 _FIELD_TYPES = {
@@ -126,9 +130,20 @@ def _decode(data: bytes, compression: int, max_out: int) -> bytes:
         return _unpack_lzw(data, max_out)
     if compression == COMPRESSION_PACKBITS:
         return _unpack_packbits(data)
+    if compression == COMPRESSION_LZMA:
+        try:
+            # bounded like deflate
+            return lzma.LZMADecompressor().decompress(data, max_out + 65536)
+        except lzma.LZMAError as exc:
+            raise ValueError(f"corrupt LZMA strip: {exc}") from None
+    if compression == COMPRESSION_ZSTD:
+        raise NotImplementedError(
+            "zstd TIFF strips are not read by unmicst_tpu_torch yet (ROADMAP "
+            "M14: zstd through a host libzstd); use unmicst_tpu for them"
+        )
     raise NotImplementedError(
         f"TIFF compression {compression} is not read by unmicst_tpu_torch "
-        "(none, deflate, LZW and PackBits are)"
+        "(none, deflate, LZW, PackBits and LZMA are)"
     )
 
 
