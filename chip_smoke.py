@@ -88,15 +88,25 @@ printing any result):
    path's breakdown and the D2H of its float32 maps; the card against
    the CPU at 1024^2, ``--check-numerics`` on seeded weights and on a NaN
    weight, and ``--trace`` (a trace holding K1 and K2 events);
-9. print the ``{"kernels": [...]}`` line, the card's name and power limit,
-   and the ``{"ok": true, ...}`` line last.
+9. train (float32, TF32 off): TF's one-step and both 50-step trajectory
+   oracles on the card; one step at nucleiDAPI1-5's and nucleiDAPI's
+   widths on the card against the CPU (loss, first-moment slot, and
+   Momentum's weights); the device step by events and the profiler with
+   an analytic FLOP count beside XLA's, the bfloat16 step, and ``fit`` at
+   ``valid_every`` 1 and 50 with ``prefetch`` 0 and 4; ``Trainer.save`` of
+   the v2 directory reloaded from its msgpack file and from its TF1
+   bundle; ``cli.main`` and ``python -m unmicst_tpu_torch`` on a 4096^2
+   slide with that directory (K1 and K2 launched, the child's pages
+   against ``cli.main``'s, and both again with cuDNN's algorithms pinned);
+10. print the ``{"kernels": [...]}`` line, the card's name and power
+    limit, and the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
-import pickle
 import shutil
 import subprocess
 import sys
@@ -1506,18 +1516,17 @@ def write_model_dir(root: str, name: str, hp, state, variant: str,
                     mean: float, std: float) -> str:
     """A model directory of ``state`` as the reference ships one: a TF1
     bundle written by ``save_tf1_params`` and the pickled sidecars
-    (``toolbox/ftools.py:32-35``), written by the standard library."""
+    (``toolbox/ftools.py:32-35``)."""
     from unmicst_tpu_torch.core.checkpoint import save_tf1_params
-    from unmicst_tpu_torch.core.hp import _REF_KEYS
+    from unmicst_tpu_torch.core.hp import save_pickle
 
     d = os.path.join(root, name)
     os.makedirs(d)
     save_tf1_params(os.path.join(d, "model.ckpt"), state, hp, variant)
-    ref = {key: getattr(hp, ours) for key, ours in _REF_KEYS.items()}
-    for fname, obj in (("hp.data", ref), ("datasetMean.data", mean),
+    for fname, obj in (("hp.data", hp.to_ref_dict()),
+                       ("datasetMean.data", mean),
                        ("datasetStDev.data", std)):
-        with open(os.path.join(d, fname), "wb") as f:
-            pickle.dump(obj, f)
+        save_pickle(obj, os.path.join(d, fname))
     return d
 
 
@@ -1850,9 +1859,522 @@ def phase_sweep(dev) -> int:
     return f32_launches
 
 
-def main() -> int:
+# -- phase 9: training -----------------------------------------------------------
+
+
+def v2_default_hp():
+    """nucleiDAPI1-5's widths, the v2 default training configuration
+    (``scripts/train_throughput_tpu.py:42-46``)."""
+    from unmicst_tpu_torch.core.hp import HParams
+
+    return HParams(im_size=64, n_channels=1, n_classes=3, n_out0=80,
+                   feat_maps_fact=2, down_samp_fact=2, ks=3, n_extra_convs=0,
+                   std_dev0=0.03, n_layers=4, batch_size=32)
+
+
+# the FLOPs of one step of each configuration by XLA's cost analysis of
+# the JAX step (README.md's training table); they count work, not time
+XLA_STEP_TFLOP = {"v2 default": 0.436, "legacy flagship": 0.084}
+
+
+def train_step_flops(hp, legacy: bool) -> float:
+    """Analytic FLOPs of one training step of the torch UNet at batch
+    ``hp.batch_size``: every convolution's forward (2 MACs per multiply-
+    add; a transposed convolution counted on its input), its weight
+    gradient, and its data gradient except for the two convolutions that
+    read the input image (it needs none)."""
+    b, s, w, ks, nx, n = (hp.batch_size, hp.im_size, hp.n_out_x, hp.ks,
+                          hp.n_extra_convs, hp.n_layers)
+
+    def conv(side, cin, cout, k):
+        return 2.0 * b * side * side * cin * cout * k * k
+
+    fwd, first = 0.0, 0.0
+    for i in range(n):
+        side = s >> i
+        main = conv(side, w[i], w[i + 1], ks)
+        short = conv(side, w[i], w[i + 1], 1 if legacy else ks)
+        fwd += main + short + nx * conv(side, w[i + 1], w[i + 1], ks)
+        if i == 0:
+            first = main + short
+    fwd += conv(s >> n, w[n], w[n + 1], ks)
+    for i in range(n):
+        fwd += (conv(s >> (i + 1), w[i + 2], w[i + 1], ks)
+                + conv(s >> i, w[i] + w[i + 1], w[i + 1], ks)
+                + nx * conv(s >> i, w[i + 1], w[i + 1], ks))
+    fwd += conv(s, w[1], hp.n_classes, 1)
+    return 3 * fwd - first
+
+
+def write_corpus(path: str, n: int, hp, n_aug: int, seed: int) -> None:
+    """A seeded corpus in the reference layout (``UnMicst1-5.py:295-312``):
+    blob images (nuclei bright, a dimmer contour ring, noise) as
+    ``I%05d_Img.tif`` with ``n_aug`` pages each (fresh noise per page),
+    labels 1 background / 2 contour / 3 nucleus in ``I%05d_Ant.tif``, and
+    the rings where two blobs meet in ``I%05d_wt.tif``."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io.tiff import TiffWriter
+
+    rng = np.random.RandomState(seed)
+    side = hp.im_size
+    os.makedirs(path, exist_ok=True)
+    yy, xx = np.mgrid[:side, :side]
+    for i in range(n):
+        level = np.zeros((side, side))
+        ant = np.ones((side, side), np.uint8)
+        rings = np.zeros((side, side), np.int32)
+        for _ in range(max(2, side * side // 600)):
+            r, c = rng.randint(0, side, 2)
+            rad = rng.randint(3, max(4, side // 12))
+            d2 = (yy - r) ** 2 + (xx - c) ** 2
+            ring = (d2 < (rad + 2) ** 2) & (d2 >= rad ** 2)
+            inside = d2 < rad ** 2
+            rings += ring
+            ant[ring & (ant == 1)] = 2
+            ant[inside] = 3
+            level[ring] = np.maximum(level[ring], 0.4)
+            level[inside] = 0.7
+        with TiffWriter(os.path.join(path, f"I{i:05d}_Img.tif"),
+                        bigtiff=False) as tw:
+            for _ in range(n_aug * hp.n_channels):
+                page = level + rng.rand(side, side) * 0.15
+                tw.write((np.clip(page, 0, 1) * 65535).astype(np.uint16))
+        for kind, arr in (("Ant", ant), ("wt", (rings > 1).astype(np.uint8))):
+            with TiffWriter(os.path.join(path, f"I{i:05d}_{kind}.tif"),
+                            bigtiff=False) as tw:
+                tw.write(arr)
+
+
+def _oracle_batch(dev, **arrays):
+    """NHWC numpy arrays -> NCHW tensors on ``dev``."""
+    import numpy as np
     import torch
 
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.transpose(0, 3, 1, 2))).to(dev) for k, v in arrays.items()}
+
+
+def train_oracles(dev, card: str) -> None:
+    """The executed-TF training fixtures on the card, at the CPU tests'
+    bars (``tests/test_oracle_parity.py:86-150,187-256``)."""
+    import numpy as np
+
+    from unmicst_tpu_torch import train as tr
+    from unmicst_tpu_torch.core.checkpoint import (load_tf1_params,
+                                                   params_to_jax)
+    from unmicst_tpu_torch.core.hp import HParams
+
+    fix = os.path.join(ROOT, "tests", "fixtures")
+    d = os.path.join(fix, "oracle_train_legacy")
+    with open(os.path.join(d, "hp.json")) as f:
+        meta = json.load(f)
+    hp = HParams.from_ref_dict(meta["hp"])
+    data = np.load(os.path.join(d, "step.npz"))
+    t = tr.Trainer(hp, tr.TrainConfig.for_variant("legacy"), "unused",
+                   params=load_tf1_params(os.path.join(d, "model.ckpt"), hp,
+                                          "legacy"), device=dev)
+    m = t.train_step(t.model, t.opt_state,
+                     _oracle_batch(dev, image=data["x"],
+                                   labels=data["labels"]), None)
+    loss_err = abs(float(m["loss"]) - meta["loss_train_mode"])
+    tfv = {k[len("var::"):]: data[k] for k in data.files
+           if k.startswith("var::")}
+    tree = params_to_jax(t.params, hp, "legacy")
+    pairs = [(tree["bottom"]["kernel1"], "lb/kernel1"),
+             (tree["top"]["kernel"], "lt/kernel")]
+    for i, layer in enumerate(tree["down"]):
+        scope = "batch_normalization" + (f"_{i}" if i else "")
+        pairs += [(layer["kernel1"], f"downsampling/ld{i}/kernel1"),
+                  (layer["shortcut"], f"downsampling/ld{i}/shortcutWeights")]
+        pairs += [(ke, f"downsampling/ld{i}/kernelExtra{j}")
+                  for j, ke in enumerate(layer["extra"])]
+        pairs += [(layer["bn"][k], f"{scope}/{k}") for k in
+                  ("gamma", "beta", "moving_mean", "moving_variance")]
+    for i, layer in enumerate(tree["up"]):
+        pairs += [(layer["kernel1"], f"upsampling/lu{i}/kernel1"),
+                  (layer["kernel2"], f"upsampling/lu{i}/kernel2")]
+        pairs += [(ke, f"upsampling/lu{i}/kernel2Extra{j}")
+                  for j, ke in enumerate(layer["extra"])]
+    bad = [n for ours, n in pairs
+           if not np.allclose(ours, tfv[n], atol=2e-5, rtol=2e-4)]
+    worst = max(float(np.abs(ours - tfv[n]).max()) for ours, n in pairs)
+    slot = t.tx.state_dict(t.opt_state, hp, "legacy")["0"]["trace"]
+    slot_ok = np.allclose(slot["down"]["0"]["kernel1"],
+                          tfv["downsampling/ld0/kernel1/Momentum"],
+                          atol=1e-5, rtol=1e-4)
+    log(f"[train] one-step TF oracle on the card: loss off by "
+        f"{loss_err:.2e}, {len(pairs)} variables, max |d| {worst:.2e} "
+        f"(bar atol 2e-5 rtol 2e-4), Momentum slot ok {slot_ok} [{card}]")
+    check(loss_err < 1e-4 and not bad and slot_ok and len(pairs) == len(
+        t.params), f"one-step oracle: loss {loss_err}, off {bad}, slot "
+                   f"{slot_ok}")
+
+    for variant in ("legacy", "v2"):
+        d = os.path.join(fix, f"oracle_traj_{variant}")
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        hp = HParams.from_ref_dict(meta["hp"])
+        data = np.load(os.path.join(d, "traj.npz"))
+        cfg = tr.TrainConfig.for_variant(
+            variant, decay_steps=meta["decay_steps"],
+            decay_rate=meta["decay_rate"], lr0=meta["lr0"])
+        t = tr.Trainer(hp, cfg, "unused", params=load_tf1_params(
+            os.path.join(d, "init.ckpt"), hp, variant), device=dev)
+        losses = []
+        for s in range(meta["n_steps"]):
+            arrays = {"image": data["x"][s], "labels": data["labels"][s]}
+            if cfg.use_weights:
+                arrays["weights"] = data["weights"][s]
+            losses.append(t.train_step(t.model, t.opt_state,
+                                       _oracle_batch(dev, **arrays), None)
+                          ["loss"])
+        losses = np.asarray([float(v) for v in losses])
+        loss_ok = np.allclose(losses, data["losses"], rtol=1.2e-4,
+                              atol=1.2e-4)
+        final = load_tf1_params(os.path.join(d, "final.ckpt"), hp, variant)
+        got = {k: v.cpu() for k, v in t.params.items()}
+        var_ok = sorted(got) == sorted(final) and all(
+            np.allclose(got[k].numpy(), final[k].numpy(), atol=2e-3,
+                        rtol=1e-3) for k in final)
+        worst = max(float((got[k] - final[k]).abs().max()) for k in final)
+        rel = float(np.max(np.abs(losses - data["losses"])
+                           / np.abs(data["losses"])))
+        log(f"[train] {variant} 50-step TF trajectory on the card: loss "
+            f"curve max rel {rel:.2e} (bar 1.2e-4), final variables max |d| "
+            f"{worst:.2e} (bar atol 2e-3 rtol 1e-3) [{card}]")
+        check(loss_ok and var_ok,
+              f"{variant} trajectory: loss ok {loss_ok}, variables ok {var_ok}")
+
+
+# ``python -m unmicst_tpu_torch`` with cuDNN's algorithms pinned: every
+# ``torch.backends.cudnn.flags`` scope the engine opens runs without
+# autotuning and with deterministic algorithms
+_PIN = """
+import torch
+
+_flags = torch.backends.cudnn.flags
+
+
+def _pinned(*args, **kwargs):
+    kwargs.update(benchmark=False, deterministic=True)
+    return _flags(*args, **kwargs)
+
+
+torch.backends.cudnn.flags = _pinned
+"""
+PINNED_CLI = _PIN + """
+import runpy
+
+runpy.run_module("unmicst_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+@contextlib.contextmanager
+def pinned_cudnn():
+    """:data:`PINNED_CLI`'s cuDNN pinning in this process, undone after."""
+    import torch
+
+    saved = torch.backends.cudnn.flags
+    exec(_PIN, {})
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.flags = saved
+
+
+def read_pages(out_dir: str) -> list:
+    from unmicst_tpu_torch.io.tiff import imread
+
+    return [imread(os.path.join(out_dir, "s_Probabilities_1.tif"), k)
+            for k in range(3)]
+
+
+def level_diff(a_pages, b_pages) -> tuple:
+    """(max level difference, pixels 1 level apart, pixels more apart)."""
+    import numpy as np
+
+    d = np.concatenate([np.abs(a.astype(np.int32) - b.astype(np.int32))
+                        .ravel() for a, b in zip(a_pages, b_pages)])
+    return int(d.max()), int((d == 1).sum()), int((d > 1).sum())
+
+
+def phase_train(dev) -> dict:
+    """Training on the card: the TF oracles, one step card against CPU,
+    the full-width fits, and the trained model directory through the
+    CLI.  Returns the launches of K1 and K2 on the trained directory's
+    slide."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch import train as tr
+    from unmicst_tpu_torch.core.checkpoint import (NATIVE_FILE,
+                                                   load_params_for_bundle)
+    from unmicst_tpu_torch.core.hp import load_model_dir
+    from unmicst_tpu_torch.core.unet import init_params
+    from unmicst_tpu_torch.io.tiff import TiffWriter, imread, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    train_oracles(dev, card)
+
+    configs = {
+        # name: (hp, variant, preset overrides, train / valid samples)
+        "v2 default": (v2_default_hp(), "v2", {"n_aug": 12}, 96, 40),
+        "legacy flagship": (legacy_hp(), "legacy", {}, 48, 24),
+    }
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        trained = None
+        for name, (hp, variant, over, n_train, n_valid) in configs.items():
+            base = tr.TrainConfig.for_variant(variant, export_tf1=False,
+                                              ckpt_every=10 ** 9, **over)
+            data = os.path.join(tmp, name.replace(" ", "_"))
+            t0 = time.perf_counter()
+            write_corpus(data, n_train + n_valid, hp, base.n_aug, SEED + 90)
+            corpus = tr.Corpus(data, n_train, hp, base)
+            valid = tr.Corpus(data, n_valid, hp, base,
+                              indices=np.arange(n_train, n_train + n_valid))
+            log(f"[train] {name}: corpus of {n_train} + {n_valid} samples x "
+                f"{base.n_aug} pages at {hp.im_size}^2 written and read in "
+                f"{time.perf_counter() - t0:.2f} s")
+            flops = train_step_flops(hp, variant == "legacy")
+            state = init_params(hp, variant,
+                                torch.Generator().manual_seed(SEED))
+
+            # one step, card against CPU (no dropout: the two devices'
+            # generators draw different masks)
+            batch = next(corpus.batches(hp.batch_size,
+                                        np.random.RandomState(SEED), True))
+            res = {}
+            slot = "mu" if base.optimizer == "adam" else "trace"
+            for d in ("cpu", dev):
+                t = tr.Trainer(hp, base, "unused", params=state, device=d)
+                b = tr.to_device(batch, t.device)
+                m = t.train_step(t.model, t.opt_state, b, None)
+                res[str(d)] = (float(m["loss"]),
+                               {k: v.cpu() for k, v in t.params.items()},
+                               {k: v.cpu() for k, v in
+                                t.opt_state.slots[slot].items()})
+            (l_cpu, p_cpu, s_cpu), (l_card, p_card, s_card) = (
+                res["cpu"], res[str(dev)])
+            # the first-moment slot holds the gradient (Momentum's trace
+            # is g, Adam's mu 0.1 g; the BN moving statistics' stay 0):
+            # held tensor by tensor relative to its norm, where a wrong or
+            # missing gradient is off by its whole norm and float32
+            # rounding at these depths (ReLU gates and the probability
+            # clip flipping) by far less than 5e-2 of it
+            d_grad, worst = 0.0, ""
+            zeros_equal = True
+            for k, v in s_cpu.items():
+                norm = float(v.norm())
+                if norm == 0:
+                    zeros_equal &= bool(torch.equal(s_card[k], v))
+                    continue
+                r = float((s_card[k] - v).norm()) / norm
+                if r > d_grad:
+                    d_grad, worst = r, k
+            # Adam's first update is lr0 x sign(g), whatever g is, so only
+            # Momentum's weights (lr0 x g) say more than the slot does
+            d_param = max(float((p_card[k] - p_cpu[k]).abs().max())
+                          for k in p_cpu)
+            param_ok = base.optimizer == "adam" or d_param <= 1e-5
+            log(f"[train] {name}: one step card vs CPU: loss {l_card:.7f} "
+                f"vs {l_cpu:.7f} (rel {abs(l_card - l_cpu) / l_cpu:.2e}); "
+                f"{slot} slot |d|/|s| at most {d_grad:.2e} ({worst}, bar "
+                f"5e-2), zero slots equal {zeros_equal}; params max |d| "
+                f"{d_param:.2e}" + ("" if base.optimizer == "adam" else
+                                    " (bar 1e-5)") + f" [{card}]")
+            check(abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+                  and d_grad <= 5e-2 and zeros_equal and param_ok,
+                  f"{name}: card and CPU steps disagree")
+
+            # device step time: back-to-back steps on one batch (events),
+            # and the device busy time of 5 steps (profiler)
+            t = tr.Trainer(hp, base, "unused", params=state, device=dev)
+            b = tr.to_device(batch, dev)
+            step_ms = cuda_ms(lambda: t.train_step(t.model, t.opt_state, b,
+                                                   None), iters=20)
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    t.train_step(t.model, t.opt_state, b, None)
+                torch.cuda.synchronize()
+            busy = busy_ms(prof) / 5
+            tflops = flops / step_ms / 1e9
+            bt = tr.Trainer(hp, dataclasses.replace(
+                base, compute_dtype="bfloat16"), "unused", params=state,
+                device=dev)
+            bf16_ms = cuda_ms(lambda: bt.train_step(bt.model, bt.opt_state,
+                                                    b, None), iters=20)
+            del t, bt
+            log(f"[train] {name}: device step {step_ms:.3f} ms by events "
+                f"(busy {busy:.3f} ms by the profiler), analytic "
+                f"{flops / 1e12:.4f} TFLOP a step (XLA's count "
+                f"{XLA_STEP_TFLOP[name]} TFLOP) = {tflops:.2f} TFLOP/s, "
+                f"{tflops / (F32_FLOPS_PER_S / 1e12):.3f} of the float32 "
+                f"peak (67 TFLOP/s); bfloat16 step {bf16_ms:.3f} ms "
+                f"({flops / bf16_ms / 1e9:.2f} TFLOP/s) [{card}]")
+
+            n_steps = 60
+            for ve, pf in ((1, 0), (1, 4), (50, 0), (50, 4)):
+                cfg = dataclasses.replace(base, valid_every=ve, prefetch=pf)
+                tag = f"{name.replace(' ', '_')}_ve{ve}_pf{pf}"
+                t = tr.Trainer(hp, cfg, os.path.join(tmp, "m_" + tag),
+                               log_path=os.path.join(tmp, "log_" + tag),
+                               params=state, device=dev)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                best = t.fit(corpus, valid, n_steps, verbose=False)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                t.close()
+                with open(os.path.join(tmp, "log_" + tag,
+                                       "metrics.jsonl")) as f:
+                    recs = [json.loads(line) for line in f]
+                el = [r["elapsed_s"] for r in recs]
+                losses = [r["loss"] for r in recs]
+                # steady state: steps 10..59 (past the first step's cuDNN
+                # autotune and step 0's checkpoint)
+                per_step = (el[-1] - el[10]) / (len(el) - 11)
+                check(len(recs) == n_steps and np.all(np.isfinite(losses))
+                      and np.isfinite(best), f"{tag}: fit records")
+                log(f"[train] {name} fit valid_every {ve} prefetch {pf}: "
+                    f"{1 / per_step:.2f} steps/s = "
+                    f"{hp.batch_size / per_step:.1f} tiles/s (steps 10-59), "
+                    f"{per_step * 1e3:.3f} ms a step of which host "
+                    f"{per_step * 1e3 - busy:.3f} ms over the device's "
+                    f"{busy:.3f}; {flops / per_step / 1e12:.2f} TFLOP/s end "
+                    f"to end; fit {n_steps} steps {secs:.2f} s; peak "
+                    f"{peak:.2f} GiB; loss {np.mean(losses[:5]):.4f} -> "
+                    f"{np.mean(losses[-5:]):.4f}, best valid error "
+                    f"{best:.4f} [{card}]")
+                shutil.rmtree(os.path.join(tmp, "m_" + tag))
+                if variant == "v2" and (ve, pf) == (1, 0):
+                    trained = (t, hp)
+                else:
+                    del t
+                torch.cuda.empty_cache()
+
+        # -- the trained v2 directory, through the zoo loader and the CLI ----
+        t, hp = trained
+        zoo = os.path.join(tmp, "zoo")
+        mdir = os.path.join(zoo, "nucleiDAPI1-5")
+        t.cfg = dataclasses.replace(t.cfg, export_tf1=True)
+        t.model_path = mdir
+        t0 = time.perf_counter()
+        t.save()
+        saved = {k: v.cpu() for k, v in t.params.items()}
+        size = sum(os.path.getsize(os.path.join(mdir, f))
+                   for f in os.listdir(mdir))
+        log(f"[train] Trainer.save of the v2 directory: {size / 1e6:.1f} MB "
+            f"in {time.perf_counter() - t0:.2f} s ({sorted(os.listdir(mdir))})")
+        del t, trained
+        torch.cuda.empty_cache()
+        loaded = []
+        for only, keep in (("msgpack", lambda f: not f.startswith(
+                "model.ckpt")), ("tf1", lambda f: f != NATIVE_FILE)):
+            d = os.path.join(tmp, "zoo_" + only, "nucleiDAPI1-5")
+            os.makedirs(d)
+            for f in filter(keep, os.listdir(mdir)):
+                shutil.copy(os.path.join(mdir, f), d)
+            loaded.append(load_params_for_bundle(load_model_dir(d)))
+        same = all(sorted(p) == sorted(saved) and all(
+            torch.equal(p[k], saved[k]) for k in saved) for p in loaded)
+        log(f"[train] reloaded through load_params_for_bundle from the "
+            f"msgpack file alone and from the TF1 bundle alone: bit-equal "
+            f"{same}")
+        check(same, "the trained directory does not reload to its "
+                    "parameters")
+
+        raw = (np.clip(blob_slide(np.random.RandomState(SEED + 91), SLIDE,
+                                  SLIDE, SLIDE * SLIDE // 400), 0, 1)
+               * 65535).astype(np.uint16)
+        src = os.path.join(tmp, "slide", "registration", "s.tif")
+        os.makedirs(os.path.dirname(src))
+        with TiffWriter(src, bigtiff=True) as tw:
+            tw.write(raw)
+        argv = [src, "--tool", "unmicst-solo", "--model", "nucleiDAPI1-5",
+                "--modelRoot", zoo, "--stackOutput"]
+        cli.main(argv + ["--outputPath", os.path.join(tmp, "warm")])
+        kernels.reset_launch_counts()
+        _, secs = wall(lambda: cli.main(argv + ["--outputPath",
+                                                os.path.join(tmp, "out")]))
+        counts = kernels.launch_counts()
+        prob = os.path.join(tmp, "out", "s_Probabilities_1.tif")
+        pages = [imread(prob, k) for k in range(num_pages(prob))]
+        log(f"[train] cli.main on the trained directory, {SLIDE}^2: "
+            f"{secs:.3f} s ({SLIDE * SLIDE / 1e6 / secs:.2f} Mpx/s end to "
+            f"end), launches {counts} [{card}]")
+        check(counts["softmax_blend"] > 0
+              and counts["blend_fold_epilogue"] == 1
+              and len(pages) == 3 and class_sum_ok(np.stack(pages)),
+              f"trained-directory slide: launches {counts}, "
+              f"{len(pages)} pages")
+        trace = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "unmicst_tpu_torch",
+                            *argv, "--outputPath", os.path.join(tmp, "out2"),
+                            "--trace", trace], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(r.returncode == 0, f"python -m unmicst_tpu_torch: rc "
+                                 f"{r.returncode}\n{r.stderr[-3000:]}")
+        child = read_pages(os.path.join(tmp, "out2"))
+        # a fresh process autotunes cuDNN anew, and another algorithm may
+        # round a probability across a level: the bar is 1 level.  With
+        # the algorithms pinned (no autotune, deterministic ones) in both
+        # processes, the pages must be equal
+        diff, n1, n_more = level_diff(child, pages)
+        with pinned_cudnn():
+            cli.main(argv + ["--outputPath", os.path.join(tmp, "pinned")])
+        r = subprocess.run([sys.executable, "-c", PINNED_CLI, *argv,
+                            "--outputPath", os.path.join(tmp, "pinned2")],
+                           cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        check(r.returncode == 0, f"pinned python -m unmicst_tpu_torch: rc "
+                                 f"{r.returncode}\n{r.stderr[-3000:]}")
+        p_diff, p1, p_more = level_diff(
+            read_pages(os.path.join(tmp, "pinned2")),
+            read_pages(os.path.join(tmp, "pinned")))
+        (trace_file,) = os.listdir(trace)
+        with open(os.path.join(trace, trace_file)) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]
+                     if e.get("cat") == "kernel"]
+        k1 = sum("softmax_blend" in n for n in names)
+        k2 = sum("fold_region" in n for n in names)
+        n_px = 3 * SLIDE * SLIDE
+        log(f"[train] python -m unmicst_tpu_torch on the trained directory: "
+            f"rc 0 in {secs:.2f} s (a fresh process: kernels loaded, cuDNN "
+            f"autotuned); its trace holds {k1} K1 and {k2} K2 launches; "
+            f"pages within {diff} level(s) of cli.main's: {n1} of {n_px} "
+            f"pixels 1 level apart, {n_more} more; with cuDNN's algorithms "
+            f"pinned in both processes: within {p_diff} level(s), {p1} "
+            f"pixels 1 level apart, {p_more} more [{card}]")
+        check(k1 > 0 and k2 > 0 and diff <= 1 and p_diff == 0,
+              f"child process: K1 {k1}, K2 {k2}, pages {diff} levels apart "
+              f"({p_diff} with cuDNN pinned)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train] phase {time.perf_counter() - t_phase:.1f}s")
+    return counts
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv:
+        print("usage: chip_smoke.py", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1872,6 +2394,7 @@ def main() -> int:
     stats.update(phase_streaming(dev))
     phase_duo_scale(dev)
     stats["blend_fold_epilogue_f32"]["launches"] = phase_sweep(dev)
+    phase_train(dev)
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():

@@ -173,10 +173,12 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 banned = ("jax", "jaxlib", "flax", "ml_dtypes", "PIL", "unmicst_tpu",
-          "exhibits", "scripts", "msgpack", "scipy")
+          "exhibits", "scripts", "msgpack", "scipy", "optax")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
-sys.exit(1 if leaked or len(names) < 31 else 0)
+sys.exit(1 if leaked or len(names) < 33
+         or "unmicst_tpu_torch.train" not in names
+         or "unmicst_tpu_torch.core.msgpack" not in names else 0)
 """
 
 

@@ -8,6 +8,7 @@ on a GPU host without it:
 """
 
 import importlib
+import itertools
 import os
 import subprocess
 import sys
@@ -594,3 +595,61 @@ def test_sweep_and_host_float_path_on_card_match_cpu(cuda, tmp_path):
         counts = kernels.launch_counts()
         assert counts["blend_fold_epilogue"] == 1, counts
         _pages_close(str(tmp_path / "c"), str(tmp_path / "g"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["v2", "legacy"])
+def test_train_step_on_card_matches_cpu(cuda, variant, tmp_path):
+    """One training step (no dropout) on the card against the CPU, float32
+    with TF32 off: the loss to 1e-5 relative; the first-moment slot, which
+    holds the gradient (Momentum's trace g, Adam's mu 0.1 g), tensor by
+    tensor to 1e-4 of its norm, the BN moving statistics' zero slots
+    equal; Momentum's weights within 1e-6 (Adam's first update is lr0 x
+    sign(g) whatever g is, so its weights say nothing more); a 3-step fit
+    with prefetch on the card gives finite metrics and leaves the TF32
+    flags as found."""
+    from unmicst_tpu_torch import train as tr
+    from unmicst_tpu_torch.core.hp import HParams
+    from unmicst_tpu_torch.core.unet import init_params
+
+    hp = HParams(im_size=32, n_channels=1, n_classes=3, n_out0=8, ks=3,
+                 n_extra_convs=1, n_layers=2, batch_size=4)
+    cfg = tr.TrainConfig.for_variant(variant, n_aug=1)
+    state = init_params(hp, variant, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(1)
+    batch = {"image": rng.normal(0, 1, (4, 32, 32, 1)).astype(np.float32),
+             "labels": np.eye(3, dtype=np.float32)[rng.randint(0, 3,
+                                                               (4, 32, 32))],
+             "weights": rng.uniform(1, 5, (4, 32, 32, 3)).astype(np.float32)}
+    slot = "mu" if cfg.optimizer == "adam" else "trace"
+    out = {}
+    for dev in ("cpu", cuda):
+        t = tr.Trainer(hp, cfg, "unused", params=state, device=dev)
+        m = t.train_step(t.model, t.opt_state, tr.to_device(batch, t.device),
+                         None)
+        out[str(dev)] = (float(m["loss"]),
+                         {k: v.cpu() for k, v in t.params.items()},
+                         {k: v.cpu() for k, v in
+                          t.opt_state.slots[slot].items()})
+    (l_cpu, p_cpu, s_cpu), (l_card, p_card, s_card) = (out["cpu"],
+                                                       out[str(cuda)])
+    assert l_card == pytest.approx(l_cpu, rel=1e-5)
+    for k, v in s_cpu.items():
+        if float(v.norm()) == 0:  # a BN moving statistic's slot
+            assert torch.equal(s_card[k], v), k
+        else:
+            assert float((s_card[k] - v).norm()) <= 1e-4 * float(v.norm()), k
+    if cfg.optimizer == "momentum":
+        for k, v in p_cpu.items():
+            assert float((p_card[k] - v).abs().max()) <= 1e-6, k
+    saved = torch.backends.cudnn.allow_tf32
+
+    class Same:  # a corpus whose every batch is ``batch``
+        def batches(self, *args, **kwargs):
+            return itertools.repeat(batch)
+
+    t = tr.Trainer(hp, tr.TrainConfig.for_variant(variant, n_aug=1,
+                                                  prefetch=2),
+                   str(tmp_path / "m"), params=state, device=cuda)
+    assert np.isfinite(t.fit(Same(), Same(), 3, verbose=False))
+    assert torch.backends.cudnn.allow_tf32 == saved

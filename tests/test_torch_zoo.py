@@ -48,15 +48,20 @@ def test_available_models_equal_jax(tmp_path, where):
         assert got["blobDemo"] == "ready (local)"
 
 
-def test_a_msgpack_only_dir_is_not_called_ready(tmp_path):
-    """The port reads TF1 bundles only: a dir holding just the JAX
-    package's msgpack is listed as such, not as ready."""
+def test_a_msgpack_only_dir_is_called_ready_like_jax(tmp_path):
+    """A dir holding just the JAX package's msgpack: the port reads that
+    file now (``core/msgpack.py``), so it is listed ready, as the JAX
+    package lists it; without the file it is not."""
     d = tmp_path / "CytoplasmIncell"
     d.mkdir()
+    shutil.copy(os.path.join(MODELS, "blobDemo", "hp.data"), d)
+    assert zoo.available_models(str(tmp_path))["CytoplasmIncell"] == (
+        "needs-blob")
     shutil.copy(os.path.join(MODELS, "blobDemo", "model.unmicst-tpu.msgpack"),
                 d)
-    assert zoo.available_models(str(tmp_path))["CytoplasmIncell"] == (
-        zoo.MSGPACK_ONLY)
+    got = zoo.available_models(str(tmp_path))
+    assert got["CytoplasmIncell"] == "ready"
+    assert got == jax_zoo.available_models(str(tmp_path))
 
 
 def test_list_models_prints_what_jax_prints(tmp_path, capsys):

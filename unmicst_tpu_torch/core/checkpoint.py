@@ -12,25 +12,33 @@ Both return a ``state_dict`` for ``UNet.load_state_dict``.  Layouts:
 HWIO conv kernels become OIHW; TF1/JAX transposed-conv kernels
 ``[ks, ks, out, in]`` become PyTorch's ``[in, out, ks, ks]``.
 :func:`save_tf1_params` goes the other way: a state dict back to a TF1
-bundle under the reference's names, in TF's layouts.
+bundle under the reference's names, in TF's layouts; :func:`params_to_jax`
+gives the JAX params tree.
 
-The JAX package's native msgpack format is not read here (no msgpack on
-the GPU host); model directories load from their TF1 files.
+:func:`save_native` / :func:`load_native` write and read the JAX
+package's native file, ``model.unmicst-tpu.msgpack``
+(``unmicst_tpu/core/checkpoint.py:301-363``), through the standard-library
+codec :mod:`unmicst_tpu_torch.core.msgpack`: a ``meta_json`` record, the
+params tree, and optional ``extra_arrays`` (a trainer's optimizer state).
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from unmicst_tpu_torch.core import msgpack
 from unmicst_tpu_torch.core.hp import HParams, ModelBundle
 from unmicst_tpu_torch.core.tf1_ckpt import TF1Checkpoint, write_tf1_checkpoint
 from unmicst_tpu_torch.core.unet import get_variant
 
 State = Dict[str, torch.Tensor]
+
+NATIVE_FILE = "model.unmicst-tpu.msgpack"
 
 _BN_FIELDS = ("gamma", "beta", "moving_mean", "moving_variance")
 
@@ -139,35 +147,9 @@ def _vec(v) -> torch.Tensor:
 
 def params_from_jax(params_np: dict, hp: HParams, variant: str) -> State:
     """JAX params pytree (numpy leaves, ``unet.init_params`` layout) ->
-    ``UNet`` state dict."""
+    ``UNet`` state dict, shape-validated."""
     _validate_shapes(params_np, hp)
-    legacy = get_variant(variant).legacy
-    state: State = {}
-
-    def put_bn(prefix: str, bn: dict) -> None:
-        for f in _BN_FIELDS:
-            state[f"{prefix}.{f}"] = _vec(bn[f])
-
-    for i, layer in enumerate(params_np["down"]):
-        state[f"down.{i}.kernel1"] = _oihw(layer["kernel1"])
-        for j, ke in enumerate(layer["extra"]):
-            state[f"down.{i}.extra.{j}"] = _oihw(ke)
-        state[f"down.{i}.shortcut"] = _oihw(layer["shortcut"])
-        put_bn(f"down.{i}.bn", layer["bn"])
-    state["bottom.kernel1"] = _oihw(params_np["bottom"]["kernel1"])
-    if not legacy:
-        put_bn("bottom.bn", params_np["bottom"]["bn"])
-    for i, layer in enumerate(params_np["up"]):
-        state[f"up.{i}.kernel1"] = _oihw(layer["kernel1"])
-        state[f"up.{i}.kernel2"] = _oihw(layer["kernel2"])
-        for j, ke in enumerate(layer["extra"]):
-            state[f"up.{i}.extra.{j}"] = _oihw(ke)
-        if not legacy:
-            put_bn(f"up.{i}.bn", layer["bn"])
-    state["top.kernel"] = _oihw(params_np["top"]["kernel"])
-    if not legacy:
-        put_bn("top.bn", params_np["top"]["bn"])
-    return state
+    return state_from_tree(params_np, hp, variant)
 
 
 def load_tf1_params(prefix: str, hp: HParams, variant: str) -> State:
@@ -246,6 +228,140 @@ def save_tf1_params(prefix: str, state: State, hp: HParams, variant: str,
     write_tf1_checkpoint(prefix, tensors)
 
 
+def param_paths(hp: HParams, variant: str
+                ) -> Iterator[Tuple[str, tuple]]:
+    """``(state_dict name, path in the JAX params tree)`` for every leaf,
+    e.g. ``("down.0.extra.1", ("down", 0, "extra", 1))``."""
+    legacy = get_variant(variant).legacy
+    nx = hp.n_extra_convs
+
+    def bn(name: str, path: tuple):
+        for f in _BN_FIELDS:
+            yield f"{name}.{f}", path + ("bn", f)
+
+    for i in range(hp.n_layers):
+        yield f"down.{i}.kernel1", ("down", i, "kernel1")
+        for j in range(nx):
+            yield f"down.{i}.extra.{j}", ("down", i, "extra", j)
+        yield f"down.{i}.shortcut", ("down", i, "shortcut")
+        yield from bn(f"down.{i}.bn", ("down", i))
+    yield "bottom.kernel1", ("bottom", "kernel1")
+    if not legacy:
+        yield from bn("bottom.bn", ("bottom",))
+    for i in range(hp.n_layers):
+        yield f"up.{i}.kernel1", ("up", i, "kernel1")
+        yield f"up.{i}.kernel2", ("up", i, "kernel2")
+        for j in range(nx):
+            yield f"up.{i}.extra.{j}", ("up", i, "extra", j)
+        if not legacy:
+            yield from bn(f"up.{i}.bn", ("up", i))
+    yield "top.kernel", ("top", "kernel")
+    if not legacy:
+        yield from bn("top.bn", ("top",))
+
+
+def params_to_jax(state: State, hp: HParams, variant: str) -> dict:
+    """``UNet`` state dict (or any tensors keyed by its names, such as an
+    optimizer slot of each) -> the JAX params tree of float32 numpy
+    arrays, the inverse of :func:`params_from_jax`."""
+    tree: dict = {
+        "down": [{"extra": [None] * hp.n_extra_convs}
+                 for _ in range(hp.n_layers)],
+        "bottom": {},
+        "up": [{"extra": [None] * hp.n_extra_convs}
+               for _ in range(hp.n_layers)],
+        "top": {},
+    }
+    for name, path in param_paths(hp, variant):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {}) if isinstance(node, dict) \
+                else node[key]
+        t = state[name]
+        node[path[-1]] = _hwio(t) if t.dim() == 4 else _np(t).copy()
+    return tree
+
+
+def state_from_tree(tree, hp: HParams, variant: str) -> State:
+    """The inverse of :func:`params_to_jax`, unvalidated: the leaves of
+    a JAX params tree (lists, or the ``"0"``-keyed dicts of flax's
+    ``to_state_dict``) by ``state_dict`` name, in PyTorch's layouts."""
+    state: State = {}
+    for name, path in param_paths(hp, variant):
+        leaf = tree
+        for key in path:
+            leaf = leaf[str(key) if isinstance(leaf, dict)
+                        and isinstance(key, int) else key]
+        state[name] = _oihw(leaf) if np.ndim(leaf) == 4 else _vec(leaf)
+    return state
+
+
+def _to_msgpack_tree(tree):
+    """``_to_numpy`` of ``unmicst_tpu/core/checkpoint.py:385-396``: lists
+    become ``{"__list_<i>": ..., "__list_len": n}``, leaves arrays."""
+    if isinstance(tree, dict):
+        return {k: _to_msgpack_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = {f"__list_{i}": _to_msgpack_tree(v) for i, v in enumerate(tree)}
+        out["__list_len"] = np.int64(len(tree))
+        return out
+    return np.asarray(tree)
+
+
+def _listify(tree):
+    """``_listify`` of ``unmicst_tpu/core/checkpoint.py:399-418``."""
+    if isinstance(tree, dict):
+        if "__list_len" in tree:
+            return [_listify(tree[f"__list_{i}"])
+                    for i in range(int(tree["__list_len"]))]
+        if tree and all(k.startswith("__list_") for k in tree):
+            return [_listify(tree[f"__list_{i}"]) for i in range(len(tree))]
+        if not tree:
+            return []
+        return {k: _listify(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def save_native(path: str, params: dict, hp: HParams, variant: str,
+                mean: float, std: float, extra: Optional[dict] = None,
+                extra_arrays: Optional[dict] = None) -> None:
+    """Write the native file: ``params`` is the JAX params tree (numpy;
+    :func:`params_to_jax` of a state dict); ``extra`` JSON-able scalars for
+    the meta record; ``extra_arrays`` an array tree stored beside the params
+    (``meta["_extra_arrays"]`` of :func:`load_native`).  Written to
+    ``path + ".tmp"`` and renamed, so a reader never sees half a file."""
+    meta = {"hp": hp.to_ref_dict(), "variant": variant, "mean": mean,
+            "std": std, "format": "unmicst-tpu-v1"}
+    if extra:
+        reserved = set(meta) & set(extra)
+        if reserved:
+            raise ValueError(
+                f"extra clobbers reserved meta key(s) {sorted(reserved)}")
+        meta.update(extra)
+    payload = {"meta_json": json.dumps(meta),
+               "params": _to_msgpack_tree(params)}
+    if extra_arrays is not None:
+        payload["extra_arrays"] = _to_msgpack_tree(extra_arrays)
+    blob = msgpack.serialize(payload)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(blob)
+    os.replace(tmp, path)
+
+
+def load_native(path: str) -> Tuple[dict, HParams, str, float, float, dict]:
+    """``(params tree, hp, variant, mean, std, meta)`` of a native file, as
+    the JAX ``load_native`` returns them (the tree in the JAX layout:
+    :func:`params_from_jax` makes it a state dict)."""
+    with open(path, "rb") as f:
+        tree = msgpack.restore(f.read())
+    meta = json.loads(tree["meta_json"])
+    if "extra_arrays" in tree:
+        meta["_extra_arrays"] = _listify(tree["extra_arrays"])
+    return (_listify(tree["params"]), HParams.from_ref_dict(meta["hp"]),
+            meta["variant"], float(meta["mean"]), float(meta["std"]), meta)
+
+
 def _find_ckpt_prefix(model_dir: str) -> Optional[str]:
     """A restorable tensor bundle in a model dir: ``model.ckpt`` first,
     then any other ``<prefix>.index`` whose data shard is present."""
@@ -258,12 +374,37 @@ def _find_ckpt_prefix(model_dir: str) -> Optional[str]:
     return None
 
 
+def _native_params(path: str, bundle: ModelBundle) -> State:
+    """The native file's params, held to the directory's variant and to
+    ``hp.data``'s architecture (``unmicst_tpu/core/checkpoint.py:436-
+    455``)."""
+    params, hp, variant, _, _, _ = load_native(path)
+    if variant != bundle.variant:
+        raise ValueError(
+            f"native checkpoint is variant {variant!r} but the model dir "
+            f"resolves to {bundle.variant!r}")
+    arch = ("n_channels", "n_classes", "n_out0", "feat_maps_fact",
+            "down_samp_fact", "ks", "n_extra_convs", "n_layers")
+    bad = [f for f in arch if getattr(hp, f) != getattr(bundle.hp, f)]
+    if bad:
+        raise ValueError(
+            f"native checkpoint hp mismatch with hp.data on architecture "
+            f"field(s) {bad}")
+    return params_from_jax(params, bundle.hp, bundle.variant)
+
+
 def load_params_for_bundle(bundle: ModelBundle) -> State:
-    """State dict for a model directory, from its TF1 bundle."""
+    """State dict for a model directory: the native msgpack file when it
+    is there, else the TF1 bundle, as the JAX package reads a directory
+    (``unmicst_tpu/core/checkpoint.py:426-456``): a ``Trainer`` that saves
+    without the TF1 export leaves a newer native file beside an older
+    bundle."""
+    native = os.path.join(bundle.model_dir, NATIVE_FILE)
+    if os.path.exists(native):
+        return _native_params(native, bundle)
     prefix = _find_ckpt_prefix(bundle.model_dir)
-    if prefix is None:
-        raise FileNotFoundError(
-            f"no TF1 checkpoint in {bundle.model_dir} (this package reads "
-            "model.ckpt.index + data; the msgpack-only loader is not ported)"
-        )
-    return load_tf1_params(prefix, bundle.hp, bundle.variant)
+    if prefix is not None:
+        return load_tf1_params(prefix, bundle.hp, bundle.variant)
+    raise FileNotFoundError(
+        f"no restorable checkpoint in {bundle.model_dir} (neither "
+        f"model.ckpt.index + data nor {NATIVE_FILE})")

@@ -72,6 +72,10 @@ class HParams:
         """Inference tile margin: ``imSize // 8`` (``UnMicst.py:527``)."""
         return self.im_size // 8
 
+    def to_ref_dict(self) -> dict:
+        """Render as the reference's pickled ``hp.data`` dict."""
+        return {ref: getattr(self, ours) for ref, ours in _REF_KEYS.items()}
+
     @classmethod
     def from_ref_dict(cls, d: dict) -> "HParams":
         kwargs = {ours: d[ref] for ref, ours in _REF_KEYS.items() if ref in d}
@@ -82,6 +86,13 @@ def load_pickle(path: str):
     """Read a reference sidecar pickle (``toolbox/ftools.py:37-40``)."""
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def save_pickle(obj, path: str) -> None:
+    """Write a reference-compatible sidecar pickle
+    (``toolbox/ftools.py:32-35``)."""
+    with open(path, "wb") as f:
+        pickle.dump(obj, f)
 
 
 # Model-zoo variant registry: which architecture generation each shipped model

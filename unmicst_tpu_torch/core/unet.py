@@ -28,15 +28,28 @@ max); only the v2 BN, which precedes the activation, could be.  The
 inference residual fold (``_fuse_residual``, ``unet.py:379-394``) is
 applied exactly where the JAX package applies it: no extra convs.
 
+Training mode (``train=True``, ``unet.py:242-277,397-559``) normalises
+with the batch statistics and returns the moving statistics' update
+beside the output instead of writing it, so a recomputed forward
+(``torch.utils.checkpoint``) cannot apply it twice; inverted dropout
+draws from an explicit ``torch.Generator`` (none: dropout off, BN still
+in batch mode, the contract of the trajectory oracles); the residual
+fold is not applied (the two kernels keep separate gradients and
+regularizers).  :func:`regularization_loss` and :func:`init_params` are
+the JAX module's, over ``state_dict`` names and a ``torch.Generator``.
+
 Weights live in PyTorch's layouts: conv kernels OIHW, transposed-conv
-kernels ``[in, out, ks, ks]``.  :func:`unmicst_tpu_torch.core.checkpoint.
-params_from_jax` converts the JAX params pytree into this module's state.
+kernels ``[in, out, ks, ks]``.  The BN moving statistics are buffers, so
+``UNet.parameters()`` is exactly the set the optimizer trains.
+:func:`unmicst_tpu_torch.core.checkpoint.params_from_jax` converts the JAX
+params pytree into this module's state.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,29 +58,60 @@ from torch import nn
 from unmicst_tpu_torch.core.hp import HParams
 
 BN_EPS = 1e-3  # tf.layers.batch_normalization default
+BN_MOMENTUM = 0.99
 LEAKY_ALPHA = 0.2  # tf.nn.leaky_relu default
 
 
 @dataclasses.dataclass(frozen=True)
 class VariantConfig:
-    """The inference-relevant part of the per-tool variant table
+    """Per-tool architecture and training deltas
     (``unmicst_tpu/core/unet.py:61-102``): the four tools share two
     inference graphs; dropout and regularizers are training-only."""
 
     name: str
     legacy: bool
+    dropout_bottom: float = 0.0
+    dropout_down_per_layer: float = 0.0  # rate = c * layer_index
+    dropout_up_base: float = 0.0  # rate = base - c * layer_index
+    dropout_up_per_layer: float = 0.0
+    reg_kind: str = "none"  # 'none' | 'l1' | 'l2'
+    reg_down: float = 0.0
+    reg_up: float = 0.0  # also top
 
 
 VARIANTS = {
+    # UnMicst.py / batch*.py
     "legacy": VariantConfig("legacy", legacy=True),
-    "v2": VariantConfig("v2", legacy=False),
-    "duo": VariantConfig("duo", legacy=False),
-    "cyto2": VariantConfig("cyto2", legacy=False),
+    # UnMicst1-5.py (:84 L1 8e-5, :139 dropout .35)
+    "v2": VariantConfig("v2", legacy=False, dropout_bottom=0.35,
+                        reg_kind="l1", reg_down=8e-5, reg_up=8e-5),
+    # UnMicst2.py (:82 L2 .01, :114 dropout .05*i, :137 dropout .3,
+    #             :158 L2 .005, :203 dropout .25-.05*i)
+    "duo": VariantConfig("duo", legacy=False, dropout_bottom=0.3,
+                         dropout_down_per_layer=0.05, dropout_up_base=0.25,
+                         dropout_up_per_layer=0.05, reg_kind="l2",
+                         reg_down=0.01, reg_up=0.005),
+    # UnMicstCyto2.py (:79,155 L2 1e-5, :134 dropout .2)
+    "cyto2": VariantConfig("cyto2", legacy=False, dropout_bottom=0.2,
+                           reg_kind="l2", reg_down=1e-5, reg_up=1e-5),
 }
 
 
 def get_variant(name: str) -> VariantConfig:
     return VARIANTS[name]
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout (``tf.layers.dropout``, ``unet.py:269-275``): keep
+    with probability ``1 - rate`` (uniform draws from ``generator`` on
+    ``x``'s device), scale the kept by ``1 / (1 - rate)``; off when the
+    rate is 0 or there is no generator."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def _param(*shape) -> nn.Parameter:
@@ -76,19 +120,37 @@ def _param(*shape) -> nn.Parameter:
 
 class BatchNorm(nn.Module):
     """Inference batch norm with moving statistics (TF epsilon), applied
-    as the folded ``x * scale + bias`` of ``unet.py:235-239``."""
+    as the folded ``x * scale + bias`` of ``unet.py:235-239``; the moving
+    statistics are buffers (no gradient, no optimizer slot in use)."""
 
     def __init__(self, width: int):
         super().__init__()
         self.gamma = _param(width)
         self.beta = _param(width)
-        self.moving_mean = _param(width)
-        self.moving_variance = _param(width)
+        self.register_buffer("moving_mean", torch.zeros(width))
+        self.register_buffer("moving_variance", torch.zeros(width))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.gamma * torch.rsqrt(self.moving_variance + BN_EPS)
         bias = self.beta - self.moving_mean * scale
         return x.float() * scale[:, None, None] + bias[:, None, None]
+
+    def train_forward(self, x: torch.Tensor):
+        """``bn_train`` (``unet.py:242-266``): normalise with the *biased*
+        batch variance; the moving variance takes the Bessel-corrected
+        one.  Returns ``(y, (moving_mean, moving_variance))``, the new
+        statistics computed, not stored."""
+        x = x.float()
+        y = F.batch_norm(x, None, None, self.gamma, self.beta, training=True,
+                         eps=BN_EPS)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            n = x.shape[0] * x.shape[2] * x.shape[3]
+            uvar = var * (n / max(n - 1, 1))
+            new = (self.moving_mean * BN_MOMENTUM + mean * (1 - BN_MOMENTUM),
+                   self.moving_variance * BN_MOMENTUM
+                   + uvar * (1 - BN_MOMENTUM))
+        return y, new
 
 
 class DownLayer(nn.Module):
@@ -210,12 +272,41 @@ class UNet(nn.Module):
             return fused
         return None
 
+    def _train_conv(self, x: torch.Tensor, k: torch.Tensor,
+                    dtype: Optional[torch.dtype]) -> torch.Tensor:
+        """The training conv (``grad_safe``, ``unet.py:137-161``): in
+        bfloat16 a bf16 convolution whose bf16 output is upcast, so its
+        gradient flows back in bf16 too; float32 as is."""
+        if dtype is None:
+            return F.conv2d(x, k, padding=k.shape[-1] // 2)
+        return F.conv2d(x.to(dtype), k.to(dtype),
+                        padding=k.shape[-1] // 2).float()
+
+    def _train_conv_transpose(self, x: torch.Tensor, k: torch.Tensor,
+                              dtype: Optional[torch.dtype]) -> torch.Tensor:
+        s = self.hp.down_samp_fact
+        before = max(k.shape[-1] - s, 0) // 2
+        if dtype is not None:
+            x, k = x.to(dtype), k.to(dtype)
+        y = F.conv_transpose2d(x, k, stride=s, padding=before)
+        return y[:, :, : x.shape[2] * s, : x.shape[3] * s].float()
+
     # -- forward ------------------------------------------------------------
 
-    def forward_nchw(self, x: torch.Tensor,
-                     return_logits: bool = False) -> torch.Tensor:
+    def forward_nchw(self, x: torch.Tensor, return_logits: bool = False,
+                     train: bool = False,
+                     generator: Optional[torch.Generator] = None,
+                     compute_dtype: Optional[torch.dtype] = None):
         """``x``: [B, C, S, S] float -> [B, K, S, S] float32 softmax (or
-        logits with ``return_logits``)."""
+        logits with ``return_logits``).
+
+        ``train=True`` returns ``(out, new_stats)``: BN in batch mode,
+        ``new_stats`` the moving statistics' update as ``{state_dict
+        name: tensor}`` (the module is left unchanged); dropout draws from
+        ``generator`` (on ``x``'s device), off when it is None;
+        ``compute_dtype`` (bfloat16 or None) is the training convs' dtype.
+        Inference ignores ``generator`` and ``compute_dtype`` and runs in
+        the module's own ``compute_dtype``."""
         hp = self.hp
         s = x.shape[-1]
         for _ in range(hp.n_layers):
@@ -226,12 +317,38 @@ class UNet(nn.Module):
                     f"({hp.down_samp_fact}^{hp.n_layers})"
                 )
             s //= hp.down_samp_fact
-        act, conv = self._act, self._conv
+        cfg = get_variant(self.variant)
+        act = self._act
+        new_stats: Dict[str, torch.Tensor] = {}
+        if train:
+            def conv(h, k):
+                return self._train_conv(h, k, compute_dtype)
+
+            def conv_t(h, k):
+                return self._train_conv_transpose(h, k, compute_dtype)
+
+            def bn(h, mod: BatchNorm, name: str):
+                h, (mean, var) = mod.train_forward(h)
+                new_stats[f"{name}.moving_mean"] = mean
+                new_stats[f"{name}.moving_variance"] = var
+                return h
+
+            def drop(h, rate):
+                return dropout(h, rate, generator)
+        else:
+            conv, conv_t = self._conv, self._conv_transpose
+
+            def bn(h, mod: BatchNorm, name: str):
+                return mod(h)
+
+            def drop(h, rate):
+                return h
+
         skips = []
         h = x
-        for layer in self.down:
+        for i, layer in enumerate(self.down):
             skips.append(h)
-            fused = self._fused_residual(layer)
+            fused = None if train else self._fused_residual(layer)
             if fused is not None:
                 pre = conv(h, fused)
             else:
@@ -240,32 +357,109 @@ class UNet(nn.Module):
                     c = conv(act(c), ke)
                 pre = c + conv(h, layer.shortcut)
             if self.legacy:
-                y = layer.bn(act(pre))  # UnMicst.py:99
+                y = bn(act(pre), layer.bn, f"down.{i}.bn")  # UnMicst.py:99
             else:
-                y = act(layer.bn(pre))  # UnMicst1-5.py:114
+                y = act(bn(pre, layer.bn, f"down.{i}.bn"))  # UnMicst1-5.py:114
+                y = drop(y, cfg.dropout_down_per_layer * i)
             h = F.max_pool2d(y, hp.down_samp_fact)
 
         b = conv(h, self.bottom.kernel1)
-        h = act(b) if self.legacy else act(self.bottom.bn(b))
+        if self.legacy:
+            h = act(b)
+        else:
+            h = drop(act(bn(b, self.bottom.bn, "bottom.bn")),
+                     cfg.dropout_bottom)
         for i in reversed(range(hp.n_layers)):
             layer = self.up[i]
-            u = act(self._conv_transpose(h, layer.kernel1))
+            u = act(conv_t(h, layer.kernel1))
             # skip FIRST (UnMicst.py:156)
             cv = conv(torch.cat([skips[i].to(u.dtype), u], dim=1),
                       layer.kernel2)
-            cv = act(cv) if self.legacy else act(layer.bn(cv))
+            cv = act(cv) if self.legacy else act(bn(cv, layer.bn,
+                                                    f"up.{i}.bn"))
             for ke in layer.extra:
                 cv = act(conv(cv, ke))
+            if not self.legacy and cfg.dropout_up_base > 0:
+                cv = drop(cv, cfg.dropout_up_base
+                          - cfg.dropout_up_per_layer * i)
             h = cv
 
         t = conv(h, self.top.kernel)
         if not self.legacy:
-            t = self.top.bn(t)
+            t = bn(t, self.top.bn, "top.bn")
         t = t.float()
-        return t if return_logits else torch.softmax(t, dim=1)
+        out = t if return_logits else torch.softmax(t, dim=1)
+        return (out, new_stats) if train else out
 
-    def forward(self, x: torch.Tensor,
-                return_logits: bool = False) -> torch.Tensor:
-        """``x``: [B, S, S, C] -> [B, S, S, K] (the JAX ``apply`` layout)."""
-        y = self.forward_nchw(x.permute(0, 3, 1, 2), return_logits)
+    def forward(self, x: torch.Tensor, return_logits: bool = False,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                compute_dtype: Optional[torch.dtype] = None):
+        """``x``: [B, S, S, C] -> [B, S, S, K] (the JAX ``apply`` layout);
+        with ``train=True``, ``(probs, new_stats)`` as in
+        :meth:`forward_nchw`."""
+        y = self.forward_nchw(x.permute(0, 3, 1, 2), return_logits, train,
+                              generator, compute_dtype)
+        if train:
+            return y[0].permute(0, 2, 3, 1), y[1]
         return y.permute(0, 2, 3, 1)
+
+
+def regularization_loss(model: UNet) -> torch.Tensor:
+    """Kernel regularization (``unet.py:562-586``): L1 for v2, L2 for duo
+    and cyto2, none for legacy, on the reference's ``tf.get_variable``
+    kernels only (shortcut, bottom, up, top; the main down kernel and the
+    extra convs carry none, ``UnMicst1-5.py:84,94-97,171-174``)."""
+    cfg = get_variant(model.variant)
+    dev = model.top.kernel.device
+    if cfg.reg_kind == "none":
+        return torch.zeros((), device=dev)
+    f = (lambda k: k.abs().sum()) if cfg.reg_kind == "l1" else (
+        lambda k: k.square().sum())
+    total = torch.zeros((), device=dev)
+    for layer in model.down:
+        total = total + cfg.reg_down * f(layer.shortcut)
+    total = total + cfg.reg_down * f(model.bottom.kernel1)
+    for layer in model.up:
+        total = total + cfg.reg_up * f(layer.kernel1)
+        total = total + cfg.reg_up * f(layer.kernel2)
+    return total + cfg.reg_up * f(model.top.kernel)
+
+
+# ``jax.nn.initializers.variance_scaling(1, "fan_in", "truncated_normal")``
+# divides by the standard deviation of a unit normal truncated at +-2
+_TRUNC_STD = 0.87962566103423978
+
+
+def init_params(hp: HParams, variant: str = "legacy",
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+    """A ``state_dict`` drawn like the reference initializers
+    (``unet.py:283-371``): legacy kernels ``truncated_normal(stddev=
+    stdDev0)`` at +-2 sigma (``UnMicst.py:82-84``); v2 keeps that for the
+    main down kernel and gives every ``tf.get_variable`` kernel
+    VarianceScaling fan-in (``UnMicst1-5.py:86-97``), whose fan-in is taken
+    on the TF layout (``[ks, ks, out, in]`` for the transposed kernels,
+    as JAX reads them); BN ``(gamma, beta, mean, var) = (1, 0, 0, 1)``.
+    JAX's random stream is not reproduced, only its law."""
+    legacy = get_variant(variant).legacy
+    state = {}
+    for name, t in UNet(hp, variant).state_dict().items():
+        field = name.rsplit(".", 1)[-1]
+        if field in ("gamma", "moving_variance"):
+            state[name] = torch.ones(t.shape)
+            continue
+        if field in ("beta", "moving_mean"):
+            state[name] = torch.zeros(t.shape)
+            continue
+        # OIHW, or [in, out, ks, ks] for a transposed kernel: the TF
+        # layout's input axis is dim 1 either way
+        std = hp.std_dev0
+        if not legacy and not (name.startswith("down.")
+                               and name.endswith(".kernel1")):
+            std = math.sqrt(1.0 / (t.shape[1] * t.shape[2] * t.shape[3]))
+            std /= _TRUNC_STD
+        state[name] = nn.init.trunc_normal_(
+            torch.empty(t.shape), 0.0, std, -2.0 * std, 2.0 * std,
+            generator=generator)
+    return state

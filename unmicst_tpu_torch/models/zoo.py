@@ -14,7 +14,7 @@ import dataclasses
 import os
 from typing import Optional
 
-from unmicst_tpu_torch.core.checkpoint import _find_ckpt_prefix
+from unmicst_tpu_torch.core.checkpoint import NATIVE_FILE, _find_ckpt_prefix
 
 S3_BASE = "https://mcmicro.s3.amazonaws.com/models"
 
@@ -67,17 +67,10 @@ ZOO = {
     ),
 }
 
-MSGPACK_ONLY = "msgpack only (not loaded here: ROADMAP, the msgpack loader)"
-
-
-def _status(d: str) -> Optional[str]:
-    """'ready' for a TF1 bundle, the msgpack note for a dir that has only
-    the JAX package's native file, None for neither."""
-    if _find_ckpt_prefix(d):
-        return "ready"
-    if os.path.exists(os.path.join(d, "model.unmicst-tpu.msgpack")):
-        return MSGPACK_ONLY
-    return None
+def _ready(d: str) -> bool:
+    """A restorable TF1 bundle or the native msgpack file."""
+    return bool(_find_ckpt_prefix(d)) or os.path.exists(
+        os.path.join(d, NATIVE_FILE))
 
 
 def available_models(model_root: str) -> dict:
@@ -90,7 +83,7 @@ def available_models(model_root: str) -> dict:
         if not os.path.isdir(d):
             out[name] = "absent"
         else:
-            out[name] = _status(d) or "needs-blob" + (
+            out[name] = "ready" if _ready(d) else "needs-blob" + (
                 f" ({entry.ckpt_url})" if entry.ckpt_url else "")
     # locally trained model dirs
     if os.path.isdir(model_root):
@@ -98,7 +91,5 @@ def available_models(model_root: str) -> dict:
             d = os.path.join(model_root, name)
             if name not in ZOO and os.path.isdir(d) and os.path.exists(
                     os.path.join(d, "hp.data")):
-                status = _status(d)
-                out[name] = ("ready (local)" if status == "ready"
-                             else status or "needs-blob")
+                out[name] = "ready (local)" if _ready(d) else "needs-blob"
     return out
