@@ -98,7 +98,20 @@ printing any result):
    bundle; ``cli.main`` and ``python -m unmicst_tpu_torch`` on a 4096^2
    slide with that directory (K1 and K2 launched, the child's pages
    against ``cli.main``'s, and both again with cuDNN's algorithms pinned);
-10. print the ``{"kernels": [...]}`` line, the card's name and power
+10. int8 (``--precision int8``: the bfloat16 mode with the plain conv
+    sites as an exact s8 x s8 -> s32 ``torch._int_mm`` over an im2col):
+    at every int8 site of nucleiDAPI's and nucleiDAPILAMIN's widths, at
+    the engine's chunk, the card's int32 sums against a float64
+    convolution of the same int8 values (0 apart), and the route's time
+    by stage beside the bfloat16-mode cuDNN conv and the bound; the
+    legacy 4096^2 slide in int8 beside float32 and bfloat16 in turns
+    (median of 5), its calibration seconds, peak memory and profile by
+    kind; int8 against bfloat16 at the JAX CLI's int8 bar; the card
+    against the CPU with one QuantState (seeded weights: few pixels
+    apart; blobDemo: 2 levels on 5%); the scaled slide at 0.5, the 8192^2
+    stream and its 4-rank sharded form, the duo net at 4096^2, with the
+    launches of K1, K2 and K3; ``--precision int8`` through ``cli.main``;
+11. print the ``{"kernels": [...]}`` line, the card's name and power
     limit, and the ``{"ok": true, ...}`` line last.
 """
 
@@ -2368,6 +2381,487 @@ def phase_train(dev) -> dict:
     return counts
 
 
+# -- phase 10: int8 ---------------------------------------------------------------
+
+# H100 SXM dense int8 tensor-core peak (NVIDIA data sheet), the rate the
+# int8 sites' s8 x s8 -> s32 products are held against
+INT8_OPS_PER_S = 1979e12
+
+
+def int8_bar(a, b) -> tuple:
+    """(ok, mean levels, 99th percentile, argmax disagreement) of two uint8
+    map stacks, at the JAX CLI's bar for int8 against a float mode
+    (tests/test_cli.py:181-184): mean < 6 levels, p99 <= 60, argmax
+    disagreement < 4%."""
+    import numpy as np
+
+    d = np.abs(a.astype(int) - b.astype(int))
+    mean, p99 = float(d.mean()), float(np.percentile(d, 99))
+    dis = float((a.argmax(0) != b.argmax(0)).mean())
+    return mean < 6.0 and p99 <= 60 and dis < 0.04, mean, p99, dis
+
+
+def stream_after_queued_work(stream, src, plan):
+    """``stream.infer(src)`` issued behind work queued on the compute
+    stream: a sleep, then a fill of tensors freed before the call, each
+    the size of one of the stream's input buffers, whose blocks the
+    caching allocator then hands to those buffers.  Uploads that did not
+    wait for the queued work would be overwritten by the fill.  ``stream``
+    is warm: a first call's new pinned host buffers are allocated through
+    a call that waits for the card, which would hide the race."""
+    import torch
+
+    nbytes = plan.in_rows * plan.width * src.itemsize
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = [torch.empty(nbytes, dtype=torch.uint8, device=stream.device)
+            for _ in range(stream.in_flight)]
+    torch.cuda._sleep(1_000_000_000)
+    for j in junk:
+        j.fill_(255)
+    del junk, j
+    return stream.infer(src)
+
+
+def int8_sites(dev, label: str, hp, variant: str, chunk: int) -> list:
+    """Every int8 site of one net at the engine's chunk (``chunk`` tiles):
+    the card's int32 sums against a float64 convolution of the same int8
+    values (cuDNN off: integer sums below 2^53 are exact in any order),
+    which must be 0 apart; then the int8 route's time by CUDA events,
+    whole and by stage (quantize; im2col and ``_int_mm``; ``_int_mm``
+    alone; dequantize by difference), beside the port's bfloat16-mode
+    cuDNN conv of the same site (bf16-rounded operands, TF32 on), and the
+    bound: the larger of the site's operations over the int8 peak and its
+    int8 input and float32 output bytes over the memory rate."""
+    import torch
+    import torch.nn.functional as F
+
+    from unmicst_tpu_torch.core import quant, unet
+    from unmicst_tpu_torch.infer import _conv_precision
+    from unmicst_tpu_torch.utils.flops import quant_site_ops
+
+    card = card_label()
+    state = seeded_state(hp, variant, SEED)
+    ops1 = quant_site_ops(hp, variant)
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    rows = []
+    for site, w in quant.conv_sites(state, hp).items():
+        cout, cin, ks, _ = w.shape
+        side = hp.im_size >> quant.site_level(site, hp)
+        shape = (chunk, cin, side, side)
+        x8 = torch.randint(-127, 128, shape, generator=g, device=dev,
+                           dtype=torch.int16).to(torch.int8)
+        w8 = torch.randint(-127, 128, w.shape, generator=g, device=dev,
+                           dtype=torch.int16).to(torch.int8)
+        sums = unet.quant_conv_sums(x8, w8)
+        with torch.backends.cudnn.flags(enabled=False):
+            ref = F.conv2d(x8.double(), w8.double(), padding=ks // 2)
+        apart = float((sums.double() - ref).abs().max())
+        check(apart == 0, f"int8 sums at {label} {site} are {apart} from "
+                          "the float64 reference")
+        del sums, ref, x8
+        x = torch.randn(shape, generator=g, device=dev)
+        a = x.abs().amax(dim=(0, 2, 3)) / 127
+        k = quant.to_device({"kernels": {site: {
+            "w8": w8, "w_scale": torch.rand(cout, device=dev) * 1e-3,
+            "bias": torch.randn(cout, device=dev)}}, "scales": {site: a}},
+            dev)["kernels"][site]
+        mat = k["w8_mat"]
+        route = cuda_ms(lambda: unet.quant_conv(x, k, a), iters=10)
+        quantize = cuda_ms(lambda: unet.quantize_input(x, a), iters=10)
+        x8q = unet.quantize_input(x, a)
+        im2col_mm = cuda_ms(lambda: unet.int8_conv(
+            x8q, mat, ks, lambda b0, s32: None), iters=10)
+        kp = mat.shape[0]
+        group = max(1, min(chunk, unet.IM2COL_BUDGET // (side * side * kp)))
+        buf = torch.randint(-127, 128, (max(group * side * side, 17), kp),
+                            generator=g, device=dev,
+                            dtype=torch.int16).to(torch.int8)
+        mm = cuda_ms(lambda: torch._int_mm(buf, mat), iters=10) * (
+            chunk / group)
+        wf = torch.from_numpy(w).to(dev)
+        with _conv_precision(True):
+            bf16 = cuda_ms(lambda: F.conv2d(
+                x.to(torch.bfloat16).float(),
+                wf.to(torch.bfloat16).float(), padding=ks // 2), iters=10)
+        ops = ops1[site] * chunk
+        n_bytes = chunk * side * side * (cin + 4 * cout)
+        bound = max(ops / INT8_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+        bound_by = ("operations" if ops / INT8_OPS_PER_S
+                    > n_bytes / HBM_BYTES_PER_S else "bytes")
+        row = dict(net=label, site=site, cin=cin, cout=cout, ks=ks,
+                   side=side, k=cin * ks * ks, int8_ms=route,
+                   quantize_ms=quantize, im2col_mm_ms=im2col_mm,
+                   int_mm_ms=mm, dequant_ms=route - quantize - im2col_mm,
+                   bf16_ms=bf16, bound_ms=bound, bound_by=bound_by,
+                   tops=ops / route / 1e9)
+        rows.append(row)
+        log(f"[int8] {label} {site}: {chunk}x{cin}x{side}^2 -> {cout}, K "
+            f"{cin * ks * ks}; sums 0 apart from float64; int8 route "
+            f"{route:.4f} ms (quantize {quantize:.4f}, im2col + _int_mm "
+            f"{im2col_mm:.4f}, _int_mm {mm:.4f}, dequantize "
+            f"{route - quantize - im2col_mm:.4f}) against bf16-mode cuDNN "
+            f"{bf16:.4f} ms; bound {bound:.4f} ms ({bound_by}); "
+            f"{ops / route / 1e9:.2f} TOP/s "
+            f"({ops / route / 1e9 / (INT8_OPS_PER_S / 1e12):.4f} of the "
+            f"int8 peak) [{card}]")
+        del x, x8q, buf
+    torch.cuda.empty_cache()
+    tot = {k: sum(r[k] for r in rows) for k in ("int8_ms", "bf16_ms",
+                                                 "bound_ms")}
+    log(f"[int8] {label} all {len(rows)} sites at chunk {chunk}: int8 "
+        f"{tot['int8_ms']:.3f} ms, bf16-mode cuDNN {tot['bf16_ms']:.3f} ms, "
+        f"bound {tot['bound_ms']:.3f} ms [{card}]")
+    return rows
+
+
+def int8_profile(run, label: str) -> None:
+    """One int8 slide under the profiler: device time by kind (im2col and
+    other copies, ``_int_mm``, elementwise, cuDNN, K1, K2), the busy and
+    idle shares of the call's wall time, and the top kernels by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    if not by_name:
+        log(f"[int8] {label} profile: not measured (no device events)")
+        return
+
+    def kind(name):
+        low = name.lower()
+        if "softmax_blend" in low:
+            return "K1"
+        if "fold_region" in low or "fold_weighted" in low:
+            return "K2"
+        if "memcpy" in low or "memset" in low:
+            return "memcpy/memset"
+        if any(t in low for t in ("s8", "i8", "imma", "int8", "igemm")):
+            return "_int_mm"
+        if "copy" in low:
+            return "copies (im2col, pad, layout)"
+        if any(t in low for t in ("conv", "fprop", "cudnn", "xmma", "sm90",
+                                  "implicit", "winograd", "dgrad", "wgrad",
+                                  "nhwc", "nchw")):
+            return "cuDNN"
+        return "elementwise and other"
+
+    kinds = {}
+    for name, (ms, n) in by_name.items():
+        k = kind(name)
+        kms, kn = kinds.get(k, (0.0, 0))
+        kinds[k] = (kms + ms, kn + n)
+    busy = busy_ms(prof)
+    log(f"[int8] {label} profile: wall {wall_ms:.2f} ms (profiler on), "
+        f"device busy {busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}; "
+        + "; ".join(f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in
+                    sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    for name, (ms, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:14]:
+        log(f"[int8] {ms:9.3f} ms x{n:<5d} [{kind(name)}] {name[:110]}")
+
+
+def phase_int8(dev) -> None:
+    """int8 (``--precision int8``: bfloat16 glue, the plain conv sites in
+    int8 through ``torch._int_mm`` over an im2col) on the card: every site
+    of both nets exact and timed, the whole engine against float32 and
+    bfloat16 in this call, its calibration and profile, the stream, the
+    sharded stream, the duo net, a scaled slide, the card against the CPU,
+    and the CLI."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.core import quant
+    from unmicst_tpu_torch.infer import InferenceEngine, pick_tile_batch
+    from unmicst_tpu_torch.io.tiff import TiffWriter, imread, num_pages
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    bf = torch.bfloat16
+
+    def launched():
+        return {k: v for k, v in kernels.launch_counts().items() if v}
+
+    lhp, dhp = legacy_hp(), duo_hp()
+    chunk_l = pick_tile_batch(lhp, dev, True)
+    chunk_d = pick_tile_batch(dhp, dev, True)
+    int8_sites(dev, "nucleiDAPI", lhp, "legacy", chunk_l)
+    int8_sites(dev, "nucleiDAPILAMIN", dhp, "v2", chunk_d)
+
+    # -- the whole engine, legacy 4096^2 ----------------------------------------
+    lstate = seeded_state(lhp, "legacy", SEED)
+    g = torch.Generator().manual_seed(SEED + 1)
+    raw = torch.randint(0, 65536, (SLIDE, SLIDE), generator=g,
+                        dtype=torch.int32).numpy().astype(np.uint16)
+    px = SLIDE * SLIDE
+    engines = {
+        "float32": InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN,
+                                   LEGACY_STD, device=dev),
+        "bfloat16": InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN,
+                                    LEGACY_STD, compute_dtype=bf,
+                                    device=dev),
+        "int8": InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN,
+                                LEGACY_STD, compute_dtype=bf, quantized=True,
+                                device=dev),
+    }
+    q = engines["int8"]
+    _, calib = wall(lambda: q._quant_for_raw(raw, -1, True))
+    log(f"[int8] legacy calibration (64 tiles, two float32 forwards, "
+        f"percentiles, host weight quantization): {calib:.3f} s [{card}]")
+    maps = {}
+    for name, eng in engines.items():
+        kernels.reset_launch_counts()
+        maps[name], first = wall(lambda: eng.infer_slide(raw))
+        counts = launched()
+        log(f"[int8] legacy {name} first call {first:.3f} s (cuDNN autotune "
+            f"included), tile batch {eng.tile_batch}, launches {counts}")
+        check(counts.get("softmax_blend", 0) > 0
+              and counts.get("blend_fold_epilogue", 0) == 1,
+              f"the {name} slide did not run K1 and K2: {counts}")
+    check(maps["int8"].shape == (3, SLIDE, SLIDE)
+          and class_sum_ok(maps["int8"]), "bad int8 maps")
+    rates = {}
+    for name in ("float32", "bfloat16", "int8", "bfloat16", "float32"):
+        eng = engines[name]
+        mpx, med, times = median_rate(lambda: eng.infer_slide(raw), px,
+                                      reps=5)
+        rates.setdefault(name, []).append(mpx)
+        log(f"[int8] legacy {name} 4096^2: {mpx:.2f} Mpx/s (median "
+            f"{med:.4f}s of {[round(x, 4) for x in times]}) [{card}]")
+    for name, eng in engines.items():
+        pk = peak_bytes(lambda: eng.infer_slide(raw))
+        log(f"[int8] legacy {name} peak device memory {pk / 2**30:.3f} GiB")
+    log("[int8] legacy 4096^2 Mpx/s in this call: " + ", ".join(
+        f"{k} {v}" for k, v in rates.items()) + f" [{card}]")
+    int8_profile(lambda: q.infer_slide(raw), f"legacy int8 4096^2 [{card}]")
+    ok, mean, p99, dis = int8_bar(maps["int8"], maps["bfloat16"])
+    log(f"[int8] legacy int8 vs bfloat16 4096^2: mean {mean:.3f} levels, p99 "
+        f"{p99:.1f}, argmax disagreement {dis:.4f} (bar: < 6, <= 60, < 0.04)")
+    check(ok, f"int8 and bfloat16 maps disagree beyond the JAX CLI's bar: "
+              f"mean {mean}, p99 {p99}, argmax {dis}")
+    ok, mean, p99, dis = int8_bar(maps["int8"], maps["float32"])
+    log(f"[int8] legacy int8 vs float32 4096^2: mean {mean:.3f} levels, p99 "
+        f"{p99:.1f}, argmax disagreement {dis:.4f}")
+
+    # the card against the CPU on a 512^2 crop, one QuantState.  On these
+    # seeded full-width weights one int8 input that a float ulp moves
+    # across a rounding edge shifts its neighbourhood by a whole int8 step,
+    # which the untrained net amplifies to tens of levels at a few pixels:
+    # the pair is held to few pixels apart (p99, argmax); the CLI's mode
+    # (bfloat16 glue) on blobDemo's trained weights to 2 levels on 5%
+    crop = raw[:512, :512]
+    state_cpu = quant.to_device(q._quant, "cpu")
+    for glue, name in ((bf, "bfloat16"), (None, "float32")):
+        on = {}
+        for d in (dev, "cpu"):
+            e = InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN,
+                                LEGACY_STD, compute_dtype=glue,
+                                quantized=True, device=d)
+            e._quant = state_cpu
+            on[str(d)] = e.infer_slide(crop)
+        _, worst, share = maps_agree(on[str(dev)], on["cpu"], bf)
+        _, mean, p99, dis = int8_bar(on[str(dev)], on["cpu"])
+        log(f"[int8] legacy int8 ({name} glue) card vs CPU on 512^2, one "
+            f"QuantState: max {worst} level(s), {share:.3e} of pixels "
+            f"differ, mean {mean:.4f}, p99 {p99:.1f}, argmax {dis:.4f} "
+            "(bar: mean < 0.5, p99 <= 4, argmax < 0.01)")
+        check(mean < 0.5 and p99 <= 4 and dis < 0.01,
+              f"int8 card and CPU disagree ({name} glue): mean {mean}, p99 "
+              f"{p99}, argmax {dis}")
+    from unmicst_tpu_torch.core.checkpoint import load_params_for_bundle
+    from unmicst_tpu_torch.core.hp import load_model_dir
+
+    bundle = load_model_dir(os.path.join(ROOT, "models", "blobDemo"))
+    demo_params = load_params_for_bundle(bundle)
+    blobs = (np.clip(blob_slide(np.random.RandomState(43), 512, 512, 64),
+                     0, 1) * 65535).astype(np.uint16)
+    on_card, on_cpu = (InferenceEngine.from_bundle(
+        bundle, demo_params, device=d, compute_dtype=bf, quantized=True)
+        for d in (dev, "cpu"))
+    card_maps = on_card.infer_slide(blobs, rescale=False)
+    on_cpu._quant = quant.to_device(on_card._quant, "cpu")
+    ok, worst, share = maps_agree(card_maps,
+                                  on_cpu.infer_slide(blobs, rescale=False),
+                                  bf)
+    log(f"[int8] blobDemo int8 (bfloat16 glue) card vs CPU on 512^2, one "
+        f"QuantState: max {worst} level(s), {share:.3e} of pixels differ "
+        "(bar: 2 levels on 5%)")
+    check(ok, f"blobDemo int8 card and CPU disagree: {worst} levels on "
+              f"{share:.3e}")
+
+    # a scaled slide: its own calibration on resized row bands
+    q05 = InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
+                          compute_dtype=bf, quantized=True, device=dev)
+    _, calib = wall(lambda: q05._quant_for_raw(raw, -1, True, 0.5))
+    kernels.reset_launch_counts()
+    m05, first = wall(lambda: q05.infer_slide(raw, scaling_factor=0.5))
+    counts = launched()
+    mpx, med, times = median_rate(
+        lambda: q05.infer_slide(raw, scaling_factor=0.5), px)
+    b05 = engines["bfloat16"].infer_slide(raw, scaling_factor=0.5)
+    mpx_b, med_b, _ = median_rate(
+        lambda: engines["bfloat16"].infer_slide(raw, scaling_factor=0.5), px)
+    ok, mean, p99, dis = int8_bar(m05, b05)
+    log(f"[int8] legacy int8 at scaling factor 0.5: calibration {calib:.3f} "
+        f"s, first call {first:.3f} s, {mpx:.2f} Mpx/s of raw pixels (median "
+        f"{med:.4f}s of {[round(x, 4) for x in times]}) against bfloat16 "
+        f"{mpx_b:.2f}; launches {counts}; vs bfloat16 mean {mean:.3f}, p99 "
+        f"{p99:.1f}, argmax {dis:.4f} [{card}]")
+    check(ok and m05.shape == (3, SLIDE, SLIDE)
+          and counts.get("softmax_blend", 0) > 0
+          and counts.get("blend_fold_epilogue", 0) == 1,
+          f"the scaled int8 slide failed: {counts}, mean {mean}")
+    del engines, maps, m05, b05, q05
+    torch.cuda.empty_cache()
+
+    # -- the stream and the sharded stream, 8192^2 ------------------------------
+    g = torch.Generator().manual_seed(SEED + 3)
+    big = torch.randint(0, 65536, (BIG, BIG), generator=g,
+                        dtype=torch.int32).numpy().astype(np.uint16)
+    bpx = BIG * BIG
+    stream = StreamingEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
+                             quantized=True, device=dev)
+    plan = stream._plan(BIG, BIG)
+    kernels.reset_launch_counts()
+    got, first = wall(lambda: stream.infer(big))
+    counts = launched()
+    mpx, med, times = median_rate(lambda: stream.infer(big), bpx)
+    log(f"[int8] stream 8192^2: first call {first:.3f} s (calibration and "
+        f"autotune included), {mpx:.2f} Mpx/s (median {med:.4f}s of "
+        f"{[round(x, 4) for x in times]}), {plan.n_stripes} stripes; "
+        f"launches {counts} [{card}]")
+    check(got.shape == (3, BIG, BIG) and class_sum_ok(got)
+          and counts.get("blend_fold_stripe", 0) == plan.n_stripes
+          and counts.get("softmax_blend", 0) > 0,
+          f"the int8 stream did not run K1 and K2's stripe entry: {counts}")
+    bstream = StreamingEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
+                              device=dev)
+    bgot = bstream.infer(big)
+    mpx_b, _, _ = median_rate(lambda: bstream.infer(big), bpx)
+    ok, mean, p99, dis = int8_bar(got, bgot)
+    log(f"[int8] stream int8 against the bfloat16 stream ({mpx_b:.2f} "
+        f"Mpx/s): mean {mean:.3f}, p99 {p99:.1f}, argmax {dis:.4f}")
+    check(ok, f"the int8 stream is beyond the JAX CLI's bar from bfloat16: "
+              f"mean {mean}, p99 {p99}, argmax {dis}")
+    del bstream, bgot
+    # the first call (calibration included) against a warm one, and warm
+    # ones issued behind queued work that frees the blocks their input
+    # buffers then take (stream_after_queued_work; twice, as the first
+    # after empty_cache may find the card idle)
+    warm = stream.infer(big)
+    for name, other in (
+            ("first call", lambda: got),
+            ("call behind queued work",
+             lambda: stream_after_queued_work(stream, big, plan)),
+            ("second call behind queued work",
+             lambda: stream_after_queued_work(stream, big, plan))):
+        d = np.abs(other().astype(int) - warm.astype(int))
+        log(f"[int8] stream {name} against a warm call: max {d.max()} "
+            f"levels, {(d > 0).mean():.3e} of pixels differ")
+        check(d.max() <= 1, f"the int8 stream's {name} differs from a warm "
+              f"call by {d.max()} levels on {(d > 1).mean():.3e} of pixels")
+    del warm, d
+    mesh = make_mesh(devices=[dev] * RANKS)
+    wall(lambda: stream.infer_sharded(big, mesh))
+    kernels.reset_launch_counts()
+    sharded, secs = wall(lambda: stream.infer_sharded(big, mesh))
+    counts = launched()
+    ok, mean, p99, dis = int8_bar(sharded, got)
+    d = np.abs(sharded.astype(int) - got.astype(int))
+    log(f"[int8] sharded stream over {RANKS} ranks of the card: "
+        f"{bpx / 1e6 / secs:.2f} Mpx/s ({secs:.3f} s, warm); vs the stream "
+        f"max {d.max()} levels, {(d > 0).mean():.3e} of pixels differ, mean "
+        f"{mean:.4f}; launches {counts} [{card}]")
+    check(ok and counts.get("ring_shift", 0) == 2 * plan.n_stripes
+          and counts.get("softmax_blend", 0) > 0,
+          f"the int8 sharded stream failed: {counts}, mean {mean}")
+    del stream, got, sharded, big, d
+    torch.cuda.empty_cache()
+
+    # -- the duo net, 4096^2 ------------------------------------------------------
+    dstate = seeded_state(dhp, "v2", SEED)
+    g = torch.Generator().manual_seed(SEED + 4)
+    planes = [torch.randint(0, top, (SLIDE, SLIDE), generator=g,
+                            dtype=torch.int32).numpy().astype(np.uint16)
+              for top in (65536, 30000)]
+    dq = InferenceEngine(dhp, dstate, "v2", DUO_MEAN, DUO_STD,
+                         compute_dtype=bf, quantized=True, device=dev)
+    db = InferenceEngine(dhp, dstate, "v2", DUO_MEAN, DUO_STD,
+                         compute_dtype=bf, device=dev)
+    _, calib = wall(lambda: dq._quant_for_raw(np.stack(planes), -1, True))
+    kernels.reset_launch_counts()
+    dm, first = wall(lambda: dq.infer_slide_stack(planes))
+    counts = launched()
+    mpx, med, times = median_rate(lambda: dq.infer_slide_stack(planes), px)
+    bm = db.infer_slide_stack(planes)
+    mpx_b, med_b, _ = median_rate(lambda: db.infer_slide_stack(planes), px)
+    ok, mean, p99, dis = int8_bar(dm, bm)
+    pk = peak_bytes(lambda: dq.infer_slide_stack(planes))
+    log(f"[int8] duo 4096^2: calibration {calib:.3f} s, first call "
+        f"{first:.3f} s, {mpx:.2f} Mpx/s (median {med:.4f}s of "
+        f"{[round(x, 4) for x in times]}) against bfloat16 {mpx_b:.2f}; "
+        f"peak {pk / 2**30:.3f} GiB, tile batch {dq.tile_batch}; launches "
+        f"{counts}; vs bfloat16 mean {mean:.3f}, p99 {p99:.1f}, argmax "
+        f"{dis:.4f} [{card}]")
+    check(ok and class_sum_ok(dm) and counts.get("softmax_blend", 0) > 0
+          and counts.get("blend_fold_epilogue", 0) == 1,
+          f"the duo int8 slide failed: {counts}, mean {mean}")
+    int8_profile(lambda: dq.infer_slide_stack(planes),
+                 f"duo int8 4096^2 [{card}]")
+    del dq, db, dm, bm, planes
+    torch.cuda.empty_cache()
+
+    # -- the CLI: --precision int8 on blobDemo (trained weights) ------------------
+    rng = np.random.RandomState(42)
+    img = blob_slide(rng, 1024, 1024, 256)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "s", "registration", "blobs.tif")
+        os.makedirs(os.path.dirname(src))
+        with TiffWriter(src, bigtiff=False) as tw:
+            tw.write((np.clip(img, 0, 1) * 65535).astype(np.uint16))
+        pages = {}
+        for prec in ("float32", "int8"):
+            out = os.path.join(tmp, prec)
+            kernels.reset_launch_counts()
+            rc = cli.main([src, "--tool", "unmicst-solo", "--model",
+                           "blobDemo", "--modelRoot",
+                           os.path.join(ROOT, "models"), "--outputPath", out,
+                           "--stackOutput", "--precision", prec])
+            counts = launched()
+            prob = os.path.join(out, "blobs_Probabilities_1.tif")
+            check(rc == 0 and num_pages(prob) == 3,
+                  f"the {prec} CLI run failed (rc {rc})")
+            pages[prec] = np.stack([imread(prob, k) for k in range(3)])
+    nuclei = pages["int8"][0].astype(float) / 255
+    inside, background = nuclei[img > 0.6].mean(), nuclei[img < 0.2].mean()
+    ok, mean, p99, dis = int8_bar(pages["int8"], pages["float32"])
+    log(f"[int8] CLI --precision int8 (blobDemo, 1024^2): inside "
+        f"{inside:.3f} background {background:.3f}; launches {counts}; "
+        f"against --precision float32 mean {mean:.3f}, p99 {p99:.1f}, "
+        f"argmax {dis:.4f}")
+    check(ok and inside > 0.8 and background < 0.3
+          and counts.get("softmax_blend", 0) > 0
+          and counts.get("blend_fold_epilogue", 0) == 1,
+          f"the int8 CLI run is off: inside {inside}, background "
+          f"{background}, mean {mean}, launches {counts}")
+    log(f"[int8] phase {time.perf_counter() - t_phase:.1f}s")
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2395,6 +2889,7 @@ def main(argv=None) -> int:
     phase_duo_scale(dev)
     stats["blend_fold_epilogue_f32"]["launches"] = phase_sweep(dev)
     phase_train(dev)
+    phase_int8(dev)
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():

@@ -350,6 +350,40 @@ def test_streaming_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.cuda
+def test_stream_uploads_wait_for_work_queued_before_them(cuda):
+    """The stream's uploads start after the work already queued on the
+    compute stream.  The caching allocator hands the stream's input
+    buffers blocks that such work frees while it still runs (the int8
+    calibration's forwards do): here a sleep, then a fill of tensors
+    freed at once, each the size of one input buffer (over 10 MiB, so a
+    segment of its own).  An upload that did not wait would be
+    overwritten by the fill.  The engine is warm (a first call's new
+    pinned host buffers come from a call that waits for the card, which
+    would hide the race) and the call is made three times (the first
+    after ``empty_cache`` may find the card idle)."""
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    hp, state = _small_net()
+    raw = (np.random.RandomState(6).rand(2000, 6000) * 60000).astype(np.uint16)
+    engine = StreamingEngine(hp, state, "legacy", 0.3, 0.2, compute_dtype=None,
+                             stripe_tile_rows=40, in_flight=2, device=cuda)
+    plan = engine._plan(*raw.shape)
+    nbytes = plan.in_rows * plan.width * raw.itemsize
+    assert nbytes > 10 << 20 and plan.n_stripes >= 2
+    want = engine.infer(raw)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        junk = [torch.empty(nbytes, dtype=torch.uint8, device=cuda)
+                for _ in range(2)]
+        torch.cuda._sleep(1_000_000_000)
+        for j in junk:
+            j.fill_(255)
+        del junk, j
+        assert np.array_equal(engine.infer(raw), want)
+
+
+@pytest.mark.cuda
 def test_k4b_waits_only_on_the_planned_stream(cuda):
     """K4b's prepared launch goes to the streams the hop was planned for:
     redeeming the handle under another current stream raises, and on the
@@ -653,3 +687,54 @@ def test_train_step_on_card_matches_cpu(cuda, variant, tmp_path):
                    str(tmp_path / "m"), params=state, device=cuda)
     assert np.isfinite(t.fit(Same(), Same(), 3, verbose=False))
     assert torch.backends.cudnn.allow_tf32 == saved
+
+
+def _int8_sites(name):
+    """(site, OIHW kernel shape) of every int8 site of nucleiDAPI or
+    nucleiDAPILAMIN at its published widths (SURVEY.md section 2.4)."""
+    from unmicst_tpu_torch.core import quant
+    from unmicst_tpu_torch.core.hp import HParams
+    from unmicst_tpu_torch.core.unet import UNet
+
+    kw, variant = {
+        "nucleiDAPI": (dict(n_channels=1, n_out0=16, ks=5, n_extra_convs=1,
+                            n_layers=2), "legacy"),
+        "nucleiDAPILAMIN": (dict(n_channels=2, n_out0=36, ks=3,
+                                 n_extra_convs=0, n_layers=5), "duo"),
+    }[name]
+    hp = HParams(im_size=128, n_classes=3, **kw)
+    state = UNet(hp, variant).state_dict()
+    return [(s, w.shape) for s, w in quant.conv_sites(state, hp).items()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["nucleiDAPI", "nucleiDAPILAMIN"])
+def test_int8_conv_on_card_is_exact(cuda, name):
+    """At every int8 site of both published nets: the card's int32 sums
+    (``torch._int_mm`` over the im2col) equal a float64 convolution of the
+    same int8 values, 0 apart, and the CPU route's; ``quant_conv`` on the
+    card equals the CPU's bit for bit (the same sums, one float32
+    multiply and add per output)."""
+    from unmicst_tpu_torch.core import unet
+
+    rng = np.random.RandomState(5)
+    for site, shape in _int8_sites(name):
+        cout, cin, ks, _ = shape
+        x8 = torch.from_numpy(rng.randint(-127, 128, (3, cin, 9, 11))
+                              .astype(np.int8))
+        w8 = torch.from_numpy(rng.randint(-127, 128, shape).astype(np.int8))
+        got = unet.quant_conv_sums(x8.to(cuda), w8.to(cuda)).cpu()
+        ref = torch.nn.functional.conv2d(x8.double(), w8.double(),
+                                         padding=ks // 2)
+        assert torch.equal(got.long(), ref.long()), site
+        assert torch.equal(got, unet.quant_conv_sums(x8, w8)), site
+        x = torch.from_numpy(rng.randn(3, cin, 9, 11).astype(np.float32))
+        qk = {"w8": w8,
+              "w_scale": torch.from_numpy(rng.rand(cout).astype(np.float32)),
+              "bias": torch.from_numpy(rng.randn(cout).astype(np.float32))}
+        a = torch.from_numpy(rng.rand(cin).astype(np.float32) * 0.02 + 0.01)
+        want = unet.quant_conv(x, qk, a)
+        card = unet.quant_conv(x.to(cuda), {k: v.to(cuda)
+                                            for k, v in qk.items()},
+                               a.to(cuda)).cpu()
+        assert torch.equal(card, want), site

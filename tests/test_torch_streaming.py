@@ -312,10 +312,19 @@ def test_tiff_sources_stream_like_arrays(tmp_path):
 
 
 def test_streaming_refuses_unported_paths():
+    """Out-of-range classes refuse.  The int8 mode (M11), which refused
+    here before, runs now: the quantized stream against the quantized
+    whole engine on the stream's own QuantState, at most 1 level apart
+    (the bar of ``tests/test_pipeline.py``'s JAX pair; measured 0)."""
     _, _, hp, state = _net()
-    with pytest.raises(NotImplementedError, match="M11"):
-        StreamingEngine(hp, state, "legacy", 0.3, 0.2, quantized=True,
-                        device="cpu")
+    qs = StreamingEngine(hp, state, "legacy", 0.3, 0.2, compute_dtype=None,
+                         stripe_tile_rows=2, quantized=True, device="cpu")
+    raw8 = _raw((110, 90), seed=3)
+    got = qs.infer(raw8)
+    whole = InferenceEngine(hp, state, "legacy", 0.3, 0.2, quantized=True,
+                            device="cpu")
+    whole._quant = qs._quant
+    _close(got, whole.infer_slide(raw8))
     ts = StreamingEngine(hp, state, "legacy", 0.3, 0.2, device="cpu")
     raw = _raw((40, 40))
     with pytest.raises(ValueError, match="out of range"):

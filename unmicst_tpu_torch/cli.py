@@ -8,7 +8,8 @@ The main path of ``unmicst_tpu/cli.py`` (``:770-862`` and
         --outputPath OUT [--stackOutput] [--channel N [N2]]
         [--channelName NAME [NAME2]] [--classOrder A B C] [--outlier F]
         [--scalingFactor F] [--intensityRange LO,HI [LO,HI]]
-        [--precision float32|highest|bfloat16] [--tileBatch N]
+        [--precision float32|highest|bfloat16|int8]
+        [--calibrationPercentile P] [--tileBatch N]
         [--modelRoot DIR] [--GPU N] [--stats]
         [--engine auto|whole|streaming|sharded] [--meshShape N]
         [--check-numerics] [--trace DIR]
@@ -49,10 +50,14 @@ are uint8 on the card); ``--trace DIR`` leaves a ``torch.profiler``
 Chrome trace of the inference in ``DIR``; ``--listModels`` prints which
 zoo models each model root can load.
 
-Paths not ported yet fail loudly and name their ROADMAP item:
-``--precision int8`` (M11; ``--calibrationPercentile`` only matters
-there), pyramid input and output and zstd output (M14), and CZI and ND2
-inputs.  ``--fetchModels`` is a download, which this package does not do.
+``--precision int8`` is the bfloat16 mode with the plain conv sites in
+int8 (``core/quant.py``; ``precision_mode``, ``cli.py:237-254`` of the
+JAX package), calibrated from the slide with ``--calibrationPercentile``
+in every engine.
+
+Paths not ported yet fail loudly and name their ROADMAP item: pyramid
+input and output and zstd output (M14), and CZI and ND2 inputs.
+``--fetchModels`` is a download, which this package does not do.
 """
 
 from __future__ import annotations
@@ -113,7 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--precision", default="float32",
                    choices=["float32", "highest", "bfloat16", "int8"],
                    help="float32 and highest: full float32 convolutions "
-                   "(TF32 off); bfloat16: bf16 operands, float32 sums")
+                   "(TF32 off); bfloat16: bf16 operands, float32 sums; "
+                   "int8: bfloat16 with the plain convs quantized")
     p.add_argument("--tileBatch", type=int, default=0,
                    help="tiles per forward batch; 0 = from the card's free "
                    "memory, at most 256")
@@ -157,8 +163,6 @@ def _not_ported(what: str, item: str) -> SystemExit:
 
 
 def _reject_unported(args) -> None:
-    if args.precision == "int8":
-        raise _not_ported("--precision int8", "M11")
     if args.usePyramid or args.pyramidOutput:
         raise _not_ported("--usePyramid / --pyramidOutput", "M14")
     if args.compressOutput == "zstd":
@@ -361,7 +365,9 @@ def _run_streaming(args, bundle, tool, chans, class_order, file_type, stem,
     stream = StreamingEngine.from_bundle(
         bundle, params,
         compute_dtype=PRECISIONS[args.precision],
-        tile_batch=args.tileBatch or None, device=dev,
+        tile_batch=args.tileBatch or None,
+        quantized=args.precision == "int8",
+        calibration_percentile=args.calibrationPercentile, device=dev,
     )
     classes = (None if args.stackOutput or len(class_order) < 3
                else (class_order[1], class_order[2]))
@@ -540,7 +546,9 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     params = load_params_for_bundle(bundle)
     engine = InferenceEngine.from_bundle(
         bundle, params, compute_dtype=PRECISIONS[args.precision],
-        tile_batch=args.tileBatch or None, device=dev,
+        tile_batch=args.tileBatch or None,
+        quantized=args.precision == "int8",
+        calibration_percentile=args.calibrationPercentile, device=dev,
     )
     t_load = time.perf_counter()
     with _trace(args):

@@ -43,6 +43,12 @@ kernels ``[in, out, ks, ks]``.  The BN moving statistics are buffers, so
 ``UNet.parameters()`` is exactly the set the optimizer trains.
 :func:`unmicst_tpu_torch.core.checkpoint.params_from_jax` converts the JAX
 params pytree into this module's state.
+
+Inference takes a calibration ``tap(site, h)`` and an int8 ``quant`` state
+(``core/quant.py``) at every plain conv site, as ``apply``'s
+``site_conv`` does (``unet.py:405-463``): a site in the state runs
+:func:`quant_conv`, an exact s8 x s8 -> s32 ``torch._int_mm`` over an
+im2col.  The site names are the contract with ``quant.conv_sites``.
 """
 
 from __future__ import annotations
@@ -112,6 +118,117 @@ def dropout(x: torch.Tensor, rate: float,
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
+
+
+# bytes of int8 im2col one ``torch._int_mm`` call takes: quant_conv cuts
+# the tiles of a batch into groups whose im2col stays under it
+IM2COL_BUDGET = 1 << 28
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def weight_matrix(w8: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 kernel -> the ``[Kp, Np]`` second operand of
+    ``torch._int_mm``: the kernel flattened to ``[cout, cin * kh * kw]``
+    (K in ``(cin, kh, kw)`` order, the im2col's), zero-padded to multiples
+    of 8 in both dimensions (zero rows and columns add nothing to a sum),
+    and viewed transposed, so the operand is column-major: the layout
+    cuBLASLt's int8 product takes."""
+    n, k = w8.shape[0], w8[0].numel()
+    mat = torch.zeros((_round8(n), _round8(k)), dtype=torch.int8,
+                      device=w8.device)
+    mat[:n, :k] = w8.reshape(n, k)
+    return mat.t()
+
+
+def quantize_input(x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """NCHW activations -> int8 ``clamp(round(x / a[cin]), -127, 127)``.
+    It divides as the JAX engine does (the state is a jit argument there,
+    so XLA divides) and rounds half to even, as XLA does."""
+    x8 = torch.clamp(torch.round(x.float() / a[:, None, None]), -127, 127)
+    return x8.to(torch.int8)
+
+
+def int8_conv(x8: torch.Tensor, mat: torch.Tensor, ks: int, emit) -> None:
+    """The exact s8 x s8 -> s32 SAME conv of int8 NCHW ``x8`` with the
+    kernel ``mat`` (:func:`weight_matrix`), tiles in groups: for each group
+    of tiles ``[b0, b0 + g)`` calls ``emit(b0, s32)`` with its int32 sums
+    ``[g, H, W, Np]`` (a view into a buffer the next group reuses).
+
+    The im2col is ``Tensor.unfold`` of the zero-padded int8 tensor, rows
+    ``(b, h, w)`` and K ``(cin, kh, kw)`` padded to a multiple of 8, the
+    product ``torch._int_mm``: its int32 sums are exact for any K (at
+    most 127^2 a term), like XLA's int8 convolution.  A group's im2col
+    stays under ``IM2COL_BUDGET`` bytes.  On a CUDA tensor the product is
+    ``_int_mm`` or an error: there is no float fallback."""
+    b, c, h, w = x8.shape
+    kp, n_pad = mat.shape
+    k = c * ks * ks
+    p = ks // 2
+    xp = F.pad(x8, (p, p, p, p))
+    # [B, H, W, C, kh, kw] strided view of the padded tensor, no copy
+    cols = xp.unfold(2, ks, 1).unfold(3, ks, 1).permute(0, 2, 3, 1, 4, 5)
+    group = max(1, min(b, IM2COL_BUDGET // (h * w * kp)))
+    # one buffer for every group; its K padding stays zero.  _int_mm on
+    # the card takes more than 16 rows: the rows past a group's are
+    # computed and dropped
+    buf = (torch.empty if kp == k else torch.zeros)(
+        (max(group * h * w, 17), kp), dtype=torch.int8, device=x8.device)
+    for b0 in range(0, b, group):
+        g = min(b, b0 + group) - b0
+        m = g * h * w
+        buf[:m].view(g, h, w, kp)[..., :k].view(g, h, w, c, ks, ks).copy_(
+            cols[b0 : b0 + g])
+        s32 = torch._int_mm(buf[: max(m, 17)], mat)
+        emit(b0, s32[:m].view(g, h, w, n_pad))
+
+
+def quant_conv(x: torch.Tensor, qk: Dict[str, torch.Tensor],
+               a: torch.Tensor) -> torch.Tensor:
+    """int8 SAME conv of NCHW ``x``, dequantized to float32 NCHW
+    (``unet.quant_conv``, ``unet.py:192-224``).
+
+    ``a``: the site's per-input-channel activation scales; ``qk["w8"]``
+    (OIHW int8) quantizes ``a[cin] * W`` per output channel with scales
+    ``qk["w_scale"]``, so the int32 sums of :func:`int8_conv` approximate
+    ``conv(x, W)`` after one multiply per output channel, then
+    ``qk["bias"]`` when there is one.  ``qk["w8_mat"]``, when present, is
+    ``weight_matrix(qk["w8"])`` made once (``quant.to_device``)."""
+    w8 = qk["w8"]
+    mat = qk.get("w8_mat")
+    if mat is None:
+        mat = weight_matrix(w8)
+    b, _, h, w = x.shape
+    n = w8.shape[0]
+    y = torch.empty((b, n, h, w), dtype=torch.float32, device=x.device)
+    scale = qk["w_scale"][:, None, None]
+    bias = qk.get("bias")
+
+    def dequantize(b0, s32):
+        out = y[b0 : b0 + s32.shape[0]]
+        torch.mul(s32[..., :n].permute(0, 3, 1, 2), scale, out=out)
+        if bias is not None:
+            out.add_(bias[:, None, None])
+
+    int8_conv(quantize_input(x, a), mat, w8.shape[-1], dequantize)
+    return y
+
+
+def quant_conv_sums(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
+    """The int32 sums ``[B, cout, H, W]`` of :func:`int8_conv` for int8
+    NCHW ``x8`` and OIHW ``w8``: what ``quant_conv`` dequantizes, for
+    holding the product against an exact reference."""
+    b, _, h, w = x8.shape
+    n = w8.shape[0]
+    out = torch.empty((b, n, h, w), dtype=torch.int32, device=x8.device)
+
+    def keep(b0, s32):
+        out[b0 : b0 + s32.shape[0]].copy_(s32[..., :n].permute(0, 3, 1, 2))
+
+    int8_conv(x8, weight_matrix(w8), w8.shape[-1], keep)
+    return out
 
 
 def _param(*shape) -> nn.Parameter:
@@ -296,9 +413,15 @@ class UNet(nn.Module):
     def forward_nchw(self, x: torch.Tensor, return_logits: bool = False,
                      train: bool = False,
                      generator: Optional[torch.Generator] = None,
-                     compute_dtype: Optional[torch.dtype] = None):
+                     compute_dtype: Optional[torch.dtype] = None,
+                     tap=None, quant=None):
         """``x``: [B, C, S, S] float -> [B, K, S, S] float32 softmax (or
         logits with ``return_logits``).
+
+        ``tap``: ``tap(site, h)`` is called with each plain conv's input
+        (calibration).  ``quant``: a ``core.quant`` QuantState; a conv whose
+        site is in ``quant["kernels"]`` runs :func:`quant_conv`; inference
+        only.
 
         ``train=True`` returns ``(out, new_stats)``: BN in batch mode,
         ``new_stats`` the moving statistics' update as ``{state_dict
@@ -307,6 +430,8 @@ class UNet(nn.Module):
         ``compute_dtype`` (bfloat16 or None) is the training convs' dtype.
         Inference ignores ``generator`` and ``compute_dtype`` and runs in
         the module's own ``compute_dtype``."""
+        if quant is not None and train:
+            raise ValueError("quantized forward is inference-only")
         hp = self.hp
         s = x.shape[-1]
         for _ in range(hp.n_layers):
@@ -344,18 +469,27 @@ class UNet(nn.Module):
             def drop(h, rate):
                 return h
 
+        def site_conv(h, site, k):
+            """A plain conv with the calibration tap and int8 execution."""
+            if tap is not None:
+                tap(site, h)
+            if quant is not None and site in quant["kernels"]:
+                return quant_conv(h, quant["kernels"][site],
+                                  quant["scales"][site])
+            return conv(h, k)
+
         skips = []
         h = x
         for i, layer in enumerate(self.down):
             skips.append(h)
             fused = None if train else self._fused_residual(layer)
             if fused is not None:
-                pre = conv(h, fused)
+                pre = site_conv(h, f"down{i}", fused)
             else:
-                c = conv(h, layer.kernel1)
-                for ke in layer.extra:
-                    c = conv(act(c), ke)
-                pre = c + conv(h, layer.shortcut)
+                c = site_conv(h, f"down{i}.k1", layer.kernel1)
+                for j, ke in enumerate(layer.extra):
+                    c = site_conv(act(c), f"down{i}.extra{j}", ke)
+                pre = c + site_conv(h, f"down{i}.short", layer.shortcut)
             if self.legacy:
                 y = bn(act(pre), layer.bn, f"down.{i}.bn")  # UnMicst.py:99
             else:
@@ -363,7 +497,7 @@ class UNet(nn.Module):
                 y = drop(y, cfg.dropout_down_per_layer * i)
             h = F.max_pool2d(y, hp.down_samp_fact)
 
-        b = conv(h, self.bottom.kernel1)
+        b = site_conv(h, "bottom", self.bottom.kernel1)
         if self.legacy:
             h = act(b)
         else:
@@ -373,12 +507,12 @@ class UNet(nn.Module):
             layer = self.up[i]
             u = act(conv_t(h, layer.kernel1))
             # skip FIRST (UnMicst.py:156)
-            cv = conv(torch.cat([skips[i].to(u.dtype), u], dim=1),
-                      layer.kernel2)
+            cv = site_conv(torch.cat([skips[i].to(u.dtype), u], dim=1),
+                           f"up{i}.k2", layer.kernel2)
             cv = act(cv) if self.legacy else act(bn(cv, layer.bn,
                                                     f"up.{i}.bn"))
-            for ke in layer.extra:
-                cv = act(conv(cv, ke))
+            for j, ke in enumerate(layer.extra):
+                cv = act(site_conv(cv, f"up{i}.extra{j}", ke))
             if not self.legacy and cfg.dropout_up_base > 0:
                 cv = drop(cv, cfg.dropout_up_base
                           - cfg.dropout_up_per_layer * i)
@@ -394,12 +528,13 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor, return_logits: bool = False,
                 train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                compute_dtype: Optional[torch.dtype] = None):
+                compute_dtype: Optional[torch.dtype] = None,
+                tap=None, quant=None):
         """``x``: [B, S, S, C] -> [B, S, S, K] (the JAX ``apply`` layout);
         with ``train=True``, ``(probs, new_stats)`` as in
-        :meth:`forward_nchw`."""
+        :meth:`forward_nchw`.  ``tap`` sees NCHW site inputs."""
         y = self.forward_nchw(x.permute(0, 3, 1, 2), return_logits, train,
-                              generator, compute_dtype)
+                              generator, compute_dtype, tap, quant)
         if train:
             return y[0].permute(0, 2, 3, 1), y[1]
         return y.permute(0, 2, 3, 1)

@@ -18,6 +18,11 @@ One slide runs as (``infer.py:520-751,942-998`` of the JAX package):
 5. at a scale other than 1 the uint8 maps are resized back to the raw size
    and quantised again (``UnMicst1-5.py:848-854``).
 
+``quantized=True`` is the int8 mode (``core/quant.py``): the plain conv
+sites run ``quant_conv`` with a QuantState calibrated lazily on the first
+input, which then serves the engine's lifetime (``infer.py:160-209,
+370-472``).
+
 Only the uint8 maps come back to the host.  Accumulation is float32 (the
 reference accumulates in float16, ``PartitionOfImage.py:86-90``).
 """
@@ -34,7 +39,8 @@ from unmicst_tpu_torch.core import tiler
 from unmicst_tpu_torch.core.checkpoint import State
 from unmicst_tpu_torch.core.hp import HParams, ModelBundle
 from unmicst_tpu_torch.core.resize_dev import ResizePlan
-from unmicst_tpu_torch.core.unet import UNet
+from unmicst_tpu_torch.core import quant as _q
+from unmicst_tpu_torch.core.unet import IM2COL_BUDGET, UNet
 from unmicst_tpu_torch.kernels import blend_fold_epilogue, softmax_blend
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
 from unmicst_tpu_torch.utils.batching import chunks
@@ -42,8 +48,11 @@ from unmicst_tpu_torch.utils.batching import chunks
 DEFAULT_TILE_BATCH = 256
 
 # --precision -> UNet compute dtype (None = float32).  On the GPU
-# "float32" and "highest" both run full float32 with TF32 off.
-PRECISIONS = {"float32": None, "highest": None, "bfloat16": torch.bfloat16}
+# "float32" and "highest" both run full float32 with TF32 off; "int8" is
+# the bfloat16 mode with its plain conv sites quantized (the JAX CLI's
+# precision_mode, cli.py:251-253)
+PRECISIONS = {"float32": None, "highest": None, "bfloat16": torch.bfloat16,
+              "int8": torch.bfloat16}
 
 _IM2DOUBLE = {np.dtype(np.uint8): 255.0, np.dtype(np.uint16): 65535.0}
 
@@ -93,40 +102,37 @@ def percentile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
     above 2**24 elements."""
     if not 0 <= q <= 100:
         raise ValueError(f"outlier percentile {q} not in [0, 100] (or -1)")
-    flat = x.reshape(-1)
-    n = flat.numel()
-    nf = np.float32(n)
-    pos = (np.float32(q) / np.float32(100.0)) * (nf - np.float32(1.0))
-    low, high = np.floor(pos), np.ceil(pos)
-    hw = np.float32(pos - low)
-    lw = np.float32(np.float32(1.0) - hw)
-    low = int(min(max(low, 0), nf - 1))
-    high = int(min(max(high, 0), nf - 1))
-    v_low = torch.kthvalue(flat, low + 1).values
-    v_high = torch.kthvalue(flat, high + 1).values if high != low else v_low
-    return v_low * float(lw) + v_high * float(hw)
+    return _q.percentile_rows(x.reshape(1, -1), q)[0]
 
 
-def tile_bytes(hp: HParams) -> int:
+def tile_bytes(hp: HParams, quantized: bool = False) -> int:
     """Upper estimate of the device bytes one tile adds to a forward: six
     float32 tensors of every level's in + out width at that level's
-    resolution (activations are float32 in both precision modes).
+    resolution (activations are float32 in every precision mode).  In the
+    int8 mode a site adds its quantized input (int8, padded) and its
+    int32 sums: two more bytes per input and four per output channel.
     ``chip_smoke.py`` holds it against the measured growth of peak memory
     per tile."""
     w, p = hp.n_out_x, hp.im_size
     per_level = sum(
         (w[i + 1] + w[i]) * (p >> i) ** 2 for i in range(hp.n_layers + 1)
     )
+    if quantized:
+        return (6 * 4 + 6) * per_level
     return 6 * per_level * 4
 
 
-def pick_tile_batch(hp: HParams, device: torch.device) -> int:
+def pick_tile_batch(hp: HParams, device: torch.device,
+                    quantized: bool = False) -> int:
     """256 tiles per forward, fewer when 40% of the card's free memory
-    cannot hold that chunk."""
+    cannot hold that chunk (less, in the int8 mode, one im2col buffer of
+    ``IM2COL_BUDGET`` bytes)."""
     if device.type != "cuda":
         return DEFAULT_TILE_BATCH
     free, _ = torch.cuda.mem_get_info(device)
-    return max(1, min(DEFAULT_TILE_BATCH, int(0.4 * free) // tile_bytes(hp)))
+    room = int(0.4 * free) - (IM2COL_BUDGET if quantized else 0)
+    return max(1, min(DEFAULT_TILE_BATCH,
+                      room // tile_bytes(hp, quantized)))
 
 
 @contextlib.contextmanager
@@ -152,7 +158,8 @@ def _conv_precision(tf32: bool):
 
 def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
                 window: torch.Tensor, mask: torch.Tensor, tile_batch: int,
-                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+                out: Optional[torch.Tensor] = None,
+                quant: Optional[_q.QuantState] = None) -> torch.Tensor:
     """The UNet and K1 over every tile of a canvas: ``[T, K, P, P]``
     float32 ``softmax(logits) * window * mask[t]``, in row-major tile order.
 
@@ -163,6 +170,7 @@ def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
     Callers pick the chunk (capped at the tile count, or split evenly).
     ``mask``: ``[T]`` float32 per-tile factor (0 drops a phantom tile from
     the blend).  ``out``: optional contiguous ``[T, K, P, P]`` destination.
+    ``quant``: the int8 mode's QuantState on the canvas's device.
     """
     hp = model.hp
     device = canvas.device
@@ -189,7 +197,8 @@ def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
                 n = min(npc - j, t1 - t)
                 staging[t - t0 : t - t0 + n].copy_(tiles[i, j : j + n])
                 t += n
-            logits = model.forward_nchw(staging, return_logits=True)
+            logits = model.forward_nchw(staging, return_logits=True,
+                                        quant=quant)
             softmax_blend(logits[:real], window, mask[t0:t1],
                           out=out[t0:t1])
     return out
@@ -203,11 +212,18 @@ class InferenceEngine:
     versions.  ``compute_dtype``: ``None`` (float32, TF32 off) or
     ``torch.bfloat16``.  ``tile_batch``: tiles per forward (default from
     the card's free memory, at most 256).
+
+    ``quantized``: the int8 mode (``core/quant.py``).  The first call
+    calibrates from its own input (``calibration_percentile``,
+    ``quant_bias_correct``) and that QuantState, ``_quant``, serves every
+    later call; the glue around the int8 sites runs in ``compute_dtype``.
     """
 
     def __init__(self, hp: HParams, params: State, variant: str,
                  mean: float, std: float, *, compute_dtype=None,
-                 tile_batch: Optional[int] = None, device: Device = None):
+                 tile_batch: Optional[int] = None, quantized: bool = False,
+                 calibration_percentile: float = 99.99,
+                 quant_bias_correct: bool = True, device: Device = None):
         self.device = resolve_device(device)
         self.hp, self.variant = hp, variant
         self.mean, self.std = float(mean), float(std)
@@ -215,7 +231,14 @@ class InferenceEngine:
         self.model = UNet(hp, variant, compute_dtype)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
-        self.tile_batch = int(tile_batch or pick_tile_batch(hp, self.device))
+        self.quantized = bool(quantized)
+        self.calibration_percentile = float(calibration_percentile)
+        self.quant_bias_correct = bool(quant_bias_correct)
+        self._params = params if quantized else None
+        self._quant: Optional[_q.QuantState] = None
+        self._quant_devs = {}  # _q.cached_on's cache
+        self.tile_batch = int(tile_batch or pick_tile_batch(
+            hp, self.device, self.quantized))
         self.window = torch.from_numpy(
             tiler.ramp_window(hp.im_size, hp.margin)
         ).to(self.device)
@@ -237,6 +260,67 @@ class InferenceEngine:
             )
         return classes
 
+    # -- int8 calibration ------------------------------------------------------
+
+    def _calibrate(self, tiles: np.ndarray) -> _q.QuantState:
+        """The engine's QuantState from sample tiles, on the first call
+        only."""
+        if self._quant is None:
+            self._quant = _q.calibrate(
+                self._params, tiles, self.hp, self.variant,
+                percentile=self.calibration_percentile,
+                bias_correct=self.quant_bias_correct, device=self.device)
+        return self._quant
+
+    def _quant_for_normalized(self, image: np.ndarray) -> None:
+        """Calibrate the host float path (:meth:`infer`) from the
+        net-input image itself, on first use."""
+        if self.quantized and self._quant is None:
+            self._calibrate(_q.sample_tiles(np.asarray(image), self.hp,
+                                            self.mean, self.std))
+
+    def _quant_for_raw(self, raw: np.ndarray, outlier, rescale: bool,
+                       scaling_factor: float = 1.0, in_range=None) -> None:
+        """Calibrate the raw-slide paths on first use, from windows
+        preprocessed as the slide is (``infer.py:399-472``).
+        At a scale other than 1 the windows come from eight resized row
+        bands spread over the scaled plane (``io/preprocess.resize_rows``,
+        already im2double'd, so a pinned range converts to unit scale)."""
+        if not self.quantized or self._quant is not None:
+            return
+        scale = _IM2DOUBLE.get(np.dtype(raw.dtype))
+        if scaling_factor == 1.0:
+            self._calibrate(_q.sample_tiles_raw(
+                raw, self.hp, self.mean, self.std, scale=scale,
+                outlier=outlier, rescale=rescale, in_range=in_range))
+            return
+        from unmicst_tpu_torch.io.preprocess import resize_rows
+
+        planes = raw if raw.ndim == 3 else raw[None]
+        h, w = planes.shape[-2:]
+        sh = int(float(h) * float(scaling_factor))
+        sw = int(float(w) * float(scaling_factor))
+        s_tile, grid = self.hp.im_size, 8
+        # deduplicated: a short slide collapses to one band
+        starts = sorted({
+            0 if sh <= s_tile else min(gi * (sh - s_tile) // max(grid - 1, 1),
+                                       sh - s_tile)
+            for gi in range(grid)})
+        bands = np.stack([
+            np.concatenate([
+                resize_rows(lambda a, b, _p=plane: _p[a:b], (h, w), (sh, sw),
+                            r0, min(s_tile, sh))
+                for r0 in starts], axis=0).astype(np.float32)
+            for plane in planes])
+        ir = None
+        if in_range is not None:
+            ir = np.asarray(in_range, np.float64).reshape(-1, 2)
+            if scale is not None:
+                ir = ir / scale
+        self._calibrate(_q.sample_tiles_raw(
+            bands, self.hp, self.mean, self.std, scale=None, outlier=outlier,
+            rescale=rescale, in_range=ir))
+
     # -- the device pipeline -------------------------------------------------
 
     def normalize(self, x: torch.Tensor) -> torch.Tensor:
@@ -248,7 +332,8 @@ class InferenceEngine:
     def _maps(self, planes: torch.Tensor, classes, quantize: bool):
         """``planes``: [C0, H, W] float32 on the device, the net input
         before mean/std (C0 == 1 broadcasts into every net channel).
-        Returns ``[Kc, H, W]`` uint8 (``quantize``) or float32 maps."""
+        Returns ``[Kc, H, W]`` uint8 (``quantize``) or float32 maps; the
+        int8 mode runs with the QuantState its caller calibrated."""
         hp = self.hp
         _, height, width = planes.shape
         grid = tiler.make_grid(height, width, hp.im_size, hp.margin)
@@ -261,7 +346,9 @@ class InferenceEngine:
                           device=self.device)
         weighted = weigh_tiles(self.model, self.normalize(canvas), grid,
                                self.window, mask,
-                               min(self.tile_batch, grid.num_tiles))
+                               min(self.tile_batch, grid.num_tiles),
+                               quant=_q.cached_on(self._quant_devs,
+                                                  self._quant, self.device))
         return blend_fold_epilogue(weighted, self.window, grid, classes,
                                    quantize)
 
@@ -296,6 +383,7 @@ class InferenceEngine:
                 f"model expects {self.hp.n_channels} channels, got "
                 f"{img.shape[0]}"
             )
+        self._quant_for_normalized(image)
         planes = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
         return self._maps(planes, None, quantize=False).cpu().numpy()
 
@@ -371,6 +459,9 @@ class InferenceEngine:
             if not rescale:
                 raise ValueError("in_range requires rescale=True")
             ir = _normalize_in_range(in_range, len(planes)) / (scale or 1.0)
+        self._quant_for_raw(
+            planes[0] if len(planes) == 1 else np.stack(planes), outlier,
+            rescale, scaling_factor, in_range)
         height, width = planes[0].shape
         sh = int(float(height) * float(scaling_factor))
         sw = int(float(width) * float(scaling_factor))

@@ -32,7 +32,10 @@ in the sources' dtype from the right-hand neighbour, and the fold tail
 both through kernel K3 (``kernels.ring_shift``; the plain copy for CPU
 ranks); :meth:`StreamingEngine.infer_sharded_stack` is its duo form.
 
-Not ported yet: the int8 mode (ROADMAP M11), which raises naming it.
+``quantized=True`` is the int8 mode (``core/quant.py``): the first slide
+calibrates from windows read through the sources with the stream's own
+global ranges (``pipeline.py:344-407``), and that QuantState serves every
+later slide; in the sharded form each rank's device holds a copy.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from unmicst_tpu_torch.core import quant as _q
 from unmicst_tpu_torch.core import tiler
 from unmicst_tpu_torch.core.checkpoint import State
 from unmicst_tpu_torch.core.hp import HParams, ModelBundle
@@ -166,6 +170,9 @@ class StreamingEngine:
     ``device``: ``None``/``"cuda"`` (the card; raises without one) or
     ``"cpu"`` (the plain kernel versions).  ``compute_dtype`` defaults to
     ``torch.bfloat16``, as in the JAX engine; ``None`` runs float32.
+    ``quantized``: the int8 mode, calibrated from the first slide
+    (``calibration_percentile``, ``quant_bias_correct``); its QuantState,
+    ``_quant``, serves the engine's lifetime.
     """
 
     def __init__(self, hp: HParams, params: State, variant: str,
@@ -173,17 +180,21 @@ class StreamingEngine:
                  tile_batch: Optional[int] = None,
                  stripe_tile_rows: Optional[int] = None,
                  in_flight: int = 4, quantized: bool = False,
-                 device: Device = None):
-        if quantized:
-            raise _not_ported("the int8 streaming mode (quantized=True)",
-                              "M11")
+                 calibration_percentile: float = 99.99,
+                 quant_bias_correct: bool = True, device: Device = None):
         if in_flight < 1:
             raise ValueError(f"in_flight must be >= 1, got {in_flight}")
         self.device = resolve_device(device)
         self.hp, self.params, self.variant = hp, params, variant
         self.mean, self.std = float(mean), float(std)
         self.compute_dtype = compute_dtype
-        self.tile_batch = int(tile_batch or pick_tile_batch(hp, self.device))
+        self.quantized = bool(quantized)
+        self.calibration_percentile = float(calibration_percentile)
+        self.quant_bias_correct = bool(quant_bias_correct)
+        self._quant: Optional[_q.QuantState] = None
+        self._quant_devs = {}  # _q.cached_on's cache
+        self.tile_batch = int(tile_batch or pick_tile_batch(
+            hp, self.device, self.quantized))
         self.stripe_tile_rows = stripe_tile_rows
         self.in_flight = int(in_flight)
         self._models = {}
@@ -203,6 +214,28 @@ class StreamingEngine:
             self._windows[device] = torch.from_numpy(tiler.ramp_window(
                 self.hp.im_size, self.hp.margin)).to(device)
         return self._models[device], self._windows[device]
+
+    def _quant_for_stream(self, sources, dtype: np.dtype, rescale: bool,
+                          rng) -> None:
+        """Calibrate the int8 mode on the first slide (``pipeline.py:
+        344-407``): 64 windows on a seeded jittered 8 x 8 grid, read
+        through :meth:`_read_rows` (a TIFF or a resampled source is never
+        read whole), preprocessed with the stream's own global ranges
+        ``rng`` (raw units) or im2double, as every stripe is."""
+        if not self.quantized or self._quant is not None:
+            return
+        height, width = _source_dims(sources[0])
+        # one source feeds every net channel (the stripe's broadcast)
+        per_channel = (sources if len(sources) == self.hp.n_channels
+                       else sources[:1] * self.hp.n_channels)
+        tiles = _q.stream_tiles(
+            lambda c, r0, n: self._read_rows(per_channel[c], r0, n),
+            height, width, self.hp, rng[0], rng[1], rescale,
+            1.0 / _IM2DOUBLE_SCALE.get(dtype, 1.0), self.mean, self.std)
+        self._quant = _q.calibrate(
+            self.params, tiles, self.hp, self.variant,
+            percentile=self.calibration_percentile,
+            bias_correct=self.quant_bias_correct, device=self.device)
 
     # -- planning ------------------------------------------------------------
 
@@ -313,6 +346,7 @@ class StreamingEngine:
             ranges = [stats]
         rng = tuple(np.asarray([r[i] for r in ranges], np.float32)
                     for i in (0, 1))
+        self._quant_for_stream(sources, dtype, rescale, rng)
         return sources, dtype, classes, plan, rng
 
     def _check_stack(self, sources) -> list:
@@ -367,7 +401,9 @@ class StreamingEngine:
                                band_grid, window,
                                rmask.repeat_interleave(grid.npc),
                                even_chunk(band_grid.num_tiles,
-                                          self.tile_batch))
+                                          self.tile_batch),
+                               quant=_q.cached_on(self._quant_devs,
+                                                  self._quant, dev))
         a, b = plan.rows(s)
         p0 = s * plan.band_rows
         return blend_fold_stripe(weighted, window, band_grid,
@@ -444,6 +480,10 @@ class StreamingEngine:
                        for _ in range(k)]
             done = [torch.cuda.Event() for _ in range(k)]
             pending = collections.deque()
+            # dev_in's blocks come from the compute stream's pool, where
+            # work still queued (the int8 calibration's forwards, say) may
+            # be using them: the uploads start after that work
+            up.wait_stream(compute)
 
             def drain():
                 s, slot = pending.popleft()
@@ -551,7 +591,9 @@ class StreamingEngine:
                                                        rng),
                                 dev_grid, window, tile_mask,
                                 even_chunk(dev_grid.num_tiles,
-                                           self.tile_batch))
+                                           self.tile_batch),
+                                quant=_q.cached_on(self._quant_devs,
+                                                   self._quant, dev))
                 weighted.append((w, rmask))
                 # the fold tail (sums + count) of the last 2m columns
                 tails.append(blend_fold_stripe(
