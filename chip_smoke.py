@@ -111,7 +111,22 @@ printing any result):
     apart; blobDemo: 2 levels on 5%); the scaled slide at 0.5, the 8192^2
     stream and its 4-rank sharded form, the duo net at 4096^2, with the
     launches of K1, K2 and K3; ``--precision int8`` through ``cli.main``;
-11. print the ``{"kernels": [...]}`` line, the card's name and power
+11. serving (``unmicst_tpu_torch.serve`` live on the card in threads, the
+    legacy net at nucleiDAPI's widths with seeded weights written by
+    ``save_tf1_params``): ``POST /infer`` of a 4096^2 slide in float32 and
+    bfloat16 beside the bare ``infer_slide``, four concurrent clients
+    against the same requests one at a time (byte-equal), an 8192^2
+    ``POST /slides`` and 50 pans of a 1024^2 ROI at seeded offsets on the
+    pinned plane and again on the host path (p50/p95, the first pan, the
+    H2D and D2H bytes of a pan from the profiler's memcpy events),
+    ``classes=1`` pans, the 8192^2 streamed post with a pinned range beside
+    the bare ``StreamingEngine.infer`` and pinned-range pans against its
+    crop (at most 1 level), a streamed post at ``scale=0.5``, one int8
+    request against the bfloat16 server, ``prewarm=1``, ``DELETE`` and
+    ``/stats``, the launch counters set to 0 before the first request and
+    read after the last; then K2's trimmed route at a pan's shapes
+    against its plain version (0 levels);
+12. print the ``{"kernels": [...]}`` line, the card's name and power
     limit, and the ``{"ok": true, ...}`` line last.
 """
 
@@ -2096,6 +2111,29 @@ def pinned_cudnn():
         torch.backends.cudnn.flags = saved
 
 
+def in_new_thread(fn):
+    """``fn()`` on a thread of its own, as a fresh process would run it:
+    PyTorch keeps the cuDNN plans it has chosen per thread, keyed by the
+    convolution and its flags but not by autotuning, so a pinned run on a
+    thread whose plans were autotuned earlier would reuse those plans."""
+    import threading
+
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # noqa: BLE001 — raised below
+            out["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    if "error" in out:
+        raise out["error"]
+    return out.get("value")
+
+
 def read_pages(out_dir: str) -> list:
     from unmicst_tpu_torch.io.tiff import imread
 
@@ -2348,7 +2386,8 @@ def phase_train(dev) -> dict:
         # processes, the pages must be equal
         diff, n1, n_more = level_diff(child, pages)
         with pinned_cudnn():
-            cli.main(argv + ["--outputPath", os.path.join(tmp, "pinned")])
+            in_new_thread(lambda: cli.main(
+                argv + ["--outputPath", os.path.join(tmp, "pinned")]))
         r = subprocess.run([sys.executable, "-c", PINNED_CLI, *argv,
                             "--outputPath", os.path.join(tmp, "pinned2")],
                            cwd=ROOT, capture_output=True, text=True,
@@ -2862,6 +2901,474 @@ def phase_int8(dev) -> None:
     log(f"[int8] phase {time.perf_counter() - t_phase:.1f}s")
 
 
+# -- phase 11: serving ------------------------------------------------------------
+
+PAN = 1024  # a viewer's ROI side
+N_PANS = 50
+
+
+def http(method: str, url: str, data=None) -> tuple:
+    """(status, body, headers, host seconds) of one request; an HTTP error
+    is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=data, method=method,
+        headers={"Content-Type": "application/octet-stream"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            status, body, headers = r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        status, body, headers = e.code, e.read(), e.headers
+    return status, body, headers, time.perf_counter() - t0
+
+
+def tiff_pages(blob: bytes):
+    """The pages of a TIFF response, through the port's reader."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io.tiff import TiffFile
+
+    with tempfile.NamedTemporaryFile(suffix=".tif") as f:
+        f.write(blob)
+        f.flush()
+        with TiffFile(f.name) as tf:
+            return np.stack([tf.read_page(k) for k in range(len(tf.pages))])
+
+
+def copy_bytes(fn) -> tuple:
+    """(host-to-device bytes, device-to-host bytes) the card copied during
+    ``fn()``: the ``bytes`` of the memcpy events of a ``torch.profiler``
+    trace.  A profiled run that saw no device-to-host copy is profiled
+    again (CUPTI may drop a run's events; every call here brings maps
+    back)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        h2d = d2h = n_d2h = 0
+        for e in events:
+            name = e.get("name", "")
+            if not name.startswith("Memcpy"):
+                continue
+            n = int((e.get("args") or {}).get("bytes", 0))
+            if "HtoD" in name:
+                h2d += n
+            elif "DtoH" in name:
+                d2h += n
+                n_d2h += 1
+        if n_d2h:
+            return h2d, d2h
+        log("[serve] the profiler saw no device-to-host copy; profiling "
+            "again")
+    raise RuntimeError("chip_smoke: three profiled runs saw no copy")
+
+
+def pct(times, q: float) -> float:
+    import numpy as np
+
+    return float(np.percentile(np.asarray(times) * 1e3, q))
+
+
+def phase_serve(dev) -> dict:
+    """``unmicst_tpu_torch.serve`` on the card over HTTP: whole, streamed,
+    cached-slide pans on the pinned plane and on the host path, classes,
+    pinned ranges, int8, prewarm, DELETE, concurrency; returns the row of
+    K2's trimmed route."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from unmicst_tpu_torch import kernels, serve
+    from unmicst_tpu_torch.core import tiler
+    from unmicst_tpu_torch.io.slides import open_channel_source
+    from unmicst_tpu_torch.io.tiff import TiffWriter
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    k, model = hp.n_classes, "nucleiDAPI"
+    flags_before = (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32,
+                    torch.backends.cudnn.benchmark)
+
+    def plane(side, seed):
+        g = torch.Generator().manual_seed(seed)
+        return torch.randint(0, 65536, (side, side), generator=g,
+                             dtype=torch.int32).numpy().astype(np.uint16)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    httpds = []
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, model, hp, state, "legacy", LEGACY_MEAN,
+                        LEGACY_STD)
+
+        def tiff(name, p):
+            path = os.path.join(tmp, name)
+            with TiffWriter(path, bigtiff=True) as tw:
+                tw.write(p)
+            with open(path, "rb") as f:
+                return path, f.read()
+
+        small = plane(SLIDE, SEED + 30)
+        small_path, small_body = tiff("s4096.tif", small)
+        big = plane(BIG, SEED + 31)
+        big_path, big_body = tiff("s8192.tif", big)
+
+        def start(precision):
+            srv = serve.ModelServer(model_root=zoo, precision=precision)
+            httpd = ThreadingHTTPServer(("127.0.0.1", 0),
+                                        serve.make_handler(srv))
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            httpds.append(httpd)
+            return srv, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+        f32, url32 = start("float32")
+        bf16, url16 = start("bfloat16")
+        i8, url8 = start("int8")
+        st, body, _, _ = http("GET", url32 + "/healthz")
+        health = json.loads(body)
+        log(f"[serve] /healthz {st} {health} | {card}")
+        check(st == 200 and health["devices"][0].startswith("cuda:0"),
+              f"/healthz: {st} {health}")
+
+        # -- the bare engines, the yardsticks (before the counted run), on
+        # the server's device thread, whose cuDNN choices requests share --
+        def on_card(fn, *a, **kw):
+            return serve.run_on_device(dev, fn, *a, **kw)
+
+        infer = {}
+        for name, srv in (("float32", f32), ("bfloat16", bf16)):
+            eng = srv.engine(model)
+            infer[name] = on_card(eng.infer_slide, small)  # cuDNN autotune
+            rate, med, _ = median_rate(
+                lambda: on_card(eng.infer_slide, small), SLIDE * SLIDE)
+            infer[name + " Mpx/s"] = rate
+        stream = f32.engine(model, "stream")
+        rng_pin = (0.0, 65535.0)
+        with open_channel_source(big_path, "tif", 0) as src:
+            on_card(stream.infer, src, stats=rng_pin)  # cuDNN autotune
+            stream_full, stream_s = wall(lambda: on_card(
+                stream.infer, src, stats=rng_pin))
+        log(f"[serve] bare engines ({card}): infer_slide 4096^2 float32 "
+            f"{infer['float32 Mpx/s']:.2f} Mpx/s, bfloat16 "
+            f"{infer['bfloat16 Mpx/s']:.2f}; StreamingEngine.infer 8192^2 "
+            f"float32 {BIG * BIG / 1e6 / stream_s:.2f} Mpx/s")
+
+        # -- the main path, counted ----------------------------------------
+        kernels.reset_launch_counts()
+        whole = {}
+        for name, url in (("float32", url32), ("bfloat16", url16)):
+            walls, bodies = [], []
+            for i in range(4):  # the first pays the request path's set-up
+                st, body, hdr, secs = http(
+                    "POST", url + f"/infer?model={model}", small_body)
+                check(st == 200, f"POST /infer {name}: {st} {body[:300]}")
+                walls.append(secs)
+                bodies.append(body)
+            check(all(b == body for b in bodies),
+                  f"repeated {name} requests answered different pages")
+            pages = tiff_pages(body)
+            d = np.abs(pages.astype(int) - infer[name][::-1].astype(int))
+            meta = json.loads(hdr["X-UnMicst-Meta"])
+            rate = SLIDE * SLIDE / 1e6 / float(np.median(walls[1:]))
+            whole[name] = (body, rate)
+            log(f"[serve] POST /infer 4096^2 {name}: {rate:.2f} Mpx/s "
+                f"(median of 3 warm requests, {walls[0]:.3f} s first; "
+                f"bare engine {infer[name + ' Mpx/s']:.2f}, request/bare "
+                f"{rate / infer[name + ' Mpx/s']:.3f}; server infer_s "
+                f"{meta['infer_s']} s), pages vs the bare engine: max "
+                f"{int(d.max())} level(s) | {card}")
+            check(pages.shape == (k, SLIDE, SLIDE) and d.max() <= 1,
+                  f"{name} request pages against the bare engine: "
+                  f"{pages.shape}, {int(d.max())} levels")
+
+        # the float32 request without HTTP: read, infer, encode
+        direct_s, infer_s = [], []
+        for _ in range(3):
+            (_, meta), secs = wall(lambda: f32.infer_tiff_path(
+                small_path, model, 0, True, -1))
+            direct_s.append(secs)
+            infer_s.append(meta["infer_s"])
+        req_s = SLIDE * SLIDE / 1e6 / whole["float32"][1]
+        log(f"[serve] float32 4096^2 request breakdown (medians): HTTP "
+            f"request {req_s:.3f} s = ModelServer.infer_tiff_path "
+            f"{np.median(direct_s):.3f} s (engine {np.median(infer_s):.3f} "
+            f"s, TIFF read and encode the rest) + {req_s - np.median(direct_s):.3f}"
+            f" s of HTTP (32 MB up, 50 MB down, the spool)")
+
+        # four clients at once, float32 and bfloat16 interleaved, against
+        # the same requests one at a time
+        got = [None] * 4
+
+        def client(i):
+            got[i] = http("POST", (url32, url16)[i % 2]
+                          + f"/infer?model={model}", small_body)[1]
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(4)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        conc_s = time.perf_counter() - t0
+        same = [got[i] == whole[("float32", "bfloat16")[i % 2]][0]
+                for i in range(4)]
+        log(f"[serve] 4 concurrent clients (2 float32, 2 bfloat16) in "
+            f"{conc_s:.3f} s: pages byte-equal to serial requests {same}")
+        check(all(same), f"concurrent requests differ from serial: {same}")
+
+        # -- the cached slide: upload, pans on the card, pans on the host --
+        st, body, _, up_s = http("POST", url32 + "/slides", big_body)
+        sid = json.loads(body)["slide_id"]
+        log(f"[serve] POST /slides 8192^2 uint16 ({len(big_body) / 1e6:.1f} "
+            f"MB): {st} in {up_s:.3f} s")
+        g = np.random.RandomState(SEED + 32)
+        offsets = [(int(g.randint(0, BIG - PAN)), int(g.randint(0, BIG - PAN)))
+                   for _ in range(N_PANS)]
+
+        def pan(url, r0, c0, extra=""):
+            st, body, _, secs = http(
+                "POST", url + f"/infer?model={model}&slide={sid}"
+                f"&roi={r0},{c0},{PAN},{PAN}{extra}")
+            check(st == 200, f"pan {r0},{c0}{extra}: {st} {body[:300]}")
+            return tiff_pages(body), secs
+
+        pins0 = f32.snapshot()
+        first_pan, first_s = pan(url32, BIG // 2, BIG // 2)  # pins, autotunes
+        dev_walls = [pan(url32, r0, c0)[1] for r0, c0 in offsets]
+        after = f32.snapshot()
+        check(after["device_pins"] == pins0["device_pins"] + 1
+              and after["device_pans"] == pins0["device_pans"] + N_PANS + 1,
+              f"device pans not counted: {pins0} -> {after}")
+        r0, c0 = offsets[0]
+        a, b, ca, cb = serve.roi_band((r0, c0, PAN, PAN), (BIG, BIG), hp)
+
+        def direct(**kw):
+            path = f32.acquire_slide(sid)
+            try:
+                return f32.infer_tiff_path(path, model, 0, True, -1,
+                                           roi=(r0, c0, PAN, PAN),
+                                           slide_id=sid, **kw)
+            finally:
+                f32.release_slide(sid)
+
+        h2d_dev, d2h_dev = copy_bytes(direct)
+        h2d_c1, d2h_c1 = copy_bytes(lambda: direct(classes=(1,)))
+        f32.device_slide_bytes = 0  # the host path: bands read and uploaded
+        host_walls = [pan(url32, r0, c0)[1] for r0, c0 in offsets]
+        h2d_host, d2h_host = copy_bytes(direct)
+        host_pan, _ = pan(url32, r0, c0)
+        f32.device_slide_bytes = 2 << 30
+        dev_pan, _ = pan(url32, r0, c0)
+        band_px = (b - a) * (cb - ca)
+        log(f"[serve] {N_PANS} pans of {PAN}^2 at seeded offsets (band "
+            f"{b - a}x{cb - ca}): on the pinned plane p50 "
+            f"{pct(dev_walls, 50):.2f} ms p95 {pct(dev_walls, 95):.2f} ms; "
+            f"host path p50 {pct(host_walls, 50):.2f} ms p95 "
+            f"{pct(host_walls, 95):.2f} ms; first pan (pin + cuDNN "
+            f"autotune of the band) {first_s * 1e3:.2f} ms | {card}")
+        log(f"[serve] bytes per pan (profiler memcpy events): pinned plane "
+            f"H2D {h2d_dev} D2H {d2h_dev} (th*tw*K = {PAN * PAN * k}); "
+            f"classes=1 H2D {h2d_c1} D2H {d2h_c1}; host path H2D {h2d_host} "
+            f"(band {band_px * 2} B as uint16) D2H {d2h_host} (band maps "
+            f"{band_px * k} B)")
+        check(h2d_dev < 4096 and h2d_c1 < 4096,
+              f"a pan on the pinned plane uploaded {h2d_dev} / {h2d_c1} B")
+        check(PAN * PAN * k <= d2h_dev <= PAN * PAN * k + 4096
+              and PAN * PAN <= d2h_c1 <= PAN * PAN + 4096,
+              f"pan D2H {d2h_dev} / {d2h_c1} B, expected th*tw*K")
+        check(np.array_equal(dev_pan, host_pan),
+              "the pinned-plane pan differs from the host path's")
+        check(first_pan.shape == (k, PAN, PAN), f"pan {first_pan.shape}")
+
+        c1_walls = []
+        for r0_, c0_ in offsets[:10]:
+            p1, secs = pan(url32, r0_, c0_, "&classes=1")
+            c1_walls.append(secs)
+            check(p1.shape == (1, PAN, PAN), f"classes=1 pan {p1.shape}")
+        log(f"[serve] classes=1 pans: p50 {pct(c1_walls, 50):.2f} ms p95 "
+            f"{pct(c1_walls, 95):.2f} ms")
+
+        # -- the streamed post with a pinned range, and pans against it ----
+        st, body, hdr, secs = http(
+            "POST", url32 + f"/infer?model={model}&range=0,65535", big_body)
+        check(st == 200, f"streamed post: {st} {body[:300]}")
+        full = tiff_pages(body)
+        d = np.abs(full.astype(int) - stream_full[::-1].astype(int))
+        log(f"[serve] streamed POST 8192^2 float32 (range=0,65535): "
+            f"{BIG * BIG / 1e6 / secs:.2f} Mpx/s ({secs:.3f} s, server "
+            f"infer_s {json.loads(hdr['X-UnMicst-Meta'])['infer_s']}; bare "
+            f"StreamingEngine.infer {BIG * BIG / 1e6 / stream_s:.2f}), pages "
+            f"vs the bare stream: max {int(d.max())} | {card}")
+        check(full.shape == (k, BIG, BIG) and d.max() <= 1,
+              f"streamed post {full.shape}, {int(d.max())} levels")
+        worst, n_diff, n_px = 0, 0, 0
+        for r0_, c0_ in offsets[:10]:
+            p, _ = pan(url32, r0_, c0_, "&range=0,65535")
+            crop = full[:, r0_:r0_ + PAN, c0_:c0_ + PAN]
+            dd = np.abs(p.astype(int) - crop.astype(int))
+            worst = max(worst, int(dd.max()))
+            n_diff += int((dd > 0).sum())
+            n_px += dd.size
+        log(f"[serve] pinned-range pans against the streamed slide's crop "
+            f"(10 pans): {n_diff} of {n_px} values differ, by at most "
+            f"{worst} level(s) (bar 1)")
+        check(worst <= 1, f"pinned-range pans {worst} levels from the crop")
+        st, body, _, secs = http("POST", url32 + f"/infer?model={model}"
+                                 "&scale=0.5", big_body)
+        check(st == 200 and tiff_pages(body).shape == (k, BIG, BIG),
+              f"streamed post at scale 0.5: {st}")
+        log(f"[serve] streamed POST 8192^2 at scale=0.5 (host "
+            f"ResampledSource): {BIG * BIG / 1e6 / secs:.2f} Mpx/s of raw "
+            f"pixels ({secs:.3f} s)")
+
+        # -- int8, prewarm, DELETE, /stats ---------------------------------
+        st, body, _, secs = http("POST", url8 + f"/infer?model={model}",
+                                 small_body)
+        check(st == 200 and i8.engine(model)._quant is not None,
+              f"int8 request: {st} {body[:300]}")
+        ok8, mean8, p998, dis8 = int8_bar(tiff_pages(body),
+                                          tiff_pages(whole["bfloat16"][0]))
+        log(f"[serve] int8 POST /infer 4096^2 in {secs:.3f} s (calibration "
+            f"included): against the bfloat16 server mean {mean8:.3f} "
+            f"levels, p99 {p998:.0f}, argmax {dis8:.4f} (the JAX CLI's bar)")
+        check(ok8, f"int8 server pages off: mean {mean8}, p99 {p998}, "
+                   f"argmax {dis8}")
+
+        roi_w = 3 * PAN // 4
+        before = f32.snapshot()["prewarmed"]
+        st, body, _, _ = http("POST", url32 + f"/slides?prewarm=1&model="
+                              f"{model}&roi={roi_w}", big_body)
+        check(st == 200 and json.loads(body)["prewarm"] == "scheduled",
+              f"prewarm upload: {st} {body[:300]}")
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 120:
+            snap = f32.snapshot()
+            if snap["prewarm_pending"] == 0 and snap["prewarmed"] >= before + 4:
+                break
+            time.sleep(0.05)
+        warm_s = time.perf_counter() - t0
+        check(snap["prewarmed"] == before + 4 and not snap["prewarm_errors"],
+              f"prewarm did not finish: {snap}")
+        pw = []
+        for r0_, c0_ in offsets[:6]:
+            st, body, _, secs = http(
+                "POST", url32 + f"/infer?model={model}&slide={sid}"
+                f"&roi={r0_},{c0_},{roi_w},{roi_w}")
+            check(st == 200, f"pan after prewarm: {st} {body[:300]}")
+            pw.append(secs)
+        log(f"[serve] first pan vs warm pans: without prewarm ({PAN}^2) "
+            f"{first_s * 1e3:.2f} ms then p50 {pct(dev_walls, 50):.2f} ms; "
+            f"with prewarm=1 ({roi_w}^2, 4 geometries warmed in "
+            f"{warm_s:.2f} s) {pw[0] * 1e3:.2f} ms then p50 "
+            f"{pct(pw[1:], 50):.2f} ms")
+
+        st, body, _, _ = http("DELETE", url32 + f"/slides/{sid}")
+        check(st == 200, f"DELETE: {st} {body[:200]}")
+        st404 = http("DELETE", url32 + f"/slides/{sid}")[0]
+        st, body, _, _ = http("GET", url32 + "/stats")
+        stats = json.loads(body)
+        launches = kernels.launch_counts()
+        log(f"[serve] DELETE 200, again {st404}; /stats: requests "
+            f"{stats['requests']} ok {stats['ok']} client_error "
+            f"{stats['client_error']} device_pins {stats['device_pins']} "
+            f"device_pans {stats['device_pans']} slides_cached "
+            f"{stats['slides_cached']} device_planes_pinned "
+            f"{stats['device_planes_pinned']} prewarmed "
+            f"{stats['prewarmed']}; launches {launches}")
+        check(st404 == 404 and stats["device_planes_pinned"] == 0
+              and stats["slides_cached"] == 0,
+              f"DELETE left the slide: {st404} {stats}")
+        check(launches["softmax_blend"] > 0
+              and launches["blend_fold_epilogue"] > 0
+              and launches["blend_fold_epilogue_trim"] >= N_PANS
+              and launches["blend_fold_stripe"] > 0,
+              f"the serving path did not run every kernel: {launches}")
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32,
+                 torch.backends.cudnn.benchmark)
+        check(flags == flags_before,
+              f"the TF32 flags changed: {flags_before} -> {flags}")
+    finally:
+        for h in httpds:
+            h.shutdown()
+            h.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- K2's trimmed route at the pan's shapes, against its plain version -
+    a, b, ca, cb = serve.roi_band((r0, c0, PAN, PAN), (BIG, BIG), hp)
+    grid = tiler.make_grid(b - a, cb - ca, hp.im_size, hp.margin)
+    t, p = grid.num_tiles, hp.im_size
+    trim = (r0 - a, c0 - ca, PAN, PAN)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    window = torch.from_numpy(tiler.ramp_window(p, hp.margin)).to(dev)
+    weighted = kernels.softmax_blend(
+        3 * torch.randn((t, k, p, p), generator=gen, device=dev), window,
+        torch.ones(t, device=dev))
+    got = kernels.blend_fold_epilogue(weighted, window, grid, trim=trim)
+    plain = kernels.blend_fold_epilogue_plain(weighted, window, grid,
+                                              trim=trim)
+    untrimmed = kernels.blend_fold_epilogue(weighted, window, grid)
+    torch.cuda.synchronize()
+    err = int((got.int() - plain.int()).abs().max().item())
+    crop_ok = torch.equal(got, untrimmed[:, trim[0]:trim[0] + PAN,
+                                         trim[1]:trim[1] + PAN])
+    fn = lambda: kernels.blend_fold_epilogue(  # noqa: E731
+        weighted, window, grid, trim=trim)
+    ms = cuda_ms(fn)
+    dev_ms = fold_device_ms(fn, "K2 trimmed region")
+    no_sync(fn, "K2 trimmed region")
+    plain_ms = cuda_ms(lambda: kernels.blend_fold_epilogue_plain(
+        weighted, window, grid, trim=trim), iters=3)
+    cols = weighted.reshape(t, k * p * p).t().unsqueeze(0).contiguous()
+    lib_ms = cuda_ms(lambda: F.fold(cols, (grid.padded_height,
+                                           grid.padded_width), p,
+                                    stride=grid.sub))
+    m = grid.margin
+    n_read = (covered(grid.npr, grid.sub, p, m + trim[0], m + trim[0] + PAN)
+              * covered(grid.npc, grid.sub, p, m + trim[1],
+                        m + trim[1] + PAN) * k)
+    n_out = k * PAN * PAN
+    bound, by = bound_ms(4 * n_read + 4 * p * p + n_out,
+                         4 * n_read + 7 * n_out)
+    log(f"[K2t] trimmed region {PAN}^2 of a {b - a}x{cb - ca} band (T {t}): "
+        f"max |kernel - plain| {err} level(s), equal to the untrimmed "
+        f"launch's crop {crop_ok}; kernel {ms:.4f} ms (device {dev_ms:.4f}) "
+        f"| plain {plain_ms:.4f} | F.fold {lib_ms:.4f} | bound {bound:.4f} "
+        f"({by}) | {card}")
+    check(err == 0 and crop_ok,
+          f"K2's trimmed route: {err} levels from plain, crop {crop_ok}")
+    del weighted, cols, got, plain, untrimmed
+    torch.cuda.empty_cache()
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f}s")
+    return {"blend_fold_epilogue_trim": dict(
+        route="cuda", source="unmicst_tpu_torch/csrc/blend_fold.cu",
+        replaces="exhibits/pallas/blend.py:76",
+        launches=launches["blend_fold_epilogue_trim"], max_abs_err=float(err),
+        ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+        library_ms=lib_ms)}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2890,6 +3397,7 @@ def main(argv=None) -> int:
     stats["blend_fold_epilogue_f32"]["launches"] = phase_sweep(dev)
     phase_train(dev)
     phase_int8(dev)
+    stats.update(phase_serve(dev))
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():

@@ -204,9 +204,10 @@ banned = ("jax", "jaxlib", "flax", "ml_dtypes", "PIL", "unmicst_tpu",
           "exhibits", "scripts", "msgpack", "scipy", "optax")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
-sys.exit(1 if leaked or len(names) < 33
+sys.exit(1 if leaked or len(names) < 34
          or "unmicst_tpu_torch.train" not in names
-         or "unmicst_tpu_torch.core.msgpack" not in names else 0)
+         or "unmicst_tpu_torch.core.msgpack" not in names
+         or "unmicst_tpu_torch.serve" not in names else 0)
 """
 
 

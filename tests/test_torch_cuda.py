@@ -738,3 +738,145 @@ def test_int8_conv_on_card_is_exact(cuda, name):
                                             for k, v in qk.items()},
                                a.to(cuda)).cpu()
         assert torch.equal(card, want), site
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,patch,margin,k", _GEOMS)
+@pytest.mark.parametrize("quantize", [True, False])
+def test_k2_trimmed_region_matches_plain_on_card(cuda, shape, patch, margin,
+                                                 k, quantize):
+    """K2's slide epilogue with trim= on the card: 0 apart from its plain
+    version, and equal to the untrimmed launch's crop; counted as a trim
+    launch."""
+    g, logits, win = _weighted_case(shape, patch, margin, k, seed=5)
+    w = torch.from_numpy(win)
+    x = torch.softmax(torch.from_numpy(logits), 1) * w
+    xc, wc = x.to(cuda), w.to(cuda)
+    full = kernels.blend_fold_epilogue(xc, wc, g, quantize=quantize)
+    h, wd = shape
+    for trim in [(0, 0, h, wd), (7, 3, h // 2, wd // 3),
+                 (h - 5, wd - 9, 5, 9), (1, 1, h - 2, 1)]:
+        tr, tc, th, tw = trim
+        kernels.reset_launch_counts()
+        got = kernels.blend_fold_epilogue(xc, wc, g, quantize=quantize,
+                                          trim=trim)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        assert counts["blend_fold_epilogue"] == 1
+        assert counts["blend_fold_epilogue_trim"] == 1
+        plain = kernels.blend_fold_epilogue_plain(x, w, g, quantize=quantize,
+                                                  trim=trim)
+        assert tuple(got.shape) == (k, th, tw)
+        assert torch.equal(got, full[:, tr:tr + th, tc:tc + tw])
+        if quantize:
+            assert torch.equal(got.cpu(), plain)
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), plain.numpy(),
+                                       atol=1e-5)
+
+
+def _blob_engine(device, **kw):
+    from unmicst_tpu_torch.core.checkpoint import load_params_for_bundle
+    from unmicst_tpu_torch.core.hp import load_model_dir
+    from unmicst_tpu_torch.infer import InferenceEngine
+
+    bundle = load_model_dir(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "models", "blobDemo"))
+    return InferenceEngine.from_bundle(bundle, load_params_for_bundle(bundle),
+                                       device=device, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"in_range": (0, 65535),
+                                     "classes": (1,)},
+                                {"scaling_factor": 0.5}])
+def test_device_pan_on_card_matches_infer_slide(cuda, kw):
+    """A pan on a pinned plane on the card: equal to infer_slide of the
+    band on the card (same shapes, same algorithms), its trim= the crop
+    (K2 writes only the window at scale 1), and within 1 level of the
+    CPU."""
+    rng = np.random.RandomState(4)
+    raw = (rng.rand(700, 600) * 60000).astype(np.uint16)
+    eng = _blob_engine(cuda)
+    plane = eng.device_plane(raw)
+    assert plane.data.is_cuda and plane.data.dtype == torch.int16
+    r0, c0, h, w = 96, 48, 288, 320
+    band = np.ascontiguousarray(raw[r0:r0 + h, c0:c0 + w])
+    want = eng.infer_slide(band, **kw)
+    np.testing.assert_array_equal(
+        eng.infer_slide_device(plane, r0, c0, h, w, **kw), want)
+    kernels.reset_launch_counts()
+    cut = eng.infer_slide_device(plane, r0, c0, h, w, trim=(50, 60, 128, 96),
+                                 **kw)
+    counts = kernels.launch_counts()
+    np.testing.assert_array_equal(cut, want[:, 50:178, 60:156])
+    assert counts["blend_fold_epilogue_trim"] == (
+        0 if "scaling_factor" in kw else 1)
+    cpu = _blob_engine("cpu").infer_slide(band, **kw)
+    assert np.abs(want.astype(int) - cpu.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_concurrent_requests_on_card_equal_serial(cuda, tmp_path):
+    """Four threads posting float32 and bfloat16 requests at once to two
+    servers on the card get pages byte-equal to the same requests one at
+    a time: the conv flags of one precision never leak into the other's
+    work, and the TF32 flags end as they began."""
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    from unmicst_tpu_torch import serve
+    from unmicst_tpu_torch.io.tiff import TiffWriter
+
+    models = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "models")
+    rng = np.random.RandomState(8)
+    path = str(tmp_path / "c.tif")
+    with TiffWriter(path) as tw:
+        tw.write((rng.rand(1024, 1024) * 60000).astype(np.uint16))
+    with open(path, "rb") as f:
+        body = f.read()
+    urls, httpds = [], []
+    for precision in ("float32", "bfloat16"):
+        srv = serve.ModelServer(model_root=models, precision=precision)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(srv))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        httpds.append(httpd)
+        urls.append(f"http://127.0.0.1:{httpd.server_address[1]}")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+
+    def post(url):
+        req = urllib.request.Request(url + "/infer?model=blobDemo",
+                                     data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.read()
+
+    try:
+        cold = [post(u) for u in urls]  # each shape's cuDNN autotune
+        serial = [post(u) for u in urls]
+        assert serial[0] != serial[1]
+        got = [None] * 4
+
+        def run(i):
+            try:
+                got[i] = post(urls[i % 2])
+            except Exception as e:  # noqa: BLE001 — reported below
+                got[i] = e
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        report = [g if isinstance(g, Exception) else g == serial[i % 2]
+                  for i, g in enumerate(got)]
+        assert all(r is True for r in report), (
+            report, [c == s for c, s in zip(cold, serial)])
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+    finally:
+        for h in httpds:
+            h.shutdown()
+            h.server_close()

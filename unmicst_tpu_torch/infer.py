@@ -30,6 +30,7 @@ reference accumulates in float16, ``PartitionOfImage.py:86-90``).
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional
 
 import numpy as np
@@ -41,7 +42,8 @@ from unmicst_tpu_torch.core.hp import HParams, ModelBundle
 from unmicst_tpu_torch.core.resize_dev import ResizePlan
 from unmicst_tpu_torch.core import quant as _q
 from unmicst_tpu_torch.core.unet import IM2COL_BUDGET, UNet
-from unmicst_tpu_torch.kernels import blend_fold_epilogue, softmax_blend
+from unmicst_tpu_torch.kernels import (blend_fold_epilogue, check_trim,
+                                       softmax_blend)
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
 from unmicst_tpu_torch.utils.batching import chunks
 
@@ -135,7 +137,66 @@ def pick_tile_batch(hp: HParams, device: torch.device,
                       room // tile_bytes(hp, quantized)))
 
 
-@contextlib.contextmanager
+class _FlagGuard:
+    """The process-wide cuDNN and matmul flags, shared by the threads that
+    run device work.  The first holder saves the flags and sets them; later
+    holders that want the same TF32 setting join it, one that wants the
+    other waits until the last holder has left and restored them.  A
+    thread that nests a different setting inside its own raises instead of
+    waiting for itself."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._tf32: Optional[bool] = None
+        self._holders = {}  # thread id -> depth
+        self._undo = None
+
+    @contextlib.contextmanager
+    def hold(self, tf32: bool):
+        me = threading.get_ident()
+        with self._cond:
+            if self._holders.get(me) and self._tf32 != tf32:
+                raise RuntimeError(
+                    "nested engine work with another TF32 setting")
+            while self._holders and self._tf32 != tf32:
+                self._cond.wait()
+            if not self._holders:
+                self._undo = self._set(tf32)
+                self._tf32 = tf32
+            self._holders[me] = self._holders.get(me, 0) + 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._holders[me] -= 1
+                if not self._holders[me]:
+                    del self._holders[me]
+                if not self._holders:
+                    self._undo()
+                    self._tf32 = None
+                    self._cond.notify_all()
+
+    @staticmethod
+    def _set(tf32: bool):
+        """Set the flags; returns the function that restores them."""
+        matmul = torch.backends.cuda.matmul
+        saved = matmul.allow_tf32
+        matmul.allow_tf32 = tf32
+        scope = torch.backends.cudnn.flags(enabled=True, benchmark=True,
+                                           deterministic=True,
+                                           allow_tf32=tf32)
+        scope.__enter__()
+
+        def undo():
+            scope.__exit__(None, None, None)
+            matmul.allow_tf32 = saved
+
+        return undo
+
+
+_FLAGS = _FlagGuard()
+
+
 def _conv_precision(tf32: bool):
     """cuDNN and matmul TF32 set for the engine's work only, and restored
     after.  The float32 modes run with TF32 off (cuDNN convolutions default
@@ -143,17 +204,14 @@ def _conv_precision(tf32: bool):
     254``, ``unet.py:115-134``).  The bfloat16 mode convolves float32
     tensors that hold bf16 values, which TF32 represents exactly, so it
     lets cuDNN use the TF32 tensor cores.  Every chunk has the same shape,
-    so cuDNN benchmarks its algorithms once."""
-    matmul = torch.backends.cuda.matmul
-    saved = matmul.allow_tf32
-    matmul.allow_tf32 = tf32
-    try:
-        with torch.backends.cudnn.flags(enabled=True, benchmark=True,
-                                        deterministic=False,
-                                        allow_tf32=tf32):
-            yield
-    finally:
-        matmul.allow_tf32 = saved
+    so cuDNN benchmarks its algorithms once, among its deterministic ones:
+    the same input gives the same maps on every call (a nondeterministic
+    choice can move a float32 map by a level between two calls of one
+    engine, and a server's repeated requests must answer alike).  The
+    flags are global to the process: overlapping calls from several
+    threads share them through :class:`_FlagGuard`, so no call runs with
+    another's setting."""
+    return _FLAGS.hold(tf32)
 
 
 def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
@@ -242,6 +300,8 @@ class InferenceEngine:
         self.window = torch.from_numpy(
             tiler.ramp_window(hp.im_size, hp.margin)
         ).to(self.device)
+        self._plans = {}  # _resize_plan's cache
+        self._plans_lock = threading.Lock()
 
     @classmethod
     def from_bundle(cls, bundle: ModelBundle, params: State, **kw):
@@ -329,11 +389,13 @@ class InferenceEngine:
         x = (x - self.mean) * _reciprocal(self.std)
         return x if self.compute_dtype is None else x.to(self.compute_dtype)
 
-    def _maps(self, planes: torch.Tensor, classes, quantize: bool):
+    def _maps(self, planes: torch.Tensor, classes, quantize: bool,
+              trim=None):
         """``planes``: [C0, H, W] float32 on the device, the net input
         before mean/std (C0 == 1 broadcasts into every net channel).
-        Returns ``[Kc, H, W]`` uint8 (``quantize``) or float32 maps; the
-        int8 mode runs with the QuantState its caller calibrated."""
+        Returns ``[Kc, H, W]`` uint8 (``quantize``) or float32 maps, or
+        only their ``trim`` window (K2 writes just that); the int8 mode
+        runs with the QuantState its caller calibrated."""
         hp = self.hp
         _, height, width = planes.shape
         grid = tiler.make_grid(height, width, hp.im_size, hp.margin)
@@ -350,20 +412,43 @@ class InferenceEngine:
                                quant=_q.cached_on(self._quant_devs,
                                                   self._quant, self.device))
         return blend_fold_epilogue(weighted, self.window, grid, classes,
-                                   quantize)
+                                   quantize, trim)
+
+    @staticmethod
+    def _host_tensor(raw: np.ndarray) -> torch.Tensor:
+        """A host plane as the tensor that goes to the card: integers in
+        their own width (uint16 as its int16 bit view, torch's uint16
+        support being partial), anything else as float32."""
+        a = np.ascontiguousarray(raw)
+        if a.dtype == np.uint16:
+            return torch.from_numpy(a.view(np.int16))
+        if a.dtype in (np.uint8, np.int8, np.int16, np.int32):
+            return torch.from_numpy(a)
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32))
+
+    @staticmethod
+    def _widen(x: torch.Tensor, dtype) -> torch.Tensor:
+        """A device tensor of :meth:`_host_tensor` -> float32 values of the
+        raw ``dtype`` (uint16 widened and masked on the card)."""
+        if np.dtype(dtype) == np.uint16:
+            x = x.to(torch.int32) & 0xFFFF
+        return x.to(torch.float32)
 
     def _upload(self, raw: np.ndarray) -> torch.Tensor:
-        """Host plane -> float32 on the device; uint16 travels as int16 and
-        is widened and masked there (torch's uint16 support is partial)."""
-        if raw.dtype == np.uint16:
-            x = torch.from_numpy(np.ascontiguousarray(raw).view(np.int16))
-            x = x.to(self.device).to(torch.int32) & 0xFFFF
-        elif raw.dtype == np.uint8:
-            x = torch.from_numpy(np.ascontiguousarray(raw)).to(self.device)
-        else:
-            x = torch.from_numpy(np.ascontiguousarray(raw, np.float32))
-            x = x.to(self.device)
-        return x.to(torch.float32)
+        """Host plane -> float32 on the device."""
+        return self._widen(self._host_tensor(raw).to(self.device), raw.dtype)
+
+    def _resize_plan(self, src: tuple, dst: tuple) -> ResizePlan:
+        """The resize between two shapes, built once per engine: its
+        indices live on the card, so a repeated pan uploads nothing."""
+        with self._plans_lock:
+            plan = self._plans.get((src, dst))
+            if plan is None:
+                if len(self._plans) >= 64:
+                    self._plans.pop(next(iter(self._plans)))
+                plan = self._plans[src, dst] = ResizePlan(src, dst,
+                                                          self.device)
+        return plan
 
     # -- public API ----------------------------------------------------------
 
@@ -440,38 +525,61 @@ class InferenceEngine:
 
     def _slide(self, planes, outlier, rescale, classes, scaling_factor,
                in_range) -> np.ndarray:
-        """``[C0]`` raw planes -> uint8 maps, the order of ``_build_slide``
-        (``infer.py:520-631``): im2double, the forward resize, the range
-        of each resized channel, the canvas, net, K1 and K2's epilogue at
-        the scaled size, then the back resize of ``q8 / 255`` and
-        ``uint8(255 * r)``.  ``C0 == 1`` broadcasts into every channel."""
+        """``[C0]`` raw host planes -> uint8 maps (:meth:`_run_slide`).
+        ``C0 == 1`` broadcasts into every channel."""
         # parity cast (UnMicst1-5.py:807-808)
         planes = [p.astype(np.uint16) if p.dtype == np.float32 else p
                   for p in planes]
         classes = self._check_classes(classes)
-        scale = _IM2DOUBLE.get(np.dtype(planes[0].dtype))
-        if scale is None and not rescale:
-            raise ValueError(
-                f"rescale=False requires uint8/uint16 input, got "
-                f"{planes[0].dtype}"
-            )
-        if in_range is not None:
-            if not rescale:
-                raise ValueError("in_range requires rescale=True")
-            ir = _normalize_in_range(in_range, len(planes)) / (scale or 1.0)
+        scale, ir = self._slide_range(planes[0].dtype, rescale, in_range,
+                                      len(planes))
         self._quant_for_raw(
             planes[0] if len(planes) == 1 else np.stack(planes), outlier,
             rescale, scaling_factor, in_range)
-        height, width = planes[0].shape
+        x = torch.stack([self._upload(p) for p in planes])  # [C0, H, W]
+        return self._run_slide(x, scale, ir, outlier, rescale, classes,
+                               scaling_factor)
+
+    @staticmethod
+    def _slide_range(dtype, rescale: bool, in_range, n: int):
+        """The im2double scale of ``dtype`` (None past 16 bits) and the
+        pinned range as ``[n, 2]`` units of the im2double'd plane (or
+        None); raises for the combinations the JAX engine refuses."""
+        scale = _IM2DOUBLE.get(np.dtype(dtype))
+        if scale is None and not rescale:
+            raise ValueError(
+                f"rescale=False requires uint8/uint16 input, got "
+                f"{np.dtype(dtype)}"
+            )
+        if in_range is None:
+            return scale, None
+        if not rescale:
+            raise ValueError("in_range requires rescale=True")
+        return scale, _normalize_in_range(in_range, n) / (scale or 1.0)
+
+    def _run_slide(self, x: torch.Tensor, scale, ir, outlier, rescale: bool,
+                   classes, scaling_factor: float, trim=None) -> np.ndarray:
+        """``x``: ``[C0, H, W]`` float32 raw values on the device -> uint8
+        maps, the order of ``_build_slide`` (``infer.py:520-631``):
+        im2double, the forward resize, the range of each resized channel,
+        the canvas, net, K1 and K2's epilogue at the scaled size, then the
+        back resize of ``q8 / 255`` and ``uint8(255 * r)``.
+
+        ``trim = (tr, tc, th, tw)``: only that window of the maps comes
+        back.  At scale 1 it goes into K2, which writes only the window;
+        at another scale the back resize needs the whole band, and the
+        window is cut from its output on the card.  Either way only the
+        window's bytes cross to the host."""
+        _, height, width = x.shape
+        trim = check_trim(trim, height, width)
         sh = int(float(height) * float(scaling_factor))
         sw = int(float(width) * float(scaling_factor))
-        fwd = ResizePlan((height, width), (sh, sw), self.device)
-        x = torch.stack([self._upload(p) for p in planes])  # [C0, H, W]
+        fwd = self._resize_plan((height, width), (sh, sw))
         if scale is not None:
             x = x * _reciprocal(scale)  # im2double
         x = fwd.apply(x)  # [C0, sh, sw]
         if rescale:
-            if in_range is not None:
+            if ir is not None:
                 lo = _column(ir[:, 0], self.device)
                 hi = _column(ir[:, 1], self.device)
             else:
@@ -481,12 +589,121 @@ class InferenceEngine:
                       else x.amax(dim=(1, 2), keepdim=True))
             x = torch.minimum(torch.maximum(x, lo), hi)
             x = (x - lo) / torch.clamp(hi - lo, min=1e-12) * 0.983
+        if fwd.identity:
+            return self._maps(x, classes, quantize=True, trim=trim
+                              ).cpu().numpy()
         q8 = self._maps(x, classes, quantize=True)
-        if not fwd.identity:
-            # q8 / 255 as XLA compiles the JAX engine's division (see
-            # _reciprocal); a lerp of values in [0, 1] stays in [0, 1] up
-            # to rounding, so the truncating cast needs no clamp
-            back = ResizePlan((sh, sw), (height, width), self.device)
-            r = back.apply(q8.float() * _reciprocal(255.0))
-            q8 = (r * 255.0).to(torch.uint8)
+        # q8 / 255 as XLA compiles the JAX engine's division (see
+        # _reciprocal); a lerp of values in [0, 1] stays in [0, 1] up
+        # to rounding, so the truncating cast needs no clamp
+        back = self._resize_plan((sh, sw), (height, width))
+        r = back.apply(q8.float() * _reciprocal(255.0))
+        q8 = (r * 255.0).to(torch.uint8)
+        if trim is not None:
+            tr, tc, th, tw = trim
+            q8 = q8[:, tr : tr + th, tc : tc + tw].contiguous()
         return q8.cpu().numpy()
+
+    # -- the card-resident slide (viewer pans without uploads) ---------------
+
+    def device_plane(self, raw, outlier: float = -1, rescale: bool = True,
+                     in_range=None) -> "DevicePlane":
+        """Pin a raw slide plane ``[H, W]`` or channel stack ``[C, H, W]``
+        in device memory for repeated windowed inference
+        (``unmicst_tpu/infer.py:764-782``).
+
+        It goes up once; every :meth:`infer_slide_device` pan after that
+        slices its band on the card.  float32 planes take the parity cast
+        to uint16; uint16 stays in its int16 bit view, two bytes a pixel,
+        and each band is widened on the card.  An int8 engine calibrates
+        from this plane, on the host, before the upload."""
+        a = np.asarray(raw)
+        if a.ndim not in (2, 3):
+            raise ValueError(f"plane must be [H, W] or [C, H, W], got "
+                             f"{a.shape}")
+        if a.dtype == np.float32:
+            a = a.astype(np.uint16)
+        if self.quantized and self._quant is None:
+            self._quant_for_raw(a, outlier, rescale, in_range=in_range)
+        return DevicePlane(self._host_tensor(a).to(self.device), a.dtype)
+
+    @staticmethod
+    def _band_checked(plane: "DevicePlane", ndim: int, r0: int, c0: int,
+                      height: int, width: int) -> torch.Tensor:
+        """The ``[..., height, width]`` band at ``(r0, c0)``: a view of the
+        pinned plane, no copy.  A band outside the plane raises (a slice
+        would clamp it to a shifted window)."""
+        if plane.ndim != ndim:
+            raise ValueError(
+                f"pinned plane must be {ndim}-D, got shape {plane.shape}"
+            )
+        ph, pw = plane.shape[-2:]
+        r0, c0, height, width = int(r0), int(c0), int(height), int(width)
+        if not (0 <= r0 and 0 <= c0 and height > 0 and width > 0
+                and r0 + height <= ph and c0 + width <= pw):
+            raise ValueError(
+                f"band ({r0},{c0})+{height}x{width} outside the "
+                f"{ph}x{pw} pinned plane"
+            )
+        return plane.data[..., r0 : r0 + height, c0 : c0 + width]
+
+    def _pan(self, plane, ndim, r0, c0, height, width, outlier, rescale,
+             classes, scaling_factor, in_range, trim) -> np.ndarray:
+        if self.quantized and self._quant is None:
+            raise RuntimeError(
+                "int8 engine is uncalibrated: pin the slide with "
+                "device_plane(...) (which calibrates) or run one host-path "
+                "request first"
+            )
+        classes = self._check_classes(classes)
+        band = self._band_checked(plane, ndim, r0, c0, height, width)
+        band = band if ndim == 3 else band[None]
+        scale, ir = self._slide_range(plane.dtype, rescale, in_range,
+                                      band.shape[0])
+        check_trim(trim, height, width)
+        return self._run_slide(self._widen(band, plane.dtype), scale, ir,
+                               outlier, rescale, classes, scaling_factor,
+                               trim)
+
+    def infer_slide_device(self, plane: "DevicePlane", r0: int, c0: int,
+                           height: int, width: int, outlier: float = -1,
+                           rescale: bool = True, classes=None,
+                           scaling_factor: float = 1.0, in_range=None,
+                           trim=None) -> np.ndarray:
+        """Windowed inference against a :meth:`device_plane` slide: uint8
+        ``[K, height, width]`` maps of the band at ``(r0, c0)``, equal to
+        :meth:`infer_slide` of the band's pixels, but the band never
+        crosses from the host (``unmicst_tpu/infer.py:816-879``).
+
+        ``trim = (tr, tc, th, tw)`` (band-relative) returns only the
+        ``[K, th, tw]`` window, equal to the untrimmed maps' crop; only its
+        bytes come back to the host."""
+        return self._pan(plane, 2, r0, c0, height, width, outlier, rescale,
+                         classes, scaling_factor, in_range, trim)
+
+    def infer_slide_stack_device(self, planes: "DevicePlane", r0: int,
+                                 c0: int, height: int, width: int,
+                                 outlier: float = -1, rescale: bool = True,
+                                 classes=None, scaling_factor: float = 1.0,
+                                 in_range=None, trim=None) -> np.ndarray:
+        """:meth:`infer_slide_device` for a pinned ``[C, H, W]`` channel
+        stack (duo plumbing, a range per channel; the same ``trim``)."""
+        n_in = int(planes.shape[0]) if planes.ndim == 3 else 0
+        if n_in != self.hp.n_channels:
+            raise ValueError(
+                f"model expects {self.hp.n_channels} channels, got {n_in}"
+            )
+        return self._pan(planes, 3, r0, c0, height, width, outlier, rescale,
+                         classes, scaling_factor, in_range, trim)
+
+
+class DevicePlane:
+    """A slide pinned in device memory by
+    :meth:`InferenceEngine.device_plane`: ``data`` on the card in the
+    raw ``dtype``'s width (uint16 as its int16 bits), ``shape`` and
+    ``ndim`` of the raw plane."""
+
+    def __init__(self, data: torch.Tensor, dtype):
+        self.data, self.dtype = data, np.dtype(dtype)
+        self.shape, self.ndim = tuple(data.shape), data.dim()
+        self.nbytes = data.numel() * data.element_size()

@@ -7,7 +7,8 @@ consistent OME metadata (:mod:`unmicst_tpu_torch.io.ome`).  Whole planes
 (:func:`read_channel`) feed the whole-slide engine; windowed sources
 (:func:`open_channel_source`), the streamed statistics and the streamed
 preview feed the streaming engine, so a slide never sits whole in host
-RAM.  CZI and ND2 are not read yet (ROADMAP: "CZI and ND2").
+RAM.  :func:`sniff_format` names an upload's container by its magic
+bytes.  CZI and ND2 are recognised but not read yet (ROADMAP item 6).
 """
 
 from __future__ import annotations
@@ -20,6 +21,23 @@ from unmicst_tpu_torch.io.tiff import TiffFile
 TIFF_LIKE = ("ome.tif", "ome.tiff", "btf", "tif", "tiff")
 
 
+def sniff_format(path: str) -> str:
+    """The container of ``path`` from its magic bytes, whatever its name
+    (``unmicst_tpu/io/slides.py:22-37``): classic TIFF and BigTIFF in
+    either byte order are ``"tif"``.  CZI (``ZISRAWFILE``) and ND2 (chunk
+    magic ``0x0ABECEDA``) are recognised and refused, since their readers
+    are not ported; anything else is a ValueError."""
+    with open(path, "rb") as f:
+        head = f.read(16)
+    if head.startswith((b"II*\x00", b"II+\x00", b"MM\x00*", b"MM\x00+")):
+        return "tif"
+    if head.startswith(b"ZISRAWFILE") or head[:4] == b"\xda\xce\xbe\x0a":
+        _check_file_type("czi" if head.startswith(b"Z") else "nd2")
+    raise ValueError(
+        "unrecognized container (expected TIFF/BigTIFF, CZI, or ND2)"
+    )
+
+
 def tiff_plane(tf: TiffFile, channel: int) -> int:
     """channel -> IFD page of an open TIFF (OME-aware)."""
     desc = tf.pages[0].description if tf.pages else ""
@@ -30,7 +48,8 @@ def _check_file_type(file_type: str) -> None:
     if file_type in ("czi", "nd2"):
         raise NotImplementedError(
             f".{file_type} input is not ported to unmicst_tpu_torch yet "
-            "(ROADMAP: CZI and ND2); convert to OME-TIFF or use unmicst_tpu"
+            "(ROADMAP item 6: CZI and ND2); convert to OME-TIFF or use "
+            "unmicst_tpu"
         )
     if file_type not in TIFF_LIKE:
         raise NotImplementedError(

@@ -13,7 +13,8 @@ plain versions (CPU tensors) are not counted.
 
 from unmicst_tpu_torch.kernels.blend_fold import (  # noqa: F401
     blend_fold, blend_fold_epilogue, blend_fold_epilogue_plain,
-    blend_fold_plain, blend_fold_strip, blend_fold_stripe, fold_region_plain,
+    blend_fold_plain, blend_fold_strip, blend_fold_stripe, check_trim,
+    fold_region_plain,
 )
 from unmicst_tpu_torch.kernels.halo_ring import (  # noqa: F401
     RingShiftHandle, ring_shift, ring_shift_plain, ring_shift_start,
@@ -28,9 +29,14 @@ WRAPPERS = (softmax_blend, blend_fold, blend_fold_epilogue, blend_fold_strip,
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in WRAPPERS}
+    """Launches per wrapper, and ``blend_fold_epilogue_trim``: those of
+    K2's slide epilogue that wrote a trimmed window."""
+    counts = {w.__name__: w.launches for w in WRAPPERS}
+    counts["blend_fold_epilogue_trim"] = blend_fold_epilogue.trim_launches
+    return counts
 
 
 def reset_launch_counts() -> None:
     for w in WRAPPERS:
         w.launches = 0
+    blend_fold_epilogue.trim_launches = 0

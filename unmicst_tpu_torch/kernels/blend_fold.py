@@ -10,7 +10,8 @@ The port of the TPU kernel ``exhibits/pallas/blend.py:76``
 * :func:`blend_fold_epilogue` — the whole slide's tail (``infer.py:303-343``
   and ``:624`` of the JAX package): ``[T, K, P, P]`` tiles already
   weighted by K1 -> blend count, divide, margin crop, class subset and
-  ``uint8(255 * p)`` (or float32) ``[Kc, H, W]``;
+  ``uint8(255 * p)`` (or float32) ``[Kc, H, W]``, or only a ``trim``
+  window of them (a viewer's ROI out of its context band);
 * :func:`blend_fold_strip` — the fold alone, without count or epilogue:
   K1-weighted tiles -> the padded ``[H', W', K]`` float32 strip (a halo
   band, ``runtime/halo.py:171`` of the JAX package);
@@ -302,17 +303,39 @@ def _fold_region(wrapper, weighted, window, grid, rows, cols, cls, mode,
     return out
 
 
+def check_trim(trim, height: int, width: int) -> Optional[tuple]:
+    """``trim = (tr, tc, th, tw)`` as ints, inside an ``height x width``
+    map (None passes); out of band it raises, as the JAX engine's
+    ``_trim_checked`` does (``unmicst_tpu/infer.py:802-814``) rather than
+    clamp to a shifted window."""
+    if trim is None:
+        return None
+    tr, tc, th, tw = (int(v) for v in trim)
+    if not (0 <= tr and 0 <= tc and th > 0 and tw > 0
+            and tr + th <= height and tc + tw <= width):
+        raise ValueError(
+            f"trim ({tr},{tc})+{th}x{tw} outside the {height}x{width} band"
+        )
+    return tr, tc, th, tw
+
+
 def blend_fold_epilogue_plain(weighted: torch.Tensor, window: torch.Tensor,
                               grid: TileGrid, classes=None,
-                              quantize: bool = True) -> torch.Tensor:
+                              quantize: bool = True,
+                              trim=None) -> torch.Tensor:
     """fold + count + divide + crop + class subset (+ uint8), in plain
-    PyTorch (the JAX composition of ``infer.py:303-343,620-624``)."""
+    PyTorch (the JAX composition of ``infer.py:303-343,620-624``); a
+    ``trim`` crops the finished maps."""
     k = weighted.shape[1]
     t5 = weighted.reshape(grid.npr, grid.npc, k, grid.patch, grid.patch)
     acc = tiler.fold(t5.permute(0, 1, 3, 4, 2), grid)  # [H', W', K]
     count = tiler.count_map(grid, window)
     valid = tiler.crop_valid(acc / count[..., None], grid)
     probs = valid[..., _classes(classes, k)].permute(2, 0, 1)
+    trim = check_trim(trim, grid.height, grid.width)
+    if trim is not None:
+        tr, tc, th, tw = trim
+        probs = probs[:, tr : tr + th, tc : tc + tw]
     if quantize:
         return (probs * 255.0).clamp(0.0, 255.0).to(torch.uint8)
     return probs.contiguous()
@@ -320,23 +343,36 @@ def blend_fold_epilogue_plain(weighted: torch.Tensor, window: torch.Tensor,
 
 def blend_fold_epilogue(weighted: torch.Tensor, window: torch.Tensor,
                         grid: TileGrid, classes=None,
-                        quantize: bool = True) -> torch.Tensor:
+                        quantize: bool = True, trim=None) -> torch.Tensor:
     """``[T, K, P, P]`` K1-weighted tiles (``T == grid.num_tiles``, in
     row-major tile order) -> ``[Kc, H, W]`` maps: uint8(255 * p) with
     ``quantize``, else float32.  ``classes``: the class indexes to keep,
-    in that order (default all)."""
+    in that order (default all).
+
+    ``trim = (tr, tc, th, tw)``: only the ``[Kc, th, tw]`` window at
+    ``(tr, tc)`` of the maps, written by the same region launch over
+    canvas rows ``(m + tr, th)`` and columns ``(m + tc, tw)``; equal to
+    the untrimmed maps' crop.  Its launches also count in
+    ``blend_fold_epilogue.trim_launches``."""
     _check_weighted(weighted, grid)
     _check_window(window, grid, weighted.device)
     cls = _classes(classes, weighted.shape[1])
+    trim = check_trim(trim, grid.height, grid.width)
     if not weighted.is_cuda:
-        return blend_fold_epilogue_plain(weighted, window, grid, cls, quantize)
+        return blend_fold_epilogue_plain(weighted, window, grid, cls, quantize,
+                                         trim)
     m = grid.margin
-    return _fold_region(blend_fold_epilogue, weighted, window, grid,
-                        (m, grid.height), (m, grid.width), cls,
-                        "u8" if quantize else "f32")
+    tr, tc, th, tw = trim or (0, 0, grid.height, grid.width)
+    out = _fold_region(blend_fold_epilogue, weighted, window, grid,
+                       (m + tr, th), (m + tc, tw), cls,
+                       "u8" if quantize else "f32")
+    if trim is not None:
+        blend_fold_epilogue.trim_launches += 1
+    return out
 
 
 blend_fold_epilogue.launches = 0
+blend_fold_epilogue.trim_launches = 0
 
 
 def blend_fold_strip(weighted: torch.Tensor, grid: TileGrid) -> torch.Tensor:
