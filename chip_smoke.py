@@ -126,8 +126,26 @@ printing any result):
     ``/stats``, the launch counters set to 0 before the first request and
     read after the last; then K2's trimmed route at a pan's shapes
     against its plain version (0 levels);
-12. print the ``{"kernels": [...]}`` line, the card's name and power
-    limit, and the ``{"ok": true, ...}`` line last.
+12. multi-process and tensor parallelism (M13): the v2 training step at
+    nucleiDAPI1-5's widths (64 px, nOut0 80, 4 layers, batch 32, dropout
+    on) over ``make_mesh(data=1, model=2)`` on the card (the 1280-wide
+    bottom and every layer of 256 or more split) against the one-device
+    step at phase 9's bar, with each step's ms; then two worker processes
+    (this script with ``--mp-worker``, a free ``tcp://localhost`` port)
+    sharing the card over gloo, and one process per card over NCCL when
+    there are two cards, each with one rank of a mesh spanning the
+    processes: K3 and K4a/K4b across the processes (shared slots over
+    CUDA IPC, credit words) bit-equal to ``ppermute`` on the seam buffers
+    of a 4096^2 slide with the hop's event ms, and ``ppermute`` over gloo
+    on the card refused; ``spatial_infer`` of a seeded 4096^2 plane,
+    ``ring`` and ``ring_overlap``, within 2e-5 of ``InferenceEngine.infer``;
+    ``infer_sharded`` of a seeded 8192^2 slide within 1 level of
+    ``StreamingEngine.infer``; the DP step over the processes against the
+    one-device step; each worker's launch counters set to 0 before each
+    path and read after;
+13. print the ``{"kernels": [...]}`` line (K3/K4a/K4b with their launches
+    and event ms across processes), the card's name and power limit, and
+    the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
@@ -3369,10 +3387,460 @@ def phase_serve(dev) -> dict:
         library_ms=lib_ms)}
 
 
+# -- phase 12: multi-process and tensor parallelism -------------------------------
+
+MP_WORLD = 2  # processes of phase 12
+MP_TIMEOUT_S = 480  # a phase-12 worker's limit
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def step_ms(fn, reps: int = 5) -> float:
+    """Median host wall of ``fn()`` in ms, the card synchronised."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[reps // 2]
+
+
+def train_batch(hp, dev, seed: int) -> dict:
+    """A seeded NCHW batch of ``hp.batch_size`` on ``dev``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    b, s, k = hp.batch_size, hp.im_size, hp.n_classes
+    arrays = {
+        "image": rng.rand(b, hp.n_channels, s, s).astype(np.float32),
+        "labels": np.eye(k, dtype=np.float32)[rng.randint(0, k, (b, s, s))]
+        .transpose(0, 3, 1, 2),
+        "weights": rng.uniform(1, 5, (b, k, s, s)).astype(np.float32),
+    }
+    return {n: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for n, v in arrays.items()}
+
+
+def step_agrees(label: str, m_one, one, m_mesh, mesh_trainer) -> None:
+    """Phase 9's card bar between a one-device step and a mesh
+    step: loss within 1e-4 relative, Adam's first moment (0.1 g) within
+    5e-2 of each tensor's norm, the zero slots equal."""
+    import torch
+
+    mu_one = one.opt_state.slots["mu"]
+    mu_mesh = mesh_trainer._full_opt_state().slots["mu"]
+    worst, name, zeros = 0.0, "", True
+    for k, v in mu_one.items():
+        v, w = v.float().cpu(), mu_mesh[k].float().cpu()
+        norm = float(v.norm())
+        if norm == 0:
+            zeros &= bool(torch.equal(v, w))
+            continue
+        r = float((w - v).norm()) / norm
+        if r > worst:
+            worst, name = r, k
+    l1, l2 = float(m_one["loss"]), float(m_mesh["loss"])
+    log(f"[mp] {label}: loss {l2:.7f} vs one device {l1:.7f} (rel "
+        f"{abs(l2 - l1) / l1:.2e}, bar 1e-4); mu |d|/|mu| at most "
+        f"{worst:.2e} ({name}, bar 5e-2); zero slots equal {zeros}")
+    check(abs(l2 - l1) <= 1e-4 * abs(l1) and worst <= 5e-2 and zeros,
+          f"{label}: the mesh step disagrees with the one-device step")
+
+
+def mp_ring(span, rank: int, world: int, dev) -> dict:
+    """K3 and K4a/K4b across the processes on the seam buffers of a
+    4096^2 slide (and an odd int16 one), three hops each way, against the
+    buffer ``ppermute`` delivers (its sender's seeded tensor, made here
+    too); the hop's event ms."""
+    import torch
+
+    from unmicst_tpu_torch import kernels
+    from unmicst_tpu_torch.core import tiler
+    from unmicst_tpu_torch.kernels import halo_ring
+
+    hp = legacy_hp()
+    grid = tiler.make_grid(SLIDE, SLIDE, hp.im_size, hp.margin)
+    two_m, wp = 2 * hp.margin, grid.padded_width
+    shapes = [((two_m, wp, 1), torch.float32), ((two_m, wp, 3), torch.float32),
+              ((7, 13), torch.int16)]
+
+    def buf(r, shape, dtype, key):
+        g = torch.Generator(device=dev).manual_seed(SEED + 1000 * key + r)
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+        return torch.randint(-30000, 30000, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    kernels.reset_launch_counts()
+    same, hops = True, 0
+    for k, (shape, dtype) in enumerate(shapes):
+        for shift in (1, -1):
+            for rep in range(3):
+                key = 10 * k + rep + (5 if shift < 0 else 0)
+                xs = [None] * world
+                xs[rank] = buf(rank, shape, dtype, key)
+                want = buf((rank - shift) % world, shape, dtype, key)
+                got = kernels.ring_shift(xs, shift, kind="output",
+                                         span=span)[rank]
+                pair = kernels.ring_shift_wait(kernels.ring_shift_start(
+                    xs, shift, span=span))[rank]
+                same &= torch.equal(got, want) and torch.equal(pair, want)
+                hops += 1
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    xs = [None] * world
+    xs[rank] = buf(rank, shapes[1][0], torch.float32, 99)
+    ms3 = cuda_ms(lambda: kernels.ring_shift(xs, 1, kind="output",
+                                             span=span))
+    ms4 = cuda_ms(lambda: kernels.ring_shift_wait(
+        kernels.ring_shift_start(xs, 1, span=span)))
+    plain = "refused"
+    if span.backend == "gloo":
+        try:
+            halo_ring.ring_shift_plain(xs, 1, span)
+            plain = "ran"
+        except RuntimeError as e:
+            plain = "refused" if "halo_impl='ring'" in str(e) else str(e)
+    else:
+        plain_ms = cuda_ms(lambda: halo_ring.ring_shift_plain(xs, 1, span))
+        ref = halo_ring.ring_shift_plain(xs, 1, span)[rank]
+        got = kernels.ring_shift(xs, 1, kind="output", span=span)[rank]
+        plain = f"equal {torch.equal(ref, got)}, {plain_ms:.4f} ms"
+    return {"same": bool(same), "hops": hops, "launches": launches,
+            "k3_ms": ms3, "k4_ms": ms4, "plain": plain,
+            "nbytes": xs[rank].numel() * 4}
+
+
+def mp_halo(mesh, dev) -> dict:
+    """``spatial_infer`` over a seeded 4096^2 plane at nucleiDAPI's widths
+    across the processes, ``ring`` and ``ring_overlap``, against this
+    process's ``InferenceEngine.infer``."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import kernels
+    from unmicst_tpu_torch.infer import InferenceEngine
+    from unmicst_tpu_torch.runtime import halo
+
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    plane = torch.rand((SLIDE, SLIDE), generator=torch.Generator()
+                       .manual_seed(SEED + 2)).numpy()
+    canvas = halo.build_canvas(plane, hp, mesh.data)
+    single = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                             device=dev).infer(plane)
+    out = {}
+    impls = ["ring", "ring_overlap"] + (
+        ["ppermute"] if mesh.backend == "nccl" else [])
+    for impl in impls:
+        run = lambda: halo.spatial_infer(  # noqa: E731
+            state, canvas, SLIDE, SLIDE, hp, "legacy", mesh,
+            mean=LEGACY_MEAN, std=LEGACY_STD, halo_impl=impl)
+        run()  # cuDNN autotune at these shapes
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = got.cpu().numpy()
+        out[impl] = {
+            "err": float(np.abs(np.moveaxis(got, -1, 0) - single).max()),
+            "finite": bool(np.isfinite(got).all()), "wall": wall,
+            "launches": kernels.launch_counts()}
+    if mesh.backend == "gloo":
+        try:
+            halo.spatial_infer(state, canvas, SLIDE, SLIDE, hp, "legacy",
+                               mesh, mean=LEGACY_MEAN, std=LEGACY_STD,
+                               halo_impl="ppermute")
+            out["ppermute"] = "ran"
+        except RuntimeError as e:
+            out["ppermute"] = ("refused" if "halo_impl='ring'" in str(e)
+                               else str(e))
+    return out
+
+
+def mp_stream(mesh, dev) -> dict:
+    """``infer_sharded`` of a seeded 8192^2 slide across the processes
+    against this process's ``StreamingEngine.infer``."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import kernels
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    g = torch.Generator().manual_seed(SEED + 3)
+    raw = torch.randint(0, 65536, (BIG, BIG), generator=g,
+                        dtype=torch.int32).numpy().astype(np.uint16)
+    stream = StreamingEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                             compute_dtype=None, device=dev)
+    ref = stream.infer(raw)
+    stream.infer_sharded(raw, mesh)  # cuDNN autotune at the band shapes
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = stream.infer_sharded(raw, mesh)
+    secs = time.perf_counter() - t0
+    d = np.abs(got.astype(int) - ref.astype(int))
+    return {"max": int(d.max()), "frac": float((d > 0).mean()),
+            "secs": secs, "stripes": stream._plan(BIG, BIG).n_stripes,
+            "launches": kernels.launch_counts()}
+
+
+def mp_train(mesh, dev) -> dict:
+    """The DP step at nucleiDAPI1-5's widths over the processes' ranks
+    (batch 32, dropout on) against the one-device step on this card."""
+    import torch
+
+    from unmicst_tpu_torch import train as tr
+    from unmicst_tpu_torch.core.unet import init_params
+
+    hp = v2_default_hp()
+    base = tr.TrainConfig.for_variant("v2", export_tf1=False)
+    state = init_params(hp, "v2", torch.Generator().manual_seed(SEED))
+    b = train_batch(hp, dev, SEED + 5)
+    one = tr.Trainer(hp, base, "unused", params=state, device=dev)
+    m1 = one.train_step(one.model, one.opt_state, b,
+                        torch.Generator().manual_seed(SEED + 6))
+    dp = tr.Trainer(hp, base, "unused", params=state, mesh=mesh)
+    m2 = dp.train_step(dp.rank_models, dp.opt_state, b,
+                       torch.Generator().manual_seed(SEED + 6))
+    mu_one = one.opt_state.slots["mu"]
+    mu_dp = dp._full_opt_state().slots["mu"]
+    mu = {k: [float((mu_dp[k].float() - v.float()).norm()),
+              float(v.float().norm()), bool(torch.equal(mu_dp[k], v))]
+          for k, v in mu_one.items()}
+    ms = step_ms(lambda: dp.train_step(dp.rank_models, dp.opt_state, b,
+                                       None))
+    return {"loss": float(m2["loss"]), "loss_one": float(m1["loss"]),
+            "mu": mu, "ms": ms}
+
+
+def mp_worker(rank: str, port: str, world: str, backend: str,
+              out_path: str) -> int:
+    """One process of phase 12: joins the job, runs :func:`mp_ring`,
+    :func:`mp_halo`, :func:`mp_stream` and :func:`mp_train` on a mesh of
+    one rank per process, writes their results as JSON."""
+    import torch
+
+    from unmicst_tpu_torch.runtime.mesh import (initialize_distributed,
+                                                make_mesh,
+                                                shutdown_distributed)
+
+    rank, world = int(rank), int(world)
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    initialize_distributed(f"localhost:{port}", world, rank, backend=backend,
+                           device=dev, timeout_s=MP_TIMEOUT_S)
+    try:
+        mesh = make_mesh(devices=[dev])
+        res = {"backend": backend, "device": str(dev),
+               "ring": mp_ring(mesh.span(), rank, world, dev),
+               "halo": mp_halo(mesh, dev), "stream": mp_stream(mesh, dev),
+               "train": mp_train(mesh, dev)}
+    finally:
+        shutdown_distributed()
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def run_workers(backend: str, tmp: str) -> list:
+    """:data:`MP_WORLD` phase-12 workers of ``backend``; their results
+    (every worker stopped before this returns)."""
+    port = str(free_port())
+    procs = []
+    for r in range(MP_WORLD):
+        out = os.path.join(tmp, f"{backend}{r}.json")
+        logf = open(os.path.join(tmp, f"{backend}{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-u", os.path.abspath(__file__), "--mp-worker",
+             str(r), port, str(MP_WORLD), backend, out],
+            stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT), out, logf))
+    t0 = time.perf_counter()
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(1.0, MP_TIMEOUT_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _, logf in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    results = []
+    for r, (p, out, _) in enumerate(procs):
+        if p.returncode != 0 or not os.path.exists(out):
+            with open(os.path.join(tmp, f"{backend}{r}.log")) as f:
+                tail = f.read()[-4000:]
+            check(False, f"phase 12 {backend} worker {r} failed (rc "
+                         f"{p.returncode}):\n{tail}")
+        with open(out) as f:
+            results.append(json.load(f))
+    return results
+
+
+def report_workers(backend: str, res: list, one_ms: float, card: str
+                   ) -> None:
+    """Log and check the phase-12 workers' results of ``backend``."""
+    for r, w in enumerate(res):
+        ring, hl, st, trn = w["ring"], w["halo"], w["stream"], \
+            w["train"]
+        lr = ring["launches"]
+        log(f"[mp] {backend} rank {r} ({w['device']}): K3/K4 across "
+            f"processes bit-equal {ring['same']} over {ring['hops']} "
+            f"hops each (3 shapes x 2 shifts x 3); launches K3 "
+            f"{lr['ring_shift']}, K4a {lr['ring_shift_start']}, K4b "
+            f"{lr['ring_shift_wait']}; hop of {ring['nbytes']} B: K3 "
+            f"{ring['k3_ms']:.4f} ms, K4a+K4b {ring['k4_ms']:.4f} ms "
+            f"(events); ppermute {ring['plain']} | {card}")
+        check(ring["same"], f"{backend} rank {r}: K3/K4 across "
+              "processes differ from ppermute")
+        check(lr["ring_shift"] > 0 and lr["ring_shift_start"] > 0
+              and lr["ring_shift_wait"] > 0,
+              f"{backend} rank {r}: ring launches {lr}")
+        if backend == "gloo":
+            check(ring["plain"] == "refused"
+                  and hl["ppermute"] == "refused",
+                  f"ppermute over gloo on a card did not refuse: "
+                  f"{ring['plain']} / {hl['ppermute']}")
+        for impl, h in hl.items():
+            if not isinstance(h, dict):
+                continue
+            la = h["launches"]
+            log(f"[mp] {backend} rank {r}: spatial_infer {impl} 4096^2 "
+                f"across processes: wall {h['wall']:.3f} s, max |halo "
+                f"- engine| {h['err']:.3e} (bar 2e-5), launches "
+                f"{ {k: v for k, v in la.items() if v} } | {card}")
+            check(h["finite"] and h["err"] <= 2e-5,
+                  f"{backend} rank {r} {impl}: {h['err']}")
+            check(la["softmax_blend"] > 0
+                  and la["blend_fold_strip"] > 0
+                  and (la["ring_shift"] > 0 or impl == "ppermute"),
+                  f"{backend} rank {r} {impl}: launches {la}")
+            if impl == "ring_overlap":
+                check(la["ring_shift_start"] > 0
+                      and la["ring_shift_wait"] > 0,
+                      f"ring_overlap launches {la}")
+        ls = st["launches"]
+        log(f"[mp] {backend} rank {r}: infer_sharded 8192^2 across "
+            f"processes: {st['secs']:.3f} s ({BIG * BIG / 1e6 / st['secs']:.2f}"
+            f" Mpx/s), max {st['max']} level(s) from infer on "
+            f"{st['frac']:.2e} of values; K3 {ls['ring_shift']} "
+            f"launches over {st['stripes']} stripes, K2 stripe "
+            f"{ls['blend_fold_stripe']}, K1 {ls['softmax_blend']} | "
+            f"{card}")
+        check(st["max"] <= 1 and ls["ring_shift"] > 0
+              and ls["blend_fold_stripe"] > 0
+              and ls["softmax_blend"] > 0,
+              f"{backend} rank {r}: sharded stream {st}")
+        worst = max((d / n, k) for k, (d, n, _) in trn["mu"].items()
+                    if n > 0)
+        zeros = all(eq for d, n, eq in trn["mu"].values() if n == 0)
+        rel = abs(trn["loss"] - trn["loss_one"]) / trn["loss_one"]
+        log(f"[mp] {backend} rank {r}: DP step over {MP_WORLD} "
+            f"processes, batch 32: loss {trn['loss']:.7f} vs one "
+            f"device {trn['loss_one']:.7f} (rel {rel:.2e}, bar 1e-4);"
+            f" mu |d|/|mu| at most {worst[0]:.2e} ({worst[1]}, bar "
+            f"5e-2); zero slots equal {zeros}; step {trn['ms']:.3f} "
+            f"ms (one device {one_ms:.3f} ms) | {card}")
+        check(rel <= 1e-4 and worst[0] <= 5e-2 and zeros,
+              f"{backend} rank {r}: the DP step disagrees")
+    check(res[0]["train"]["loss"] == res[1]["train"]["loss"],
+          f"{backend}: the processes see different losses")
+
+
+def phase_multiprocess(dev) -> dict:
+    """Tensor parallelism on the card in this process, then the workers:
+    two processes sharing the card over gloo (and one per card over NCCL
+    when there are two).  Returns the K3/K4a/K4b rows' cross-process
+    numbers."""
+    import torch
+
+    from unmicst_tpu_torch import train as tr
+    from unmicst_tpu_torch.core.unet import init_params
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # -- TP: make_mesh(data=1, model=2), both ranks on this card ------------
+    hp = v2_default_hp()
+    base = tr.TrainConfig.for_variant("v2", export_tf1=False)
+    state = init_params(hp, "v2", torch.Generator().manual_seed(SEED))
+    b = train_batch(hp, dev, SEED + 5)
+    one = tr.Trainer(hp, base, "unused", params=state, device=dev)
+    m1 = one.train_step(one.model, one.opt_state, b,
+                        torch.Generator().manual_seed(SEED + 6))
+    mesh = make_mesh(data=1, model=2, devices=[dev, dev])
+    tp = tr.Trainer(hp, base, "unused", params=state, mesh=mesh)
+    split = sorted(n for n, d in tp.spec.items() if d is not None)
+    m2 = tp.train_step(tp.rank_models, tp.opt_state, b,
+                       torch.Generator().manual_seed(SEED + 6))
+    log(f"[mp] TP make_mesh(data=1, model=2) on one card, nucleiDAPI1-5 "
+        f"widths (v2, {hp.im_size} px, nOut0 {hp.n_out0}, {hp.n_layers} "
+        f"layers, batch {hp.batch_size}): {len(split)} tensors split "
+        f"({', '.join(n for n in split if n.endswith('kernel1'))} ...)")
+    step_agrees("TP step", m1, one, m2, tp)
+    one_ms = step_ms(lambda: one.train_step(one.model, one.opt_state, b,
+                                            None))
+    tp_ms = step_ms(lambda: tp.train_step(tp.rank_models, tp.opt_state, b,
+                                          None))
+    check("bottom.kernel1" in split, f"the 1280-wide bottom is not split: "
+          f"{split}")
+    log(f"[mp] step ms (median of 5, host wall, synchronised): one device "
+        f"{one_ms:.3f}, TP over 2 ranks of the card {tp_ms:.3f} | {card}")
+    del one, tp
+    torch.cuda.empty_cache()
+
+    # -- the workers ----------------------------------------------------------
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2
+                           else [])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    rows = {}
+    try:
+        for backend in backends:
+            t0 = time.perf_counter()
+            res = run_workers(backend, tmp)
+            where = ("2 processes sharing cuda:0" if backend == "gloo"
+                     else "1 process per card")
+            log(f"[mp] {backend}, {where}: workers {time.perf_counter() - t0:.1f}"
+                f" s")
+            report_workers(backend, res, one_ms, card)
+            r0 = res[0]["ring"]
+            rows[backend] = {
+                "ring_shift": (r0["launches"]["ring_shift"], r0["k3_ms"]),
+                "ring_shift_start": (r0["launches"]["ring_shift_start"],
+                                     r0["k4_ms"]),
+                "ring_shift_wait": (r0["launches"]["ring_shift_wait"],
+                                    r0["k4_ms"])}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[mp] phase {time.perf_counter() - t_phase:.1f}s")
+    return rows["gloo"]
+
+
 def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--mp-worker"] and len(argv) == 6:
+        return mp_worker(*argv[1:])
     if argv:
         print("usage: chip_smoke.py", file=sys.stderr)
         return 2
@@ -3398,12 +3866,16 @@ def main(argv=None) -> int:
     phase_train(dev)
     phase_int8(dev)
     stats.update(phase_serve(dev))
+    for name, (n, ms) in phase_multiprocess(dev).items():
+        stats[name]["launches_across_processes"] = n
+        stats[name]["ms_across_processes"] = ms
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
         rows.append({"name": name, **{k: row[k] for k in (
             "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")}})
+            "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: v for k, v in row.items() if k.endswith("processes")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

@@ -263,10 +263,13 @@ def test_make_mesh_and_spatial_infer_arguments():
     assert make_mesh(data=4, devices=["cpu"] * 8).shape["data"] == 4
     with pytest.raises(ValueError, match="exceeds"):
         make_mesh(data=9, devices=["cpu"] * 8)
-    with pytest.raises(NotImplementedError, match="M13"):
-        make_mesh(model=2, devices=["cpu"] * 8)
-    with pytest.raises(ValueError, match="ring axis"):
-        mesh.ranks("model")
+    tp = make_mesh(model=2, devices=["cpu"] * 8)
+    assert tp.shape == {"data": 4, "model": 2}
+    assert tp.rank_ids("data", 1) == (1, 3, 5, 7)
+    assert tp.rank_ids("model", 2) == (4, 5)
+    assert len(mesh.ranks("model")) == 1
+    with pytest.raises(ValueError, match="axes"):
+        mesh.ranks("rows")
     _, _, hp, state = _model("parallel")
     canvas = halo.build_canvas(np.zeros((50, 40), np.float32), hp, 2)
     mesh2 = make_mesh(devices=["cpu"] * 2)

@@ -158,3 +158,99 @@ def test_wait_launch_table_matches_the_cuda_struct():
     assert hr._WaitLaunch.device.offset == 16 * hr.MAX_WAITS + 24
     table = (hr._WaitLaunch * 3)()
     assert ctypes.sizeof(table) == 3 * (16 * hr.MAX_WAITS + 32)
+
+
+# -- rings across processes ---------------------------------------------------------
+
+
+def _cross(cards, procs, me, shift=1, nbytes=1 << 20):
+    streams = {c: ("cur", me, c) for c, p in zip(cards, procs) if p == me}
+    return hr.hop_plan(cards, shift, nbytes, streams, streams, procs, me)
+
+
+def test_two_processes_on_one_card():
+    """One rank per process, both on card 0: each process stores into the
+    other's shared slot behind its credit, waits on its own slot's word,
+    and copies the slot out."""
+    b = hr.blocks_per_segment(1 << 20, 1)
+    for me in (0, 1):
+        plan = _cross([0, 0], [0, 1], me)
+        (store,) = plan.stores
+        assert store.segments == ((me, 1 - me),)
+        assert store.far == (True,) and store.signal == (True,)
+        assert plan.waits == (hr.WaitLaunch(0, ((me, 1 - me),), (b,)),)
+        assert plan.consumes == (hr.ConsumeLaunch(0, ((me, 1 - me),), b),)
+        assert plan.events == ()
+        assert plan.remote == ((1, 0, b, b), (0, 1, b, b))
+
+
+def test_two_processes_of_two_cards():
+    cards, procs = [0, 1, 0, 1], [0, 0, 1, 1]
+    plan = _cross(cards, procs, 0)
+    assert [(s.card, s.segments, s.far) for s in plan.stores] == [
+        (0, ((0, 1),), (False,)), (1, ((1, 2),), (True,))]
+    # the local store crosses cards: a wait on card 1, an event on card 0
+    assert {(w.card, w.words) for w in plan.waits} == {
+        (1, ((1, 0),)), (0, ((0, 3),))}
+    assert plan.events == ((0, 1),)
+    assert [(c.card, c.words) for c in plan.consumes] == [(0, ((0, 3),))]
+    assert [(i, j) for i, j, _, _ in plan.remote] == [(2, 1), (0, 3)]
+
+
+@pytest.mark.parametrize("cards,procs,shift", [
+    ([0, 0, 0, 0], [0, 0, 1, 1], 1), ([0, 0, 0, 0], [0, 0, 1, 1], -1),
+    ([0, 1, 0, 1, 0, 1], [0, 0, 1, 1, 2, 2], 1),
+    ([0] * 6, [0, 1, 2, 0, 1, 2], -1), ([0] * 40, [0] * 36 + [1] * 4, 1)])
+def test_every_process_plans_every_segment_alike(cards, procs, shift):
+    """Each segment is stored by its source's process alone; a segment into
+    another process is waited on and copied out by its destination's
+    process alone, with the blocks its source sends; every process sees
+    the same list of segments between processes."""
+    n, nbytes = len(cards), 6389760 // 4
+    plans = {p: _cross(cards, procs, p, shift, nbytes) for p in set(procs)}
+    stored = [seg for plan in plans.values() for s in plan.stores
+              for seg in s.segments]
+    assert sorted(stored) == sorted((j, (j + shift) % n) for j in range(n))
+    sent = {(i, j): s.blocks for plan in plans.values() for s in plan.stores
+            for j, i in s.segments}
+    remotes = {plan.remote for plan in plans.values()}
+    assert len(remotes) == 1
+    (remote,) = remotes
+    assert sorted((i, j) for i, j, _, _ in remote) == sorted(
+        ((j + shift) % n, j) for j in range(n)
+        if procs[j] != procs[(j + shift) % n])
+    for i, j, b_sent, b_copied in remote:
+        assert b_sent == sent[(i, j)]
+        plan = plans[procs[i]]
+        (c,) = [c for c in plan.consumes if (i, j) in c.words]
+        assert c.blocks == b_copied and c.card == cards[i]
+        waits = {(wd, b) for w in plan.waits for wd, b in zip(w.words,
+                                                               w.blocks)}
+        assert ((i, j), b_sent) in waits
+
+
+def test_shared_slot_sizes_are_powers_of_two():
+    assert hr.shared_slot_bytes(1) == hr.MIN_SHARED_SLOT
+    assert hr.shared_slot_bytes(hr.MIN_SHARED_SLOT + 1) == 2 * hr.MIN_SHARED_SLOT
+    assert hr.shared_slot_bytes(6389760 // 4) == 1 << 21
+
+
+def test_credit_table_matches_the_cuda_struct():
+    assert ctypes.sizeof(hr._CreditArgs) == 12 * hr.MAX_SEGMENTS + 8
+    assert hr._CreditArgs.target.offset == 8 * hr.MAX_SEGMENTS
+    assert hr._CreditArgs.timeout_ns.offset == 12 * hr.MAX_SEGMENTS
+
+
+def test_ppermute_over_gloo_refuses_a_ring_of_cards():
+    """Gloo sends no card's tensor: a hop between processes whose ranks
+    are cards raises, naming the kernel route and NCCL."""
+    import torch
+
+    span = hr.RingSpan(cards=(0, 0), procs=(0, 1), me=0, backend="gloo")
+    with pytest.raises(RuntimeError, match="halo_impl='ring'.*NCCL"):
+        hr.ring_shift_plain([torch.zeros(4), None], 1, span)
+    # within one process the span is a plain ring
+    one = hr.RingSpan(cards=(None, None), procs=(0, 0))
+    xs = [torch.zeros(2), torch.ones(2)]
+    assert [t.tolist() for t in hr.ring_shift_plain(xs, 1, one)] == [
+        [1.0, 1.0], [0.0, 0.0]]

@@ -277,9 +277,15 @@ def test_trainer_needs_a_card_unless_cpu_is_asked_for(tmp_path, monkeypatch):
     t = ttr.Trainer(HP, cfg, str(tmp_path / "m"), device="cpu")
     assert t.device.type == "cpu"
     assert all(p.device.type == "cpu" for p in t.params.values())
-    with pytest.raises(NotImplementedError, match="M13"):
-        ttr.Trainer(HP, cfg, str(tmp_path / "m"), mesh=object(),
-                    device="cpu")
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+
+    meshed = ttr.Trainer(HP, cfg, str(tmp_path / "m"),
+                         mesh=make_mesh(devices=["cpu"] * 2))
+    assert meshed.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in meshed.params.values())
+    with pytest.raises(ValueError, match="first local rank"):
+        ttr.Trainer(HP, cfg, str(tmp_path / "m"),
+                    mesh=make_mesh(devices=["cpu"] * 2), device="cuda")
 
 
 def test_precision_flags_are_restored():

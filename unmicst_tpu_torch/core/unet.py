@@ -44,6 +44,12 @@ kernels ``[in, out, ks, ks]``.  The BN moving statistics are buffers, so
 :func:`unmicst_tpu_torch.core.checkpoint.params_from_jax` converts the JAX
 params pytree into this module's state.
 
+:func:`train_forward_ranks` is the training forward over the ranks of a
+``(data, model)`` mesh that one process holds (``unmicst_tpu/core/unet.py``
+under a mesh): each rank's batch slice, the layers whose output channels
+are split over ``model`` computed slice by slice and gathered before the
+next layer that reads every channel, BN statistics of the global batch.
+
 Inference takes a calibration ``tap(site, h)`` and an int8 ``quant`` state
 (``core/quant.py``) at every plain conv site, as ``apply``'s
 ``site_conv`` does (``unet.py:405-463``): a site in the state runs
@@ -540,25 +546,188 @@ class UNet(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
-def regularization_loss(model: UNet) -> torch.Tensor:
+def module_from_state(hp: HParams, variant: str, state: Dict[str,
+                      torch.Tensor]) -> UNet:
+    """A :class:`UNet` whose parameters and buffers are ``state``'s
+    tensors as they are, of any shapes: a mesh rank's module, holding its
+    shards of the split parameters."""
+    model = UNet(hp, variant)
+    for name, t in state.items():
+        path, leaf = name.rsplit(".", 1)
+        mod = model.get_submodule(path)
+        if leaf in mod._parameters:
+            mod._parameters[leaf] = nn.Parameter(t)
+        elif leaf in mod._buffers:
+            mod._buffers[leaf] = t
+        else:
+            raise KeyError(f"{name} is no parameter or buffer of the UNet")
+    return model
+
+
+def regularization_loss(model: UNet, keep=None) -> torch.Tensor:
     """Kernel regularization (``unet.py:562-586``): L1 for v2, L2 for duo
     and cyto2, none for legacy, on the reference's ``tf.get_variable``
     kernels only (shortcut, bottom, up, top; the main down kernel and the
-    extra convs carry none, ``UnMicst1-5.py:84,94-97,171-174``)."""
+    extra convs carry none, ``UnMicst1-5.py:84,94-97,171-174``).
+    ``keep(name)``: only the kernels whose ``state_dict`` name it accepts."""
     cfg = get_variant(model.variant)
     dev = model.top.kernel.device
     if cfg.reg_kind == "none":
         return torch.zeros((), device=dev)
     f = (lambda k: k.abs().sum()) if cfg.reg_kind == "l1" else (
         lambda k: k.square().sum())
+    terms = [(f"down.{i}.shortcut", cfg.reg_down, layer.shortcut)
+             for i, layer in enumerate(model.down)]
+    terms.append(("bottom.kernel1", cfg.reg_down, model.bottom.kernel1))
+    for i, layer in enumerate(model.up):
+        terms.append((f"up.{i}.kernel1", cfg.reg_up, layer.kernel1))
+        terms.append((f"up.{i}.kernel2", cfg.reg_up, layer.kernel2))
+    terms.append(("top.kernel", cfg.reg_up, model.top.kernel))
     total = torch.zeros((), device=dev)
-    for layer in model.down:
-        total = total + cfg.reg_down * f(layer.shortcut)
-    total = total + cfg.reg_down * f(model.bottom.kernel1)
-    for layer in model.up:
-        total = total + cfg.reg_up * f(layer.kernel1)
-        total = total + cfg.reg_up * f(layer.kernel2)
-    return total + cfg.reg_up * f(model.top.kernel)
+    for name, c, k in terms:
+        if keep is None or keep(name):
+            total = total + c * f(k)
+    return total
+
+
+def train_forward_ranks(models, xs, ops, generator=None, compute_dtype=None):
+    """The training forward of this process's ranks of a mesh: ``models[k]``
+    holds local rank ``k``'s parameters (its shards of the split ones),
+    ``xs[k]`` its NCHW batch slice.  Returns ``(probs, new_stats)``, one
+    ``[B_k, K, S, S]`` softmax and one moving-statistics update (its
+    shards' names) per rank.
+
+    ``ops`` carries the mesh: ``sharded(name)`` (a parameter split over
+    ``model``), ``global_batch``, ``batch_slice(k)`` and
+    ``channel_slice(k, c)`` (rank ``k``'s rows of the global batch and its
+    share of ``c`` channels), and the collectives ``sum_data`` (the
+    differentiable sum over ``data``), ``gather`` (the slices over
+    ``model``, concatenated on channels; backward: the own slice) and
+    ``copy`` (the identity; backward: the sum over ``model``).
+
+    A layer whose output channels are split runs its convs on each rank's
+    slice of them, after ``copy`` of its input; BN, the activation,
+    dropout and max-pool run on the slice; ``gather`` then restores every
+    channel.  BN normalises with the global batch's statistics: the sum,
+    then the centred sum of squares, each reduced over ``data`` (two
+    passes, as ``torch.var_mean``); the moving variance takes the
+    Bessel-corrected one.  Dropout draws one mask of the global batch per
+    site from ``generator`` (on its device, in the single forward's order)
+    and gives each rank its slice, so the masks are the single step's."""
+    m0 = models[0]
+    hp, cfg, legacy = m0.hp, get_variant(m0.variant), m0.legacy
+    act = m0._act
+    n = len(models)
+    new_stats = [dict() for _ in range(n)]
+
+    def each(fn, *lists):
+        return [fn(*args) for args in zip(*lists)]
+
+    def conv(hs, ks):
+        return [m0._train_conv(h, k, compute_dtype) for h, k in zip(hs, ks)]
+
+    def conv_t(hs, ks):
+        return [m0._train_conv_transpose(h, k, compute_dtype)
+                for h, k in zip(hs, ks)]
+
+    def bn(hs, mods, name):
+        xs32 = [h.float() for h in hs]
+        count = ops.global_batch * xs32[0].shape[2] * xs32[0].shape[3]
+        sums = ops.sum_data([x.sum(dim=(0, 2, 3)) for x in xs32])
+        means = [t / count for t in sums]
+        sq = ops.sum_data([(x - mu[:, None, None]).square().sum(dim=(0, 2, 3))
+                           for x, mu in zip(xs32, means)])
+        out = []
+        for k, (x, mu, q, mod) in enumerate(zip(xs32, means, sq, mods)):
+            var = q / count
+            y = ((x - mu[:, None, None]) * torch.rsqrt(var + BN_EPS)[
+                :, None, None] * mod.gamma[:, None, None]
+                 + mod.beta[:, None, None])
+            with torch.no_grad():
+                uvar = var * (count / max(count - 1, 1))
+                new_stats[k][f"{name}.moving_mean"] = (
+                    mod.moving_mean * BN_MOMENTUM + mu * (1 - BN_MOMENTUM))
+                new_stats[k][f"{name}.moving_variance"] = (
+                    mod.moving_variance * BN_MOMENTUM
+                    + uvar * (1 - BN_MOMENTUM))
+            out.append(y)
+        return out
+
+    def drop(hs, rate, split):
+        if rate <= 0.0 or generator is None:
+            return hs
+        keep = 1.0 - rate
+        c = hs[0].shape[1] * (ops.model if split else 1)
+        shape = (ops.global_batch, c) + tuple(hs[0].shape[2:])
+        mask = torch.rand(shape, generator=generator,
+                          device=generator.device) < keep
+        out = []
+        for k, h in enumerate(hs):
+            a, b = ops.batch_slice(k)
+            ca, cb = ops.channel_slice(k, c) if split else (0, c)
+            out.append(torch.where(mask[a:b, ca:cb].to(h.device), h / keep,
+                                   0.0))
+        return out
+
+    def split_in(hs, split):
+        return ops.copy(hs) if split else hs
+
+    def joined(hs, split):
+        return ops.gather(hs) if split else hs
+
+    skips = []
+    h = list(xs)
+    for i in range(hp.n_layers):
+        layers = [m.down[i] for m in models]
+        split = ops.sharded(f"down.{i}.kernel1")
+        skips.append(h)
+        hin = split_in(h, split)
+        c = conv(hin, [la.kernel1 for la in layers])
+        for j in range(hp.n_extra_convs):
+            a = split_in(joined(each(act, c), split), split)
+            c = conv(a, [la.extra[j] for la in layers])
+        pre = each(torch.add, c, conv(hin, [la.shortcut for la in layers]))
+        bns = [la.bn for la in layers]
+        if legacy:
+            y = bn(each(act, pre), bns, f"down.{i}.bn")
+        else:
+            y = drop(each(act, bn(pre, bns, f"down.{i}.bn")),
+                     cfg.dropout_down_per_layer * i, split)
+        h = joined([F.max_pool2d(t, hp.down_samp_fact) for t in y], split)
+
+    split = ops.sharded("bottom.kernel1")
+    b = conv(split_in(h, split), [m.bottom.kernel1 for m in models])
+    if legacy:
+        h = each(act, b)
+    else:
+        h = drop(each(act, bn(b, [m.bottom.bn for m in models], "bottom.bn")),
+                 cfg.dropout_bottom, split)
+    h = joined(h, split)
+    for i in reversed(range(hp.n_layers)):
+        layers = [m.up[i] for m in models]
+        split = ops.sharded(f"up.{i}.kernel1")
+        u = joined(each(act, conv_t(split_in(h, split),
+                                    [la.kernel1 for la in layers])), split)
+        cat = [torch.cat([s.to(t.dtype), t], dim=1) for s, t in zip(skips[i],
+                                                                  u)]
+        split = ops.sharded(f"up.{i}.kernel2")
+        cv = conv(split_in(cat, split), [la.kernel2 for la in layers])
+        cv = each(act, cv) if legacy else each(
+            act, bn(cv, [la.bn for la in layers], f"up.{i}.bn"))
+        for j in range(hp.n_extra_convs):
+            cv = split_in(joined(cv, split), split)
+            cv = each(act, conv(cv, [la.extra[j] for la in layers]))
+        if not legacy and cfg.dropout_up_base > 0:
+            cv = drop(cv, cfg.dropout_up_base - cfg.dropout_up_per_layer * i,
+                      split)
+        h = joined(cv, split)
+
+    split = ops.sharded("top.kernel")
+    t = conv(split_in(h, split), [m.top.kernel for m in models])
+    if not legacy:
+        t = bn(t, [m.top.bn for m in models], "top.bn")
+    t = joined(t, split)
+    return [torch.softmax(x.float(), dim=1) for x in t], new_stats
 
 
 # ``jax.nn.initializers.variance_scaling(1, "fan_in", "truncated_normal")``

@@ -4,8 +4,8 @@
 // (_shift_kernel), ring_shift_start (_start_kernel) and ring_shift_wait
 // (_wait_kernel).  There, each chip issued a remote DMA into its neighbour's
 // landing buffer after a barrier-semaphore handshake, and waited on DMA
-// semaphores.  Here all ranks live in one process (several ranks may share
-// one card), so the hop is two kernels:
+// semaphores.  Here several ranks may share one card, and a ring may span
+// processes, so the hop is two kernels:
 //
 //  * ring_store: ONE launch per source card (and store stream) and hop.  Its
 //    argument is a table of segments, one per source rank on that card:
@@ -19,9 +19,9 @@
 //    alignment copies by words, an aligned buffer by 16-byte vectors, four
 //    in flight per thread.  Each block then adds 1 to its segment's word
 //    with one release-add: gpu scope where the landing buffer is on the
-//    source's card, system scope only where it is on a peer card.  A
-//    segment whose destination reads the landing buffer on the store's own
-//    stream has no word: stream order already publishes it.
+//    source's card, system scope where it is on a peer card or in another
+//    process.  A segment whose destination reads the landing buffer on the
+//    store's own stream has no word: stream order already publishes it.
 //  * ring_wait_kernel: one warp on a destination stream; lane k acquires
 //    word k until it reaches its target (the word's count of blocks after
 //    this hop), backing off with __nanosleep.  The spin is bounded by the
@@ -32,18 +32,36 @@
 //    stream), and the call switches the current device only for a card
 //    that is not already current.
 //
+// Across processes (a ring whose ranks live in several processes, on one
+// card or several), the landing slot and the words of each (hop kind,
+// destination rank) come from one cudaMalloc per process and card
+// (ring_ipc_alloc), exported with cudaIpcGetMemHandle and opened by the
+// other processes (ring_ipc_open).  Stream order cannot keep a store out
+// of a slot its reader still reads there, so the slot has a credit word
+// beside its completion word, JAX's barrier semaphore: the destination
+// copies the slot out (a ring_store launch whose blocks each add 1 to the
+// credit word, released at system scope), and ring_store_credit, the store
+// into that slot, acquires the credit word until it reaches the count of
+// those blocks after the previous hop, with the waits' timeout and trap.
+// Every word whose two ranks are in different processes is released and
+// acquired at system scope, even on one card.
+//
 // A word is never reset: counts only grow (the comparison is the signed
 // 32-bit difference, so it survives the wrap at 2^32), and each word is
-// written by one source on one stream, so no reset can race a hop and one
-// hop kind never releases another's wait (the counterpart of JAX's
-// separate collective_ids).
+// written by one hop at a time, so no reset can race a hop and one hop
+// kind never releases another's wait (the counterpart of JAX's separate
+// collective_ids).
 //
 // Bound: device memory (each buffer read once, written once).  At the
 // halo's sizes (a few MB per hop) the fixed costs dominate, so the design
 // cuts them: one launch per card instead of one per rank, no ticket, no
 // system fence on one card, and no wait kernel where stream order suffices.
+// Without MPS the kernels of two processes on one card time-slice: a
+// spinning wait holds its slice until the scheduler switches, so a hop
+// across processes on one card takes milliseconds.
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #include "device_scope.cuh"
 
@@ -79,6 +97,14 @@ struct WaitArgs {
   WaitEntry entry[kMaxWaits];
   int n;
   int pad;
+  unsigned long long timeout_ns;
+};
+
+// the credit words of a ring_store_credit launch: word[s] (null: none) is
+// acquired until it reaches target[s] before segment s is written
+struct CreditArgs {
+  const unsigned* word[kMaxSegments];
+  unsigned target[kMaxSegments];
   unsigned long long timeout_ns;
 };
 
@@ -163,10 +189,22 @@ __device__ __forceinline__ void copy_chunk(const unsigned char* src,
              reinterpret_cast<T*>(dst + head), lo, hi);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ring_store_kernel(const __grid_constant__ StoreArgs a) {
-  const int s = blockIdx.x / a.blocks;
-  const int chunk = blockIdx.x - s * a.blocks;
+// spin until *p reaches target (signed difference), trapping after
+// timeout_ns
+__device__ __forceinline__ void acquire_until(const unsigned* p, int sys,
+                                              unsigned target,
+                                              unsigned long long timeout_ns) {
+  const unsigned long long t0 = global_ns();
+  unsigned sleep_ns = 32;
+  while ((int)(load_acquire(p, sys) - target) < 0) {
+    if (global_ns() - t0 > timeout_ns) __trap();
+    __nanosleep(sleep_ns);
+    if (sleep_ns < kMaxSleepNs) sleep_ns <<= 1;
+  }
+}
+
+__device__ __forceinline__ void store_segment(const StoreArgs& a, int s,
+                                              int chunk) {
   const Segment& g = a.seg[s];
   const unsigned rel = (unsigned)(((uintptr_t)g.src ^ (uintptr_t)g.dst) & 15);
   if (rel == 0)
@@ -186,32 +224,64 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) add_release(g.word, g.sys);
 }
 
+__global__ void __launch_bounds__(kThreads)
+    ring_store_kernel(const __grid_constant__ StoreArgs a) {
+  const int s = blockIdx.x / a.blocks;
+  store_segment(a, s, blockIdx.x - s * a.blocks);
+}
+
+// ring_store_kernel behind each segment's credit word: thread 0 acquires
+// it (system scope: its releaser is another process), the barrier holds
+// the block's stores behind that acquire
+__global__ void __launch_bounds__(kThreads)
+    ring_store_credit_kernel(const __grid_constant__ StoreArgs a,
+                             const __grid_constant__ CreditArgs c) {
+  const int s = blockIdx.x / a.blocks;
+  if (c.word[s] != nullptr) {
+    if (threadIdx.x == 0)
+      acquire_until(c.word[s], 1, c.target[s], c.timeout_ns);
+    __syncthreads();
+  }
+  store_segment(a, s, blockIdx.x - s * a.blocks);
+}
+
 __global__ void ring_wait_kernel(const __grid_constant__ WaitArgs a) {
   if ((int)threadIdx.x >= a.n) return;
   const WaitEntry& e = a.entry[threadIdx.x];
-  const unsigned long long t0 = global_ns();
-  unsigned sleep_ns = 32;
-  while ((int)(load_acquire(e.word, e.sys) - e.target) < 0) {
-    if (global_ns() - t0 > a.timeout_ns) __trap();
-    __nanosleep(sleep_ns);
-    if (sleep_ns < kMaxSleepNs) sleep_ns <<= 1;
-  }
+  acquire_until(e.word, e.sys, e.target, a.timeout_ns);
 }
 
 }  // namespace
 
-// One store launch on `stream` (on `device`): every segment of `a`.
-extern "C" int ring_store(const StoreArgs* a, int device, void* stream) {
+static int check_store(const StoreArgs* a) {
   if (!a || a->nseg < 1 || a->nseg > kMaxSegments || a->blocks < 1 ||
       a->nbytes < 0)
     return (int)cudaErrorInvalidValue;
   for (int s = 0; s < a->nseg; ++s)
     if (a->nbytes && (!a->seg[s].src || !a->seg[s].dst))
       return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// One store launch on `stream` (on `device`): every segment of `a`.
+extern "C" int ring_store(const StoreArgs* a, int device, void* stream) {
+  if (int rc = check_store(a)) return rc;
   DeviceScope scope(device);
   if (scope.err != cudaSuccess) return (int)scope.err;
   ring_store_kernel<<<(unsigned)(a->nseg * a->blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// The same, each segment behind its credit word in `c`.
+extern "C" int ring_store_credit(const StoreArgs* a, const CreditArgs* c,
+                                 int device, void* stream) {
+  if (int rc = check_store(a)) return rc;
+  if (!c) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  ring_store_credit_kernel<<<(unsigned)(a->nseg * a->blocks), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(*a, *c);
   return (int)cudaGetLastError();
 }
 
@@ -253,4 +323,48 @@ extern "C" int ring_enable_peer(int device, int peer) {
     e = cudaSuccess;
   }
   return (int)e;
+}
+
+// A ring's shared allocation on `device`: `bytes` zeroed (every word at 0,
+// finished before the handle leaves this process) and its IPC handle
+// (cudaIpcMemHandle_t, 64 bytes) written to `handle`.
+extern "C" int ring_ipc_alloc(long long bytes, int device, void** ptr,
+                              void* handle) {
+  if (!ptr || !handle || bytes < 1) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  cudaError_t e = cudaMalloc(ptr, (size_t)bytes);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaMemset(*ptr, 0, (size_t)bytes);
+  if (e == cudaSuccess) e = cudaDeviceSynchronize();
+  if (e == cudaSuccess)
+    e = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *ptr);
+  if (e != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return (int)e;
+}
+
+// Another process's allocation, opened in this one (kernels on `device`
+// and its peers may store into it).
+extern "C" int ring_ipc_open(const void* handle, int device, void** ptr) {
+  if (!ptr || !handle) return (int)cudaErrorInvalidValue;
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return (int)cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess);
+}
+
+extern "C" int ring_ipc_close(void* ptr, int device) {
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return (int)cudaIpcCloseMemHandle(ptr);
+}
+
+extern "C" int ring_ipc_free(void* ptr, int device) {
+  DeviceScope scope(device);
+  if (scope.err != cudaSuccess) return (int)scope.err;
+  return (int)cudaFree(ptr);
 }

@@ -25,6 +25,14 @@ Seam implementations (``halo_impl``):
 On a card each band goes through the port's kernels: the UNet and K1 with
 the band's phantom-row mask, then K2's fold-only entry for the padded
 strip.  On the CPU the kernels take their plain versions.
+
+On a mesh that spans processes each process runs only its own ranks'
+bands, the seam hops cross processes (``"ppermute"`` over the process
+group, which gloo serves on the CPU only; ``"ring"`` and
+``"ring_overlap"`` through K3/K4 over CUDA IPC on cards, ``ppermute`` on
+the CPU), and every process gathers every band: the result is the
+one-process call's, as the JAX workers' ``process_allgather`` gives it.
+Every process holds the whole canvas.
 """
 
 from __future__ import annotations
@@ -43,19 +51,22 @@ from unmicst_tpu_torch.kernels import (
     blend_fold_strip, ring_shift, ring_shift_plain, ring_shift_start,
     ring_shift_wait,
 )
-from unmicst_tpu_torch.runtime.mesh import Mesh
+from unmicst_tpu_torch.kernels.halo_ring import RingSpan
+from unmicst_tpu_torch.runtime.mesh import Mesh, process_allgather
 from unmicst_tpu_torch.utils.batching import even_chunk, round_up
 
 HALO_IMPLS = ("ppermute", "ring", "ring_overlap")
 
 
-def exchange(bufs: List[torch.Tensor], shift: int, halo_impl: str,
-             kind: str) -> List[torch.Tensor]:
+def exchange(bufs: List[Optional[torch.Tensor]], shift: int, halo_impl: str,
+             kind: str, span: Optional[RingSpan] = None
+             ) -> List[Optional[torch.Tensor]]:
     """One seam hop: rank ``i`` gets rank ``(i - shift) mod n``'s buffer,
-    by a plain copy (``"ppermute"``) or by kernel K3 (``"ring"``)."""
+    by a plain copy (``"ppermute"``) or by kernel K3 (``"ring"``).
+    ``span``: a ring across processes (None for the others' ranks)."""
     if halo_impl == "ppermute":
-        return ring_shift_plain(bufs, shift)
-    return ring_shift(bufs, shift, kind=kind)
+        return ring_shift_plain(bufs, shift, span)
+    return ring_shift(bufs, shift, kind=kind, span=span)
 
 
 def count_map(grid: tiler.TileGrid, window: torch.Tensor) -> torch.Tensor:
@@ -101,7 +112,7 @@ def spatial_infer(
     ``torch.bfloat16``.  ``precision``: None, ``"float32"`` or
     ``"highest"``, which on a card all run full float32 (TF32 off).
     Returns ``[H, W, K]`` float32 probability maps on the first rank's
-    device.
+    device (across processes: on this process's first rank's device).
     """
     if halo_impl not in HALO_IMPLS:
         raise ValueError(f"unknown halo_impl {halo_impl!r}; one of "
@@ -127,7 +138,13 @@ def spatial_infer(
         raise ValueError(f"canvas has shape {tuple(canvas.shape)}, expected "
                          f"{expected}")
 
-    models = _models(params, hp, variant, ranks, compute_dtype)
+    span = mesh.span(axis)
+    mine = span.local()  # this process's ranks of the ring
+    if not mine:
+        raise ValueError(f"process {mesh.process} holds no rank along "
+                         f"{axis!r}")
+    models = _models(params, hp, variant, [ranks[d] for d in mine],
+                     compute_dtype)
     windows = {d: torch.from_numpy(tiler.ramp_window(patch, margin)).to(d)
                for d in models}
     inv_std = _reciprocal(std)
@@ -139,15 +156,21 @@ def spatial_infer(
             x = x.to(compute_dtype)
         return x.permute(2, 0, 1)
 
-    blocks = [canvas[d * rows_per_dev : (d + 1) * rows_per_dev].to(dev)
-              for d, dev in enumerate(ranks)]
+    def every(fn) -> list:
+        """``fn(d)`` for this process's ranks, None for the others'."""
+        out = [None] * n_dev
+        for d in mine:
+            out[d] = fn(d)
+        return out
+
+    blocks = every(lambda d: canvas[d * rows_per_dev:
+                                    (d + 1) * rows_per_dev].to(ranks[d]))
     # the canvas tail is the LAST rank's input halo
-    global_tail = canvas[npr_pad * sub :].to(ranks[-1])
-    heads = [b[:two_m] for b in blocks]
-    masks = []
-    for d, dev in enumerate(ranks):
-        rows = torch.arange(R) + d * R
-        masks.append((rows < grid.npr).float().repeat_interleave(npc).to(dev))
+    global_tail = canvas[npr_pad * sub :].to(ranks[-1]) \
+        if n_dev - 1 in mine else None
+    heads = every(lambda d: blocks[d][:two_m])
+    masks = every(lambda d: (torch.arange(R) + d * R < grid.npr).float()
+                  .repeat_interleave(npc).to(ranks[d]))
 
     # every forward runs one chunk shape, the seam row's too: cuDNN picks
     # its algorithm by shape, and one shape keeps "ring_overlap" bit-equal
@@ -161,45 +184,48 @@ def spatial_infer(
         return weigh_tiles(models[dev], net_input(x), g, windows[dev], mask,
                            chunk, out=out)
 
+    weighted = [None] * n_dev
     if halo_impl == "ring_overlap" and R > 1:
         interior_grid = tiler.make_grid((R - 1) * sub, width, patch, margin)
         seam_grid = tiler.make_grid(sub, width, patch, margin)
         n_int = (R - 1) * npc
-        handle = ring_shift_start(heads, -1)
-        weighted = []
-        for d in range(n_dev):  # interior tile rows: local rows only
+        handle = ring_shift_start(heads, -1, span=span)
+        for d in mine:  # interior tile rows: local rows only
             w = torch.empty((R * npc, hp.n_classes, patch, patch),
                             dtype=torch.float32, device=ranks[d])
             weigh(d, blocks[d][: (R - 1) * sub + two_m], interior_grid,
                   masks[d][:n_int], out=w[:n_int])
-            weighted.append(w)
+            weighted[d] = w
         halos = ring_shift_wait(handle)
-        for d in range(n_dev):  # the seam tile row: last sub rows + halo
+        for d in mine:  # the seam tile row: last sub rows + halo
             halo = global_tail if d == n_dev - 1 else halos[d]
             seam = torch.cat([blocks[d][(R - 1) * sub :], halo], 0)
             weigh(d, seam, seam_grid, masks[d][n_int:], out=weighted[d][n_int:])
     else:
         impl = "ring" if halo_impl == "ring_overlap" else halo_impl
-        halos = exchange(heads, -1, impl, "input")
-        weighted = []
-        for d in range(n_dev):
+        halos = exchange(heads, -1, impl, "input", span)
+        for d in mine:
             halo = global_tail if d == n_dev - 1 else halos[d]
             band = torch.cat([blocks[d], halo], 0)
-            weighted.append(weigh(d, band, band_grid, masks[d]))
+            weighted[d] = weigh(d, band, band_grid, masks[d])
 
-    strips = [blend_fold_strip(w, band_grid) for w in weighted]
+    strips = every(lambda d: blend_fold_strip(weighted[d], band_grid))
     del weighted
     # output halo: each band's fold tail lands on the next band's head
-    tails = [s[rows_per_dev:] for s in strips]
+    tails = every(lambda d: strips[d][rows_per_dev:])
     recv = exchange(tails, 1, "ppermute" if halo_impl == "ppermute"
-                    else "ring", "output")
-    for d in range(1, n_dev):  # rank 0 drops the wrapped-around tail
-        strips[d][:two_m] += recv[d]
+                    else "ring", "output", span)
+    for d in mine:  # rank 0 drops the wrapped-around tail
+        if d > 0:
+            strips[d][:two_m] += recv[d]
 
-    dev0 = ranks[0]
+    dev0 = ranks[mine[0]]
+    if span.multi:  # every process gathers every band
+        strips = list(process_allgather(torch.stack(
+            [strips[d] for d in mine])).to(dev0).unbind(0))
     # reassemble: every band, then the genuine global tail (the last rank's)
     out = torch.cat([s[:rows_per_dev].to(dev0) for s in strips]
-                    + [tails[-1].to(dev0)], 0)
+                    + [strips[-1][rows_per_dev:].to(dev0)], 0)
     count = count_map(grid, windows[dev0])
     valid = out[: grid.padded_height] / count[..., None]
     return valid[margin : margin + height, margin : margin + width]

@@ -30,7 +30,12 @@ twin of ``runtime/halo.spatial_infer``: a ``[C, rows, 2m]`` input halo
 in the sources' dtype from the right-hand neighbour, and the fold tail
 (sums and count) of each band added into its right-hand neighbour's head,
 both through kernel K3 (``kernels.ring_shift``; the plain copy for CPU
-ranks); :meth:`StreamingEngine.infer_sharded_stack` is its duo form.
+ranks); :meth:`StreamingEngine.infer_sharded_stack` is its duo form.  On
+a mesh that spans processes each process runs its own column ranks of
+every stripe, the hops cross processes (K3 over CUDA IPC on cards,
+``ppermute`` over the process group on the CPU) and every process
+gathers each stripe's maps, so each returns the whole slide; every
+process reads the whole source.
 
 ``quantized=True`` is the int8 mode (``core/quant.py``): the first slide
 calibrates from windows read through the sources with the stream's own
@@ -57,7 +62,7 @@ from unmicst_tpu_torch.infer import (_column, _reciprocal, pick_tile_batch,
 from unmicst_tpu_torch.io.tiff import TiffFile
 from unmicst_tpu_torch.kernels import blend_fold_stripe, ring_shift
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
-from unmicst_tpu_torch.runtime.mesh import Mesh
+from unmicst_tpu_torch.runtime.mesh import Mesh, process_allgather
 from unmicst_tpu_torch.utils.batching import even_chunk
 
 # im2double scale by dtype (rescale=False divides by it); float32 rows
@@ -551,6 +556,11 @@ class StreamingEngine:
     def _sharded(self, sources, mesh, axis, outlier, rescale, out, classes,
                  stats, *, stack: bool) -> np.ndarray:
         ranks = mesh.ranks(axis)
+        span = mesh.span(axis)
+        mine = span.local()  # this process's column ranks
+        if not mine:
+            raise ValueError(f"process {mesh.process} holds no rank along "
+                             f"{axis!r}")
         sources, dtype, classes, plan, rng = self._prepare(
             sources, outlier, rescale, classes, stats, stack=stack)
         cls = list(classes) if classes is not None else list(
@@ -563,7 +573,13 @@ class StreamingEngine:
         body_w = n_dev * cw
         dev_grid = tiler.make_grid((plan.S + 1) * sub, cw, self.hp.im_size,
                                    self.hp.margin)
-        cmasks = [_col_mask(npc, c_dev, d, dev) for d, dev in enumerate(ranks)]
+        cmasks = {d: _col_mask(npc, c_dev, d, ranks[d]) for d in mine}
+
+        def cols(d):
+            """Rank ``d``'s valid canvas columns, local: ``[lo, hi)``."""
+            end = cw + (two_m if d == n_dev - 1 else 0)
+            return max(0, m - d * cw), min(end, m + plan.width - d * cw)
+
         if out is None:
             out = np.empty((len(cls), plan.height, plan.width), np.uint8)
         for s in range(plan.n_stripes):
@@ -573,16 +589,19 @@ class StreamingEngine:
                     src, (s * plan.S - 1) * sub - m, plan.in_rows)
             raw = _to_torch(raw)
             blocks = [raw[:, :, d * cw : (d + 1) * cw].contiguous().to(dev)
-                      for d, dev in enumerate(ranks)]
+                      if d in mine else None for d, dev in enumerate(ranks)]
             # input halo in the sources' dtype: the right-hand neighbour's
             # first 2m columns; the last rank takes the canvas tail
-            halos = ring_shift([b[:, :, :two_m].contiguous() for b in blocks],
-                               -1, kind="input")
-            halos[-1] = raw[:, :, body_w:].contiguous().to(ranks[-1])
+            halos = ring_shift([b[:, :, :two_m].contiguous()
+                                if b is not None else None for b in blocks],
+                               -1, kind="input", span=span)
+            if n_dev - 1 in mine:
+                halos[-1] = raw[:, :, body_w:].contiguous().to(ranks[-1])
             a, b = plan.rows(s)
             rows = (sub + a - s * plan.band_rows, b - a)
-            weighted, tails = [], []
-            for d, dev in enumerate(ranks):
+            weighted, tails = {}, [None] * n_dev
+            for d in mine:
+                dev = ranks[d]
                 model, window = self._model(dev)
                 x = _raw_float(torch.cat([blocks[d], halos[d]], 2), dtype)
                 rmask = self._row_mask(plan, s, dev)
@@ -594,25 +613,34 @@ class StreamingEngine:
                                            self.tile_batch),
                                 quant=_q.cached_on(self._quant_devs,
                                                    self._quant, dev))
-                weighted.append((w, rmask))
+                weighted[d] = (w, rmask)
                 # the fold tail (sums + count) of the last 2m columns
-                tails.append(blend_fold_stripe(
+                tails[d] = blend_fold_stripe(
                     w, window, dev_grid, rows, (cw, two_m), row_mask=rmask,
-                    col_mask=cmasks[d], classes=cls, mode="raw"))
-            recv = ring_shift(tails, 1, kind="output")
-            for d, dev in enumerate(ranks):
-                # this rank's valid canvas columns, local: [lo, hi)
-                end = cw + (two_m if d == n_dev - 1 else 0)
-                lo = max(0, m - d * cw)
-                hi = min(end, m + plan.width - d * cw)
+                    col_mask=cmasks[d], classes=cls, mode="raw")
+            recv = ring_shift(tails, 1, kind="output", span=span)
+            maps = {}
+            for d in mine:
+                lo, hi = cols(d)
                 if hi <= lo:
                     continue  # a band of phantom columns only
                 w, rmask = weighted[d]
-                _, window = self._model(dev)
-                maps = blend_fold_stripe(
+                _, window = self._model(ranks[d])
+                maps[d] = blend_fold_stripe(
                     w, window, dev_grid, rows, (lo, hi - lo), row_mask=rmask,
                     col_mask=cmasks[d], classes=cls,
                     addend=recv[d] if d > 0 else None)
+            if span.multi:  # every process gathers every rank's maps
+                pad = torch.zeros((len(mine), len(cls), b - a, cw + two_m),
+                                  dtype=torch.uint8)
+                for k, d in enumerate(mine):
+                    if d in maps:
+                        pad[k, :, :, : maps[d].shape[-1]] = maps[d].cpu()
+                every = process_allgather(pad)
+                maps = {d: every[d, :, :, : cols(d)[1] - cols(d)[0]]
+                        for d in range(n_dev) if cols(d)[1] > cols(d)[0]}
+            for d, mp in maps.items():
+                lo, hi = cols(d)
                 g0 = d * cw + lo - m  # first output column
-                out[:, a - m : b - m, g0 : g0 + hi - lo] = maps.cpu().numpy()
+                out[:, a - m : b - m, g0 : g0 + hi - lo] = mp.cpu().numpy()
         return out

@@ -32,7 +32,18 @@ validation every step, best-on-valid checkpoint every 50 steps).
 The precision strings are JAX's: ``"high"`` and ``"highest"`` run float32
 with TF32 off (the parity mode), ``"default"`` lets cuDNN use TF32; the
 flags are set around the trainer's own work and restored after.
-Multi-process and mesh-sharded training are not ported (ROADMAP M13).
+
+``Trainer(mesh=...)`` trains over a ``(data, model)`` mesh
+(``runtime/mesh.py``, ``train.py:497-515, 550-556`` of the JAX package):
+the parameters placed by ``put_params`` (the wide ones split over
+``model``), each batch split by ``data_sharding``, the forward of
+:func:`~unmicst_tpu_torch.core.unet.train_forward_ranks` with the global
+batch's BN statistics and dropout masks, the loss the global mean, the
+gradients summed over ``data`` before the optimizer, which makes the same
+update on every rank.  The same code runs a mesh in one process and one
+across processes (``initialize_distributed``): each process steps its own
+ranks.  ``save`` gathers to process 0, which alone writes what a
+one-device trainer writes at the same parameters.
 """
 
 from __future__ import annotations
@@ -59,7 +70,11 @@ from unmicst_tpu_torch.core.checkpoint import (NATIVE_FILE, load_native,
                                                state_from_tree)
 from unmicst_tpu_torch.core.hp import HParams, save_pickle
 from unmicst_tpu_torch.core.unet import UNet
+from unmicst_tpu_torch.runtime import collectives
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
+from unmicst_tpu_torch.runtime.mesh import (data_sharding, gather_state,
+                                            process_allgather, shard_params,
+                                            shard_state)
 
 EPS = 1e-7  # log clip (UnMicst1-5.py:369-370)
 
@@ -403,6 +418,112 @@ def make_train_step(hp: HParams, cfg: TrainConfig, tx: Optimizer):
     return train_step
 
 
+class _MeshOps:
+    """The mesh as :func:`~unmicst_tpu_torch.core.unet.train_forward_ranks`
+    sees it: which parameters are split, the global batch and each local
+    rank's slices of it, and the collectives."""
+
+    def __init__(self, mesh, spec: Dict[str, Optional[int]],
+                 global_batch: int):
+        self.mesh, self.spec, self.global_batch = mesh, spec, global_batch
+        self.model = mesh.model
+        self._local = mesh.local_ranks()
+        self._sharding = data_sharding(mesh)
+        
+    def sharded(self, name: str) -> bool:
+        return self.spec.get(name) is not None
+
+    def batch_slice(self, k: int) -> Tuple[int, int]:
+        return self._sharding.bounds(self.global_batch, self._local[k])
+
+    def channel_slice(self, k: int, c: int) -> Tuple[int, int]:
+        m = self.mesh.coords(self._local[k])[1]
+        return m * c // self.model, (m + 1) * c // self.model
+
+    def sum_data(self, xs):
+        return collectives.all_reduce_sum(xs, self.mesh, "data")
+
+    def sum_model(self, xs):
+        return collectives.all_reduce_sum(xs, self.mesh, "model")
+
+    def gather(self, xs):
+        return collectives.all_gather(xs, self.mesh, "model", 1)
+
+    def copy(self, xs):
+        return collectives.reduce_grad(xs, self.mesh, "model")
+
+
+def make_mesh_train_step(hp: HParams, cfg: TrainConfig, tx: Optimizer, mesh,
+                         spec: Dict[str, Optional[int]]):
+    """``train_step(models, opt_states, batch, generator) -> metrics`` over
+    ``mesh``: ``models`` and ``opt_states`` are this process's ranks'
+    (``mesh.local_ranks()`` order), ``batch`` the global batch (NCHW, every
+    process the same); each rank takes its ``data`` slice.
+
+    Each rank's loss is its slice's share of the global mean plus the
+    regularizer over ``data`` ranks; the gradients of all local ranks come
+    from one backward (the collectives join them), are summed over
+    ``data`` (one flat buffer per rank), and each rank makes the same
+    update as a one-device step.  The metrics are the global loss, CE and
+    regularizer, on the first local rank's device."""
+    if cfg.remat:
+        raise ValueError("remat is not supported under a mesh")
+
+    def train_step(models: List[UNet], opt_states: List[OptState],
+                   batch: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator] = None):
+        ops = _MeshOps(mesh, spec, batch["image"].shape[0])
+        parts = {k: data_sharding(mesh).local(v) for k, v in batch.items()}
+        g = None
+        if generator is not None:  # the single step's seed and generator
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator))
+            g = torch.Generator(device=parts["image"][0].device)
+            g.manual_seed(seed)
+        names = [n for n, _ in models[0].named_parameters()]
+        params = [[p for _, p in m.named_parameters()] for m in models]
+        s = hp.im_size
+        n_pix = ops.global_batch * s * s
+        with precision_flags(cfg):
+            probs, new_stats = unet.train_forward_ranks(
+                models, parts["image"], ops, g, _compute_dtype(cfg))
+            ce_parts, losses = [], []
+            for k, p in enumerate(probs):
+                ce = parts["labels"][k] * torch.log(torch.clamp(p, EPS,
+                                                                1 - EPS))
+                if cfg.use_weights:
+                    ce = parts["weights"][k] * ce
+                part = torch.sum(-torch.sum(ce, dim=1)) / n_pix
+                ce_parts.append(part)
+                losses.append(part + unet.regularization_loss(models[k])
+                              / mesh.data)
+            flat = torch.autograd.grad(losses, [p for ps in params
+                                                for p in ps])
+        with torch.no_grad():
+            grads = [list(flat[k * len(names):(k + 1) * len(names)])
+                     for k in range(len(models))]
+            if mesh.data > 1:  # the sum over data, one buffer per rank
+                summed = collectives.all_reduce_sum(
+                    [torch.cat([t.reshape(-1) for t in gs]) for gs in grads],
+                    mesh, "data")
+                grads = [[t.view_as(g0) for t, g0 in zip(
+                    torch.split(buf, [g0.numel() for g0 in gs]), gs)]
+                    for buf, gs in zip(summed, grads)]
+            for m, stats in zip(models, new_stats):
+                for name, value in stats.items():
+                    m.get_buffer(name).copy_(value)
+            ce = collectives.all_reduce_sum([c.detach() for c in ce_parts],
+                                            mesh, "data")
+            reg_split = ops.sum_model([unet.regularization_loss(
+                m, keep=ops.sharded).detach() for m in models])
+            reg = reg_split[0] + unet.regularization_loss(
+                models[0], keep=lambda n: not ops.sharded(n)).detach()
+        for st, ps, gs in zip(opt_states, params, grads):
+            tx.update(st, names, ps, gs)
+        return {"loss": ce[0] + reg, "ce": ce[0], "reg": reg}
+
+    return train_step
+
+
 def make_eval_step(hp: HParams, cfg: TrainConfig):
     """``eval_step(model, batch) -> {"errors", "mean_error"}``: the
     inference forward and :func:`per_class_error`."""
@@ -661,29 +782,44 @@ class Trainer:
 
     ``params``: a ``UNet`` state dict to start from (default: drawn by
     ``unet.init_params`` from ``cfg.seed``).  ``device``: ``cuda`` unless
-    the caller names ``cpu``; raises without a card.  ``mesh``-sharded
-    training is not ported (ROADMAP M13)."""
+    the caller names ``cpu``; raises without a card.  ``mesh``: train over
+    a ``runtime.mesh.Mesh`` (its ranks' devices; ``device``, when given,
+    must be this process's first rank's); ``tp_threshold``: the narrowest
+    output width split over its ``model`` axis."""
 
     def __init__(self, hp: HParams, cfg: TrainConfig, model_path: str,
                  log_path: Optional[str] = None,
                  params: Optional[State] = None, mesh=None,
-                 device: Device = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded training is not ported to unmicst_tpu_torch "
-                "yet (ROADMAP M13); use unmicst_tpu for it")
-        self.device = resolve_device(device)
+                 device: Device = None, tp_threshold: int = 256):
         self.hp, self.cfg = hp, cfg
         self.model_path, self.log_path = model_path, log_path
+        self.mesh = mesh
         if params is None:
             params = unet.init_params(
                 hp, cfg.variant, torch.Generator().manual_seed(cfg.seed))
-        self.model = UNet(hp, cfg.variant).to(self.device)
-        self.model.load_state_dict(params)
-        self.model.requires_grad_(True)
         self.tx = make_optimizer(cfg)
-        self.opt_state = self.tx.init(self.model)
-        self.train_step = make_train_step(hp, cfg, self.tx)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._model = UNet(hp, cfg.variant).to(self.device)
+            self._model.load_state_dict(params)
+            self._model.requires_grad_(True)
+            self.opt_state = self.tx.init(self._model)
+            self.train_step = make_train_step(hp, cfg, self.tx)
+        else:
+            self.device = mesh.devices[mesh.local_ranks()[0]]
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != self.device.type or (
+                    want.index is not None and want != self.device)):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"local rank's, {self.device}")
+            self.spec = shard_params(params, mesh, tp_threshold)
+            self.rank_models = [
+                unet.module_from_state(hp, cfg.variant, part).requires_grad_(
+                    True)
+                for part in shard_state(params, self.spec, mesh)]
+            self.opt_state = [self.tx.init(m) for m in self.rank_models]
+            self.train_step = make_mesh_train_step(hp, cfg, self.tx, mesh,
+                                                   self.spec)
         self.eval_step = make_eval_step(hp, cfg)
         self.lowest_error = np.inf
         self.step = 0
@@ -710,9 +846,41 @@ class Trainer:
                 pass
 
     @property
+    def model(self) -> UNet:
+        """The trained ``UNet``; under a mesh, the whole model gathered on
+        this process's first rank's device (a collective)."""
+        if self.mesh is None:
+            return self._model
+        model = UNet(self.hp, self.cfg.variant).to(self.device)
+        model.load_state_dict(self.params)
+        return model
+
+    @property
     def params(self) -> State:
-        """The model's state dict (live tensors)."""
-        return self.model.state_dict()
+        """The model's state dict (live tensors; under a mesh, the whole
+        state gathered on this process's first rank's device, a
+        collective)."""
+        if self.mesh is None:
+            return self._model.state_dict()
+        return gather_state([m.state_dict() for m in self.rank_models],
+                            self.spec, self.mesh, self.device)
+
+    def _full_opt_state(self) -> OptState:
+        """The optimizer state of the whole model (gathered under a
+        mesh)."""
+        if self.mesh is None:
+            return self.opt_state
+        return OptState(self.opt_state[0].count, {
+            k: gather_state([st.slots[k] for st in self.opt_state],
+                            self.spec, self.mesh, self.device)
+            for k in self.opt_state[0].slots})
+
+    def _agreed(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as process 0 computed it (a collective across processes),
+        so every process takes the same checkpoint decisions."""
+        if self.mesh is None or not self.mesh.multi_process:
+            return t
+        return process_allgather(t[None], tiled=True)[0]
 
     def _log(self, record: dict) -> None:
         if self._metrics_file:
@@ -761,18 +929,21 @@ class Trainer:
     def _fit_loop(self, feed, gen, t0, pending, verbose: bool) -> None:
         cfg = self.cfg
         for i, (batch, vbatch) in enumerate(feed):
-            metrics = self.train_step(self.model, self.opt_state, batch, gen)
+            metrics = self.train_step(
+                self._model if self.mesh is None else self.rank_models,
+                self.opt_state, batch, gen)
             pending.append((self.step, metrics, time.time() - t0))
             if vbatch is None:
                 self.step += 1
                 continue
-            vmetrics = self.eval_step(self.model, vbatch)
-            e = float(vmetrics["mean_error"])
+            model = self.model
+            vmetrics = self.eval_step(model, vbatch)
+            e = float(self._agreed(vmetrics["mean_error"]))
             if i == 0 and self.restored:
                 # restoreVariables: the first validation error of a resumed
                 # run seeds the best so far (UnMicst1-5.py:513-517)
                 self.lowest_error = e
-            errors = [float(x) for x in vmetrics["errors"].cpu()]
+            errors = [float(x) for x in self._agreed(vmetrics["errors"]).cpu()]
             for s, m, el in pending:
                 rec = {"step": s, "loss": float(m["loss"]),
                        "ce": float(m["ce"]), "reg": float(m["reg"]),
@@ -800,7 +971,7 @@ class Trainer:
                         for w, b in ((self._tb_train, batch),
                                      (self._tb_valid, vbatch)):
                             for tag, arr in self._panel_fn(
-                                    self.model,
+                                    model,
                                     b["image"].permute(0, 2, 3, 1)).items():
                                 for j in range(arr.shape[0]):
                                     w.add_image(f"{tag}/{j}", arr[j],
@@ -819,12 +990,15 @@ class Trainer:
         writes it from an on-device snapshot while training goes on;
         writes are ordered, and a failure re-raises at the next save,
         :meth:`close` or the end of :meth:`fit`."""
+        params, opt_state = self.params, self._full_opt_state()
+        if self.mesh is not None and self.mesh.process != 0:
+            return  # process 0 alone writes
         if not self.cfg.async_save:
-            self._write_checkpoint(self.params, self.opt_state, self.step,
+            self._write_checkpoint(params, opt_state, self.step,
                                    self.lowest_error)
             return
-        state = ({k: v.detach().clone() for k, v in self.params.items()},
-                 self.opt_state.clone(), self.step, self.lowest_error)
+        state = ({k: v.detach().clone() for k, v in params.items()},
+                 opt_state.clone(), self.step, self.lowest_error)
         self._join_save()
 
         def _worker():
@@ -901,16 +1075,36 @@ class Trainer:
         params, hp, variant, _, _, meta = load_native(path)
         if hp != self.hp or variant != self.cfg.variant:
             raise ValueError("checkpoint hp/variant mismatch")
-        self.model.load_state_dict(params_from_jax(params, hp, variant))
+        state = params_from_jax(params, hp, variant)
         self.step = int(meta.get("step", 0))
         saved = meta.get("_extra_arrays", {}).get("opt_state")
-        if saved is not None:
-            self.opt_state = self.tx.load_state_dict(saved, self.model, hp,
-                                                     variant)
-        else:
-            # an old checkpoint without slots: at least the schedule goes on
-            self.opt_state = self.tx.init(self.model)
-            self.opt_state.count = self.step
+        if self.mesh is None:
+            self._model.load_state_dict(state)
+            if saved is not None:
+                self.opt_state = self.tx.load_state_dict(saved, self._model,
+                                                         hp, variant)
+            else:
+                # an old checkpoint without slots: the schedule goes on
+                self.opt_state = self.tx.init(self._model)
+                self.opt_state.count = self.step
+        else:  # re-placed on the mesh, as __init__ placed them
+            parts = shard_state(state, self.spec, self.mesh)
+            with torch.no_grad():
+                for m, part in zip(self.rank_models, parts):
+                    for name, t in m.state_dict().items():
+                        t.copy_(part[name])
+            if saved is not None:
+                full = self.tx.load_state_dict(saved, UNet(hp, variant), hp,
+                                               variant)
+                slots = {k: shard_state(v, self.spec, self.mesh)
+                         for k, v in full.slots.items()}
+                self.opt_state = [OptState(full.count,
+                                           {k: slots[k][r] for k in slots})
+                                  for r in range(len(self.rank_models))]
+            else:
+                self.opt_state = [self.tx.init(m) for m in self.rank_models]
+                for st in self.opt_state:
+                    st.count = self.step
         self.restored = True
 
 
