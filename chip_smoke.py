@@ -143,17 +143,39 @@ printing any result):
     ``StreamingEngine.infer``; the DP step over the processes against the
     one-device step; each worker's launch counters set to 0 before each
     path and read after;
-13. print the ``{"kernels": [...]}`` line (K3/K4a/K4b with their launches
-    and event ms across processes), the card's name and power limit, and
-    the ``{"ok": true, ...}`` line last.
+13. slide formats (the legacy net at nucleiDAPI's widths, seeded weights
+    written by ``save_tf1_params``; the CZI and ND2 fixtures written here,
+    their zstd frames by the port's ``io/zstd.compress``): whether the
+    host's libzstd loads (without it, every zstd path must refuse naming
+    ROADMAP M14b, and the zstd cases run uncompressed); a seeded 8192^2
+    uint16 blob slide through ``TiffWriter.write_pyramid`` (zstd, 256^2
+    tiles), then ``cli.main --usePyramid --scalingFactor 0.5`` (the stored
+    4096^2 level, K1 and K2 counted) byte-equal to ``--scalingFactor 1``
+    on the level plane as a plain TIFF brought back with ``upscale_pm``,
+    beside the full-resolution ``--scalingFactor 0.5 --engine whole`` run;
+    a 4096^2 zstd1 hi-lo mosaic CZI (``--channelName``) and a two-component
+    ND2 through the whole engine and an 8192^2 CZI through ``--engine
+    auto`` (streamed), each byte-equal to the same pixels as a TIFF, with
+    each read's MB/s; ``--pyramidOutput --compressOutput zstd`` read back
+    and the write seconds per codec; the server in threads (a CZI body,
+    ``usePyramid=1&scale=0.5``, ``compress=zstd&pyramid=1``); and a model
+    directory whose only bundle is ``nuclei20x2bin1chan`` (16 wide, its
+    ``hp.data`` saying 20) through ``cli.main``, card against CPU; the
+    launch counters set to 0 before each counted path and read after;
+14. print the ``{"kernels": [...]}`` line (K3/K4a/K4b with their launches
+    and event ms across processes, K1 and K2 with ``launches_formats``,
+    their launches on each path of phase 13), the card's name and power
+    limit, and the ``{"ok": true, ...}`` line last.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3835,6 +3857,444 @@ def phase_multiprocess(dev) -> dict:
     return rows["gloo"]
 
 
+# -- phase 13: slide formats ---------------------------------------------------------
+
+
+def _czi_segment(f, sid: bytes, payload: bytes) -> int:
+    """Append one 32-byte-aligned ZISRAW segment; returns its offset."""
+    pos = f.tell()
+    alloc = -(-len(payload) // 32) * 32
+    f.write(struct.pack("<16sqq", sid, alloc, len(payload)) + payload
+            + bytes(alloc - len(payload)))
+    return pos
+
+
+def _czi_entry(pos: int, compression: int, dims: dict) -> bytes:
+    """A ``DirectoryEntryDV``: Gray16 pixels, one (start, size) per
+    dimension, stored at full size."""
+    out = (b"DV" + struct.pack("<iqii", 1, pos, 0, compression) + bytes(6)
+           + struct.pack("<i", len(dims)))
+    for name, (start, size) in dims.items():
+        out += struct.pack("<4siifi", name.encode(), start, size,
+                           float(start), size)
+    return out
+
+
+def write_czi(path: str, plane, block: int, compression: int = 0,
+              hilo: bool = False, channel_names=None) -> None:
+    """A one-channel, one-scene CZI (ZISRAW) of a uint16 ``plane`` in
+    ``block`` x ``block`` mosaic sub-blocks: uncompressed (0), zstd0 (5)
+    or zstd1 (6, with hi-lo byte packing when ``hilo``), the frames made
+    by the port's ``io/zstd.compress``; with ``channel_names`` a metadata
+    segment that names the channels."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io import zstd
+
+    h, w = plane.shape
+    header = (struct.pack("<ii8x16s16si", 1, 0, bytes(16), bytes(16), 0)
+              + struct.pack("<qqiq", 0, 0, 0, 0))
+    entries = []
+    with open(path, "wb") as f:
+        _czi_segment(f, b"ZISRAWFILE", header)
+        for r0 in range(0, h, block):
+            for c0 in range(0, w, block):
+                piece = np.ascontiguousarray(plane[r0:r0 + block,
+                                                   c0:c0 + block])
+                pix = piece.astype("<u2").tobytes()
+                if compression in (5, 6):
+                    if hilo:
+                        b = np.frombuffer(pix, np.uint8).reshape(-1, 2)
+                        pix = b[:, 0].tobytes() + b[:, 1].tobytes()
+                    pix = zstd.compress(pix, 3)
+                    if compression == 6:
+                        pix = (b"\x03\x01\x01" if hilo else b"\x01") + pix
+                dims = {"X": (c0, piece.shape[1]), "Y": (r0, piece.shape[0]),
+                        "C": (0, 1)}
+                e = _czi_entry(0, compression, dims)
+                head = struct.pack("<iiq", 0, 0, len(pix)) + e
+                pos = _czi_segment(f, b"ZISRAWSUBBLOCK", head + bytes(
+                    max(256, len(e) + 16) - len(head)) + pix)
+                entries.append(_czi_entry(pos, compression, dims))
+        dir_pos = _czi_segment(f, b"ZISRAWDIRECTORY", struct.pack(
+            "<i", len(entries)) + bytes(124) + b"".join(entries))
+        meta_pos = 0
+        if channel_names:
+            xml = ("<ImageDocument><Metadata><Information><Image>"
+                   "<Dimensions><Channels>" + "".join(
+                       f'<Channel Id="Channel:{i}" Name="{n}"/>'
+                       for i, n in enumerate(channel_names))
+                   + "</Channels></Dimensions></Image></Information>"
+                   "</Metadata></ImageDocument>").encode()
+            meta_pos = _czi_segment(f, b"ZISRAWMETADATA", struct.pack(
+                "<ii", len(xml), 0) + bytes(248) + xml)
+        f.seek(32 + 52)
+        f.write(struct.pack("<qq", dir_pos, meta_pos))
+
+
+def write_nd2(path: str, frame) -> None:
+    """A one-frame ND2 (chunk map) of a uint16 ``[H, W, components]``
+    frame, the components interleaved."""
+    h, w, comp = frame.shape
+    sig = b"ND2 CHUNK MAP SIGNATURE 0000001!"
+
+    def chunk(name: bytes, data: bytes) -> bytes:
+        return struct.pack("<IIQ", 0x0ABECEDA, len(name), len(data)) + name \
+            + data
+
+    def lv(name: str, value: int) -> bytes:
+        return (struct.pack("<BB", 3, len(name)) + name.encode("utf-16-le")
+                + struct.pack("<I", value))
+
+    attrs = (lv("uiWidth", w) + lv("uiHeight", h) + lv("uiComp", comp)
+             + lv("uiBpcInMemory", 16))
+    offsets = []
+    with open(path, "wb") as f:
+        for name, data in ((b"ImageAttributesLV!", attrs),
+                           (b"ImageDataSeq|0!", struct.pack("<d", 0.0)
+                            + frame.astype("<u2").tobytes())):
+            offsets.append((name, f.tell()))
+            f.write(chunk(name, data))
+        map_pos = f.tell()
+        f.write(chunk(sig, b"".join(n + struct.pack("<QQ", o, 0)
+                                    for n, o in offsets)
+                      + sig + struct.pack("<QQ", 0, 0)))
+        f.write(sig + struct.pack("<Q", map_pos))
+
+
+def phase_formats(dev) -> dict:
+    """Pyramid input and output, zstd, CZI and ND2 through ``cli.main``
+    and the server on the card, and a model directory whose bundle is not
+    ``model.ckpt``; returns, per kernel, its launches on each path."""
+    import dataclasses
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels, serve
+    from unmicst_tpu_torch.core.checkpoint import save_tf1_params
+    from unmicst_tpu_torch.core.hp import save_pickle
+    from unmicst_tpu_torch.io import preprocess as pp
+    from unmicst_tpu_torch.io import slides, zstd
+    from unmicst_tpu_torch.io.tiff import (TiffFile, TiffWriter,
+                                           _box_downsample2, imread, imwrite,
+                                           num_pages)
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    have_zstd = zstd.available()
+    log(f"[formats] host libzstd: {'found' if have_zstd else 'ABSENT'}")
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    httpd = None
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, state, "legacy", LEGACY_MEAN,
+                        LEGACY_STD)
+        base = ["--tool", "unmicst-legacy", "--model", "nucleiDAPI",
+                "--modelRoot", zoo, "--stackOutput"]
+
+        def out_file(out, kind):
+            sub = os.path.join(out, "qc") if kind == "Preview" else out
+            (name,) = [f for f in os.listdir(sub) if f"_{kind}_" in f]
+            return os.path.join(sub, name)
+
+        def run(src, name, *flags, count=None):
+            """``cli.main`` on the card: (map pages, preview pages,
+            seconds); ``count`` names the path whose K1/K2 launches this
+            run records (the counters set to 0 just before it), and logs
+            the run's ``--stats`` line."""
+            out = os.path.join(tmp, "out", name)
+            if count:
+                kernels.reset_launch_counts()
+            err = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main([src, *base, "--outputPath", out, "--stats",
+                               *flags])
+            secs = time.perf_counter() - t0
+            if count:
+                launches[count] = kernels.launch_counts()
+                log(f"[formats] {count}: " + " ".join(
+                    ln.split("] ", 1)[-1] for ln in
+                    err.getvalue().splitlines() if "total" in ln))
+            check(rc == 0, f"cli.main {name}: rc {rc}\n{err.getvalue()}")
+            maps, prev = out_file(out, "Probabilities"), out_file(out,
+                                                                  "Preview")
+            return ([imread(maps, k) for k in range(num_pages(maps))],
+                    [imread(prev, k) for k in range(num_pages(prev))], secs)
+
+        def same(a, b) -> bool:
+            return len(a) == len(b) and all(
+                x.shape == y.shape and np.array_equal(x, y)
+                for x, y in zip(a, b))
+
+        def rate(nbytes, secs):
+            return f"{nbytes / 1e6 / secs:.1f} MB/s"
+
+        def n_levels_of(side):  # write_pyramid's count at min_size 256
+            n = 0
+            while side >= 512:
+                side, n = side // 2, n + 1
+            return n
+
+        # -- 1. zstd ----------------------------------------------------------
+        if not have_zstd:
+            zczi = os.path.join(tmp, "z.czi")
+            write_czi(zczi, np.zeros((64, 64), np.uint16), 64)
+            with open(zczi, "r+b") as f:  # the sub-block claims zstd0
+                blob = f.read()
+                at = blob.index(b"DV")
+                while at >= 0:
+                    f.seek(at + 2 + 4 + 8 + 4)
+                    f.write(struct.pack("<i", 5))
+                    at = blob.find(b"DV", at + 2)
+            refusals = {
+                "TiffWriter(compression='zstd')": lambda: TiffWriter(
+                    os.path.join(tmp, "z.tif"), compression="zstd"),
+                "zstd.decompress": lambda: zstd.decompress(b"\x28\xb5", 8),
+                "zstd CZI sub-blocks": lambda: slides.open_channel_source(
+                    zczi, "czi", 0),
+                "cli --compressOutput zstd": lambda: cli.main(
+                    [zczi, *base, "--outputPath", os.path.join(tmp, "z"),
+                     "--compressOutput", "zstd"]),
+            }
+            held = {}
+            for what, fn in refusals.items():
+                try:
+                    fn()
+                    held[what] = False
+                except (NotImplementedError, SystemExit) as e:
+                    held[what] = "M14b" in str(e)
+            log(f"[formats] libzstd absent: the zstd cases did NOT run; "
+                f"the zstd paths refused naming ROADMAP M14b: {held}")
+            check(all(held.values()), f"a zstd path did not refuse: {held}")
+        codec = "zstd" if have_zstd else None
+        czi_comp = 6 if have_zstd else 0
+
+        # -- 2. a pyramidal 8192^2 slide through --usePyramid -----------------
+        rng = np.random.RandomState(SEED + 40)
+        big = (np.clip(blob_slide(rng, BIG, BIG, 40000), 0, 1)
+               * 65535).astype(np.uint16)
+        pyr = os.path.join(tmp, "pyr.tif")
+        t0 = time.perf_counter()
+        with TiffWriter(pyr, compression=codec) as tw:
+            n_levels = tw.write_pyramid(big, tile=(256, 256))
+        pyr_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        level = slides.read_channel_level(pyr, "tif", 0, 0)
+        level_read_s = time.perf_counter() - t0
+        check(level.shape == (SLIDE, SLIDE), f"level 0 is {level.shape}")
+        lvl = os.path.join(tmp, "lvl.tif")
+        imwrite(lvl, level)
+        _, h2d_s = wall(lambda: torch.from_numpy(level).to(dev))
+        log(f"[formats] write_pyramid {BIG}^2 uint16 ({codec or 'none'}, "
+            f"256^2 tiles): {n_levels} levels in {pyr_write_s:.2f} s; the "
+            f"{SLIDE}^2 level decoded in {level_read_s:.3f} s "
+            f"({rate(level.nbytes, level_read_s)}), its pageable H2D "
+            f"{h2d_s * 1e3:.2f} ms | {card}")
+        p_maps, p_prev, p_secs = run(pyr, "pyr", "--usePyramid",
+                                     "--scalingFactor", "0.5",
+                                     count="pyramid_cli")
+        l_maps, l_prev, _ = run(lvl, "lvl")
+        t0 = time.perf_counter()
+        up_maps = [pp.upscale_pm(p, (BIG, BIG)) for p in l_maps]
+        up_s = time.perf_counter() - t0
+        up_prev = [pp.upscale_pm(p, (BIG, BIG)) for p in l_prev]
+        f_maps, _, f_secs = run(pyr, "full", "--scalingFactor", "0.5",
+                                "--engine", "whole")
+        n = launches["pyramid_cli"]
+        fd = level_diff(p_maps, f_maps)
+        log(f"[formats] cli --usePyramid --scalingFactor 0.5 on the {BIG}^2 "
+            f"pyramid: {p_secs:.2f} s ({BIG * BIG / 1e6 / p_secs:.2f} Mpx/s "
+            f"of raw pixels; the 3 maps' host upscale_pm to {BIG}^2 "
+            f"{up_s:.2f} s of it), against the full-resolution "
+            f"--scalingFactor 0.5 --engine whole run {f_secs:.2f} s "
+            f"({BIG * BIG / 1e6 / f_secs:.2f} Mpx/s; maps of the stored "
+            f"box-mean level vs the card's gaussian resize: max {fd[0]} "
+            f"levels, {fd[1] + fd[2]} pixels apart); K1 "
+            f"{n['softmax_blend']} launches, K2 {n['blend_fold_epilogue']}; "
+            f"pages byte-equal to --scalingFactor 1 on the level plane as "
+            f"a plain TIFF, upscaled: {same(p_maps, up_maps)}, preview "
+            f"{same(p_prev, up_prev)} | {card}")
+        check(n["softmax_blend"] > 0 and n["blend_fold_epilogue"] == 1,
+              f"--usePyramid did not run K1 and one K2 epilogue: {n}")
+        check(same(p_maps, up_maps) and same(p_prev, up_prev),
+              "--usePyramid pages differ from the level plane's run")
+
+        # -- 3 and 4. CZI and ND2 4096^2 (whole engine), output codecs -------
+        plane = np.ascontiguousarray(big[:SLIDE, :SLIDE])
+        mb = plane.nbytes
+        tif = os.path.join(tmp, "s.tif")
+        imwrite(tif, plane)
+        t_maps, _, t_secs = run(tif, "tif")
+        czi = os.path.join(tmp, "s.czi")
+        write_czi(czi, plane, 1024, czi_comp, hilo=True,
+                  channel_names=["DNA"])
+        t0 = time.perf_counter()
+        got = slides.read_channel(czi, "czi", 0)
+        czi_read_s = time.perf_counter() - t0
+        check(np.array_equal(got, plane), "the CZI reads other pixels")
+        c_maps, _, c_secs = run(czi, "czi", "--channelName", "DNA",
+                                count="czi_whole")
+        nd2 = os.path.join(tmp, "s.nd2")
+        write_nd2(nd2, np.stack([big[SLIDE:, :SLIDE], plane], -1))
+        t0 = time.perf_counter()
+        got = slides.read_channel(nd2, "nd2", 1)
+        nd2_read_s = time.perf_counter() - t0
+        check(np.array_equal(got, plane), "the ND2 reads other pixels")
+        n_maps, _, n_secs = run(nd2, "nd2", "--channel", "2", count="nd2")
+        kind = "zstd1 hi-lo" if have_zstd else "uncompressed"
+        log(f"[formats] {SLIDE}^2 through cli.main: TIFF {t_secs:.2f} s, CZI "
+            f"({kind}, 1024^2 mosaic blocks, --channelName) "
+            f"{c_secs:.2f} s, read {rate(mb, czi_read_s)}; ND2 (2 "
+            f"components, --channel 2) {n_secs:.2f} s, read "
+            f"{rate(mb, nd2_read_s)}; pages byte-equal to the TIFF's: CZI "
+            f"{same(c_maps, t_maps)}, ND2 {same(n_maps, t_maps)}; launches "
+            f"CZI {launches['czi_whole']['softmax_blend']} K1 / "
+            f"{launches['czi_whole']['blend_fold_epilogue']} K2, ND2 "
+            f"{launches['nd2']['softmax_blend']} / "
+            f"{launches['nd2']['blend_fold_epilogue']} | {card}")
+        for name in ("czi_whole", "nd2"):
+            n = launches[name]
+            check(n["softmax_blend"] > 0 and n["blend_fold_epilogue"] == 1,
+                  f"{name} did not run K1 and one K2 epilogue: {n}")
+        check(same(c_maps, t_maps) and same(n_maps, t_maps),
+              "CZI or ND2 pages differ from the same pixels as a TIFF")
+        out_codec = ["--compressOutput"] + (["zstd"] if have_zstd else [])
+        o_maps, _, _ = run(czi, "czi_out", "--channelName", "DNA",
+                           "--pyramidOutput", *out_codec)
+        with TiffFile(out_file(os.path.join(tmp, "out", "czi_out"),
+                               "Probabilities")) as tf:
+            tags = {(p.compression, p.tiled, len(p.subifds)) for p in
+                    tf.pages}
+            lv = [tf.read_subifd(0, k) for k in range(len(tf.pages[0].subifds))]
+        write_s = {}
+        for c in (None, "deflate") + (("zstd",) if have_zstd else ()):
+            path = os.path.join(tmp, f"w_{c}.tif")
+            t0 = time.perf_counter()
+            for k, m in enumerate(c_maps):
+                imwrite(path, m, append=k > 0, compression=c, pyramid=True)
+            write_s[c or "none"] = round(time.perf_counter() - t0, 3)
+        log(f"[formats] --pyramidOutput {' '.join(out_codec)} pages "
+            f"(compression, tiled, levels) {tags}, read back by the port's "
+            f"reader equal to the uncompressed pages: {same(o_maps, c_maps)}; "
+            f"write of the three {SLIDE}^2 maps, pyramidal, seconds by codec "
+            f"{write_s} | {card}")
+        check(same(o_maps, c_maps) and len(tags) == 1
+              and next(iter(tags))[2] == n_levels_of(SLIDE)
+              and np.array_equal(lv[0], _box_downsample2(c_maps[0])),
+              f"pyramidal compressed outputs: {tags}")
+
+        # -- 4. an 8192^2 CZI through --engine auto (streamed) ---------------
+        flat = os.path.join(tmp, "big.tif")
+        imwrite(flat, big)
+        bt_maps, _, bt_secs = run(flat, "big_tif")
+        bczi = os.path.join(tmp, "big.czi")
+        write_czi(bczi, big, 1024, czi_comp, hilo=True)
+        with slides.open_channel_source(bczi, "czi", 0) as src:
+            t0 = time.perf_counter()
+            for r0 in range(0, BIG, 1024):
+                src.read_rows(r0, 1024)
+            bczi_read_s = time.perf_counter() - t0
+        bc_maps, _, bc_secs = run(bczi, "big_czi", count="czi_streamed")
+        n = launches["czi_streamed"]
+        log(f"[formats] {BIG}^2 CZI --engine auto (streamed): {bc_secs:.2f} s "
+            f"({BIG * BIG / 1e6 / bc_secs:.2f} Mpx/s), the TIFF "
+            f"{bt_secs:.2f} s; windowed read {rate(big.nbytes, bczi_read_s)}"
+            f"; pages byte-equal to the TIFF's: {same(bc_maps, bt_maps)}; "
+            f"K1 {n['softmax_blend']}, K2 stripe {n['blend_fold_stripe']} "
+            f"launches | {card}")
+        check(n["softmax_blend"] > 0 and n["blend_fold_stripe"] > 0
+              and n["blend_fold_epilogue"] == 0,
+              f"the {BIG}^2 CZI did not stream through K1 and K2: {n}")
+        check(same(bc_maps, bt_maps), "the streamed CZI's pages differ")
+
+        # -- 5. the server, in threads ---------------------------------------
+        srv = serve.ModelServer(model_root=zoo)
+        httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(srv))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/infer?model=nucleiDAPI"
+
+        def post(path, query=""):
+            with open(path, "rb") as f:
+                st, body, _, secs = http("POST", url + query, f.read())
+            check(st == 200, f"POST {os.path.basename(path)} {query}: {st} "
+                             f"{body[:300]}")
+            return body, secs
+
+        def apart(a, b):
+            d = level_diff(list(a), list(b))
+            return d[0], d[1] + d[2]
+
+        post(tif)  # the server's device thread chooses its cuDNN plans
+        body, s_czi = post(czi)
+        d_czi = apart(tiff_pages(body), c_maps)
+        body, s_pyr = post(pyr, "&usePyramid=1&scale=0.5")
+        d_pyr = apart(tiff_pages(body), p_maps)
+        zbody, s_z = post(czi, "&pyramid=1" + (
+            "&compress=zstd" if have_zstd else "&compress=deflate"))
+        with tempfile.NamedTemporaryFile(suffix=".tif") as f:
+            f.write(zbody)
+            f.flush()
+            with TiffFile(f.name) as tf:
+                ztags = {(p.compression, len(p.subifds)) for p in tf.pages}
+        d_z = apart(tiff_pages(zbody), tiff_pages(post(czi)[0]))
+        log(f"[formats] serve: POST the CZI {s_czi:.3f} s, pages vs the "
+            f"CLI's max {d_czi[0]} level(s) at {d_czi[1]} pixels; "
+            f"usePyramid=1&scale=0.5 on the pyramid {s_pyr:.3f} s, vs the "
+            f"CLI's max {d_pyr[0]} at {d_pyr[1]}; pyramid=1 compressed "
+            f"{s_z:.3f} s, (compression, levels) {ztags}, vs uncompressed "
+            f"max {d_z[0]} | {card}")
+        check(d_czi[0] == 0 and d_pyr[0] == 0 and d_z[0] == 0
+              and len(ztags) == 1
+              and next(iter(ztags))[1] == n_levels_of(SLIDE),
+              f"serve: {d_czi} {d_pyr} {d_z} {ztags}")
+
+        # -- 6. a bundle that is not model.ckpt, with a stale hp.data --------
+        alt_root = os.path.join(tmp, "alt")
+        alt = os.path.join(alt_root, "mousenucleiDAPI")
+        os.makedirs(alt)
+        save_tf1_params(os.path.join(alt, "nuclei20x2bin1chan"), state, hp,
+                        "legacy")
+        save_pickle(dataclasses.replace(hp, n_out0=20).to_ref_dict(),
+                    os.path.join(alt, "hp.data"))
+        save_pickle(LEGACY_MEAN, os.path.join(alt, "datasetMean.data"))
+        save_pickle(LEGACY_STD, os.path.join(alt, "datasetStDev.data"))
+        small = os.path.join(tmp, "small.tif")
+        imwrite(small, np.ascontiguousarray(big[:768, :768]))
+        alt_pages = {}
+        for d in ("cuda", "cpu"):
+            out = os.path.join(tmp, "out", f"alt_{d}")
+            check(cli.main([small, "--tool", "unmicst-legacy", "--model",
+                            "mousenucleiDAPI", "--modelRoot", alt_root,
+                            "--stackOutput", "--outputPath", out],
+                           device=d) == 0, f"the alternate bundle on {d}")
+            maps = out_file(out, "Probabilities")
+            alt_pages[d] = [imread(maps, k) for k in range(3)]
+        d_alt = level_diff(alt_pages["cuda"], alt_pages["cpu"])
+        log(f"[formats] mousenucleiDAPI (bundle nuclei20x2bin1chan, 16 "
+            f"wide; hp.data says 20) through cli.main 768^2: card vs CPU max "
+            f"{d_alt[0]} level(s), {d_alt[1]} pixels 1 apart | {card}")
+        check(d_alt[0] <= 1, f"alternate bundle card vs CPU: {d_alt}")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[formats] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3869,13 +4329,16 @@ def main(argv=None) -> int:
     for name, (n, ms) in phase_multiprocess(dev).items():
         stats[name]["launches_across_processes"] = n
         stats[name]["ms_across_processes"] = ms
+    for name, per_path in phase_formats(dev).items():
+        stats[name]["launches_formats"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
         rows.append({"name": name, **{k: row[k] for k in (
             "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            **{k: v for k, v in row.items() if k.endswith("processes")}})
+            **{k: v for k, v in row.items()
+               if k.endswith("processes") or k == "launches_formats"}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

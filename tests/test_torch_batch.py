@@ -275,14 +275,38 @@ def test_a_two_class_model_is_refused_before_any_read(tmp_path):
      {"use_pyramid": True}),
 ])
 def test_unported_flags_refuse(tmp_path, flags, match, kw):
-    _make_tree(str(tmp_path))
-    with pytest.raises(SystemExit, match=match):
-        batch.batch_main([str(tmp_path), "--model", "blobDemo",
-                          "--modelRoot", os.path.dirname(MODEL), *flags],
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="M14"):
-        batch.run_sweep([], MODEL, device="cpu", **kw)
-    assert not any(tmp_path.rglob("prob_maps"))
+    """These cases pinned the refusals of M14's flags.  The flags are
+    ported now (M14a, M14b): each sweep runs through both packages' batch
+    entry points, on pyramidal slides at ``--scalingFactor 0.5`` for
+    ``--usePyramid``, pages within 1 uint8 level (zstd and pyramidal pages
+    as asked), and ``run_sweep`` takes the keyword.  The refusal that
+    stays is ``--usePyramid`` with ``--engine sharded``."""
+    slides = _make_tree(str(tmp_path), shape=(128, 96))
+    argv = [str(tmp_path), "--model", "blobDemo", "--modelRoot",
+            os.path.dirname(MODEL), *flags]
+    if match == "does not combine":
+        with pytest.raises(SystemExit, match=match):
+            batch.batch_main(argv, device="cpu")
+        assert not any(tmp_path.rglob("prob_maps"))
+        return
+    if "--usePyramid" in flags:
+        argv += ["--scalingFactor", "0.5"]
+        for path in slides:  # the same pixels, now with stored levels
+            img = imread(path)
+            with TiffWriter(path, bigtiff=False) as tw:
+                tw.write_pyramid(img, tile=(16, 16), min_size=16)
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_batch.batch_main(argv + ["--outputPath", out_j]) == 0
+    assert batch.batch_main(argv + ["--outputPath", out_t],
+                            device="cpu") == 0
+    _same_pages(out_j, out_t)
+    codec = 50000 if "zstd" in flags else 1
+    from unmicst_tpu_torch.io.tiff import TiffFile
+
+    with TiffFile(os.path.join(out_t, PAGES[0])) as tf:
+        assert tf.pages[0].compression == codec
+        assert tf.pages[0].tiled == ("--pyramidOutput" in flags)
+    assert batch.run_sweep([], MODEL, device="cpu", **kw).completed == []
 
 
 def test_batch_main_needs_a_card_unless_cpu_is_asked_for(tmp_path,

@@ -143,18 +143,42 @@ def _int8_pages_match_jax_cli(tmp_path, src, flags):
     (["--pyramidOutput"], "M14"),
 ])
 def test_cli_unported_paths_fail_loudly(tmp_path, flags, item):
-    """A path that is not ported refuses, naming its ROADMAP item.  The
-    int8 cases (M11) are ported now: they run the whole engine and the
-    stream against the JAX CLI's pages on the same slide."""
+    """These cases pinned refusals of unported paths, named by ROADMAP
+    item; both items are ported now.  The int8 cases (M11) run the whole
+    engine and the stream against the JAX CLI's pages on the same slide;
+    the ``--pyramidOutput`` case (M14a) runs it through both CLIs with
+    ``--compressOutput zstd`` (M14b): the same files, each page and each
+    stored SubIFD level within 1 uint8 level, zstd-compressed."""
     _, src = _source(tmp_path)
     if item == "M11":
         _int8_pages_match_jax_cli(tmp_path, src, [f for f in flags
                                                   if f not in ("--precision",
                                                                "int8")])
         return
-    with pytest.raises(SystemExit, match=item):
-        cli.main([src, "--model", "blobDemo", "--modelRoot", MODELS,
-                  "--outputPath", str(tmp_path / "o"), *flags], device="cpu")
+    common = [src, "--model", "blobDemo", "--modelRoot", MODELS, *flags,
+              "--compressOutput", "zstd"]
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    assert jax_cli.main(common + ["--outputPath", out_j]) == 0
+    assert cli.main(common + ["--outputPath", out_t], device="cpu") == 0
+    files = _outputs(out_j)
+    assert files and files == _outputs(out_t)
+    from unmicst_tpu.io.tiff import TiffFile as JaxTiffFile
+
+    for rel in files:
+        with port_tiff.TiffFile(os.path.join(out_t, rel)) as tf, \
+                JaxTiffFile(os.path.join(out_j, rel)) as jf:
+            assert len(tf.pages) == len(jf.pages)
+            for k, page in enumerate(tf.pages):
+                assert page.compression == 50000 and page.tiled
+                n = len(page.subifds) if page.subifds is not None else 0
+                assert n == (len(jf.pages[k].subifds)
+                             if jf.pages[k].subifds is not None else 0)
+                pairs = [(tf.read_page(k), jf.read_page(k))] + [
+                    (tf.read_subifd(k, v), jf.read_subifd(k, v))
+                    for v in range(n)]
+                for a, b in pairs:
+                    assert a.shape == b.shape
+                    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
 @pytest.mark.parametrize("flag", ["--calibrationPercentile", "--trace",
@@ -201,13 +225,15 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 banned = ("jax", "jaxlib", "flax", "ml_dtypes", "PIL", "unmicst_tpu",
-          "exhibits", "scripts", "msgpack", "scipy", "optax")
+          "exhibits", "scripts", "msgpack", "scipy", "optax", "zstandard",
+          "imagecodecs")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
-sys.exit(1 if leaked or len(names) < 34
-         or "unmicst_tpu_torch.train" not in names
-         or "unmicst_tpu_torch.core.msgpack" not in names
-         or "unmicst_tpu_torch.serve" not in names else 0)
+required = ["unmicst_tpu_torch." + m for m in (
+    "train", "core.msgpack", "serve", "io.zstd", "io.czi", "io.nd2",
+    "io.jxr")]
+sys.exit(1 if leaked or len(names) < 41
+         or any(m not in names for m in required) else 0)
 """
 
 

@@ -880,3 +880,64 @@ def test_concurrent_requests_on_card_equal_serial(cuda, tmp_path):
         for h in httpds:
             h.shutdown()
             h.server_close()
+
+
+def _cli_card_and_cpu(src, tmp_path, flags, name):
+    """``cli.main`` on ``src`` on the CPU and on the card (blobDemo): the
+    card run's K1/K2 launches, and every page within 1 level."""
+    from unmicst_tpu_torch import cli
+
+    argv = [src, "--tool", "unmicst-legacy", "--model", "blobDemo",
+            "--modelRoot", os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "models"), "--stackOutput",
+            *flags]
+    assert cli.main(argv + ["--outputPath", str(tmp_path / name / "c")],
+                    device="cpu") == 0
+    kernels.reset_launch_counts()
+    assert cli.main(argv + ["--outputPath", str(tmp_path / name / "g")]) == 0
+    counts = kernels.launch_counts()
+    _pages_close(str(tmp_path / name / "c"), str(tmp_path / name / "g"))
+    return counts
+
+
+@pytest.mark.cuda
+def test_pyramid_cli_on_card_matches_cpu(cuda, tmp_path):
+    """``--usePyramid --scalingFactor 0.5`` on a zstd pyramid (when the
+    host has libzstd) with ``--pyramidOutput``: the stored level through
+    K1 and one K2 epilogue, the pages within 1 level of the CPU's."""
+    from unmicst_tpu_torch.io import zstd
+    from unmicst_tpu_torch.io.tiff import TiffWriter
+
+    rng = np.random.RandomState(12)
+    src = str(tmp_path / "pyr.tif")
+    codec = "zstd" if zstd.available() else None
+    with TiffWriter(src, compression=codec) as tw:
+        tw.write_pyramid((rng.rand(640, 512) * 60000).astype(np.uint16),
+                         tile=(64, 64), min_size=64)
+    counts = _cli_card_and_cpu(src, tmp_path, [
+        "--usePyramid", "--scalingFactor", "0.5", "--pyramidOutput"], "p")
+    assert counts["softmax_blend"] > 0, counts
+    assert counts["blend_fold_epilogue"] == 1, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["whole", "streaming"])
+def test_czi_and_nd2_cli_on_card_match_cpu(cuda, tmp_path, engine):
+    """A mosaic CZI (zstd1 hi-lo with libzstd) and an ND2 through the
+    whole engine and the stream on the card, within 1 level of the CPU;
+    K1 and K2 (the epilogue or the stripe entry) launched."""
+    import chip_smoke
+    from unmicst_tpu_torch.io import zstd
+
+    rng = np.random.RandomState(13)
+    plane = (rng.rand(300, 260) * 60000).astype(np.uint16)
+    czi = str(tmp_path / "s.czi")
+    chip_smoke.write_czi(czi, plane, 128, 6 if zstd.available() else 0,
+                         hilo=True)
+    nd2 = str(tmp_path / "s.nd2")
+    chip_smoke.write_nd2(nd2, np.stack([plane[::-1], plane], -1))
+    k2 = "blend_fold_epilogue" if engine == "whole" else "blend_fold_stripe"
+    for src, name in ((czi, "czi"), (nd2, "nd2")):
+        counts = _cli_card_and_cpu(src, tmp_path, ["--engine", engine],
+                                   name)
+        assert counts["softmax_blend"] > 0 and counts[k2] > 0, counts

@@ -105,6 +105,11 @@ def live():
 
 
 @pytest.fixture(scope="module")
+def jax_server():
+    return jax_serve.ModelServer(model_root=MODELS, precision="float32")
+
+
+@pytest.fixture(scope="module")
 def engine():
     bundle = load_model_dir(os.path.join(MODELS, "blobDemo"))
     return InferenceEngine.from_bundle(bundle, load_params_for_bundle(bundle),
@@ -135,16 +140,18 @@ def blob():
 ])
 def test_sniff_format(tmp_path, head, want):
     """TIFF and BigTIFF in both byte orders are "tif"; CZI and ND2 magic
-    refuse naming ROADMAP item 6 (the JAX reader opens them); anything
-    else raises JAX's ValueError text."""
+    (the "item 6" cases, which refused before the readers were ported)
+    are "czi" and "nd2", as in JAX; anything else raises JAX's ValueError
+    text."""
     p = tmp_path / "x"
     p.write_bytes(head + bytes(16))
     if want == "tif":
         assert slides.sniff_format(str(p)) == "tif"
         assert jax_slides.sniff_format(str(p)) == "tif"
     elif want == "item 6":
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            slides.sniff_format(str(p))
+        fmt = "czi" if head.startswith(b"Z") else "nd2"
+        assert slides.sniff_format(str(p)) == fmt
+        assert jax_slides.sniff_format(str(p)) == fmt
     else:
         with pytest.raises(ValueError) as ours:
             slides.sniff_format(str(p))
@@ -535,13 +542,67 @@ def test_hostile_bodies_never_500(live, tmp_path):
     ("", b"ZISRAWFILE", "item 6"),
     ("", b"\xda\xce\xbe\x0a", "item 6"),
 ])
-def test_unported_paths_answer_501(live, tmp_path, blob, query, head, item):
-    """What the port has not got answers 501 naming its ROADMAP item (the
-    JAX server answers 200 to these)."""
-    body = (head + bytes(64) if head
-            else _write(tmp_path / "b.tif", blob[:64, :64]))
-    st, res = live.json("POST", "/infer?model=blobDemo&" + query, body)
-    assert st == 501 and f"ROADMAP {item}" in res["error"]
+def test_unported_paths_answer_501(live, jax_server, tmp_path, blob, query,
+                                  head, item):
+    """These cases answered 501 naming ROADMAP M14 and item 6 before the
+    paths were ported; now each answers 200, as the JAX server does, with
+    pages within 1 uint8 level of its pages for the same body (the
+    pyramid body is a pyramidal TIFF, so ``usePyramid=1`` reads its stored
+    level; the CZI is zstd1 hi-lo, the ND2 two-component)."""
+    from tests.test_slides_czi_nd2 import write_czi, write_nd2
+
+    plane = blob[:128, :128]
+    path = tmp_path / "b"
+    if head == b"ZISRAWFILE":
+        write_czi(str(path), [plane], compression=6, hilo=True)
+    elif head:
+        write_nd2(str(path), [np.stack([plane, plane[::-1]], -1)])
+    else:
+        with TiffWriter(str(path), bigtiff=False) as tw:
+            tw.write_pyramid(plane, tile=(16, 16), min_size=16)
+    body = path.read_bytes()
+    st, got, _ = live.call("POST", "/infer?model=blobDemo&" + query, body)
+    assert st == 200, got
+    q = dict(kv.split("=") for kv in query.split("&") if kv)
+    want, _ = jax_server.infer_tiff_path(
+        str(path), "blobDemo", 0, True, -1, compress=q.get("compress"),
+        scale=float(q.get("scale", 1)), pyramid="pyramid" in q,
+        use_pyramid="usePyramid" in q)
+    a, b = _pages(got), _pages(want)
+    assert a.shape == b.shape == (3, 128, 128)
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+    with tempfile.NamedTemporaryFile(suffix=".tif") as f:
+        f.write(got)
+        f.flush()
+        with TiffFile(f.name) as tf:
+            page = tf.pages[0]
+            assert page.compression == (50000 if "compress" in q else 1)
+            assert page.tiled == ("pyramid" in q)
+
+
+def test_refusals_that_stay(live, tmp_path, blob, monkeypatch):
+    """zstd without the host's libzstd answers 501 naming M14b, before any
+    inference; a CZI of JPEG sub-blocks 501 naming M16; one of JPEG XR
+    sub-blocks 400, as the JAX server answers without imagecodecs."""
+    from tests.test_slides_czi_nd2 import _write_czi_blocks
+    from unmicst_tpu_torch.io import zstd
+
+    bodies = {}
+    for comp in (2, 4):
+        p = tmp_path / f"c{comp}.czi"
+        _write_czi_blocks(str(p), [(dict(X=(0, 8), Y=(0, 8), C=(0, 1)),
+                                    bytes(64))], pixel_type=0,
+                          compression=comp)
+        bodies[comp] = p.read_bytes()
+    st, res = live.json("POST", "/infer?model=blobDemo", bodies[2])
+    assert st == 501 and "ROADMAP M16" in res["error"]
+    st, res = live.json("POST", "/infer?model=blobDemo", bodies[4])
+    assert st == 400 and "JPEG XR" in res["error"]
+    monkeypatch.setattr(zstd, "_lib", None)
+    monkeypatch.setattr(zstd, "_checked", True)
+    st, res = live.json("POST", "/infer?model=blobDemo&compress=zstd",
+                        _write(tmp_path / "b.tif", blob[:64, :64]))
+    assert st == 501 and "ROADMAP M14b" in res["error"]
 
 
 def test_concurrent_requests_equal_serial(live, tmp_path, blob):

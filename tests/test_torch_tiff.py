@@ -97,7 +97,9 @@ def test_ome_plane_index_matches_jax(desc, n_pages):
 
 def test_read_channel_follows_ome_order(tmp_path):
     """Channel 1 of an XYZCT stack (SizeZ 2) is page 2, through both
-    packages' read_channel; names resolve as in the JAX package."""
+    packages' read_channel; names resolve as in the JAX package; the
+    TIFF read as a CZI fails as the JAX reader fails (the CZI reader is
+    ported: this used to be the item-6 refusal)."""
     desc = _ome_xml("XYZCT", 2, 2, 1, names=["DNA", "Lamin"])
     planes = [np.full((8, 8), 100 * i, np.uint16) for i in range(4)]
     fn = str(tmp_path / "s.ome.tif")
@@ -112,8 +114,9 @@ def test_read_channel_follows_ome_order(tmp_path):
     assert ome.resolve_name(names, "lamin") == 1
     with pytest.raises(ValueError, match="no channel named"):
         ome.resolve_name(names, "CD3")
-    with pytest.raises(NotImplementedError, match="CZI and ND2"):
-        slides.read_channel(fn, "czi", 0)
+    for reader in (slides, jax_slides):
+        with pytest.raises(ValueError, match="not a CZI file"):
+            reader.read_channel(fn, "czi", 0)
 
 
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16, np.float32])
@@ -159,7 +162,11 @@ def test_lzma_bomb_is_bounded(tmp_path):
     np.testing.assert_array_equal(tt.imread(fn), x)
 
 
-def test_lzma_corrupt_and_zstd_refused(tmp_path):
+def test_lzma_corrupt_and_zstd_refused(tmp_path, monkeypatch):
+    """A corrupt LZMA strip and a corrupt zstd frame raise ValueError where
+    the JAX reader does (zstd strips read since M14b: a sound frame reads
+    equal to the JAX reader); the zstd refusal that stays is the one
+    without the host's libzstd, naming M14b."""
     x = _image(np.uint8, (40, 30), seed=6)
     fn = str(tmp_path / "c.tif")
     _write_strip_tiff(fn, x, 34925, _lzma, rows_per_strip=40)
@@ -171,5 +178,17 @@ def test_lzma_corrupt_and_zstd_refused(tmp_path):
     zs = str(tmp_path / "z.tif")
     _write_strip_tiff(zs, x, 50000, lambda d: b"\x28\xb5\x2f\xfd" + d,
                       rows_per_strip=40)
-    with pytest.raises(NotImplementedError, match="M14"):
+    with pytest.raises(ValueError):
+        jax_tiff.TiffFile(zs).read_page(0)
+    with pytest.raises(ValueError, match="zstd"):
         tt.imread(zs)
+    from unmicst_tpu_torch.io import zstd
+
+    good = str(tmp_path / "g.tif")
+    _write_strip_tiff(good, x, 50000, zstd.compress, rows_per_strip=16)
+    with jax_tiff.TiffFile(good) as jf:
+        np.testing.assert_array_equal(tt.imread(good), jf.read_page(0))
+    monkeypatch.setattr(zstd, "_lib", None)
+    monkeypatch.setattr(zstd, "_checked", True)
+    with pytest.raises(NotImplementedError, match="M14b"):
+        tt.imread(good)

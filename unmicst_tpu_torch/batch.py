@@ -22,8 +22,13 @@ As in the JAX package:
 
 Run it as ``python -m unmicst_tpu_torch.batch ROOT --model M ...``; it
 runs on the card unless a caller asks for ``device="cpu"``, and exits 2
-when any slide failed.  Pyramid input and output and zstd output refuse,
-naming ROADMAP M14.
+when any slide failed.  ``use_pyramid`` (``--usePyramid``) at a scaling
+factor of 0.5 or below reads each slide's nearest stored SubIFD level
+when one serves and the level fits the whole engine, and falls through to
+the full-resolution paths per slide when none does; it does not combine
+with a mesh.  ``pyramid_output`` writes tiled SubIFD-pyramid pages and
+``compress_output`` Deflate (``True`` / ``"deflate"``) or zstd pages.
+Slides are discovered as TIFFs (``*ome.tif``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -142,7 +147,8 @@ def run_sweep(
     use_pyramid: bool = False,
     device="cuda",
 ) -> BatchReport:
-    """Run this shard's slides; resumable through the cursor files.
+    """Run this shard's slides; resumable through the cursor files
+(``unmicst_tpu/batch.py:133-425``).
 
     ``compute_dtype``: ``None`` (float32, TF32 off) or ``torch.bfloat16``,
     for both engines.  ``in_range``: a pinned ``(lo, hi)`` in raw pixel
@@ -152,6 +158,11 @@ def run_sweep(
     slide without it fails alone.  ``mesh``: a
     :class:`~unmicst_tpu_torch.runtime.mesh.Mesh`; streamable slides then
     stream column-sharded over its ranks (``infer_sharded``).
+    ``use_pyramid``: at ``scaling_factor <= 0.5`` and without a mesh, a
+    slide's nearest stored SubIFD level runs the whole engine when it fits
+    under ``stream_above_px``; its maps come back at full size.
+    ``pyramid_output`` writes pyramidal pages; ``compress_output`` is
+    ``True`` / ``"deflate"`` or ``"zstd"``.
     ``device``: the card unless the caller names the CPU.
     """
     from unmicst_tpu_torch.core.checkpoint import load_params_for_bundle
@@ -159,25 +170,27 @@ def run_sweep(
     from unmicst_tpu_torch.infer import InferenceEngine, _normalize_in_range
     from unmicst_tpu_torch.io import preprocess as pp
     from unmicst_tpu_torch.io.slides import (open_channel_source, preview_u8,
-                                             read_channel,
+                                             pyramid_plan_multi, read_channel,
+                                             read_channel_level,
                                              resolve_channel_names, tiff_plane)
     from unmicst_tpu_torch.io.tiff import TiffFile
     from unmicst_tpu_torch.io.tiff import imwrite as _imwrite
-    from unmicst_tpu_torch.runtime.pipeline import (StreamingEngine,
-                                                    _not_ported)
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
 
-    if use_pyramid:
-        raise _not_ported("pyramid input (use_pyramid)", "M14")
-    if pyramid_output:
-        raise _not_ported("pyramid output (pyramid_output)", "M14")
-    if compress_output == "zstd":
-        raise _not_ported("zstd output (compress_output='zstd')", "M14")
-    codec = "deflate" if compress_output in (True, "deflate") else None
+    # True / "deflate" -> deflate, "zstd" -> zstd
+    codec = "deflate" if compress_output is True else compress_output or None
+    if codec == "zstd":
+        from unmicst_tpu_torch.io import zstd
+
+        if not zstd.available():  # refuse before any slide
+            raise zstd.unavailable()
     if not 0 <= shard_index < num_shards:
         # an index out of range would drop some slides and run others twice
         raise ValueError(f"shard_index {shard_index} out of range for "
                          f"{num_shards} shard(s)")
     bundle = load_model_dir(model_dir, mean, std)
+    # the load may rebuild bundle.hp from an alternate bundle's shapes
+    params = load_params_for_bundle(bundle)
     if bundle.hp.n_classes < 3:
         # the sweep writes the contour and nuclei planes (classes 1, 2):
         # refuse before reading any slide
@@ -186,14 +199,14 @@ def run_sweep(
             f"{os.path.basename(model_dir)} has {bundle.hp.n_classes}")
     if in_range is not None:
         in_range = tuple(_normalize_in_range(in_range, 1)[0])
-    params = load_params_for_bundle(bundle)
     kw = dict(compute_dtype=compute_dtype, tile_batch=tile_batch,
               device=device)
     engine = InferenceEngine.from_bundle(bundle, params, **kw)
     stream_engine = StreamingEngine.from_bundle(bundle, params, **kw)
 
     def imwrite(path, page, append=False):
-        _imwrite(path, page, append=append, compression=codec)
+        _imwrite(path, page, append=append, compression=codec,
+                 pyramid=pyramid_output)
 
     def write(this_out, stem, chan, contours, nuclei, preview):
         # batchUnMicst.py:570-587: ContoursPM is [map, preview]
@@ -223,6 +236,13 @@ def run_sweep(
             if channel_name is not None:
                 # per slide: channel order may differ between files
                 chan = resolve_channel_names(slide, "tif", [channel_name])[0]
+            plan = None
+            if use_pyramid and scaling_factor <= 0.5 and mesh is None:
+                # the nearest stored level, when one fits the whole engine;
+                # else the full-resolution paths below (mesh sweeps stream)
+                plan = pyramid_plan_multi(slide, "tif", [chan],
+                                          scaling_factor,
+                                          max_level_px=stream_above_px)
             with TiffFile(slide) as tf:
                 page = tf.pages[tiff_plane(tf, chan)]
                 slide_px = page.height * page.width
@@ -233,7 +253,20 @@ def run_sweep(
                     np.dtype(np.uint8), np.dtype(np.uint16),
                     np.dtype(np.int16))
             sharded = mesh is not None
-            if (slide_px > stream_above_px or sharded) and streamable:
+            if plan is not None:
+                level, div, full, _ = plan
+                raw = read_channel_level(slide, "tif", chan, level)
+                t0 = time.perf_counter()
+                contours, nuclei = engine.infer_slide(
+                    raw, outlier=outlier, classes=(1, 2),
+                    scaling_factor=scaling_factor * div, in_range=in_range)
+                # full-resolution pages, as every other path writes
+                contours = pp.upscale_pm(contours, full)
+                nuclei = pp.upscale_pm(nuclei, full)
+                dt = time.perf_counter() - t0
+                preview = pp.upscale_pm(pp.preview_u8_from_raw(raw), full)
+                how = f"pyramid 1/{div}"
+            elif (slide_px > stream_above_px or sharded) and streamable:
                 # bounded memory end to end, at any scale
                 with open_channel_source(slide, "tif", chan) as src:
                     t0 = time.perf_counter()
@@ -351,7 +384,6 @@ def batch_main(argv=None, *, device="cuda") -> int:
     JAX package's ``unmicst-tpu-batch`` flags.  Exits 2 when a slide
     failed.  ``device``: ``"cuda"`` (the default; no card raises) or
     ``"cpu"``, which only a caller may ask for."""
-    from unmicst_tpu_torch.cli import _not_ported as _refuse
     from unmicst_tpu_torch.cli import resolve_model_dir
     from unmicst_tpu_torch.infer import PRECISIONS
     from unmicst_tpu_torch.runtime.devices import resolve_device
@@ -371,10 +403,6 @@ def batch_main(argv=None, *, device="cuda") -> int:
         raise SystemExit(
             "--usePyramid decodes stored levels whole (the whole engine); "
             "it does not combine with --engine sharded")
-    if args.usePyramid or args.pyramidOutput:
-        raise _refuse("--usePyramid / --pyramidOutput", "M14")
-    if args.compressOutput == "zstd":
-        raise _refuse("--compressOutput zstd", "M14")
     dev = resolve_device(device)  # raises without a card
     mesh = _mesh(args.meshShape, dev) if args.engine == "sharded" else None
     slides = discover_slides(args.imagePath, tma=args.TMA)
@@ -393,7 +421,8 @@ def batch_main(argv=None, *, device="cuda") -> int:
         compute_dtype=PRECISIONS[args.precision],
         shard_index=args.shardIndex, num_shards=args.numShards,
         resume=not args.noResume, compress_output=args.compressOutput,
-        in_range=in_range, mesh=mesh, device=dev)
+        pyramid_output=args.pyramidOutput, in_range=in_range, mesh=mesh,
+        use_pyramid=args.usePyramid, device=dev)
     print(f"[sweep] done: {len(report.completed)} completed, "
           f"{len(report.skipped)} skipped, {len(report.failed)} failed, "
           f"{report.mpx_total:.1f} Mpx in {report.wall_s:.1f}s")
@@ -427,9 +456,10 @@ def deploy_folder(im_path: str, n_images: int, model_dir: str, pm_path: str,
 
     dev = resolve_device(device)
     bundle = load_model_dir(model_dir, mean, std)
+    state = load_params_for_bundle(bundle)  # may rebuild bundle.hp
     hp = bundle.hp
     model = UNet(hp, bundle.variant)
-    model.load_state_dict(load_params_for_bundle(bundle))
+    model.load_state_dict(state)
     model.to(dev).eval()
     os.makedirs(pm_path, exist_ok=True)
     for i in range(n_images):

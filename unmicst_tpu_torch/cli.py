@@ -12,8 +12,21 @@ The main path of ``unmicst_tpu/cli.py`` (``:770-862`` and
         [--calibrationPercentile P] [--tileBatch N]
         [--modelRoot DIR] [--GPU N] [--stats]
         [--engine auto|whole|streaming|sharded] [--meshShape N]
-        [--check-numerics] [--trace DIR]
+        [--check-numerics] [--trace DIR] [--usePyramid]
+        [--pyramidOutput] [--compressOutput [deflate|zstd]]
     python -m unmicst_tpu_torch --listModels [--modelRoot DIR]
+
+Inputs: TIFF, OME-TIFF and BigTIFF (uncompressed, Deflate, LZW,
+PackBits, LZMA or zstd strips and tiles), CZI and ND2 (``--channelName``
+resolves through a CZI's metadata XML as through OME-XML).
+``--usePyramid`` at ``--scalingFactor`` 0.5 or below reads the deepest
+stored SubIFD level of a pyramidal TIFF whose integer divisor does not
+pass ``1 / scalingFactor``, runs the whole engine at the residual scale
+``scalingFactor * divisor`` and brings the maps back to the full size
+(``cli.py:643-676`` of the JAX package); it does not combine with
+``--engine streaming|sharded``.  ``--pyramidOutput`` writes every output
+page tiled with a SubIFD pyramid; ``--compressOutput`` writes Deflate
+(bare flag) or zstd pages.
 
 ``--tool unmicst-duo`` (nucleiDAPILAMIN) feeds two channels, ``--channel
 A B`` (one channel is fed twice), each rescaled with its own range; its
@@ -55,8 +68,9 @@ int8 (``core/quant.py``; ``precision_mode``, ``cli.py:237-254`` of the
 JAX package), calibrated from the slide with ``--calibrationPercentile``
 in every engine.
 
-Paths not ported yet fail loudly and name their ROADMAP item: pyramid
-input and output and zstd output (M14), and CZI and ND2 inputs.
+zstd needs the host's libzstd; without it zstd inputs and
+``--compressOutput zstd`` refuse naming ROADMAP M14b.  CZI sub-blocks in
+JPEG or JPEG XR refuse (no decoder under the port's import rule).
 ``--fetchModels`` is a download, which this package does not do.
 """
 
@@ -94,7 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="UnMICST probability maps on an NVIDIA GPU (PyTorch/CUDA)",
     )
     p.add_argument("imagePath", nargs="?",
-                   help="path to the image (.tif/.ome.tif/.btf)")
+                   help="path to the image (.tif/.ome.tif/.btf/.czi/.nd2)")
     p.add_argument("--tool", default="unmicst-solo",
                    choices=list(TOOL_DEFAULT_MODEL))
     p.add_argument("--model", help="model directory name (or absolute path)")
@@ -136,10 +150,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--meshShape", type=int, metavar="N",
                    help="with --engine sharded: ranks along the column "
                    "axis (default: every visible card)")
-    p.add_argument("--usePyramid", action="store_true")
-    p.add_argument("--pyramidOutput", action="store_true")
+    p.add_argument("--usePyramid", action="store_true",
+                   help="with --scalingFactor <= 0.5: read the nearest "
+                   "stored SubIFD level instead of full resolution")
+    p.add_argument("--pyramidOutput", action="store_true",
+                   help="write tiled SubIFD-pyramid output pages")
     p.add_argument("--compressOutput", nargs="?", const="deflate",
-                   default=None, choices=["deflate", "zstd"])
+                   default=None, choices=["deflate", "zstd"],
+                   help="compress output pages (bare flag = deflate)")
     p.add_argument("--intensityRange", nargs="+", metavar="LO,HI",
                    help="pin the rescale range (raw pixel units)")
     p.add_argument("--trace", metavar="DIR",
@@ -153,20 +171,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fetchModels", nargs="*", metavar="NAME",
                    help="download checkpoint blobs (not in this package)")
     return p
-
-
-def _not_ported(what: str, item: str) -> SystemExit:
-    return SystemExit(
-        f"{what} is not ported to unmicst_tpu_torch yet (ROADMAP {item}); "
-        "use unmicst_tpu for it"
-    )
-
-
-def _reject_unported(args) -> None:
-    if args.usePyramid or args.pyramidOutput:
-        raise _not_ported("--usePyramid / --pyramidOutput", "M14")
-    if args.compressOutput == "zstd":
-        raise _not_ported("--compressOutput zstd", "M14")
 
 
 def _trace(args):
@@ -279,7 +283,7 @@ def _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
 
     def put(path, page, append):
         imwrite(path, page, bigtiff=True, append=append,
-                compression=compression)
+                compression=compression, pyramid=args.pyramidOutput)
 
     if args.stackOutput:
         prob_file = out_file("Probabilities")
@@ -297,19 +301,45 @@ def _write_outputs(args, stem, out_path, cyto, dapi_channel, class_order,
         put(out_file("NucleiPM"), get_page(class_order[2]), False)
 
 
+def _pyramid_plan(args, file_type: str, chans):
+    """``--usePyramid``'s ``(level, divisor, full_shape, level_shape)``, or
+    None with a note when no stored level serves (``cli.py:643-676`` of the
+    JAX package)."""
+    from unmicst_tpu_torch.io.slides import pyramid_plan_multi
+
+    pyr = pyramid_plan_multi(args.imagePath, file_type,
+                             list(dict.fromkeys(chans)), args.scalingFactor)
+    if pyr is None:
+        print("[unmicst-tpu-torch] --usePyramid: no usable stored level "
+              "(needs SubIFDs on every channel page and --scalingFactor "
+              "<= 0.5) — reading full resolution", file=sys.stderr)
+        return None
+    if args.engine in ("streaming", "sharded"):
+        raise SystemExit(
+            f"--usePyramid decodes a stored level whole (the whole engine); "
+            f"it does not combine with --engine {args.engine}")
+    if args.verbose or args.stats:
+        print(f"[unmicst-tpu-torch] pyramid: stored level {pyr[0]} "
+              f"(1/{pyr[1]}) + residual scale "
+              f"{args.scalingFactor * pyr[1]:.3f}", file=sys.stderr)
+    return pyr
+
+
 def _use_streaming(args, tool: str, cyto: bool, file_type: str,
-                   chans) -> bool:
+                   chans, pyr=None) -> bool:
     """Whether the slide streams: ``--engine streaming|sharded``, or
-    ``auto`` above 64 Mpx, when every channel can stream (a TIFF; uint8 or
-    uint16 for the un-rescaled solo tool; one of uint8, uint16 or int16
-    across the channels for an exact streamed histogram; no float32 for
-    Cyto2, which never takes the parity cast)."""
+    ``auto`` above 64 Mpx (of the stored level's pixels under
+    ``--usePyramid``), when every channel can stream (a TIFF, CZI or ND2;
+    uint8 or uint16 for the un-rescaled solo tool; one of uint8, uint16 or
+    int16 across the channels for an exact streamed histogram; no float32
+    for Cyto2, which never takes the parity cast)."""
     from unmicst_tpu_torch.io.slides import TIFF_LIKE, open_channel_source
 
     explicit = args.engine in ("streaming", "sharded")
-    if file_type not in TIFF_LIKE:
+    if file_type not in TIFF_LIKE + ("czi", "nd2"):
         if explicit:
-            raise SystemExit(f"--engine {args.engine} supports TIFF inputs")
+            raise SystemExit(
+                f"--engine {args.engine} supports TIFF/CZI/ND2 inputs")
         return False
     dtypes, raw_dtypes = [], []
     try:
@@ -335,6 +365,8 @@ def _use_streaming(args, tool: str, cyto: bool, file_type: str,
             raise SystemExit(f"--engine {args.engine}: {why}; use --engine "
                              "whole")
         return False
+    if pyr is not None:
+        px = pyr[3][0] * pyr[3][1]
     if not explicit and not (args.engine == "auto"
                              and px > MAX_WHOLE_SLIDE_PX):
         return False
@@ -457,7 +489,11 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
             "does not download (not ported): use unmicst_tpu --fetchModels")
     if not args.imagePath:
         raise SystemExit("imagePath is required (or use --listModels)")
-    _reject_unported(args)
+    if args.compressOutput == "zstd":
+        from unmicst_tpu_torch.io import zstd
+
+        if not zstd.available():  # refuse before any inference
+            raise SystemExit(f"--compressOutput zstd: {zstd.unavailable()}")
     t_start = time.perf_counter()
 
     import torch
@@ -466,7 +502,8 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     from unmicst_tpu_torch.core.hp import load_model_dir
     from unmicst_tpu_torch.infer import PRECISIONS, InferenceEngine
     from unmicst_tpu_torch.io import preprocess as pp
-    from unmicst_tpu_torch.io.slides import read_channel, resolve_channel_names
+    from unmicst_tpu_torch.io.slides import (read_channel, read_channel_level,
+                                             resolve_channel_names)
     from unmicst_tpu_torch.runtime.devices import describe, resolve_device, select_device
 
     dev = torch.device(device)
@@ -507,9 +544,11 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     if not cyto:
         os.makedirs(os.path.join(out_path, "qc"), exist_ok=True)
     pinned = _pinned_ranges(args, tool, len(chans))
+    pyr = _pyramid_plan(args, file_type, chans) if args.usePyramid else None
+    sf = args.scalingFactor * pyr[1] if pyr else args.scalingFactor
 
     # ---- engine choice (cli.py:681-759 of the JAX package) -----------------
-    if _use_streaming(args, tool, cyto, file_type, chans):
+    if _use_streaming(args, tool, cyto, file_type, chans, pyr):
         return _run_streaming(args, bundle, tool, chans, class_order,
                               file_type, stem, out_path, cyto, pinned, dev,
                               t_start)
@@ -517,7 +556,9 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
     # ---- read + preprocess -------------------------------------------------
     t_read = time.perf_counter()
     try:
-        by_chan = {c: read_channel(args.imagePath, file_type, c)
+        by_chan = {c: (read_channel_level(args.imagePath, file_type, c,
+                                          pyr[0]) if pyr
+                       else read_channel(args.imagePath, file_type, c))
                    for c in dict.fromkeys(chans)}
     except NotImplementedError as e:
         raise SystemExit(str(e))
@@ -533,7 +574,7 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         net, raw_norm = [], None
         for i, raw in enumerate(planes):
             pc = pp.preprocess_channel(
-                raw, args.scalingFactor, args.outlier,
+                raw, sf, args.outlier,
                 use_rescaled=tool != "unmicst-solo", cast_float32=not cyto,
                 in_range=pinned[i] if pinned else None)
             net.append(pc.net_input)
@@ -557,7 +598,7 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
             classes = (None if args.stackOutput or len(class_order) < 3
                        else (class_order[1], class_order[2]))
             kw = dict(outlier=args.outlier, classes=classes,
-                      scaling_factor=args.scalingFactor)
+                      scaling_factor=sf)
             if duo:
                 maps = engine.infer_slide_stack(planes, in_range=pinned, **kw)
             else:
@@ -579,6 +620,14 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         check_numerics(params, "params")
         check_numerics(maps, "probability maps")
     t_infer = time.perf_counter()
+    if pyr is not None:
+        # the stored level's maps and preview back to the full size: the
+        # output contract is the raw dims (UnMicst1-5.py:848-854)
+        level_page = get_page
+
+        def get_page(c):
+            return pp.upscale_pm(level_page(c), pyr[2])
+        preview = pp.upscale_pm(preview, pyr[2])
 
     _write_outputs(args, stem, out_path, cyto, chans[0], class_order,
                    get_page, preview)

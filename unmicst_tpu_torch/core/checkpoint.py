@@ -24,6 +24,7 @@ params tree, and optional ``extra_arrays`` (a trainer's optimizer state).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Dict, Iterator, Optional, Tuple
@@ -362,6 +363,40 @@ def load_native(path: str) -> Tuple[dict, HParams, str, float, float, dict]:
             meta["variant"], float(meta["mean"]), float(meta["std"]), meta)
 
 
+def hp_from_tf1(prefix: str, variant: str,
+                base: Optional[HParams] = None) -> HParams:
+    """The architecture hyper-parameters a TF1 bundle's shapes imply
+    (``unmicst_tpu/core/checkpoint.py:163-200``), read from the index
+    alone.  A directory's ``hp.data`` can disagree with its only
+    restorable bundle: ``mousenucleiDAPI`` says nOut0 20, its
+    ``nuclei20x2bin1chan`` bundle is 16 wide.  ``im_size`` and
+    ``batch_size`` do not shape the params and come from ``base``."""
+    ck = TF1Checkpoint(prefix)
+    legacy = get_variant(variant).legacy
+
+    def down(i):
+        return (f"downsampling/ld{i}/kernel1" if legacy
+                else f"downsampling/ld{i}/kernelD{i}")
+
+    ks, _, n_channels, n_out0 = ck.get_shape(down(0))
+    n_layers = 0
+    while ck.has_tensor(down(n_layers)):
+        n_layers += 1
+    extra = ("downsampling/ld0/kernelExtra{}" if legacy
+             else "ld0/kernelExtra{}")
+    n_extra = 0
+    while ck.has_tensor(extra.format(n_extra)):
+        n_extra += 1
+    n_classes = ck.get_shape("lt/kernel")[-1]
+    bottom = ck.get_shape("lb/kernel1")
+    base = base or HParams(im_size=128, n_channels=n_channels,
+                           n_classes=n_classes, n_out0=n_out0)
+    return dataclasses.replace(
+        base, n_channels=int(n_channels), n_classes=int(n_classes),
+        n_out0=int(n_out0), ks=int(ks), n_layers=n_layers,
+        n_extra_convs=n_extra, feat_maps_fact=int(bottom[-1] // bottom[-2]))
+
+
 def _find_ckpt_prefix(model_dir: str) -> Optional[str]:
     """A restorable tensor bundle in a model dir: ``model.ckpt`` first,
     then any other ``<prefix>.index`` whose data shard is present."""
@@ -404,6 +439,11 @@ def load_params_for_bundle(bundle: ModelBundle) -> State:
         return _native_params(native, bundle)
     prefix = _find_ckpt_prefix(bundle.model_dir)
     if prefix is not None:
+        if os.path.basename(prefix) != "model.ckpt":
+            # an alternate bundle: its shapes win over a stale hp.data,
+            # and callers build their engines from bundle.hp after this
+            # (unmicst_tpu/core/checkpoint.py:456-463)
+            bundle.hp = hp_from_tf1(prefix, bundle.variant, base=bundle.hp)
         return load_tf1_params(prefix, bundle.hp, bundle.variant)
     raise FileNotFoundError(
         f"no restorable checkpoint in {bundle.model_dir} (neither "

@@ -310,6 +310,13 @@ class TF1Checkpoint:
     def keys(self):
         return sorted(self.entries)
 
+    def has_tensor(self, name: str) -> bool:
+        return name in self.entries
+
+    def get_shape(self, name: str) -> Tuple[int, ...]:
+        """The tensor's shape from its index entry; no data is read."""
+        return self.entries[name].shape
+
     def _shard(self, shard_id: int):
         if shard_id not in self._shard_files:
             path = f"{self.prefix}.data-{shard_id:05d}-of-{self._num_shards:05d}"

@@ -1,14 +1,17 @@
-"""Slide IO facade: one channel plane of a TIFF or OME-TIFF.
+"""Slide IO facade: one channel plane of a TIFF, OME-TIFF, CZI or ND2.
 
-The ``ome.tif / ome.tiff / btf / tif / tiff`` branch of
-``unmicst_tpu/io/slides.py`` (``UnMicst1-5.py:794-806``): page == channel,
-or the OME-XML plane (C=c, Z=0, T=0) when the first page carries
-consistent OME metadata (:mod:`unmicst_tpu_torch.io.ome`).  Whole planes
-(:func:`read_channel`) feed the whole-slide engine; windowed sources
-(:func:`open_channel_source`), the streamed statistics and the streamed
-preview feed the streaming engine, so a slide never sits whole in host
-RAM.  :func:`sniff_format` names an upload's container by its magic
-bytes.  CZI and ND2 are recognised but not read yet (ROADMAP item 6).
+The port of ``unmicst_tpu/io/slides.py`` (``UnMicst1-5.py:794-806``):
+``ome.tif / ome.tiff / btf / tif / tiff`` through the TIFF reader, page ==
+channel, or the OME-XML plane (C=c, Z=0, T=0) when the first page carries
+consistent OME metadata (:mod:`unmicst_tpu_torch.io.ome`); ``czi`` and
+``nd2`` through :mod:`unmicst_tpu_torch.io.czi` and
+:mod:`unmicst_tpu_torch.io.nd2`.  Whole planes (:func:`read_channel`)
+feed the whole-slide engine; windowed sources (:func:`open_channel_source`),
+the streamed statistics and the streamed preview feed the streaming
+engine, so a slide never sits whole in host RAM.  A pyramidal TIFF's
+stored levels (:func:`pyramid_plan`, :func:`read_channel_level`) feed
+``--usePyramid``.  :func:`sniff_format` names an upload's container by
+its magic bytes.
 """
 
 from __future__ import annotations
@@ -24,15 +27,17 @@ TIFF_LIKE = ("ome.tif", "ome.tiff", "btf", "tif", "tiff")
 def sniff_format(path: str) -> str:
     """The container of ``path`` from its magic bytes, whatever its name
     (``unmicst_tpu/io/slides.py:22-37``): classic TIFF and BigTIFF in
-    either byte order are ``"tif"``.  CZI (``ZISRAWFILE``) and ND2 (chunk
-    magic ``0x0ABECEDA``) are recognised and refused, since their readers
-    are not ported; anything else is a ValueError."""
+    either byte order are ``"tif"``, ``ZISRAWFILE`` is ``"czi"``, the ND2
+    chunk magic ``0x0ABECEDA`` is ``"nd2"``; anything else is a
+    ValueError."""
     with open(path, "rb") as f:
         head = f.read(16)
     if head.startswith((b"II*\x00", b"II+\x00", b"MM\x00*", b"MM\x00+")):
         return "tif"
-    if head.startswith(b"ZISRAWFILE") or head[:4] == b"\xda\xce\xbe\x0a":
-        _check_file_type("czi" if head.startswith(b"Z") else "nd2")
+    if head.startswith(b"ZISRAWFILE"):
+        return "czi"
+    if head[:4] == b"\xda\xce\xbe\x0a":
+        return "nd2"
     raise ValueError(
         "unrecognized container (expected TIFF/BigTIFF, CZI, or ND2)"
     )
@@ -44,48 +49,124 @@ def tiff_plane(tf: TiffFile, channel: int) -> int:
     return ome.plane_index(desc, channel, len(tf.pages))
 
 
-def _check_file_type(file_type: str) -> None:
-    if file_type in ("czi", "nd2"):
-        raise NotImplementedError(
-            f".{file_type} input is not ported to unmicst_tpu_torch yet "
-            "(ROADMAP item 6: CZI and ND2); convert to OME-TIFF or use "
-            "unmicst_tpu"
-        )
-    if file_type not in TIFF_LIKE:
-        raise NotImplementedError(
-            f"Don't know how to read image with extension .{file_type}"
-        )
+def _unknown(file_type: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"Don't know how to read image with extension .{file_type}")
 
 
-def read_channel(image_path: str, file_type: str, channel: int) -> np.ndarray:
-    if channel < 0:
-        raise IndexError(f"channel {channel} out of range")
-    _check_file_type(file_type)
-    with TiffFile(image_path) as tf:
-        page = tiff_plane(tf, channel)
-        if page >= len(tf.pages):
-            raise IndexError(f"channel {channel} out of range")
-        arr = tf.read_page(page)
+def _native_order(arr: np.ndarray) -> np.ndarray:
     if arr.dtype.byteorder not in ("=", "|"):
         arr = arr.astype(arr.dtype.newbyteorder("="))
     return arr
 
 
-def channel_names(image_path: str):
-    """Declared OME-XML channel names of a TIFF, or None."""
+def read_channel(image_path: str, file_type: str, channel: int) -> np.ndarray:
+    if channel < 0:
+        raise IndexError(f"channel {channel} out of range")
+    if file_type in TIFF_LIKE:
+        with TiffFile(image_path) as tf:
+            page = tiff_plane(tf, channel)
+            if page >= len(tf.pages):
+                raise IndexError(f"channel {channel} out of range")
+            return _native_order(tf.read_page(page))
+    if file_type == "czi":
+        from unmicst_tpu_torch.io.czi import read_czi_channel
+
+        return read_czi_channel(image_path, channel)
+    if file_type == "nd2":
+        from unmicst_tpu_torch.io.nd2 import read_nd2_channel
+
+        return read_nd2_channel(image_path, channel)
+    raise _unknown(file_type)
+
+
+def pyramid_plan(image_path: str, file_type: str, channel: int,
+                 scaling_factor: float):
+    """The deepest stored SubIFD level usable at ``scaling_factor``
+    (``unmicst_tpu/io/slides.py:102-149``), header-only: ``(level,
+    divisor, full_shape, level_shape)``, or None when the input is not a
+    TIFF, the channel's page has no SubIFDs, the factor is above 0.5, or
+    no level has an integer downscale ``divisor <= 1 / scaling_factor``
+    (a coarser level would lose what the full-resolution run keeps)."""
+    if file_type not in TIFF_LIKE:
+        return None
+    if not scaling_factor or scaling_factor > 0.5:
+        return None
+    try:
+        with TiffFile(image_path) as tf:
+            pidx = tiff_plane(tf, channel)
+            page = tf.pages[pidx]
+            if page.subifds is None or not len(page.subifds):
+                return None
+            target = 1.0 / float(scaling_factor)
+            best = None
+            for lvl in range(len(page.subifds)):
+                sub = tf.subifd_page(pidx, lvl)
+                d = round(page.height / sub.height)
+                if d < 2:
+                    continue
+                # mild odd-edge rounding passes; anisotropic or
+                # non-integer level geometry does not
+                if (abs(page.height / sub.height - d) > 0.02 * d
+                        or abs(page.width / sub.width - d) > 0.02 * d):
+                    continue
+                if d <= target * (1 + 1e-6) and (best is None
+                                                 or d > best[1]):
+                    best = (lvl, d, (page.height, page.width),
+                            (sub.height, sub.width))
+            return best
+    except (ValueError, NotImplementedError, OSError, IndexError):
+        return None
+
+
+def pyramid_plan_multi(image_path: str, file_type: str, channels,
+                       scaling_factor: float, max_level_px=None):
+    """One ``(level, divisor, full_shape, level_shape)`` plan for every
+    channel's page, or None (``unmicst_tpu/io/slides.py:152-173``): every
+    channel needs a usable level at the same (level, divisor), and with
+    ``max_level_px`` the level itself must not exceed it (such a level
+    would have to stream, which a whole-decoded level defeats)."""
+    plans = [pyramid_plan(image_path, file_type, c, scaling_factor)
+             for c in channels]
+    if not plans or any(p is None for p in plans):
+        return None
+    if len({(p[0], p[1]) for p in plans}) != 1:
+        return None
+    p = plans[0]
+    if max_level_px is not None and p[3][0] * p[3][1] > max_level_px:
+        return None
+    return p
+
+
+def read_channel_level(image_path: str, file_type: str, channel: int,
+                       level: int) -> np.ndarray:
+    """One stored pyramid level of a channel's page, whole, in native
+    byte order."""
     with TiffFile(image_path) as tf:
-        desc = tf.pages[0].description if tf.pages else ""
-    return ome.channel_names(desc)
+        return _native_order(tf.read_subifd(tiff_plane(tf, channel), level))
+
+
+def channel_names(image_path: str, file_type: str = "tif"):
+    """Declared channel names, or None: OME-XML ``<Channel Name=...>`` of
+    a TIFF, ``Image/Dimensions/Channels`` of a CZI's metadata XML; ND2
+    carries none here."""
+    if file_type in TIFF_LIKE:
+        with TiffFile(image_path) as tf:
+            desc = tf.pages[0].description if tf.pages else ""
+        return ome.channel_names(desc)
+    if file_type == "czi":
+        from unmicst_tpu_torch.io.czi import CziFile
+
+        with CziFile(image_path) as cz:
+            return cz.channel_names()
+    return None
 
 
 def resolve_channel_names(image_path: str, file_type: str, names):
-    """Channel names -> 0-based indexes, through the OME-XML
-    ``<Channel Name=...>`` elements of a TIFF/OME-TIFF
-    (``unmicst_tpu/io/slides.py:424``).  ValueError when the file declares
-    no names or a name does not resolve (the message lists the declared
-    ones)."""
-    _check_file_type(file_type)
-    declared = channel_names(image_path)
+    """Channel names -> 0-based indexes (``unmicst_tpu/io/slides.py:
+    424-437``).  ValueError when the file declares no names or a name does
+    not resolve (the message lists the declared ones)."""
+    declared = channel_names(image_path, file_type)
     if declared is None:
         raise ValueError(
             f"this .{file_type} input carries no channel names; use a "
@@ -186,28 +267,57 @@ class ChannelSource:
 
 def open_channel_source(image_path: str, file_type: str,
                         channel: int) -> ChannelSource:
-    """Windowed streaming source for one channel of a TIFF or OME-TIFF.
-    The file closes if setup fails after the open."""
+    """Windowed streaming source for one channel of any supported format.
+    A one-row probe makes an unsupported codec or sub-block fail here,
+    not mid-stream; the file closes if setup fails after the open."""
     if channel < 0:
         raise IndexError(f"channel {channel} out of range")
-    _check_file_type(file_type)
-    tf = TiffFile(image_path)
-    try:
-        plane = tiff_plane(tf, channel)
-        if plane >= len(tf.pages):
-            raise IndexError(f"channel {channel} out of range")
-        page = tf.pages[plane]
-        # a one-row probe: an unsupported codec or layout fails here, not
-        # mid-stream
-        tf.read_region(plane, 0, 0, 1, page.width)
-        return ChannelSource(
-            page.height, page.width, page.dtype,
-            lambda r0, n: tf.read_region(plane, r0, 0, n, page.width),
-            closer=tf.close,
-        )
-    except Exception:
-        tf.close()
-        raise
+    if file_type in TIFF_LIKE:
+        tf = TiffFile(image_path)
+        try:
+            plane = tiff_plane(tf, channel)
+            if plane >= len(tf.pages):
+                raise IndexError(f"channel {channel} out of range")
+            page = tf.pages[plane]
+            tf.read_region(plane, 0, 0, 1, page.width)
+            return ChannelSource(
+                page.height, page.width, page.dtype,
+                lambda r0, n: tf.read_region(plane, r0, 0, n, page.width),
+                closer=tf.close,
+            )
+        except Exception:
+            tf.close()
+            raise
+    if file_type == "czi":
+        from unmicst_tpu_torch.io.czi import CziFile
+
+        czi = CziFile(image_path)
+        try:
+            h, w = czi.channel_shape(channel)
+            probe = czi.read_rows(channel, 0, 1)
+            return ChannelSource(
+                h, w, probe.dtype,
+                lambda r0, n: czi.read_rows(channel, r0, n),
+                closer=czi.close,
+            )
+        except Exception:
+            czi.close()
+            raise
+    if file_type == "nd2":
+        from unmicst_tpu_torch.io.nd2 import Nd2File
+
+        nd2 = Nd2File(image_path)
+        try:
+            nd2.read_rows(channel, 0, 1)
+            return ChannelSource(
+                nd2.height, nd2.width, nd2.dtype,
+                lambda r0, n: nd2.read_rows(channel, r0, n),
+                closer=nd2.close,
+            )
+        except Exception:
+            nd2.close()
+            raise
+    raise _unknown(file_type)
 
 
 def preview_u8(src: ChannelSource, vmax: float = None) -> np.ndarray:

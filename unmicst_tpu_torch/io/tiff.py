@@ -4,12 +4,17 @@ A subset of ``unmicst_tpu/io/tiff.py`` with no native codec and no PIL:
 
 * :class:`TiffFile` reads classic and BigTIFF files in either byte order,
   strip- or tile-organised pages, uncompressed, Deflate (zlib), LZW,
-  PackBits or LZMA (xz), with horizontal predictor 2, 8/16/32/64-bit
-  samples; zstd strips raise, naming ROADMAP M14;
-* :class:`TiffWriter` writes grayscale pages, classic or BigTIFF,
-  uncompressed or Deflate, appending to an existing file by re-chaining
-  the IFD list — the reference's output contract (``UnMicst1-5.py:
-  834-843``: bigtiff, no metadata, per-page append).
+  PackBits, LZMA (xz) or zstd (through the host's libzstd,
+  :mod:`unmicst_tpu_torch.io.zstd`), with horizontal predictor 2,
+  8/16/32/64-bit samples, and the reduced-resolution levels a page hangs
+  off its SubIFDs (tag 330: :meth:`TiffFile.subifd_page`,
+  :meth:`TiffFile.read_subifd`);
+* :class:`TiffWriter` writes grayscale pages, classic or BigTIFF, in
+  strips or tiles, uncompressed, Deflate or zstd, appending to an existing
+  file by re-chaining the IFD list — the reference's output contract
+  (``UnMicst1-5.py:834-843``: bigtiff, no metadata, per-page append) —
+  and pyramidal pages (:meth:`TiffWriter.write_pyramid`: 2x box-mean
+  levels chained through SubIFDs, every level tiled).
 
 ``imread``, ``num_pages`` and ``imwrite`` keep the JAX package's names.
 """
@@ -25,6 +30,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from unmicst_tpu_torch.io import zstd as _zstd
+
+TAG_NEW_SUBFILE_TYPE = 254
 TAG_IMAGE_WIDTH = 256
 TAG_IMAGE_LENGTH = 257
 TAG_BITS_PER_SAMPLE = 258
@@ -41,6 +49,7 @@ TAG_TILE_WIDTH = 322
 TAG_TILE_LENGTH = 323
 TAG_TILE_OFFSETS = 324
 TAG_TILE_BYTE_COUNTS = 325
+TAG_SUBIFDS = 330
 TAG_SAMPLE_FORMAT = 339
 
 COMPRESSION_NONE = 1
@@ -137,13 +146,11 @@ def _decode(data: bytes, compression: int, max_out: int) -> bytes:
         except lzma.LZMAError as exc:
             raise ValueError(f"corrupt LZMA strip: {exc}") from None
     if compression == COMPRESSION_ZSTD:
-        raise NotImplementedError(
-            "zstd TIFF strips are not read by unmicst_tpu_torch yet (ROADMAP "
-            "M14: zstd through a host libzstd); use unmicst_tpu for them"
-        )
+        # one frame per strip or tile, bounded like deflate
+        return _zstd.decompress(data, max_out + 65536)
     raise NotImplementedError(
         f"TIFF compression {compression} is not read by unmicst_tpu_torch "
-        "(none, deflate, LZW, PackBits and LZMA are)"
+        "(none, deflate, LZW, PackBits, LZMA and zstd are)"
     )
 
 
@@ -163,6 +170,7 @@ class TiffPage:
     tile_width: int = 0
     tile_length: int = 0
     description: str = ""
+    subifds: Optional[np.ndarray] = None  # tag 330: the pyramid's levels
 
     @property
     def tiled(self) -> bool:
@@ -314,7 +322,33 @@ class TiffFile:
                 raise ValueError("implausible TIFF tile geometry")
         if len(page.offsets) != len(page.counts):
             raise ValueError("TIFF segment offsets/byte counts length mismatch")
+        if isinstance(tags.get(TAG_SUBIFDS), np.ndarray):
+            page.subifds = array(TAG_SUBIFDS)
         return page, next_ifd
+
+    def subifd_page(self, index: int, level: int) -> TiffPage:
+        """The header of pyramid level ``level`` of page ``index`` (no
+        pixels decoded), so a reader can pick a level before it decodes
+        one (``unmicst_tpu/io/tiff.py:522-542``)."""
+        page = self.pages[index]
+        if page.subifds is None:
+            raise ValueError(f"page {index} has no SubIFDs")
+        if not 0 <= level < len(page.subifds):
+            raise ValueError(
+                f"page {index} has {len(page.subifds)} pyramid level(s), "
+                f"requested {level}")
+        try:
+            sub, _ = self._read_ifd(int(page.subifds[level]))
+        except (struct.error, ValueError):
+            raise ValueError(
+                f"corrupt SubIFD at offset {int(page.subifds[level]):#x}"
+            ) from None
+        return sub
+
+    def read_subifd(self, index: int, level: int) -> np.ndarray:
+        """Decode pyramid level ``level`` of page ``index`` whole; the
+        page chain itself holds the full-resolution pages only."""
+        return self._read_whole(self.subifd_page(index, level))
 
     def _segment(self, page: TiffPage, k: int, rows: int, cols: int
                  ) -> np.ndarray:
@@ -346,14 +380,16 @@ class TiffFile:
 
     def read_page(self, index: int = 0) -> np.ndarray:
         """Decode a full page to ``(H, W)`` or ``(H, W, S)``."""
-        page = self.pages[index]
+        return self._read_whole(self.pages[index])
+
+    def _read_whole(self, page: TiffPage) -> np.ndarray:
         self._check_readable(page)
         if page.height * page.width * page.samples > 1 << 31:
             raise PageTooLargeError(
                 f"TIFF page {page.height}x{page.width} is too large to read "
                 "whole"
             )
-        return self.read_region(index, 0, 0, page.height, page.width)
+        return self._read_region(page, 0, 0, page.height, page.width)
 
     def read_region(self, index: int, r0: int, c0: int, nrows: int,
                     ncols: int) -> np.ndarray:
@@ -361,7 +397,10 @@ class TiffFile:
         ``[r0, r0 + nrows)``, columns ``[c0, c0 + ncols)``, zero outside
         the page (``unmicst_tpu/io/tiff.py:805``).  The streaming engine
         reads a slide this way, so it never sits whole in host RAM."""
-        page = self.pages[index]
+        return self._read_region(self.pages[index], r0, c0, nrows, ncols)
+
+    def _read_region(self, page: TiffPage, r0: int, c0: int, nrows: int,
+                     ncols: int) -> np.ndarray:
         self._check_readable(page)
         if r0 < 0 or c0 < 0 or nrows < 0 or ncols < 0:
             raise ValueError(f"bad region ({r0}, {c0}, {nrows}, {ncols})")
@@ -391,14 +430,51 @@ class TiffFile:
         return out[:, :, 0] if page.samples == 1 else out
 
 
+def _box_downsample2(img: np.ndarray) -> np.ndarray:
+    """A 2x2 box-mean pyramid level (``unmicst_tpu/io/tiff.py:919-946``):
+    odd edges average the pixels there are (edge-replicate pad), integers
+    round half up (``(sum + 2) >> 2``), floats take the float64 mean.  Row
+    bands keep the temporaries bounded."""
+    h, w = img.shape
+    ph, pw = h + (h & 1), w + (w & 1)
+    out = np.empty((ph // 2, pw // 2), img.dtype)
+    integer = np.issubdtype(img.dtype, np.integer)
+    band = 4096  # even
+    for r0 in range(0, ph, band):
+        r1 = min(r0 + band, ph)
+        blk = img[r0 : min(r1, h)]
+        pad_r = (r1 - r0) - blk.shape[0]
+        if pad_r or pw != w:
+            blk = np.pad(blk, ((0, pad_r), (0, pw - w)), mode="edge")
+        q = blk.reshape((r1 - r0) // 2, 2, pw // 2, 2)
+        if integer:
+            sums = q.astype(np.int64).sum(axis=(1, 3))
+            out[r0 // 2 : r1 // 2] = ((sums + 2) >> 2).astype(img.dtype)
+        else:
+            out[r0 // 2 : r1 // 2] = q.astype(np.float64).mean(
+                axis=(1, 3)).astype(img.dtype)
+    return out
+
+
 class TiffWriter:
     """Grayscale multi-page TIFF/BigTIFF writer with append semantics:
-    little-endian, strips of about 1 MB, uncompressed or Deflate."""
+    little-endian, strips of about 1 MB or tiles, uncompressed, Deflate
+    (zlib, tag 8) or zstd (tag 50000, one frame per strip or tile).
+    ``compression_level`` is 1..9; unset it is zlib's 6 for Deflate and
+    3 for zstd, whose levels map one to one as in the JAX writer."""
 
     def __init__(self, path: str, bigtiff: bool = True, append: bool = False,
-                 compression: Optional[str] = None, compression_level: int = 6):
-        if compression not in (None, "deflate"):
+                 compression: Optional[str] = None,
+                 compression_level: Optional[int] = None):
+        if compression not in (None, "deflate", "zstd"):
             raise ValueError(f"unsupported output compression {compression!r}")
+        if compression_level is None:
+            compression_level = 3 if compression == "zstd" else 6
+        if not 1 <= int(compression_level) <= 9:
+            raise ValueError(
+                f"compression_level must be 1..9, got {compression_level}")
+        if compression == "zstd" and not _zstd.available():
+            raise _zstd.unavailable()
         self.path, self.big = path, bigtiff
         self._compression = compression
         self._level = int(compression_level)
@@ -440,9 +516,48 @@ class TiffWriter:
                                       fh.read(struct.calcsize(ptr_fmt)))
         self._last_ptr = ptr_pos
 
-    def write(self, image: np.ndarray, description: Optional[str] = None
-              ) -> None:
-        """Append one grayscale page (any 8/16/32/64-bit numeric dtype)."""
+    def write(self, image: np.ndarray, description: Optional[str] = None,
+              tile: Optional[Tuple[int, int]] = None) -> None:
+        """Append one grayscale page (any 8/16/32/64-bit numeric dtype);
+        ``tile=(th, tw)``, multiples of 16, writes it tiled."""
+        self._write_page(image, description, tile=tile)
+
+    def write_pyramid(self, image: np.ndarray,
+                      description: Optional[str] = None,
+                      tile: Tuple[int, int] = (256, 256),
+                      min_size: int = 256) -> int:
+        """Append a pyramidal page (``unmicst_tpu/io/tiff.py:1048-1077``):
+        the full-resolution page and a SubIFD chain of 2x box-mean levels,
+        every level tiled, halving while the short edge stays at least
+        ``2 * min_size``.  The page chain stays flat: a reader that
+        ignores SubIFDs sees the usual full-resolution page.  Returns the
+        number of reduced levels."""
+        image = np.ascontiguousarray(image)
+        if image.ndim != 2:
+            raise ValueError("TiffWriter writes single-sample 2D pages")
+        levels, cur = [], image
+        while min(cur.shape) >= 2 * min_size:
+            cur = _box_downsample2(cur)
+            levels.append(cur)
+        subs = [self._write_page(lv, None, tile=tile, subfile_type=1,
+                                 chain=False) for lv in levels]
+        self._write_page(image, description, tile=tile,
+                         subifds=subs or None)
+        return len(levels)
+
+    def _encode(self, data: bytes) -> bytes:
+        if self._compression == "deflate":
+            return zlib.compress(data, self._level)
+        if self._compression == "zstd":
+            return _zstd.compress(data, self._level)
+        return data
+
+    def _write_page(self, image: np.ndarray, description: Optional[str],
+                    tile: Optional[Tuple[int, int]] = None, subifds=None,
+                    subfile_type: Optional[int] = None,
+                    chain: bool = True) -> int:
+        """One page's data and IFD, linked into the page chain unless
+        ``chain=False`` (a pyramid level).  Returns the IFD's offset."""
         image = np.ascontiguousarray(image)
         if image.ndim != 2:
             raise ValueError("TiffWriter writes single-sample 2D pages")
@@ -458,15 +573,31 @@ class TiffWriter:
                 fh.write(b"\0")
 
         align()
-        rps = max(1, min(h, (1 << 20) // max(1, w * item)))
         offsets, counts = [], []
-        for r0 in range(0, h, rps):
-            data = image[r0 : r0 + rps].tobytes()
-            if self._compression == "deflate":
-                data = zlib.compress(data, self._level)
+
+        def put(data):
+            data = self._encode(data)
             offsets.append(fh.tell())
             counts.append(len(data))
             fh.write(data)
+
+        if tile is not None:
+            th, tw = int(tile[0]), int(tile[1])
+            if th <= 0 or tw <= 0 or th % 16 or tw % 16:
+                raise ValueError(f"tile dims must be positive multiples of "
+                                 f"16, got ({th}, {tw})")
+            for r0 in range(0, h, th):
+                for c0 in range(0, w, tw):
+                    blk = image[r0 : r0 + th, c0 : c0 + tw]
+                    if blk.shape != (th, tw):  # edge tiles are full tiles
+                        full = np.zeros((th, tw), image.dtype)
+                        full[: blk.shape[0], : blk.shape[1]] = blk
+                        blk = full
+                    put(blk.tobytes())
+        else:
+            rps = max(1, min(h, (1 << 20) // max(1, w * item)))
+            for r0 in range(0, h, rps):
+                put(image[r0 : r0 + rps].tobytes())
         slot, off_type, off_char = (8, 16, "Q") if self.big else (4, 4, "I")
 
         def out_of_line(values):
@@ -479,7 +610,15 @@ class TiffWriter:
             fh.write(struct.pack(f"<{len(values)}{off_char}", *values))
             return pos
 
-        so_ptr, sc_ptr = out_of_line(offsets), out_of_line(counts)
+        def offset_field(values):
+            """(type, count, values or [pointer], is_pointer) of an
+            offset-sized array field."""
+            ptr = out_of_line(values)
+            return (off_type, len(values),
+                    values if ptr is None else [ptr], ptr is not None)
+
+        seg_offsets, seg_counts = offset_field(offsets), offset_field(counts)
+        sub = offset_field(subifds) if subifds is not None else None
         desc = None
         if description is not None:
             desc = description.encode("utf-8") + b"\0"
@@ -488,10 +627,15 @@ class TiffWriter:
                 align()
                 desc_ptr = fh.tell()
                 fh.write(desc)
-        compression = (COMPRESSION_DEFLATE_ADOBE
-                       if self._compression == "deflate" else COMPRESSION_NONE)
+        compression = {"deflate": COMPRESSION_DEFLATE_ADOBE,
+                       "zstd": COMPRESSION_ZSTD}.get(self._compression,
+                                                     COMPRESSION_NONE)
         # (tag, type, count, values, is_pointer) in ascending tag order
-        entries = [
+        entries = []
+        if subfile_type is not None:  # bit 0: a reduced-resolution level
+            entries.append((TAG_NEW_SUBFILE_TYPE, 4, 1, [subfile_type],
+                            False))
+        entries += [
             (TAG_IMAGE_WIDTH, 4, 1, [w], False),
             (TAG_IMAGE_LENGTH, 4, 1, [h], False),
             (TAG_BITS_PER_SAMPLE, 3, 1, [item * 8], False),
@@ -502,15 +646,24 @@ class TiffWriter:
             entries.append((TAG_IMAGE_DESCRIPTION, 2, len(desc),
                             desc if desc_ptr is None else [desc_ptr],
                             desc_ptr is not None))
-        entries += [
-            (TAG_STRIP_OFFSETS, off_type, len(offsets),
-             offsets if so_ptr is None else [so_ptr], so_ptr is not None),
-            (TAG_SAMPLES_PER_PIXEL, 3, 1, [1], False),
-            (TAG_ROWS_PER_STRIP, 4, 1, [rps], False),
-            (TAG_STRIP_BYTE_COUNTS, off_type, len(counts),
-             counts if sc_ptr is None else [sc_ptr], sc_ptr is not None),
-            (TAG_SAMPLE_FORMAT, 3, 1, [fmt], False),
-        ]
+        if tile is None:
+            entries += [
+                (TAG_STRIP_OFFSETS, *seg_offsets),
+                (TAG_SAMPLES_PER_PIXEL, 3, 1, [1], False),
+                (TAG_ROWS_PER_STRIP, 4, 1, [rps], False),
+                (TAG_STRIP_BYTE_COUNTS, *seg_counts),
+            ]
+        else:
+            entries += [
+                (TAG_SAMPLES_PER_PIXEL, 3, 1, [1], False),
+                (TAG_TILE_WIDTH, 4, 1, [tw], False),
+                (TAG_TILE_LENGTH, 4, 1, [th], False),
+                (TAG_TILE_OFFSETS, *seg_offsets),
+                (TAG_TILE_BYTE_COUNTS, *seg_counts),
+            ]
+        if sub is not None:
+            entries.append((TAG_SUBIFDS, *sub))
+        entries.append((TAG_SAMPLE_FORMAT, 3, 1, [fmt], False))
         align()
         ifd = fh.tell()
         count_fmt, entry_fmt, ptr_fmt = (
@@ -529,11 +682,13 @@ class TiffWriter:
             buf += struct.pack(entry_fmt, tag, ftype, count) + payload
         buf += struct.pack(ptr_fmt, 0)
         fh.write(buf)
-        fh.seek(self._last_ptr)
-        fh.write(struct.pack(ptr_fmt, ifd))
-        self._last_ptr = ifd + (8 + 20 * len(entries) if self.big
-                                else 2 + 12 * len(entries))
+        if chain:
+            fh.seek(self._last_ptr)
+            fh.write(struct.pack(ptr_fmt, ifd))
+            self._last_ptr = ifd + (8 + 20 * len(entries) if self.big
+                                    else 2 + 12 * len(entries))
         fh.flush()
+        return ifd
 
     def close(self) -> None:
         self._fh.close()
@@ -560,8 +715,13 @@ def num_pages(path: str) -> int:
 
 
 def imwrite(path: str, image: np.ndarray, bigtiff: bool = True,
-            append: bool = False, compression: Optional[str] = None) -> None:
-    """Write or append one grayscale page (``UnMicst1-5.py:852-862``)."""
+            append: bool = False, compression: Optional[str] = None,
+            pyramid: bool = False) -> None:
+    """Write or append one grayscale page (``UnMicst1-5.py:852-862``);
+    ``pyramid=True`` writes it tiled, 256², with a SubIFD pyramid."""
     with TiffWriter(path, bigtiff=bigtiff, append=append,
                     compression=compression) as tw:
-        tw.write(image)
+        if pyramid:
+            tw.write_pyramid(image)
+        else:
+            tw.write(image)

@@ -76,11 +76,6 @@ _IM2DOUBLE_SCALE = {
 _STREAM_DTYPES = tuple(_IM2DOUBLE_SCALE)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to unmicst_tpu_torch yet (ROADMAP {item})")
-
-
 def _source_dims(src) -> Tuple[int, int]:
     """(height, width) of a streaming source."""
     if hasattr(src, "read_rows"):

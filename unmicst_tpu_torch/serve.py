@@ -5,12 +5,16 @@ The reference is a batch CLI that pays the model's set-up per call
 (``UnMicst.py:596``).  Pipelines (MCMICRO at scale) and interactive
 viewers keep the model resident instead:
 
-* ``POST /infer?model=nucleiDAPI&channel=0[&compress=1|deflate]
-  [&scale=0.5][&roi=r0,c0,h,w][&range=lo,hi][&classes=1,2]`` with a TIFF
-  or OME-TIFF body (the container sniffed from its magic bytes, channels
-  mapped OME-aware) -> a multi-page TIFF of uint8 probability maps, in
-  reversed class order (optionally Deflate-compressed pages).  ``roi=``
-  infers only that window with one net tile of context around it (a
+* ``POST /infer?model=nucleiDAPI&channel=0[&compress=1|deflate|zstd]
+  [&scale=0.5][&roi=r0,c0,h,w][&range=lo,hi][&classes=1,2][&pyramid=1]
+  [&usePyramid=1]`` with a TIFF, OME-TIFF, CZI or ND2 body (the container
+  sniffed from its magic bytes, channels mapped OME-aware) -> a
+  multi-page TIFF of uint8 probability maps, in reversed class order
+  (optionally Deflate- or zstd-compressed pages; with ``pyramid=1`` each
+  page tiled with a SubIFD pyramid).  ``usePyramid=1`` at ``scale`` 0.5
+  or below reads a pyramidal TIFF's nearest stored level when it fits the
+  whole engine (``stream_above_px``), and the full resolution otherwise.
+  ``roi=`` infers only that window with one net tile of context around it (a
   viewer panning over a mega-slide); ``range=lo,hi`` pins the rescale
   range (once per channel for duo) so a window normalizes exactly as the
   whole slide does; ``classes=`` returns only those class pages, dropped
@@ -46,11 +50,11 @@ threads; their engine calls run on one worker thread per card
 (:func:`run_on_device`), on its current stream, so cuDNN's autotuned
 algorithms, which PyTorch keeps per thread, are chosen once.
 
-Paths the port has not got answer 501 with their ROADMAP item, where the
-JAX server answers 200: ``usePyramid=1`` and ``pyramid=1`` and
-``compress=zstd`` (M14), CZI and ND2 bodies (item 6).  The persistent
-compile cache of the JAX server has no counterpart here (M14's
-``progcache``).
+A refusal that names its ROADMAP item answers 501 (zstd without the
+host's libzstd, M14b; a CZI of JPEG sub-blocks, M16); other reader
+errors, a CZI of JPEG XR sub-blocks among them, answer 400 as in the JAX
+server.  The persistent compile cache of the JAX server has no
+counterpart here (M14c's ``progcache``).
 """
 
 from __future__ import annotations
@@ -74,16 +78,9 @@ _READ_ERRORS = (OSError, ValueError, NotImplementedError, IndexError,
                 EOFError)
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to unmicst_tpu_torch yet (ROADMAP {item}); "
-        "use unmicst_tpu for it"
-    )
-
-
 def _is_not_ported(e: BaseException) -> bool:
-    """A refusal of an unported path (HTTP 501): it names its ROADMAP
-    item."""
+    """A refusal of a path the port lacks (HTTP 501): it names its
+    ROADMAP item."""
     return isinstance(e, NotImplementedError) and "ROADMAP" in str(e)
 
 
@@ -729,8 +726,8 @@ class ModelServer:
         in_range=None, channel_names=None, slide_id: Optional[str] = None,
         classes=None, use_pyramid: bool = False,
     ) -> Tuple[bytes, dict]:
-        """Run channel(s) of an uploaded TIFF/OME-TIFF (sniffed by magic
-        bytes) through the resident model
+        """Run channel(s) of an uploaded TIFF/OME-TIFF/CZI/ND2 (sniffed by
+        magic bytes) through the resident model
         (``unmicst_tpu/serve.py:588-826``).  ``channel``: one index, or
         two for duo models.
 
@@ -739,8 +736,11 @@ class ModelServer:
         h, w)`` infers a window (:meth:`_infer_roi`).  ``in_range``: pinned
         per-channel rescale ranges in raw units (one pair broadcasts);
         overrides ``outlier``.  ``classes``: only those class pages, in
-        reversed request order, dropped on the card.  ``pyramid``,
-        ``use_pyramid`` and zstd ``compress`` are not ported (M14)."""
+        reversed request order, dropped on the card.  ``use_pyramid`` at
+        ``scale <= 0.5`` reads the nearest stored level of a pyramidal
+        TIFF when every channel has one and it fits the whole engine
+        (``unmicst_tpu/serve.py:687-733``); ``pyramid`` writes pyramidal
+        pages."""
         from unmicst_tpu_torch.infer import _normalize_in_range
         from unmicst_tpu_torch.io.slides import (open_channel_source,
                                                  sniff_format)
@@ -749,10 +749,11 @@ class ModelServer:
             compress = "deflate"
         elif compress is False:
             compress = None
-        if pyramid or use_pyramid:
-            raise _not_ported("pyramid=1 / usePyramid=1", "M14")
         if compress == "zstd":
-            raise _not_ported("compress=zstd", "M14")
+            from unmicst_tpu_torch.io import zstd
+
+            if not zstd.available():  # before any inference
+                raise zstd.unavailable()
         fmt = sniff_format(path)
         if channel_names is not None:
             channels = _resolve_channel_names(path, fmt, channel_names)
@@ -782,13 +783,20 @@ class ModelServer:
             if roi is not None:
                 return self._infer_roi(
                     srcs, shape, model, roi, rescale, outlier,
-                    compress=compress, scale=scale, in_range=in_range,
+                    compress=compress, scale=scale, pyramid=pyramid,
+                    in_range=in_range,
                     slide_key=(
                         (slide_id, tuple(channels))
                         if slide_id is not None else None
                     ),
                     classes=classes,
                 )
+            plan = None
+            if use_pyramid:
+                from unmicst_tpu_torch.io.slides import pyramid_plan_multi
+
+                plan = pyramid_plan_multi(path, fmt, channels, scale,
+                                          max_level_px=self.stream_above_px)
             if (scale > 1
                     and shape[0] * shape[1] * scale * scale
                     > self.max_scaled_px):
@@ -799,7 +807,7 @@ class ModelServer:
                     f"{scale}^2 exceeds the server bound "
                     f"{self.max_scaled_px}"
                 )
-            if shape[0] * shape[1] > self.stream_above_px:
+            if plan is None and shape[0] * shape[1] > self.stream_above_px:
                 # mega-slide POST: bounded memory, windowed reads from the
                 # spooled file; t0 starts after the engine lookup in both
                 # branches, so infer_s leaves out a first build
@@ -813,30 +821,44 @@ class ModelServer:
 
                     maps = np.stack([upscale_pm(m, shape) for m in maps])
             else:
-                raws = [s.read_rows(0, shape[0]) for s in srcs]
+                if plan is not None:  # the stored level, at the residual
+                    from unmicst_tpu_torch.io.slides import (
+                        read_channel_level)
+
+                    raws = [read_channel_level(path, fmt, c, plan[0])
+                            for c in channels]
+                    sf = scale * plan[1]
+                else:
+                    raws = [s.read_rows(0, shape[0]) for s in srcs]
+                    sf = scale
                 eng = self.engine(model)
                 t0 = time.perf_counter()
                 if len(raws) > 1:
                     maps = run_on_device(
                         self.device, eng.infer_slide_stack, raws,
                         outlier=outlier, rescale=rescale,
-                        scaling_factor=scale, in_range=in_range,
+                        scaling_factor=sf, in_range=in_range,
                         classes=classes,
                     )
                 else:
                     maps = run_on_device(
                         self.device, eng.infer_slide, raws[0],
                         outlier=outlier, rescale=rescale,
-                        scaling_factor=scale,
+                        scaling_factor=sf,
                         in_range=(
                             in_range[0] if in_range is not None else None
                         ),
                         classes=classes,
                     )
+                if plan is not None:  # back to the raw size, on the host
+                    from unmicst_tpu_torch.io.preprocess import upscale_pm
+
+                    maps = np.stack([upscale_pm(m, shape) for m in maps])
             infer_s = time.perf_counter() - t0
         return self._encode(
             maps, model, shape, shape[0] * shape[1], infer_s,
-            compress=compress, in_range=in_range, class_indices=classes,
+            compress=compress, pyramid=pyramid, in_range=in_range,
+            class_indices=classes,
         )
 
     @staticmethod
@@ -862,8 +884,8 @@ class ModelServer:
 
     def _infer_roi(self, srcs, shape, model: str, roi, rescale: bool,
                    outlier: float, compress: Optional[str] = None,
-                   scale: float = 1.0, in_range=None, slide_key=None,
-                   classes=None) -> Tuple[bytes, dict]:
+                   scale: float = 1.0, pyramid: bool = False, in_range=None,
+                   slide_key=None, classes=None) -> Tuple[bytes, dict]:
         """Windowed inference for ``roi=(r0, c0, h, w)``
         (``unmicst_tpu/serve.py:828-946``): a band with one net tile of
         context on all four sides, inferred on the whole engine, trimmed
@@ -921,7 +943,7 @@ class ModelServer:
             )
         return self._encode(
             maps, model, (h, w), h * w, infer_s, compress=compress,
-            in_range=in_range, class_indices=classes,
+            pyramid=pyramid, in_range=in_range, class_indices=classes,
         )
 
     def probe_range(self, path: str, channel, outlier: float,
@@ -954,7 +976,8 @@ class ModelServer:
 
     def _encode(self, maps, model: str, shape, raw_size: int,
                 infer_s: float, compress: Optional[str] = None,
-                in_range=None, class_indices=None) -> Tuple[bytes, dict]:
+                pyramid: bool = False, in_range=None,
+                class_indices=None) -> Tuple[bytes, dict]:
         from unmicst_tpu_torch.io.tiff import TiffWriter
 
         buf = tempfile.NamedTemporaryFile(suffix=".tif", delete=False)
@@ -963,7 +986,10 @@ class ModelServer:
             with TiffWriter(buf.name, bigtiff=True,
                             compression=compress or None) as tw:
                 for k in range(maps.shape[0] - 1, -1, -1):  # reversed order
-                    tw.write(maps[k])
+                    if pyramid:
+                        tw.write_pyramid(maps[k])
+                    else:
+                        tw.write(maps[k])
             with open(buf.name, "rb") as f:
                 out = f.read()
         finally:
