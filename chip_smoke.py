@@ -162,10 +162,38 @@ printing any result):
     directory whose only bundle is ``nuclei20x2bin1chan`` (16 wide, its
     ``hp.data`` saying 20) through ``cli.main``, card against CPU; the
     launch counters set to 0 before each counted path and read after;
-14. print the ``{"kernels": [...]}`` line (K3/K4a/K4b with their launches
-    and event ms across processes, K1 and K2 with ``launches_formats``,
-    their launches on each path of phase 13), the card's name and power
-    limit, and the ``{"ok": true, ...}`` line last.
+14. after phase 15, print the ``{"kernels": [...]}`` line (K3/K4a/K4b
+    with their launches and event ms across processes, K1 and K2 with
+    ``launches_formats`` and ``launches_slice12``, their launches on each
+    path of phases 13 and 15), the card's name and power limit, and the
+    ``{"ok": true, ...}`` line last;
+15. the native TIFF codec, the forward's CUDA graphs and space-to-depth
+    (the legacy net at nucleiDAPI's widths, seeded weights): the port's
+    C++ codec must load (built here by g++); a seeded 4096^2 uint16 blob
+    slide written as LZW predictor-2 strips (this script's own encoder, in
+    spawned processes; 2048^2 if it would take over 20 s) read natively
+    and its first band through the Python codec (MB/s each), then
+    ``cli.main`` on it, pages byte-equal to the same pixels uncompressed;
+    the three maps written as deflate pyramids by the native encoder and
+    by zlib (seconds each); ``cli.main`` twice in each of two fresh
+    processes, on the card's default path and eagerly (seconds, and no
+    capture); three servers (float32, bfloat16, int8) answering one
+    slide three times each and pans on the card-resident slide, on the
+    default path and eagerly: tile batches, reserved memory and the graph
+    pool, every answer equal; ``spatial_infer`` twice in a row (no
+    capture); ``infer_slide`` at 4096^2 in float32 and bfloat16, a
+    1024^2 pan on a pinned 8192^2 plane, a 300^2 slide and
+    ``StreamingEngine.infer`` at 8192^2 on graphs (a key's first request
+    runs eagerly, its second captures) against the same calls eager
+    (``weigh_tiles(_graphs=False)``), byte-equal, with Mpx/s both ways in
+    turns, the idle share, capture seconds per key, peak and held memory
+    with three keys cached, the 4096^2 slide replayed after the other
+    keys; int8 calibrated on one slide then another, byte-equal to eager
+    after each; ``InferenceEngine(s2d=True)`` at 4096^2 against
+    the standard engine (float32 within 1 level, bfloat16 at phase 4's
+    relative bar), Mpx/s both ways, and level 0's convolutions at a
+    256-tile chunk by the profiler, packed against standard; K1 and K2
+    counted on each path.
 """
 
 from __future__ import annotations
@@ -246,19 +274,21 @@ def kernel_device_ms(fn, names, iters: int = 20) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
+        if any(n in e.name for e in events for n in names):
             break
-        # a session may come back without any device event (CUPTI dropped
-        # them all); the kernels still ran (their counters say so), so
-        # profile again rather than read "no launches"
-        log("[profile] the profiler saw no device event; profiling again")
+        # a session may come back without the kernels' events (CUPTI
+        # dropped them, all of them or all but a few others); the kernels
+        # still ran (their counters say so), so profile again rather than
+        # read "no launches".  Every caller names a kernel its call runs.
+        log(f"[profile] the profiler saw none of {names} in "
+            f"{len(events)} device events; profiling again")
     out = {}
     for n in names:
         us = [e.time_range.elapsed_us() for e in events if n in e.name]
@@ -682,11 +712,15 @@ def phase_legacy(dev) -> dict:
         f"{[round(x, 4) for x in times]}), peak device memory "
         f"{peak_f32 / 2**30:.2f} GiB at tile batch {f32.tile_batch}")
     # the tile-batch choice rests on tile_bytes: hold it against what one
-    # tile adds to the peak (256 against 128 tiles per forward)
+    # tile adds to an eager call's peak (256 against 128 tiles per
+    # forward; on the forward's CUDA graphs that memory is the graph
+    # pool's, taken at the capture)
     half = InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
                            tile_batch=f32.tile_batch // 2, device=dev)
-    half.infer_slide(raw)  # cuDNN's autotune workspaces out of the peak
-    per_tile = (peak_f32 - peak(half)) / (f32.tile_batch - half.tile_batch)
+    with eager_forward():
+        half.infer_slide(raw)  # cuDNN's autotune workspaces out of the peak
+        per_tile = (peak(f32) - peak(half)) / (f32.tile_batch
+                                               - half.tile_batch)
     log(f"[legacy] peak memory per tile {per_tile / 2**20:.3f} MiB "
         f"measured, tile_bytes estimate {tile_bytes(hp) / 2**20:.3f} MiB "
         f"({tile_bytes(hp) / per_tile:.2f}x)")
@@ -4295,6 +4329,730 @@ def phase_formats(dev) -> dict:
 
 
 
+# -- phase 15: the native codec, CUDA graphs, space-to-depth ------------------
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes, early change, a clear code first, the
+    EOI at the width the spec asks), linear in ``data``: the string table
+    is a dict keyed by ``prefix code << 8 | byte``, the code widths are
+    kept as the points where they change, and numpy packs the codes into
+    bits at the end.  The port reads LZW and never writes it, so the
+    slide that phase 15 reads is encoded here."""
+    import numpy as np
+
+    codes = [256]
+    marks = [(0, 9)]  # (first code index, width from there on)
+    put = codes.append
+    nbits = 9
+    if data:
+        table = {}
+        get = table.get
+        nxt, limit = 258, 512
+        w = data[0]
+        for b in data[1:]:
+            k = (w << 8) | b
+            c = get(k)
+            if c is not None:
+                w = c
+                continue
+            put(w)
+            if nxt < 4094:
+                table[k] = nxt
+                nxt += 1
+                # the decoder's table lags by one entry and it widens at
+                # 2^n - 1 entries, so the encoder widens one code later
+                if nxt >= limit and nbits < 12:
+                    nbits += 1
+                    limit <<= 1
+                    marks.append((len(codes), nbits))
+            else:  # table full: clear and start again
+                put(256)
+                table = {}
+                get = table.get
+                nxt, nbits, limit = 258, 9, 512
+                marks.append((len(codes), 9))
+            w = b
+        put(w)
+        # the decoder adds an entry for that last code, so the EOI may
+        # have to be one bit wider
+        if nxt >= limit - 1 and nbits < 12:
+            nbits += 1
+            marks.append((len(codes), nbits))
+    put(257)
+    c = np.asarray(codes, np.int64)
+    starts = [m[0] for m in marks] + [len(codes)]
+    wd = np.repeat([m[1] for m in marks], np.diff(starts))
+    shift = np.arange(11, -1, -1)
+    # each code's bits MSB first, left-aligned in 12, then the first
+    # ``width`` of them
+    bits = (c[:, None] << (12 - wd[:, None])) >> shift[None, :] & 1
+    keep = shift[None, :] >= 12 - wd[:, None]
+    return np.packbits(bits[keep].astype(np.uint8)).tobytes()
+
+
+def write_lzw_tiff(path: str, plane, rows_per_strip: int,
+                   workers: int = 1) -> None:
+    """A classic little-endian TIFF of a grayscale ``plane`` in LZW
+    strips of ``rows_per_strip`` rows, with horizontal predictor 2 (each
+    row's differences, wrapping in the sample type); ``workers`` > 1
+    encodes the strips in that many spawned processes, closed before it
+    returns."""
+    import concurrent.futures
+    import multiprocessing
+
+    import numpy as np
+
+    plane = np.ascontiguousarray(plane)
+    h, w = plane.shape
+    diff = plane.astype(plane.dtype.newbyteorder("<"))  # a copy
+    diff[:, 1:] -= plane[:, :-1]
+    raw = [diff[r:r + rows_per_strip].tobytes()
+           for r in range(0, h, rows_per_strip)]
+    if workers > 1:
+        with concurrent.futures.ProcessPoolExecutor(
+                workers, mp_context=multiprocessing.get_context("spawn")
+        ) as pool:
+            strips = list(pool.map(lzw_encode, raw))
+    else:
+        strips = [lzw_encode(r) for r in raw]
+    n = len(strips)
+    offs, pos = [], 8
+    for st in strips:
+        offs.append(pos)
+        pos += len(st) + len(st) % 2
+    arrays = pos
+    entries = [(256, 4, 1, w), (257, 4, 1, h),
+               (258, 3, 1, plane.dtype.itemsize * 8), (259, 3, 1, 5),
+               (262, 3, 1, 1), (273, 4, n, arrays if n > 1 else offs[0]),
+               (277, 3, 1, 1), (278, 4, 1, rows_per_strip),
+               (279, 4, n, arrays + 4 * n if n > 1 else len(strips[0])),
+               (317, 3, 1, 2),
+               (339, 3, 1, 2 if plane.dtype.kind == "i" else 1)]
+    with open(path, "wb") as f:
+        f.write(struct.pack("<2sHI", b"II", 42,
+                            arrays + (8 * n if n > 1 else 0)))
+        for st in strips:
+            f.write(st + bytes(len(st) % 2))
+        if n > 1:
+            f.write(struct.pack(f"<{n}I", *offs))
+            f.write(struct.pack(f"<{n}I", *(len(st) for st in strips)))
+        f.write(struct.pack("<H", len(entries)))
+        for tag, ftype, count, value in entries:
+            f.write(struct.pack("<HHII", tag, ftype, count, value))
+        f.write(struct.pack("<I", 0))
+
+
+@contextlib.contextmanager
+def eager_forward():
+    """The engines' forwards eager, as before the CUDA graphs: every
+    module that calls ``weigh_tiles`` gets it with ``_graphs=False``."""
+    import functools
+
+    from unmicst_tpu_torch import infer
+    from unmicst_tpu_torch.runtime import halo, pipeline
+
+    saved = infer.weigh_tiles
+    plain = functools.partial(saved, _graphs=False)
+    mods = (infer, pipeline, halo)
+    for m in mods:
+        m.weigh_tiles = plain
+    try:
+        yield
+    finally:
+        for m in mods:
+            m.weigh_tiles = saved
+
+
+@contextlib.contextmanager
+def capture_log():
+    """The seconds of every forward-graph capture made inside the block
+    (by any model, in any thread)."""
+    from unmicst_tpu_torch.runtime import graphs
+
+    real = graphs.ForwardGraphs._capture
+    secs = []
+
+    def timed(self, *args):
+        t0 = time.perf_counter()
+        try:
+            return real(self, *args)
+        finally:
+            secs.append(time.perf_counter() - t0)
+
+    graphs.ForwardGraphs._capture = timed
+    try:
+        yield secs
+    finally:
+        graphs.ForwardGraphs._capture = real
+
+
+def graph_pool_bytes() -> int:
+    """Device bytes the caching allocator holds in private pools (the
+    forward graphs' shared pool, and any pool a failed capture left)."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+# one fresh process: ``cli.main`` twice on one slide, on the card's default
+# path or eagerly; prints the seconds of each call and of every capture
+COLD_CLI = """
+import contextlib, io, json, sys, time
+import chip_smoke
+from unmicst_tpu_torch import cli
+
+argv, out, eager = json.loads(sys.argv[1])
+secs = []
+with chip_smoke.capture_log() as caps, (
+        chip_smoke.eager_forward() if eager else contextlib.nullcontext()):
+    for k in range(2):
+        err = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv + ["--outputPath", f"{out}/{k}"])
+        secs.append(time.perf_counter() - t0)
+        if rc:
+            sys.exit(f"cli.main rc {rc}: {err.getvalue()}")
+print(json.dumps({"secs": secs, "captures": caps}))
+"""
+
+
+def cold_cli(argv, out: str, eager: bool) -> dict:
+    """:data:`COLD_CLI` in a new process from this script's directory."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    res = subprocess.run(
+        [sys.executable, "-c", COLD_CLI, json.dumps([argv, out, eager])],
+        cwd=here, capture_output=True, text=True, timeout=300)
+    check(res.returncode == 0, f"the cold cli.main process failed: "
+                               f"{res.stdout[-2000:]}{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def idle_share(run) -> tuple:
+    """(wall ms, device busy ms, idle share) of one ``run()`` under
+    ``torch.profiler``; NaN busy when the profiler saw no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof) or float("nan")
+    return wall_ms, busy, 1 - busy / wall_ms
+
+
+def device_ms_per_call(fn, iters: int = 10) -> float:
+    """All device time of ``fn()`` per call, from ``torch.profiler``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return sum(us) / iters / 1e3 if us else float("nan")
+
+
+def server_memory(zoo: str, slide_path: str, card: str) -> None:
+    """Three servers in one process (float32, bfloat16, int8) on the
+    card, each answering one slide's request three times, then pans on
+    the float32 server's card-resident copy of the slide: each engine's
+    tile batch, the reserved memory and the graph pool after each, on
+    the default path and eagerly.  Every answer must equal the first."""
+    import gc
+    import hashlib
+
+    import torch
+
+    from unmicst_tpu_torch import serve
+
+    model, pan = "nucleiDAPI", 1024
+    with open(slide_path, "rb") as f:
+        body = f.read()
+    digest = hashlib.sha256(body).hexdigest()
+    answers = {}
+    for how in ("graphs", "eager"):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        rows = []
+        servers = []
+
+        def note(label, tile_batch):
+            torch.cuda.synchronize()
+            rows.append(f"{label} (tile batch {tile_batch}): reserved "
+                        f"+{(torch.cuda.memory_reserved() - base) / 2**30:.2f}"
+                        f" GiB, graph pool "
+                        f"{graph_pool_bytes() / 2**30:.2f} GiB")
+
+        with (eager_forward() if how == "eager"
+              else contextlib.nullcontext()), capture_log() as caps:
+            for precision in ("float32", "bfloat16", "int8"):
+                srv = serve.ModelServer(model_root=zoo, precision=precision)
+                servers.append(srv)
+                for _ in range(3):
+                    page, _ = srv.infer_tiff_path(slide_path, model, 0, True,
+                                                  -1)
+                    check(answers.setdefault(precision, page) == page,
+                          f"{how}: a {precision} answer differs from the "
+                          f"first")
+                note(precision, srv.engine(model).tile_batch)
+            srv = servers[0]
+            spool = os.path.join(os.path.dirname(slide_path), "spool.tif")
+            with open(spool, "wb") as f:
+                f.write(body)
+            sid = srv.register_slide(spool, len(body), digest)["slide_id"]
+            for k in range(3):
+                path = srv.acquire_slide(sid)
+                try:
+                    page, _ = srv.infer_tiff_path(
+                        path, model, 0, True, -1, roi=(512, 768, pan, pan),
+                        slide_id=sid)
+                finally:
+                    srv.release_slide(sid)
+                check(answers.setdefault("pan", page) == page,
+                      f"{how}: a pan differs from the first")
+            note("float32 pans", srv.engine(model).tile_batch)
+            srv.drop_slide(sid)
+        log(f"[slice12] server memory, {how}: " + "; ".join(rows)
+            + f"; captures {len(caps)} | {card}")
+        del servers, srv
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_slice12(dev) -> dict:
+    """The native TIFF codec on the card's host, the forward's CUDA graphs
+    against eager on every engine path, and the space-to-depth engine
+    against the standard one; returns, per kernel, its launches on each
+    path (the counters set to 0 just before it)."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.core import s2d
+    from unmicst_tpu_torch.infer import InferenceEngine, _conv_precision
+    from unmicst_tpu_torch.io import _native
+    from unmicst_tpu_torch.io.tiff import TiffFile, imread, imwrite, num_pages
+    from unmicst_tpu_torch.runtime import halo
+    from unmicst_tpu_torch.runtime.graphs import graphs_for
+    from unmicst_tpu_torch.runtime.mesh import make_mesh
+    from unmicst_tpu_torch.runtime.pipeline import StreamingEngine
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    launches = {}
+    mpx = SLIDE * SLIDE / 1e6
+
+    def counted(path, fn):
+        kernels.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        launches[path] = kernels.launch_counts()
+        return res
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def turns(graph_fn, eager_fn, reps=3):
+        """Median seconds of ``graph_fn`` and ``eager_fn`` timed in turns
+        (graph, eager, eager, graph, ...)."""
+        g, e = [], []
+        for k in range(reps):
+            for which in ((0, 1) if k % 2 == 0 else (1, 0)):
+                if which == 0:
+                    g.append(timed(graph_fn)[1])
+                else:
+                    with eager_forward():
+                        e.append(timed(eager_fn)[1])
+        return float(np.median(g)), float(np.median(e))
+
+    # -- 1. the native codec ----------------------------------------------
+    lib = _native.get_lib()
+    check(lib is not None, "the native TIFF codec did not load on the "
+                           "card's host (g++ missing or the build failed)")
+    log(f"[slice12] native codec loaded from {_native.lib_path()}")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice12_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, state, "legacy", LEGACY_MEAN,
+                        LEGACY_STD)
+        base = ["--tool", "unmicst-legacy", "--model", "nucleiDAPI",
+                "--modelRoot", zoo, "--stackOutput", "--stats"]
+        rng = np.random.RandomState(SEED + 15)
+        side = SLIDE
+        raw = (np.clip(blob_slide(rng, side, side, 4000), 0, 1)
+               * 65535).astype(np.uint16)
+        # the encoder is Python: size it from a sample before committing
+        diff = raw[:64].copy()
+        diff[:, 1:] -= raw[:64, :-1]
+        workers = max(1, min(8, os.cpu_count() or 1))
+        _, sample_s = timed(lambda: lzw_encode(diff.tobytes()))
+        predicted = sample_s * side / 64 / workers
+        if predicted > 20:
+            side = SLIDE // 2
+            raw = np.ascontiguousarray(raw[:side, :side])
+            log(f"[slice12] LZW encode predicted {predicted:.1f} s at "
+                f"{SLIDE}^2 on {workers} workers: CUT to {side}^2")
+        lzw = os.path.join(tmp, "lzw.tif")
+        _, enc_s = timed(lambda: write_lzw_tiff(lzw, raw, 64, workers))
+        flat = os.path.join(tmp, "flat.tif")
+        imwrite(flat, raw)
+        with TiffFile(lzw) as tf:
+            page = tf.pages[0]
+            got, read_s = timed(lambda: tf.read_page(0))
+            check(page.compression == 5 and page.predictor == 2
+                  and np.array_equal(got, raw), "the LZW slide reads other "
+                                                "pixels")
+            band = page.rows_per_strip
+            saved = (_native._lib, _native._load_failed)
+            _native._lib, _native._load_failed = None, True
+            try:
+                got_py, py_s = timed(lambda: tf.read_region(0, 0, 0, band,
+                                                            side))
+            finally:
+                _native._lib, _native._load_failed = saved
+            check(np.array_equal(got_py, raw[:band]),
+                  "the Python codec reads other pixels")
+        mb = raw.nbytes / 1e6
+        lzw_mb = os.path.getsize(lzw) / 1e6
+        log(f"[slice12] {side}^2 uint16 blob slide as LZW predictor-2 strips "
+            f"of 64 rows ({lzw_mb:.1f} MB on disk, {mb:.1f} MB raw), "
+            f"encoded here in {enc_s:.2f} s on {workers} processes; read "
+            f"natively {read_s:.3f} s = {mb / read_s:.1f} MB/s; the Python "
+            f"codec on one {band}-row band {py_s:.3f} s = "
+            f"{raw[:band].nbytes / 1e6 / py_s:.2f} MB/s "
+            f"({mb / read_s / (raw[:band].nbytes / 1e6 / py_s):.0f}x) | "
+            f"{card}")
+
+        def cli_pages(src, name, count=None):
+            out = os.path.join(tmp, "out", name)
+            err = io.StringIO()
+            t0 = time.perf_counter()
+
+            def go():
+                with contextlib.redirect_stderr(err):
+                    return cli.main([src, *base, "--outputPath", out])
+
+            rc = counted(count, go) if count else go()
+            secs = time.perf_counter() - t0
+            check(rc == 0, f"cli.main {name}: rc {rc}\n{err.getvalue()}")
+            stats = [ln for ln in err.getvalue().splitlines()
+                     if "total" in ln]
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            return ([imread(maps, k) for k in range(num_pages(maps))], secs,
+                    stats[-1] if stats else "")
+
+        # the uncompressed run first: cuDNN's autotune lands there, not in
+        # the LZW run (neither captures a graph: each cli.main call builds
+        # its engine, whose shape it runs once)
+        f_pages, f_secs, f_stats = cli_pages(flat, "flat")
+        l_pages, l_secs, l_stats = cli_pages(lzw, "lzw", count="lzw_cli")
+        same = len(l_pages) == len(f_pages) and all(
+            np.array_equal(a, b) for a, b in zip(l_pages, f_pages))
+        log(f"[slice12] cli.main on the LZW slide {l_secs:.2f} s "
+            f"[{l_stats.split('] ', 1)[-1]}], on the same pixels "
+            f"uncompressed {f_secs:.2f} s [{f_stats.split('] ', 1)[-1]}]; "
+            f"pages byte-equal: {same}; K1 "
+            f"{launches['lzw_cli']['softmax_blend']} K2 "
+            f"{launches['lzw_cli']['blend_fold_epilogue']} | {card}")
+        check(same, "the LZW slide's pages differ from the uncompressed "
+                    "slide's")
+        check(launches["lzw_cli"]["softmax_blend"] > 0
+              and launches["lzw_cli"]["blend_fold_epilogue"] == 1,
+              f"the LZW CLI run did not run K1 and K2: {launches['lzw_cli']}")
+
+        write_s = {}
+        for how in ("native", "zlib", "none"):
+            path = os.path.join(tmp, f"w_{how}.tif")
+            saved = (_native._lib, _native._load_failed)
+            if how == "zlib":
+                _native._lib, _native._load_failed = None, True
+            try:
+                t0 = time.perf_counter()
+                for k, m in enumerate(l_pages):
+                    imwrite(path, m, append=k > 0, pyramid=True,
+                            compression=None if how == "none" else "deflate")
+                write_s[how] = time.perf_counter() - t0
+            finally:
+                _native._lib, _native._load_failed = saved
+            back = [imread(path, k) for k in range(num_pages(path))]
+            check(all(np.array_equal(a, b) for a, b in zip(back, l_pages)),
+                  f"the {how} pyramid pages read back other pixels")
+        log(f"[slice12] write of the three {side}^2 maps as pyramids "
+            f"(deflate level 3, 256^2 tiles): native "
+            f"{write_s['native']:.3f} s, zlib {write_s['zlib']:.3f} s, "
+            f"uncompressed {write_s['none']:.3f} s | {card}")
+
+        # -- the cold cost: a fresh process, as a one-shot pipeline step
+        cold = {how: cold_cli([flat, *base], os.path.join(tmp, f"cold_{how}"),
+                              how == "eager")
+                for how in ("default", "eager")}
+        log(f"[slice12] cli.main twice in a fresh process on the {side}^2 "
+            f"uncompressed slide: default {cold['default']['secs'][0]:.3f} "
+            f"then {cold['default']['secs'][1]:.3f} s (captures "
+            f"{cold['default']['captures']}), eager "
+            f"{cold['eager']['secs'][0]:.3f} then "
+            f"{cold['eager']['secs'][1]:.3f} s | {card}")
+        check(not cold["default"]["captures"],
+              "a one-shot cli.main call captured a graph")
+
+        # -- a server holding several engines: float32, bfloat16 and int8
+        # requests of one slide (each three times: eager, capture, replay)
+        # and pans on its card-resident slide cache
+        server_memory(zoo, flat, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 2. CUDA graphs against eager ------------------------------------
+    g = torch.Generator().manual_seed(SEED + 16)
+    slide = torch.randint(0, 65536, (SLIDE, SLIDE), generator=g,
+                          dtype=torch.int32).numpy().astype(np.uint16)
+    other = (np.clip(blob_slide(np.random.RandomState(SEED + 18), SLIDE,
+                                SLIDE, 4000), 0, 1) * 65535).astype(np.uint16)
+    big = torch.randint(0, 65536, (BIG, BIG), generator=g,
+                        dtype=torch.int32).numpy().astype(np.uint16)
+    pans = [(int(r), int(c)) for r, c in
+            np.random.RandomState(SEED + 17).randint(0, BIG - 1024, (5, 2))]
+
+    def fresh(**kw):
+        return InferenceEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                               device=dev, **kw)
+
+    def captures(engine_model):
+        return [round(v, 3) for v in
+                graphs_for(engine_model, dev).capture_s.values()]
+
+    # spatial_infer builds its models per call, so it runs eagerly: two
+    # calls in a row, neither capturing
+    canvas = halo.build_canvas(slide.astype(np.float32) / 65535, hp, RANKS)
+    mesh = make_mesh(devices=[dev] * RANKS)
+    with capture_log() as caps:
+        walls = [timed(lambda: halo.spatial_infer(
+            state, canvas, SLIDE, SLIDE, hp, "legacy", mesh,
+            mean=LEGACY_MEAN, std=LEGACY_STD))[1] for _ in range(2)]
+    log(f"[slice12] spatial_infer {SLIDE}^2 on {RANKS} ranks (ppermute), "
+        f"two calls in a row: {walls[0]:.4f} then {walls[1]:.4f} s; "
+        f"captures {caps} | {card}")
+    check(not caps, "spatial_infer captured a graph")
+    del canvas
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    f32 = fresh()
+    plane = f32.device_plane(big)
+    # a key's first request runs eagerly, its second captures the graph
+    for _ in range(2):
+        maps_a = counted("graph_slide_f32", lambda: f32.infer_slide(slide))
+        pan_g = [counted("graph_pan", lambda: f32.infer_slide_device(
+            plane, r, c, 1024, 1024)) for r, c in pans[:1]]
+        small_g = f32.infer_slide(slide[:300, :300])
+    maps_a2 = f32.infer_slide(slide)  # key A replayed after keys B and C
+    peak_g = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held_g = torch.cuda.memory_reserved() - base_reserved
+    with eager_forward():
+        maps_e = f32.infer_slide(slide)
+        pan_e = [f32.infer_slide_device(plane, r, c, 1024, 1024)
+                 for r, c in pans[:1]]
+        small_e = f32.infer_slide(slide[:300, :300])
+    eq = {"slide": np.array_equal(maps_a, maps_e),
+          "pan": all(np.array_equal(a, b) for a, b in zip(pan_g, pan_e)),
+          "small": np.array_equal(small_g, small_e),
+          "A after B, C": np.array_equal(maps_a2, maps_e)}
+    n_keys = len(graphs_for(f32.model, dev).cache)
+    log(f"[slice12] graphs vs eager, float32 engine: byte-equal {eq}; "
+        f"{n_keys} keys cached, capture s per key {captures(f32.model)}; "
+        f"peak allocated {peak_g / 2**30:.2f} GiB over the three keys' "
+        f"first two calls, reserved with them held "
+        f"{held_g / 2**30:.2f} GiB | {card}")
+    check(all(eq.values()), f"graph maps differ from eager: {eq}")
+    check(n_keys == 3, f"expected 3 graph keys, got {n_keys}")
+    del plane
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_alloc = torch.cuda.memory_allocated()
+    with eager_forward():
+        eng_e = fresh()
+        eng_e.infer_slide(slide)
+        eng_e.infer_slide(slide[:300, :300])
+    peak_e = torch.cuda.max_memory_allocated() - base_alloc
+    del eng_e
+    torch.cuda.empty_cache()
+    log(f"[slice12] eager engine, the same slides: peak allocated "
+        f"{peak_e / 2**30:.2f} GiB above the "
+        f"{base_alloc / 2**30:.2f} GiB already held | {card}")
+
+    for label, engine in (("float32", f32),
+                          ("bfloat16", fresh(compute_dtype=torch.bfloat16))):
+        engine.infer_slide(slide)  # the key's first request, if it is
+        got = counted(f"graph_slide_{'f32' if engine is f32 else 'bf16'}",
+                      lambda: engine.infer_slide(slide))
+        with eager_forward():
+            want = engine.infer_slide(slide)
+        check(np.array_equal(got, want), f"{label} graph maps differ from "
+                                         "eager")
+        sg, se = turns(lambda: engine.infer_slide(slide),
+                       lambda: engine.infer_slide(slide))
+        _, _, idle_g = idle_share(lambda: engine.infer_slide(slide))
+        with eager_forward():
+            _, _, idle_e = idle_share(lambda: engine.infer_slide(slide))
+        log(f"[slice12] {label} {SLIDE}^2 infer_slide: graphs "
+            f"{mpx / sg:.2f} Mpx/s ({sg:.4f} s), eager {mpx / se:.2f} Mpx/s "
+            f"({se:.4f} s), medians of 3 in turns; idle share graphs "
+            f"{idle_g:.3f}, eager {idle_e:.3f} (profiler on); capture s "
+            f"per key {captures(engine.model)}; maps byte-equal | {card}")
+    bf16 = engine
+    plane = f32.device_plane(big)
+
+    def pan_all():
+        return [f32.infer_slide_device(plane, r, c, 1024, 1024)
+                for r, c in pans]
+
+    pg, pe = turns(pan_all, pan_all)
+    log(f"[slice12] {len(pans)} 1024^2 pans on the pinned {BIG}^2 plane: "
+        f"graphs {pg / len(pans) * 1e3:.2f} ms a pan, eager "
+        f"{pe / len(pans) * 1e3:.2f} ms (medians of 3 in turns) | {card}")
+    del plane
+
+    stream = StreamingEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
+                             compute_dtype=None, device=dev)
+    got = counted("graph_stream", lambda: stream.infer(big))
+    with eager_forward():
+        want = stream.infer(big)
+    check(np.array_equal(got, want), "the stream's graph maps differ from "
+                                     "eager")
+    sg, se = turns(lambda: stream.infer(big), lambda: stream.infer(big), 2)
+    _, _, idle_g = idle_share(lambda: stream.infer(big))
+    with eager_forward():
+        _, _, idle_e = idle_share(lambda: stream.infer(big))
+    big_mpx = BIG * BIG / 1e6
+    log(f"[slice12] StreamingEngine.infer {BIG}^2 float32: graphs "
+        f"{big_mpx / sg:.2f} Mpx/s, eager {big_mpx / se:.2f} Mpx/s (medians "
+        f"of 2 in turns); idle share graphs {idle_g:.3f}, eager "
+        f"{idle_e:.3f}; capture s per key "
+        f"{captures(stream._model(dev)[0])}; maps byte-equal | {card}")
+    del stream, big
+    torch.cuda.empty_cache()
+
+    q8 = fresh(quantized=True, compute_dtype=torch.bfloat16)
+    scales = []
+    for k, raw_q in enumerate((slide, other)):
+        q8._quant = None  # calibrate on this slide
+        if k == 0:
+            q8.infer_slide(raw_q)  # calibrates; the key's first request
+        got = counted(f"graph_int8_{k}", lambda: q8.infer_slide(raw_q))
+        with eager_forward():
+            want = q8.infer_slide(raw_q)
+        scales.append([float(torch.as_tensor(a).max()) for _, a in
+                       sorted(q8._quant["scales"].items())])
+        check(np.array_equal(got, want), f"int8 graph maps after "
+                                         f"calibration {k} differ from eager")
+    log(f"[slice12] int8 {SLIDE}^2, calibrated on one slide then another "
+        f"(first site's max scale {scales[0][0]:.5g} then "
+        f"{scales[1][0]:.5g}): graph "
+        f"maps byte-equal to eager after each; capture s per key "
+        f"{captures(q8.model)} | {card}")
+    check(scales[0] != scales[1], "the two calibrations gave one state")
+    del q8
+
+    # -- 3. space-to-depth ------------------------------------------------
+    for label, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        std = f32 if dt is None else bf16
+        packed = fresh(s2d=True, compute_dtype=dt)
+        got = counted(f"s2d_{label}", lambda: packed.infer_slide(slide))
+        packed.infer_slide(slide)  # the capture, out of the timed calls
+        want = std.infer_slide(slide)
+        sp, ss = [], []
+        for k in range(3):
+            for eng, acc in ((packed, sp), (std, ss))[::1 if k % 2 == 0
+                                                      else -1]:
+                acc.append(timed(lambda: eng.infer_slide(slide))[1])
+        sp, ss = float(np.median(sp)), float(np.median(ss))
+        d = np.abs(got.astype(int) - want.astype(int))
+        if dt is None:
+            ok = d.max() <= 1
+            bar = "at most 1 level"
+        else:
+            # phase 4's bar for seeded weights: bfloat16 s2d nearer the
+            # standard bfloat16 maps than the standard float32 maps are
+            _, _, share_bf = maps_agree(got, want, dt)
+            _, _, share_f = maps_agree(want, maps_e, None)
+            ok = share_bf < share_f
+            bar = (f"nearer than standard bfloat16 to float32 "
+                   f"({share_f:.3e} of pixels)")
+        model, pk = packed.model, packed._packed
+        x = torch.randn((256, 1, 128, 128), generator=torch.Generator(
+            device=dev).manual_seed(SEED), device=dev)
+        h1 = torch.randn((256, 32, 64, 64), device=dev)
+
+        def level0_standard():
+            d0, u0 = model.down[0], model.up[0]
+            model._conv(x, d0.kernel1)
+            model._conv(x.expand(-1, 16, -1, -1), d0.extra[0])
+            model._conv(x, d0.shortcut)
+            u = model._conv_transpose(h1, u0.kernel1)
+            model._conv(torch.cat([x, u], 1), u0.kernel2)
+            model._conv(u, u0.extra[0])
+
+        xp = s2d.space_to_depth(x)
+
+        def level0_packed():
+            d0, u0 = pk.down0, pk.up0
+            model._conv(xp, d0.kernel1)
+            model._conv(xp.repeat(1, 16, 1, 1), d0.extra[0])
+            model._conv(xp, d0.shortcut)
+            u = model._conv(h1, u0.kernel1)
+            model._conv(torch.cat([xp.reshape(256, 4, 1, 64, 64),
+                                   u.reshape(256, 4, 16, 64, 64)], 2
+                                  ).reshape(256, 68, 64, 64), u0.kernel2)
+            model._conv(u, u0.extra[0])
+
+        with torch.inference_mode(), _conv_precision(dt is not None):
+            ms_std = device_ms_per_call(level0_standard)
+            ms_pk = device_ms_per_call(level0_packed)
+        log(f"[slice12] s2d {label} {SLIDE}^2: {mpx / sp:.2f} Mpx/s against "
+            f"standard {mpx / ss:.2f} (medians of 3 in turns); maps max "
+            f"{d.max()} level(s) apart, {(d > 0).mean():.3e} of pixels "
+            f"({bar}: {ok}); level 0's convolutions at a 256-tile chunk, "
+            f"all device kernels by the profiler: packed {ms_pk:.3f} ms, "
+            f"standard {ms_std:.3f} ms | {card}")
+        check(ok, f"s2d {label} maps miss the bar: max {d.max()} levels")
+        del packed
+    torch.cuda.empty_cache()
+    log(f"[slice12] phase {time.perf_counter() - t_phase:.1f}s")
+    names = ("softmax_blend", "blend_fold_epilogue", "blend_fold_stripe")
+    for path, n in launches.items():
+        check(n["softmax_blend"] > 0, f"{path} launched no K1: {n}")
+    return {name: {path: n[name] for path, n in launches.items()}
+            for name in names}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -4331,6 +5089,8 @@ def main(argv=None) -> int:
         stats[name]["ms_across_processes"] = ms
     for name, per_path in phase_formats(dev).items():
         stats[name]["launches_formats"] = per_path
+    for name, per_path in phase_slice12(dev).items():
+        stats[name]["launches_slice12"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -4338,7 +5098,8 @@ def main(argv=None) -> int:
             "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{k: v for k, v in row.items()
-               if k.endswith("processes") or k == "launches_formats"}})
+               if k.endswith("processes")
+               or k in ("launches_formats", "launches_slice12")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

@@ -231,8 +231,9 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 print(len(names), leaked)
 required = ["unmicst_tpu_torch." + m for m in (
     "train", "core.msgpack", "serve", "io.zstd", "io.czi", "io.nd2",
-    "io.jxr")]
-sys.exit(1 if leaked or len(names) < 41
+    "io.jxr", "io._native", "utils.progcache", "runtime.graphs",
+    "core.s2d")]
+sys.exit(1 if leaked or len(names) < 45
          or any(m not in names for m in required) else 0)
 """
 

@@ -941,3 +941,205 @@ def test_czi_and_nd2_cli_on_card_match_cpu(cuda, tmp_path, engine):
         counts = _cli_card_and_cpu(src, tmp_path, ["--engine", engine],
                                    name)
         assert counts["softmax_blend"] > 0 and counts[k2] > 0, counts
+
+
+# -- CUDA graphs of the forward (runtime/graphs.py) ---------------------------
+
+
+def _graph_engine(cuda, **kw):
+    """A small legacy engine (nucleiDAPI's ks and widths at 64 px) on the
+    card, seeded weights with non-trivial BN statistics."""
+    from unmicst_tpu_torch.core.hp import HParams
+    from unmicst_tpu_torch.core.unet import init_params
+    from unmicst_tpu_torch.infer import InferenceEngine
+
+    hp = HParams(im_size=64, n_channels=1, n_classes=3, n_out0=16, ks=5,
+                 n_extra_convs=1, n_layers=2)
+    g = torch.Generator().manual_seed(5)
+    state = init_params(hp, "legacy", g)
+    for name in state:
+        if name.endswith(("moving_mean", "beta")):
+            state[name] = 0.1 * torch.randn(state[name].shape, generator=g)
+        elif name.endswith(("moving_variance", "gamma")):
+            state[name] = 0.5 + torch.rand(state[name].shape, generator=g)
+    return InferenceEngine(hp, state, "legacy", 0.2, 0.16, device=cuda, **kw)
+
+
+def _weigh(engine, raw, chunk, graphs, quant=None):
+    """``weigh_tiles`` of ``raw``'s canvas through ``engine``'s model, on
+    graphs or eagerly; returns the weighted tiles and K1's launches."""
+    from unmicst_tpu_torch.infer import weigh_tiles
+
+    hp = engine.hp
+    grid = tt.make_grid(*raw.shape, hp.im_size, hp.margin)
+    m = grid.margin
+    canvas = torch.zeros((1, grid.padded_height, grid.padded_width),
+                         device=engine.device)
+    canvas[0, m : m + raw.shape[0], m : m + raw.shape[1]] = torch.from_numpy(
+        raw.astype(np.float32) / 65535.0).to(engine.device)
+    mask = torch.ones(grid.num_tiles, device=engine.device)
+    before = kernels.softmax_blend.launches
+    out = weigh_tiles(engine.model, engine.normalize(canvas), grid,
+                      engine.window, mask, chunk, quant=quant,
+                      packed=engine._packed, _graphs=graphs)
+    torch.cuda.synchronize()
+    return out.cpu(), kernels.softmax_blend.launches - before
+
+
+def _raw(seed, shape=(300, 260)):
+    return (np.random.RandomState(seed).rand(*shape) * 60000).astype(
+        np.uint16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"compute_dtype": torch.bfloat16},
+                                {"s2d": True}])
+def test_graph_forward_equals_eager_on_card(cuda, kw):
+    """A shape's first call runs eagerly and its second captures; the
+    replayed graph gives eager's weighted tiles bit for bit, K1 launched
+    once per chunk either way, and replays of two keys sharing the card's
+    pool in turns (A, B, A) stay equal to eager."""
+    from unmicst_tpu_torch.runtime.graphs import graphs_for
+
+    engine = _graph_engine(cuda, **kw)
+    graphs = graphs_for(engine.model, engine.device)
+    raw = _raw(1)
+    for k, chunk in enumerate((16, 7, 16)):
+        eager, n_eager = _weigh(engine, raw, chunk, graphs=False)
+        for _ in range(2 if k < 2 else 1):
+            graph, n_graph = _weigh(engine, raw, chunk, graphs=True)
+            assert torch.equal(graph, eager), chunk
+            assert n_graph == n_eager > 1
+        assert len(graphs.cache) == min(k + 1, 2)
+    assert len(graphs.capture_s) == 2
+    maps = engine.infer_slide(raw)
+    assert maps.shape == (3, 300, 260) and len(graphs.cache) == 2
+    np.testing.assert_array_equal(engine.infer_slide(raw), maps)
+    assert len(graphs.cache) == 3
+
+
+@pytest.mark.cuda
+def test_graph_int8_follows_recalibration_on_card(cuda):
+    """The int8 graph copies the engine's current QuantState in before
+    each replay: after calibrating on another slide it equals eager with
+    the new state, and that state's tiles differ from the old state's (a
+    stale scale would show)."""
+    from unmicst_tpu_torch.core import quant as q
+
+    engine = _graph_engine(cuda, quantized=True,
+                           compute_dtype=torch.bfloat16)
+    raw_a, raw_b = _raw(2), (_raw(3) // 4).astype(np.uint16)
+    states = []
+    for raw in (raw_a, raw_b):
+        engine._quant = None
+        engine.infer_slide(raw)  # calibrates, then runs on the graph
+        states.append(q.to_device(engine._quant, engine.device))
+    _weigh(engine, raw_b, 16, graphs=True, quant=states[0])  # first: eager
+    for state in (states[0], states[1], states[0]):
+        eager, _ = _weigh(engine, raw_b, 16, graphs=False, quant=state)
+        graph, _ = _weigh(engine, raw_b, 16, graphs=True, quant=state)
+        assert torch.equal(graph, eager)
+    old, _ = _weigh(engine, raw_b, 16, graphs=True, quant=states[0])
+    new, _ = _weigh(engine, raw_b, 16, graphs=True, quant=states[1])
+    assert not torch.equal(old, new)
+
+
+@pytest.mark.cuda
+def test_graph_capture_failure_raises_on_card(cuda):
+    """A forward that synchronises with the host cannot be captured: the
+    capture raises, and a second request of the key raises again from
+    a new attempt, never falling back to eager."""
+    from unmicst_tpu_torch.runtime.graphs import graphs_for
+
+    engine = _graph_engine(cuda)
+    graphs = graphs_for(engine.model, engine.device)
+
+    def syncing(x, quant):
+        y = engine.model.forward_nchw(x, return_logits=True)
+        return y * float(y.sum().item())  # a host read inside the forward
+
+    # the first request runs eagerly, where a host read is allowed
+    assert graphs.get(("bad",), syncing, (4, 1, 64, 64),
+                      torch.float32) is None
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            graphs.get(("bad",), syncing, (4, 1, 64, 64), torch.float32)
+    torch.cuda.synchronize()
+    assert ("bad",) not in graphs.capture_s
+    raw = _raw(4, (130, 120))
+    eager, _ = _weigh(engine, raw, 8, graphs=False)
+    for _ in range(2):
+        graph, _ = _weigh(engine, raw, 8, graphs=True)
+        assert torch.equal(graph, eager)
+    assert len(graphs.capture_s) == 1
+
+
+@pytest.mark.cuda
+def test_graph_first_requests_in_three_threads_capture_once(cuda,
+                                                           monkeypatch):
+    """Three threads' first requests of one shape: one runs eagerly (the
+    key's first request), the other two capture one graph between them
+    (the cache's dedup), and all three get the same maps.  cuDNN keeps
+    its plans per thread, so threads may run other algorithms (other
+    bits) for one shape, eagerly as on graphs: cuDNN's choice is pinned
+    here to its heuristics, and the graph is held against eager in a new
+    thread (this one holds earlier tests' autotuned plans)."""
+    import threading
+
+    from unmicst_tpu_torch.runtime.graphs import graphs_for
+
+    flags = torch.backends.cudnn.flags
+    monkeypatch.setattr(torch.backends.cudnn, "flags", lambda *a, **kw: flags(
+        *a, **{**kw, "benchmark": False}))
+    engine = _graph_engine(cuda, tile_batch=8)
+    raw = _raw(5)
+    results = [None] * 3
+
+    def run(k):
+        results[k] = engine.infer_slide(raw)
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+        assert not t.is_alive()
+    assert len(graphs_for(engine.model, engine.device).capture_s) == 1
+    for r in results[1:]:
+        np.testing.assert_array_equal(r, results[0])
+    tiles = {}
+
+    def weigh_both():
+        tiles["eager"], _ = _weigh(engine, raw, 8, graphs=False)
+        tiles["graph"], _ = _weigh(engine, raw, 8, graphs=True)
+
+    t = threading.Thread(target=weigh_both)
+    t.start()
+    t.join(120)
+    assert not t.is_alive() and len(tiles) == 2
+    assert torch.equal(tiles["graph"], tiles["eager"])
+
+
+@pytest.mark.cuda
+def test_graph_capture_after_every_graph_died_on_card(cuda):
+    """When every graph of the card's pool has been collected, PyTorch no
+    longer takes captures into that pool: the next capture starts a
+    fresh one, and its replay equals eager."""
+    import gc
+
+    from unmicst_tpu_torch.runtime.graphs import card_pool, graphs_for
+
+    gc.collect()  # earlier tests' engines, and their graphs
+    raw = _raw(6, (130, 120))
+    pools = []
+    for _ in range(2):
+        engine = _graph_engine(cuda)
+        eager, _ = _weigh(engine, raw, 8, graphs=False)
+        for _ in range(2):
+            graph, _ = _weigh(engine, raw, 8, graphs=True)
+            assert torch.equal(graph, eager)
+        assert len(graphs_for(engine.model, engine.device).capture_s) == 1
+        pools.append(card_pool(engine.device).pool)
+        del engine
+        gc.collect()
+    assert pools[0] != pools[1]

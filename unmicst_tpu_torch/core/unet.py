@@ -420,7 +420,7 @@ class UNet(nn.Module):
                      train: bool = False,
                      generator: Optional[torch.Generator] = None,
                      compute_dtype: Optional[torch.dtype] = None,
-                     tap=None, quant=None):
+                     tap=None, quant=None, level0=None):
         """``x``: [B, C, S, S] float -> [B, K, S, S] float32 softmax (or
         logits with ``return_logits``).
 
@@ -435,9 +435,18 @@ class UNet(nn.Module):
         ``generator`` (on ``x``'s device), off when it is None;
         ``compute_dtype`` (bfloat16 or None) is the training convs' dtype.
         Inference ignores ``generator`` and ``compute_dtype`` and runs in
-        the module's own ``compute_dtype``."""
+        the module's own ``compute_dtype``.
+
+        ``level0``: inference only, another form of the full-resolution
+        level (``core/s2d.py``'s packed one): ``level0.down(x)`` gives
+        level 1's input, ``level0.up(h)`` the top conv's input from what
+        level 1 gives back; the inner levels, the bottom and the top run
+        as they do here."""
         if quant is not None and train:
             raise ValueError("quantized forward is inference-only")
+        if level0 is not None and (train or quant is not None
+                                  or tap is not None):
+            raise ValueError("a replaced level 0 is plain inference only")
         hp = self.hp
         s = x.shape[-1]
         for _ in range(hp.n_layers):
@@ -488,6 +497,9 @@ class UNet(nn.Module):
         h = x
         for i, layer in enumerate(self.down):
             skips.append(h)
+            if i == 0 and level0 is not None:
+                h = level0.down(h)
+                continue
             fused = None if train else self._fused_residual(layer)
             if fused is not None:
                 pre = site_conv(h, f"down{i}", fused)
@@ -510,6 +522,9 @@ class UNet(nn.Module):
             h = drop(act(bn(b, self.bottom.bn, "bottom.bn")),
                      cfg.dropout_bottom)
         for i in reversed(range(hp.n_layers)):
+            if i == 0 and level0 is not None:
+                h = level0.up(h)
+                continue
             layer = self.up[i]
             u = act(conv_t(h, layer.kernel1))
             # skip FIRST (UnMicst.py:156)

@@ -41,9 +41,11 @@ from unmicst_tpu_torch.core.checkpoint import State
 from unmicst_tpu_torch.core.hp import HParams, ModelBundle
 from unmicst_tpu_torch.core.resize_dev import ResizePlan
 from unmicst_tpu_torch.core import quant as _q
+from unmicst_tpu_torch.core import s2d as _s2d
 from unmicst_tpu_torch.core.unet import IM2COL_BUDGET, UNet
 from unmicst_tpu_torch.kernels import (blend_fold_epilogue, check_trim,
                                        softmax_blend)
+from unmicst_tpu_torch.runtime import graphs as _graphs_mod
 from unmicst_tpu_torch.runtime.devices import Device, resolve_device
 from unmicst_tpu_torch.utils.batching import chunks
 
@@ -217,7 +219,9 @@ def _conv_precision(tf32: bool):
 def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
                 window: torch.Tensor, mask: torch.Tensor, tile_batch: int,
                 out: Optional[torch.Tensor] = None,
-                quant: Optional[_q.QuantState] = None) -> torch.Tensor:
+                quant: Optional[_q.QuantState] = None,
+                packed: Optional[_s2d.Packed] = None,
+                _graphs: bool = True) -> torch.Tensor:
     """The UNet and K1 over every tile of a canvas: ``[T, K, P, P]``
     float32 ``softmax(logits) * window * mask[t]``, in row-major tile order.
 
@@ -229,6 +233,17 @@ def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
     ``mask``: ``[T]`` float32 per-tile factor (0 drops a phantom tile from
     the blend).  ``out``: optional contiguous ``[T, K, P, P]`` destination.
     ``quant``: the int8 mode's QuantState on the canvas's device.
+    ``packed``: the space-to-depth weights (``core/s2d.py``) of ``model``,
+    whose forward then runs level 0 packed.
+
+    On a card, from the second call of a shape on ``model`` on, the
+    forward is a CUDA graph of that shape (``runtime/graphs.py``),
+    captured at that call's start and replayed for every chunk; each
+    chunk's tiles are copied into the graph's static input and K1 reads
+    its static logits.  The first call of a shape and the CPU run
+    eagerly.  ``_graphs=False`` runs the card eagerly always: callers
+    whose model lives for one call, and the chip smoke, which holds the
+    two against each other.
     """
     hp = model.hp
     device = canvas.device
@@ -239,26 +254,41 @@ def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
     if out is None:
         out = torch.empty((n_tiles, hp.n_classes, patch, patch),
                           dtype=torch.float32, device=device)
-    staging = torch.zeros((tile_batch, n_ch, patch, patch),
-                          dtype=canvas.dtype, device=device)
+
+    def forward(x, q):
+        if packed is not None:
+            return _s2d.forward_nchw(model, packed, x)
+        return model.forward_nchw(x, return_logits=True, quant=q)
+
+    on_card = device.type == "cuda"
     flags = (_conv_precision(model.compute_dtype is not None)
-             if device.type == "cuda" else contextlib.nullcontext())
+             if on_card else contextlib.nullcontext())
     with torch.inference_mode(), flags:
+        graph = None
+        shape = (tile_batch, n_ch, patch, patch)
+        if on_card and _graphs:
+            graph = _graphs_mod.graphs_for(model, device).get(
+                _graphs_mod.graph_key(model, device, tile_batch, n_ch, patch,
+                                      canvas.dtype, packed, quant),
+                forward, shape, canvas.dtype, quant, keep=(packed,))
+        staging = (graph.staging if graph else
+                   torch.zeros(shape, dtype=canvas.dtype, device=device))
         for t0, t1 in chunks(n_tiles, tile_batch):
             real = t1 - t0
-            if real < tile_batch:
-                staging[real:].zero_()  # phantom tiles of the last chunk
-            # copy the chunk's tiles row segment by row segment
-            t = t0
-            while t < t1:
-                i, j = divmod(t, npc)
-                n = min(npc - j, t1 - t)
-                staging[t - t0 : t - t0 + n].copy_(tiles[i, j : j + n])
-                t += n
-            logits = model.forward_nchw(staging, return_logits=True,
-                                        quant=quant)
-            softmax_blend(logits[:real], window, mask[t0:t1],
-                          out=out[t0:t1])
+            with graph.card.turn() if graph else contextlib.nullcontext():
+                if real < tile_batch:
+                    staging[real:].zero_()  # phantom tiles of the last chunk
+                # copy the chunk's tiles row segment by row segment
+                t = t0
+                while t < t1:
+                    i, j = divmod(t, npc)
+                    n = min(npc - j, t1 - t)
+                    staging[t - t0 : t - t0 + n].copy_(tiles[i, j : j + n])
+                    t += n
+                logits = (graph.replay(quant) if graph
+                          else forward(staging, quant))
+                softmax_blend(logits[:real], window, mask[t0:t1],
+                              out=out[t0:t1])
     return out
 
 
@@ -275,13 +305,23 @@ class InferenceEngine:
     calibrates from its own input (``calibration_percentile``,
     ``quant_bias_correct``) and that QuantState, ``_quant``, serves every
     later call; the glue around the int8 sites runs in ``compute_dtype``.
+
+    ``s2d``: run level 0 space-to-depth packed (``core/s2d.py``): the same
+    maps, summed in another order (``unmicst_tpu/infer.py:163-184``).  It
+    does not combine with ``quantized``, whose sites are those of the
+    standard layout.
     """
 
     def __init__(self, hp: HParams, params: State, variant: str,
                  mean: float, std: float, *, compute_dtype=None,
                  tile_batch: Optional[int] = None, quantized: bool = False,
                  calibration_percentile: float = 99.99,
-                 quant_bias_correct: bool = True, device: Device = None):
+                 quant_bias_correct: bool = True, s2d: bool = False,
+                 device: Device = None):
+        if s2d and quantized:
+            raise ValueError(
+                "s2d and int8 quantization cannot combine (the int8 site "
+                "calibration is keyed to the standard layout)")
         self.device = resolve_device(device)
         self.hp, self.variant = hp, variant
         self.mean, self.std = float(mean), float(std)
@@ -289,6 +329,9 @@ class InferenceEngine:
         self.model = UNet(hp, variant, compute_dtype)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
+        self.s2d = bool(s2d)
+        self._packed = (_s2d.refold_params(self.model).to(self.device)
+                        if self.s2d else None)
         self.quantized = bool(quantized)
         self.calibration_percentile = float(calibration_percentile)
         self.quant_bias_correct = bool(quant_bias_correct)
@@ -410,7 +453,8 @@ class InferenceEngine:
                                self.window, mask,
                                min(self.tile_batch, grid.num_tiles),
                                quant=_q.cached_on(self._quant_devs,
-                                                  self._quant, self.device))
+                                                  self._quant, self.device),
+                               packed=self._packed)
         return blend_fold_epilogue(weighted, self.window, grid, classes,
                                    quantize, trim)
 

@@ -1,0 +1,308 @@
+"""ctypes binding to the port's native TIFF codec library.
+
+The counterpart of ``unmicst_tpu/io/_native.py`` over the port's own copy
+of the C++ source, ``unmicst_tpu_torch/native/tiffcodec.cpp``: LZW and
+PackBits decode (with and without the overrun flag), inflate, predictor-2
+undo, one-call strip decode, and the greedy and chain deflate encoders.
+Every function returns None when the library is absent, and the callers
+(``io/tiff.py``) then take the pure-Python codecs: correct, only slow.
+
+The library builds at first use with the host's ``g++ -O3 -shared -fPIC``
+(portable flags, no ``-march=native``: a build directory copied to an
+older CPU must not trap on an instruction) into
+``build/torch_host/<hash>/`` at the repository root, the hash covering
+the source and the flags.  The compiler writes a per-process temporary
+name that ``os.replace`` puts in place, so processes building at the same
+time never interleave their writes.  ``UNMICST_NO_AUTOBUILD`` set to
+anything but ``""`` or ``"0"`` turns the build off.  Where there is no
+compiler, or the build fails, one line on stderr says so.  Nothing here
+runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+import threading
+from typing import Optional
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, "native", "tiffcodec.cpp")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
+CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+LIB_NAME = "libunmicst_tiffcodec.so"
+
+_lock = threading.Lock()
+_lib = None
+_build_attempted = False
+_load_failed = False
+
+
+def _autobuild_disabled() -> bool:
+    # value-sensitive: UNMICST_NO_AUTOBUILD=0 means "autobuild enabled"
+    return os.environ.get("UNMICST_NO_AUTOBUILD", "") not in ("", "0")
+
+
+def lib_path() -> str:
+    """Where the library of this source and these flags lives."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    with open(SOURCE, "rb") as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
+
+
+def _note(msg: str) -> None:
+    print(f"unmicst_tpu_torch: {msg}; using the pure-Python codecs "
+          "(slow LZW)", file=sys.stderr)
+
+
+def _try_build(path: str) -> None:
+    """Compile the library to ``path``, once per process."""
+    global _build_attempted
+    if _build_attempted or _autobuild_disabled():
+        return
+    _build_attempted = True
+    cxx = shutil.which("g++")
+    if cxx is None:
+        _note("no g++ to build the native TIFF codec")
+        return
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], check=True,
+                       timeout=300, stdout=subprocess.DEVNULL,
+                       stderr=subprocess.PIPE)
+        os.replace(tmp, path)
+    except (OSError, subprocess.SubprocessError):
+        _note(f"building {SOURCE} with g++ failed")
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    ll, vp = ctypes.c_longlong, ctypes.c_void_p
+    for name in ("unmicst_lzw_decode", "unmicst_packbits_decode",
+                 "unmicst_inflate", "unmicst_deflate"):
+        fn = getattr(lib, name)
+        fn.restype = ll
+        fn.argtypes = [ctypes.c_char_p, ll, vp, ll]
+    for name in ("unmicst_lzw_decode_ex", "unmicst_packbits_decode_ex"):
+        fn = getattr(lib, name)
+        fn.restype = ll
+        fn.argtypes = [ctypes.c_char_p, ll, vp, ll,
+                       ctypes.POINTER(ctypes.c_int)]  # overrun out-flag
+    lib.unmicst_predictor_undo.restype = None
+    lib.unmicst_predictor_undo.argtypes = [vp, ll, ll, ctypes.c_int]
+    fn = lib.unmicst_deflate_chain
+    fn.restype = ll
+    # src, src_len, dst, dst_cap, max_chain, nice_len, good_len, max_lazy
+    fn.argtypes = [ctypes.c_char_p, ll, vp, ll, ll, ll, ll, ll]
+    fn = lib.unmicst_decode_strips
+    fn.restype = ll
+    # span, src offsets, src lengths, dst offsets, dst lengths (int64[n]),
+    # n, codec (TIFF tag value), dst, dst_cap
+    fn.argtypes = [ctypes.c_char_p, vp, vp, vp, vp, ll, ll, vp, ll]
+    return lib
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The loaded library, built on first use; None when there is none."""
+    global _lib, _load_failed
+    if _lib is not None or _load_failed:
+        return _lib
+    with _lock:
+        if _lib is not None or _load_failed:
+            return _lib
+        path = lib_path()
+        if not os.path.exists(path):
+            _try_build(path)
+        if not os.path.exists(path):
+            return None
+        try:
+            _lib = _load(path)
+        except (OSError, AttributeError):
+            # a truncated or stale artifact: rebuild once if allowed, else
+            # fall back for good (a bad library must degrade to the Python
+            # codecs, never crash every TIFF decode)
+            if not _build_attempted and not _autobuild_disabled():
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
+                _try_build(path)
+                try:
+                    _lib = _load(path)
+                except (OSError, AttributeError):
+                    _load_failed = True
+            else:
+                _load_failed = True
+        return _lib
+
+
+def _ptr(buf: np.ndarray) -> ctypes.c_void_p:
+    return buf.ctypes.data_as(ctypes.c_void_p)
+
+
+def lzw_decode(data: bytes, max_out: int) -> Optional[np.ndarray]:
+    """TIFF LZW into at most ``max_out`` bytes: a uint8 view of the
+    decoded bytes (no zeroing, no copy of the whole strip), or None
+    without the library.  A corrupt stream raises ``ValueError``."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.empty(max_out, np.uint8)
+    n = lib.unmicst_lzw_decode(data, len(data), _ptr(buf), max_out)
+    if n < 0:
+        raise ValueError("native LZW: corrupt stream or undersized buffer")
+    return buf[:n]
+
+
+def inflate(data: bytes, max_out: int) -> Optional[np.ndarray]:
+    """zlib-stream (RFC 1950) decode into at most ``max_out`` bytes,
+    adler32-verified as zlib does; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.empty(max_out, np.uint8)
+    n = lib.unmicst_inflate(data, len(data), _ptr(buf), max_out)
+    if n < 0:
+        raise ValueError("native inflate: corrupt stream or undersized buffer")
+    return buf[:n]
+
+
+def deflate(data: bytes) -> Optional[bytes]:
+    """zlib-stream compress with the greedy single-probe encoder and
+    per-block dynamic Huffman (the writer's levels 1-3); None without
+    the library (callers use zlib)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    cap = len(data) + (len(data) >> 6) + 1024
+    buf = np.empty(cap, np.uint8)
+    n = lib.unmicst_deflate(data, len(data), _ptr(buf), cap)
+    if n < 0:
+        raise ValueError("native deflate: output buffer undersized")
+    return buf[:n].tobytes()
+
+
+# zlib's deflate_slow configuration_table rows (good, lazy, nice, chain)
+# for levels 4..9: the speed/ratio trade each level names
+_CHAIN_PARAMS = {
+    4: (4, 4, 16, 16),
+    5: (8, 16, 32, 32),
+    6: (8, 16, 128, 128),
+    7: (8, 32, 128, 256),
+    8: (32, 128, 258, 1024),
+    9: (32, 258, 258, 4096),
+}
+
+
+def deflate_chain(data: bytes, level: int) -> Optional[bytes]:
+    """zlib-stream compress with hash-chain and lazy matching at zlib's
+    good/lazy/nice/chain parameters for ``level`` (clamped to 4..9); None
+    without the library (callers use zlib)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    good, lazy, nice, chain = _CHAIN_PARAMS[max(4, min(9, level))]
+    cap = len(data) + (len(data) >> 6) + 1024
+    buf = np.empty(cap, np.uint8)
+    n = lib.unmicst_deflate_chain(data, len(data), _ptr(buf), cap,
+                                  chain, nice, good, lazy)
+    if n < 0:
+        raise ValueError("native deflate: output buffer undersized")
+    return buf[:n].tobytes()
+
+
+def decode_strips(span: bytes, src_offs: np.ndarray, src_lens: np.ndarray,
+                  dst_offs: np.ndarray, dst_lens: np.ndarray, codec: int,
+                  out: np.ndarray) -> Optional[bool]:
+    """Decode every segment of a page in one native call, straight into
+    the C-contiguous ``out`` (viewed as bytes).  ``codec`` is the TIFF
+    compression tag value (8 deflate, 5 LZW, 32773 PackBits); offsets are
+    within ``span`` and ``out``; each segment must decode to exactly its
+    ``dst_lens`` entry.  None without the library; a bad segment raises
+    ``ValueError`` naming the first one."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    arrs = [np.ascontiguousarray(a, np.int64)
+            for a in (src_offs, src_lens, dst_offs, dst_lens)]
+    rc = lib.unmicst_decode_strips(span, *(_ptr(a) for a in arrs),
+                                   len(src_offs), codec, _ptr(out),
+                                   out.nbytes)
+    if rc < 0:
+        raise ValueError(
+            f"native strip decode: strip {-rc - 1} corrupt or wrong length")
+    return True
+
+
+def packbits_decode(data: bytes, max_out: int) -> Optional[np.ndarray]:
+    """PackBits into at most ``max_out`` bytes; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.empty(max_out, np.uint8)
+    n = lib.unmicst_packbits_decode(data, len(data), _ptr(buf), max_out)
+    if n < 0:
+        raise ValueError("native PackBits: corrupt stream")
+    return buf[:n]
+
+
+def _decode_ex(fn, data: bytes, max_out: int, what: str):
+    buf = np.empty(max_out, np.uint8)
+    overrun = ctypes.c_int(0)
+    n = fn(data, len(data), _ptr(buf), max_out, ctypes.byref(overrun))
+    if n < 0:
+        raise ValueError(f"native {what}")
+    return buf[:n], bool(overrun.value)
+
+
+def lzw_decode_ex(data: bytes, max_out: int):
+    """:func:`lzw_decode` and an overrun flag: ``(array, overrun)``, where
+    ``overrun`` is True when ``max_out`` was reached while the stream
+    encoded more (mid-chain truncation, or an exact fill followed by a
+    data code other than EOI; trailing EOI, zero bits or byte padding
+    leave it False).  None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    return _decode_ex(lib.unmicst_lzw_decode_ex, data, max_out,
+                      "LZW: corrupt stream or undersized buffer")
+
+
+def packbits_decode_ex(data: bytes, max_out: int):
+    """:func:`packbits_decode` with the overrun flag of
+    :func:`lzw_decode_ex` (trailing 0x80 no-op padding leaves it False)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    return _decode_ex(lib.unmicst_packbits_decode_ex, data, max_out,
+                      "PackBits: corrupt stream")
+
+
+def predictor_undo(arr: np.ndarray) -> Optional[np.ndarray]:
+    """Undo horizontal differencing in place on a C-contiguous
+    ``(rows, cols)`` uint8/uint16 array; returns it, or None without the
+    library or for wider samples (the C function takes 1- and 2-byte
+    samples only, and handing back difference values as pixels would be
+    silent corruption)."""
+    if arr.dtype.itemsize not in (1, 2):
+        return None
+    if not arr.flags["C_CONTIGUOUS"]:
+        raise ValueError("predictor_undo needs a C-contiguous array")
+    lib = get_lib()
+    if lib is None:
+        return None
+    lib.unmicst_predictor_undo(_ptr(arr), arr.shape[0],
+                               int(np.prod(arr.shape[1:])),
+                               arr.dtype.itemsize)
+    return arr

@@ -1,6 +1,9 @@
 """TIFF reading and writing for slide IO, in numpy and the standard library.
 
-A subset of ``unmicst_tpu/io/tiff.py`` with no native codec and no PIL:
+A subset of ``unmicst_tpu/io/tiff.py`` with no PIL.  Deflate, LZW and
+PackBits segments and predictor 2 go through the port's native codec
+(:mod:`unmicst_tpu_torch.io._native`, C++ built at first use) when it
+loads, and through the Python codecs below when it does not:
 
 * :class:`TiffFile` reads classic and BigTIFF files in either byte order,
   strip- or tile-organised pages, uncompressed, Deflate (zlib), LZW,
@@ -30,6 +33,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from unmicst_tpu_torch.io import _native
 from unmicst_tpu_torch.io import zstd as _zstd
 
 TAG_NEW_SUBFILE_TYPE = 254
@@ -126,18 +130,52 @@ def _unpack_packbits(data: bytes) -> bytes:
     return bytes(out)
 
 
-def _decode(data: bytes, compression: int, max_out: int) -> bytes:
+def _encode_deflate(data: bytes, level: int) -> bytes:
+    """One Deflate strip or tile (``unmicst_tpu/io/tiff.py:157-172``):
+    levels 1-3 through the native greedy encoder, 4-9 through the native
+    chain-search encoder at zlib's parameters for that level, zlib at the
+    level when the library is absent."""
+    out = (_native.deflate(data) if level <= 3
+           else _native.deflate_chain(data, level))
+    return out if out is not None else zlib.compress(data, level)
+
+
+def _decode(data: bytes, compression: int, max_out: int):
+    """One segment, bounded by ``max_out`` (its geometry's bytes): the
+    native codec first, then the Python one, whose decode is more
+    lenient; the caller truncates what comes out longer
+    (``unmicst_tpu/io/tiff.py:175-230``)."""
     if compression == COMPRESSION_NONE:
         return data
     if compression in (COMPRESSION_DEFLATE, COMPRESSION_DEFLATE_ADOBE):
+        # the slack covers writer-padded final strips
+        try:
+            out = _native.inflate(data, max_out + 65536)
+            if out is not None:
+                return out
+        except ValueError:
+            pass  # over-slack padding or a stream the native codec
+            # refuses: zlib below decodes and the caller truncates
         try:
             # bounded: a crafted strip must not decompression-bomb the host
             return zlib.decompressobj().decompress(data, max_out + 65536)
         except zlib.error as exc:
             raise ValueError(f"corrupt deflate strip: {exc}") from None
     if compression == COMPRESSION_LZW:
+        try:
+            out = _native.lzw_decode(data, max_out)
+            if out is not None:
+                return out
+        except ValueError:
+            pass  # the native codec's stricter contract: Python below
         return _unpack_lzw(data, max_out)
     if compression == COMPRESSION_PACKBITS:
+        try:
+            out = _native.packbits_decode(data, max_out)
+            if out is not None:
+                return out
+        except ValueError:
+            pass
         return _unpack_packbits(data)
     if compression == COMPRESSION_LZMA:
         try:
@@ -152,6 +190,19 @@ def _decode(data: bytes, compression: int, max_out: int) -> bytes:
         f"TIFF compression {compression} is not read by unmicst_tpu_torch "
         "(none, deflate, LZW, PackBits, LZMA and zstd are)"
     )
+
+
+def _undo_predictor(arr: np.ndarray) -> np.ndarray:
+    """Undo horizontal differencing in place on ``(rows, width,
+    samples)``, along the width per sample; natively for C-contiguous
+    single-sample 1- and 2-byte rows (``unmicst_tpu/io/tiff.py:249-270``)."""
+    if (arr.shape[-1] == 1 and arr.flags["C_CONTIGUOUS"]
+            and arr.dtype.itemsize in (1, 2)
+            and _native.predictor_undo(arr.reshape(arr.shape[0], -1))
+            is not None):
+        return arr
+    np.cumsum(arr, axis=1, dtype=arr.dtype, out=arr)
+    return arr
 
 
 @dataclass
@@ -368,9 +419,63 @@ class TiffFile:
         dtype = page.dtype.newbyteorder(self.byteorder)
         arr = np.frombuffer(buf, dtype=dtype, count=rows * cols * page.samples)
         arr = arr.reshape(rows, cols, page.samples).astype(page.dtype)
-        if page.predictor == 2:
-            np.cumsum(arr, axis=1, dtype=arr.dtype, out=arr)
-        return arr
+        return _undo_predictor(arr) if page.predictor == 2 else arr
+
+    def _batched(self, page: TiffPage, ks: np.ndarray, dst_lens: np.ndarray
+                 ) -> Optional[np.ndarray]:
+        """Segments ``ks`` decoded in one native call into one uint8
+        buffer, each to exactly its ``dst_lens`` bytes
+        (``unmicst_tpu/io/tiff.py:555-640``), or None where the one-call
+        path does not apply: a codec it does not speak, no library, a
+        predictor-2 layout the native undo does not take, segments the
+        header lacks, a descending or sparse span, one past the end of the
+        file, or any segment outside the strict native contract.  The
+        per-segment path is more lenient (native, then the Python decode,
+        then truncation) and raises with the segment's context."""
+        if (page.compression not in (COMPRESSION_DEFLATE,
+                                     COMPRESSION_DEFLATE_ADOBE,
+                                     COMPRESSION_LZW, COMPRESSION_PACKBITS)
+                or not len(ks) or int(ks.max()) >= len(page.offsets)
+                or (page.predictor == 2
+                    and not (page.samples == 1
+                             and page.dtype.itemsize in (1, 2)))
+                or _native.get_lib() is None):
+            return None
+        offs, cnts = page.offsets[ks], page.counts[ks]
+        if (len(ks) > 1 and np.any(np.diff(offs) < 0)) or np.any(
+                cnts < 0) or np.any(offs < 0):
+            return None
+        span0, span1 = int(offs[0]), int((offs + cnts).max())
+        total, need = int(cnts.sum()), span1 - span0
+        if need < 0 or need > total + (total >> 2) + 65536:
+            return None  # sparse: it would read unrelated bytes
+        if span1 > self._fsize:
+            return None  # the per-segment path names the truncation
+        self._fh.seek(span0)
+        span = self._fh.read(need)
+        if len(span) < need:
+            raise ValueError("TIFF data truncated mid-page")
+        dst_offs = np.concatenate(([0], np.cumsum(dst_lens[:-1])))
+        out8 = np.empty(int(dst_lens.sum()), np.uint8)
+        codec = (COMPRESSION_DEFLATE_ADOBE
+                 if page.compression == COMPRESSION_DEFLATE
+                 else page.compression)
+        try:
+            _native.decode_strips(span, offs - span0, cnts, dst_offs,
+                                  dst_lens, codec, out8)
+        except ValueError:
+            return None
+        return out8
+
+    def _samples(self, page: TiffPage, out8: np.ndarray, rows: int,
+                 cols: int) -> np.ndarray:
+        """Decoded bytes -> ``(rows, cols, samples)`` in native byte
+        order, predictor undone (each row its own predictor row)."""
+        arr = out8.view(page.dtype.newbyteorder(self.byteorder))
+        if arr.dtype != page.dtype:  # a byte-swapped file: one swap copy
+            arr = arr.astype(page.dtype)
+        arr = arr.reshape(rows, cols, page.samples)
+        return _undo_predictor(arr) if page.predictor == 2 else arr
 
     def _check_readable(self, page: TiffPage) -> None:
         if page.planar != 1 and page.samples > 1:
@@ -410,23 +515,48 @@ class TiffFile:
         if page.tiled:
             th, tw = page.tile_length, page.tile_width
             across = -(-page.width // tw)
-            for ti in range(r0 // th, -(-r1 // th)):
-                for tj in range(c0 // tw, -(-c1 // tw)):
-                    arr = self._segment(page, ti * across + tj, th, tw)
-                    tr0, tc0 = ti * th, tj * tw
-                    a, b = max(r0, tr0), min(r1, tr0 + th)
-                    c, d = max(c0, tc0), min(c1, tc0 + tw)
-                    out[a - r0 : b - r0, c - c0 : d - c0] = arr[
-                        a - tr0 : b - tr0, c - tc0 : d - tc0]
+            ti0, ti1 = r0 // th, -(-r1 // th)
+            tj0, tj1 = c0 // tw, -(-c1 // tw)
+            ks = (np.arange(ti0, ti1, dtype=np.int64)[:, None] * across
+                  + np.arange(tj0, tj1, dtype=np.int64)[None, :]).ravel()
+            tile_bytes = th * tw * page.samples * (page.bits // 8)
+            band = self._batched(page, ks, np.full(len(ks), tile_bytes,
+                                                   np.int64))
+            if band is not None:
+                band = self._samples(page, band, len(ks) * th, tw).reshape(
+                    len(ks), th, tw, page.samples)
+            for idx, k in enumerate(ks.tolist()):
+                arr = (band[idx] if band is not None
+                       else self._segment(page, k, th, tw))
+                ti, tj = divmod(k, across)
+                tr0, tc0 = ti * th, tj * tw
+                a, b = max(r0, tr0), min(r1, tr0 + th)
+                c, d = max(c0, tc0), min(c1, tc0 + tw)
+                out[a - r0 : b - r0, c - c0 : d - c0] = arr[
+                    a - tr0 : b - tr0, c - tc0 : d - tc0]
         else:
             rps = max(1, min(page.rows_per_strip, page.height))
-            for st in range(r0 // rps, -(-r1 // rps)):
-                sr0 = st * rps
-                rows = min(rps, page.height - sr0)
-                arr = self._segment(page, st, rows, page.width)
-                a, b = max(r0, sr0), min(r1, sr0 + rows)
-                out[a - r0 : b - r0, : max(0, c1 - c0)] = arr[
-                    a - sr0 : b - sr0, c0:c1]
+            s0, s1 = r0 // rps, -(-r1 // rps)
+            ks = np.arange(s0, max(s0, s1), dtype=np.int64)
+            row_bytes = page.width * page.samples * (page.bits // 8)
+            band = self._batched(
+                page, ks, np.minimum(rps, page.height - ks * rps) * row_bytes)
+            if band is not None:
+                # whole rows of strips [s0, s1): the window is a slice
+                b0 = s0 * rps
+                band = self._samples(page, band, len(band) // row_bytes,
+                                     page.width)
+                a, b = max(r0, b0), min(r1, b0 + band.shape[0])
+                out[a - r0 : b - r0, : max(0, c1 - c0)] = band[
+                    a - b0 : b - b0, c0:c1]
+            else:
+                for st in range(s0, s1):
+                    sr0 = st * rps
+                    rows = min(rps, page.height - sr0)
+                    arr = self._segment(page, st, rows, page.width)
+                    a, b = max(r0, sr0), min(r1, sr0 + rows)
+                    out[a - r0 : b - r0, : max(0, c1 - c0)] = arr[
+                        a - sr0 : b - sr0, c0:c1]
         return out[:, :, 0] if page.samples == 1 else out
 
 
@@ -459,9 +589,11 @@ def _box_downsample2(img: np.ndarray) -> np.ndarray:
 class TiffWriter:
     """Grayscale multi-page TIFF/BigTIFF writer with append semantics:
     little-endian, strips of about 1 MB or tiles, uncompressed, Deflate
-    (zlib, tag 8) or zstd (tag 50000, one frame per strip or tile).
-    ``compression_level`` is 1..9; unset it is zlib's 6 for Deflate and
-    3 for zstd, whose levels map one to one as in the JAX writer."""
+    (tag 8) or zstd (tag 50000, one frame per strip or tile).
+    ``compression_level`` is 1..9, 3 by default as in the JAX writer:
+    Deflate's 1-3 take the native greedy encoder and 4-9 the native
+    chain-search one (:func:`_encode_deflate`); zstd's levels map one to
+    one."""
 
     def __init__(self, path: str, bigtiff: bool = True, append: bool = False,
                  compression: Optional[str] = None,
@@ -469,7 +601,7 @@ class TiffWriter:
         if compression not in (None, "deflate", "zstd"):
             raise ValueError(f"unsupported output compression {compression!r}")
         if compression_level is None:
-            compression_level = 3 if compression == "zstd" else 6
+            compression_level = 3
         if not 1 <= int(compression_level) <= 9:
             raise ValueError(
                 f"compression_level must be 1..9, got {compression_level}")
@@ -547,7 +679,7 @@ class TiffWriter:
 
     def _encode(self, data: bytes) -> bytes:
         if self._compression == "deflate":
-            return zlib.compress(data, self._level)
+            return _encode_deflate(data, self._level)
         if self._compression == "zstd":
             return _zstd.compress(data, self._level)
         return data

@@ -181,8 +181,10 @@ def spatial_infer(
 
     def weigh(d, x, g, mask, out=None):
         dev = ranks[d]
+        # eager: the models live for this call, so a graph captured in it
+        # would not be replayed in another
         return weigh_tiles(models[dev], net_input(x), g, windows[dev], mask,
-                           chunk, out=out)
+                           chunk, out=out, _graphs=False)
 
     weighted = [None] * n_dev
     if halo_impl == "ring_overlap" and R > 1:
