@@ -162,11 +162,11 @@ printing any result):
     directory whose only bundle is ``nuclei20x2bin1chan`` (16 wide, its
     ``hp.data`` saying 20) through ``cli.main``, card against CPU; the
     launch counters set to 0 before each counted path and read after;
-14. after phase 15, print the ``{"kernels": [...]}`` line (K3/K4a/K4b
+14. after phase 16, print the ``{"kernels": [...]}`` line (K3/K4a/K4b
     with their launches and event ms across processes, K1 and K2 with
-    ``launches_formats`` and ``launches_slice12``, their launches on each
-    path of phases 13 and 15), the card's name and power limit, and the
-    ``{"ok": true, ...}`` line last;
+    ``launches_formats``, ``launches_slice12`` and ``launches_slice13``,
+    their launches on each path of phases 13, 15 and 16), the card's name
+    and power limit, and the ``{"ok": true, ...}`` line last;
 15. the native TIFF codec, the forward's CUDA graphs and space-to-depth
     (the legacy net at nucleiDAPI's widths, seeded weights): the port's
     C++ codec must load (built here by g++); a seeded 4096^2 uint16 blob
@@ -193,7 +193,23 @@ printing any result):
     the standard engine (float32 within 1 level, bfloat16 at phase 4's
     relative bar), Mpx/s both ways, and level 0's convolutions at a
     256-tile chunk by the profiler, packed against standard; K1 and K2
-    counted on each path.
+    counted on each path;
+16. the CZI JPEG decoder (M16), the toolbox (M14e) and the 3D tiler
+    (M14f): the committed JPEG fixtures (``tests/fixtures/torch_jpeg``,
+    PIL's decode beside each) decoded natively and in Python, coefficients
+    bit-equal and pixels within 1 level of PIL's, with the native MB/s on
+    a 4096^2 mosaic and the Python MB/s on one 512^2 tile; Gray8 CZIs of
+    512^2 JPEG sub-blocks (baseline with restart markers, progressive,
+    baseline, optimized tables) at 4096^2 through ``cli.main`` and 8192^2
+    through ``--engine auto`` (streamed), pages byte-equal to the decoded
+    pixels as a plain TIFF, K1 and K2 counted; ``imfeatures`` (23
+    features) of a seeded 1024^2 plane on the card against scipy on the
+    host (filter planes at rtol 1e-10, atol 1e-12, local percentiles
+    bit-equal), its seconds at 2048^2 and ``imfeatures3`` at 128^3, and
+    ``imread`` of a Paeth-filtered 2048^2 RGB PNG, native and (64 rows)
+    Python; the 3D
+    tiler's round trip of a seeded 128x512x512 float32 volume (patch 64,
+    margin 8) within 1e-5, with its time and peak memory.
 """
 
 from __future__ import annotations
@@ -3903,53 +3919,34 @@ def _czi_segment(f, sid: bytes, payload: bytes) -> int:
     return pos
 
 
-def _czi_entry(pos: int, compression: int, dims: dict) -> bytes:
-    """A ``DirectoryEntryDV``: Gray16 pixels, one (start, size) per
-    dimension, stored at full size."""
-    out = (b"DV" + struct.pack("<iqii", 1, pos, 0, compression) + bytes(6)
-           + struct.pack("<i", len(dims)))
+def _czi_entry(pos: int, compression: int, dims: dict,
+               pixel_type: int = 1) -> bytes:
+    """A ``DirectoryEntryDV``: ``pixel_type`` (1 Gray16, 0 Gray8), one
+    (start, size) per dimension, stored at full size."""
+    out = (b"DV" + struct.pack("<iqii", pixel_type, pos, 0, compression)
+           + bytes(6) + struct.pack("<i", len(dims)))
     for name, (start, size) in dims.items():
         out += struct.pack("<4siifi", name.encode(), start, size,
                            float(start), size)
     return out
 
 
-def write_czi(path: str, plane, block: int, compression: int = 0,
-              hilo: bool = False, channel_names=None) -> None:
-    """A one-channel, one-scene CZI (ZISRAW) of a uint16 ``plane`` in
-    ``block`` x ``block`` mosaic sub-blocks: uncompressed (0), zstd0 (5)
-    or zstd1 (6, with hi-lo byte packing when ``hilo``), the frames made
-    by the port's ``io/zstd.compress``; with ``channel_names`` a metadata
+def write_czi_blocks(path: str, blocks, compression: int,
+                     pixel_type: int = 1, channel_names=None) -> None:
+    """A one-scene CZI (ZISRAW) of ``blocks``, ``(dims, payload)`` pairs
+    already encoded for ``compression``; with ``channel_names`` a metadata
     segment that names the channels."""
-    import numpy as np
-
-    from unmicst_tpu_torch.io import zstd
-
-    h, w = plane.shape
     header = (struct.pack("<ii8x16s16si", 1, 0, bytes(16), bytes(16), 0)
               + struct.pack("<qqiq", 0, 0, 0, 0))
     entries = []
     with open(path, "wb") as f:
         _czi_segment(f, b"ZISRAWFILE", header)
-        for r0 in range(0, h, block):
-            for c0 in range(0, w, block):
-                piece = np.ascontiguousarray(plane[r0:r0 + block,
-                                                   c0:c0 + block])
-                pix = piece.astype("<u2").tobytes()
-                if compression in (5, 6):
-                    if hilo:
-                        b = np.frombuffer(pix, np.uint8).reshape(-1, 2)
-                        pix = b[:, 0].tobytes() + b[:, 1].tobytes()
-                    pix = zstd.compress(pix, 3)
-                    if compression == 6:
-                        pix = (b"\x03\x01\x01" if hilo else b"\x01") + pix
-                dims = {"X": (c0, piece.shape[1]), "Y": (r0, piece.shape[0]),
-                        "C": (0, 1)}
-                e = _czi_entry(0, compression, dims)
-                head = struct.pack("<iiq", 0, 0, len(pix)) + e
-                pos = _czi_segment(f, b"ZISRAWSUBBLOCK", head + bytes(
-                    max(256, len(e) + 16) - len(head)) + pix)
-                entries.append(_czi_entry(pos, compression, dims))
+        for dims, pix in blocks:
+            e = _czi_entry(0, compression, dims, pixel_type)
+            head = struct.pack("<iiq", 0, 0, len(pix)) + e
+            pos = _czi_segment(f, b"ZISRAWSUBBLOCK", head + bytes(
+                max(256, len(e) + 16) - len(head)) + pix)
+            entries.append(_czi_entry(pos, compression, dims, pixel_type))
         dir_pos = _czi_segment(f, b"ZISRAWDIRECTORY", struct.pack(
             "<i", len(entries)) + bytes(124) + b"".join(entries))
         meta_pos = 0
@@ -3964,6 +3961,36 @@ def write_czi(path: str, plane, block: int, compression: int = 0,
                 "<ii", len(xml), 0) + bytes(248) + xml)
         f.seek(32 + 52)
         f.write(struct.pack("<qq", dir_pos, meta_pos))
+
+
+def write_czi(path: str, plane, block: int, compression: int = 0,
+              hilo: bool = False, channel_names=None) -> None:
+    """A one-channel, one-scene CZI (ZISRAW) of a uint16 ``plane`` in
+    ``block`` x ``block`` mosaic sub-blocks: uncompressed (0), zstd0 (5)
+    or zstd1 (6, with hi-lo byte packing when ``hilo``), the frames made
+    by the port's ``io/zstd.compress``; with ``channel_names`` a metadata
+    segment that names the channels."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io import zstd
+
+    h, w = plane.shape
+    blocks = []
+    for r0 in range(0, h, block):
+        for c0 in range(0, w, block):
+            piece = np.ascontiguousarray(plane[r0:r0 + block,
+                                               c0:c0 + block])
+            pix = piece.astype("<u2").tobytes()
+            if compression in (5, 6):
+                if hilo:
+                    b = np.frombuffer(pix, np.uint8).reshape(-1, 2)
+                    pix = b[:, 0].tobytes() + b[:, 1].tobytes()
+                pix = zstd.compress(pix, 3)
+                if compression == 6:
+                    pix = (b"\x03\x01\x01" if hilo else b"\x01") + pix
+            blocks.append(({"X": (c0, piece.shape[1]),
+                            "Y": (r0, piece.shape[0]), "C": (0, 1)}, pix))
+    write_czi_blocks(path, blocks, compression, 1, channel_names)
 
 
 def write_nd2(path: str, frame) -> None:
@@ -4444,6 +4471,20 @@ def write_lzw_tiff(path: str, plane, rows_per_strip: int,
 
 
 @contextlib.contextmanager
+def python_codecs():
+    """The port's Python codecs for the block: the native host library
+    hidden as if it had not loaded, then restored."""
+    from unmicst_tpu_torch.io import _native
+
+    saved = (_native._lib, _native._load_failed)
+    _native._lib, _native._load_failed = None, True
+    try:
+        yield
+    finally:
+        _native._lib, _native._load_failed = saved
+
+
+@contextlib.contextmanager
 def eager_forward():
     """The engines' forwards eager, as before the CUDA graphs: every
     module that calls ``weigh_tiles`` gets it with ``_graphs=False``."""
@@ -4726,13 +4767,9 @@ def phase_slice12(dev) -> dict:
                   and np.array_equal(got, raw), "the LZW slide reads other "
                                                 "pixels")
             band = page.rows_per_strip
-            saved = (_native._lib, _native._load_failed)
-            _native._lib, _native._load_failed = None, True
-            try:
+            with python_codecs():
                 got_py, py_s = timed(lambda: tf.read_region(0, 0, 0, band,
                                                             side))
-            finally:
-                _native._lib, _native._load_failed = saved
             check(np.array_equal(got_py, raw[:band]),
                   "the Python codec reads other pixels")
         mb = raw.nbytes / 1e6
@@ -4787,17 +4824,13 @@ def phase_slice12(dev) -> dict:
         write_s = {}
         for how in ("native", "zlib", "none"):
             path = os.path.join(tmp, f"w_{how}.tif")
-            saved = (_native._lib, _native._load_failed)
-            if how == "zlib":
-                _native._lib, _native._load_failed = None, True
-            try:
+            with (python_codecs() if how == "zlib"
+                  else contextlib.nullcontext()):
                 t0 = time.perf_counter()
                 for k, m in enumerate(l_pages):
                     imwrite(path, m, append=k > 0, pyramid=True,
                             compression=None if how == "none" else "deflate")
                 write_s[how] = time.perf_counter() - t0
-            finally:
-                _native._lib, _native._load_failed = saved
             back = [imread(path, k) for k in range(num_pages(path))]
             check(all(np.array_equal(a, b) for a, b in zip(back, l_pages)),
                   f"the {how} pyramid pages read back other pixels")
@@ -5053,6 +5086,333 @@ def phase_slice12(dev) -> dict:
             for name in names}
 
 
+
+# -- phase 16: the CZI JPEG decoder, the toolbox, the 3D tiler ----------------
+
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg")
+# the 512^2 fixtures a JPEG mosaic cycles through: baseline with restart
+# markers, progressive, plain baseline, optimized tables
+MOSAIC_TILES = ("blob_restart", "blob_progressive", "blob_baseline",
+                "blob_optimize")
+FEATURE_SIDES = (1024, 2048)  # the toolbox's checked plane, its timed plane
+FEATURE_VOLUME = 128  # imfeatures3's cube side
+TILER_VOLUME = (128, 512, 512)  # the 3D tiler's float32 volume
+PNG_SIDE, PNG_PY_ROWS = 2048, 64  # the timed PNG, the rows read in Python
+
+
+def jpeg_fixture(name: str):
+    """A committed JPEG and PIL's decode of it (``.npy``)."""
+    import numpy as np
+
+    with open(os.path.join(JPEG_FIXTURES, name + ".jpg"), "rb") as f:
+        data = f.read()
+    return data, np.load(os.path.join(JPEG_FIXTURES, name + ".npy"))
+
+
+def jpeg_mosaic(path: str, side: int):
+    """A Gray8 CZI of ``side``^2 in 512^2 JPEG sub-blocks cycling through
+    :data:`MOSAIC_TILES`; returns the plane the port decodes it to and the
+    JPEG bytes."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io import jpeg
+
+    tiles = [jpeg_fixture(n)[0] for n in MOSAIC_TILES]
+    pixels = [jpeg.decode(t) for t in tiles]
+    plane = np.empty((side, side), np.uint8)
+    blocks = []
+    for k, (r0, c0) in enumerate((r, c) for r in range(0, side, 512)
+                                 for c in range(0, side, 512)):
+        plane[r0:r0 + 512, c0:c0 + 512] = pixels[k % len(tiles)]
+        blocks.append(({"X": (c0, 512), "Y": (r0, 512), "C": (0, 1)},
+                       tiles[k % len(tiles)]))
+    write_czi_blocks(path, blocks, 2, pixel_type=0)
+    return plane, sum(len(b) for _, b in blocks)
+
+
+def paeth_png(path: str, img) -> None:
+    """An RGB 8-bit PNG with every row Paeth-filtered (PNG spec 9.4), the
+    slowest row filter to undo and a common choice of adaptive encoders."""
+    import zlib
+
+    import numpy as np
+
+    h, w, _ = img.shape
+    cur = img.reshape(h, w * 3).astype(np.int32)
+    prior = np.vstack([np.zeros((1, w * 3), np.int32), cur[:-1]])
+
+    def left(a):
+        return np.hstack([np.zeros((h, 3), np.int32), a[:, :-3]])
+
+    a, b, c = left(cur), prior, left(prior)
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.hstack([np.full((h, 1), 4, np.int32), (cur - pred) % 256])
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.astype(np.uint8)
+                                               .tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def scipy_features(x, sigma_deriv, sigma_log, rad):
+    """The JAX toolbox's ``imfeatures`` written out on ``scipy.ndimage``
+    (``unmicst_tpu/utils/imtools.py:163-268``), the host reference."""
+    import numpy as np
+    from scipy import ndimage as ndi
+
+    def g(s, order=0):
+        return ndi.gaussian_filter(x, s, order=order)
+
+    planes = []
+    for s in sigma_deriv:
+        dx, dy = g(s, [0, 1]), g(s, [1, 0])
+        dxx, dyy = g(s, [0, 2]), g(s, [2, 0])
+        planes += [g(s), dx, dy, dxx, g(s, [1, 1]), dyy,
+                   np.sqrt(dx ** 2 + dy ** 2), np.sqrt(dxx ** 2 + dyy ** 2)]
+    planes += [-ndi.gaussian_laplace(x, s) for s in sigma_log]
+    yy, xx = np.ogrid[-rad:rad + 1, -rad:rad + 1]
+    disk = xx * xx + yy * yy <= rad * rad
+    planes += [ndi.percentile_filter(x, p, footprint=disk)
+               for p in (10, 30, 50, 70, 90)]
+    return np.stack(planes, -1)
+
+
+def phase_slice13(dev) -> dict:
+    """The CZI JPEG decoder (M16), the toolbox on the card (M14e) and the
+    3D tiler (M14f); returns, per kernel, its launches on the JPEG CZI
+    paths."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.core import tiler3d
+    from unmicst_tpu_torch.io import _native, jpeg
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+    from unmicst_tpu_torch.utils import imtools
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+
+    # -- 1. the decoder against PIL's decode ---------------------------------
+    check(_native.get_lib() is not None, "the native host library did not "
+          "load (g++)")
+    names = sorted(f[:-4] for f in os.listdir(JPEG_FIXTURES)
+                   if f.endswith(".jpg"))
+    check(len(names) == 6, f"JPEG fixtures: {names}")
+    rows = []
+    for name in names:
+        data, want = jpeg_fixture(name)
+        _, cn = jpeg.decode_coefficients(data)
+        with python_codecs():
+            _, cp = jpeg.decode_coefficients(data)
+        same = np.array_equal(cn, cp)
+        for label, ctx in (("native", contextlib.nullcontext),
+                           ("python", python_codecs)):
+            with ctx():
+                got = jpeg.decode(data)
+            d = np.abs(got.astype(int) - want.astype(int))
+            check(got.shape == want.shape and d.max() <= 1 and same,
+                  f"JPEG {name} {label}: max {d.max()} levels, "
+                  f"coefficients equal {same}")
+            rows.append(f"{name} {label} max {d.max()} ({(d == 1).mean():.3e}"
+                        " of pixels 1 level off)")
+    log(f"[slice13] JPEG fixtures against PIL's decode, native and Python "
+        f"coefficients bit-equal: {'; '.join(rows)}")
+    tiles = [jpeg_fixture(n)[0] for n in MOSAIC_TILES]
+    mosaic = [tiles[k % len(tiles)] for k in range(64)]
+    nbytes = sum(map(len, mosaic))
+    runs = []
+    for _ in range(2):  # the first pass in the process, then again
+        t0 = time.perf_counter()
+        coefs = [jpeg.decode_coefficients(t) for t in mosaic]
+        entropy_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for frame, coef in coefs:
+            jpeg.idct_islow(coef, frame.qtable)
+        idct_s = time.perf_counter() - t0
+        runs.append(f"entropy decode {entropy_s:.3f} s + numpy islow IDCT "
+                    f"{idct_s:.3f} s = "
+                    f"{nbytes / 1e6 / (entropy_s + idct_s):.2f} MB/s "
+                    f"({4096 * 4096 / 1e6 / (entropy_s + idct_s):.2f} "
+                    "Mpx/s)")
+    t0 = time.perf_counter()
+    with python_codecs():
+        jpeg.decode(tiles[2])
+    py_s = time.perf_counter() - t0
+    log(f"[slice13] JPEG decode of a 4096^2 mosaic (64 tiles of 512^2, "
+        f"{nbytes / 1e6:.2f} MB), native: first {runs[0]}; again "
+        f"{runs[1]}; the Python decoder on one 512^2 tile {py_s:.3f} s = "
+        f"{len(tiles[2]) / 1e6 / py_s:.3f} MB/s | {card}")
+
+    # -- 2. JPEG CZIs through cli.main, whole and streamed -------------------
+    hp = legacy_hp()
+    state = seeded_state(hp, "legacy", SEED)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice13_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, state, "legacy", LEGACY_MEAN,
+                        LEGACY_STD)
+
+        def run(src, name, count=None):
+            out = os.path.join(tmp, "out", name)
+            if count:
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--outputPath", out], device=dev)
+            secs = time.perf_counter() - t0
+            if count:
+                launches[count] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        for side, label, path_name in ((SLIDE, "whole", "czi_jpeg_whole"),
+                                       (BIG, "--engine auto, streamed",
+                                        "czi_jpeg_streamed")):
+            czi = os.path.join(tmp, f"j{side}.czi")
+            plane, jbytes = jpeg_mosaic(czi, side)
+            tif = os.path.join(tmp, f"j{side}.tif")
+            imwrite(tif, plane)
+            t_maps, t_secs = run(tif, f"tif{side}")
+            c_maps, c_secs = run(czi, f"czi{side}", count=path_name)
+            n = launches[path_name]
+            same = len(c_maps) == len(t_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(c_maps, t_maps))
+            log(f"[slice13] JPEG CZI {side}^2 ({side * side // 512 ** 2} "
+                f"sub-blocks, {jbytes / 1e6:.1f} MB) through cli.main, "
+                f"{label}: {c_secs:.2f} s ({side * side / 1e6 / c_secs:.2f} "
+                f"Mpx/s), the decoded pixels as a plain TIFF {t_secs:.2f} s; "
+                f"pages byte-equal: {same}; K1 {n['softmax_blend']}, K2 "
+                f"epilogue {n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            check(same, f"the {side}^2 JPEG CZI's pages differ from the "
+                        "TIFF's")
+            if side == SLIDE:
+                check(n["softmax_blend"] > 0
+                      and n["blend_fold_epilogue"] == 1,
+                      f"the JPEG CZI did not run K1 and one K2: {n}")
+            else:
+                check(n["softmax_blend"] > 0 and n["blend_fold_stripe"] > 0
+                      and n["blend_fold_epilogue"] == 0,
+                      f"the {side}^2 JPEG CZI did not stream: {n}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 3. the toolbox on the card against scipy on the host -----------------
+    rng = np.random.RandomState(SEED + 13)
+    side, big_side = FEATURE_SIDES
+    x = rng.rand(side, side)
+    kw = dict(sigma_deriv=[1, 2], sigma_log=[1, 2], loc_stats_rad=3)
+    t0 = time.perf_counter()
+    got = imtools.imfeatures(x, device=dev, **kw)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = scipy_features(x, kw["sigma_deriv"], kw["sigma_log"], 3)
+    host_s = time.perf_counter() - t0
+    check(got.shape == want.shape == (side, side, 23), f"{got.shape}")
+    err = np.abs(got[..., :18] - want[..., :18])
+    close = np.allclose(got[..., :18], want[..., :18], rtol=1e-10,
+                        atol=1e-12)
+    ranks_equal = np.array_equal(got[..., 18:], want[..., 18:])
+    log(f"[slice13] imfeatures {side}^2 (23 features) on the card against "
+        f"scipy on the host: filter planes max |diff| {err.max():.3e} "
+        f"(rtol 1e-10, atol 1e-12: {close}), local percentiles bit-equal "
+        f"{ranks_equal}; card {card_s:.3f} s (first call), scipy "
+        f"{host_s:.3f} s | {card}")
+    check(close and ranks_equal, "imfeatures on the card misses scipy")
+    x2 = rng.rand(big_side, big_side)
+    imtools.imfeatures(x2[:256, :256], device=dev, **kw)
+    t0 = time.perf_counter()
+    imtools.imfeatures(x2, device=dev, **kw)
+    f2_s = time.perf_counter() - t0
+    vol = rng.rand(*(FEATURE_VOLUME,) * 3)
+    t0 = time.perf_counter()
+    f3 = imtools.imfeatures3(vol, sigma_deriv=2, sigma_log=2, device=dev)
+    f3_s = time.perf_counter() - t0
+    log(f"[slice13] imfeatures {big_side}^2 (23 features) on the card "
+        f"{f2_s:.3f} s; imfeatures3 {FEATURE_VOLUME}^3 (sigma 2, "
+        f"{f3.shape[-1]} "
+        f"features) {f3_s:.3f} s; host copies of the stacks included | "
+        f"{card}")
+
+    # a 2048^2 RGB PNG with every row Paeth-filtered, read by imtools.imread
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice13_png_")
+    try:
+        img = (rng.rand(PNG_SIDE, PNG_SIDE, 3) * 255).astype(np.uint8)
+        img = np.cumsum(img, 1, dtype=np.uint8)  # smooth-ish, compressible
+        png_path = os.path.join(tmp, "paeth.png")
+        paeth_png(png_path, img)
+        t0 = time.perf_counter()
+        got = imtools.imread(png_path)
+        png_s = time.perf_counter() - t0
+        check(np.array_equal(got, img), "the Paeth PNG reads other pixels")
+        strip = os.path.join(tmp, "strip.png")
+        paeth_png(strip, img[:PNG_PY_ROWS])
+        with python_codecs():
+            t0 = time.perf_counter()
+            got = imtools.imread(strip)
+            png_py_s = time.perf_counter() - t0
+        check(np.array_equal(got, img[:PNG_PY_ROWS]),
+              "the Python PNG reader reads other pixels")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice13] imread of a Paeth-filtered {PNG_SIDE}^2 RGB PNG "
+        f"({img.nbytes / 1e6:.2f} MB of pixels): native unfilter "
+        f"{png_s:.3f} s = {img.nbytes / 1e6 / png_s:.2f} MB/s; the Python "
+        f"unfilter on its first {PNG_PY_ROWS} rows {png_py_s:.3f} s = "
+        f"{img[:PNG_PY_ROWS].nbytes / 1e6 / png_py_s:.3f} MB/s (inflate "
+        f"included in both) | {card}")
+
+    # -- 4. the 3D tiler round trip ------------------------------------------
+    g = tiler3d.make_grid3d(*TILER_VOLUME, 64, 8)
+    v = torch.from_numpy(np.random.RandomState(SEED + 14).rand(
+        *TILER_VOLUME).astype(np.float32)).to(dev)
+    w = torch.from_numpy(tiler3d.ramp_window3d(64, 8)).to(dev)
+
+    def round_trip():
+        tiles = tiler3d.unfold3d(tiler3d.pad_canvas3d(v, g), g) * w
+        folded = tiler3d.fold3d(tiles, g)
+        del tiles
+        count = tiler3d.count_map3d(g, w)
+        return tiler3d.crop_valid3d(folded / count.clamp_min(1e-12), g)
+
+    round_trip()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    back = round_trip()
+    torch.cuda.synchronize()
+    t3_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    d3 = float((back - v).abs().max())
+    log(f"[slice13] tiler3d {'x'.join(map(str, TILER_VOLUME))} float32, "
+        f"patch 64, margin 8 "
+        f"({g.npz}x{g.npr}x{g.npc} tiles): unfold -> window -> fold3d / "
+        f"count_map3d -> crop in {t3_s * 1e3:.1f} ms, peak "
+        f"{peak / 2 ** 30:.2f} GiB above the volume, max |out - in| "
+        f"{d3:.2e} | {card}")
+    check(d3 <= 1e-5, f"tiler3d round trip: {d3}")
+    del v, back
+    torch.cuda.empty_cache()
+    log(f"[slice13] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
 def main(argv=None) -> int:
     import torch
 
@@ -5091,6 +5451,8 @@ def main(argv=None) -> int:
         stats[name]["launches_formats"] = per_path
     for name, per_path in phase_slice12(dev).items():
         stats[name]["launches_slice12"] = per_path
+    for name, per_path in phase_slice13(dev).items():
+        stats[name]["launches_slice13"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -5099,7 +5461,8 @@ def main(argv=None) -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")},
             **{k: v for k, v in row.items()
                if k.endswith("processes")
-               or k in ("launches_formats", "launches_slice12")}})
+               or k in ("launches_formats", "launches_slice12",
+                        "launches_slice13")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

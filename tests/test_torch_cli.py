@@ -232,7 +232,7 @@ print(len(names), leaked)
 required = ["unmicst_tpu_torch." + m for m in (
     "train", "core.msgpack", "serve", "io.zstd", "io.czi", "io.nd2",
     "io.jxr", "io._native", "utils.progcache", "runtime.graphs",
-    "core.s2d")]
+    "core.s2d", "io.jpeg", "utils.imtools", "core.tiler3d")]
 sys.exit(1 if leaked or len(names) < 45
          or any(m not in names for m in required) else 0)
 """
@@ -255,6 +255,21 @@ def test_cli_needs_a_card_unless_cpu_is_asked_for(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(argv)
     assert not os.path.exists(tmp_path / "o")
+
+
+def test_toolbox_needs_a_card_unless_cpu_is_asked_for(monkeypatch):
+    """``utils/imtools`` computes on the card by default: without one,
+    ``imfeatures(x)`` raises instead of running on the CPU."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch.utils import imtools
+
+    x = np.random.RandomState(0).rand(16, 16)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        imtools.imfeatures(x)
+    assert imtools.imfeatures(x, device="cpu").shape == (16, 16, 9)
 
 
 def test_module_entry_point_needs_a_card(tmp_path):

@@ -943,6 +943,57 @@ def test_czi_and_nd2_cli_on_card_match_cpu(cuda, tmp_path, engine):
         assert counts["softmax_blend"] > 0 and counts[k2] > 0, counts
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["whole", "streaming"])
+def test_jpeg_czi_cli_on_card_matches_cpu(cuda, tmp_path, engine):
+    """A 1024^2 mosaic of the committed JPEG fixtures (M16) through the
+    whole engine and the stream on the card, within 1 level of the CPU."""
+    import chip_smoke
+
+    czi = str(tmp_path / "j.czi")
+    chip_smoke.jpeg_mosaic(czi, 1024)
+    k2 = "blend_fold_epilogue" if engine == "whole" else "blend_fold_stripe"
+    counts = _cli_card_and_cpu(czi, tmp_path, ["--engine", engine], "jpeg")
+    assert counts["softmax_blend"] > 0 and counts[k2] > 0, counts
+
+
+@pytest.mark.cuda
+def test_toolbox_and_tiler3d_on_card_match_cpu(cuda):
+    """``utils/imtools`` (M14e) and ``core/tiler3d`` (M14f) on the card
+    against the same calls on the CPU: selections and morphology equal,
+    float64 filters at rtol 1e-10, atol 1e-12."""
+    from unmicst_tpu_torch.core import tiler3d
+    from unmicst_tpu_torch.utils import imtools
+
+    rng = np.random.RandomState(16)
+    x, v = rng.rand(96, 80), rng.rand(20, 24, 28)
+    for fn, args in ((imtools.imfeatures, (x, [1, 2], [1, 2], 3)),
+                     (imtools.imfeatures3, (v, 2, 2, 2)),
+                     (imtools.imresize3_double, (v, (9, 30, 17))),
+                     (imtools.imgaussfilt, (x, 2.5))):
+        np.testing.assert_allclose(fn(*args, device=cuda),
+                                   fn(*args, device="cpu"), rtol=1e-10,
+                                   atol=1e-12)
+    u16 = (x * 65535).astype(np.uint16)
+    for fn, args in ((imtools.medfilt, (u16, 3)), (imtools.ptlfilt, (x, 30,
+                                                                      2)),
+                     (imtools.imerode, (x > 0.4, 3)),
+                     (imtools.imdilate3, (v > 0.6, 2)),
+                     (imtools.imgaussfilt, (u16, 1.5))):
+        np.testing.assert_array_equal(fn(*args, device=cuda),
+                                      fn(*args, device="cpu"))
+    g = tiler3d.make_grid3d(20, 24, 28, 16, 2)
+    w = torch.from_numpy(tiler3d.ramp_window3d(16, 2))
+    vol = torch.from_numpy(v.astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        tiles = tiler3d.unfold3d(tiler3d.pad_canvas3d(vol.to(dev), g), g)
+        out[str(dev)] = (tiler3d.fold3d(tiles * w.to(dev), g).cpu(),
+                         tiler3d.count_map3d(g, w.to(dev)).cpu())
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6)
+
+
 # -- CUDA graphs of the forward (runtime/graphs.py) ---------------------------
 
 

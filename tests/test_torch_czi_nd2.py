@@ -1,8 +1,8 @@
 """CZI and ND2 (ROADMAP item 6) in the port: ``io/czi.py`` and ``io/nd2.py``
 against the JAX package's readers on the same hand-built containers
 (``tests/test_slides_czi_nd2.py``'s writers), whole and windowed; the
-truncation and fuzz inputs; the JPEG and JPEG XR refusals; and the CLI on
-CZI and ND2 slides against the JAX CLI."""
+truncation and fuzz inputs; the JPEG XR refusal and an undecodable JPEG
+sub-block; and the CLI on CZI and ND2 slides against the JAX CLI."""
 
 import os
 import struct
@@ -245,22 +245,35 @@ def test_truncated_and_fuzzed_containers_fail_as_in_jax(tmp_path):
                 assert a[1].nbytes <= 1 << 26
 
 
-@pytest.mark.parametrize("compression,match", [
-    (4, "JPEG XR.*compression=4"), (2, "compression=2.*ROADMAP M16"),
+@pytest.mark.parametrize("compression,error,match", [
+    (4, NotImplementedError, "JPEG XR.*compression=4"),
+    (2, ValueError, "JPEG sub-block at 0x.*failed to decode"),
 ])
 def test_jxr_and_jpeg_sub_blocks_refuse_at_open(tmp_path, compression,
-                                                match):
-    """No decoder under the import rule: the plane refuses when it is
-    opened, naming the file and the block; never a blank plane."""
+                                                error, match):
+    """JPEG XR has no decoder under the import rule: the plane refuses
+    when it is opened, before any source is handed out.  A JPEG payload that does not decode raises
+    ``ValueError`` when it is read, as in the JAX reader.  Both name the
+    file and the block; never a blank plane."""
     path = str(tmp_path / "j.czi")
     _write_czi_blocks(path, [(dict(X=(0, 8), Y=(0, 8), C=(0, 1)),
                               bytes(range(128)))],
                       pixel_type=0, compression=compression)
-    for call in (lambda: slides.read_channel(path, "czi", 0),
-                 lambda: slides.open_channel_source(path, "czi", 0)):
-        with pytest.raises(NotImplementedError, match=match) as e:
+
+    def windowed():
+        with slides.open_channel_source(path, "czi", 0) as src:
+            return src.read_rows(0, 8)
+
+    # JPEG XR must refuse at open itself; the JPEG block once it is read.
+    opened = ((lambda: slides.open_channel_source(path, "czi", 0))
+              if compression == 4 else windowed)
+    for call in (lambda: slides.read_channel(path, "czi", 0), opened):
+        with pytest.raises(error, match=match) as e:
             call()
         assert "j.czi" in str(e.value)
+    if compression == 2:
+        with pytest.raises(ValueError, match="failed to decode"):
+            jax_slides.read_channel(path, "czi", 0)
 
 
 def _outputs(root):

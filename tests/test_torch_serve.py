@@ -580,10 +580,12 @@ def test_unported_paths_answer_501(live, jax_server, tmp_path, blob, query,
             assert page.tiled == ("pyramid" in q)
 
 
-def test_refusals_that_stay(live, tmp_path, blob, monkeypatch):
+def test_refusals_that_stay(live, tmp_path, blob, monkeypatch,
+                            jax_server):
     """zstd without the host's libzstd answers 501 naming M14b, before any
-    inference; a CZI of JPEG sub-blocks 501 naming M16; one of JPEG XR
-    sub-blocks 400, as the JAX server answers without imagecodecs."""
+    inference; a CZI of JPEG sub-blocks that do not decode 400, and one of
+    JPEG XR sub-blocks 400, as the JAX server answers (without
+    imagecodecs)."""
     from tests.test_slides_czi_nd2 import _write_czi_blocks
     from unmicst_tpu_torch.io import zstd
 
@@ -595,7 +597,9 @@ def test_refusals_that_stay(live, tmp_path, blob, monkeypatch):
                           compression=comp)
         bodies[comp] = p.read_bytes()
     st, res = live.json("POST", "/infer?model=blobDemo", bodies[2])
-    assert st == 501 and "ROADMAP M16" in res["error"]
+    assert st == 400 and "failed to decode" in res["error"]
+    with pytest.raises(ValueError, match="failed to decode"):
+        jax_slides.read_channel(str(tmp_path / "c2.czi"), "czi", 0)
     st, res = live.json("POST", "/infer?model=blobDemo", bodies[4])
     assert st == 400 and "JPEG XR" in res["error"]
     monkeypatch.setattr(zstd, "_lib", None)
@@ -603,6 +607,38 @@ def test_refusals_that_stay(live, tmp_path, blob, monkeypatch):
     st, res = live.json("POST", "/infer?model=blobDemo&compress=zstd",
                         _write(tmp_path / "b.tif", blob[:64, :64]))
     assert st == 501 and "ROADMAP M14b" in res["error"]
+
+
+def test_jpeg_czi_body_answers_as_its_pixels_as_a_tiff(live, tmp_path,
+                                                       blob):
+    """A CZI of JPEG sub-blocks (a baseline and a progressive tile) answers
+    200 with the maps of the same decoded pixels posted as a TIFF."""
+    import io
+
+    from PIL import Image
+
+    from tests.test_slides_czi_nd2 import _write_czi_blocks
+    from unmicst_tpu_torch.io import jpeg
+
+    plane = (blob[:96, :160] >> 8).astype(np.uint8)
+    tiles, pixels = [], np.zeros_like(plane)
+    for c0, progressive in ((0, False), (80, True)):
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(plane[:, c0:c0 + 80]), "L").save(
+            buf, "JPEG", quality=90, progressive=progressive)
+        tiles.append((dict(X=(c0, 80), Y=(0, 96), C=(0, 1)), buf.getvalue()))
+        pixels[:, c0:c0 + 80] = jpeg.decode(buf.getvalue())
+    path = tmp_path / "j.czi"
+    _write_czi_blocks(str(path), tiles, pixel_type=0, compression=2)
+    st, got, _ = live.call("POST", "/infer?model=blobDemo",
+                           path.read_bytes())
+    assert st == 200, got
+    st, want, _ = live.call("POST", "/infer?model=blobDemo",
+                            _write(tmp_path / "j.tif", pixels))
+    assert st == 200
+    a, b = _pages(got), _pages(want)
+    assert a.shape == (3, 96, 160)
+    np.testing.assert_array_equal(a, b)
 
 
 def test_concurrent_requests_equal_serial(live, tmp_path, blob):

@@ -70,7 +70,8 @@ in every engine.
 
 zstd needs the host's libzstd; without it zstd inputs and
 ``--compressOutput zstd`` refuse naming ROADMAP M14b.  CZI sub-blocks in
-JPEG or JPEG XR refuse (no decoder under the port's import rule).
+JPEG decode through ``io/jpeg.py``; JPEG XR ones refuse (no decoder under
+the port's import rule).
 ``--fetchModels`` is a download, which this package does not do.
 """
 

@@ -1,11 +1,15 @@
-"""ctypes binding to the port's native TIFF codec library.
+"""ctypes binding to the port's native host codec library.
 
 The counterpart of ``unmicst_tpu/io/_native.py`` over the port's own copy
 of the C++ source, ``unmicst_tpu_torch/native/tiffcodec.cpp``: LZW and
 PackBits decode (with and without the overrun flag), inflate, predictor-2
-undo, one-call strip decode, and the greedy and chain deflate encoders.
-Every function returns None when the library is absent, and the callers
-(``io/tiff.py``) then take the pure-Python codecs: correct, only slow.
+undo, one-call strip decode, and the greedy and chain deflate encoders;
+and, in the same library, the entropy decode of a JPEG scan
+(``native/jpegdec.cpp``, for ``io/jpeg.py``) and the PNG row filters' undo
+(``native/pngfilter.cpp``, for ``io/png.py``).  Every function returns
+None when the library is absent, and the callers (``io/tiff.py``,
+``io/jpeg.py``, ``io/png.py``) then take their pure-Python versions:
+correct, only slow.
 
 The library builds at first use with the host's ``g++ -O3 -shared -fPIC``
 (portable flags, no ``-march=native``: a build directory copied to an
@@ -33,7 +37,8 @@ from typing import Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "native", "tiffcodec.cpp")
+SOURCES = tuple(os.path.join(_PKG, "native", name)
+                for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp"))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 LIB_NAME = "libunmicst_tiffcodec.so"
@@ -52,14 +57,15 @@ def _autobuild_disabled() -> bool:
 def lib_path() -> str:
     """Where the library of this source and these flags lives."""
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    with open(SOURCE, "rb") as fh:
-        h.update(fh.read())
+    for source in SOURCES:
+        with open(source, "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_ROOT, h.hexdigest()[:16], LIB_NAME)
 
 
 def _note(msg: str) -> None:
     print(f"unmicst_tpu_torch: {msg}; using the pure-Python codecs "
-          "(slow LZW)", file=sys.stderr)
+          "(slow LZW and JPEG)", file=sys.stderr)
 
 
 def _try_build(path: str) -> None:
@@ -75,12 +81,12 @@ def _try_build(path: str) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, SOURCE], check=True,
+        subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, *SOURCES], check=True,
                        timeout=300, stdout=subprocess.DEVNULL,
                        stderr=subprocess.PIPE)
         os.replace(tmp, path)
     except (OSError, subprocess.SubprocessError):
-        _note(f"building {SOURCE} with g++ failed")
+        _note(f"building {' '.join(SOURCES)} with g++ failed")
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -110,6 +116,17 @@ def _load(path: str) -> ctypes.CDLL:
     # span, src offsets, src lengths, dst offsets, dst lengths (int64[n]),
     # n, codec (TIFF tag value), dst, dst_cap
     fn.argtypes = [ctypes.c_char_p, vp, vp, vp, vp, ll, ll, vp, ll]
+    fn = lib.unmicst_png_unfilter
+    fn.restype = ll
+    fn.argtypes = [vp, ll, ll, ll, vp]  # src, rows, stride, bpp, dst
+    fn = lib.unmicst_jpeg_scan
+    fn.restype = ll
+    # src, len, pos, coef, nblocks, dc bits, dc values, ac bits, ac
+    # values, ss, se, ah, al, progressive, restart interval
+    fn.argtypes = [ctypes.c_char_p, ll, ll, vp, ll,
+                   ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
+                   ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ll]
     return lib
 
 
@@ -306,3 +323,59 @@ def predictor_undo(arr: np.ndarray) -> Optional[np.ndarray]:
                                int(np.prod(arr.shape[1:])),
                                arr.dtype.itemsize)
     return arr
+
+
+_JPEG_ERRORS = {
+    -1: "entropy-coded data ends early",
+    -2: "corrupt Huffman code",
+    -3: "restart marker missing, out of order or stray",
+    -4: "Huffman table missing",
+    -5: "truncated stream (no marker after a scan)",
+}
+
+
+def jpeg_scan(data: bytes, scan, progressive: bool,
+              coef: np.ndarray) -> Optional[int]:
+    """Entropy-decode one scan of ``io/jpeg.py`` (a ``Scan``) into the
+    C-contiguous int16 ``[blocks, 64]`` ``coef``, in place; returns the
+    offset of the marker after the scan, or None without the library.  A
+    corrupt or truncated scan raises ``ValueError``."""
+    if coef.dtype != np.int16 or coef.ndim != 2 or coef.shape[1] != 64 \
+            or not coef.flags["C_CONTIGUOUS"]:
+        raise ValueError("jpeg_scan needs a C-contiguous int16 [n, 64] array")
+    if not 0 <= scan.pos <= len(data):
+        raise ValueError("jpeg_scan: scan offset outside the stream")
+    lib = get_lib()
+    if lib is None:
+        return None
+
+    def table(t):
+        return (None, None) if t is None else (t.bits, t.values)
+
+    rc = lib.unmicst_jpeg_scan(
+        data, len(data), scan.pos, _ptr(coef), coef.shape[0],
+        *table(scan.dc), *table(scan.ac), scan.ss, scan.se, scan.ah,
+        scan.al, int(progressive), scan.restart_interval)
+    if rc < 0:
+        raise ValueError(f"JPEG {_JPEG_ERRORS.get(rc, f'error {rc}')}")
+    return rc
+
+
+def png_unfilter(rows: np.ndarray, bpp: int) -> Optional[np.ndarray]:
+    """Undo the PNG row filters of the C-contiguous uint8 ``[h, 1 +
+    stride]`` ``rows`` (a filter-type byte before each row): ``[h,
+    stride]`` uint8, or None without the library.  A filter type other
+    than 0-4 raises ``ValueError``."""
+    if rows.dtype != np.uint8 or rows.ndim != 2 or rows.shape[1] < 1 \
+            or not rows.flags["C_CONTIGUOUS"]:
+        raise ValueError("png_unfilter needs a C-contiguous uint8 [h, 1 + "
+                         "stride] array")
+    lib = get_lib()
+    if lib is None:
+        return None
+    h, stride = rows.shape[0], rows.shape[1] - 1
+    out = np.empty((h, stride), np.uint8)
+    rc = lib.unmicst_png_unfilter(_ptr(rows), h, stride, bpp, _ptr(out))
+    if rc:
+        raise ValueError(f"corrupt PNG: row filter type {rows[rc - 1, 0]}")
+    return out

@@ -18,9 +18,10 @@ assembles exactly that plane, mosaics included:
 
 Sub-blocks decode uncompressed (0), "zstd0" (5, a bare frame) and "zstd1"
 (6, a small header that may declare hi-lo byte packing, then the frame),
-both through :mod:`unmicst_tpu_torch.io.zstd`.  Plain JPEG (2) and JPEG XR
-(4) have no decoder under the port's import rule (the JAX reader uses PIL
-and ``imagecodecs``): a plane that needs one raises ``NotImplementedError``
+both through :mod:`unmicst_tpu_torch.io.zstd`, and plain JPEG (2, Gray8)
+through :mod:`unmicst_tpu_torch.io.jpeg` (the JAX reader uses PIL).  JPEG
+XR (4) has no decoder under the port's import rule (the JAX reader uses
+``imagecodecs``): a plane that needs one raises ``NotImplementedError``
 when it is opened, before any pixel is returned.  Pyramid levels and
 downsampled sub-blocks are skipped.  Every header-driven size is bounded,
 and a corrupt file raises ``ValueError``.
@@ -34,12 +35,12 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from unmicst_tpu_torch.io import jxr
+from unmicst_tpu_torch.io import jpeg, jxr
 from unmicst_tpu_torch.io import zstd as _zstd
 
 _SEG_HEADER = struct.Struct("<16sqq")
 COMP_NONE = 0
-COMP_JPEG = 2  # baseline JPEG: refused (ROADMAP M16)
+COMP_JPEG = 2  # JPEG, Gray8 (io/jpeg.py)
 COMP_JXR = 4  # JPEG XR: refused (io/jxr.py)
 COMP_ZSTD0 = 5
 COMP_ZSTD1 = 6
@@ -174,6 +175,19 @@ def _decode_pixels(raw: bytes, entry: SubBlockEntry,
             ) from None
         out = _zstd.decompress(raw[off:], nbytes)
         return _zstd.unpack_hilo(out, dtype.itemsize) if hilo else out
+    if entry.compression == COMP_JPEG:
+        where = (f"{path or '<czi>'}: JPEG sub-block at "
+                 f"{entry.file_position:#x}")
+        if dtype != np.uint8:
+            # an 8-bit JPEG in a Gray16 block would land 256x dim
+            raise ValueError(f"{where} decodes to uint8, directory "
+                             f"declares {dtype}")
+        try:
+            # the directory's size caps every allocation the header drives
+            img = jpeg.decode(raw, (h, w))
+        except ValueError as e:
+            raise ValueError(f"{where} failed to decode: {e}") from None
+        return img.tobytes()
     raise NotImplementedError(
         f"compressed CZI sub-blocks (compression="
         f"{entry.compression}) are not supported"
@@ -435,12 +449,6 @@ class CziFile:
             where = f"{self.path} sub-block at {e.file_position:#x}"
             if e.compression == COMP_JXR:
                 raise jxr.refuse(where)
-            if e.compression == COMP_JPEG:
-                raise NotImplementedError(
-                    f"{where}: sub-block is JPEG-compressed (compression=2)"
-                    "; unmicst_tpu_torch has no JPEG decoder yet (ROADMAP "
-                    "M16: a baseline JPEG decoder in numpy); decode it with "
-                    "unmicst_tpu, or convert the slide")
             if (e.compression in (COMP_ZSTD0, COMP_ZSTD1)
                     and not _zstd.available()):
                 raise _zstd.unavailable()

@@ -1,0 +1,579 @@
+"""A gray 8-bit JPEG decoder in numpy and the standard library: the port's
+counterpart of PIL's decode of CZI JPEG sub-blocks
+(``unmicst_tpu/io/czi.py:177-207``) and of ``.jpg`` files in
+``utils/imtools.imread``.
+
+What it decodes (ITU T.81):
+
+* SOF0 baseline and SOF1 extended sequential, SOF2 progressive (DC first
+  and refine, AC first with end-of-band runs, AC refine), all Huffman
+  coded, one component, 8-bit samples;
+* SOI, APPn, COM, JPGn (skipped), DQT (8- and 16-bit tables), DHT, DRI,
+  SOS, RST0-7 and EOI.
+
+Everything else raises ``ValueError`` naming the marker: SOF3 (lossless),
+SOF5-7 and DHP/EXP (hierarchical), SOF9-11 and DAC (arithmetic coding),
+DNL, 12-bit samples and frames of more than one component.  A stream cut
+short anywhere, EOI included, raises as PIL does.
+
+The decode follows libjpeg: canonical Huffman codes from BITS/HUFFVAL,
+byte stuffing undone, DC predictors and the end-of-band run reset at each
+restart marker, coefficients kept as int16 in natural order, then the
+dequantise and the integer "islow" inverse DCT of IJG ``jidctint.c``
+(13-bit constants, 2 pass-1 bits, its range-limit table) over all blocks
+at once, which is what libjpeg-turbo runs under PIL.
+
+Each scan's entropy decode runs in the port's native host library
+(``io/_native.py``, ``native/jpegdec.cpp``) when it loads, and otherwise
+in :func:`decode_scan_py`, the plain version that the tests hold the
+native one to: both give the same coefficients bit for bit, and fail on
+the same inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from unmicst_tpu_torch.io import _native
+
+# the zigzag scan position -> natural (row-major) index, with libjpeg's 16
+# extra entries so that a corrupt run past 63 lands on 63, never outside
+NATURAL_ORDER = (
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+) + (63,) * 16
+
+# the markers this decoder refuses, by name
+_REFUSED = {
+    0xC3: "SOF3 (lossless)",
+    0xC5: "SOF5 (hierarchical)", 0xC6: "SOF6 (hierarchical)",
+    0xC7: "SOF7 (hierarchical)", 0xC8: "JPG (reserved)",
+    0xC9: "SOF9 (arithmetic coding)", 0xCA: "SOF10 (arithmetic coding)",
+    0xCB: "SOF11 (arithmetic coding)", 0xCC: "DAC (arithmetic coding)",
+    0xCD: "SOF13 (arithmetic coding)", 0xCE: "SOF14 (arithmetic coding)",
+    0xCF: "SOF15 (arithmetic coding)", 0xDC: "DNL",
+    0xDE: "DHP (hierarchical)", 0xDF: "EXP (hierarchical)",
+}
+# the largest plane decoded without a caller-given shape (a standalone
+# file): the 16-bit SOF fields allow 65535^2, far beyond any real JPEG
+_MAX_PIXELS = 1 << 30
+# blocks per pass of the inverse DCT: about 20 int64 temporaries of this
+# many coefficients bound its memory
+_IDCT_CHUNK = 1 << 14
+
+
+class JpegError(ValueError):
+    """A JPEG stream this decoder cannot decode (corrupt, truncated or
+    outside what it supports)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class HuffTable:
+    bits: bytes  # BITS: the count of codes of each length 1..16
+    values: bytes  # HUFFVAL, in code order
+
+
+@dataclasses.dataclass
+class Scan:
+    """One SOS: where its entropy-coded data starts and its parameters."""
+
+    pos: int
+    dc: Optional[HuffTable]
+    ac: Optional[HuffTable]
+    ss: int
+    se: int
+    ah: int
+    al: int
+    restart_interval: int
+
+
+@dataclasses.dataclass
+class Frame:
+    height: int
+    width: int
+    progressive: bool
+    qtable: np.ndarray  # 64 quantisers in natural order, int64
+
+    @property
+    def blocks(self) -> Tuple[int, int]:
+        return -(-self.height // 8), -(-self.width // 8)
+
+
+def _u16(data: bytes, pos: int) -> int:
+    if pos + 2 > len(data):
+        raise JpegError("truncated JPEG marker segment")
+    return (data[pos] << 8) | data[pos + 1]
+
+
+def _segment(data: bytes, pos: int) -> bytes:
+    """The payload of the length-prefixed marker segment at ``pos``."""
+    n = _u16(data, pos)
+    if n < 2 or pos + n > len(data):
+        raise JpegError("truncated JPEG marker segment")
+    return data[pos + 2 : pos + n]
+
+
+def _next_marker(data: bytes, pos: int) -> int:
+    """Offset of the 0xFF of the next marker at or after ``pos``, skipping
+    stuffed bytes, fill bytes and (as libjpeg does, with a warning)
+    extraneous data."""
+    while True:
+        pos = data.find(b"\xff", pos)
+        if pos < 0 or pos + 1 >= len(data):
+            raise JpegError("truncated JPEG stream (no EOI)")
+        if data[pos + 1] == 0x00:
+            pos += 2
+        elif data[pos + 1] == 0xFF:
+            pos += 1
+        else:
+            return pos
+
+
+def _data_end(data: bytes, pos: int) -> int:
+    """The end of the entropy-coded bytes from ``pos``: the first 0xFF
+    not followed by a stuffed 0x00 (or the end of the stream)."""
+    while True:
+        pos = data.find(b"\xff", pos)
+        if pos < 0:
+            return len(data)
+        if pos + 1 < len(data) and data[pos + 1] == 0x00:
+            pos += 2
+        else:
+            return pos
+
+
+def _parse_dqt(body: bytes, tables: Dict[int, np.ndarray]) -> None:
+    p = 0
+    while p < len(body):
+        pq, tq = body[p] >> 4, body[p] & 15
+        size = 128 if pq else 64
+        if pq > 1 or tq > 3 or p + 1 + size > len(body):
+            raise JpegError("corrupt JPEG DQT segment")
+        raw = np.frombuffer(body, ">u2" if pq else np.uint8, 64, p + 1)
+        q = np.zeros(64, np.int64)
+        # libjpeg keeps the quantisers as 16-bit signed multipliers
+        q[list(NATURAL_ORDER[:64])] = raw.astype(np.int64)
+        tables[tq] = q.astype(np.int16).astype(np.int64)
+        p += 1 + size
+
+
+def _parse_dht(body: bytes, dc: Dict[int, HuffTable],
+               ac: Dict[int, HuffTable]) -> None:
+    p = 0
+    while p < len(body):
+        if p + 17 > len(body):
+            raise JpegError("corrupt JPEG DHT segment")
+        tc, th = body[p] >> 4, body[p] & 15
+        bits = body[p + 1 : p + 17]
+        count = sum(bits)
+        if tc > 1 or th > 3 or count > 256 or p + 17 + count > len(body):
+            raise JpegError("corrupt JPEG DHT segment")
+        table = HuffTable(bytes(bits), bytes(body[p + 17 : p + 17 + count]))
+        if tc == 0 and any(v > 15 for v in table.values):
+            raise JpegError("corrupt JPEG DHT segment: DC symbol above 15")
+        huffman_codes(table)  # validates the code lengths
+        (ac if tc else dc)[th] = table
+        p += 17 + count
+
+
+def huffman_codes(table: HuffTable) -> List[Tuple[int, int, int]]:
+    """Canonical codes (Annex C): ``(code, length, symbol)`` in order; a
+    table whose codes overflow their length (or use the all-ones code)
+    raises, as libjpeg's ``jpeg_make_d_derived_tbl`` does."""
+    out, code, k = [], 0, 0
+    for length in range(1, 17):
+        for _ in range(table.bits[length - 1]):
+            out.append((code, length, table.values[k]))
+            code, k = code + 1, k + 1
+        if table.bits[length - 1] and code >= 1 << length:
+            raise JpegError("corrupt JPEG Huffman table")
+        code <<= 1
+    return out
+
+
+def parse(data: bytes, shape: Optional[Tuple[int, int]] = None):
+    """Parse the marker structure: ``(frame, scans)``.
+
+    ``shape`` is the (height, width) the caller expects (a CZI
+    directory's); a frame of another size raises before any buffer is
+    allocated.  Without it, frames above 2**30 pixels raise."""
+    if len(data) < 2 or data[0] != 0xFF or data[1] != 0xD8:
+        raise JpegError("not a JPEG stream (no SOI)")
+    qtables: Dict[int, np.ndarray] = {}
+    dc: Dict[int, HuffTable] = {}
+    ac: Dict[int, HuffTable] = {}
+    frame: Optional[Frame] = None
+    qid = comp_id = 0
+    scans: List[Scan] = []
+    restart = 0
+    pos = 2
+    while True:
+        pos = _next_marker(data, pos)
+        m = data[pos + 1]
+        pos += 2
+        if m == 0xD9:  # EOI
+            break
+        if 0xD0 <= m <= 0xD7 or m == 0x01:  # stray RSTn, TEM: no payload
+            continue
+        if m in _REFUSED:
+            raise JpegError(f"JPEG marker {_REFUSED[m]} is not supported")
+        if m == 0xD8:
+            raise JpegError("corrupt JPEG stream: a second SOI")
+        body = _segment(data, pos)
+        end = pos + 2 + len(body)
+        if m in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                raise JpegError("corrupt JPEG stream: a second frame")
+            if len(body) < 6:
+                raise JpegError("corrupt JPEG SOF segment")
+            prec, h, w, nc = struct.unpack_from(">BHHB", body)
+            if prec != 8:
+                raise JpegError(f"{prec}-bit JPEG samples are not supported "
+                                "(8-bit only)")
+            if h == 0:
+                raise JpegError("JPEG height defined by DNL is not "
+                                "supported")
+            if nc != 1:
+                raise JpegError(f"JPEG frame has {nc} components; only gray "
+                                "(1 component) is supported")
+            if w == 0 or len(body) < 9:
+                raise JpegError("corrupt JPEG SOF segment")
+            if shape is not None and (h, w) != tuple(shape):
+                raise JpegError(f"JPEG frame is {(h, w)}, expected "
+                                f"{tuple(shape)}")
+            if shape is None and h * w > _MAX_PIXELS:
+                raise JpegError(f"implausible JPEG frame {h}x{w}")
+            comp_id, qid = body[6], body[8]
+            if qid > 3:
+                raise JpegError("corrupt JPEG SOF segment")
+            frame = Frame(h, w, m == 0xC2, np.zeros(64, np.int64))
+        elif m == 0xC4:
+            _parse_dht(body, dc, ac)
+        elif m == 0xDB:
+            _parse_dqt(body, qtables)
+        elif m == 0xDD:
+            if len(body) < 2:
+                raise JpegError("corrupt JPEG DRI segment")
+            restart = _u16(body, 0)
+        elif m == 0xDA:
+            if frame is None:
+                raise JpegError("corrupt JPEG stream: SOS before SOF")
+            if len(body) != 6 or body[0] != 1 or body[1] != comp_id:
+                raise JpegError("corrupt JPEG SOS segment: the frame's one "
+                                "component expected")
+            td, ta = body[2] >> 4, body[2] & 15
+            ss, se, ah, al = body[3], body[4], body[5] >> 4, body[5] & 15
+            if not scans:  # libjpeg latches the table at the first scan
+                if qid not in qtables:
+                    raise JpegError("JPEG quantisation table missing")
+                frame.qtable = qtables[qid]
+            if frame.progressive:
+                bad = (se != 0) if ss == 0 else (ss > se or se > 63)
+                if bad or (ah and al != ah - 1) or al > 13:
+                    raise JpegError("corrupt JPEG progression parameters")
+            else:
+                ss, se, ah, al = 0, 63, 0, 0
+            need_dc = ss == 0 and ah == 0
+            need_ac = ss > 0 or not frame.progressive
+            if (need_dc and td not in dc) or (need_ac and ta not in ac):
+                raise JpegError("JPEG Huffman table missing")
+            scans.append(Scan(end, dc.get(td) if need_dc else None,
+                              ac.get(ta) if need_ac else None,
+                              ss, se, ah, al, restart))
+            end = _scan_end(data, end)
+        elif 0xE0 <= m <= 0xEF or m == 0xFE or 0xF0 <= m <= 0xFD:
+            pass  # APPn, COM, JPGn
+        else:
+            raise JpegError(f"unknown JPEG marker 0x{m:02X}")
+        pos = end
+    if frame is None or not scans:
+        raise JpegError("JPEG stream holds no image")
+    return frame, scans
+
+
+def _scan_end(data: bytes, pos: int) -> int:
+    """Where the marker after a scan's entropy-coded data starts: the
+    first marker that is not a restart marker."""
+    while True:
+        pos = _next_marker(data, pos)
+        if not 0xD0 <= data[pos + 1] <= 0xD7:
+            return pos
+        pos += 2
+
+
+# -- the entropy decode, in Python (the plain version) -------------------------
+
+
+class _Bits:
+    """Bit reader over one restart interval's unstuffed bytes: ``symbol``
+    looks 16 bits ahead, zeros past the end (libjpeg's lookahead); it and
+    ``take`` raise when the bits a code needs are not there."""
+
+    def __init__(self, data: bytes, pos: int):
+        self.end = _data_end(data, pos)  # the 0xFF after the interval
+        raw = data[pos : self.end].replace(b"\xff\x00", b"\xff")
+        bits = np.unpackbits(np.frombuffer(raw, np.uint8))
+        self.bits = bits.tobytes().translate(_TO_ASCII) + b"0" * 16
+        self.n = len(raw) * 8
+        self.p = 0
+
+    def take(self, k: int) -> int:
+        p = self.p
+        if p + k > self.n:
+            raise JpegError("JPEG entropy-coded data ends early")
+        self.p = p + k
+        return int(self.bits[p : p + k], 2)
+
+    def symbol(self, lut) -> int:
+        v = int(self.bits[self.p : self.p + 16], 2)
+        length = lut[0][v]
+        if length == 0:
+            raise JpegError("corrupt JPEG Huffman code")
+        if self.p + length > self.n:
+            raise JpegError("JPEG entropy-coded data ends early")
+        self.p += length
+        return lut[1][v]
+
+
+_TO_ASCII = bytes.maketrans(b"\x00\x01", b"01")
+
+
+def _lut(table: HuffTable):
+    """(length, symbol) of every 16-bit window, as Python lists."""
+    lens = np.zeros(1 << 16, np.int64)
+    syms = np.zeros(1 << 16, np.int64)
+    for code, length, sym in huffman_codes(table):
+        lo = code << (16 - length)
+        lens[lo : lo + (1 << (16 - length))] = length
+        syms[lo : lo + (1 << (16 - length))] = sym
+    return lens.tolist(), syms.tolist()
+
+
+def _extend(v: int, s: int) -> int:
+    return v - (1 << s) + 1 if v < 1 << (s - 1) else v
+
+
+def _i16(v: int) -> int:
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _i32(v: int) -> int:
+    return ((v + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
+def decode_scan_py(data: bytes, frame: Frame, scan: Scan,
+                   coef: np.ndarray) -> int:
+    """Entropy-decode one scan into ``coef`` (int16, ``[blocks, 64]`` in
+    natural order, updated in place); returns the offset of the marker
+    after the scan.  The plain version of the native decoder."""
+    nblocks = coef.shape[0]
+    c = coef.reshape(-1).tolist()
+    dc = _lut(scan.dc) if scan.dc is not None else None
+    ac = _lut(scan.ac) if scan.ac is not None else None
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    p1, m1 = 1 << al, -1 << al
+    nat = NATURAL_ORDER
+    ri = scan.restart_interval or nblocks
+    pos = scan.pos
+    for start in range(0, nblocks, ri):
+        bits = _Bits(data, pos)
+        last_dc, eobrun = 0, 0
+        for b in range(start, min(start + ri, nblocks)):
+            base = b * 64
+            if not frame.progressive or (ss == 0 and ah == 0):
+                if ss == 0 and ah == 0:  # DC (sequential, or first scan)
+                    s = bits.symbol(dc)
+                    if s:
+                        s = _extend(bits.take(s), s)
+                    last_dc = _i32(last_dc + s)
+                    c[base] = _i16(last_dc << al)
+                if frame.progressive:
+                    continue
+                k = 1
+                while k < 64:
+                    rs = bits.symbol(ac)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        c[base + nat[k]] = _i16(_extend(bits.take(s), s))
+                    elif r != 15:
+                        break
+                    else:
+                        k += 15
+                    k += 1
+            elif ss == 0:  # DC refine
+                if bits.take(1):
+                    c[base] = _i16(c[base] | p1)
+            elif ah == 0:  # AC first
+                if eobrun > 0:
+                    eobrun -= 1
+                    continue
+                k = ss
+                while k <= se:
+                    rs = bits.symbol(ac)
+                    r, s = rs >> 4, rs & 15
+                    if s:
+                        k += r
+                        c[base + nat[k]] = _i16(
+                            _extend(bits.take(s), s) << al)
+                    elif r == 15:
+                        k += 15
+                    else:
+                        eobrun = (1 << r) + (bits.take(r) if r else 0) - 1
+                        break
+                    k += 1
+            else:  # AC refine
+                k = ss
+                if eobrun == 0:
+                    while k <= se:
+                        rs = bits.symbol(ac)
+                        r, s = rs >> 4, rs & 15
+                        if s:
+                            s = p1 if bits.take(1) else m1
+                        elif r != 15:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += bits.take(r)
+                            break
+                        while k <= se:
+                            i = base + nat[k]
+                            if c[i] != 0:
+                                if bits.take(1) and (c[i] & p1) == 0:
+                                    c[i] = _i16(c[i] + (p1 if c[i] >= 0
+                                                        else m1))
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                        if s:
+                            c[base + nat[k]] = _i16(s)
+                        k += 1
+                if eobrun > 0:
+                    while k <= se:
+                        i = base + nat[k]
+                        if c[i] != 0 and bits.take(1) and (c[i] & p1) == 0:
+                            c[i] = _i16(c[i] + (p1 if c[i] >= 0 else m1))
+                        k += 1
+                    eobrun -= 1
+        pos = _next_marker(data, bits.end)
+        m = data[pos + 1]
+        last = start + ri >= nblocks
+        if last and 0xD0 <= m <= 0xD7:
+            raise JpegError("corrupt JPEG stream: unexpected restart marker")
+        if not last:
+            if m != 0xD0 + (start // ri) % 8:
+                raise JpegError("corrupt JPEG stream: restart marker "
+                                "missing or out of order")
+            pos += 2
+    coef.reshape(-1)[:] = np.asarray(c, np.int64).astype(np.int16)
+    return pos
+
+
+# -- the inverse DCT --------------------------------------------------------------
+
+# jidctint.c's FIX(x) = round(x * 2**13)
+_F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
+_F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
+_F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
+
+
+def _idct_1d(x):
+    """The even/odd butterflies of ``jpeg_idct_islow`` on 8 int64 arrays
+    (inputs 0..7); returns the 8 undescaled outputs."""
+    z1 = (x[2] + x[6]) * _F0541
+    tmp2 = z1 - x[6] * _F1847
+    tmp3 = z1 + x[2] * _F0765
+    tmp0 = (x[0] + x[4]) << 13
+    tmp1 = (x[0] - x[4]) << 13
+    t10, t13 = tmp0 + tmp3, tmp0 - tmp3
+    t11, t12 = tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = x[7], x[5], x[3], x[1]
+    z1, z2 = o0 + o3, o1 + o2
+    z3, z4 = o0 + o2, o1 + o3
+    z5 = (z3 + z4) * _F1175
+    o0, o1 = o0 * _F0298, o1 * _F2053
+    o2, o3 = o2 * _F3072, o3 * _F1501
+    z1, z2 = z1 * -_F0899, z2 * -_F2562
+    z3, z4 = z3 * -_F1961 + z5, z4 * -_F0390 + z5
+    o0 = o0 + z1 + z3
+    o1 = o1 + z2 + z4
+    o2 = o2 + z2 + z3
+    o3 = o3 + z1 + z4
+    return (t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+            t13 - o0, t12 - o1, t11 - o2, t10 - o3)
+
+
+def _descale(x, n: int):
+    return (x + (1 << (n - 1))) >> n
+
+
+# libjpeg's post-IDCT range limit, indexed by (value & 1023): a clamp to
+# 0..255 around the +128 level shift for |value| < 512, a wrap beyond
+_RANGE_LIMIT = np.concatenate([
+    np.arange(128, 256), np.full(384, 255), np.zeros(384), np.arange(128),
+]).astype(np.uint8)
+
+
+def idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """Dequantise and inverse-DCT ``[n, 64]`` int16 coefficient blocks
+    into ``[n, 8, 8]`` uint8 samples, bit for bit as ``jidctint.c``."""
+    out = np.empty((coef.shape[0], 8, 8), np.uint8)
+    for a in range(0, coef.shape[0], _IDCT_CHUNK):
+        blk = coef[a : a + _IDCT_CHUNK]
+        # [vertical frequency, horizontal frequency, block], contiguous
+        z = (blk.astype(np.int64) * qtable).T.reshape(8, 8, -1)
+        # pass 1 down the columns, scaled up by 2**2: ws[row] is [col, n]
+        ws = [_descale(v, 11) for v in _idct_1d(z)]
+        # pass 2 along the rows, descaled by 2**(13 + 2 + 3)
+        px = _idct_1d([np.stack([w[k] for w in ws]) for k in range(8)])
+        px = np.stack([_descale(v, 18) for v in px], 1)  # [row, col, n]
+        out[a : a + _IDCT_CHUNK] = _RANGE_LIMIT[px & 1023].transpose(2, 0, 1)
+    return out
+
+
+# -- the decoder ---------------------------------------------------------------------
+
+
+def decode_coefficients(data: bytes, shape: Optional[Tuple[int, int]] = None):
+    """Parse and entropy-decode: ``(frame, coef)`` with ``coef`` int16
+    ``[blocks_h * blocks_w, 64]`` in natural order, each scan through the
+    native library when it loads and through :func:`decode_scan_py`
+    otherwise."""
+    data = bytes(data)
+    frame, scans = parse(data, shape)
+    bh, bw = frame.blocks
+    coef = np.zeros((bh * bw, 64), np.int16)
+    native = _native.get_lib() is not None
+    for scan in scans:
+        if native:
+            _native.jpeg_scan(data, scan, frame.progressive, coef)
+        else:
+            decode_scan_py(data, frame, scan, coef)
+    return frame, coef
+
+
+def decode(data: bytes, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """A gray JPEG stream -> ``[H, W]`` uint8, as PIL decodes it.
+
+    ``shape``: the (height, width) the caller expects; a frame of another
+    size raises before any buffer is allocated.  Every failure raises
+    :class:`JpegError` (a ``ValueError``)."""
+    frame, coef = decode_coefficients(data, shape)
+    bh, bw = frame.blocks
+    px = idct_islow(coef, frame.qtable)
+    img = px.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8,
+                                                                bw * 8)
+    return np.ascontiguousarray(img[: frame.height, : frame.width])
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """A gray JPEG file -> ``[H, W]`` uint8."""
+    with open(path, "rb") as f:
+        return decode(f.read())

@@ -51,8 +51,8 @@ threads; their engine calls run on one worker thread per card
 algorithms, which PyTorch keeps per thread, are chosen once.
 
 A refusal that names its ROADMAP item answers 501 (zstd without the
-host's libzstd, M14b; a CZI of JPEG sub-blocks, M16); other reader
-errors, a CZI of JPEG XR sub-blocks among them, answer 400 as in the JAX
+host's libzstd, M14b); other reader errors, a CZI of JPEG XR sub-blocks or
+of undecodable JPEG sub-blocks among them, answer 400 as in the JAX
 server.  The persistent compile cache of the JAX server has no
 counterpart here (M14c's ``progcache``).
 """

@@ -1,0 +1,740 @@
+"""Image-processing toolbox: the port of ``unmicst_tpu/utils/imtools.py``
+(the reference's ``toolbox/imtools.py``), with its names and signatures.
+
+The JAX toolbox builds on ``scipy.ndimage``, PIL and matplotlib, none of
+which the port imports.  Here the filters, the morphology, the feature
+stacks and :func:`imresize3_double` compute in torch on ``device``
+(default ``cuda``, raising without a card; ``"cpu"`` when asked for), in
+float64, and return numpy arrays in scipy's output dtypes:
+
+* Gaussian filters follow ``gaussian_filter``: the taps of scipy's
+  ``_gaussian_kernel1d`` (radius ``int(truncate * sigma + 0.5)``,
+  derivative orders by its polynomial recurrence, correlated reversed),
+  the axes in order 0..n-1, each pass summed in ``correlate1d``'s order
+  and stored in the input's dtype (integers truncate);
+* boundary modes ``reflect`` (scipy's default, ``d c b a | a b c d``),
+  ``mirror``, ``nearest``, ``wrap`` and ``constant`` fold the sample
+  indices, periodically where the radius exceeds the axis;
+* the rank filters gather the disk or ball footprint under ``reflect``
+  and select scipy's rank exactly, a block of rows at a time;
+* binary erosion and dilation treat outside pixels as 0
+  (``border_value=0``).
+
+The index-only helpers (the nearest-neighbour resizes, ``normalize``,
+``snormalize``, ``cat``, ``size``, ``stack2list``) stay in numpy.  TIFFs
+read and write through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
+:mod:`unmicst_tpu_torch.io.png` and JPEGs read through
+:mod:`unmicst_tpu_torch.io.jpeg` (gray); other formats, which the JAX
+package reaches through PIL, raise ``NotImplementedError`` (ROADMAP M17).
+:func:`imshow` and :func:`imshowlist` keep the JAX package's headless
+contract without matplotlib: they write a PNG and return its path.
+
+On an integer image the feature stacks and :func:`imgradmag` give what
+numpy gives: the derivatives are stored in the image's dtype, their
+squares and sums wrap in it, and the root takes numpy's float type for
+it (float16 for 8 bits, float32 for 16, float64 wider).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from unmicst_tpu_torch.io import jpeg, png
+from unmicst_tpu_torch.io.preprocess import im2double, resize  # noqa: F401
+from unmicst_tpu_torch.io.tiff import imread as _tiff_read
+from unmicst_tpu_torch.io.tiff import imwrite as _tiff_write
+from unmicst_tpu_torch.runtime.devices import resolve_device
+
+# values gathered per block of a rank filter (footprint size x rows x
+# the rest): about 256 MB of float64, and the sort's as much again
+_RANK_BLOCK = 1 << 25
+_MODES = ("reflect", "mirror", "nearest", "wrap", "constant")
+_GAUSS_KWARGS = ("order", "mode", "cval", "truncate")
+
+
+def tifread(path: str) -> np.ndarray:
+    return _tiff_read(path)
+
+
+def tifwrite(image: np.ndarray, path: str) -> None:
+    _tiff_write(path, image, bigtiff=False)
+
+
+def size(image: np.ndarray) -> List[int]:
+    return list(image.shape)
+
+
+def imread(path: str) -> np.ndarray:
+    """Generic image read: TIFF, PNG (gray 8/16-bit, RGB/RGBA 8-bit) and
+    gray JPEG; other formats raise ``NotImplementedError``."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".tif", ".tiff"):
+        return _tiff_read(path)
+    if ext == ".png":
+        return png.read_png(path)
+    if ext in (".jpg", ".jpeg"):
+        return jpeg.read_jpeg(path)
+    raise NotImplementedError(
+        f"imread: {ext or 'no extension'} files are not supported by "
+        "unmicst_tpu_torch (TIFF, PNG and gray JPEG are; the JAX package "
+        "reads the rest through PIL: ROADMAP M17)")
+
+
+def imwrite(image: np.ndarray, path: str) -> None:
+    """Generic image write: TIFF, and PNG of gray 8/16-bit or RGB 8-bit;
+    other formats raise ``NotImplementedError``."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".tif", ".tiff"):
+        _tiff_write(path, image, bigtiff=False)
+        return
+    if ext == ".png":
+        png.write_png(path, image)
+        return
+    raise NotImplementedError(
+        f"imwrite: {ext or 'no extension'} files are not supported by "
+        "unmicst_tpu_torch (TIFF and PNG are; the JAX package writes the "
+        "rest, JPEG among them, through PIL: ROADMAP M17)")
+
+
+def _display_u8(image: np.ndarray) -> np.ndarray:
+    """A plane (or RGB image) min-max normalised to uint8 for display."""
+    img = np.asarray(image, np.float64)
+    lo, hi = img.min(), img.max()
+    scaled = (img - lo) / (hi - lo) if hi > lo else np.zeros_like(img)
+    return np.round(scaled * 255).astype(np.uint8)
+
+
+def imshow(image: np.ndarray, out: str = None, **kwargs) -> str:
+    """Display for a headless process: the min-max normalised image as a
+    PNG at ``out`` (default ``imshow.png``); returns the path.  ``kwargs``
+    (matplotlib's display options in the JAX package) are accepted and
+    not used: there is no colour map here."""
+    del kwargs
+    out = out or "imshow.png"
+    png.write_png(out, _display_u8(image))
+    return out
+
+
+def imshowlist(images: Sequence[np.ndarray], out: str = None,
+               **kwargs) -> str:
+    """Side-by-side panels, each min-max normalised, as one PNG at
+    ``out`` (default ``imshowlist.png``); returns the path."""
+    del kwargs
+    out = out or "imshowlist.png"
+    panels = [_display_u8(im) for im in images]
+    rgb = any(p.ndim == 3 for p in panels)
+    if rgb:
+        panels = [np.repeat(p[..., None], 3, 2) if p.ndim == 2 else p[..., :3]
+                  for p in panels]
+    height = max(p.shape[0] for p in panels)
+    gap = np.zeros((height, 4) + panels[0].shape[2:], np.uint8)
+    row = []
+    for p in panels:
+        pad = np.zeros((height - p.shape[0],) + p.shape[1:], np.uint8)
+        row += [np.concatenate([p, pad]), gap]
+    png.write_png(out, np.concatenate(row[:-1], 1))
+    return out
+
+
+def normalize(image: np.ndarray) -> np.ndarray:
+    """Min-max normalize; identity for constant images (``:70-76``)."""
+    lo, hi = np.min(image), np.max(image)
+    if hi > lo:
+        return (image - lo) / (hi - lo)
+    return image
+
+
+def snormalize(image: np.ndarray) -> np.ndarray:
+    """Z-score normalize; identity for constant images (``:78-84``)."""
+    m, s = np.mean(image), np.std(image)
+    if s > 0:
+        return (image - m) / s
+    return image
+
+
+def cat(axis: int, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.concatenate((a, b), axis=axis)
+
+
+def imresize_double(image: np.ndarray, size_out: Sequence[int]) -> np.ndarray:
+    return resize(image, (size_out[0], size_out[1]))
+
+
+def imresize3_double(volume: np.ndarray, size_out: Sequence[int],
+                     device=None) -> np.ndarray:
+    """Trilinear volume resize on the half-pixel grid: scipy's order-1
+    ``map_coordinates(mode="nearest")`` at the clipped coordinates
+    ``(i + 0.5) * n_in / n_out - 0.5``, one axis at a time."""
+    dev = resolve_device(device)
+    x = torch.as_tensor(np.asarray(volume, np.float64), device=dev)
+    for axis, (n_out, n_in) in enumerate(zip(size_out, volume.shape)):
+        c = np.clip((np.arange(n_out) + 0.5) * n_in / n_out - 0.5, 0,
+                    n_in - 1)
+        lo = np.minimum(np.floor(c).astype(np.int64), max(n_in - 2, 0))
+        hi = np.minimum(lo + 1, n_in - 1)
+        shape = [1] * x.ndim
+        shape[axis] = n_out
+        t = torch.as_tensor(c - lo, device=dev).reshape(shape)
+        a = x.index_select(axis, torch.as_tensor(lo, device=dev))
+        b = x.index_select(axis, torch.as_tensor(hi, device=dev))
+        x = a * (1 - t) + b * t
+    return x.cpu().numpy()
+
+
+def imresize3_uint8(volume: np.ndarray, size_out: Sequence[int]) -> np.ndarray:
+    """Nearest-neighbour uint8 volume resize (order 0): index
+    ``floor((i + 0.5) * n_in / n_out)``, clamped."""
+    idx = [
+        np.minimum(((np.arange(n_out) + 0.5) * n_in / n_out).astype(int),
+                   n_in - 1)
+        for n_out, n_in in zip(size_out, volume.shape)
+    ]
+    return np.uint8(volume[np.ix_(*idx)])
+
+
+def imresize_uint8(image: np.ndarray, size_out: Sequence[int]) -> np.ndarray:
+    """Nearest-neighbour uint8 resize (order 0), the index math of
+    :func:`imresize3_uint8` on two axes."""
+    in_h, in_w = image.shape[:2]
+    out_h, out_w = size_out[0], size_out[1]
+    rows = np.minimum(((np.arange(out_h) + 0.5) * in_h / out_h).astype(int),
+                      in_h - 1)
+    cols = np.minimum(((np.arange(out_w) + 0.5) * in_w / out_w).astype(int),
+                      in_w - 1)
+    return np.uint8(image[np.ix_(rows, cols)])
+
+
+# -- index folds and dtype casts ---------------------------------------------------
+
+
+def _fold(idx: np.ndarray, n: int, mode: str) -> np.ndarray:
+    """Sample indices outside ``[0, n)`` folded back in by a boundary
+    mode, periodically (scipy extends its line buffers so)."""
+    if mode == "reflect":
+        m = idx % (2 * n)
+        return np.where(m < n, m, 2 * n - 1 - m)
+    if mode == "mirror":
+        if n == 1:
+            return np.zeros_like(idx)
+        m = idx % (2 * n - 2)
+        return np.where(m < n, m, 2 * n - 2 - m)
+    if mode == "wrap":
+        return idx % n
+    return np.clip(idx, 0, n - 1)  # nearest (and constant's gather)
+
+
+def _pad_axis(x: torch.Tensor, axis: int, r: int, mode: str,
+              cval: float = 0.0) -> torch.Tensor:
+    """``x`` extended by ``r`` samples on both ends of ``axis``."""
+    n = x.shape[axis]
+    idx = np.arange(-r, n + r)
+    out = x.index_select(axis, torch.as_tensor(_fold(idx, n, mode),
+                                               device=x.device))
+    if mode == "constant" and r:
+        shape = [1] * x.ndim
+        shape[axis] = len(idx)
+        inside = torch.as_tensor((idx >= 0) & (idx < n), device=x.device)
+        out = torch.where(inside.reshape(shape), out,
+                          torch.full((), cval, dtype=x.dtype,
+                                     device=x.device))
+    return out
+
+
+_FLOAT_DTYPES = {np.dtype(np.float16): torch.float16,
+                 np.dtype(np.float32): torch.float32,
+                 np.dtype(np.float64): torch.float64}
+
+
+def _cast(x: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
+    """The values a float64 result takes when scipy stores it in
+    ``dtype``: floats round to it (and stay float64 for the next pass);
+    integers truncate and wrap, as C's cast does; bool is ``!= 0``."""
+    if dtype in _FLOAT_DTYPES:
+        return x.to(_FLOAT_DTYPES[dtype]).to(torch.float64)
+    if dtype == np.bool_:
+        return (x != 0).to(torch.float64)
+    info = np.iinfo(dtype)
+    span = float(info.max) - float(info.min) + 1
+    return torch.remainder(torch.trunc(x) - float(info.min), span) + float(
+        info.min)
+
+
+def _to_numpy(x: torch.Tensor, dtype: np.dtype) -> np.ndarray:
+    return x.cpu().numpy().astype(dtype)
+
+
+def _as_tensor(image, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(image, np.float64), device=dev)
+
+
+def _per_axis(value, ndim: int, name: str) -> list:
+    """scipy's ``_normalize_sequence``: a scalar for every axis, or one
+    value per axis."""
+    if isinstance(value, (str, int, float, np.integer, np.floating)):
+        return [value] * ndim
+    value = list(value)
+    if len(value) != ndim:
+        raise RuntimeError(f"sequence argument must have length equal to "
+                           f"input rank ({name})")
+    return value
+
+
+# -- gaussian filters -------------------------------------------------------------
+
+
+def _gaussian_kernel1d(sigma: float, order: int, radius: int) -> np.ndarray:
+    """``scipy.ndimage._filters._gaussian_kernel1d``, the same float64
+    expressions (so the same taps)."""
+    if order < 0:
+        raise ValueError("order must be non-negative")
+    exponent_range = np.arange(order + 1)
+    sigma2 = sigma * sigma
+    x = np.arange(-radius, radius + 1)
+    phi_x = np.exp(-0.5 / sigma2 * x ** 2)
+    phi_x = phi_x / phi_x.sum()
+    if order == 0:
+        return phi_x
+    q = np.zeros(order + 1)
+    q[0] = 1
+    D = np.diag(exponent_range[1:], 1)  # D @ q(x) = q'(x)
+    P = np.diag(np.ones(order) / -sigma2, -1)  # P @ q(x) = q(x) * p'(x)
+    Q_deriv = D + P
+    for _ in range(order):
+        q = Q_deriv.dot(q)
+    q = (x[:, None] ** exponent_range).dot(q)
+    return q * phi_x
+
+
+def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int,
+                 mode: str, cval: float) -> torch.Tensor:
+    """scipy's ``correlate1d`` on a float64 tensor, summing in the order
+    of its C loop (symmetric and antisymmetric taps paired about the
+    centre, outermost first)."""
+    size = len(weights)
+    size1 = size // 2
+    size2 = size - size1 - 1
+    n = x.shape[axis]
+    xp = _pad_axis(x, axis, max(size1, size2), mode, cval)
+    base = max(size1, size2)
+
+    def at(k):
+        return xp.narrow(axis, base + k, n)
+
+    eps = np.finfo(np.float64).eps
+    fw = [float(v) for v in weights]
+    c = size1
+    symmetric = 0
+    if size & 1:
+        if all(abs(fw[c + i] - fw[c - i]) <= eps for i in range(1, c + 1)):
+            symmetric = 1
+        elif all(abs(fw[c + i] + fw[c - i]) <= eps
+                 for i in range(1, c + 1)):
+            symmetric = -1
+    if symmetric:
+        out = at(0) * fw[c]
+        for j in range(-size1, 0):
+            pair = at(j) + at(-j) if symmetric > 0 else at(j) - at(-j)
+            out = out + pair * fw[c + j]
+        return out
+    out = at(size2) * fw[c + size2]
+    for j in range(-size1, size2):
+        out = out + at(j) * fw[c + j]
+    return out
+
+
+def _gauss(x: torch.Tensor, dtype: np.dtype, sigma, order=0,
+           mode="reflect", cval=0.0, truncate=4.0) -> torch.Tensor:
+    """``scipy.ndimage.gaussian_filter`` on a float64 tensor holding an
+    image of ``dtype``: each pass's result takes ``dtype``'s values."""
+    nd = x.ndim
+    sigmas = _per_axis(sigma, nd, "sigma")
+    orders = _per_axis(order, nd, "order")
+    modes = _per_axis(mode, nd, "mode")
+    for axis in range(nd):
+        s = float(sigmas[axis])
+        if s <= 1e-15:
+            continue
+        if modes[axis] not in _MODES:
+            raise RuntimeError("boundary mode not supported")
+        lw = int(float(truncate) * s + 0.5)
+        weights = _gaussian_kernel1d(s, int(orders[axis]), lw)[::-1]
+        x = _cast(_correlate1d(x, weights, axis, modes[axis], float(cval)),
+                  dtype)
+    return x
+
+
+def imgaussfilt(image: np.ndarray, sigma, device=None,
+                **kwargs) -> np.ndarray:
+    """``scipy.ndimage.gaussian_filter(image, sigma, **kwargs)``; the
+    keywords are ``order``, ``mode``, ``cval`` and ``truncate``."""
+    bad = sorted(set(kwargs) - set(_GAUSS_KWARGS))
+    if bad:
+        raise TypeError(f"imgaussfilt got unexpected keyword arguments "
+                        f"{bad}; it takes {list(_GAUSS_KWARGS)}")
+    image = np.asarray(image)
+    x = _as_tensor(image, resolve_device(device))
+    return _to_numpy(_gauss(x, image.dtype, sigma, **kwargs), image.dtype)
+
+
+def _laplace(x: torch.Tensor, dtype: np.dtype, sigma) -> torch.Tensor:
+    """``scipy.ndimage.gaussian_laplace``: the second derivative along
+    each axis in turn, summed in ``dtype``."""
+    out = None
+    for axis in range(x.ndim):
+        order = [0] * x.ndim
+        order[axis] = 2
+        d2 = _gauss(x, dtype, sigma, order)
+        out = d2 if out is None else _cast(out + d2, dtype)
+    return out
+
+
+def imlogfilt(image: np.ndarray, sigma, device=None) -> np.ndarray:
+    """Negated Laplacian-of-Gaussian (blob enhancer)."""
+    image = np.asarray(image)
+    x = _as_tensor(image, resolve_device(device))
+    return _to_numpy(_cast(-_laplace(x, image.dtype, sigma), image.dtype),
+                     image.dtype)
+
+
+def _root_dtype(dtype: np.dtype) -> Tuple[np.dtype, np.dtype]:
+    """numpy's dtypes for ``np.sqrt(a**2 + b**2 ...)`` of arrays in
+    ``dtype``: (the squares' and sums', the root's)."""
+    sq = (np.zeros(1, dtype) ** 2).dtype  # bool squares to int8
+    return sq, np.sqrt(np.zeros(1, sq)).dtype
+
+
+def _wrapped_int64(x: torch.Tensor) -> torch.Tensor:
+    """Integer values held in float64 -> int64 with the same low 64 bits
+    (uint64's upper half wraps negative)."""
+    return torch.where(x >= 2.0**63, x - 2.0**64, x).to(torch.int64)
+
+
+def _norm(dtype: np.dtype, *parts: torch.Tensor) -> torch.Tensor:
+    """``np.sqrt(a**2 + b**2 ...)`` of ``parts`` stored in ``dtype``, as
+    float64 holding the root's numpy dtype.  Float: each step in float64,
+    rounded to ``dtype`` (exact emulation of float32 arithmetic).
+    Integer: the squares and sums wrap in numpy's integer dtype (int64
+    products wrap mod 2**64, which keeps every narrower dtype's low
+    bits), and the root is taken of that value."""
+    sq, root = _root_dtype(dtype)
+    if dtype in _FLOAT_DTYPES:
+        total = _cast(parts[0] * parts[0], dtype)
+        for p in parts[1:]:
+            total = _cast(total + _cast(p * p, dtype), dtype)
+        return _cast(torch.sqrt(total), root)
+    total = None
+    for p in map(_wrapped_int64, parts):
+        total = p * p if total is None else total + p * p
+    bits = 8 * sq.itemsize
+    if bits < 64:
+        total = total & ((1 << bits) - 1)
+        if sq.kind == "i":
+            total = torch.where(total >= 1 << (bits - 1), total - (1 << bits),
+                                total)
+        value = total.to(torch.float64)
+    elif sq.kind == "u":  # one rounding of the unsigned 64-bit value
+        value = (((total >> 32) & 0xFFFFFFFF).to(torch.float64) * 2.0**32
+                 + (total & 0xFFFFFFFF).to(torch.float64))
+    else:
+        value = total.to(torch.float64)
+    return _cast(torch.sqrt(value), root)
+
+
+def imgradmag(image: np.ndarray, sigma, device=None) -> np.ndarray:
+    image = np.asarray(image)
+    x = _as_tensor(image, resolve_device(device))
+    if image.ndim == 2:
+        orders = ([0, 1], [1, 0])
+    else:
+        orders = ([0, 0, 1], [0, 1, 0], [1, 0, 0])
+    parts = [_gauss(x, image.dtype, sigma, o) for o in orders]
+    return _to_numpy(_norm(image.dtype, *parts), _root_dtype(image.dtype)[1])
+
+
+# -- morphology --------------------------------------------------------------------
+
+
+def _disk(radius: int) -> np.ndarray:
+    r = int(radius)
+    y, x = np.ogrid[-r : r + 1, -r : r + 1]
+    return (x * x + y * y) <= r * r
+
+
+def _ball(radius: int) -> np.ndarray:
+    r = int(radius)
+    z, y, x = np.ogrid[-r : r + 1, -r : r + 1, -r : r + 1]
+    return (x * x + y * y + z * z) <= r * r
+
+
+def _structural_element(shape, radius):
+    return _disk(radius) if len(shape) == 2 else _ball(radius)
+
+
+def _shifted(xp: torch.Tensor, offset, r: int, shape) -> torch.Tensor:
+    """The window of the ``r``-padded ``xp`` shifted by ``offset``."""
+    return xp[tuple(slice(r + o, r + o + n) for o, n in zip(offset, shape))]
+
+
+def _binary(image, footprint: np.ndarray, erode: bool, device):
+    """scipy's ``binary_erosion`` / ``binary_dilation`` with
+    ``border_value=0``: outside the image counts as 0 for both."""
+    img = np.asarray(image)
+    if img.ndim != footprint.ndim:
+        raise RuntimeError("structure and input must have same "
+                           "dimensionality")
+    dev = resolve_device(device)
+    x = torch.as_tensor(img != 0, device=dev)
+    r = footprint.shape[0] // 2
+    xp = torch.zeros(tuple(n + 2 * r for n in x.shape), dtype=torch.bool,
+                     device=dev)
+    xp[tuple(slice(r, r + n) for n in x.shape)] = x
+    offsets = np.argwhere(footprint) - r
+    if not erode:  # dilation: the reflected structure
+        offsets = -offsets
+    out = torch.full(x.shape, erode, dtype=torch.bool, device=dev)
+    for off in offsets.tolist():
+        win = _shifted(xp, off, r, x.shape)
+        out = out & win if erode else out | win
+    return out.cpu().numpy()
+
+
+def imerode(image: np.ndarray, radius: int, device=None) -> np.ndarray:
+    return _binary(image, _disk(radius), True, device)
+
+
+def imdilate(image: np.ndarray, radius: int, device=None) -> np.ndarray:
+    return _binary(image, _disk(radius), False, device)
+
+
+def imerode3(image: np.ndarray, radius: int, device=None) -> np.ndarray:
+    return _binary(image, _ball(radius), True, device)
+
+
+def imdilate3(image: np.ndarray, radius: int, device=None) -> np.ndarray:
+    return _binary(image, _ball(radius), False, device)
+
+
+# -- rank filters -------------------------------------------------------------------
+
+
+def _percentile_rank(percentile: float, size: int) -> int:
+    """scipy's ``_rank_filter`` rank of a percentile."""
+    if percentile < 0.0:
+        percentile += 100.0
+    if percentile < 0 or percentile > 100:
+        raise RuntimeError("invalid percentile")
+    if percentile == 100.0:
+        return size - 1
+    return int(float(size) * percentile / 100.0)
+
+
+def _rank_select(image, footprint: np.ndarray, ranks: Sequence[int],
+                 device) -> torch.Tensor:
+    """The ``ranks``-th smallest values (0-based) of every pixel's
+    footprint neighbourhood under ``reflect``: ``[*shape, len(ranks)]``,
+    exact (floats as float64, integers as int64)."""
+    img = np.asarray(image)
+    if img.ndim != footprint.ndim:
+        raise RuntimeError("footprint array has incorrect shape")
+    dev = resolve_device(device)
+    kind = np.float64 if img.dtype.kind in "fc" else np.int64
+    x = torch.as_tensor(img.astype(kind), device=dev)
+    r = footprint.shape[0] // 2
+    xp = x
+    for axis in range(x.ndim):
+        xp = _pad_axis(xp, axis, r, "reflect")
+    offsets = (np.argwhere(footprint) - r).tolist()
+    k = len(offsets)
+    rest = int(np.prod(x.shape[1:]))
+    rows = max(1, _RANK_BLOCK // max(1, k * rest))
+    out = torch.empty(tuple(x.shape) + (len(ranks),), dtype=x.dtype,
+                      device=dev)
+    for a in range(0, x.shape[0], rows):
+        b = min(a + rows, x.shape[0])
+        block = (b - a,) + tuple(x.shape[1:])
+        vals = torch.stack([_shifted(xp[a:], off, r, block)
+                            for off in offsets])
+        if len(ranks) == 1 and ranks[0] in (0, k - 1):
+            picked = [vals.amin(0) if ranks[0] == 0 else vals.amax(0)]
+        elif len(ranks) == 1:
+            picked = [torch.kthvalue(vals, ranks[0] + 1, dim=0).values]
+        else:
+            srt = torch.sort(vals, dim=0).values
+            picked = [srt[q] for q in ranks]
+        out[a:b] = torch.stack(picked, -1)
+    return out
+
+
+def _rank_filter(image, footprint, rank: int, device) -> np.ndarray:
+    image = np.asarray(image)
+    got = _rank_select(image, footprint, [rank], device)[..., 0]
+    return got.cpu().numpy().astype(image.dtype)
+
+
+def medfilt(image: np.ndarray, radius: int, device=None) -> np.ndarray:
+    fp = _structural_element(np.shape(image), radius)
+    return _rank_filter(image, fp, int(fp.sum()) // 2, device)
+
+
+def maxfilt(image: np.ndarray, radius: int, device=None) -> np.ndarray:
+    fp = _structural_element(np.shape(image), radius)
+    return _rank_filter(image, fp, int(fp.sum()) - 1, device)
+
+
+def minfilt(image: np.ndarray, radius: int, device=None) -> np.ndarray:
+    return _rank_filter(image, _structural_element(np.shape(image), radius),
+                        0, device)
+
+
+def ptlfilt(image: np.ndarray, percentile: float, radius: int,
+            device=None) -> np.ndarray:
+    fp = _structural_element(np.shape(image), radius)
+    return _rank_filter(image, fp, _percentile_rank(percentile,
+                                                    int(fp.sum())), device)
+
+
+# -- feature stacks ----------------------------------------------------------------
+
+_DERIV_NAMES_2D = ["d0", "dx", "dy", "dxx", "dxy", "dyy", "normGrad", "normHessDiag"]
+_DERIV_NAMES_3D = [
+    "d0", "dx", "dy", "dz", "dxx", "dxy", "dxz", "dyy", "dyz", "dzz",
+    "normGrad", "normHessDiag",
+]
+_LOCAL_PTLS = [10, 30, 50, 70, 90]
+
+
+def _localstats(image, radius, device) -> torch.Tensor:
+    """The five local percentiles, from one sort per block: float64."""
+    fp = _structural_element(np.shape(image), radius)
+    ranks = [_percentile_rank(p, int(fp.sum())) for p in _LOCAL_PTLS]
+    # the values are the image's own, so float64 holds them exactly
+    return _rank_select(image, fp, ranks, device).to(torch.float64)
+
+
+def localstats(image, radius, justfeatnames=False, device=None):
+    names = [f"locPtl{p}" for p in _LOCAL_PTLS]
+    if justfeatnames:
+        return names
+    return _localstats(image, radius, device).cpu().numpy()
+
+
+def _derivatives(x, dtype, sigmas, ndim) -> List[torch.Tensor]:
+    """The derivative planes of :func:`imderivatives` (2D) or
+    :func:`imderivatives3` (3D), in their order, as float64."""
+    planes = []
+    for sigma in sigmas:
+        def g(order):
+            return _gauss(x, dtype, sigma, order)
+
+        if ndim == 2:
+            dx, dy = g([0, 1]), g([1, 0])
+            dxx, dyy = g([0, 2]), g([2, 0])
+            planes += [g(0), dx, dy, dxx, g([1, 1]), dyy, _norm(dtype, dx, dy),
+                       _norm(dtype, dxx, dyy)]
+        else:
+            dx, dy, dz = g([0, 0, 1]), g([0, 1, 0]), g([1, 0, 0])
+            dxx, dyy, dzz = g([0, 0, 2]), g([0, 2, 0]), g([2, 0, 0])
+            planes += [g(0), dx, dy, dz, dxx, g([0, 1, 1]), g([1, 0, 1]),
+                       dyy, g([1, 1, 0]), dzz, _norm(dtype, dx, dy, dz),
+                       _norm(dtype, dxx, dyy, dzz)]
+    return planes
+
+
+def _stack(planes: List[torch.Tensor]) -> np.ndarray:
+    return torch.stack(planes, -1).cpu().numpy()
+
+
+def imderivatives(image, sigmas: Union[float, list], justfeatnames=False,
+                  device=None):
+    """Gaussian-derivative feature stack (``:163-195``)."""
+    if not isinstance(sigmas, list):
+        sigmas = [sigmas]
+    if justfeatnames:
+        return [
+            f"derivSigma{int(s)}{n}" for s in sigmas for n in _DERIV_NAMES_2D
+        ]
+    image = np.asarray(image)
+    x = _as_tensor(image, resolve_device(device))
+    return _stack(_derivatives(x, image.dtype, sigmas, 2))
+
+
+def imderivatives3(image, sigmas: Union[float, list], justfeatnames=False,
+                   device=None):
+    if not isinstance(sigmas, list):
+        sigmas = [sigmas]
+    if justfeatnames:
+        return [
+            f"derivSigma{int(s)}{n}" for s in sigmas for n in _DERIV_NAMES_3D
+        ]
+    image = np.asarray(image)
+    x = _as_tensor(image, resolve_device(device))
+    return _stack(_derivatives(x, image.dtype, sigmas, 3))
+
+
+def _features(image, sigma_deriv, sigma_log, loc_stats_rad, device,
+              ndim: int) -> np.ndarray:
+    image = np.asarray(image)
+    dev = resolve_device(device)
+    x = _as_tensor(image, dev)
+    planes = _derivatives(x, image.dtype, sigma_deriv, ndim)
+    planes += [_cast(-_laplace(x, image.dtype, s), image.dtype)
+               for s in sigma_log]
+    if loc_stats_rad > 1:
+        planes += list(_localstats(image, loc_stats_rad, dev).unbind(-1))
+    return _stack(planes)
+
+
+def imfeatures(
+    image=None, sigma_deriv=1, sigma_log=1, loc_stats_rad=0,
+    justfeatnames=False, device=None,
+):
+    """Full feature stack: derivatives + LoG + local stats (``:243-268``)."""
+    if not isinstance(sigma_deriv, list):
+        sigma_deriv = [sigma_deriv]
+    if not isinstance(sigma_log, list):
+        sigma_log = [sigma_log]
+    if justfeatnames:
+        return (imderivatives(None, sigma_deriv, justfeatnames=True)
+                + [f"logSigma{int(s)}" for s in sigma_log]
+                + (localstats(None, loc_stats_rad, True)
+                   if loc_stats_rad > 1 else []))
+    return _features(image, sigma_deriv, sigma_log, loc_stats_rad, device, 2)
+
+
+def localstats3(volume, radius, justfeatnames=False, device=None):
+    """3D local percentile stack (``:149-161``)."""
+    return localstats(volume, radius, justfeatnames, device)
+
+
+def imfeatures3(
+    volume=None, sigma_deriv=2, sigma_log=2, loc_stats_rad=0,
+    justfeatnames=False, device=None,
+):
+    """3D feature stack: derivatives3 + LoG + local stats (``:270-296``)."""
+    if not isinstance(sigma_deriv, list):
+        sigma_deriv = [sigma_deriv]
+    if not isinstance(sigma_log, list):
+        sigma_log = [sigma_log]
+    if justfeatnames:
+        return (imderivatives3(None, sigma_deriv, justfeatnames=True)
+                + [f"logSigma{int(s)}" for s in sigma_log]
+                + (localstats3(None, loc_stats_rad, True)
+                   if loc_stats_rad > 1 else []))
+    return _features(volume, sigma_deriv, sigma_log, loc_stats_rad, device,
+                     3)
+
+
+def stack2list(stack: np.ndarray) -> List[np.ndarray]:
+    return [stack[..., i] for i in range(stack.shape[-1])]
+
+
+def thrsegment(image: np.ndarray, ws_blr: float, ws_thr: float,
+               device=None) -> np.ndarray:
+    """Blur-threshold segmentation (``:306-309``)."""
+    blurred = imgaussfilt(image, sigma=(1 - ws_blr) + ws_blr * 5,
+                          device=device)
+    return blurred > ws_thr
