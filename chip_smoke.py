@@ -2997,6 +2997,123 @@ PAN = 1024  # a viewer's ROI side
 N_PANS = 50
 
 
+def pan_offsets() -> list:
+    """Phase 11's seeded pans on the 8192^2 slide: (row, column) each."""
+    import numpy as np
+
+    g = np.random.RandomState(SEED + 32)
+    return [(int(g.randint(0, BIG - PAN)), int(g.randint(0, BIG - PAN)))
+            for _ in range(N_PANS)]
+
+
+def k2_trim_windows(dev) -> dict:
+    """K2's trimmed route at the first seeded pan: the 1024^2 window of its
+    context band's maps, on K1-weighted random tiles.  Checks it against
+    its plain version and the untrimmed launch's crop, then times it by
+    events and by the profiler (device time per launch), in this order: at
+    the same window moved to the nearest 4-aligned canvas column origin,
+    at the window's own origin, at the aligned one again (what ran just
+    before a launch moves its time: the same data may be left in L2 in
+    another state), and over the whole band (a trim of all of it); with
+    each launch plan's columns per thread, beside the plain version,
+    ``F.fold`` of the band and the window's bound."""
+    import importlib
+
+    import torch
+    import torch.nn.functional as F
+
+    from unmicst_tpu_torch import kernels, serve
+    from unmicst_tpu_torch.core import tiler
+
+    bf = importlib.import_module("unmicst_tpu_torch.kernels.blend_fold")
+    hp = legacy_hp()
+    k, p = hp.n_classes, hp.im_size
+    r0, c0 = pan_offsets()[0]
+    a, b, ca, cb = serve.roi_band((r0, c0, PAN, PAN), (BIG, BIG), hp)
+    grid = tiler.make_grid(b - a, cb - ca, p, hp.margin)
+    t, m = grid.num_tiles, grid.margin
+    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
+    window = torch.from_numpy(tiler.ramp_window(p, hp.margin)).to(dev)
+    weighted = kernels.softmax_blend(
+        3 * torch.randn((t, k, p, p), generator=gen, device=dev), window,
+        torch.ones(t, device=dev))
+    trim = (r0 - a, c0 - ca, PAN, PAN)
+    got = kernels.blend_fold_epilogue(weighted, window, grid, trim=trim)
+    plain = kernels.blend_fold_epilogue_plain(weighted, window, grid,
+                                              trim=trim)
+    untrimmed = kernels.blend_fold_epilogue(weighted, window, grid)
+    torch.cuda.synchronize()
+    err = int((got.int() - plain.int()).abs().max().item())
+    crop_ok = torch.equal(got, untrimmed[:, trim[0]:trim[0] + PAN,
+                                         trim[1]:trim[1] + PAN])
+    st, sk, sy, sx = weighted.stride()
+    tc_al = trim[1] + (-(m + trim[1])) % 4  # the next 4-aligned origin
+    if tc_al + PAN > grid.width:
+        tc_al -= 4
+    origins = {}
+    aligned = (trim[0], tc_al, PAN, PAN)
+    for name, tr in (("aligned", aligned), ("seeded", trim),
+                     ("aligned again", aligned),
+                     ("band", (0, 0, grid.height, grid.width))):
+        plan = bf.fold_launch(tr[2], m + tr[1], tr[3], (grid.npc * st, st, sk,
+                                                        sy, sx), grid.sub, p,
+                              [weighted.data_ptr(), window.data_ptr()])
+        fn = lambda tr=tr: kernels.blend_fold_epilogue(  # noqa: E731
+            weighted, window, grid, trim=tr)
+        origins[name] = dict(c0=m + tr[1], cols=plan.cols, ms=cuda_ms(fn),
+                             dev_ms=fold_device_ms(fn, f"K2 trimmed {name}"))
+    no_sync(lambda: kernels.blend_fold_epilogue(weighted, window, grid,
+                                                trim=trim),
+            "K2 trimmed region")
+    plain_ms = cuda_ms(lambda: kernels.blend_fold_epilogue_plain(
+        weighted, window, grid, trim=trim), iters=3)
+    cols = weighted.reshape(t, k * p * p).t().unsqueeze(0).contiguous()
+    lib_ms = cuda_ms(lambda: F.fold(cols, (grid.padded_height,
+                                           grid.padded_width), p,
+                                    stride=grid.sub))
+    n_read = (covered(grid.npr, grid.sub, p, m + trim[0], m + trim[0] + PAN)
+              * covered(grid.npc, grid.sub, p, m + trim[1],
+                        m + trim[1] + PAN) * k)
+    n_out = k * PAN * PAN
+    bound, by = bound_ms(4 * n_read + 4 * p * p + n_out,
+                         4 * n_read + 7 * n_out)
+    del weighted, cols, got, plain, untrimmed
+    torch.cuda.empty_cache()
+    return dict(band=(b - a, cb - ca), tiles=t, trim=trim, err=err,
+                crop_ok=crop_ok, origins=origins, plain_ms=plain_ms,
+                lib_ms=lib_ms, bound=bound, by=by)
+
+
+def k2_trim_ab(trees) -> None:
+    """:func:`k2_trim_windows` over the kernels of each of ``trees``
+    (directories holding a copy of the repository, such as a ``git
+    archive`` of another commit), in that order, each in a process of its
+    own; one ``[K2t-ab]`` line each.  Run as ``python3 -c "import
+    chip_smoke as c; c.k2_trim_ab(['parent', '.', '.', 'parent'])"``."""
+    code = (
+        "import importlib.util, json, sys, torch\n"
+        "spec = importlib.util.spec_from_file_location('smoke', sys.argv[2])\n"
+        "c = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(c)\n"
+        "sys.path.insert(0, sys.argv[1])  # before the module's own root\n"
+        "import unmicst_tpu_torch as u\n"
+        "assert u.__file__.startswith(sys.argv[1] + '/'), u.__file__\n"
+        "c.phase_build()\n"
+        "print('[K2t-ab] ' + sys.argv[1] + ' ' + json.dumps("
+        "c.k2_trim_windows(torch.device('cuda', 0))), flush=True)\n")
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        res = subprocess.run([sys.executable, "-c", code, tree,
+                              os.path.abspath(__file__)], cwd=tree,
+                             capture_output=True, text=True, timeout=600)
+        for line in res.stdout.splitlines():
+            if line.startswith("[K2t-ab]"):
+                log(line)
+        check(res.returncode == 0, f"K2t A/B in {tree}: rc "
+              f"{res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    log(card_label())
+
+
 def http(method: str, url: str, data=None) -> tuple:
     """(status, body, headers, host seconds) of one request; an HTTP error
     is returned, not raised."""
@@ -3082,10 +3199,8 @@ def phase_serve(dev) -> dict:
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from unmicst_tpu_torch import kernels, serve
-    from unmicst_tpu_torch.core import tiler
     from unmicst_tpu_torch.io.slides import open_channel_source
     from unmicst_tpu_torch.io.tiff import TiffWriter
 
@@ -3232,9 +3347,7 @@ def phase_serve(dev) -> dict:
         sid = json.loads(body)["slide_id"]
         log(f"[serve] POST /slides 8192^2 uint16 ({len(big_body) / 1e6:.1f} "
             f"MB): {st} in {up_s:.3f} s")
-        g = np.random.RandomState(SEED + 32)
-        offsets = [(int(g.randint(0, BIG - PAN)), int(g.randint(0, BIG - PAN)))
-                   for _ in range(N_PANS)]
+        offsets = pan_offsets()
 
         def pan(url, r0, c0, extra=""):
             st, body, _, secs = http(
@@ -3406,50 +3519,28 @@ def phase_serve(dev) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
     # -- K2's trimmed route at the pan's shapes, against its plain version -
-    a, b, ca, cb = serve.roi_band((r0, c0, PAN, PAN), (BIG, BIG), hp)
-    grid = tiler.make_grid(b - a, cb - ca, hp.im_size, hp.margin)
-    t, p = grid.num_tiles, hp.im_size
-    trim = (r0 - a, c0 - ca, PAN, PAN)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 33)
-    window = torch.from_numpy(tiler.ramp_window(p, hp.margin)).to(dev)
-    weighted = kernels.softmax_blend(
-        3 * torch.randn((t, k, p, p), generator=gen, device=dev), window,
-        torch.ones(t, device=dev))
-    got = kernels.blend_fold_epilogue(weighted, window, grid, trim=trim)
-    plain = kernels.blend_fold_epilogue_plain(weighted, window, grid,
-                                              trim=trim)
-    untrimmed = kernels.blend_fold_epilogue(weighted, window, grid)
-    torch.cuda.synchronize()
-    err = int((got.int() - plain.int()).abs().max().item())
-    crop_ok = torch.equal(got, untrimmed[:, trim[0]:trim[0] + PAN,
-                                         trim[1]:trim[1] + PAN])
-    fn = lambda: kernels.blend_fold_epilogue(  # noqa: E731
-        weighted, window, grid, trim=trim)
-    ms = cuda_ms(fn)
-    dev_ms = fold_device_ms(fn, "K2 trimmed region")
-    no_sync(fn, "K2 trimmed region")
-    plain_ms = cuda_ms(lambda: kernels.blend_fold_epilogue_plain(
-        weighted, window, grid, trim=trim), iters=3)
-    cols = weighted.reshape(t, k * p * p).t().unsqueeze(0).contiguous()
-    lib_ms = cuda_ms(lambda: F.fold(cols, (grid.padded_height,
-                                           grid.padded_width), p,
-                                    stride=grid.sub))
-    m = grid.margin
-    n_read = (covered(grid.npr, grid.sub, p, m + trim[0], m + trim[0] + PAN)
-              * covered(grid.npc, grid.sub, p, m + trim[1],
-                        m + trim[1] + PAN) * k)
-    n_out = k * PAN * PAN
-    bound, by = bound_ms(4 * n_read + 4 * p * p + n_out,
-                         4 * n_read + 7 * n_out)
-    log(f"[K2t] trimmed region {PAN}^2 of a {b - a}x{cb - ca} band (T {t}): "
+    kt = k2_trim_windows(dev)
+    seeded = kt["origins"]["seeded"]
+    ms, dev_ms = seeded["ms"], seeded["dev_ms"]
+    (bh, bw), t, err = kt["band"], kt["tiles"], kt["err"]
+    crop_ok = kt["crop_ok"]
+    plain_ms, lib_ms, bound, by = (kt["plain_ms"], kt["lib_ms"], kt["bound"],
+                                   kt["by"])
+    log(f"[K2t] trimmed region {PAN}^2 of a {bh}x{bw} band (T {t}): "
         f"max |kernel - plain| {err} level(s), equal to the untrimmed "
         f"launch's crop {crop_ok}; kernel {ms:.4f} ms (device {dev_ms:.4f}) "
         f"| plain {plain_ms:.4f} | F.fold {lib_ms:.4f} | bound {bound:.4f} "
         f"({by}) | {card}")
+    log("[K2t] " + "; ".join(
+        f"{name}: canvas column origin {o['c0']} (c0 % 4 = {o['c0'] % 4}), "
+        f"{o['cols']} columns a thread, kernel {o['ms']:.4f} ms, device "
+        f"{o['dev_ms']:.4f}" for name, o in kt["origins"].items())
+        + f"; seeded device / bound {bound / dev_ms:.3f}; pans p50 "
+        f"{pct(dev_walls, 50):.2f} ms | {card}")
     check(err == 0 and crop_ok,
           f"K2's trimmed route: {err} levels from plain, crop {crop_ok}")
-    del weighted, cols, got, plain, untrimmed
-    torch.cuda.empty_cache()
+    check(all(o["cols"] == 4 for o in kt["origins"].values()),
+          f"K2's trimmed window left the vector path: {kt['origins']}")
     log(f"[serve] phase {time.perf_counter() - t_phase:.1f}s")
     return {"blend_fold_epilogue_trim": dict(
         route="cuda", source="unmicst_tpu_torch/csrc/blend_fold.cu",

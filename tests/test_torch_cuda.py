@@ -213,9 +213,11 @@ def test_halo_and_sharded_stream_across_cards_match_cpu(cuda, impl):
         assert np.abs(have.astype(int) - want.astype(int)).max() <= 1
 
 
-# (c0, W, vector path): an odd c0 on the scalar lanes; an aligned c0 on the
-# vector path; the same with a ragged last quad (W % 4 == 2)
-_REGIONS = [(5, 90, False), (8, 88, True), (8, 90, True)]
+# (c0, W, vector path): c0 % 4 = 1, 0, 0, 2, 3, with ragged widths (W % 4
+# = 2, 0, 2, 3, 1), all on the vector path (the strided view below runs the
+# scalar lanes)
+_REGIONS = [(5, 90, True), (8, 88, True), (8, 90, True), (6, 87, True),
+            (7, 61, True)]
 
 
 @pytest.mark.cuda
@@ -225,9 +227,10 @@ def test_k2_region_entries_match_plain_on_card(cuda, c0, width, vector,
                                                classes):
     """The stripe entry with row and column masks, an addend and a class
     subset (five entries: two groups of loads), in every mode, on the
-    vector path and on the scalar lanes; the strip and the epilogue on
-    their main-path layouts (vector) and the epilogue on tiles read
-    through a strided view (x stride K: the scalar lanes)."""
+    vector path at any column origin: 0 levels from the plain version in
+    uint8, 1e-5 in float32; the strip and the epilogue on their main-path
+    layouts (vector) and the epilogue on tiles read through a strided view
+    (x stride K: the scalar lanes)."""
     bf = importlib.import_module("unmicst_tpu_torch.kernels.blend_fold")
     g, logits, win = _weighted_case((100, 120), 64, 8, 3, seed=4)
     x, w = torch.from_numpy(logits), torch.from_numpy(win)
@@ -262,7 +265,7 @@ def test_k2_region_entries_match_plain_on_card(cuda, c0, width, vector,
             **{k: v.to(cuda) if torch.is_tensor(v) else v
                for k, v in kw.items()})
         diff = (got.cpu().double() - ref.double()).abs().max().item()
-        assert diff <= (1 if mode == "u8" else 1e-5), (mode, diff)
+        assert diff <= (0 if mode == "u8" else 1e-5), (mode, diff)
 
 
 @pytest.mark.cuda
@@ -745,9 +748,10 @@ def test_int8_conv_on_card_is_exact(cuda, name):
 @pytest.mark.parametrize("quantize", [True, False])
 def test_k2_trimmed_region_matches_plain_on_card(cuda, shape, patch, margin,
                                                  k, quantize):
-    """K2's slide epilogue with trim= on the card: 0 apart from its plain
-    version, and equal to the untrimmed launch's crop; counted as a trim
-    launch."""
+    """K2's slide epilogue with trim= on the card, at canvas column origins
+    of every c0 % 4 and ragged widths (the vector path): 0 apart from its
+    plain version, and equal to the untrimmed launch's crop; counted as a
+    trim launch."""
     g, logits, win = _weighted_case(shape, patch, margin, k, seed=5)
     w = torch.from_numpy(win)
     x = torch.softmax(torch.from_numpy(logits), 1) * w
@@ -755,7 +759,8 @@ def test_k2_trimmed_region_matches_plain_on_card(cuda, shape, patch, margin,
     full = kernels.blend_fold_epilogue(xc, wc, g, quantize=quantize)
     h, wd = shape
     for trim in [(0, 0, h, wd), (7, 3, h // 2, wd // 3),
-                 (h - 5, wd - 9, 5, 9), (1, 1, h - 2, 1)]:
+                 (h - 5, wd - 9, 5, 9), (1, 1, h - 2, 1),
+                 (2, 2, h // 3, wd // 2 + 1), (3, 1, 9, 3)]:
         tr, tc, th, tw = trim
         kernels.reset_launch_counts()
         got = kernels.blend_fold_epilogue(xc, wc, g, quantize=quantize,

@@ -2,9 +2,10 @@
 
 ``kernels.blend_fold.fold_launch`` decides, from the tile layout, the
 region and the base addresses, whether ``blend_fold_region`` runs its
-vector path (four output columns per thread, 16-byte loads) or its scalar
-lanes, and the block and grid; ``class_table`` packs the class subset the
-kernel takes by value.  These tests pin both at the main path's shapes and
+vector path (one canvas-aligned quad of four columns per thread, 16-byte
+loads, the quad's columns in the region stored) or its scalar lanes, and the block
+and grid; ``class_table`` packs the class subset the kernel takes by value.
+These tests pin both at the main path's shapes, at every column origin and
 at the layouts that must fall to the scalar lanes.
 """
 
@@ -47,18 +48,39 @@ def _cover(r, sub, n, patch):
     return hi, r - hi * sub, lo, y_lo
 
 
-def _assert_covers_once(plan, h, w):
-    """Every column of a row is computed by exactly one thread, every row
-    by one thread row, and no block lies wholly outside the region."""
+def _assert_covers_once(plan, h, c0, w):
+    """Every output column of a row is stored by exactly one thread, every
+    row by one thread row, and no block lies wholly outside the region.
+    On the vector path thread ``x`` of a grid row takes the canvas quad
+    ``c0 // 4 + x`` and stores those of its four columns that lie in the
+    region; on the scalar lanes it takes output column ``x``."""
     bx, by = plan.block
     gx, gy = plan.grid
     seen = [0] * w
-    for t in range(gx * bx):
-        for c in range(t * plan.cols, min((t + 1) * plan.cols, w)):
+    for x in range(gx * bx):
+        if plan.cols == 1:
+            cols = [x] if x < w else []
+        else:
+            q = c0 // 4 + x
+            cols = [c - c0 for c in range(4 * q, 4 * q + 4)
+                    if c0 <= c < c0 + w]
+        for c in cols:
             seen[c] += 1
     assert seen == [1] * w
-    assert (gx - 1) * bx * plan.cols < w <= gx * bx * plan.cols
+    across = w if plan.cols == 1 else (c0 + w - 1) // 4 - c0 // 4 + 1
+    assert (gx - 1) * bx < across <= gx * bx
     assert (gy - 1) * by < h <= gy * by
+
+
+def _assert_quads_share_tiles(c0, w, npc, sub=_P - 2 * _M):
+    """The kernel's premise on the vector path: the four columns of every
+    canvas-aligned quad it loads share their covering tile columns, at
+    consecutive offsets that start on a 16-byte boundary."""
+    for q in range(c0 // 4, (c0 + w - 1) // 4 + 1):
+        hi, x, lo, x_lo = _cover(4 * q, sub, npc, _P)
+        assert x % 4 == 0 and x_lo % 4 == 0
+        for u in range(1, 4):
+            assert _cover(4 * q + u, sub, npc, _P) == (hi, x + u, lo, x_lo + u)
 
 
 @pytest.mark.parametrize("entry", sorted(_MAIN))
@@ -67,21 +89,33 @@ def test_main_path_takes_the_vector_path(entry):
     plan = bf.fold_launch(h, c0, w, _strides(npc), _P - 2 * _M, _P,
                           [_BASE, _BASE + 4096 * 1024])
     assert plan.cols == bf.VEC == 4
-    assert plan.tail == 0  # no ragged quad: every thread a full quad
     assert plan.block == bf.BLOCK == (32, 8)
-    _assert_covers_once(plan, h, w)
-    # the kernel's premise: the four columns of a quad share their
-    # covering tile columns and lie at consecutive offsets in them
-    sub = _P - 2 * _M
-    for c in range(c0, c0 + w, plan.cols):
-        hi, x, lo, x_lo = _cover(c, sub, npc, _P)
-        assert x % 4 == 0 and x_lo % 4 == 0  # 16-byte aligned rows
-        for u in range(1, plan.cols):
-            assert _cover(c + u, sub, npc, _P) == (hi, x + u, lo, x_lo + u)
+    _assert_covers_once(plan, h, c0, w)
+    _assert_quads_share_tiles(c0, w, npc)
+
+
+# the canvas column origins of a pan's 1024^2 window in its 1536^2 band
+# (npc 27), one for each c0 % 4; 155 is phase 11's seeded pan (band start
+# 1440, trim column 139, margin 16)
+_ORIGINS = (156, 17, 1538, 155)
+
+
+@pytest.mark.parametrize("c0", _ORIGINS)
+@pytest.mark.parametrize("w", [1024, 1023, 3, 1])
+def test_any_column_origin_and_width_takes_the_vector_path(c0, w):
+    """Threads load canvas-aligned quads and store the columns of them
+    that lie in the region, so its origin and width do not matter to the
+    vector path."""
+    npc = 27
+    plan = bf.fold_launch(1024, c0, w, _strides(npc), _P - 2 * _M, _P,
+                          [_BASE, _BASE + 65536])
+    assert plan.cols == bf.VEC
+    _assert_covers_once(plan, 1024, c0, w)
+    _assert_quads_share_tiles(c0, w, npc)
 
 
 @pytest.mark.parametrize("case", ["base 4 bytes off", "window 4 bytes off",
-                                  "odd c0", "x stride 3", "class stride 2"])
+                                  "x stride 3", "class stride 2"])
 def test_layouts_the_vector_path_cannot_take_run_the_scalar_lanes(case):
     h, c0, w, npc = _MAIN["stripe"]
     strides, addresses = list(_strides(npc)), [_BASE, _BASE + 65536]
@@ -89,24 +123,23 @@ def test_layouts_the_vector_path_cannot_take_run_the_scalar_lanes(case):
         addresses[0] += 4
     elif case == "window 4 bytes off":
         addresses[1] += 4
-    elif case == "odd c0":
-        c0, w = 5, w - 5
     elif case == "x stride 3":  # [npr, npc, P, P, K] read as [T, K, P, P]
         strides = [npc * 3 * _P * _P, 3 * _P * _P, 1, 3 * _P, 3]
     else:
         strides[2] = 2
     plan = bf.fold_launch(h, c0, w, strides, _P - 2 * _M, _P, addresses)
-    assert plan.cols == 1 and plan.tail == w
-    _assert_covers_once(plan, h, w)
+    assert plan.cols == 1
+    _assert_covers_once(plan, h, c0, w)
 
 
 def test_ragged_last_quad_takes_the_scalar_lanes():
     """A width that is not a multiple of 4 keeps the vector path; each
-    row's last w % 4 columns go to the scalar lanes of their thread."""
+    row's ragged last quad is a masked store of its thread, not the scalar
+    lanes."""
     for w in (8190, 4097, 3):
         plan = bf.fold_launch(40, 16, w, _strides(86), 96, _P, [_BASE])
-        assert plan.cols == 4 and plan.tail == w % 4
-        _assert_covers_once(plan, 40, w)
+        assert plan.cols == 4
+        _assert_covers_once(plan, 40, 16, w)
 
 
 def test_stride_zero_window_count_takes_the_vector_path():

@@ -34,32 +34,45 @@
 // Sums pair up as the JAX fold's shifted adds do: (rows of the upper tile +
 // rows of the lower tile) per tile column, then the two columns.
 //
-// Bound: device memory.  Every tile element is read once and every output
-// written once, with a few adds per element.  The design of (b) keeps bytes
-// in flight for HBM: each thread owns kVec = 4 consecutive output columns
-// of one row, reads each covering tile row as one 16-byte vector through the
-// read-only path without allocating in L1 (each tile element is read once),
-// and issues every tile load of its quad, for all classes, before the first
-// add (the tile pointer is __restrict__, so nothing orders the loads after a
-// store).  The window (64 KB, reused by every block) and the masks go
-// through the read-only cache and stay there; the count costs no
-// device-memory traffic.  Stores are one uchar4 (uint8) or one float4
-// (float32) per class, or the quad's contiguous raw values as float4s.  The
-// class subset travels in the kernel's arguments by value, so a launch needs
-// no copy to the card and no synchronisation.  The wrapper's launch plan
-// (kernels/blend_fold.py fold_launch) takes the vector path where the layout
-// allows it (unit x stride, 16-byte aligned tiles and window, strides and
-// c0, sub, patch multiples of 4: then a quad never straddles a tile column
-// and all four columns share their covering tiles); elsewhere, and for the
-// ragged last columns of a row, each thread runs the scalar lanes of the
-// same kernel, one column at a time.
+// Bound: device memory.  Every covering tile element is read once and every
+// output byte written once, with a few adds per element; the window (64 KB,
+// reused by every block) and the masks stay in the read-only cache, so the
+// count costs no device-memory traffic.  The design of (b) keeps bytes in
+// flight for HBM at any region origin and width.  Each thread owns one
+// canvas-aligned quad, columns 4q .. 4q + 3 of one row (absolute canvas
+// columns, q from c0 / 4 to (c0 + W - 1) / 4, one grid row a region row):
+// with sub and patch multiples of 4 such a quad never straddles a tile
+// column, so its four columns share their covering tiles at 16-byte aligned
+// offsets.  The thread reads each covering tile row as one 16-byte vector
+// through the read-only path without allocating in L1 (each tile element is
+// read once), and issues every tile load of its quad, for all classes,
+// before the first add (the tile pointer is __restrict__, so nothing orders
+// the loads after a store).  Window, masks and addend are indexed by canvas
+// column, and sums pair up as on the scalar lanes, so the two give the same
+// bits.  The thread stores the quad's columns that lie in the region,
+// canvas column c at output column c - c0: one uchar4 (uint8) or float4
+// (float32) per class, or the quad's contiguous raw values as float4s, when
+// all four do and the output address is aligned for it; else one element
+// at a time (an origin off a multiple of 4, a ragged width, the region's
+// first and last quads).  Stores realigned to the output inside the warp
+// (__shfl_down_sync, 31 storing lanes a warp) and a one-dimensional grid
+// over all the region's quads were timed against this and lost or tied
+// (PERF.md): the uint8 maps are an eighth of the bytes.  The class
+// subset travels in the kernel's arguments by value, so a launch needs no
+// copy to the card and no synchronisation.  The wrapper's launch plan
+// (kernels/blend_fold.py fold_launch) takes the vector path where the tile
+// layout allows it (unit x stride, the other strides, sub and patch
+// multiples of 4, 16-byte aligned tiles and window), whatever the region's
+// origin and width; other layouts (such as the [npr, npc, P, P, K] view, x
+// stride K) run the scalar lanes of the same kernel, one output column a
+// thread with 4-byte loads through the strides.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "device_scope.cuh"
 
 constexpr int kMaxClasses = 8;
-constexpr int kVec = 4;  // output columns per thread on the vector path
+constexpr int kVec = 4;  // canvas columns per thread on the vector path
 constexpr int kBx = 32, kBy = 8;
 
 // the class subset of a region launch, passed to the kernel by value
@@ -221,10 +234,13 @@ __device__ __forceinline__ void pair_sum(const float4 (&a)[4], bool rl,
 }
 
 // The quad's raw values, S per column (the NC sums, then the count when
-// S > NC), as the contiguous S float4s they are in the [H, W, S] output.
+// S > NC), for its columns u0 .. u1 - 1 in the region, output column o + u
+// of the [H, W, S] output: the contiguous S float4s of a whole quad at an
+// aligned address, else one value at a time.
 template <int NC, int S>
-__device__ __forceinline__ void store_raw(float* dst, const float (&s)[NC][kVec],
-                                          const float* cnt) {
+__device__ __forceinline__ void store_raw(float* out, long long o,
+                                          const float (&s)[NC][kVec],
+                                          const float* cnt, int u0, int u1) {
   float flat[kVec * S];
 #pragma unroll
   for (int u = 0; u < kVec; ++u) {
@@ -232,28 +248,34 @@ __device__ __forceinline__ void store_raw(float* dst, const float (&s)[NC][kVec]
     for (int kc = 0; kc < NC; ++kc) flat[u * S + kc] = s[kc][u];
     if constexpr (S > NC) flat[u * S + NC] = cnt[u];
   }
-  if (((uintptr_t)dst & 15) == 0) {
+  if (u0 == 0 && u1 == kVec) {
+    float* dst = out + o * S;
+    if (((uintptr_t)dst & 15) == 0) {
 #pragma unroll
-    for (int q = 0; q < kVec * S; q += 4)
-      *reinterpret_cast<float4*>(dst + q) =
-          make_float4(flat[q], flat[q + 1], flat[q + 2], flat[q + 3]);
-  } else {
-#pragma unroll
-    for (int q = 0; q < kVec * S; ++q) dst[q] = flat[q];
+      for (int q = 0; q < kVec * S; q += 4)
+        *reinterpret_cast<float4*>(dst + q) =
+            make_float4(flat[q], flat[q + 1], flat[q + 2], flat[q + 3]);
+      return;
+    }
   }
+#pragma unroll
+  for (int q = 0; q < kVec * S; ++q)
+    if (q / S >= u0 && q / S < u1) out[o * S + q] = flat[q];
 }
 
-// Output columns w0 .. w0 + 3 of row h on the vector path: the launch plan
-// guarantees x stride 1, 16-byte aligned tile and window rows, and that the
-// four columns share their covering tiles.
+// Canvas quad q (columns c = 4q .. 4q + 3) of row h on the vector path: the
+// launch plan guarantees x stride 1, 16-byte aligned tile and window rows,
+// and sub and patch multiples of 4, so the four columns share their
+// covering tiles.  Those of its columns that lie in the region are stored,
+// canvas column c + u at output column c + u - c0.
 template <int NC>
 __device__ __forceinline__ void fold_quad(const float* __restrict__ tiles,
                                           const Tiles& t,
                                           const float* __restrict__ window,
                                           const Classes& cls, const Region& g,
                                           void* __restrict__ out, int mode,
-                                          int h, int w0) {
-  const int c = g.c0 + w0;
+                                          int h, int q) {
+  const int c = kVec * q;
   const Cover rc = cover(g.r0 + h, t.sub, t.npr, t.patch);
   const Cover cc = cover(c, t.sub, t.npc, t.patch);
   const bool rl = rc.lo >= 0, cl = cc.lo >= 0;
@@ -317,14 +339,18 @@ __device__ __forceinline__ void fold_quad(const float* __restrict__ tiles,
       for (int kc = 0; kc < NC; ++kc) s[kc][u] += add[kc];
     }
   }
+  // the quad's columns in the region, u0 .. u1 - 1 (all four but at a row
+  // end), and the output element of its column c in row h
+  const int u0 = max(g.c0 - c, 0), u1 = min(g.c0 + g.W - c, kVec);
+  const bool whole = u0 == 0 && u1 == kVec;
   const long long plane = (long long)g.H * g.W;
-  const long long o = (long long)h * g.W + w0;
+  const long long o = (long long)h * g.W + (c - g.c0);
   if (mode == kRaw) {
     float* dst = static_cast<float*>(out);
     if (window)
-      store_raw<NC, NC + 1>(dst + o * (NC + 1), s, cnt);
+      store_raw<NC, NC + 1>(dst, o, s, cnt, u0, u1);
     else
-      store_raw<NC, NC>(dst + o * NC, s, cnt);
+      store_raw<NC, NC>(dst, o, s, cnt, u0, u1);
     return;
   }
 #pragma unroll
@@ -332,43 +358,50 @@ __device__ __forceinline__ void fold_quad(const float* __restrict__ tiles,
     float p[kVec];
 #pragma unroll
     for (int u = 0; u < kVec; ++u) p[u] = s[kc][u] / fmaxf(cnt[u], 1e-12f);
+    const long long e = kc * plane + o;
     if (mode == kU8) {
-      unsigned char* dst = static_cast<unsigned char*>(out) + kc * plane + o;
+      unsigned char* dst = static_cast<unsigned char*>(out);
       const uchar4 b = make_uchar4(to_u8(p[0]), to_u8(p[1]), to_u8(p[2]),
                                    to_u8(p[3]));
-      if (((uintptr_t)dst & 3) == 0) {
-        *reinterpret_cast<uchar4*>(dst) = b;
+      if (whole && ((uintptr_t)(dst + e) & 3) == 0) {
+        *reinterpret_cast<uchar4*>(dst + e) = b;
       } else {
-        dst[0] = b.x; dst[1] = b.y; dst[2] = b.z; dst[3] = b.w;
+        const unsigned char v[kVec] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int u = 0; u < kVec; ++u)
+          if (u >= u0 && u < u1) dst[e + u] = v[u];
       }
     } else {
-      float* dst = static_cast<float*>(out) + kc * plane + o;
-      if (((uintptr_t)dst & 15) == 0) {
-        *reinterpret_cast<float4*>(dst) = make_float4(p[0], p[1], p[2], p[3]);
+      float* dst = static_cast<float*>(out);
+      if (whole && ((uintptr_t)(dst + e) & 15) == 0) {
+        *reinterpret_cast<float4*>(dst + e) =
+            make_float4(p[0], p[1], p[2], p[3]);
       } else {
 #pragma unroll
-        for (int u = 0; u < kVec; ++u) dst[u] = p[u];
+        for (int u = 0; u < kVec; ++u)
+          if (u >= u0 && u < u1) dst[e + u] = p[u];
       }
     }
   }
 }
 
-// cols == kVec: the vector path, each thread a quad (the ragged last
-// columns of a row on the scalar lanes); cols == 1: the scalar lanes.
+// cols == kVec: the vector path, thread x of a row the canvas quad
+// c0 / 4 + x; cols == 1: the scalar lanes, thread x the output column x.
 template <int NC>
 __global__ void __launch_bounds__(kBx * kBy)
     fold_region(const float* __restrict__ tiles, Tiles t,
                 const float* __restrict__ window, const Classes cls, Region g,
                 void* __restrict__ out, int mode, int cols) {
-  const int w0 = (blockIdx.x * blockDim.x + threadIdx.x) * cols;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int h = blockIdx.y * blockDim.y + threadIdx.y;
-  if (h >= g.H || w0 >= g.W) return;
-  if (cols == kVec && w0 + kVec <= g.W) {
-    fold_quad<NC>(tiles, t, window, cls, g, out, mode, h, w0);
+  if (h >= g.H) return;
+  if (cols == kVec) {
+    const int q = g.c0 / kVec + x;
+    if (kVec * q < g.c0 + g.W)
+      fold_quad<NC>(tiles, t, window, cls, g, out, mode, h, q);
     return;
   }
-  for (int w = w0; w < min(w0 + cols, g.W); ++w)
-    fold_lane<NC>(tiles, t, window, cls, g, out, mode, h, w);
+  if (x < g.W) fold_lane<NC>(tiles, t, window, cls, g, out, mode, h, x);
 }
 
 template <int NC>
@@ -416,7 +449,9 @@ extern "C" int blend_fold_f32(const float* tiles, long long si, long long sj,
 // 2: raw float32 sums [H, W, n (+1 count with a window)], n the classes'
 // count.  classes: a host table, copied into the launch's arguments.
 // window may be null only in mode 2.  cols (kVec or 1) and the grid come
-// from the wrapper's launch plan; the vector path's layout is checked here.
+// from the wrapper's launch plan (its x covers the region's canvas quads on
+// the vector path, its columns on the scalar lanes); the vector path's
+// layout is checked here.
 // The launch goes to `stream` on `device`.
 extern "C" int blend_fold_region(const float* tiles, long long si,
                                  long long sj, long long sk, long long sy,
@@ -434,12 +469,13 @@ extern "C" int blend_fold_region(const float* tiles, long long si,
       (mode != 2 && !window) || (addend && add_cols < 1))
     return (int)cudaErrorInvalidValue;
   if (cols != 1 && cols != kVec) return (int)cudaErrorInvalidValue;
+  const int across = cols == 1 ? W : (c0 + W - 1) / kVec - c0 / kVec + 1;
   if (grid_x < 1 || grid_y < 1 || grid_y > 65535 ||
-      (long long)grid_x * kBx * cols < W || (long long)grid_y * kBy < H)
+      (long long)grid_x * kBx < across || (long long)grid_y * kBy < H)
     return (int)cudaErrorInvalidConfiguration;
   if (cols == kVec &&
       (sx != 1 || si % kVec || sj % kVec || sk % kVec || sy % kVec ||
-       c0 % kVec || sub % kVec || patch % kVec || !aligned16(tiles) ||
+       sub % kVec || patch % kVec || !aligned16(tiles) ||
        (window && !aligned16(window))))
     return (int)cudaErrorMisalignedAddress;
   Tiles t = make_tiles(si, sj, sk, sy, sx, npr, npc, patch, sub);

@@ -24,12 +24,15 @@ The port of the TPU kernel ``exhibits/pallas/blend.py:76``
 All but :func:`blend_fold` launch one entry, ``blend_fold_region``.  The
 kernel reads tiles through element strides, so every layout goes in
 without a copy.  Its launch is planned by :func:`fold_launch`, a pure
-function of the layout (the vector path of :data:`VEC` columns per thread,
-or the scalar lanes, the block and the grid), and its class subset travels
-by value in a :data:`MAX_CLASSES`-entry table (:func:`class_table`), so a
-launch makes no copy to the card and never waits for it.  CUDA tensors run
-the kernel (or raise); CPU tensors the plain versions (``*_plain``), built
-on ``tiler.fold``.
+function of the layout: the vector path, where each thread loads one
+canvas-aligned quad of :data:`VEC` columns with 16-byte loads and stores
+the columns of it that lie in the region, at any region origin and width;
+or, for tile layouts that cannot take 16-byte loads, the scalar lanes; the
+block and the grid.  Its class subset travels by value in a
+:data:`MAX_CLASSES`-entry table (:func:`class_table`), so a launch makes no
+copy to the card and never waits for it.  CUDA tensors run the kernel (or
+raise); CPU tensors the plain versions (``*_plain``), built on
+``tiler.fold``.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ from unmicst_tpu_torch.core.tiler import TileGrid
 from unmicst_tpu_torch.kernels import _build
 
 # the launch shape and limits of csrc/blend_fold.cu
-VEC = 4  # output columns per thread on the vector path (kVec)
+VEC = 4  # canvas columns per thread on the vector path (kVec)
 BLOCK = (32, 8)  # threads per block along columns and rows (kBx, kBy)
 MAX_CLASSES = 8  # entries of the class table (kMaxClasses)
 
@@ -150,16 +153,15 @@ def class_table(cls: Sequence[int]) -> _Classes:
 
 
 class FoldLaunch(NamedTuple):
-    """One ``blend_fold_region`` launch: ``cols`` output columns per
-    thread (:data:`VEC` on the vector path, 1 on the scalar lanes), the
-    ``block`` and the ``grid`` as (columns, rows), and ``tail``, the
-    columns of each row that the scalar lanes compute (on the vector path
-    the ragged last quad's, else all of them)."""
+    """One ``blend_fold_region`` launch: ``cols`` canvas columns per
+    thread (:data:`VEC` on the vector path, 1 on the scalar lanes), and the
+    ``block`` and the ``grid`` as (columns, rows).  A grid row covers the
+    region's canvas quads ``c0 // 4 .. (c0 + w - 1) // 4`` on the vector
+    path, its columns on the scalar lanes."""
 
     cols: int
     block: Tuple[int, int]
     grid: Tuple[int, int]
-    tail: int
 
 
 def fold_launch(h: int, c0: int, w: int, strides: Sequence[int], sub: int,
@@ -167,22 +169,24 @@ def fold_launch(h: int, c0: int, w: int, strides: Sequence[int], sub: int,
     """The launch of the region ``[r0, r0 + h) x [c0, c0 + w)`` over
     tiles of element ``strides`` (tile row, tile column, class, y, x).
 
-    The vector path needs x stride 1, the other strides, ``c0``, ``sub``
-    and ``patch`` multiples of :data:`VEC` (a quad of columns then never
-    straddles a tile column, and its four columns share their covering
-    tiles), and every address read 16 bytes at a time (``addresses``: the
-    tiles and the window) on a 16-byte boundary.  Elsewhere each thread
-    runs the scalar lanes for one column.  Stores widen where the output
-    address allows, which the kernel decides per quad."""
+    The vector path needs x stride 1, the other strides, ``sub`` and
+    ``patch`` multiples of :data:`VEC` (a canvas-aligned quad of columns
+    then never straddles a tile column, and its four columns share their
+    covering tiles at 16-byte aligned offsets), and every address read 16
+    bytes at a time (``addresses``: the tiles and the window) on a 16-byte
+    boundary.  The region's origin and width do not matter: threads take
+    canvas-aligned quads and store the columns that lie in the region,
+    four at a time where the output address allows, which the kernel
+    decides per quad.  Other layouts run the scalar lanes, one column a
+    thread."""
     si, sj, sk, sy, sx = strides
     vector = (sx == 1
-              and all(v % VEC == 0 for v in (si, sj, sk, sy, c0, sub, patch))
+              and all(v % VEC == 0 for v in (si, sj, sk, sy, sub, patch))
               and all(a % 16 == 0 for a in addresses))
-    cols = VEC if vector else 1
+    across = (c0 + w - 1) // VEC - c0 // VEC + 1 if vector else w
     bx, by = BLOCK
-    threads = -(-w // cols)
-    return FoldLaunch(cols, BLOCK, (-(-threads // bx), -(-h // by)),
-                      w % VEC if vector else w)
+    return FoldLaunch(VEC if vector else 1, BLOCK,
+                      (-(-across // bx), -(-h // by)))
 
 
 _MODES = {"f32": 0, "u8": 1, "raw": 2}
