@@ -162,11 +162,12 @@ printing any result):
     directory whose only bundle is ``nuclei20x2bin1chan`` (16 wide, its
     ``hp.data`` saying 20) through ``cli.main``, card against CPU; the
     launch counters set to 0 before each counted path and read after;
-14. after phase 16, print the ``{"kernels": [...]}`` line (K3/K4a/K4b
+14. after phase 17, print the ``{"kernels": [...]}`` line (K3/K4a/K4b
     with their launches and event ms across processes, K1 and K2 with
-    ``launches_formats``, ``launches_slice12`` and ``launches_slice13``,
-    their launches on each path of phases 13, 15 and 16), the card's name
-    and power limit, and the ``{"ok": true, ...}`` line last;
+    ``launches_formats``, ``launches_slice12``, ``launches_slice13`` and
+    ``launches_slice15``, their launches on each path of phases 13, 15,
+    16 and 17), the card's name and power limit, and the ``{"ok": true,
+    ...}`` line last;
 15. the native TIFF codec, the forward's CUDA graphs and space-to-depth
     (the legacy net at nucleiDAPI's widths, seeded weights): the port's
     C++ codec must load (built here by g++); a seeded 4096^2 uint16 blob
@@ -210,6 +211,17 @@ printing any result):
     Python; the 3D
     tiler's round trip of a seeded 128x512x512 float32 volume (patch 64,
     margin 8) within 1e-5, with its time and peak memory.
+17. the TIFF pages the JAX package reads through PIL (M17, first part;
+    the legacy net at nucleiDAPI's widths, seeded weights): two 4096^2
+    gray JPEG TIFFs of 512^2 tiles from the committed fixture streams,
+    written here without PIL (a JPEGTables tag and abbreviated tiles, and
+    complete streams), and a 4096^2 float32 deflate TIFF with the
+    floating-point predictor (numpy and zlib), each decoded twice (MB/s)
+    and run through ``cli.main``, pages byte-equal to the same pixels as a
+    plain TIFF, K1 and K2 counted; an 8192^2 JPEG TIFF under ``--engine
+    auto`` with the net at one level, on the whole engine (K2's slide
+    epilogue once, its stripe entry never: the streamed probe refuses
+    such pages, as in JAX), and ``--engine streaming`` refusing it.
 """
 
 from __future__ import annotations
@@ -5329,7 +5341,7 @@ def phase_slice13(dev) -> dict:
         entropy_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         for frame, coef in coefs:
-            jpeg.idct_islow(coef, frame.qtable)
+            jpeg.idct_islow(coef, frame.components[0].qtable)
         idct_s = time.perf_counter() - t0
         runs.append(f"entropy decode {entropy_s:.3f} s + numpy islow IDCT "
                     f"{idct_s:.3f} s = "
@@ -5504,6 +5516,305 @@ def phase_slice13(dev) -> dict:
             for name in ("softmax_blend", "blend_fold_epilogue",
                          "blend_fold_stripe")}
 
+# -- phase 17: the TIFF pages the JAX package reads through PIL ---------------
+
+_TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 7: "B", 11: "f", 12: "d"}
+
+
+def write_segment_tiff(path: str, pages, byteorder: str = "<") -> None:
+    """A classic TIFF of segments encoded elsewhere (JPEG streams,
+    predictor-3 deflate), in byte order ``byteorder`` ("<" II, ">" MM):
+    ``pages`` holds ``(tags, segments)`` a page, or ``(tags, segments,
+    levels)`` with ``levels`` more such pairs hung off the page's SubIFDs
+    (tag 330); ``tags`` is ``{tag: (type, values)}`` (a list, or bytes for
+    types 2 and 7) without the segments' offsets and byte counts, which
+    are filled in, as tiles where tag 322 is given and as strips
+    otherwise.  The pages chain in order."""
+    bo = byteorder
+    out = bytearray((b"II*\0" if bo == "<" else b"MM\0*") + bytes(4))
+
+    def ifd(tags, segments) -> int:
+        """Write the segments and the IFD; returns the IFD's offset."""
+        offsets = []
+        for seg in segments:
+            out.extend(bytes(len(out) % 2))
+            offsets.append(len(out))
+            out.extend(seg)
+        tiled = 322 in tags
+        tags = {**tags, (324 if tiled else 273): (4, offsets),
+                (325 if tiled else 279): (4, [len(g) for g in segments])}
+        out.extend(bytes(len(out) % 2))
+        at = len(out)
+        extra_at = at + 2 + 12 * len(tags) + 4
+        entries, extra = [], bytearray()
+        for tag in sorted(tags):
+            ftype, values = tags[tag]
+            if isinstance(values, (bytes, bytearray)):
+                data, count = bytes(values), len(values)
+            else:
+                data = struct.pack(f"{bo}{len(values)}{_TIFF_TYPES[ftype]}",
+                                   *values)
+                count = len(values)
+            if len(data) <= 4:
+                field = data.ljust(4, b"\0")
+            else:
+                extra.extend(bytes(len(extra) % 2))
+                field = struct.pack(bo + "I", extra_at + len(extra))
+                extra.extend(data)
+            entries.append(struct.pack(bo + "HHI", tag, ftype, count) + field)
+        out.extend(struct.pack(bo + "H", len(entries)) + b"".join(entries)
+                   + bytes(4) + extra)
+        return at
+
+    link = 4  # where the previous IFD's (or the header's) pointer lies
+    for tags, segments, *levels in pages:
+        if levels:
+            subs = [ifd({254: (4, [1]), **t}, g) for t, g in levels[0]]
+            tags = {**tags, 330: (4, subs)}
+        at = ifd(tags, segments)
+        struct.pack_into(bo + "I", out, link, at)
+        link = at + 2 + 12 * struct.unpack_from(bo + "H", out, at)[0]
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def jpeg_split(stream: bytes) -> tuple:
+    """A complete JPEG stream split as libtiff writes a JPEG TIFF's
+    segments: ``(tables, abbreviated)``, its DQT and DHT segments before
+    the first scan as a tables-only stream (SOI, tables, EOI), and the
+    stream without them and without its APPn segments."""
+    pos, tables, rest = 2, b"", b""
+    while stream[pos + 1] != 0xDA:
+        n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        seg, marker = stream[pos:pos + 2 + n], stream[pos + 1]
+        if marker in (0xDB, 0xC4):
+            tables += seg
+        elif not 0xE0 <= marker <= 0xEF:
+            rest += seg
+        pos += 2 + n
+    return b"\xff\xd8" + tables + b"\xff\xd9", b"\xff\xd8" + rest + stream[pos:]
+
+
+def gray_jpeg_tags(h: int, w: int, tile=None, tables=None,
+                   rows_per_strip=None, photometric: int = 1) -> dict:
+    """The tags of a gray 8-bit JPEG-compressed page (compression 7),
+    tiled ``tile = (th, tw)`` or in strips of ``rows_per_strip`` rows,
+    with ``tables`` as its JPEGTables (tag 347) when given."""
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [8]), 259: (3, [7]),
+            262: (3, [photometric]), 277: (3, [1]), 284: (3, [1])}
+    if tile is not None:
+        tags[322], tags[323] = (4, [tile[1]]), (4, [tile[0]])
+    if rows_per_strip is not None:
+        tags[278] = (4, [rows_per_strip])
+    if tables is not None:
+        tags[347] = (7, tables)
+    return tags
+
+
+# the fixture streams of a JPEG TIFF's tiles; the first two share their
+# tables (quality 95, standard Huffman tables), so they also serve as the
+# abbreviated streams of a JPEGTables layout
+JPEG_TIFF_TILES = ("blob_baseline", "blob_restart", "blob_progressive",
+                   "blob_optimize")
+
+
+def jpeg_tiff(path: str, side: int, abbreviated: bool):
+    """A ``side``^2 gray JPEG TIFF of 512^2 tiles from the committed
+    fixture streams, written without PIL: with a JPEGTables tag and
+    abbreviated tiles (baseline, and baseline with restart markers), or
+    every tile a complete stream (those, progressive and optimized).
+    Returns PIL's decode of the slide (the fixtures' ``.npy``, tile by
+    tile) and the tiles' bytes."""
+    import numpy as np
+
+    names = JPEG_TIFF_TILES[:2] if abbreviated else JPEG_TIFF_TILES
+    fixtures = [jpeg_fixture(n) for n in names]
+    split = [jpeg_split(data) for data, _ in fixtures]
+    if abbreviated:
+        check(split[0][0] == split[1][0], "the tiles' tables differ")
+    plane = np.empty((side, side), np.uint8)
+    segments = []
+    for k, (r0, c0) in enumerate((r, c) for r in range(0, side, 512)
+                                 for c in range(0, side, 512)):
+        data, want = fixtures[k % len(names)]
+        plane[r0:r0 + 512, c0:c0 + 512] = want
+        segments.append(split[k % len(names)][1] if abbreviated else data)
+    tags = gray_jpeg_tags(side, side, (512, 512),
+                          split[0][0] if abbreviated else None)
+    write_segment_tiff(path, [(tags, segments)])
+    return plane, sum(map(len, segments))
+
+
+def float_predictor_rows(plane) -> bytes:
+    """Rows of samples encoded with TIFF's floating-point predictor (3,
+    Technote 3): each row's bytes as planes, most significant first, then
+    differenced byte by byte."""
+    import numpy as np
+
+    h, w = plane.shape
+    big = plane.astype(plane.dtype.newbyteorder(">")).view(np.uint8)
+    planes = big.reshape(h, w, -1).transpose(0, 2, 1).reshape(h, -1)
+    out = planes.copy()
+    out[:, 1:] -= planes[:, :-1]
+    return out.tobytes()
+
+
+def float_predictor_tiff(path: str, plane, rows_per_strip: int,
+                         byteorder: str = "<", level: int = 1) -> int:
+    """A float page of ``plane`` in deflate strips with the floating-point
+    predictor, as tifffile's ``predictor=True`` writes one; returns the
+    compressed bytes."""
+    import zlib
+
+    h, w = plane.shape
+    segments = [zlib.compress(float_predictor_rows(plane[r:r + rows_per_strip]),
+                              level) for r in range(0, h, rows_per_strip)]
+    tags = {256: (4, [w]), 257: (4, [h]),
+            258: (3, [plane.dtype.itemsize * 8]), 259: (3, [8]),
+            262: (3, [1]), 277: (3, [1]), 278: (4, [rows_per_strip]),
+            284: (3, [1]), 317: (3, [3]), 339: (3, [3])}
+    write_segment_tiff(path, [(tags, segments)], byteorder)
+    return sum(map(len, segments))
+
+
+def phase_slice15(dev) -> dict:
+    """The TIFF pages the JAX package reads through PIL (M17, first part),
+    through ``cli.main`` on the card: 4096^2 gray JPEG TIFFs of 512^2
+    fixture tiles (a JPEGTables layout and a complete-stream one) and a
+    4096^2 float32 predictor-3 deflate TIFF, each byte-equal to the same
+    pixels uncompressed; an 8192^2 JPEG TIFF under ``--engine auto`` on
+    the whole engine (the streamed probe refuses, as in JAX) at one level
+    of depth, and ``--engine streaming`` refusing it.  Returns, per
+    kernel, its launches on each counted path."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    shallow = dataclasses.replace(hp, n_layers=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice15_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+        write_model_dir(zoo, "shallow", shallow, seeded_state(
+            shallow, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name, count=None, model="nucleiDAPI", extra=()):
+            out = os.path.join(tmp, "out", name)
+            if count:
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model", model,
+                           "--modelRoot", zoo, "--stackOutput",
+                           "--outputPath", out, *extra], device=dev)
+            secs = time.perf_counter() - t0
+            if count:
+                launches[count] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        def against_plain(path, plane, label, count, nbytes):
+            """The decode alone, twice (MB/s of the file's segments), then
+            the CLI on ``path`` against the CLI on ``plane`` as a plain
+            TIFF."""
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got = imread(path)
+                secs.append(time.perf_counter() - t0)
+                check(got.dtype == plane.dtype and np.array_equal(
+                    got.view(np.uint8), plane.view(np.uint8)),
+                    f"{label}: the fallback's decode differs")
+            dec_s = min(secs)
+            plain = os.path.join(tmp, f"plain_{count}.tif")
+            imwrite(plain, plane)
+            p_maps, p_secs = run(plain, f"plain_{count}")
+            c_maps, c_secs = run(path, count, count=count)
+            n = launches[count]
+            same = len(c_maps) == len(p_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(c_maps, p_maps))
+            log(f"[slice15] {label}: decode {secs[0]:.3f} s first, "
+                f"{secs[1]:.3f} s again = {nbytes / 1e6 / dec_s:.2f} MB/s of "
+                f"segments ({plane.nbytes / 1e6 / dec_s:.2f} MB/s of pixels); "
+                f"cli.main {c_secs:.2f} s, the pixels as a plain TIFF "
+                f"{p_secs:.2f} s; pages byte-equal: {same}; K1 "
+                f"{n['softmax_blend']}, K2 epilogue "
+                f"{n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            check(same, f"{label}: pages differ from the plain TIFF's")
+            check(n["softmax_blend"] > 0 and n["blend_fold_epilogue"] == 1
+                  and n["blend_fold_stripe"] == 0,
+                  f"{label} did not run K1 and one K2 epilogue: {n}")
+
+        # -- 1. gray JPEG TIFFs (compression 7), 4096^2 ------------------------
+        for layout, abbreviated in (("JPEGTables", True), ("complete", False)):
+            path = os.path.join(tmp, f"jpeg_{layout}.tif")
+            plane, nbytes = jpeg_tiff(path, SLIDE, abbreviated)
+            against_plain(path, plane, f"JPEG TIFF {SLIDE}^2 (64 tiles, "
+                          f"{layout}, {nbytes / 1e6:.1f} MB)",
+                          f"jpeg_tiff_{layout}", nbytes)
+
+        # -- 2. float32 with the floating-point predictor, 4096^2 ---------------
+        rng = np.random.RandomState(SEED + 15)
+        fplane = blob_slide(rng, SLIDE, SLIDE, 4000)
+        path = os.path.join(tmp, "float_predictor.tif")
+        t0 = time.perf_counter()
+        nbytes = float_predictor_tiff(path, fplane, 64)
+        log(f"[slice15] predictor-3 deflate float32 {SLIDE}^2 written by "
+            f"numpy and zlib in {time.perf_counter() - t0:.2f} s "
+            f"({nbytes / 1e6:.1f} MB)")
+        against_plain(path, fplane, f"float32 predictor-3 deflate TIFF "
+                      f"{SLIDE}^2 (the host float path)", "float_predictor",
+                      nbytes)
+
+        # -- 3. the route: --engine auto keeps such a slide whole --------------
+        path = os.path.join(tmp, f"jpeg_{BIG}.tif")
+        plane, nbytes = jpeg_tiff(path, BIG, True)
+        maps, secs = run(path, "jpeg_big", count="jpeg_tiff_8192_auto",
+                         model="shallow", extra=("--engine", "auto"))
+        n = launches["jpeg_tiff_8192_auto"]
+        ok = all(m.shape == (BIG, BIG) and m.dtype == np.uint8
+                 for m in maps) and len(maps) == 3
+        log(f"[slice15] JPEG TIFF {BIG}^2 ({BIG * BIG / 1e6:.0f} Mpx, above "
+            f"the 64 Mpx line) under --engine auto, the net at 1 level: "
+            f"{secs:.2f} s; K1 {n['softmax_blend']}, K2 epilogue "
+            f"{n['blend_fold_epilogue']}, K2 stripe "
+            f"{n['blend_fold_stripe']} (whole engine); three {BIG}^2 uint8 "
+            f"pages: {ok} | {card}")
+        check(ok and n["softmax_blend"] > 0 and n["blend_fold_epilogue"] == 1
+              and n["blend_fold_stripe"] == 0,
+              f"the {BIG}^2 JPEG TIFF did not take the whole engine: {n}")
+        try:
+            cli.main([path, "--tool", "unmicst-legacy", "--model", "shallow",
+                      "--modelRoot", zoo, "--stackOutput", "--engine",
+                      "streaming", "--outputPath",
+                      os.path.join(tmp, "out", "streaming")], device=dev)
+            refused = "no error"
+        except NotImplementedError as e:
+            refused = f"NotImplementedError: {e}"
+        log(f"[slice15] --engine streaming on it: {refused}")
+        check(refused.startswith("NotImplementedError"),
+              "--engine streaming read a JPEG TIFF, which JAX refuses")
+        del plane, fplane
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice15] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -5544,6 +5855,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice12"] = per_path
     for name, per_path in phase_slice13(dev).items():
         stats[name]["launches_slice13"] = per_path
+    for name, per_path in phase_slice15(dev).items():
+        stats[name]["launches_slice15"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -5553,7 +5866,7 @@ def main(argv=None) -> int:
             **{k: v for k, v in row.items()
                if k.endswith("processes")
                or k in ("launches_formats", "launches_slice12",
-                        "launches_slice13")}})
+                        "launches_slice13", "launches_slice15")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

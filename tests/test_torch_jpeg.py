@@ -158,9 +158,10 @@ def test_refusals_name_the_marker():
             with pytest.raises(ValueError, match=what.strip()
                                .replace("(", r"\(").replace(")", r"\)")):
                 jpeg.decode(blob)
-    color = _pil_jpeg(np.zeros((16, 16, 3), np.uint8))
-    with pytest.raises(ValueError, match="3 components"):
-        jpeg.decode(color)
+    cmyk = io.BytesIO()  # colour (3 components) decodes since slice 15
+    Image.new("CMYK", (16, 16)).save(cmyk, "JPEG")
+    with pytest.raises(ValueError, match="4 components"):
+        jpeg.decode(cmyk.getvalue())
     with pytest.raises(ValueError, match=r"\(16, 24\), expected \(16, 25\)"):
         jpeg.decode(data, (16, 25))
     with pytest.raises(ValueError, match="no SOI"):

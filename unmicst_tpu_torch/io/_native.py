@@ -3,7 +3,8 @@
 The counterpart of ``unmicst_tpu/io/_native.py`` over the port's own copy
 of the C++ source, ``unmicst_tpu_torch/native/tiffcodec.cpp``: LZW and
 PackBits decode (with and without the overrun flag), inflate, predictor-2
-undo, one-call strip decode, and the greedy and chain deflate encoders;
+and floating-point predictor (3) undo, one-call strip decode, and the
+greedy and chain deflate encoders;
 and, in the same library, the entropy decode of a JPEG scan
 (``native/jpegdec.cpp``, for ``io/jpeg.py``) and the PNG row filters' undo
 (``native/pngfilter.cpp``, for ``io/png.py``).  Every function returns
@@ -105,8 +106,10 @@ def _load(path: str) -> ctypes.CDLL:
         fn.restype = ll
         fn.argtypes = [ctypes.c_char_p, ll, vp, ll,
                        ctypes.POINTER(ctypes.c_int)]  # overrun out-flag
-    lib.unmicst_predictor_undo.restype = None
-    lib.unmicst_predictor_undo.argtypes = [vp, ll, ll, ctypes.c_int]
+    for name in ("unmicst_predictor_undo", "unmicst_fp_predictor_undo"):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [vp, ll, ll, ctypes.c_int]  # data, rows, cols, bytes
     fn = lib.unmicst_deflate_chain
     fn.restype = ll
     # src, src_len, dst, dst_cap, max_chain, nice_len, good_len, max_lazy
@@ -121,12 +124,13 @@ def _load(path: str) -> ctypes.CDLL:
     fn.argtypes = [vp, ll, ll, ll, vp]  # src, rows, stride, bpp, dst
     fn = lib.unmicst_jpeg_scan
     fn.restype = ll
-    # src, len, pos, coef, nblocks, dc bits, dc values, ac bits, ac
-    # values, ss, se, ah, al, progressive, restart interval
-    fn.argtypes = [ctypes.c_char_p, ll, ll, vp, ll,
+    # src, len, pos, coef, order, slots, nblocks, blocks per MCU, dc bits,
+    # dc values, ac bits, ac values (4 tables each), dc mask, ac mask, ss,
+    # se, ah, al, progressive, restart interval (MCUs)
+    it = ctypes.c_int
+    fn.argtypes = [ctypes.c_char_p, ll, ll, vp, vp, vp, ll, ll,
                    ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
-                   ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ll]
+                   ctypes.c_char_p, it, it, it, it, it, it, it, ll]
     return lib
 
 
@@ -325,6 +329,23 @@ def predictor_undo(arr: np.ndarray) -> Optional[np.ndarray]:
     return arr
 
 
+def fp_predictor_undo(rows: np.ndarray, itemsize: int) -> Optional[np.ndarray]:
+    """Undo the floating-point predictor (TIFF predictor 3) in place on the
+    C-contiguous uint8 ``[n, cols * itemsize]`` ``rows``, leaving each row
+    ``cols`` native-order samples; returns it, or None without the
+    library."""
+    if rows.dtype != np.uint8 or rows.ndim != 2 or itemsize < 1 \
+            or rows.shape[1] % itemsize or not rows.flags["C_CONTIGUOUS"]:
+        raise ValueError("fp_predictor_undo needs a C-contiguous uint8 "
+                         "[rows, cols * itemsize] array")
+    lib = get_lib()
+    if lib is None:
+        return None
+    lib.unmicst_fp_predictor_undo(_ptr(rows), rows.shape[0],
+                                  rows.shape[1] // itemsize, itemsize)
+    return rows
+
+
 _JPEG_ERRORS = {
     -1: "entropy-coded data ends early",
     -2: "corrupt Huffman code",
@@ -334,28 +355,45 @@ _JPEG_ERRORS = {
 }
 
 
-def jpeg_scan(data: bytes, scan, progressive: bool,
-              coef: np.ndarray) -> Optional[int]:
+def jpeg_scan(data: bytes, scan, progressive: bool, coef: np.ndarray,
+              order: np.ndarray, slots: np.ndarray,
+              per_mcu: int) -> Optional[int]:
     """Entropy-decode one scan of ``io/jpeg.py`` (a ``Scan``) into the
-    C-contiguous int16 ``[blocks, 64]`` ``coef``, in place; returns the
+    C-contiguous int16 ``[blocks, 64]`` ``coef``, in place: the scan's
+    blocks are the rows ``order`` (int64) of ``coef``, each of the scan
+    component ``slots`` (uint8), ``per_mcu`` to an MCU.  Returns the
     offset of the marker after the scan, or None without the library.  A
     corrupt or truncated scan raises ``ValueError``."""
     if coef.dtype != np.int16 or coef.ndim != 2 or coef.shape[1] != 64 \
             or not coef.flags["C_CONTIGUOUS"]:
         raise ValueError("jpeg_scan needs a C-contiguous int16 [n, 64] array")
+    order = np.ascontiguousarray(order, np.int64)
+    slots = np.ascontiguousarray(slots, np.uint8)
+    if len(order) != len(slots) or (len(order) and (
+            order.min() < 0 or order.max() >= coef.shape[0])):
+        raise ValueError("jpeg_scan: block order outside the coefficients")
     if not 0 <= scan.pos <= len(data):
         raise ValueError("jpeg_scan: scan offset outside the stream")
     lib = get_lib()
     if lib is None:
         return None
 
-    def table(t):
-        return (None, None) if t is None else (t.bits, t.values)
+    def tables(ts):
+        bits, vals, mask = bytearray(64), bytearray(1024), 0
+        for k, t in enumerate(ts):
+            if t is not None:
+                bits[16 * k : 16 * k + 16] = t.bits
+                vals[256 * k : 256 * k + len(t.values)] = t.values
+                mask |= 1 << k
+        return bytes(bits), bytes(vals), mask
 
+    dc_bits, dc_vals, dc_mask = tables(scan.dc)
+    ac_bits, ac_vals, ac_mask = tables(scan.ac)
     rc = lib.unmicst_jpeg_scan(
-        data, len(data), scan.pos, _ptr(coef), coef.shape[0],
-        *table(scan.dc), *table(scan.ac), scan.ss, scan.se, scan.ah,
-        scan.al, int(progressive), scan.restart_interval)
+        data, len(data), scan.pos, _ptr(coef), _ptr(order), _ptr(slots),
+        len(order), per_mcu, dc_bits, dc_vals, ac_bits, ac_vals, dc_mask,
+        ac_mask, scan.ss, scan.se, scan.ah, scan.al, int(progressive),
+        scan.restart_interval)
     if rc < 0:
         raise ValueError(f"JPEG {_JPEG_ERRORS.get(rc, f'error {rc}')}")
     return rc

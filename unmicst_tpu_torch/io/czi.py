@@ -187,6 +187,9 @@ def _decode_pixels(raw: bytes, entry: SubBlockEntry,
             img = jpeg.decode(raw, (h, w))
         except ValueError as e:
             raise ValueError(f"{where} failed to decode: {e}") from None
+        if img.shape != (h, w):  # a colour frame, as JAX refuses it
+            raise ValueError(f"{where} decoded to {img.shape}, directory "
+                             f"declares {(h, w)}")
         return img.tobytes()
     raise NotImplementedError(
         f"compressed CZI sub-blocks (compression="

@@ -1,27 +1,35 @@
-"""A gray 8-bit JPEG decoder in numpy and the standard library: the port's
+"""An 8-bit JPEG decoder in numpy and the standard library: the port's
 counterpart of PIL's decode of CZI JPEG sub-blocks
-(``unmicst_tpu/io/czi.py:177-207``) and of ``.jpg`` files in
-``utils/imtools.imread``.
+(``unmicst_tpu/io/czi.py:177-207``), of the JPEG-compressed TIFF pages
+the JAX package reads through PIL (``unmicst_tpu/io/tiff.py:1274-1291``,
+``io/slides.py:66-97``; :mod:`unmicst_tpu_torch.io.tiff`) and of ``.jpg``
+files in ``utils/imtools.imread``.
 
 What it decodes (ITU T.81):
 
 * SOF0 baseline and SOF1 extended sequential, SOF2 progressive (DC first
-  and refine, AC first with end-of-band runs, AC refine), all Huffman
-  coded, one component, 8-bit samples;
-* SOI, APPn, COM, JPGn (skipped), DQT (8- and 16-bit tables), DHT, DRI,
-  SOS, RST0-7 and EOI.
+  and refine, interleaved or not; AC first with end-of-band runs, AC
+  refine), all Huffman coded, 8-bit samples;
+* gray frames (one component) and colour frames (three components) at
+  the samplings PIL writes: h1v1, h2v1 and h2v2 chroma;
+* SOI, APPn (JFIF and Adobe read for the colour space), COM, JPGn
+  (skipped), DQT (8- and 16-bit tables), DHT, DRI, SOS, RST0-7 and EOI;
+* abbreviated streams whose tables came before, in a tables-only stream
+  (:func:`parse_tables`; a TIFF's ``JPEGTables``, tag 347).
 
 Everything else raises ``ValueError`` naming the marker: SOF3 (lossless),
 SOF5-7 and DHP/EXP (hierarchical), SOF9-11 and DAC (arithmetic coding),
-DNL, 12-bit samples and frames of more than one component.  A stream cut
-short anywhere, EOI included, raises as PIL does.
+DNL, 12-bit samples, frames of 2 or 4 components and other samplings.  A
+stream cut short anywhere, EOI included, raises as PIL does.
 
 The decode follows libjpeg: canonical Huffman codes from BITS/HUFFVAL,
 byte stuffing undone, DC predictors and the end-of-band run reset at each
 restart marker, coefficients kept as int16 in natural order, then the
 dequantise and the integer "islow" inverse DCT of IJG ``jidctint.c``
 (13-bit constants, 2 pass-1 bits, its range-limit table) over all blocks
-at once, which is what libjpeg-turbo runs under PIL.
+at once; colour frames then take ``jdsample.c``'s fancy (triangle)
+upsampling and ``jdcolor.c``'s fixed-point YCbCr to RGB tables.  That is
+what libjpeg-turbo runs under PIL.
 
 Each scan's entropy decode runs in the port's native host library
 (``io/_native.py``, ``native/jpegdec.cpp``) when it loads, and otherwise
@@ -80,17 +88,43 @@ class HuffTable:
 
 
 @dataclasses.dataclass
+class Tables:
+    """The quantisation and Huffman tables defined so far, by slot; an
+    abbreviated stream starts from those of a tables-only stream, as
+    libjpeg keeps them from one stream to the next."""
+
+    q: Dict[int, np.ndarray] = dataclasses.field(default_factory=dict)
+    dc: Dict[int, HuffTable] = dataclasses.field(default_factory=dict)
+    ac: Dict[int, HuffTable] = dataclasses.field(default_factory=dict)
+
+    def copy(self) -> "Tables":
+        return Tables(dict(self.q), dict(self.dc), dict(self.ac))
+
+
+@dataclasses.dataclass
+class Component:
+    cid: int
+    h: int  # sampling factors
+    v: int
+    tq: int  # quantisation table slot
+    qtable: Optional[np.ndarray] = None  # latched at its first scan
+
+
+@dataclasses.dataclass
 class Scan:
-    """One SOS: where its entropy-coded data starts and its parameters."""
+    """One SOS: where its entropy-coded data starts and its parameters;
+    ``comps`` are frame component indices in scan order, ``dc`` and ``ac``
+    the tables of each (None where the scan needs none)."""
 
     pos: int
-    dc: Optional[HuffTable]
-    ac: Optional[HuffTable]
+    comps: Tuple[int, ...]
+    dc: Tuple[Optional[HuffTable], ...]
+    ac: Tuple[Optional[HuffTable], ...]
     ss: int
     se: int
     ah: int
     al: int
-    restart_interval: int
+    restart_interval: int  # in MCUs
 
 
 @dataclasses.dataclass
@@ -98,11 +132,44 @@ class Frame:
     height: int
     width: int
     progressive: bool
-    qtable: np.ndarray  # 64 quantisers in natural order, int64
+    components: List[Component]
+    colour: str = "gray"  # "gray", "ycbcr" or "rgb"
 
     @property
-    def blocks(self) -> Tuple[int, int]:
-        return -(-self.height // 8), -(-self.width // 8)
+    def hmax(self) -> int:
+        return max(c.h for c in self.components)
+
+    @property
+    def vmax(self) -> int:
+        return max(c.v for c in self.components)
+
+    @property
+    def mcus(self) -> Tuple[int, int]:
+        """MCU rows and columns of an interleaved scan."""
+        return (-(-self.height // (8 * self.vmax)),
+                -(-self.width // (8 * self.hmax)))
+
+    def grid(self, i: int) -> Tuple[int, int]:
+        """Component ``i``'s coefficient blocks, rows and columns, padded
+        to whole MCUs."""
+        c, (mr, mc) = self.components[i], self.mcus
+        return mr * c.v, mc * c.h
+
+    def size(self, i: int) -> Tuple[int, int]:
+        """Component ``i``'s samples, rows and columns (libjpeg's
+        ``downsampled_height`` / ``downsampled_width``)."""
+        c = self.components[i]
+        return (-(-self.height * c.v // self.vmax),
+                -(-self.width * c.h // self.hmax))
+
+    @property
+    def offsets(self) -> List[int]:
+        """The first coefficient block of each component."""
+        out = [0]
+        for i in range(len(self.components)):
+            bh, bw = self.grid(i)
+            out.append(out[-1] + bh * bw)
+        return out
 
 
 def _u16(data: bytes, pos: int) -> int:
@@ -197,21 +264,73 @@ def huffman_codes(table: HuffTable) -> List[Tuple[int, int, int]]:
     return out
 
 
-def parse(data: bytes, shape: Optional[Tuple[int, int]] = None):
-    """Parse the marker structure: ``(frame, scans)``.
+# the samplings a colour frame may have, (hmax / h, vmax / v) of each
+# component: the ones PIL writes (4:4:4, 4:2:2 and 4:2:0)
+_SAMPLINGS = ((1, 1), (2, 1), (2, 2))
+_MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
 
-    ``shape`` is the (height, width) the caller expects (a CZI
-    directory's); a frame of another size raises before any buffer is
-    allocated.  Without it, frames above 2**30 pixels raise."""
+
+def _parse_sof(body: bytes, m: int, shape) -> Frame:
+    if len(body) < 6:
+        raise JpegError("corrupt JPEG SOF segment")
+    prec, h, w, nc = struct.unpack_from(">BHHB", body)
+    if prec != 8:
+        raise JpegError(f"{prec}-bit JPEG samples are not supported "
+                        "(8-bit only)")
+    if h == 0:
+        raise JpegError("JPEG height defined by DNL is not supported")
+    if nc not in (1, 3):
+        raise JpegError(f"JPEG frame has {nc} components; only gray (1) and "
+                        "colour (3) are supported")
+    if w == 0 or len(body) != 6 + 3 * nc:
+        raise JpegError("corrupt JPEG SOF segment")
+    if shape is not None and (h, w) != tuple(shape):
+        raise JpegError(f"JPEG frame is {(h, w)}, expected {tuple(shape)}")
+    if shape is None and h * w > _MAX_PIXELS:
+        raise JpegError(f"implausible JPEG frame {h}x{w}")
+    comps = []
+    for k in range(nc):
+        cid, hv, tq = body[6 + 3 * k : 9 + 3 * k]
+        if not (1 <= hv >> 4 <= 4 and 1 <= hv & 15 <= 4) or tq > 3 \
+                or any(c.cid == cid for c in comps):
+            raise JpegError("corrupt JPEG SOF segment")
+        # a lone component's sampling factors do not matter (libjpeg)
+        comps.append(Component(cid, hv >> 4 if nc > 1 else 1,
+                               hv & 15 if nc > 1 else 1, tq))
+    frame = Frame(h, w, m == 0xC2, comps)
+    for c in comps:
+        ratio = (frame.hmax // c.h, frame.vmax // c.v)
+        if (frame.hmax % c.h or frame.vmax % c.v
+                or ratio not in _SAMPLINGS):
+            raise JpegError(
+                "JPEG sampling factors "
+                f"{'/'.join(f'{x.h}x{x.v}' for x in comps)} are not "
+                "supported (h1v1, h2v1 and h2v2 chroma are; ROADMAP M17)")
+    return frame
+
+
+def _colour_space(nc: int, jfif: bool, adobe: Optional[int],
+                  ids: List[int]) -> str:
+    """libjpeg's ``default_decompress_parms`` for 1 and 3 components."""
+    if nc == 1:
+        return "gray"
+    if jfif:
+        return "ycbcr"
+    if adobe is not None:
+        return "rgb" if adobe == 0 else "ycbcr"
+    return "rgb" if ids == [82, 71, 66] else "ycbcr"  # 'R', 'G', 'B'
+
+
+def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
+    """Walk the markers of one stream from SOI to EOI, defining tables
+    into ``tables``: ``(frame, scans)``, or ``(None, [])`` for a
+    tables-only stream."""
     if len(data) < 2 or data[0] != 0xFF or data[1] != 0xD8:
         raise JpegError("not a JPEG stream (no SOI)")
-    qtables: Dict[int, np.ndarray] = {}
-    dc: Dict[int, HuffTable] = {}
-    ac: Dict[int, HuffTable] = {}
     frame: Optional[Frame] = None
-    qid = comp_id = 0
     scans: List[Scan] = []
     restart = 0
+    jfif, adobe = False, None
     pos = 2
     while True:
         pos = _next_marker(data, pos)
@@ -227,36 +346,16 @@ def parse(data: bytes, shape: Optional[Tuple[int, int]] = None):
             raise JpegError("corrupt JPEG stream: a second SOI")
         body = _segment(data, pos)
         end = pos + 2 + len(body)
+        if tables_only and m in (0xC0, 0xC1, 0xC2, 0xDA):
+            raise JpegError("JPEG tables stream holds an image")
         if m in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise JpegError("corrupt JPEG stream: a second frame")
-            if len(body) < 6:
-                raise JpegError("corrupt JPEG SOF segment")
-            prec, h, w, nc = struct.unpack_from(">BHHB", body)
-            if prec != 8:
-                raise JpegError(f"{prec}-bit JPEG samples are not supported "
-                                "(8-bit only)")
-            if h == 0:
-                raise JpegError("JPEG height defined by DNL is not "
-                                "supported")
-            if nc != 1:
-                raise JpegError(f"JPEG frame has {nc} components; only gray "
-                                "(1 component) is supported")
-            if w == 0 or len(body) < 9:
-                raise JpegError("corrupt JPEG SOF segment")
-            if shape is not None and (h, w) != tuple(shape):
-                raise JpegError(f"JPEG frame is {(h, w)}, expected "
-                                f"{tuple(shape)}")
-            if shape is None and h * w > _MAX_PIXELS:
-                raise JpegError(f"implausible JPEG frame {h}x{w}")
-            comp_id, qid = body[6], body[8]
-            if qid > 3:
-                raise JpegError("corrupt JPEG SOF segment")
-            frame = Frame(h, w, m == 0xC2, np.zeros(64, np.int64))
+            frame = _parse_sof(body, m, shape)
         elif m == 0xC4:
-            _parse_dht(body, dc, ac)
+            _parse_dht(body, tables.dc, tables.ac)
         elif m == 0xDB:
-            _parse_dqt(body, qtables)
+            _parse_dqt(body, tables.q)
         elif m == 0xDD:
             if len(body) < 2:
                 raise JpegError("corrupt JPEG DRI segment")
@@ -264,37 +363,90 @@ def parse(data: bytes, shape: Optional[Tuple[int, int]] = None):
         elif m == 0xDA:
             if frame is None:
                 raise JpegError("corrupt JPEG stream: SOS before SOF")
-            if len(body) != 6 or body[0] != 1 or body[1] != comp_id:
-                raise JpegError("corrupt JPEG SOS segment: the frame's one "
-                                "component expected")
-            td, ta = body[2] >> 4, body[2] & 15
-            ss, se, ah, al = body[3], body[4], body[5] >> 4, body[5] & 15
-            if not scans:  # libjpeg latches the table at the first scan
-                if qid not in qtables:
-                    raise JpegError("JPEG quantisation table missing")
-                frame.qtable = qtables[qid]
-            if frame.progressive:
-                bad = (se != 0) if ss == 0 else (ss > se or se > 63)
-                if bad or (ah and al != ah - 1) or al > 13:
-                    raise JpegError("corrupt JPEG progression parameters")
-            else:
-                ss, se, ah, al = 0, 63, 0, 0
-            need_dc = ss == 0 and ah == 0
-            need_ac = ss > 0 or not frame.progressive
-            if (need_dc and td not in dc) or (need_ac and ta not in ac):
-                raise JpegError("JPEG Huffman table missing")
-            scans.append(Scan(end, dc.get(td) if need_dc else None,
-                              ac.get(ta) if need_ac else None,
-                              ss, se, ah, al, restart))
+            if not scans:
+                frame.colour = _colour_space(
+                    len(frame.components), jfif, adobe,
+                    [c.cid for c in frame.components])
+            scans.append(_parse_sos(body, end, frame, tables, restart))
             end = _scan_end(data, end)
-        elif 0xE0 <= m <= 0xEF or m == 0xFE or 0xF0 <= m <= 0xFD:
+        elif m == 0xE0:
+            jfif = jfif or (len(body) >= 14 and body[:5] == b"JFIF\0")
+        elif m == 0xEE:
+            if len(body) >= 12 and body[:5] == b"Adobe":
+                adobe = body[11]
+        elif 0xE1 <= m <= 0xEF or m == 0xFE or 0xF0 <= m <= 0xFD:
             pass  # APPn, COM, JPGn
         else:
             raise JpegError(f"unknown JPEG marker 0x{m:02X}")
         pos = end
+    if tables_only:
+        return None, []
     if frame is None or not scans:
         raise JpegError("JPEG stream holds no image")
     return frame, scans
+
+
+def _parse_sos(body: bytes, pos: int, frame: Frame, tables: Tables,
+               restart: int) -> Scan:
+    ns = body[0] if body else 0
+    if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
+        raise JpegError("corrupt JPEG SOS segment")
+    comps, sel = [], []
+    for k in range(ns):
+        cs, t = body[1 + 2 * k], body[2 + 2 * k]
+        idx = [i for i, c in enumerate(frame.components) if c.cid == cs]
+        if not idx or idx[0] in comps:
+            raise JpegError("corrupt JPEG SOS segment: a component the "
+                            "frame lacks, or twice")
+        comps.append(idx[0])
+        sel.append((t >> 4, t & 15))
+    ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
+    ah, al = body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15
+    if frame.progressive:
+        bad = (se != 0) if ss == 0 else (ss > se or se > 63 or ns != 1)
+        if bad or (ah and al != ah - 1) or al > 13:
+            raise JpegError("corrupt JPEG progression parameters")
+    else:
+        ss, se, ah, al = 0, 63, 0, 0
+    if ns > 1 and sum(frame.components[i].h * frame.components[i].v
+                      for i in comps) > _MAX_BLOCKS_IN_MCU:
+        raise JpegError("corrupt JPEG SOS segment: too many blocks in an MCU")
+    for i in comps:  # libjpeg latches a table at the component's first scan
+        c = frame.components[i]
+        if c.qtable is None:
+            if c.tq not in tables.q:
+                raise JpegError("JPEG quantisation table missing")
+            c.qtable = tables.q[c.tq]
+    need_dc = ss == 0 and ah == 0
+    need_ac = ss > 0 or not frame.progressive
+    if any((need_dc and td not in tables.dc)
+           or (need_ac and ta not in tables.ac) for td, ta in sel):
+        raise JpegError("JPEG Huffman table missing")
+    return Scan(pos, tuple(comps),
+                tuple(tables.dc[td] if need_dc else None for td, _ in sel),
+                tuple(tables.ac[ta] if need_ac else None for _, ta in sel),
+                ss, se, ah, al, restart)
+
+
+def parse_tables(data: bytes) -> Tables:
+    """The tables of a tables-only stream (SOI, DQT/DHT, EOI): what a
+    TIFF's ``JPEGTables`` holds for its abbreviated segments."""
+    tables = Tables()
+    _walk(bytes(data), tables, tables_only=True)
+    return tables
+
+
+def parse(data: bytes, shape: Optional[Tuple[int, int]] = None,
+          tables: Optional[Tables] = None):
+    """Parse the marker structure: ``(frame, scans)``.
+
+    ``shape`` is the (height, width) the caller expects (a CZI
+    directory's); a frame of another size raises before any buffer is
+    allocated.  Without it, frames above 2**30 pixels raise.  ``tables``:
+    the tables an abbreviated stream starts from (:func:`parse_tables`);
+    the stream's own override them, for this stream only."""
+    start = Tables() if tables is None else tables.copy()
+    return _walk(data, start, shape)
 
 
 def _scan_end(data: bytes, pos: int) -> int:
@@ -305,6 +457,35 @@ def _scan_end(data: bytes, pos: int) -> int:
         if not 0xD0 <= data[pos + 1] <= 0xD7:
             return pos
         pos += 2
+
+
+def scan_blocks(frame: Frame, scan: Scan):
+    """The blocks a scan visits, in order: ``(order, slots, per_mcu)``,
+    the coefficient rows (int64), the scan component of each (uint8) and
+    the blocks of one MCU.  A one-component scan visits its component's
+    blocks that hold samples, row by row; an interleaved one visits the
+    MCUs, each component's ``v x h`` blocks in turn (T.81 A.2)."""
+    offs = frame.offsets
+    if len(scan.comps) == 1:
+        i = scan.comps[0]
+        ch, cw = frame.size(i)
+        bw = frame.grid(i)[1]
+        rows, cols = -(-ch // 8), -(-cw // 8)
+        order = offs[i] + (np.arange(rows, dtype=np.int64)[:, None] * bw
+                           + np.arange(cols, dtype=np.int64)).ravel()
+        return order, np.zeros(len(order), np.uint8), 1
+    mr, mc = frame.mcus
+    parts, slots = [], []
+    for k, i in enumerate(scan.comps):
+        c, bw = frame.components[i], frame.grid(i)[1]
+        by, bx = (a.ravel() for a in np.mgrid[: c.v, : c.h])
+        rows = np.arange(mr, dtype=np.int64)[:, None, None] * c.v + by
+        cols = np.arange(mc, dtype=np.int64)[None, :, None] * c.h + bx
+        parts.append(offs[i] + rows * bw + cols)
+        slots.append(np.full(c.v * c.h, k, np.uint8))
+    per_mcu = sum(len(s) for s in slots)
+    order = np.concatenate(parts, axis=2).ravel()
+    return order, np.tile(np.concatenate(slots), mr * mc), per_mcu
 
 
 # -- the entropy decode, in Python (the plain version) -------------------------
@@ -367,32 +548,36 @@ def _i32(v: int) -> int:
     return ((v + 0x80000000) & 0xFFFFFFFF) - 0x80000000
 
 
-def decode_scan_py(data: bytes, frame: Frame, scan: Scan,
-                   coef: np.ndarray) -> int:
+def decode_scan_py(data: bytes, frame: Frame, scan: Scan, coef: np.ndarray,
+                   order: np.ndarray, slots: np.ndarray, per_mcu: int) -> int:
     """Entropy-decode one scan into ``coef`` (int16, ``[blocks, 64]`` in
-    natural order, updated in place); returns the offset of the marker
-    after the scan.  The plain version of the native decoder."""
-    nblocks = coef.shape[0]
+    natural order, updated in place), visiting the blocks of
+    :func:`scan_blocks`; returns the offset of the marker after the scan.
+    The plain version of the native decoder."""
+    nblocks = len(order)
     c = coef.reshape(-1).tolist()
-    dc = _lut(scan.dc) if scan.dc is not None else None
-    ac = _lut(scan.ac) if scan.ac is not None else None
+    dcs = [_lut(t) if t is not None else None for t in scan.dc]
+    acs = [_lut(t) if t is not None else None for t in scan.ac]
+    bases = (np.asarray(order, np.int64) * 64).tolist()
+    slot_of = np.asarray(slots).tolist()
     ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
     p1, m1 = 1 << al, -1 << al
     nat = NATURAL_ORDER
-    ri = scan.restart_interval or nblocks
+    ri = scan.restart_interval * per_mcu or nblocks
     pos = scan.pos
     for start in range(0, nblocks, ri):
         bits = _Bits(data, pos)
-        last_dc, eobrun = 0, 0
+        last_dc, eobrun = [0] * 4, 0
         for b in range(start, min(start + ri, nblocks)):
-            base = b * 64
+            base, t = bases[b], slot_of[b]
+            dc, ac = dcs[t], acs[t]
             if not frame.progressive or (ss == 0 and ah == 0):
                 if ss == 0 and ah == 0:  # DC (sequential, or first scan)
                     s = bits.symbol(dc)
                     if s:
                         s = _extend(bits.take(s), s)
-                    last_dc = _i32(last_dc + s)
-                    c[base] = _i16(last_dc << al)
+                    last_dc[t] = _i32(last_dc[t] + s)
+                    c[base] = _i16(last_dc[t] << al)
                 if frame.progressive:
                     continue
                 k = 1
@@ -541,39 +726,116 @@ def idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
 # -- the decoder ---------------------------------------------------------------------
 
 
-def decode_coefficients(data: bytes, shape: Optional[Tuple[int, int]] = None):
+def decode_coefficients(data: bytes, shape: Optional[Tuple[int, int]] = None,
+                        tables: Optional[Tables] = None):
     """Parse and entropy-decode: ``(frame, coef)`` with ``coef`` int16
-    ``[blocks_h * blocks_w, 64]`` in natural order, each scan through the
-    native library when it loads and through :func:`decode_scan_py`
-    otherwise."""
+    ``[blocks, 64]`` in natural order, each component's padded block grid
+    in turn (``frame.offsets``), each scan through the native library when
+    it loads and through :func:`decode_scan_py` otherwise."""
     data = bytes(data)
-    frame, scans = parse(data, shape)
-    bh, bw = frame.blocks
-    coef = np.zeros((bh * bw, 64), np.int16)
+    frame, scans = parse(data, shape, tables)
+    coef = np.zeros((frame.offsets[-1], 64), np.int16)
     native = _native.get_lib() is not None
     for scan in scans:
+        order, slots, per_mcu = scan_blocks(frame, scan)
         if native:
-            _native.jpeg_scan(data, scan, frame.progressive, coef)
+            _native.jpeg_scan(data, scan, frame.progressive, coef, order,
+                              slots, per_mcu)
         else:
-            decode_scan_py(data, frame, scan, coef)
+            decode_scan_py(data, frame, scan, coef, order, slots, per_mcu)
     return frame, coef
 
 
-def decode(data: bytes, shape: Optional[Tuple[int, int]] = None) -> np.ndarray:
-    """A gray JPEG stream -> ``[H, W]`` uint8, as PIL decodes it.
+# -- upsampling and colour (libjpeg-turbo's jdsample.c and jdcolor.c) ---------
+
+
+def _edge(x: np.ndarray, axis: int, step: int) -> np.ndarray:
+    """``x`` shifted one sample along ``axis`` (-1: each sample's
+    predecessor, +1: its successor), the edge sample repeated."""
+    n = x.shape[axis]
+    idx = np.clip(np.arange(n) + step, 0, n - 1)
+    return np.take(x, idx, axis=axis)
+
+
+def upsample(plane: np.ndarray, ratio: Tuple[int, int]) -> np.ndarray:
+    """A chroma plane ``[dh, dw]`` (uint8) brought to ``ratio = (h, v)``
+    times its size as libjpeg-turbo does under PIL: h2v1 and h2v2 "fancy"
+    (triangle) upsampling with their alternating rounding, context rows
+    and columns repeated at the edges, and plain replication where the
+    plane is 2 columns wide or less."""
+    if ratio == (1, 1):
+        return plane
+    dh, dw = plane.shape
+    if dw <= 2:  # h2v1_upsample / h2v2_upsample
+        out = np.repeat(plane, 2, axis=1)
+        return np.repeat(out, 2, axis=0) if ratio == (2, 2) else out
+    x = plane.astype(np.int32)
+    if ratio == (2, 1):  # h2v1_fancy_upsample
+        out = np.empty((dh, 2 * dw), np.uint8)
+        out[:, 0::2] = (3 * x + _edge(x, 1, -1) + 1) >> 2
+        out[:, 1::2] = (3 * x + _edge(x, 1, 1) + 2) >> 2
+        return out
+    out = np.empty((2 * dh, 2 * dw), np.uint8)  # h2v2_fancy_upsample
+    for parity, far in ((0, _edge(x, 0, -1)), (1, _edge(x, 0, 1))):
+        cs = 3 * x + far  # the column sums of the nearer and farther rows
+        out[parity::2, 0::2] = (3 * cs + _edge(cs, 1, -1) + 8) >> 4
+        out[parity::2, 1::2] = (3 * cs + _edge(cs, 1, 1) + 7) >> 4
+    return out
+
+
+def _fix(x: float) -> int:
+    return int(x * (1 << 16) + 0.5)
+
+
+_CHROMA = np.arange(256, dtype=np.int64) - 128
+_CR_R = (_fix(1.40200) * _CHROMA + (1 << 15)) >> 16
+_CB_B = (_fix(1.77200) * _CHROMA + (1 << 15)) >> 16
+_CR_G = -_fix(0.71414) * _CHROMA
+_CB_G = -_fix(0.34414) * _CHROMA + (1 << 15)
+
+
+def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """``jdcolor.c``'s ``ycc_rgb_convert``: its 16-bit fixed-point tables,
+    then the clamp to 0..255; ``[H, W, 3]`` uint8."""
+    y = y.astype(np.int64)
+    out = np.empty(y.shape + (3,), np.uint8)
+    out[..., 0] = np.clip(y + _CR_R[cr], 0, 255)
+    out[..., 1] = np.clip(y + ((_CB_G[cb] + _CR_G[cr]) >> 16), 0, 255)
+    out[..., 2] = np.clip(y + _CB_B[cb], 0, 255)
+    return out
+
+
+def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
+           tables: Optional[Tables] = None) -> np.ndarray:
+    """A JPEG stream -> ``[H, W]`` uint8 (gray) or ``[H, W, 3]`` uint8
+    (colour, RGB), as PIL decodes it.
 
     ``shape``: the (height, width) the caller expects; a frame of another
-    size raises before any buffer is allocated.  Every failure raises
-    :class:`JpegError` (a ``ValueError``)."""
-    frame, coef = decode_coefficients(data, shape)
-    bh, bw = frame.blocks
-    px = idct_islow(coef, frame.qtable)
-    img = px.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8,
-                                                                bw * 8)
-    return np.ascontiguousarray(img[: frame.height, : frame.width])
+    size raises before any buffer is allocated.  ``tables``: what an
+    abbreviated stream starts from (:func:`parse_tables`).  Every failure
+    raises :class:`JpegError` (a ``ValueError``)."""
+    frame, coef = decode_coefficients(data, shape, tables)
+    offs, planes = frame.offsets, []
+    for i, comp in enumerate(frame.components):
+        bh, bw = frame.grid(i)
+        # a component no scan reached has no table latched: libjpeg's
+        # multipliers stay zero, and its samples 128
+        q = comp.qtable if comp.qtable is not None else np.zeros(64, np.int64)
+        px = idct_islow(coef[offs[i] : offs[i + 1]], q)
+        img = px.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(
+            bh * 8, bw * 8)
+        ch, cw = frame.size(i)
+        img = img[:ch, :cw]
+        ratio = (frame.hmax // comp.h, frame.vmax // comp.v)
+        planes.append(upsample(img, ratio)[: frame.height, : frame.width])
+    if frame.colour == "gray":
+        return np.ascontiguousarray(planes[0])
+    if frame.colour == "rgb":
+        return np.stack(planes, -1)
+    return ycc_to_rgb(*planes)
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """A gray JPEG file -> ``[H, W]`` uint8."""
+    """A JPEG file -> ``[H, W]`` (gray) or ``[H, W, 3]`` (colour) uint8."""
     with open(path, "rb") as f:
         return decode(f.read())

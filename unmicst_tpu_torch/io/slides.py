@@ -19,7 +19,8 @@ from __future__ import annotations
 import numpy as np
 
 from unmicst_tpu_torch.io import ome
-from unmicst_tpu_torch.io.tiff import TiffFile
+from unmicst_tpu_torch.io.tiff import (PageTooLargeError, TiffFile,
+                                       read_page_fallback)
 
 TIFF_LIKE = ("ome.tif", "ome.tiff", "btf", "tif", "tiff")
 
@@ -61,14 +62,37 @@ def _native_order(arr: np.ndarray) -> np.ndarray:
 
 
 def read_channel(image_path: str, file_type: str, channel: int) -> np.ndarray:
+    """One channel's plane, whole.  A TIFF page the reader refuses
+    (``NotImplementedError`` or ``ValueError``, not
+    :class:`~unmicst_tpu_torch.io.tiff.PageTooLargeError`) goes to
+    :func:`~unmicst_tpu_torch.io.tiff.read_page_fallback` at page ==
+    channel, not the OME plane, as the JAX package's PIL fallback reads it
+    (``unmicst_tpu/io/slides.py:66-97``): past the page chain's end
+    ``IndexError``, any other failure there ``ValueError``; a page the
+    fallback does not take keeps the reader's own exception."""
     if channel < 0:
         raise IndexError(f"channel {channel} out of range")
     if file_type in TIFF_LIKE:
-        with TiffFile(image_path) as tf:
-            page = tiff_plane(tf, channel)
-            if page >= len(tf.pages):
-                raise IndexError(f"channel {channel} out of range")
-            return _native_order(tf.read_page(page))
+        try:
+            with TiffFile(image_path) as tf:
+                page = tiff_plane(tf, channel)
+                if page >= len(tf.pages):
+                    raise IndexError(f"channel {channel} out of range")
+                return _native_order(tf.read_page(page))
+        except PageTooLargeError:
+            raise
+        except (NotImplementedError, ValueError) as e:
+            try:
+                return read_page_fallback(image_path, channel, e)
+            except EOFError:
+                raise IndexError(f"channel {channel} out of range") from None
+            except Exception as e2:  # noqa: BLE001 -- one contract, as JAX
+                if e2 is e:  # a page the fallback does not take
+                    raise
+                raise ValueError(
+                    f"{image_path}: unreadable by both the TIFF reader and "
+                    f"its fallback decoder ({type(e2).__name__}: {e2})"
+                ) from e2
     if file_type == "czi":
         from unmicst_tpu_torch.io.czi import read_czi_channel
 

@@ -20,6 +20,11 @@ loads, and through the Python codecs below when it does not:
   levels chained through SubIFDs, every level tiled).
 
 ``imread``, ``num_pages`` and ``imwrite`` keep the JAX package's names.
+Where the reader refuses a page, ``imread`` (and ``slides.read_channel``)
+turn to :func:`read_page_fallback`, the port's stand-in for the JAX
+package's PIL fallback: gray JPEG-compressed pages (compression 7) and
+float32 pages with the floating-point predictor (3), read whole; the
+windowed and pyramid reads keep refusing them, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from __future__ import annotations
 import lzma
 import os
 import struct
+import sys
 import zlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -55,9 +61,11 @@ TAG_TILE_OFFSETS = 324
 TAG_TILE_BYTE_COUNTS = 325
 TAG_SUBIFDS = 330
 TAG_SAMPLE_FORMAT = 339
+TAG_JPEG_TABLES = 347
 
 COMPRESSION_NONE = 1
 COMPRESSION_LZW = 5
+COMPRESSION_JPEG = 7  # one JPEG stream a strip or tile (TIFF Technote 2)
 COMPRESSION_DEFLATE_ADOBE = 8
 COMPRESSION_DEFLATE = 32946
 COMPRESSION_PACKBITS = 32773
@@ -188,7 +196,9 @@ def _decode(data: bytes, compression: int, max_out: int):
         return _zstd.decompress(data, max_out + 65536)
     raise NotImplementedError(
         f"TIFF compression {compression} is not read by unmicst_tpu_torch "
-        "(none, deflate, LZW, PackBits, LZMA and zstd are)"
+        "(none, deflate, LZW, PackBits, LZMA and zstd are; JPEG pages are "
+        "read whole, the rest of what the JAX package reads through PIL is "
+        "item M17)"
     )
 
 
@@ -222,6 +232,8 @@ class TiffPage:
     tile_length: int = 0
     description: str = ""
     subifds: Optional[np.ndarray] = None  # tag 330: the pyramid's levels
+    photometric: Optional[int] = None  # tag 262, None where it is absent
+    jpeg_tables: Optional[bytes] = None  # tag 347
 
     @property
     def tiled(self) -> bool:
@@ -241,18 +253,21 @@ class TiffPage:
 
 
 class TiffFile:
-    """Random-access TIFF reader (classic + BigTIFF)."""
+    """Random-access TIFF reader (classic + BigTIFF).  ``chain=False``
+    reads the header only: :meth:`page_at` then walks the page chain to
+    the page it is asked for, as PIL's ``seek`` does, and ``pages`` stays
+    empty."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, chain: bool = True):
         self.path = path
         self._fh = open(path, "rb")
         try:
-            self._parse()
+            self._parse(chain)
         except Exception:
             self._fh.close()
             raise
 
-    def _parse(self) -> None:
+    def _parse(self, chain: bool) -> None:
         fh = self._fh
         self._fsize = os.fstat(fh.fileno()).st_size
         header = fh.read(16)
@@ -269,6 +284,9 @@ class TiffFile:
         else:
             raise ValueError(f"{self.path}: bad TIFF magic {magic}")
         self.pages: List[TiffPage] = []
+        self._first = offset
+        if not chain:
+            return
         seen = set()
         while offset:
             if offset in seen:
@@ -285,6 +303,35 @@ class TiffFile:
 
     def __exit__(self, *exc):
         self.close()
+
+    def page_at(self, index: int) -> TiffPage:
+        """Page ``index`` of the page chain, as PIL's ``seek`` finds it:
+        the IFDs before it are followed by their next-IFD pointers alone,
+        and past the chain's end (or where it cycles) ``EOFError``."""
+        offset, seen = self._first, set()
+        for _ in range(index):
+            if not offset or offset in seen:
+                raise EOFError("attempt to seek outside sequence")
+            seen.add(offset)
+            offset = self._next_ifd(offset)
+        if not offset or offset in seen:
+            raise EOFError("attempt to seek outside sequence")
+        return self._read_ifd(offset)[0]
+
+    def _next_ifd(self, offset: int) -> int:
+        """The next-IFD pointer of the IFD at ``offset``."""
+        bo, fh = self.byteorder, self._fh
+        cnt_fmt, off_fmt = ("Q", "Q") if self.big else ("H", "I")
+        fh.seek(offset)
+        head = fh.read(struct.calcsize(cnt_fmt))
+        if len(head) < struct.calcsize(cnt_fmt):
+            raise ValueError(f"{self.path}: truncated IFD at {offset:#x}")
+        (n,) = struct.unpack(bo + cnt_fmt, head)
+        fh.seek(offset + len(head) + (20 if self.big else 12) * n)
+        tail = fh.read(struct.calcsize(off_fmt))
+        if len(tail) < struct.calcsize(off_fmt):
+            raise ValueError(f"{self.path}: truncated IFD at {offset:#x}")
+        return struct.unpack(bo + off_fmt, tail)[0]
 
     def _read_ifd(self, offset: int) -> Tuple[TiffPage, int]:
         bo, fh, big = self.byteorder, self._fh, self.big
@@ -375,6 +422,9 @@ class TiffFile:
             raise ValueError("TIFF segment offsets/byte counts length mismatch")
         if isinstance(tags.get(TAG_SUBIFDS), np.ndarray):
             page.subifds = array(TAG_SUBIFDS)
+        page.photometric = scalar(TAG_PHOTOMETRIC)
+        if isinstance(tags.get(TAG_JPEG_TABLES), np.ndarray):
+            page.jpeg_tables = tags[TAG_JPEG_TABLES].tobytes()
         return page, next_ifd
 
     def subifd_page(self, index: int, level: int) -> TiffPage:
@@ -401,18 +451,22 @@ class TiffFile:
         page chain itself holds the full-resolution pages only."""
         return self._read_whole(self.subifd_page(index, level))
 
-    def _segment(self, page: TiffPage, k: int, rows: int, cols: int
-                 ) -> np.ndarray:
-        """Decode strip/tile ``k`` as ``rows x cols x samples``."""
+    def _stored(self, page: TiffPage, k: int) -> bytes:
+        """Strip/tile ``k`` as stored in the file."""
         if k >= len(page.offsets):
             raise ValueError(f"TIFF page holds {len(page.offsets)} segments, "
                              f"needs segment {k}")
         off, cnt = int(page.offsets[k]), int(page.counts[k])
         if off < 0 or cnt < 0 or off + cnt > self._fsize:
             raise ValueError(f"TIFF segment at {off} extends past EOF")
-        nbytes = rows * cols * page.samples * (page.bits // 8)
         self._fh.seek(off)
-        buf = _decode(self._fh.read(cnt), page.compression, nbytes)
+        return self._fh.read(cnt)
+
+    def _segment(self, page: TiffPage, k: int, rows: int, cols: int
+                 ) -> np.ndarray:
+        """Decode strip/tile ``k`` as ``rows x cols x samples``."""
+        nbytes = rows * cols * page.samples * (page.bits // 8)
+        buf = _decode(self._stored(page, k), page.compression, nbytes)
         if len(buf) < nbytes:
             raise ValueError(f"TIFF segment {k} decodes to {len(buf)} of "
                              f"{nbytes} bytes")
@@ -479,7 +533,7 @@ class TiffFile:
 
     def _check_readable(self, page: TiffPage) -> None:
         if page.planar != 1 and page.samples > 1:
-            raise NotImplementedError("planar TIFF not supported")
+            raise NotImplementedError("planar TIFF not supported (item M17)")
         if page.predictor not in (1, 2):
             raise NotImplementedError(f"TIFF predictor {page.predictor}")
 
@@ -558,6 +612,173 @@ class TiffFile:
                     out[a - r0 : b - r0, : max(0, c1 - c0)] = arr[
                         a - sr0 : b - sr0, c0:c1]
         return out[:, :, 0] if page.samples == 1 else out
+
+
+# -- the pages the JAX package reads through PIL ------------------------------
+
+# PIL refuses images above twice ``Image.MAX_IMAGE_PIXELS`` outright (its
+# decompression-bomb check)
+_PIL_MAX_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
+# the codecs with which libtiff applies a predictor; with the others the
+# tag is ignored and the stored samples come back as they are
+_PREDICTED = (COMPRESSION_LZW, COMPRESSION_DEFLATE, COMPRESSION_DEFLATE_ADOBE,
+              COMPRESSION_LZMA, COMPRESSION_ZSTD)
+
+
+class FallbackError(OSError):
+    """A page the fallback decoder takes whose data does not decode, or a
+    page PIL refuses too; PIL raises ``OSError`` there ("decoder error",
+    ``UnidentifiedImageError``)."""
+
+
+def _segment_grid(page: TiffPage):
+    """``(k, r0, c0, rows, cols)`` of each strip or tile: where it lands
+    and the rows and columns it is coded at (an edge tile whole, the last
+    strip as the rows that are left)."""
+    if page.tiled:
+        th, tw = page.tile_length, page.tile_width
+        across = -(-page.width // tw)
+        for k in range(-(-page.height // th) * across):
+            r, c = divmod(k, across)
+            yield k, r * th, c * tw, th, tw
+    else:
+        rps = max(1, min(page.rows_per_strip, page.height))
+        for k, r0 in enumerate(range(0, page.height, rps)):
+            yield k, r0, 0, min(rps, page.height - r0), page.width
+
+
+def _jpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
+    """A gray 8-bit JPEG-compressed page (compression 7), as libtiff's
+    ``tif_jpeg.c`` and libjpeg-turbo decode it under PIL: each strip or
+    tile one JPEG stream, abbreviated after the page's ``JPEGTables`` or
+    complete; the stream's SOF sets its size, which must be the tile's,
+    or the strip's rows (the last strip may be coded taller, and is
+    cropped, as libtiff allows); WhiteIsZero pages, and pages without the
+    tag (PIL's default), come back inverted."""
+    from unmicst_tpu_torch.io import jpeg
+
+    where = f"{tf.path}: JPEG page"
+    if page.samples != 1 or page.photometric not in (None, 0, 1):
+        raise NotImplementedError(
+            f"{where} of {page.samples} samples, photometric "
+            f"{page.photometric}: colour JPEG TIFF pages are ROADMAP M17")
+    if page.bits != 8 or page.sample_format != 1:
+        raise NotImplementedError(
+            f"{where} of {page.bits}-bit samples of format "
+            f"{page.sample_format}: 12-bit JPEG is ROADMAP M17")
+    tables = None
+    if page.jpeg_tables is not None:
+        try:
+            tables = jpeg.parse_tables(page.jpeg_tables)
+        except jpeg.JpegError as e:
+            raise FallbackError(f"{where}: JPEGTables: {e}") from None
+    out = np.empty((page.height, page.width), np.uint8)
+    kind = "tile" if page.tiled else "strip"
+    for k, r0, c0, rows, cols in _segment_grid(page):
+        try:
+            data = tf._stored(page, k)
+            frame, _ = jpeg.parse(data, tables=tables)
+            h, w = frame.height, frame.width
+            taller = (not page.tiled and r0 + rows == page.height
+                      and rows < h <= page.rows_per_strip)
+            if w != cols or (h != rows and not taller):
+                raise FallbackError(
+                    f"{where}: {kind} {k} is coded {h}x{w}, expected "
+                    f"{rows}x{cols}")
+            px = jpeg.decode(data, (h, w), tables)
+        except ValueError as e:  # JpegError, or the segment past EOF
+            raise FallbackError(f"{where}: {kind} {k}: {e}") from None
+        if px.ndim != 2:
+            raise FallbackError(f"{where}: {kind} {k} is a colour stream")
+        b, d = min(rows, page.height - r0), min(cols, page.width - c0)
+        out[r0 : r0 + b, c0 : c0 + d] = px[:b, :d]
+    if page.photometric != 1:
+        np.subtract(255, out, out=out)
+    return out
+
+
+def _undo_float_predictor(rows: np.ndarray, itemsize: int) -> np.ndarray:
+    """Undo the floating-point predictor (TIFF Technote 3) in place on the
+    C-contiguous uint8 ``[n, cols * itemsize]`` ``rows``: each row summed
+    back byte by byte, then its byte planes (most significant first)
+    interleaved into native-order samples; natively where the library
+    loads."""
+    if _native.fp_predictor_undo(rows, itemsize) is not None:
+        return rows
+    n, m = rows.shape
+    acc = np.cumsum(rows, axis=1, dtype=np.uint8)
+    big = acc.reshape(n, itemsize, m // itemsize).transpose(0, 2, 1)
+    rows[:] = (big[..., ::-1] if sys.byteorder == "little" else big).reshape(
+        n, m)
+    return rows
+
+
+def _float_predictor_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
+    """A float32 page with the floating-point predictor (3), as PIL reads
+    it through libtiff: the predictor undone where libtiff applies one
+    (LZW, Deflate, LZMA, zstd), the stored samples as they are under
+    compression none and PackBits.  PIL refuses other sample widths and
+    formats with predictor 3, and several samples a pixel.  Unlike PIL
+    (which swaps libtiff's native-order samples again), a big-endian
+    ("MM") file reads as the floats it holds."""
+    where = f"{tf.path}: predictor-3 page"
+    if page.sample_format != 3 or page.bits != 32 or page.samples != 1:
+        raise FallbackError(
+            f"{where} of {page.samples} sample(s) of {page.bits} bits, "
+            f"format {page.sample_format}: PIL reads only one float32 "
+            "sample a pixel there")
+    if page.compression not in _PREDICTED + (COMPRESSION_NONE,
+                                             COMPRESSION_PACKBITS):
+        raise NotImplementedError(
+            f"{where} under compression {page.compression}: ROADMAP M17")
+    grid = list(_segment_grid(page))
+    out = np.empty((page.height, page.width), np.float32)
+    for k, r0, c0, rows, cols in grid:
+        nbytes = rows * cols * 4
+        try:
+            buf = _decode(tf._stored(page, k), page.compression, nbytes)
+        except ValueError as e:
+            raise FallbackError(f"{where}: segment {k}: {e}") from None
+        if len(buf) < nbytes:
+            raise FallbackError(f"{where}: segment {k} decodes to {len(buf)}"
+                                f" of {nbytes} bytes")
+        raw = np.frombuffer(buf, np.uint8, nbytes).reshape(rows, cols * 4)
+        if page.compression in _PREDICTED:
+            px = _undo_float_predictor(raw.copy(), 4).view(np.float32)
+        else:
+            px = raw.view(np.dtype("f4").newbyteorder(tf.byteorder))
+        b, d = min(rows, page.height - r0), min(cols, page.width - c0)
+        out[r0 : r0 + b, c0 : c0 + d] = px[:b, :d]
+    return out
+
+
+def read_page_fallback(path: str, index: int, cause: Exception
+                       ) -> np.ndarray:
+    """Page ``index`` of the page chain, decoded whole, where
+    :class:`TiffFile` refused it with ``cause``: the JAX package's PIL
+    fallback (``unmicst_tpu/io/tiff.py:1285-1291``,
+    ``io/slides.py:77-97``) without PIL, for the pages of ROADMAP M17's
+    first part.  The chain is walked by index, as PIL's ``seek`` walks
+    it, so no OME mapping applies.  It reads gray 8-bit JPEG pages
+    (:func:`_jpeg_page`) and float32 pages with the floating-point
+    predictor (:func:`_float_predictor_page`).  Past the chain's end it
+    raises ``EOFError``; where PIL refuses such a page too, or its data
+    does not decode, :class:`FallbackError` (an ``OSError``); for colour
+    or 12-bit JPEG pages ``NotImplementedError`` naming ROADMAP M17.  Any
+    other page raises ``cause`` again: the reader's own refusal.
+    Streamed and pyramid reads have no such fallback in either package."""
+    with TiffFile(path, chain=False) as tf:
+        page = tf.page_at(index)
+        if page.compression != COMPRESSION_JPEG and page.predictor != 3:
+            raise cause
+        if page.height * page.width > _PIL_MAX_PIXELS:
+            raise PageTooLargeError(
+                f"{path}: page {index} ({page.height}x{page.width}) is "
+                f"beyond PIL's decompression-bomb limit ({_PIL_MAX_PIXELS} "
+                "pixels)")
+        if page.compression == COMPRESSION_JPEG:
+            return _jpeg_page(tf, page)
+        return _float_predictor_page(tf, page)
 
 
 def _box_downsample2(img: np.ndarray) -> np.ndarray:
@@ -833,9 +1054,18 @@ class TiffWriter:
 
 
 def imread(path: str, page: int = 0) -> np.ndarray:
-    """Read one TIFF page, in native byte order."""
-    with TiffFile(path) as tf:
-        arr = tf.read_page(page)
+    """Read one TIFF page, in native byte order; where the reader refuses
+    it (``NotImplementedError`` or ``ValueError``, not
+    :class:`PageTooLargeError`), :func:`read_page_fallback`, whose
+    exceptions pass through as PIL's do in the JAX package
+    (``unmicst_tpu/io/tiff.py:1274-1291``)."""
+    try:
+        with TiffFile(path) as tf:
+            arr = tf.read_page(page)
+    except PageTooLargeError:
+        raise
+    except (NotImplementedError, ValueError) as e:
+        return read_page_fallback(path, page, e)
     if arr.dtype.byteorder not in ("=", "|"):
         arr = arr.astype(arr.dtype.newbyteorder("="))
     return arr

@@ -1,16 +1,19 @@
-// Entropy decode of one JPEG scan (ITU T.81, Huffman coding) of a
-// one-component frame, for unmicst_tpu_torch/io/jpeg.py: baseline and
-// extended sequential scans, and the four progressive kinds (DC first, DC
-// refine, AC first with end-of-band runs, AC refine).  The marker
-// structure, the tables and the inverse DCT stay in Python; this is the
-// bit-serial loop, which runs at about 1 MB/s there.
+// Entropy decode of one JPEG scan (ITU T.81, Huffman coding), for
+// unmicst_tpu_torch/io/jpeg.py: baseline and extended sequential scans,
+// one component or several interleaved, and the four progressive kinds (DC
+// first and DC refine, interleaved or not; AC first with end-of-band runs
+// and AC refine, one component each).  The marker structure, the tables,
+// the block order of the scan's MCUs, the inverse DCT, the upsampling and
+// the colour conversion stay in Python; this is the bit-serial loop, which
+// runs at about 1 MB/s there.
 //
 // It follows libjpeg's jdhuff.c / jdphuff.c: coefficients are int16 in
-// natural order, DC predictors and the end-of-band run reset at each
-// restart marker, lookahead past the end of an interval's data reads zero
-// bits, and bits that a code actually needs past that end are an error.
-// jpeg.py's decode_scan_py is the same algorithm in Python: the two give
-// the same coefficients and fail on the same inputs.
+// natural order, the DC predictors (one per component of the scan) and the
+// end-of-band run reset at each restart marker, lookahead past the end of
+// an interval's data reads zero bits, and bits that a code actually needs
+// past that end are an error.  jpeg.py's decode_scan_py is the same
+// algorithm in Python: the two give the same coefficients and fail on the
+// same inputs.
 //
 // Build: with tiffcodec.cpp into one library by unmicst_tpu_torch/io/
 //        _native.py (g++ -O3 -shared -fPIC, portable flags).
@@ -157,46 +160,60 @@ long long next_marker(const uint8_t* src, long long len, long long pos) {
 
 extern "C" {
 
-// Decode one scan starting at src[pos] into coef (int16, nblocks x 64,
-// natural order, updated in place).  dc_bits/dc_vals and ac_bits/ac_vals
-// are the scan's tables (BITS: 16 counts; may be null where the scan
-// needs none).  Returns the offset of the marker after the scan, or a
+// Decode one scan starting at src[pos] into coef (int16, natural order,
+// updated in place).  The scan visits nblocks blocks: block i is
+// coef[order[i] * 64 ..] and belongs to the scan's component slot[i]
+// (0-3), per_mcu blocks to an MCU.  dc_bits/dc_vals and ac_bits/ac_vals
+// hold four tables each (BITS: 16 counts, HUFFVAL: 256 bytes a slot);
+// bit s of dc_mask / ac_mask says that slot s has one.  restart_interval
+// counts MCUs.  Returns the offset of the marker after the scan, or a
 // negative error code (k* above).
 long long unmicst_jpeg_scan(const uint8_t* src, long long len, long long pos,
-                            int16_t* coef, long long nblocks,
-                            const uint8_t* dc_bits, const uint8_t* dc_vals,
-                            const uint8_t* ac_bits, const uint8_t* ac_vals,
+                            int16_t* coef, const int64_t* order,
+                            const uint8_t* slot, long long nblocks,
+                            long long per_mcu, const uint8_t* dc_bits,
+                            const uint8_t* dc_vals, const uint8_t* ac_bits,
+                            const uint8_t* ac_vals, int dc_mask, int ac_mask,
                             int ss, int se, int ah, int al, int progressive,
                             long long restart_interval) {
-  static thread_local Huff dc, ac;
+  static thread_local Huff dc[4], ac[4];
   const bool seq = !progressive;
   const bool dc_first = ss == 0 && ah == 0;
-  if ((seq || dc_first) && !dc_bits) return kErrTable;
-  if ((seq || ss > 0) && !ac_bits) return kErrTable;
-  if (dc_bits) build(dc_bits, dc_vals, dc);
-  if (ac_bits) build(ac_bits, ac_vals, ac);
+  for (int t = 0; t < 4; ++t) {
+    if ((dc_mask >> t) & 1) build(dc_bits + 16 * t, dc_vals + 256 * t, dc[t]);
+    if ((ac_mask >> t) & 1) build(ac_bits + 16 * t, ac_vals + 256 * t, ac[t]);
+  }
+  const bool need_dc = seq || dc_first, need_ac = seq || ss > 0;
+  for (long long b = 0; b < nblocks; ++b) {
+    const int t = slot[b];
+    if (t > 3 || (need_dc && !((dc_mask >> t) & 1)) ||
+        (need_ac && !((ac_mask >> t) & 1)))
+      return kErrTable;
+  }
   const int p1 = 1 << al, m1 = (int)(~0u << al);
-  const long long ri = restart_interval > 0 ? restart_interval : nblocks;
+  const long long ri = restart_interval > 0 ? restart_interval * per_mcu
+                                            : nblocks;
   Reader rd{src, len, pos, 0, 0, false};
   uint32_t v;
   for (long long start = 0; start < nblocks; start += ri) {
-    int32_t last_dc = 0;
+    int32_t last_dc[4] = {0, 0, 0, 0};
     int eobrun = 0;
     const long long stop = start + ri < nblocks ? start + ri : nblocks;
     for (long long b = start; b < stop; ++b) {
-      int16_t* c = coef + b * 64;
+      int16_t* c = coef + order[b] * 64;
+      const int t = slot[b];
       if (seq || dc_first) {
-        int s = rd.symbol(dc);
+        int s = rd.symbol(dc[t]);
         if (s < 0) return s;
         if (s) {
           if (!rd.take(s, &v)) return kErrEnds;
           s = extend(v, s);
         }
-        last_dc = (int32_t)((uint32_t)last_dc + (uint32_t)s);
-        c[0] = (int16_t)((uint32_t)last_dc << al);
+        last_dc[t] = (int32_t)((uint32_t)last_dc[t] + (uint32_t)s);
+        c[0] = (int16_t)((uint32_t)last_dc[t] << al);
         if (!seq) continue;
         for (int k = 1; k < 64; ++k) {
-          int rs = rd.symbol(ac);
+          int rs = rd.symbol(ac[t]);
           if (rs < 0) return rs;
           int r = rs >> 4, s = rs & 15;
           if (s) {
@@ -217,7 +234,7 @@ long long unmicst_jpeg_scan(const uint8_t* src, long long len, long long pos,
           continue;
         }
         for (int k = ss; k <= se; ++k) {
-          int rs = rd.symbol(ac);
+          int rs = rd.symbol(ac[t]);
           if (rs < 0) return rs;
           int r = rs >> 4, s = rs & 15;
           if (s) {
@@ -241,7 +258,7 @@ long long unmicst_jpeg_scan(const uint8_t* src, long long len, long long pos,
         int k = ss;
         if (eobrun == 0) {
           for (; k <= se; ++k) {
-            int rs = rd.symbol(ac);
+            int rs = rd.symbol(ac[t]);
             if (rs < 0) return rs;
             int r = rs >> 4, s = rs & 15;
             if (s) {

@@ -7,7 +7,8 @@
 // PackBits, inflate, horizontal-predictor undo, one-call strip decode and
 // two deflate encoders) behind a C ABI consumed via ctypes
 // (unmicst_tpu_torch/io/_native.py), no pybind11 dependency.  It is the
-// port's own copy of native/tiffcodec.cpp, with the same ABI.
+// port's own copy of native/tiffcodec.cpp, with the same ABI, plus the
+// floating-point predictor's undo (unmicst_fp_predictor_undo).
 //
 // Build: unmicst_tpu_torch/io/_native.py compiles it with the host's g++
 //        at first use (g++ -O3 -shared -fPIC, portable flags).
@@ -753,6 +754,32 @@ extern "C" void unmicst_predictor_undo(uint8_t* data, long long rows,
     for (long long r = 0; r < rows; ++r) {
       uint16_t* p = (uint16_t*)(data + r * cols * 2);
       for (long long c = 1; c < cols; ++c) p[c] = (uint16_t)(p[c] + p[c - 1]);
+    }
+  }
+}
+
+
+// Undo TIFF's floating-point predictor (predictor 3, TIFF Technote 3) in
+// place: each of `rows` rows holds `cols` samples of `itemsize` bytes as
+// byte planes, most significant first, byte-wise differenced along the
+// row.  The row is summed back, then its planes are interleaved into
+// native-order samples (libtiff's fpAcc).
+extern "C" void unmicst_fp_predictor_undo(uint8_t* data, long long rows,
+                                          long long cols, int itemsize) {
+  const long long n = cols * itemsize;
+  std::vector<uint8_t> tmp((size_t)n);
+  const uint16_t probe = 1;
+  const bool little = *(const uint8_t*)&probe == 1;
+  for (long long r = 0; r < rows; ++r) {
+    uint8_t* p = data + r * n;
+    uint8_t acc = 0;
+    for (long long i = 0; i < n; ++i)
+      tmp[(size_t)i] = acc = (uint8_t)(acc + p[i]);
+    for (int b = 0; b < itemsize; ++b) {
+      const uint8_t* plane = tmp.data() + (long long)b * cols;
+      const int at = little ? itemsize - 1 - b : b;  // plane b: byte b of
+      for (long long c = 0; c < cols; ++c)             // the big-endian value
+        p[c * itemsize + at] = plane[c];
     }
   }
 }

@@ -24,8 +24,9 @@ The index-only helpers (the nearest-neighbour resizes, ``normalize``,
 ``snormalize``, ``cat``, ``size``, ``stack2list``) stay in numpy.  TIFFs
 read and write through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
 :mod:`unmicst_tpu_torch.io.png` and JPEGs read through
-:mod:`unmicst_tpu_torch.io.jpeg` (gray); other formats, which the JAX
-package reaches through PIL, raise ``NotImplementedError`` (ROADMAP M17).
+:mod:`unmicst_tpu_torch.io.jpeg` (gray, and colour as ``[H, W, 3]``);
+other formats, which the JAX package reaches through PIL, raise
+``NotImplementedError`` (ROADMAP M17).
 :func:`imshow` and :func:`imshowlist` keep the JAX package's headless
 contract without matplotlib: they write a PNG and return its path.
 
@@ -70,7 +71,9 @@ def size(image: np.ndarray) -> List[int]:
 
 def imread(path: str) -> np.ndarray:
     """Generic image read: TIFF, PNG (gray 8/16-bit, RGB/RGBA 8-bit) and
-    gray JPEG; other formats raise ``NotImplementedError``."""
+    JPEG (gray ``[H, W]``, colour ``[H, W, 3]`` uint8, as PIL's
+    ``np.asarray`` gives them); other formats raise
+    ``NotImplementedError``."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".tif", ".tiff"):
         return _tiff_read(path)
@@ -80,7 +83,7 @@ def imread(path: str) -> np.ndarray:
         return jpeg.read_jpeg(path)
     raise NotImplementedError(
         f"imread: {ext or 'no extension'} files are not supported by "
-        "unmicst_tpu_torch (TIFF, PNG and gray JPEG are; the JAX package "
+        "unmicst_tpu_torch (TIFF, PNG and JPEG are; the JAX package "
         "reads the rest through PIL: ROADMAP M17)")
 
 
