@@ -2375,7 +2375,7 @@ def phase_train(dev) -> dict:
                 f"peak (67 TFLOP/s); bfloat16 step {bf16_ms:.3f} ms "
                 f"({flops / bf16_ms / 1e9:.2f} TFLOP/s) [{card}]")
 
-            n_steps = 60
+            n_steps = 30
             for ve, pf in ((1, 0), (1, 4), (50, 0), (50, 4)):
                 cfg = dataclasses.replace(base, valid_every=ve, prefetch=pf)
                 tag = f"{name.replace(' ', '_')}_ve{ve}_pf{pf}"
@@ -2395,14 +2395,15 @@ def phase_train(dev) -> dict:
                     recs = [json.loads(line) for line in f]
                 el = [r["elapsed_s"] for r in recs]
                 losses = [r["loss"] for r in recs]
-                # steady state: steps 10..59 (past the first step's cuDNN
-                # autotune and step 0's checkpoint)
-                per_step = (el[-1] - el[10]) / (len(el) - 11)
+                # steady state: steps 10..28 (past the first step's cuDNN
+                # autotune and step 0's checkpoint, before the validation
+                # that every fit runs after its last step)
+                per_step = (el[-2] - el[10]) / (len(el) - 12)
                 check(len(recs) == n_steps and np.all(np.isfinite(losses))
                       and np.isfinite(best), f"{tag}: fit records")
                 log(f"[train] {name} fit valid_every {ve} prefetch {pf}: "
                     f"{1 / per_step:.2f} steps/s = "
-                    f"{hp.batch_size / per_step:.1f} tiles/s (steps 10-59), "
+                    f"{hp.batch_size / per_step:.1f} tiles/s (steps 10-28), "
                     f"{per_step * 1e3:.3f} ms a step of which host "
                     f"{per_step * 1e3 - busy:.3f} ms over the device's "
                     f"{busy:.3f}; {flops / per_step / 1e12:.2f} TFLOP/s end "
@@ -2608,23 +2609,23 @@ def int8_sites(dev, label: str, hp, variant: str, chunk: int) -> list:
             "bias": torch.randn(cout, device=dev)}}, "scales": {site: a}},
             dev)["kernels"][site]
         mat = k["w8_mat"]
-        route = cuda_ms(lambda: unet.quant_conv(x, k, a), iters=10)
-        quantize = cuda_ms(lambda: unet.quantize_input(x, a), iters=10)
+        route = cuda_ms(lambda: unet.quant_conv(x, k, a), iters=5)
+        quantize = cuda_ms(lambda: unet.quantize_input(x, a), iters=5)
         x8q = unet.quantize_input(x, a)
         im2col_mm = cuda_ms(lambda: unet.int8_conv(
-            x8q, mat, ks, lambda b0, s32: None), iters=10)
+            x8q, mat, ks, lambda b0, s32: None), iters=5)
         kp = mat.shape[0]
         group = max(1, min(chunk, unet.IM2COL_BUDGET // (side * side * kp)))
         buf = torch.randint(-127, 128, (max(group * side * side, 17), kp),
                             generator=g, device=dev,
                             dtype=torch.int16).to(torch.int8)
-        mm = cuda_ms(lambda: torch._int_mm(buf, mat), iters=10) * (
+        mm = cuda_ms(lambda: torch._int_mm(buf, mat), iters=5) * (
             chunk / group)
         wf = torch.from_numpy(w).to(dev)
         with _conv_precision(True):
             bf16 = cuda_ms(lambda: F.conv2d(
                 x.to(torch.bfloat16).float(),
-                wf.to(torch.bfloat16).float(), padding=ks // 2), iters=10)
+                wf.to(torch.bfloat16).float(), padding=ks // 2), iters=5)
         ops = ops1[site] * chunk
         n_bytes = chunk * side * side * (cin + 4 * cout)
         bound = max(ops / INT8_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
@@ -2779,8 +2780,7 @@ def phase_int8(dev) -> None:
     rates = {}
     for name in ("float32", "bfloat16", "int8", "bfloat16", "float32"):
         eng = engines[name]
-        mpx, med, times = median_rate(lambda: eng.infer_slide(raw), px,
-                                      reps=5)
+        mpx, med, times = median_rate(lambda: eng.infer_slide(raw), px)
         rates.setdefault(name, []).append(mpx)
         log(f"[int8] legacy {name} 4096^2: {mpx:.2f} Mpx/s (median "
             f"{med:.4f}s of {[round(x, 4) for x in times]}) [{card}]")
@@ -2881,7 +2881,7 @@ def phase_int8(dev) -> None:
     kernels.reset_launch_counts()
     got, first = wall(lambda: stream.infer(big))
     counts = launched()
-    mpx, med, times = median_rate(lambda: stream.infer(big), bpx)
+    mpx, med, times = median_rate(lambda: stream.infer(big), bpx, reps=2)
     log(f"[int8] stream 8192^2: first call {first:.3f} s (calibration and "
         f"autotune included), {mpx:.2f} Mpx/s (median {med:.4f}s of "
         f"{[round(x, 4) for x in times]}), {plan.n_stripes} stripes; "
@@ -2893,7 +2893,7 @@ def phase_int8(dev) -> None:
     bstream = StreamingEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
                               device=dev)
     bgot = bstream.infer(big)
-    mpx_b, _, _ = median_rate(lambda: bstream.infer(big), bpx)
+    mpx_b, _, _ = median_rate(lambda: bstream.infer(big), bpx, reps=2)
     ok, mean, p99, dis = int8_bar(got, bgot)
     log(f"[int8] stream int8 against the bfloat16 stream ({mpx_b:.2f} "
         f"Mpx/s): mean {mean:.3f}, p99 {p99:.1f}, argmax {dis:.4f}")
@@ -4818,7 +4818,7 @@ def phase_slice12(dev) -> dict:
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
-    def turns(graph_fn, eager_fn, reps=3):
+    def turns(graph_fn, eager_fn, reps=2):
         """Median seconds of ``graph_fn`` and ``eager_fn`` timed in turns
         (graph, eager, eager, graph, ...)."""
         g, e = [], []
@@ -5060,7 +5060,7 @@ def phase_slice12(dev) -> dict:
             _, _, idle_e = idle_share(lambda: engine.infer_slide(slide))
         log(f"[slice12] {label} {SLIDE}^2 infer_slide: graphs "
             f"{mpx / sg:.2f} Mpx/s ({sg:.4f} s), eager {mpx / se:.2f} Mpx/s "
-            f"({se:.4f} s), medians of 3 in turns; idle share graphs "
+            f"({se:.4f} s), medians of 2 in turns; idle share graphs "
             f"{idle_g:.3f}, eager {idle_e:.3f} (profiler on); capture s "
             f"per key {captures(engine.model)}; maps byte-equal | {card}")
     bf16 = engine
@@ -5073,7 +5073,7 @@ def phase_slice12(dev) -> dict:
     pg, pe = turns(pan_all, pan_all)
     log(f"[slice12] {len(pans)} 1024^2 pans on the pinned {BIG}^2 plane: "
         f"graphs {pg / len(pans) * 1e3:.2f} ms a pan, eager "
-        f"{pe / len(pans) * 1e3:.2f} ms (medians of 3 in turns) | {card}")
+        f"{pe / len(pans) * 1e3:.2f} ms (medians of 2 in turns) | {card}")
     del plane
 
     stream = StreamingEngine(hp, state, "legacy", LEGACY_MEAN, LEGACY_STD,
@@ -5815,6 +5815,288 @@ def phase_slice15(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+BILEVEL_FIXTURES = os.path.join(ROOT, "tests", "fixtures",
+                                "torch_tiff_bilevel")
+
+
+def _packbits_literal(data: bytes) -> bytes:
+    """PackBits of literal runs only."""
+    return b"".join(bytes([len(data[i:i + 128]) - 1]) + data[i:i + 128]
+                    for i in range(0, len(data), 128))
+
+
+def segment_encoder(compression: int):
+    """The encoder of one strip or tile under a TIFF compression the
+    port decodes: none, LZW, Deflate (8 or 32946), PackBits (literal
+    runs), LZMA (xz) or zstd (the port's libzstd binding)."""
+    import lzma
+    import zlib
+
+    from unmicst_tpu_torch.io import zstd
+
+    return {1: lambda b: b, 5: lzw_encode, 8: zlib.compress,
+            32946: zlib.compress, 32773: _packbits_literal,
+            34925: lambda b: lzma.compress(b, format=lzma.FORMAT_XZ),
+            50000: zstd.compress}[compression]
+
+
+def pack_samples(plane, bits: int):
+    """``plane``'s samples (integers below ``2 ** bits``; 1, 2, 4 or 12
+    bits) packed as TIFF stores them: most significant bit first, each
+    row padded to a whole byte.  ``[rows, ceil(cols * bits / 8)]``
+    uint8."""
+    import numpy as np
+
+    v = np.asarray(plane).astype(np.uint16)
+    h, w = v.shape
+    if bits == 12:
+        v = np.pad(v, ((0, 0), (0, w % 2)))
+        a, b = v[:, 0::2], v[:, 1::2]
+        trio = np.stack([a >> 4, ((a & 15) << 4) | (b >> 8), b & 255], -1)
+        return trio.reshape(h, -1)[:, : (w * 12 + 7) // 8].astype(np.uint8)
+    shifts = np.arange(bits - 1, -1, -1, dtype=np.uint16)
+    flat = ((v[:, :, None] >> shifts) & 1).astype(np.uint8).reshape(h, -1)
+    return np.packbits(flat, axis=1)
+
+
+def packed_tiff(path: str, plane, bits: int, compression: int = 1,
+                rows_per_strip: int = 0, photometric=1, byteorder="<",
+                fill_order: int = 1, predictor: int = 0,
+                repeat: int = 1) -> int:
+    """A one-page gray TIFF of ``plane`` at ``bits`` (1, 2, 4 or 12) bits
+    a sample, in strips of ``rows_per_strip`` rows (all rows by default)
+    under ``compression`` (:func:`segment_encoder`); ``photometric``
+    None leaves the tag out, ``fill_order`` 2 stores every byte's bits
+    reversed (of the coded bytes: libtiff reverses them before it
+    decodes), ``predictor`` writes tag 317 without applying it;
+    ``repeat`` > 1 writes the strips that many times over, a page of
+    ``np.tile(plane, (repeat, 1))`` coded once.  Returns the coded
+    bytes."""
+    import numpy as np
+
+    h, w = plane.shape
+    rows = rows_per_strip or h
+    packed = pack_samples(plane, bits)
+    segments = [segment_encoder(compression)(packed[r:r + rows].tobytes())
+                for r in range(0, h, rows)] * repeat
+    h *= repeat
+    if fill_order == 2:
+        rev = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                       np.uint8)
+        segments = [rev[np.frombuffer(seg, np.uint8)].tobytes()
+                    for seg in segments]
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits]),
+            259: (3, [compression]), 277: (3, [1]), 278: (4, [rows])}
+    if photometric is not None:
+        tags[262] = (3, [photometric])
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if predictor:
+        tags[317] = (3, [predictor])
+    write_segment_tiff(path, [(tags, segments)], byteorder)
+    return sum(map(len, segments))
+
+
+def ccitt_tags(h: int, w: int, compression: int, rows_per_strip=None,
+               tile=None, photometric=0, t4_options=None) -> dict:
+    """The tags of a bilevel CCITT page (compression 2, 3 or 4) in strips
+    of ``rows_per_strip`` rows or tiles ``(th, tw)``."""
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [1]),
+            259: (3, [compression]), 277: (3, [1])}
+    if photometric is not None:
+        tags[262] = (3, [photometric])
+    if tile is not None:
+        tags[322], tags[323] = (4, [tile[1]]), (4, [tile[0]])
+    else:
+        tags[278] = (4, [rows_per_strip or h])
+    if t4_options is not None:
+        tags[292] = (4, [t4_options])
+    return tags
+
+
+def phase_slice16(dev) -> dict:
+    """The rest of the TIFF pages the JAX package reads through PIL (M17,
+    second part), through ``cli.main`` on the card, each byte-equal to
+    its plain twin: a 4096^2 Group 4 bilevel slide of 64 strips (each a
+    copy of the committed 4096 x 64 fixture strip) against the same
+    1-bit pixels uncompressed, both on the host float path; a 4096^2
+    12-bit LZW slide against its uint16 pixels as a plain TIFF; a 4096^2
+    PNG under a TIFF name against its pixels as a TIFF.  The CCITT decode
+    natively (MB/s) and in Python on one strip, byte-equal; every
+    committed fixture of ``tests/fixtures/torch_tiff_bilevel`` (bilevel,
+    old-style JPEG, colour JPEG and planar RGB pages) read equal to PIL's
+    read.  Returns, per kernel, its launches on each counted path."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import _native, ccitt, png
+    from unmicst_tpu_torch.io.tiff import TiffFile, imread, imwrite, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice16_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name, count):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--outputPath", out], device=dev)
+            secs = time.perf_counter() - t0
+            launches[count] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        def against_twin(path, twin, label, count, twin_count):
+            """The CLI on ``path`` against the CLI on its plain twin:
+            pages byte-equal, K1 launched and one K2 epilogue each."""
+            t_maps, t_secs = run(twin, f"twin_{count}", twin_count)
+            c_maps, c_secs = run(path, count, count)
+            same = len(c_maps) == len(t_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(c_maps, t_maps))
+            for key, secs in ((count, c_secs), (twin_count, t_secs)):
+                n = launches[key]
+                log(f"[slice16] {label}, {key}: cli.main {secs:.2f} s; K1 "
+                    f"{n['softmax_blend']}, K2 epilogue "
+                    f"{n['blend_fold_epilogue']}, K2 stripe "
+                    f"{n['blend_fold_stripe']} | {card}")
+                check(n["softmax_blend"] > 0
+                      and n["blend_fold_epilogue"] == 1
+                      and n["blend_fold_stripe"] == 0,
+                      f"{label} ({key}) did not run K1 and one K2 "
+                      f"epilogue: {n}")
+            log(f"[slice16] {label}: pages byte-equal to the twin's: {same}")
+            check(same, f"{label}: pages differ from the plain twin's")
+
+        def decode_s(path):
+            """The fallback's decode alone, twice: (seconds, pixels)."""
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got = imread(path)
+                secs.append(time.perf_counter() - t0)
+            return secs, got
+
+        # -- 1. the CCITT strip: native, Python and PIL's read -----------------
+        fixture = os.path.join(BILEVEL_FIXTURES, "blob_strip_g4.tif")
+        with TiffFile(fixture) as tf:
+            page = tf.pages[0]
+            strip = tf._stored(page, 0)
+        rows, width = page.height, page.width
+        want = np.load(fixture[:-4] + ".npy")
+        check(_native.get_lib() is not None, "the native codec did not load")
+        t0 = time.perf_counter()
+        native = _native.ccitt_decode(strip, width, rows, 4)
+        nat_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        python = ccitt.decode(strip, width, rows, 4)
+        py_s = time.perf_counter() - t0
+        photometric = page.photometric
+        pil = want if photometric == 1 else ~want  # PIL's read, as coded
+        log(f"[slice16] Group 4 strip {rows}x{width} ({len(strip)} B): "
+            f"native {nat_s * 1e3:.3f} ms, Python {py_s:.3f} s; native == "
+            f"Python: {np.array_equal(native, python)}; == PIL's read: "
+            f"{np.array_equal(native, pil)} | {card}")
+        check(np.array_equal(native, python) and np.array_equal(native, pil),
+              "the CCITT decoders disagree with each other or with PIL")
+
+        # -- 2. a 4096^2 Group 4 slide against its 1-bit pixels uncompressed -
+        n_strips = SLIDE // rows
+        g4 = os.path.join(tmp, "bilevel_g4.tif")
+        write_segment_tiff(g4, [(ccitt_tags(
+            SLIDE, width, 4, rows, photometric=photometric),
+            [strip] * n_strips)])
+        bits = np.tile(np.unpackbits(want, axis=1)[:, :width], (n_strips, 1))
+        flat = os.path.join(tmp, "bilevel_none.tif")
+        packed_tiff(flat, bits if photometric == 1 else 1 - bits, 1, 1, rows,
+                    photometric)
+        secs, got = decode_s(g4)
+        nbytes = len(strip) * n_strips
+        log(f"[slice16] Group 4 {SLIDE}^2 ({n_strips} strips, "
+            f"{nbytes / 1e6:.3f} MB): native decode {secs[0]:.4f} s first, "
+            f"{secs[1]:.4f} s again = {nbytes / 1e6 / min(secs):.2f} MB/s "
+            f"of segments ({SLIDE * width / 1e6 / min(secs):.1f} Mpx/s); "
+            f"Python decode of one strip {py_s:.3f} s (the whole slide "
+            f"about {py_s * n_strips:.1f} s) | {card}")
+        check(got.dtype == bool and np.array_equal(got, bits.astype(bool)),
+              "the Group 4 slide does not decode to its pixels")
+        against_twin(g4, flat, f"bilevel {SLIDE}^2 (the host float path)",
+                     "g4_bilevel", "bilevel_uncompressed")
+
+        # -- 3. a 4096^2 12-bit LZW slide against its uint16 pixels ------------
+        # one 64-row strip coded once and repeated, as the Group 4 slide
+        rng = np.random.RandomState(SEED + 16)
+        band = (np.clip(blob_slide(rng, 64, SLIDE, 64), 0, 1)
+                * 4095).astype(np.uint16)
+        deep = np.tile(band, (SLIDE // 64, 1))
+        lzw = os.path.join(tmp, "deep_12bit_lzw.tif")
+        t0 = time.perf_counter()
+        nbytes = packed_tiff(lzw, band, 12, 5, 64, repeat=SLIDE // 64)
+        log(f"[slice16] 12-bit LZW {SLIDE}^2 ({SLIDE // 64} copies of one "
+            f"64-row strip) written in {time.perf_counter() - t0:.2f} s "
+            f"({nbytes / 1e6:.1f} MB)")
+        secs, got = decode_s(lzw)
+        log(f"[slice16] 12-bit LZW {SLIDE}^2: decode {secs[0]:.3f} s first, "
+            f"{secs[1]:.3f} s again = {nbytes / 1e6 / min(secs):.2f} MB/s "
+            f"of segments | {card}")
+        check(got.dtype == np.uint16 and np.array_equal(got, deep),
+              "the 12-bit slide does not decode to its pixels")
+        plain = os.path.join(tmp, "deep_uint16.tif")
+        imwrite(plain, deep)
+        against_twin(lzw, plain, f"12-bit LZW {SLIDE}^2", "lzw_12bit",
+                     "uint16_plain")
+
+        # -- 4. a PNG under a TIFF name ----------------------------------------
+        u8 = (np.clip(blob_slide(rng, SLIDE, SLIDE, 4000), 0, 1)
+              * 255).astype(np.uint8)
+        png_tif = os.path.join(tmp, "png_as.tif")
+        png.write_png(png_tif, u8)
+        secs, got = decode_s(png_tif)
+        log(f"[slice16] PNG {SLIDE}^2 under a TIFF name: read "
+            f"{min(secs):.3f} s | {card}")
+        check(np.array_equal(got, u8), "png_as.tif does not read its pixels")
+        plain = os.path.join(tmp, "u8_plain.tif")
+        imwrite(plain, u8)
+        against_twin(png_tif, plain, f"PNG as TIFF {SLIDE}^2", "png_as_tif",
+                     "uint8_plain")
+        del bits, deep, u8, got
+
+        # -- 5. the committed fixtures -----------------------------------------
+        names = sorted(f[:-4] for f in os.listdir(BILEVEL_FIXTURES)
+                       if f.endswith(".tif") and os.path.exists(
+                           os.path.join(BILEVEL_FIXTURES, f[:-4] + ".npy")))
+        bad = []
+        for name in names:
+            path = os.path.join(BILEVEL_FIXTURES, name + ".tif")
+            ref = np.load(path[:-4] + ".npy")
+            px = imread(path)
+            if name == "blob_strip_g4":
+                px = np.packbits(px, axis=1)
+            if px.dtype != ref.dtype or not np.array_equal(px, ref):
+                bad.append(name)
+        log(f"[slice16] {len(names)} fixtures (bilevel, old-style JPEG, "
+            f"colour JPEG, planar RGB) equal to PIL's reads: "
+            f"{len(names) - len(bad)}; differing: {bad}")
+        check(not bad, f"fixtures differ from PIL's reads: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice16] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -5857,6 +6139,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice13"] = per_path
     for name, per_path in phase_slice15(dev).items():
         stats[name]["launches_slice15"] = per_path
+    for name, per_path in phase_slice16(dev).items():
+        stats[name]["launches_slice16"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -5866,7 +6150,8 @@ def main(argv=None) -> int:
             **{k: v for k, v in row.items()
                if k.endswith("processes")
                or k in ("launches_formats", "launches_slice12",
-                        "launches_slice13", "launches_slice15")}})
+                        "launches_slice13", "launches_slice15",
+                        "launches_slice16")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

@@ -207,18 +207,35 @@ def test_exceptions_are_jax_s(tmp_path, rng):
         tiff.imread(big)
 
 
-def test_colour_jpeg_pages_stay_refused(tmp_path, rng):
-    """An RGB page saved by PIL (YCbCr JPEG): PIL reads it as [H, W, 3];
-    the port refuses it naming M17 (``NotImplementedError`` from
-    ``imread``, ``ValueError`` from ``read_channel``)."""
-    path = str(tmp_path / "rgb.tif")
+def _colour_jpeg_page(tmp_path, rng) -> str:
+    """An RGB page saved by PIL (a colour JPEG page)."""
+    root = tmp_path / "s"
+    root.mkdir()
+    path = str(root / "rgb.tif")
     Image.fromarray(np.stack([_gray(rng, 32, 40)] * 3, -1)).save(
         path, compression="jpeg")
-    assert jax_tiff.imread(path).shape == (32, 40, 3)
-    with pytest.raises(NotImplementedError, match="M17"):
-        tiff.imread(path)
-    with pytest.raises(ValueError, match="M17"):
-        slides.read_channel(path, "tif", 0)
+    return path
+
+
+def test_colour_jpeg_pages_read_as_jax_reads(tmp_path, rng):
+    """Both packages' ``imread`` and ``read_channel`` read a colour JPEG
+    page as the same [H, W, 3] uint8."""
+    path = _colour_jpeg_page(tmp_path, rng)
+    for got in _reads(path):
+        assert got.shape == (32, 40, 3) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, jax_tiff.imread(path))
+
+
+def test_colour_jpeg_pages_stay_refused(tmp_path, rng):
+    """Both CLIs still refuse a colour JPEG page, the port's naming the
+    plane's shape."""
+    path = _colour_jpeg_page(tmp_path, rng)
+    argv = [path, "--tool", "unmicst-legacy", "--model", "blobDemo",
+            "--modelRoot", MODELS, "--outputPath", str(tmp_path / "out")]
+    with pytest.raises(ValueError):
+        jax_cli.main(argv)
+    with pytest.raises(SystemExit, match=r"\(32, 40, 3\)"):
+        cli.main(argv, device="cpu")
 
 
 # -- floating-point predictor pages ---------------------------------------------------

@@ -3,8 +3,9 @@
 The counterpart of ``unmicst_tpu/io/_native.py`` over the port's own copy
 of the C++ source, ``unmicst_tpu_torch/native/tiffcodec.cpp``: LZW and
 PackBits decode (with and without the overrun flag), inflate, predictor-2
-and floating-point predictor (3) undo, one-call strip decode, and the
-greedy and chain deflate encoders;
+and floating-point predictor (3) undo, one-call strip decode, the
+greedy and chain deflate encoders, and the CCITT bilevel decode (TIFF
+compressions 2-4; ``io/ccitt.py`` is its plain version);
 and, in the same library, the entropy decode of a JPEG scan
 (``native/jpegdec.cpp``, for ``io/jpeg.py``) and the PNG row filters' undo
 (``native/pngfilter.cpp``, for ``io/png.py``).  Every function returns
@@ -119,6 +120,11 @@ def _load(path: str) -> ctypes.CDLL:
     # span, src offsets, src lengths, dst offsets, dst lengths (int64[n]),
     # n, codec (TIFF tag value), dst, dst_cap
     fn.argtypes = [ctypes.c_char_p, vp, vp, vp, vp, ll, ll, vp, ll]
+    fn = lib.unmicst_ccitt_decode
+    fn.restype = ll
+    # src, len, dst, width, rows, compression, T4Options, err row
+    fn.argtypes = [ctypes.c_char_p, ll, vp, ll, ll, ctypes.c_int,
+                   ctypes.c_int, ctypes.POINTER(ll)]
     fn = lib.unmicst_png_unfilter
     fn.restype = ll
     fn.argtypes = [vp, ll, ll, ll, vp]  # src, rows, stride, bpp, dst
@@ -344,6 +350,37 @@ def fp_predictor_undo(rows: np.ndarray, itemsize: int) -> Optional[np.ndarray]:
     lib.unmicst_fp_predictor_undo(_ptr(rows), rows.shape[0],
                                   rows.shape[1] // itemsize, itemsize)
     return rows
+
+
+_CCITT_ERRORS = {
+    -1: "data ends early",
+    -2: "no code",
+    -3: "runs that do not add up to the row's width",
+    -4: "a vertical mode outside the row",
+    -5: "bad arguments",
+}
+
+
+def ccitt_decode(data: bytes, width: int, rows: int, compression: int,
+                 options: int = 0) -> Optional[np.ndarray]:
+    """``rows`` rows of ``width`` pixels from one CCITT-coded strip or
+    tile (TIFF compression 2, 3 or 4, ``options`` the page's T4Options,
+    the bytes in FillOrder 1): ``[rows, ceil(width / 8)]`` uint8,
+    packed MSB first, 1 = black, as :func:`io.ccitt.decode` returns; None
+    without the library.  Data that does not decode raises
+    ``ValueError`` naming the row."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty((rows, (width + 7) // 8), np.uint8)
+    err_row = ctypes.c_longlong(0)
+    rc = lib.unmicst_ccitt_decode(data, len(data), _ptr(out), width, rows,
+                                  compression, options,
+                                  ctypes.byref(err_row))
+    if rc < 0:
+        raise ValueError(f"CCITT row {err_row.value}: "
+                         f"{_CCITT_ERRORS.get(rc, f'error {rc}')}")
+    return out
 
 
 _JPEG_ERRORS = {

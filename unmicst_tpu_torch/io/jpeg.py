@@ -805,15 +805,12 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return out
 
 
-def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
-           tables: Optional[Tables] = None) -> np.ndarray:
-    """A JPEG stream -> ``[H, W]`` uint8 (gray) or ``[H, W, 3]`` uint8
-    (colour, RGB), as PIL decodes it.
-
-    ``shape``: the (height, width) the caller expects; a frame of another
-    size raises before any buffer is allocated.  ``tables``: what an
-    abbreviated stream starts from (:func:`parse_tables`).  Every failure
-    raises :class:`JpegError` (a ``ValueError``)."""
+def decode_planes(data: bytes, shape: Optional[Tuple[int, int]] = None,
+                  tables: Optional[Tables] = None):
+    """``(frame, planes)``: each component's samples at its own sampling
+    (``frame.size(i)``, uint8), before any upsampling or colour
+    conversion: what libjpeg's raw-data output gives (libtiff's old-style
+    JPEG reads colour pages this way)."""
     frame, coef = decode_coefficients(data, shape, tables)
     offs, planes = frame.offsets, []
     for i, comp in enumerate(frame.components):
@@ -825,12 +822,31 @@ def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
         img = px.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(
             bh * 8, bw * 8)
         ch, cw = frame.size(i)
-        img = img[:ch, :cw]
-        ratio = (frame.hmax // comp.h, frame.vmax // comp.v)
-        planes.append(upsample(img, ratio)[: frame.height, : frame.width])
+        planes.append(img[:ch, :cw])
+    return frame, planes
+
+
+def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
+           tables: Optional[Tables] = None,
+           colour: Optional[str] = None) -> np.ndarray:
+    """A JPEG stream -> ``[H, W]`` uint8 (gray) or ``[H, W, 3]`` uint8
+    (colour, RGB), as PIL decodes it.
+
+    ``shape``: the (height, width) the caller expects; a frame of another
+    size raises before any buffer is allocated.  ``tables``: what an
+    abbreviated stream starts from (:func:`parse_tables`).  ``colour``
+    overrides the colour space libjpeg would pick for a colour frame:
+    ``"ycbcr"`` converts to RGB, ``"rgb"`` returns the components as they
+    are (libtiff's choice for a JPEG TIFF page by its photometric
+    interpretation).  Every failure raises :class:`JpegError` (a
+    ``ValueError``)."""
+    frame, planes = decode_planes(data, shape, tables)
+    planes = [upsample(img, (frame.hmax // comp.h, frame.vmax // comp.v))[
+        : frame.height, : frame.width]
+        for img, comp in zip(planes, frame.components)]
     if frame.colour == "gray":
         return np.ascontiguousarray(planes[0])
-    if frame.colour == "rgb":
+    if (colour or frame.colour) == "rgb":
         return np.stack(planes, -1)
     return ycc_to_rgb(*planes)
 

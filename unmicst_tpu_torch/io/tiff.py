@@ -22,9 +22,13 @@ loads, and through the Python codecs below when it does not:
 ``imread``, ``num_pages`` and ``imwrite`` keep the JAX package's names.
 Where the reader refuses a page, ``imread`` (and ``slides.read_channel``)
 turn to :func:`read_page_fallback`, the port's stand-in for the JAX
-package's PIL fallback: gray JPEG-compressed pages (compression 7) and
-float32 pages with the floating-point predictor (3), read whole; the
-windowed and pyramid reads keep refusing them, as the JAX package's do.
+package's PIL fallback, which opens the file by content and reads whole:
+a PNG or JPEG under a TIFF name; JPEG-compressed pages (compression 7),
+gray or colour; old-style JPEG pages (6); float32 pages with the
+floating-point predictor (3); gray 1-, 2-, 4- and 12-bit pages, CCITT
+bilevel ones (2-4, :mod:`unmicst_tpu_torch.io.ccitt`) among them; 8-bit
+RGB pages stored plane by plane.  The windowed and pyramid reads keep
+refusing them, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import os
 import struct
 import sys
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -62,9 +66,24 @@ TAG_TILE_BYTE_COUNTS = 325
 TAG_SUBIFDS = 330
 TAG_SAMPLE_FORMAT = 339
 TAG_JPEG_TABLES = 347
+# tags only the fallback reads (:attr:`TiffPage.fallback_tags`)
+TAG_FILL_ORDER = 266
+TAG_T4_OPTIONS = 292
+TAG_JPEG_IF_OFFSET = 513  # old-style JPEG: a complete JPEG stream
+TAG_JPEG_IF_LENGTH = 514
+TAG_YCBCR_COEFFICIENTS = 529
+TAG_YCBCR_SUBSAMPLING = 530
+TAG_REFERENCE_BLACK_WHITE = 532
+_FALLBACK_TAGS = (TAG_FILL_ORDER, TAG_T4_OPTIONS, TAG_JPEG_IF_OFFSET,
+                  TAG_JPEG_IF_LENGTH, TAG_YCBCR_COEFFICIENTS,
+                  TAG_YCBCR_SUBSAMPLING, TAG_REFERENCE_BLACK_WHITE)
 
 COMPRESSION_NONE = 1
+COMPRESSION_CCITT_RLE = 2  # bilevel, Modified Huffman rows (io/ccitt.py)
+COMPRESSION_CCITT_T4 = 3
+COMPRESSION_CCITT_T6 = 4
 COMPRESSION_LZW = 5
+COMPRESSION_OJPEG = 6  # old-style JPEG (TIFF 6.0 section 22)
 COMPRESSION_JPEG = 7  # one JPEG stream a strip or tile (TIFF Technote 2)
 COMPRESSION_DEFLATE_ADOBE = 8
 COMPRESSION_DEFLATE = 32946
@@ -234,6 +253,8 @@ class TiffPage:
     subifds: Optional[np.ndarray] = None  # tag 330: the pyramid's levels
     photometric: Optional[int] = None  # tag 262, None where it is absent
     jpeg_tables: Optional[bytes] = None  # tag 347
+    # the tags of _FALLBACK_TAGS the page has (rationals as float64)
+    fallback_tags: dict = field(default_factory=dict)
 
     @property
     def tiled(self) -> bool:
@@ -378,6 +399,11 @@ class TiffFile:
                 tags[tag] = np.frombuffer(
                     data, dtype=np.dtype(ch).newbyteorder(bo), count=count
                 )
+            elif tag in _FALLBACK_TAGS:  # a rational: numerator / denominator
+                pairs = np.frombuffer(data, np.dtype(ch).newbyteorder(bo),
+                                      2 * count).reshape(count, 2)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    tags[tag] = pairs[:, 0] / pairs[:, 1].astype(np.float64)
 
         def scalar(tag, default=None):
             v = tags.get(tag)
@@ -425,6 +451,9 @@ class TiffFile:
         page.photometric = scalar(TAG_PHOTOMETRIC)
         if isinstance(tags.get(TAG_JPEG_TABLES), np.ndarray):
             page.jpeg_tables = tags[TAG_JPEG_TABLES].tobytes()
+        page.fallback_tags = {t: tags[t] for t in _FALLBACK_TAGS
+                              if isinstance(tags.get(t), np.ndarray)
+                              and len(tags[t])}
         return page, next_ifd
 
     def subifd_page(self, index: int, level: int) -> TiffPage:
@@ -648,20 +677,27 @@ def _segment_grid(page: TiffPage):
 
 
 def _jpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
-    """A gray 8-bit JPEG-compressed page (compression 7), as libtiff's
-    ``tif_jpeg.c`` and libjpeg-turbo decode it under PIL: each strip or
-    tile one JPEG stream, abbreviated after the page's ``JPEGTables`` or
-    complete; the stream's SOF sets its size, which must be the tile's,
-    or the strip's rows (the last strip may be coded taller, and is
-    cropped, as libtiff allows); WhiteIsZero pages, and pages without the
-    tag (PIL's default), come back inverted."""
+    """A JPEG-compressed page (compression 7), as libtiff's ``tif_jpeg.c``
+    and libjpeg-turbo decode it under PIL: each strip or tile one JPEG
+    stream, abbreviated after the page's ``JPEGTables`` or complete; the
+    stream's SOF sets its size, which must be the tile's, or the strip's
+    rows (the last strip may be coded taller, and is cropped, as libtiff
+    allows).  Gray 8-bit pages: WhiteIsZero pages, and pages without the
+    tag (PIL's default), come back inverted.  Colour pages (3 samples,
+    interleaved): photometric 6 (YCbCr) converted to RGB at the stream's
+    sampling, which must be the ``YCbCrSubsampling`` tag's where there is
+    one; photometric 2 (RGB) as the components are, every one at h1v1."""
     from unmicst_tpu_torch.io import jpeg
 
     where = f"{tf.path}: JPEG page"
-    if page.samples != 1 or page.photometric not in (None, 0, 1):
+    colour = page.samples == 3 and page.planar == 1 and page.photometric in (
+        2, 6)
+    if not colour and (page.samples != 1
+                       or page.photometric not in (None, 0, 1)):
         raise NotImplementedError(
             f"{where} of {page.samples} samples, photometric "
-            f"{page.photometric}: colour JPEG TIFF pages are ROADMAP M17")
+            f"{page.photometric}, planar configuration {page.planar}: "
+            "ROADMAP M17")
     if page.bits != 8 or page.sample_format != 1:
         raise NotImplementedError(
             f"{where} of {page.bits}-bit samples of format "
@@ -672,7 +708,10 @@ def _jpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
             tables = jpeg.parse_tables(page.jpeg_tables)
         except jpeg.JpegError as e:
             raise FallbackError(f"{where}: JPEGTables: {e}") from None
-    out = np.empty((page.height, page.width), np.uint8)
+    sampling = page.fallback_tags.get(TAG_YCBCR_SUBSAMPLING)
+    sampling = None if sampling is None else tuple(int(x) for x in sampling)
+    out = np.empty((page.height, page.width) + ((3,) if colour else ()),
+                   np.uint8)
     kind = "tile" if page.tiled else "strip"
     for k, r0, c0, rows, cols in _segment_grid(page):
         try:
@@ -685,15 +724,252 @@ def _jpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
                 raise FallbackError(
                     f"{where}: {kind} {k} is coded {h}x{w}, expected "
                     f"{rows}x{cols}")
-            px = jpeg.decode(data, (h, w), tables)
+            if len(frame.components) != (3 if colour else 1):
+                raise FallbackError(
+                    f"{where}: {kind} {k} holds {len(frame.components)} "
+                    f"component(s) for {page.samples} sample(s)")
+            if colour:
+                luma = (frame.components[0].h, frame.components[0].v)
+                chroma = {(c.h, c.v) for c in frame.components[1:]}
+                want = (1, 1) if page.photometric == 2 else sampling
+                if chroma != {(1, 1)} or (want or luma) != luma:
+                    raise FallbackError(
+                        f"{where}: {kind} {k} is sampled {luma}, photometric"
+                        f" {page.photometric} with YCbCrSubsampling "
+                        f"{sampling}: libtiff refuses it")
+                sampling = luma
+            px = jpeg.decode(data, (h, w), tables, colour=(
+                "rgb" if page.photometric == 2 else "ycbcr"))
         except ValueError as e:  # JpegError, or the segment past EOF
             raise FallbackError(f"{where}: {kind} {k}: {e}") from None
-        if px.ndim != 2:
-            raise FallbackError(f"{where}: {kind} {k} is a colour stream")
         b, d = min(rows, page.height - r0), min(cols, page.width - c0)
         out[r0 : r0 + b, c0 : c0 + d] = px[:b, :d]
-    if page.photometric != 1:
+    if not colour and page.photometric != 1:
         np.subtract(255, out, out=out)
+    return out
+
+
+def _tiff_ycc_tables():
+    """libtiff's ``TIFFYCbCrToRGBInit`` at its default luma coefficients
+    and ReferenceBlackWhite: the factors computed in float32, then
+    16-bit fixed point."""
+    f32 = np.float32
+    red, green, blue = f32(0.299), f32(0.587), f32(0.114)
+    f1 = f32(2) - f32(2) * red
+    f3 = f32(2) - f32(2) * blue
+    d1, d2, d3, d4 = (int(float(f) * 65536 + 0.5) for f in (
+        f1, red * f1 / green, f3, blue * f3 / green))
+    x = np.arange(-128, 128, dtype=np.int64)
+    return ((d1 * x + (1 << 15)) >> 16, (d3 * x + (1 << 15)) >> 16,
+            -d2 * x, -d4 * x + (1 << 15))
+
+
+def _tiff_ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    """``TIFFYCbCrtoRGB`` over whole planes: ``[H, W, 3]`` uint8."""
+    cr_r, cb_b, cr_g, cb_g = _tiff_ycc_tables()
+    y = y.astype(np.int64)
+    out = np.empty(y.shape + (3,), np.uint8)
+    out[..., 0] = np.clip(y + cr_r[cr], 0, 255)
+    out[..., 1] = np.clip(y + ((cb_g[cb] + cr_g[cr]) >> 16), 0, 255)
+    out[..., 2] = np.clip(y + cb_b[cb], 0, 255)
+    return out
+
+
+def _ojpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
+    """An old-style JPEG page (compression 6) whose one strip is, or whose
+    ``JPEGInterchangeFormat`` (tags 513/514) points at, a complete JPEG
+    stream of the page's size, as libtiff's ``tif_ojpeg.c`` reads it
+    under PIL: baseline or extended sequential frames only; gray pages as
+    decoded, whatever their photometric; colour pages (photometric 2 or
+    6) from libjpeg's raw component samples, chroma repeated to the full
+    size and converted by libtiff's own YCbCr tables.  The table form
+    (tags 512, 519-521, bare scans in the strips), pages of several
+    strips or tiles and colour pages with their own YCbCrCoefficients or
+    ReferenceBlackWhite are ROADMAP M17."""
+    from unmicst_tpu_torch.io import jpeg
+
+    where = f"{tf.path}: old-style JPEG page"
+    tags = page.fallback_tags
+    if page.tiled or len(page.offsets) != 1:
+        kind = "tiles" if page.tiled else "strips"
+        raise NotImplementedError(
+            f"{where} in {len(page.offsets)} {kind}: ROADMAP M17")
+    try:
+        if TAG_JPEG_IF_OFFSET in tags and TAG_JPEG_IF_LENGTH in tags:
+            off = int(tags[TAG_JPEG_IF_OFFSET][0])
+            n = int(tags[TAG_JPEG_IF_LENGTH][0])
+            if off < 0 or n < 0 or off + n > tf._fsize:
+                raise FallbackError(f"{where}: its JPEG stream extends past "
+                                    "the end of the file")
+            tf._fh.seek(off)
+            stream = tf._fh.read(n)
+        else:
+            stream = tf._stored(page, 0)
+    except ValueError as e:  # the strip past EOF
+        raise FallbackError(f"{where}: {e}") from None
+    if not stream.startswith(b"\xff\xd8"):
+        raise NotImplementedError(
+            f"{where} in the table form (JPEGProc, JPEGQTables and bare "
+            "scans): ROADMAP M17")
+    colour = page.samples == 3 and page.photometric in (2, 6)
+    if colour and (TAG_YCBCR_COEFFICIENTS in tags
+                   or TAG_REFERENCE_BLACK_WHITE in tags):
+        raise NotImplementedError(
+            f"{where} with its own YCbCrCoefficients or ReferenceBlackWhite:"
+            " ROADMAP M17")
+    if not colour and (page.samples != 1 or page.photometric not in (
+            None, 0, 1)):
+        raise NotImplementedError(
+            f"{where} of {page.samples} samples, photometric "
+            f"{page.photometric}: ROADMAP M17")
+    try:
+        frame, _ = jpeg.parse(stream)
+        if frame.progressive:
+            raise FallbackError(f"{where}: a progressive stream, which "
+                                "libtiff refuses")
+        if (frame.height, frame.width) != (page.height, page.width) or len(
+                frame.components) != page.samples:
+            raise FallbackError(
+                f"{where}: the stream is {frame.height}x{frame.width} of "
+                f"{len(frame.components)} component(s), the page "
+                f"{page.height}x{page.width} of {page.samples} sample(s)")
+        if not colour:
+            return jpeg.decode(stream)
+        frame, planes = jpeg.decode_planes(stream)
+    except ValueError as e:
+        raise FallbackError(f"{where}: {e}") from None
+    full = [np.repeat(np.repeat(p, frame.vmax // c.v, 0), frame.hmax // c.h,
+                      1)[: page.height, : page.width]
+            for p, c in zip(planes, frame.components)]
+    return _tiff_ycc_to_rgb(*full)
+
+
+# the sample widths the fallback unpacks, with PIL's scale to 8 bits
+_PACKED_SCALE = {1: None, 2: 85, 4: 17, 12: None}
+_CCITT = (COMPRESSION_CCITT_RLE, COMPRESSION_CCITT_T4, COMPRESSION_CCITT_T6)
+# each byte's bits reversed (FillOrder 2)
+_BIT_REVERSED = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                         np.uint8)
+
+
+def _unpack(rows: np.ndarray, bits: int, cols: int) -> np.ndarray:
+    """Byte-padded rows ``[n, ceil(cols * bits / 8)]`` of samples packed
+    most significant bit first -> ``[n, cols]`` (uint8, or uint16 for
+    12 bits)."""
+    if bits == 12:
+        n = rows.shape[0]
+        trio = np.zeros((n, 3 * (-(-cols // 2))), np.uint16)
+        trio[:, : rows.shape[1]] = rows
+        trio = trio.reshape(n, -1, 3)
+        out = np.empty((n, trio.shape[1], 2), np.uint16)
+        out[..., 0] = (trio[..., 0] << 4) | (trio[..., 1] >> 4)
+        out[..., 1] = ((trio[..., 1] & 15) << 8) | trio[..., 2]
+        return out.reshape(n, -1)[:, :cols]
+    flat = np.unpackbits(rows, axis=1)
+    if bits == 1:
+        return flat[:, :cols]
+    weights = (1 << np.arange(bits - 1, -1, -1)).astype(np.uint8)
+    return (flat[:, : cols * bits].reshape(len(rows), cols, bits)
+            * weights).sum(axis=2, dtype=np.uint8)
+
+
+def _ccitt_segment(data: bytes, cols: int, rows: int,
+                   page: TiffPage) -> np.ndarray:
+    """One CCITT-coded strip or tile: natively where the library loads
+    (a failure there raises), else :mod:`~unmicst_tpu_torch.io.ccitt`."""
+    from unmicst_tpu_torch.io import ccitt
+
+    options = int(page.fallback_tags.get(TAG_T4_OPTIONS, [0])[0])
+    out = _native.ccitt_decode(data, cols, rows, page.compression, options)
+    if out is not None:
+        return out
+    return ccitt.decode(data, cols, rows, page.compression, options)
+
+
+def _packed_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
+    """A gray page of 1-, 2-, 4- or 12-bit samples, as PIL reads it: each
+    row unpacked most significant bit first, rows byte-padded, under the
+    codecs :func:`_decode` speaks or CCITT (1-bit only); FillOrder 2
+    reverses each stored byte's bits first.  1-bit pages come back
+    ``bool``, 2- and 4-bit pages ``uint8`` at 85 and 17 a step, 12-bit
+    pages ``uint16`` as stored.  WhiteIsZero pages, and pages without the
+    tag (PIL's default), are inverted.  Where PIL has no mode for the page
+    (12-bit pages other than little-endian BlackIsZero at FillOrder 1,
+    signed or float samples) or libtiff refuses it (predictor 2 under a
+    codec that applies it), :class:`FallbackError`."""
+    fill = int(page.fallback_tags.get(TAG_FILL_ORDER, [1])[0])
+    ccitt_coded = page.compression in _CCITT
+    where = f"{tf.path}: {page.bits}-bit page" + (
+        f" under CCITT compression {page.compression}" if ccitt_coded
+        else "")
+    if ccitt_coded and page.bits != 1:
+        raise FallbackError(f"{where}: libtiff codes 1-bit pages only")
+    if page.sample_format != 1 or page.bits not in _PACKED_SCALE or (
+            page.bits == 12 and (tf.byteorder != "<" or fill != 1
+                                 or page.photometric != 1)):
+        raise FallbackError(
+            f"{where} of format {page.sample_format}, byte order "
+            f"{tf.byteorder}, FillOrder {fill}, photometric "
+            f"{page.photometric}: PIL has no mode for it")
+    if page.predictor == 2 and page.compression in _PREDICTED:
+        raise FallbackError(f"{where} with predictor 2: libtiff takes "
+                            "8-bit and wider samples only")
+    bits = page.bits
+    out = np.empty((page.height, page.width),
+                   np.uint16 if bits == 12 else np.uint8)
+    for k, r0, c0, rows, cols in _segment_grid(page):
+        row_bytes = (cols * bits + 7) // 8
+        try:
+            data = tf._stored(page, k)
+            if fill == 2:
+                data = _BIT_REVERSED[np.frombuffer(data, np.uint8)].tobytes()
+            if ccitt_coded:
+                packed = _ccitt_segment(data, cols, rows, page)
+            else:
+                nbytes = rows * row_bytes
+                buf = _decode(data, page.compression, nbytes)
+                if len(buf) < nbytes:
+                    raise FallbackError(f"segment {k} decodes to {len(buf)}"
+                                        f" of {nbytes} bytes")
+                packed = np.frombuffer(buf, np.uint8, nbytes).reshape(
+                    rows, row_bytes)
+        except ValueError as e:
+            raise FallbackError(f"{where}: segment {k}: {e}") from None
+        b, d = min(rows, page.height - r0), min(cols, page.width - c0)
+        out[r0 : r0 + b, c0 : c0 + d] = _unpack(packed, bits, cols)[:b, :d]
+    if page.photometric != 1:
+        np.subtract((1 << bits) - 1, out, out=out)
+    if bits == 1:
+        return out.view(bool)
+    if _PACKED_SCALE[bits]:
+        out *= _PACKED_SCALE[bits]
+    return out
+
+
+def _planar_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
+    """An 8-bit RGB page stored plane by plane (PlanarConfiguration 2),
+    as PIL reads it: ``[H, W, 3]`` uint8, the planes' strips or tiles one
+    plane after another, predictor 2 undone per plane where libtiff
+    applies it."""
+    where = f"{tf.path}: planar RGB page"
+    grid = list(_segment_grid(page))
+    out = np.empty((page.height, page.width, 3), np.uint8)
+    for plane in range(3):
+        for k, r0, c0, rows, cols in grid:
+            seg = plane * len(grid) + k
+            nbytes = rows * cols
+            try:
+                buf = _decode(tf._stored(page, seg), page.compression, nbytes)
+            except ValueError as e:
+                raise FallbackError(f"{where}: segment {seg}: {e}") from None
+            if len(buf) < nbytes:
+                raise FallbackError(f"{where}: segment {seg} decodes to "
+                                    f"{len(buf)} of {nbytes} bytes")
+            px = np.frombuffer(buf, np.uint8, nbytes).reshape(rows, cols, 1)
+            if page.predictor == 2 and page.compression in _PREDICTED:
+                px = _undo_predictor(px.copy())
+            b, d = min(rows, page.height - r0), min(cols, page.width - c0)
+            out[r0 : r0 + b, c0 : c0 + d, plane] = px[:b, :d, 0]
     return out
 
 
@@ -752,33 +1028,86 @@ def _float_predictor_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
     return out
 
 
+_PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_JPEG_MAGIC = b"\xff\xd8"
+
+
+def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
+    """A PNG or JPEG file under a TIFF name, as PIL opens it by content:
+    its one frame, ``EOFError`` past it."""
+    if index > 0:
+        raise EOFError("attempt to seek outside sequence")
+    if magic.startswith(_PNG_MAGIC):
+        from unmicst_tpu_torch.io import png
+
+        read, kind = png.read_png, "PNG"
+    else:
+        from unmicst_tpu_torch.io import jpeg
+
+        read, kind = jpeg.read_jpeg, "JPEG"
+    try:
+        return read(path)
+    except ValueError as e:  # corrupt; NotImplementedError names M17
+        raise FallbackError(f"{path}: {kind} file: {e}") from None
+
+
+def _fallback_reader(page: TiffPage):
+    """The decoder of :func:`read_page_fallback` that takes ``page``, or
+    None."""
+    if page.compression == COMPRESSION_JPEG:
+        return _jpeg_page
+    if page.compression == COMPRESSION_OJPEG:
+        return _ojpeg_page
+    if page.predictor == 3:
+        return _float_predictor_page
+    if page.samples == 1 and page.photometric in (None, 0, 1) and (
+            page.compression in _CCITT or page.bits in _PACKED_SCALE):
+        return _packed_page
+    if (page.samples == 3 and page.planar == 2 and page.photometric == 2
+            and page.bits == 8 and page.sample_format == 1):
+        return _planar_page
+    return None
+
+
 def read_page_fallback(path: str, index: int, cause: Exception
                        ) -> np.ndarray:
     """Page ``index`` of the page chain, decoded whole, where
     :class:`TiffFile` refused it with ``cause``: the JAX package's PIL
     fallback (``unmicst_tpu/io/tiff.py:1285-1291``,
-    ``io/slides.py:77-97``) without PIL, for the pages of ROADMAP M17's
-    first part.  The chain is walked by index, as PIL's ``seek`` walks
-    it, so no OME mapping applies.  It reads gray 8-bit JPEG pages
-    (:func:`_jpeg_page`) and float32 pages with the floating-point
-    predictor (:func:`_float_predictor_page`).  Past the chain's end it
-    raises ``EOFError``; where PIL refuses such a page too, or its data
-    does not decode, :class:`FallbackError` (an ``OSError``); for colour
-    or 12-bit JPEG pages ``NotImplementedError`` naming ROADMAP M17.  Any
-    other page raises ``cause`` again: the reader's own refusal.
-    Streamed and pyramid reads have no such fallback in either package."""
+    ``io/slides.py:77-97``) without PIL, for the pages of ROADMAP M17.
+    The file is opened by content, as PIL opens it: a PNG or JPEG file
+    under a TIFF name gives its one frame (:func:`_single_frame`).  A
+    TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no
+    OME mapping applies.  It reads JPEG pages, gray or colour
+    (:func:`_jpeg_page`), old-style JPEG pages (:func:`_ojpeg_page`),
+    float32 pages with the floating-point predictor
+    (:func:`_float_predictor_page`), gray 1-, 2-, 4- and 12-bit pages,
+    CCITT-coded ones among them (:func:`_packed_page`), and 8-bit RGB
+    pages stored plane by plane (:func:`_planar_page`).  Past the chain's
+    end it raises ``EOFError``; where PIL refuses such a page too, or its
+    data does not decode, :class:`FallbackError` (an ``OSError``); for
+    the pages of these kinds still queued ``NotImplementedError`` naming
+    ROADMAP M17.  Any other page or file raises ``cause`` again: the
+    reader's own refusal.  Streamed and pyramid reads have no such
+    fallback in either package."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC)):
+        return _single_frame(path, index, magic)
+    if magic[:2] not in (b"II", b"MM"):
+        raise cause
     with TiffFile(path, chain=False) as tf:
         page = tf.page_at(index)
-        if page.compression != COMPRESSION_JPEG and page.predictor != 3:
+        reader = _fallback_reader(page)
+        if reader is None:
             raise cause
-        if page.height * page.width > _PIL_MAX_PIXELS:
+        if max(page.height * page.width,
+               page.tile_length * page.tile_width) > _PIL_MAX_PIXELS:
             raise PageTooLargeError(
-                f"{path}: page {index} ({page.height}x{page.width}) is "
-                f"beyond PIL's decompression-bomb limit ({_PIL_MAX_PIXELS} "
-                "pixels)")
-        if page.compression == COMPRESSION_JPEG:
-            return _jpeg_page(tf, page)
-        return _float_predictor_page(tf, page)
+                f"{path}: page {index} ({page.height}x{page.width}, tiles "
+                f"{page.tile_length}x{page.tile_width}) is beyond PIL's "
+                f"decompression-bomb limit ({_PIL_MAX_PIXELS} pixels)")
+        return reader(tf, page)
 
 
 def _box_downsample2(img: np.ndarray) -> np.ndarray:

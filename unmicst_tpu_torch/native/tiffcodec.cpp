@@ -822,6 +822,295 @@ extern "C" long long unmicst_decode_strips(
 }
 
 // ---------------------------------------------------------------------------
+// CCITT bilevel decode (TIFF compressions 2, 3 and 4; ITU T.4 and T.6) of
+// one strip or tile: the native side of unmicst_tpu_torch/io/ccitt.py,
+// which holds the same algorithm in Python and documents it.  Rows come
+// out packed MSB first, each padded to a byte, a set bit per black pixel.
+// The decode is strict where libtiff's tif_fax3.c conceals: no code, an
+// EOL or extension code within a row, a row of the wrong length, or data
+// that ends before the last row fails.
+
+namespace ccitt {
+
+const char* const kWhiteTerm[64] = {
+    "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+    "10011", "10100", "00111", "01000", "001000", "000011", "110100",
+    "110101", "101010", "101011", "0100111", "0001100", "0001000",
+    "0010111", "0000011", "0000100", "0101000", "0101011", "0010011",
+    "0100100", "0011000", "00000010", "00000011", "00011010", "00011011",
+    "00010010", "00010011", "00010100", "00010101", "00010110", "00010111",
+    "00101000", "00101001", "00101010", "00101011", "00101100", "00101101",
+    "00000100", "00000101", "00001010", "00001011", "01010010", "01010011",
+    "01010100", "01010101", "00100100", "00100101", "01011000", "01011001",
+    "01011010", "01011011", "01001010", "01001011", "00110010", "00110011",
+    "00110100"};
+const char* const kBlackTerm[64] = {
+    "0000110111", "010", "11", "10", "011", "0011", "0010", "00011",
+    "000101", "000100", "0000100", "0000101", "0000111", "00000100",
+    "00000111", "000011000", "0000010111", "0000011000", "0000001000",
+    "00001100111", "00001101000", "00001101100", "00000110111",
+    "00000101000", "00000010111", "00000011000", "000011001010",
+    "000011001011", "000011001100", "000011001101", "000001101000",
+    "000001101001", "000001101010", "000001101011", "000011010010",
+    "000011010011", "000011010100", "000011010101", "000011010110",
+    "000011010111", "000001101100", "000001101101", "000011011010",
+    "000011011011", "000001010100", "000001010101", "000001010110",
+    "000001010111", "000001100100", "000001100101", "000001010010",
+    "000001010011", "000000100100", "000000110111", "000000111000",
+    "000000100111", "000000101000", "000001011000", "000001011001",
+    "000000101011", "000000101100", "000001011010", "000001100110",
+    "000001100111"};
+const char* const kWhiteMakeup[27] = {
+    "11011", "10010", "010111", "0110111", "00110110", "00110111",
+    "01100100", "01100101", "01101000", "01100111", "011001100",
+    "011001101", "011010010", "011010011", "011010100", "011010101",
+    "011010110", "011010111", "011011000", "011011001", "011011010",
+    "011011011", "010011000", "010011001", "010011010", "011000",
+    "010011011"};
+const char* const kBlackMakeup[27] = {
+    "0000001111", "000011001000", "000011001001", "000001011011",
+    "000000110011", "000000110100", "000000110101", "0000001101100",
+    "0000001101101", "0000001001010", "0000001001011", "0000001001100",
+    "0000001001101", "0000001110010", "0000001110011", "0000001110100",
+    "0000001110101", "0000001110110", "0000001110111", "0000001010010",
+    "0000001010011", "0000001010100", "0000001010101", "0000001011010",
+    "0000001011011", "0000001100100", "0000001100101"};
+const char* const kExtMakeup[13] = {
+    "00000001000", "00000001100", "00000001101", "000000010010",
+    "000000010011", "000000010100", "000000010101", "000000010110",
+    "000000010111", "000000011100", "000000011101", "000000011110",
+    "000000011111"};
+// the 2D modes, valued as a1 - b1 + 3 for vertical modes, then H and P
+const char* const kModes[9] = {"0000010", "000010", "010",  "1",   "011",
+                               "000011",  "0000011", "001", "0001"};
+const int kHoriz = 7, kPass = 8;
+const int kRunBits = 13, kModeBits = 7;
+
+// A lookup table of `nbits`-bit prefixes: (code length << 16) | value,
+// 0 where no code starts.
+struct Lut {
+  std::vector<uint32_t> e;
+  explicit Lut(int nbits) : e((size_t)1 << nbits, 0) {}
+  void add(const char* code, int value, int nbits) {
+    int len = (int)strlen(code);
+    uint32_t v = 0;
+    for (int i = 0; i < len; ++i) v = (v << 1) | (uint32_t)(code[i] - '0');
+    const uint32_t base = v << (nbits - len), n = 1u << (nbits - len);
+    for (uint32_t s = 0; s < n; ++s)
+      e[base | s] = ((uint32_t)len << 16) | (uint32_t)value;
+  }
+};
+
+struct Tables {
+  Lut white{kRunBits}, black{kRunBits}, modes{kModeBits};
+  Tables() {
+    for (int i = 0; i < 64; ++i) {
+      white.add(kWhiteTerm[i], i, kRunBits);
+      black.add(kBlackTerm[i], i, kRunBits);
+    }
+    for (int i = 0; i < 27; ++i) {
+      white.add(kWhiteMakeup[i], 64 * (i + 1), kRunBits);
+      black.add(kBlackMakeup[i], 64 * (i + 1), kRunBits);
+    }
+    for (int i = 0; i < 13; ++i) {
+      white.add(kExtMakeup[i], 1792 + 64 * i, kRunBits);
+      black.add(kExtMakeup[i], 1792 + 64 * i, kRunBits);
+    }
+    for (int i = 0; i < 9; ++i) modes.add(kModes[i], i, kModeBits);
+  }
+};
+
+const Tables& tables() {
+  static const Tables t;  // thread-safe initialisation (C++11)
+  return t;
+}
+
+enum CcittFail { kEof = 1, kNoCode = 2, kLength = 3, kVertical = 4 };
+
+struct BitReader {
+  std::vector<uint8_t> buf;  // the data, then 4 zero bytes
+  long long nbits, pos = 0;
+  BitReader(const uint8_t* src, long long n)
+      : buf((size_t)n + 4, 0), nbits(n * 8) {
+    if (n > 0) memcpy(buf.data(), src, (size_t)n);
+  }
+  uint32_t peek(int k) const {  // k <= 24 bits, zeros past the end
+    const uint8_t* p = buf.data() + (pos >> 3);
+    uint32_t w = ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) |
+                 ((uint32_t)p[2] << 8) | p[3];
+    return (w << (pos & 7)) >> (32 - k);
+  }
+  int bit() const { return (buf[(size_t)(pos >> 3)] >> (7 - (pos & 7))) & 1; }
+  // the next code of `lut`; its value, or -kEof / -kNoCode
+  int code(const Lut& lut, int k) {  // k: the table's prefix bits
+    const uint32_t e = lut.e[peek(k)];
+    if (e == 0) return pos + k > nbits ? -kEof : -kNoCode;
+    const int len = (int)(e >> 16);
+    if (pos + len > nbits) return -kEof;
+    pos += len;
+    return (int)(e & 0xFFFF);
+  }
+  int run(int colour) {  // make-up codes, then a terminating code
+    const Lut& lut = colour ? tables().black : tables().white;
+    int total = 0;
+    for (;;) {
+      const int n = code(lut, kRunBits);
+      if (n < 0) return n;
+      total += n;
+      if (n < 64) return total;
+    }
+  }
+  int sync_eol() {  // libtiff's SYNC_EOL: 11 zero bits, zeros, then the 1
+    int zeros = 0;
+    while (zeros < 11) {
+      if (pos >= nbits) return -kEof;
+      zeros = bit() ? 0 : zeros + 1;
+      ++pos;
+    }
+    for (;;) {
+      if (pos >= nbits) return -kEof;
+      const int b = bit();
+      ++pos;
+      if (b) return 0;
+    }
+  }
+};
+
+int row_1d(BitReader& rd, long long width, std::vector<long long>& ch) {
+  ch.clear();
+  long long a0 = 0;
+  int colour = 0;
+  while (a0 < width) {
+    const int n = rd.run(colour);
+    if (n < 0) return n;
+    a0 += n;
+    ch.push_back(a0);
+    colour ^= 1;
+  }
+  return a0 == width ? 0 : -kLength;
+}
+
+// `ref`: the row above's changing elements, then `width` three times
+int row_2d(BitReader& rd, long long width, const std::vector<long long>& ref,
+           std::vector<long long>& ch) {
+  ch.clear();
+  long long a0 = -1;
+  int colour = 0;
+  size_t j = 0;
+  while (a0 < width) {
+    while (ref[j] <= a0) ++j;  // a0 never decreases
+    size_t i = j;
+    if ((int)(i & 1) != colour) ++i;
+    const long long b1 = ref[i], b2 = ref[i + 1];
+    const int mode = rd.code(tables().modes, kModeBits);
+    if (mode < 0) return mode;
+    if (mode == kPass) {
+      a0 = b2;
+    } else if (mode == kHoriz) {
+      const int r1 = rd.run(colour);
+      if (r1 < 0) return r1;
+      const int r2 = rd.run(colour ^ 1);
+      if (r2 < 0) return r2;
+      const long long a1 = (a0 < 0 ? 0 : a0) + r1;
+      a0 = a1 + r2;
+      ch.push_back(a1);
+      ch.push_back(a0);
+    } else {
+      const long long a1 = b1 + mode - 3;
+      if (a1 < (a0 < 0 ? 0 : a0) || a1 > width) return -kVertical;
+      ch.push_back(a1);
+      a0 = a1;
+      colour ^= 1;
+    }
+  }
+  return a0 == width ? 0 : -kLength;
+}
+
+// the row's changing elements as the row below reads them (zero-length
+// runs cancelled, the row's end dropped), then `width` three times
+void reference(const std::vector<long long>& ch, long long width,
+               std::vector<long long>& ref) {
+  ref.clear();
+  for (long long x : ch) {
+    if (x >= width) break;
+    if (!ref.empty() && ref.back() == x)
+      ref.pop_back();
+    else
+      ref.push_back(x);
+  }
+  ref.insert(ref.end(), 3, width);
+}
+
+void set_bits(uint8_t* row, long long a, long long b) {  // [a, b) to 1
+  while (a < b && (a & 7)) {
+    row[a >> 3] |= (uint8_t)(0x80 >> (a & 7));
+    ++a;
+  }
+  if (b - a >= 8) {
+    memset(row + (a >> 3), 0xFF, (size_t)((b - a) >> 3));
+    a += (b - a) & ~7LL;
+  }
+  while (a < b) {
+    row[a >> 3] |= (uint8_t)(0x80 >> (a & 7));
+    ++a;
+  }
+}
+
+}  // namespace ccitt
+
+// Decode `rows` rows of `width` pixels from one CCITT-coded strip or tile
+// into dst (rows x ceil(width / 8) bytes, zeroed here).  compression: the
+// TIFF tag's value (2 Modified Huffman, 3 T.4, 4 T.6); options: the
+// page's T4Options (bit 0: 2D rows).  Returns 0, or -(kind) with *err_row
+// set to the
+// row that failed (kind 1: data ends, 2: no code, 3: a row of the wrong
+// length, 4: a vertical mode outside the row; 5: bad arguments).
+extern "C" long long unmicst_ccitt_decode(const uint8_t* src, long long n,
+                                          uint8_t* dst, long long width,
+                                          long long rows, int compression,
+                                          int options,
+                                          long long* err_row) {
+  using namespace ccitt;
+  *err_row = 0;
+  if (width <= 0 || rows < 0 || n < 0 ||
+      (compression != 2 && compression != 3 && compression != 4))
+    return -5;
+  const long long stride = (width + 7) >> 3;
+  memset(dst, 0, (size_t)(stride * rows));
+  ccitt::BitReader rd(src, n);
+  std::vector<long long> ch, ref;
+  reference(ch, width, ref);  // an all-white row above the first
+  for (long long r = 0; r < rows; ++r) {
+    *err_row = r;
+    int rc;
+    if (compression == 2) {
+      rc = row_1d(rd, width, ch);
+      rd.pos = (rd.pos + 7) & ~7LL;
+    } else if (compression == 4) {
+      rc = row_2d(rd, width, ref, ch);
+    } else {
+      rc = rd.sync_eol();
+      if (rc == 0) {
+        bool one_d = true;
+        if (options & 1) {
+          if (rd.pos >= rd.nbits) return -kEof;
+          one_d = rd.bit() != 0;
+          ++rd.pos;
+        }
+        rc = one_d ? row_1d(rd, width, ch) : row_2d(rd, width, ref, ch);
+      }
+    }
+    if (rc < 0) return rc;
+    reference(ch, width, ref);
+    uint8_t* row = dst + r * stride;
+    const size_t m = ref.size() - 3;
+    for (size_t k = 0; k < m; k += 2)
+      set_bits(row, ref[k], k + 1 < m ? ref[k + 1] : width);
+  }
+  return 0;
+}
+
+// ---------------------------------------------------------------------------
 // Fast zlib-wrapped DEFLATE encoder (RFC 1950/1951), written from the RFCs.
 //
 // Greedy single-probe hash matching (4-byte hash, 32K heads; inside a
