@@ -78,11 +78,12 @@ printing any result):
    one (streamed) and a truncated one (exit 2, that slide alone in
    ``failed``), every page against the engines in this process, the
    sweep's Mpx/s and each slide's seconds beside the bare engine call;
-   the same sweep again (every slide skipped, K1 never launched); the
-   8192^2 slide with ``--engine sharded --meshShape 4`` (K3 twice per
-   stripe); then ``cli.main`` on the host float path, a 4096^2 int16
-   legacy slide and a 4096^2 uint8 + uint16 duo slide (the duo net at
-   nucleiDAPILAMIN's widths, its model directory also written by
+   the same sweep again (every slide skipped, K1 never launched) beside
+   the 8192^2 slide with ``--engine sharded --meshShape 4`` (K3 twice per
+   stripe), the two children side by side; then ``cli.main`` on the host
+   float path, a 4096^2 int16 legacy slide and a 4096^2 uint8 + uint16
+   duo slide (the duo net at nucleiDAPILAMIN's widths, its model
+   directory also written by
    ``save_tf1_params``), beside the on-card path for the same slides in
    uint16, with K2's float32 epilogue launched once per slide, the host
    path's breakdown and the D2H of its float32 maps; the card against
@@ -97,7 +98,8 @@ printing any result):
    the v2 directory reloaded from its msgpack file and from its TF1
    bundle; ``cli.main`` and ``python -m unmicst_tpu_torch`` on a 4096^2
    slide with that directory (K1 and K2 launched, the child's pages
-   against ``cli.main``'s, and both again with cuDNN's algorithms pinned);
+   against ``cli.main``'s, and both again with cuDNN's algorithms pinned;
+   the two children and the pinned ``cli.main`` side by side);
 10. int8 (``--precision int8``: the bfloat16 mode with the plain conv
     sites as an exact s8 x s8 -> s32 ``torch._int_mm`` over an im2col):
     at every int8 site of nucleiDAPI's and nucleiDAPILAMIN's widths, at
@@ -222,6 +224,22 @@ printing any result):
     auto`` with the net at one level, on the whole engine (K2's slide
     epilogue once, its stripe entry never: the streamed probe refuses
     such pages, as in JAX), and ``--engine streaming`` refusing it.
+18. the rest of the TIFF pages (M17, second part; ``phase_slice16``):
+    Group 4, 12-bit LZW and PNG-as-TIFF 4096^2 slides through
+    ``cli.main``, byte-equal to their plain twins, and the committed
+    bilevel, old-style JPEG, colour and planar fixtures;
+19. the last TIFF pages, the toolbox's formats and F5 (M17, third part;
+    ``phase_slice17``, the legacy net at nucleiDAPI's widths, seeded
+    weights): a 4096^2 gray old-style JPEG slide in the table form and a
+    4096^2 4-bit palette slide through ``cli.main``, each byte-equal to
+    its pixels as a plain TIFF, K1 and one K2 epilogue counted, with the
+    decode seconds; every committed fixture of
+    ``tests/fixtures/torch_tiff_pages`` and ``torch_image_formats`` equal
+    to PIL's read, ``imtools.imwrite`` of each dtype read back to PIL's
+    read; ``imgaussfilt``, ``imgradmag`` and ``imderivatives`` of a bool
+    image on the card byte-equal to scipy's.  The ``kernels`` line gives
+    each path's launches under ``launches_slice16`` and
+    ``launches_slice17``.
 """
 
 from __future__ import annotations
@@ -1660,22 +1678,38 @@ def write_model_dir(root: str, name: str, hp, state, variant: str,
     return d
 
 
-def run_sweep_process(argv, label: str) -> tuple:
-    """``python -m unmicst_tpu_torch.batch ... --stats`` in a child process:
-    (exit code, its --stats record, wall seconds)."""
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "unmicst_tpu_torch.batch",
-                        *argv, "--stats"], cwd=ROOT, capture_output=True,
-                       text=True, timeout=600)
+def start_sweep_process(argv) -> tuple:
+    """``python -m unmicst_tpu_torch.batch ... --stats`` started in a
+    child process: (the process, its start time)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "unmicst_tpu_torch.batch", *argv, "--stats"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True), time.perf_counter()
+
+
+def finish_sweep_process(started, label: str) -> tuple:
+    """Wait for a :func:`start_sweep_process` child (killed if it outlasts
+    600 s): (exit code, its --stats record, wall seconds)."""
+    proc, t0 = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     secs = time.perf_counter() - t0
-    for line in r.stdout.splitlines():
+    for line in out.splitlines():
         if line.startswith("[sweep"):
             log(f"[sweep] {label}: {line}")
-    records = [line for line in r.stdout.splitlines()
-               if line.startswith("{")]
-    check(records, f"sweep {label}: no --stats record (rc {r.returncode})\n"
-                   f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    return r.returncode, json.loads(records[-1]), secs
+    records = [line for line in out.splitlines() if line.startswith("{")]
+    check(records, f"sweep {label}: no --stats record (rc {proc.returncode})"
+                   f"\n{out[-3000:]}\n{err[-3000:]}")
+    return proc.returncode, json.loads(records[-1]), secs
+
+
+def run_sweep_process(argv, label: str) -> tuple:
+    """:func:`start_sweep_process`, then :func:`finish_sweep_process`."""
+    return finish_sweep_process(start_sweep_process(argv), label)
 
 
 def phase_sweep(dev) -> int:
@@ -1820,32 +1854,43 @@ def phase_sweep(dev) -> int:
             outs[path] = (imread(cfile, 0), imread(nfile, 0))
         del engine
 
-        # run 2: everything done is skipped; K1 never launches
-        rc, rec, secs = run_sweep_process(argv, "run 2")
-        log(f"[sweep] run 2 (resume): rc {rc}, skipped "
-            f"{len(rec['skipped'])}, failed {rec['failed']}, launches "
-            f"{ {k: v for k, v in rec['launches'].items() if v} }, process "
-            f"{secs:.2f} s")
-        check(rc == 2 and sorted(rec["skipped"]) == good
-              and not rec["completed"] and rec["failed"] == [bad]
-              and rec["launches"]["softmax_blend"] == 0,
-              f"sweep run 2 did not skip the finished slides: {rec}")
-
-        # run 3: the 8192^2 slide, --engine sharded on 4 ranks of the card
+        # run 2: everything done is skipped; K1 never launches.  It and
+        # run 3 read different roots: they run side by side (ROADMAP T1)
+        resume = start_sweep_process(argv)
         root_big = os.path.join(tmp, "sweep_big")
         big_link = os.path.join(root_big, "exemplar-002", "registration",
                                 "big.ome.tif")
         os.makedirs(os.path.dirname(big_link))
         os.link(big, big_link)
-        rc, rec, secs = run_sweep_process(
-            [root_big, "--model", "nucleiDAPI", "--modelRoot", zoo,
-             "--engine", "sharded", "--meshShape", str(RANKS)], "run 3")
+        children = [resume]
+        try:
+            # run 3: the 8192^2 slide, --engine sharded on 4 ranks of the
+            # card
+            children.append(start_sweep_process(
+                [root_big, "--model", "nucleiDAPI", "--modelRoot", zoo,
+                 "--engine", "sharded", "--meshShape", str(RANKS)]))
+            rc, rec, secs = finish_sweep_process(resume, "run 2")
+            log(f"[sweep] run 2 (resume, beside run 3): rc {rc}, skipped "
+                f"{len(rec['skipped'])}, failed {rec['failed']}, launches "
+                f"{ {k: v for k, v in rec['launches'].items() if v} }, "
+                f"process {secs:.2f} s")
+            check(rc == 2 and sorted(rec["skipped"]) == good
+                  and not rec["completed"] and rec["failed"] == [bad]
+                  and rec["launches"]["softmax_blend"] == 0,
+                  f"sweep run 2 did not skip the finished slides: {rec}")
+            rc, rec, secs = finish_sweep_process(children[1], "run 3")
+        finally:
+            for proc, _ in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         out = os.path.join(root_big, "exemplar-002", "prob_maps")
         dc = levels(imread(os.path.join(out, "big_ContoursPM_1.tif")),
                     outs[big][0])
         dn = levels(imread(os.path.join(out, "big_NucleiPM_1.tif")),
                     outs[big][1])
-        log(f"[sweep] run 3 (--engine sharded --meshShape {RANKS}): rc {rc}, "
+        log(f"[sweep] run 3 (--engine sharded --meshShape {RANKS}, beside "
+            f"run 2): rc {rc}, "
             f"{BIG * BIG / 1e6 / rec['wall_s']:.2f} Mpx/s of sweep; vs the "
             f"one-rank stream contours {dc[0]} level(s), nuclei {dn[0]}; "
             f"launches { {k: v for k, v in rec['launches'].items() if v} } "
@@ -2474,29 +2519,37 @@ def phase_train(dev) -> dict:
               f"trained-directory slide: launches {counts}, "
               f"{len(pages)} pages")
         trace = os.path.join(tmp, "trace")
+        # the two fresh processes and the pinned run here are independent
+        # checks, so they run side by side (ROADMAP T1)
         t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "unmicst_tpu_torch",
-                            *argv, "--outputPath", os.path.join(tmp, "out2"),
-                            "--trace", trace], cwd=ROOT, capture_output=True,
-                           text=True, timeout=600)
-        secs = time.perf_counter() - t0
-        check(r.returncode == 0, f"python -m unmicst_tpu_torch: rc "
-                                 f"{r.returncode}\n{r.stderr[-3000:]}")
+        children = [subprocess.Popen(
+            [sys.executable, *cmd, *argv, "--outputPath",
+             os.path.join(tmp, out)], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for cmd, out in ((["-m", "unmicst_tpu_torch", "--trace", trace],
+                              "out2"), (["-c", PINNED_CLI], "pinned2"))]
+        try:
+            with pinned_cudnn():
+                in_new_thread(lambda: cli.main(
+                    argv + ["--outputPath", os.path.join(tmp, "pinned")]))
+            for proc, label in zip(children, ("", "pinned ")):
+                _, err = proc.communicate(timeout=600)
+                if not label:
+                    secs = time.perf_counter() - t0
+                check(proc.returncode == 0, f"{label}python -m "
+                      f"unmicst_tpu_torch: rc {proc.returncode}\n"
+                      f"{err[-3000:]}")
+        finally:
+            for proc in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
         child = read_pages(os.path.join(tmp, "out2"))
         # a fresh process autotunes cuDNN anew, and another algorithm may
         # round a probability across a level: the bar is 1 level.  With
         # the algorithms pinned (no autotune, deterministic ones) in both
         # processes, the pages must be equal
         diff, n1, n_more = level_diff(child, pages)
-        with pinned_cudnn():
-            in_new_thread(lambda: cli.main(
-                argv + ["--outputPath", os.path.join(tmp, "pinned")]))
-        r = subprocess.run([sys.executable, "-c", PINNED_CLI, *argv,
-                            "--outputPath", os.path.join(tmp, "pinned2")],
-                           cwd=ROOT, capture_output=True, text=True,
-                           timeout=600)
-        check(r.returncode == 0, f"pinned python -m unmicst_tpu_torch: rc "
-                                 f"{r.returncode}\n{r.stderr[-3000:]}")
         p_diff, p1, p_more = level_diff(
             read_pages(os.path.join(tmp, "pinned2")),
             read_pages(os.path.join(tmp, "pinned")))
@@ -2509,7 +2562,8 @@ def phase_train(dev) -> dict:
         n_px = 3 * SLIDE * SLIDE
         log(f"[train] python -m unmicst_tpu_torch on the trained directory: "
             f"rc 0 in {secs:.2f} s (a fresh process: kernels loaded, cuDNN "
-            f"autotuned); its trace holds {k1} K1 and {k2} K2 launches; "
+            f"autotuned; beside the pinned child and the pinned run here); "
+            f"its trace holds {k1} K1 and {k2} K2 launches; "
             f"pages within {diff} level(s) of cli.main's: {n1} of {n_px} "
             f"pixels 1 level apart, {n_more} more; with cuDNN's algorithms "
             f"pinned in both processes: within {p_diff} level(s), {p1} "
@@ -5518,20 +5572,24 @@ def phase_slice13(dev) -> dict:
 
 # -- phase 17: the TIFF pages the JAX package reads through PIL ---------------
 
-_TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 7: "B", 11: "f", 12: "d"}
+_TIFF_TYPES = {1: "B", 2: "s", 3: "H", 4: "I", 5: "I", 7: "B", 11: "f",
+               12: "d"}
 
 
-def write_segment_tiff(path: str, pages, byteorder: str = "<") -> None:
+def write_segment_tiff(path: str, pages, byteorder: str = "<",
+                       prefix: bytes = b"") -> None:
     """A classic TIFF of segments encoded elsewhere (JPEG streams,
     predictor-3 deflate), in byte order ``byteorder`` ("<" II, ">" MM):
     ``pages`` holds ``(tags, segments)`` a page, or ``(tags, segments,
     levels)`` with ``levels`` more such pairs hung off the page's SubIFDs
-    (tag 330); ``tags`` is ``{tag: (type, values)}`` (a list, or bytes for
-    types 2 and 7) without the segments' offsets and byte counts, which
-    are filled in, as tiles where tag 322 is given and as strips
-    otherwise.  The pages chain in order."""
+    (tag 330); ``tags`` is ``{tag: (type, values)}`` (a list, numerator
+    and denominator in turn for type 5, or bytes for types 2 and 7)
+    without the segments' offsets and byte counts, which are filled in,
+    as tiles where tag 322 is given and as strips otherwise.  The pages chain in order.  ``prefix`` lies right after the
+    8-byte header, so tags may point into it at ``8 + position``."""
     bo = byteorder
-    out = bytearray((b"II*\0" if bo == "<" else b"MM\0*") + bytes(4))
+    out = bytearray((b"II*\0" if bo == "<" else b"MM\0*") + bytes(4)
+                    + prefix)
 
     def ifd(tags, segments) -> int:
         """Write the segments and the IFD; returns the IFD's offset."""
@@ -5554,7 +5612,7 @@ def write_segment_tiff(path: str, pages, byteorder: str = "<") -> None:
             else:
                 data = struct.pack(f"{bo}{len(values)}{_TIFF_TYPES[ftype]}",
                                    *values)
-                count = len(values)
+                count = len(values) // 2 if ftype == 5 else len(values)
             if len(data) <= 4:
                 field = data.ljust(4, b"\0")
             else:
@@ -5815,6 +5873,97 @@ def phase_slice15(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+def jpeg_parts(stream: bytes) -> dict:
+    """A baseline JPEG stream taken apart as an old-style JPEG TIFF in the
+    table form stores it: per component its quantisation table (64
+    bytes, zigzag order), DC and AC Huffman tables (16 counts, then the
+    values), and sampling byte; the frame's size; the restart interval
+    (DRI, 0 without one); the header up to and with the SOS segment; and
+    the entropy-coded data cut at its restart markers, which are
+    dropped."""
+    pos, q, huff, dri = 2, {}, {}, 0
+    while True:
+        marker = stream[pos + 1]
+        n = struct.unpack(">H", stream[pos + 2:pos + 4])[0]
+        body = stream[pos + 4:pos + 2 + n]
+        if marker == 0xDB:
+            for i in range(0, len(body), 65):
+                q[body[i] & 15] = body[i + 1:i + 65]
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                count = sum(body[i + 1:i + 17])
+                huff[body[i]] = body[i + 1:i + 17 + count]
+                i += 17 + count
+        elif marker in (0xC0, 0xC1):
+            sof = body
+        elif marker == 0xDD:
+            dri = struct.unpack(">H", body)[0]
+        elif marker == 0xDA:
+            sos = body
+            pos += 2 + n
+            break
+        pos += 2 + n
+    nc = sof[5]
+    comps = [sof[6 + 3 * k:9 + 3 * k] for k in range(nc)]
+    sel = [sos[2 + 2 * k] for k in range(nc)]
+    scan = stream[pos:stream.rindex(b"\xff\xd9")]
+    intervals, cur, i = [], bytearray(), 0
+    while i < len(scan):
+        if scan[i] == 0xFF and 0xD0 <= scan[i + 1] <= 0xD7:
+            intervals.append(bytes(cur))
+            cur, i = bytearray(), i + 2
+            continue
+        cur.append(scan[i])
+        i += 1
+    intervals.append(bytes(cur))
+    return {"q": [q[c[2]] for c in comps],
+            "dc": [huff[t >> 4] for t in sel],
+            "ac": [huff[0x10 | (t & 15)] for t in sel],
+            "sampling": [c[1] for c in comps],
+            "size": struct.unpack(">HH", sof[1:5]), "restart": dri,
+            "header": stream[:pos], "intervals": intervals}
+
+
+def ojpeg_tiff(path: str, h: int, w: int, parts: dict, segments,
+               photometric: int = 1, rows_per_strip=None, tile=None,
+               form: str = "tables", tags=None) -> None:
+    """A one-page old-style JPEG TIFF (compression 6) of ``segments`` (the
+    strips or tiles' bytes), in ``form`` "tables": JPEGProc 1,
+    JPEGRestartInterval and JPEGQTables, JPEGDCTables and JPEGACTables
+    (519-521) pointing at ``parts``' tables (:func:`jpeg_parts`), placed
+    after the header, a component whose table equals its predecessor's
+    sharing its offset; or "jif": JPEGInterchangeFormat (513/514)
+    pointing at ``parts["header"]``.  ``tags`` adds or overrides tags."""
+    samples = len(parts["q"])
+    prefix, offsets, placed = bytearray(), {519: [], 520: [], 521: []}, {}
+    if form == "jif":
+        prefix += parts["header"]
+    else:
+        for tag, key in ((519, "q"), (520, "dc"), (521, "ac")):
+            for table in parts[key]:
+                if table not in placed:
+                    prefix += bytes(len(prefix) % 2)
+                    placed[table] = 8 + len(prefix)
+                    prefix += table
+                offsets[tag].append(placed[table])
+    base = {256: (4, [w]), 257: (4, [h]), 258: (3, [8] * samples),
+            259: (3, [6]), 262: (3, [photometric]), 277: (3, [samples]),
+            284: (3, [1])}
+    if form == "jif":
+        base.update({513: (4, [8]), 514: (4, [len(parts["header"])])})
+    else:
+        base.update({512: (3, [1]), 515: (3, [parts["restart"]]),
+                     519: (4, offsets[519]), 520: (4, offsets[520]),
+                     521: (4, offsets[521])})
+    if tile is not None:
+        base[322], base[323] = (4, [tile[1]]), (4, [tile[0]])
+    else:
+        base[278] = (4, [rows_per_strip or h])
+    write_segment_tiff(path, [({**base, **(tags or {})}, list(segments))],
+                       prefix=bytes(prefix))
+
+
 BILEVEL_FIXTURES = os.path.join(ROOT, "tests", "fixtures",
                                 "torch_tiff_bilevel")
 
@@ -5862,7 +6011,7 @@ def pack_samples(plane, bits: int):
 def packed_tiff(path: str, plane, bits: int, compression: int = 1,
                 rows_per_strip: int = 0, photometric=1, byteorder="<",
                 fill_order: int = 1, predictor: int = 0,
-                repeat: int = 1) -> int:
+                repeat: int = 1, colormap=None) -> int:
     """A one-page gray TIFF of ``plane`` at ``bits`` (1, 2, 4 or 12) bits
     a sample, in strips of ``rows_per_strip`` rows (all rows by default)
     under ``compression`` (:func:`segment_encoder`); ``photometric``
@@ -5870,7 +6019,8 @@ def packed_tiff(path: str, plane, bits: int, compression: int = 1,
     reversed (of the coded bytes: libtiff reverses them before it
     decodes), ``predictor`` writes tag 317 without applying it;
     ``repeat`` > 1 writes the strips that many times over, a page of
-    ``np.tile(plane, (repeat, 1))`` coded once.  Returns the coded
+    ``np.tile(plane, (repeat, 1))`` coded once; ``colormap`` (3 * 2**bits
+    values) is a palette page's ColorMap (tag 320).  Returns the coded
     bytes."""
     import numpy as np
 
@@ -5893,6 +6043,8 @@ def packed_tiff(path: str, plane, bits: int, compression: int = 1,
         tags[266] = (3, [fill_order])
     if predictor:
         tags[317] = (3, [predictor])
+    if colormap is not None:
+        tags[320] = (3, list(colormap))
     write_segment_tiff(path, [(tags, segments)], byteorder)
     return sum(map(len, segments))
 
@@ -6097,6 +6249,224 @@ def phase_slice16(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+# -- phase 19: the rest of the TIFF pages, and the toolbox's formats ---------
+
+TIFF_PAGES_FIXTURES = os.path.join(ROOT, "tests", "fixtures",
+                                   "torch_tiff_pages")
+FORMATS_FIXTURES = os.path.join(ROOT, "tests", "fixtures",
+                                "torch_image_formats")
+BOOL_FIXTURE = os.path.join(ROOT, "tests", "fixtures", "torch_imtools_bool",
+                            "bool_filters.npz")
+
+
+def ojpeg_fixture_parts(path: str) -> tuple:
+    """A one-strip gray old-style JPEG fixture in the table form, read
+    with the port's ``TiffFile``: its tables as :func:`jpeg_parts` gives
+    them, and its strip's bytes."""
+    from unmicst_tpu_torch.io.tiff import TiffFile
+
+    with TiffFile(path) as tf:
+        page = tf.pages[0]
+        strip = tf._stored(page, 0)
+        tables = {}
+        for tag, key in ((519, "q"), (520, "dc"), (521, "ac")):
+            tf._fh.seek(int(page.fallback_tags[tag][0]))
+            head = tf._fh.read(64 if key == "q" else 16)
+            tables[key] = [head if key == "q"
+                           else head + tf._fh.read(sum(head))]
+    return {**tables, "restart": 0}, strip
+
+
+def phase_slice17(dev) -> dict:
+    """The rest of the TIFF pages the JAX package reads through PIL and
+    the toolbox's formats (M17, third part), and F5: through ``cli.main``
+    on the card, each byte-equal to its plain twin: a 4096^2 gray
+    old-style JPEG slide in the table form (256 strips, each the
+    committed 4096 x 16 fixture strip's scan) against its decoded pixels
+    as a plain TIFF, and a 4096^2 4-bit palette slide (Deflate) against
+    its indices as a plain uint8 TIFF, with the fallback's decode seconds;
+    every committed fixture of ``tests/fixtures/torch_tiff_pages`` and
+    ``torch_image_formats`` read equal to PIL's read, and ``imwrite`` of
+    each dtype read back to PIL's read of PIL's file (or refused where
+    PIL refuses); the toolbox's Gaussian filters on a bool image on the
+    card byte-equal to scipy's.  Returns, per kernel, its launches on
+    each counted path."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+    from unmicst_tpu_torch.utils import imtools
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice17_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--outputPath", out], device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        def against_twin(path, twin, label, name, twin_name):
+            t_maps, t_secs = run(twin, twin_name)
+            c_maps, c_secs = run(path, name)
+            same = len(c_maps) == len(t_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(c_maps, t_maps))
+            for key, secs in ((name, c_secs), (twin_name, t_secs)):
+                n = launches[key]
+                log(f"[slice17] {label}, {key}: cli.main {secs:.2f} s; K1 "
+                    f"{n['softmax_blend']}, K2 epilogue "
+                    f"{n['blend_fold_epilogue']}, K2 stripe "
+                    f"{n['blend_fold_stripe']} | {card}")
+                check(n["softmax_blend"] > 0
+                      and n["blend_fold_epilogue"] == 1
+                      and n["blend_fold_stripe"] == 0,
+                      f"{label} ({key}) did not run K1 and one K2 "
+                      f"epilogue: {n}")
+            log(f"[slice17] {label}: pages byte-equal to the twin's: {same}")
+            check(same, f"{label}: pages differ from the plain twin's")
+
+        def decode_s(path):
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got = imread(path)
+                secs.append(time.perf_counter() - t0)
+            return secs, got
+
+        # -- 1. a 4096^2 old-style JPEG slide in the table form --------------
+        fixture = os.path.join(TIFF_PAGES_FIXTURES, "blob_strip_ojpeg.tif")
+        strip_px = np.load(fixture[:-4] + ".npy")
+        check(np.array_equal(imread(fixture), strip_px),
+              "the old-style JPEG strip does not read as PIL reads it")
+        parts, strip = ojpeg_fixture_parts(fixture)
+        rows, width = strip_px.shape
+        ojpeg = os.path.join(tmp, "ojpeg_table.tif")
+        ojpeg_tiff(ojpeg, SLIDE, width, parts, [strip] * (SLIDE // rows),
+                   rows_per_strip=rows)
+        plane = np.tile(strip_px, (SLIDE // rows, 1))
+        secs, got = decode_s(ojpeg)
+        nbytes = len(strip) * (SLIDE // rows)
+        log(f"[slice17] old-style JPEG {SLIDE}x{width} in the table form "
+            f"({SLIDE // rows} strips, {nbytes / 1e6:.3f} MB): decode "
+            f"{secs[0]:.3f} s first, {secs[1]:.3f} s again = "
+            f"{nbytes / 1e6 / min(secs):.2f} MB/s of segments | {card}")
+        check(got.dtype == np.uint8 and np.array_equal(got, plane),
+              "the old-style JPEG slide does not decode to its pixels")
+        plain = os.path.join(tmp, "ojpeg_plain.tif")
+        imwrite(plain, plane)
+        against_twin(ojpeg, plain, f"old-style JPEG {SLIDE}^2",
+                     "ojpeg_table", "ojpeg_plain")
+
+        # -- 2. a 4096^2 4-bit palette slide ---------------------------------
+        rng = np.random.RandomState(SEED + 17)
+        band = (np.clip(blob_slide(rng, 256, SLIDE, 256), 0, 1)
+                * 15).astype(np.uint8)
+        idx = np.tile(band, (SLIDE // 256, 1))
+        pal = os.path.join(tmp, "palette4.tif")
+        nbytes = packed_tiff(pal, band, 4, 8, 64, photometric=3,
+                             repeat=SLIDE // 256,
+                             colormap=[v * 4369 for v in range(16)] * 3)
+        secs, got = decode_s(pal)
+        log(f"[slice17] 4-bit palette {SLIDE}^2 (Deflate, {nbytes / 1e6:.3f}"
+            f" MB): decode {secs[0]:.3f} s first, {secs[1]:.3f} s again | "
+            f"{card}")
+        check(got.dtype == np.uint8 and np.array_equal(got, idx),
+              "the palette slide does not decode to its indices")
+        plain = os.path.join(tmp, "palette_plain.tif")
+        imwrite(plain, idx)
+        against_twin(pal, plain, f"4-bit palette {SLIDE}^2", "palette4",
+                     "palette_plain")
+        del plane, idx, got
+
+        # -- 3. the committed fixtures, and imwrite's round trips ------------
+        bad, n = [], 0
+        for folder, ext, read in ((TIFF_PAGES_FIXTURES, (".tif",), imread),
+                                  (FORMATS_FIXTURES, (".png", ".bmp"),
+                                   imtools.imread)):
+            for f in sorted(os.listdir(folder)):
+                ref = os.path.join(folder, f.rsplit(".", 1)[0] + ".npy")
+                if not f.endswith(ext) or not os.path.exists(ref):
+                    continue
+                n += 1
+                want, px = np.load(ref), read(os.path.join(folder, f))
+                if px.dtype != want.dtype or not np.array_equal(px, want):
+                    bad.append(f)
+        trips = 0
+        for f in sorted(os.listdir(FORMATS_FIXTURES)):
+            if not (f.startswith("write_") and f.count("_") == 1):
+                continue
+            x = np.load(os.path.join(FORMATS_FIXTURES, f))
+            for ext in ("png", "bmp"):
+                ref = os.path.join(FORMATS_FIXTURES, f"{f[:-4]}_{ext}.npy")
+                out = os.path.join(tmp, f"{f[:-4]}.{ext}")
+                trips += 1
+                try:
+                    imtools.imwrite(x, out)
+                except OSError:
+                    if os.path.exists(ref):
+                        bad.append(f"{f[:-4]}.{ext} refused")
+                    continue
+                want, px = np.load(ref), imtools.imread(out)
+                if px.dtype != want.dtype or not np.array_equal(px, want):
+                    bad.append(f"{f[:-4]}.{ext}")
+        log(f"[slice17] {n} fixtures (old-style JPEG, YCbCr, planar, "
+            f"palette TIFF pages; PNG and BMP files) and {trips} imwrite "
+            f"round trips equal to PIL's reads: {n + trips - len(bad)}; "
+            f"differing: {bad}")
+        check(not bad, f"fixtures or writes differ from PIL's: {bad}")
+
+        # -- 4. F5: the Gaussian filters on a bool image, on the card --------
+        ref = np.load(BOOL_FIXTURE)
+        img = ref["image"]
+        calls = {"gauss_0.7_order02": lambda: imtools.imgaussfilt(
+                     img, 0.7, order=[0, 2], device=dev),
+                 "gauss_1.0_order1_cval3": lambda: imtools.imgaussfilt(
+                     img, 1.0, order=1, mode="constant", cval=3.0,
+                     device=dev),
+                 "gauss_0.5_order2": lambda: imtools.imgaussfilt(
+                     img, 0.5, order=2, device=dev),
+                 "gauss_1.0": lambda: imtools.imgaussfilt(img, 1.0,
+                                                          device=dev),
+                 "gradmag_1.0": lambda: imtools.imgradmag(img, 1.0,
+                                                          device=dev),
+                 "derivatives_0.7": lambda: imtools.imderivatives(
+                     img, [0.7], device=dev)}
+        bad = []
+        for name, fn in calls.items():
+            got = fn()
+            got = got.view(np.uint8) if got.dtype == np.bool_ else got
+            if got.dtype != ref[name].dtype or got.tobytes() != ref[
+                    name].tobytes():
+                bad.append(name)
+        log(f"[slice17] F5: {len(calls)} filters of a bool image on {dev} "
+            f"byte-equal to scipy's: {len(calls) - len(bad)}; differing: "
+            f"{bad}")
+        check(not bad, f"bool filters differ from scipy's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice17] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -6141,6 +6511,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice15"] = per_path
     for name, per_path in phase_slice16(dev).items():
         stats[name]["launches_slice16"] = per_path
+    for name, per_path in phase_slice17(dev).items():
+        stats[name]["launches_slice17"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -6151,7 +6523,7 @@ def main(argv=None) -> int:
                if k.endswith("processes")
                or k in ("launches_formats", "launches_slice12",
                         "launches_slice13", "launches_slice15",
-                        "launches_slice16")}})
+                        "launches_slice16", "launches_slice17")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

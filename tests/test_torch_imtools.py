@@ -327,9 +327,12 @@ def test_png_read_and_write(tmp_path, rng, monkeypatch, library):
         f.write(blob[:12] + bytes(ihdr) + struct.pack(
             ">I", zlib.crc32(bytes(ihdr)) & 0xFFFFFFFF) + blob[33:])
     Image.fromarray(img).convert("P").save(str(tmp_path / "p.png"))
-    for name in ("i.png", "p.png"):
-        with pytest.raises(NotImplementedError, match="M17"):
-            T.imread(str(tmp_path / name))
+    p_png = str(tmp_path / "p.png")
+    _equal(T.imread(p_png), J.imread(p_png))
+    with pytest.raises(OSError):  # not interlaced data under the flag
+        J.imread(str(tmp_path / "i.png"))
+    with pytest.raises(ValueError, match="corrupt PNG"):
+        T.imread(str(tmp_path / "i.png"))
 
 
 def test_tiff_jpeg_and_refused_formats(tmp_path, rng):
@@ -347,6 +350,13 @@ def test_tiff_jpeg_and_refused_formats(tmp_path, rng):
         got.astype(int) - want.astype(int)).max() <= 1
     for name in ("g.bmp", "g.gif", "g.webp"):
         Image.fromarray((x >> 8).astype(np.uint8)).save(str(tmp_path / name))
+        if name == "g.bmp":  # BMP reads and writes as PIL's
+            _equal(T.imread(str(tmp_path / name)),
+                   J.imread(str(tmp_path / name)))
+            T.imwrite((x >> 8).astype(np.uint8), str(tmp_path / f"o{name}"))
+            _equal(J.imread(str(tmp_path / f"o{name}")), (x >> 8).astype(
+                np.uint8))
+            continue
         with pytest.raises(NotImplementedError, match=name[1:]):
             T.imread(str(tmp_path / name))
         with pytest.raises(NotImplementedError, match="M17"):

@@ -188,11 +188,14 @@ def test_big_endian_packed_pages(bits, tmp_path):
 
 
 def test_pages_the_fallback_does_not_take_keep_the_reader_s_error(tmp_path):
-    """A 4-bit palette page and a 10-bit gray page are not the fallback's:
-    the port re-raises its reader's ``NotImplementedError``."""
-    plane = np.random.RandomState(3).randint(0, 16, (6, 8))
-    path = str(tmp_path / "pal.tif")
-    chip_smoke.packed_tiff(path, plane, 4, photometric=3)
+    """A 4-bit page of two samples (gray and alpha) and a 10-bit gray page
+    are not the fallback's: the port re-raises its reader's
+    ``NotImplementedError``.  (A 4-bit palette page, once here, is the
+    fallback's now: ``tests/test_torch_tiff_pages.py``.)"""
+    path = str(tmp_path / "la.tif")
+    tags = {256: (4, [8]), 257: (4, [6]), 258: (3, [4, 4]), 259: (3, [1]),
+            262: (3, [1]), 277: (3, [2]), 338: (3, [2])}
+    chip_smoke.write_segment_tiff(path, [(tags, [bytes(48)])])
     with pytest.raises(NotImplementedError, match="4-bit samples"):
         tiff.imread(path)
     tags = {256: (4, [8]), 257: (4, [6]), 258: (3, [10]), 259: (3, [1]),
@@ -328,9 +331,13 @@ def _ojpeg_tags(h, w):
 
 def test_old_jpeg_refusals(tmp_path):
     """A progressive stream and one of another size: ``FallbackError``
-    (PIL refuses both).  The table form (JPEGProc, JPEGQTables and a bare
-    scan in the strip) and a page of two strips:
-    ``NotImplementedError`` naming ROADMAP M17."""
+    (PIL refuses both).  The table form with the SOS segment, but no
+    frame, before the scan in its strip: PIL refuses it too (libtiff
+    finds a corrupt SOS marker).  A page of two strips, each
+    the whole stream: libtiff joins the strips with a restart marker where
+    the stream has no restart interval, and both refuse it.  Both forms
+    were ROADMAP M17 before the port read them
+    (``tests/test_torch_tiff_pages.py``)."""
     img = np.random.RandomState(5).randint(0, 255, (32, 40)).astype(np.uint8)
     path = str(tmp_path / "o.tif")
     for kwargs, h in ((dict(progressive=True), 32), ({}, 24)):
@@ -348,13 +355,15 @@ def test_old_jpeg_refusals(tmp_path):
     chip_smoke.write_segment_tiff(path, [({**_ojpeg_tags(32, 40), 512: (
         3, [1]), 519: (4, [0]), 520: (4, [0]), 521: (4, [0])},
         [scan[sos:]])])
-    with pytest.raises(NotImplementedError, match="table form.*M17"):
+    assert issubclass(_outcome(lambda: jax_tiff.imread(path))[1], OSError)
+    with pytest.raises(tiff.FallbackError, match="corrupt SOS marker"):
         tiff.imread(path)
-    with pytest.raises(ValueError, match="M17"):
+    with pytest.raises(ValueError, match="unreadable by both"):
         slides.read_channel(path, "tif", 0)
     chip_smoke.write_segment_tiff(path, [({**_ojpeg_tags(32, 40), 278: (
         4, [16])}, [buf.getvalue(), buf.getvalue()])])
-    with pytest.raises(NotImplementedError, match="2 strips.*M17"):
+    assert issubclass(_outcome(lambda: jax_tiff.imread(path))[1], OSError)
+    with pytest.raises(tiff.FallbackError, match="restart marker"):
         tiff.imread(path)
 
 

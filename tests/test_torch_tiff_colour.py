@@ -185,9 +185,12 @@ def test_sampling_libtiff_refuses(photometric, sub, tag, tmp_path, rng):
 
 
 def test_pages_still_queued(tmp_path, rng):
-    """Uncompressed planar YCbCr and planar RGBA pages are not the
-    fallback's: the reader's own refusal; a planar JPEG page:
-    ``NotImplementedError`` naming ROADMAP M17."""
+    """Uncompressed planar YCbCr and planar RGBA pages, and a planar JPEG
+    page, once queued here, read as JAX reads them now (the planar JPEG
+    page, YCbCr at the default 2x2 subsampling, refused by both, as
+    libtiff refuses it; ``tests/test_torch_tiff_pages.py`` holds the
+    rest).  An interleaved YCbCr page PIL reads past its strips'
+    ends stays ``NotImplementedError`` naming ROADMAP M17."""
     rgb = _rgb(rng, 8, 10)
     path = str(tmp_path / "q.tif")
     for photometric, samples in ((6, 3), (2, 4)):
@@ -197,13 +200,25 @@ def test_pages_still_queued(tmp_path, rng):
         planes = [rgb[..., c % 3].tobytes() for c in range(samples)]
         chip_smoke.write_segment_tiff(path, [(tags, planes)])
         with pytest.raises(NotImplementedError, match="planar TIFF"):
-            tiff.imread(path)
+            with tiff.TiffFile(path) as tf:  # the reader itself refuses
+                tf.read_page(0)
+        got = tiff.imread(path)
+        np.testing.assert_array_equal(got, jax_tiff.imread(path))
+        np.testing.assert_array_equal(got, np.stack(
+            [rgb[..., c % 3] for c in range(samples)], -1))
     tags = {256: (4, [10]), 257: (4, [8]), 258: (3, [8, 8, 8]),
             259: (3, [7]), 262: (3, [6]), 277: (3, [3]), 284: (3, [2])}
     chip_smoke.write_segment_tiff(path, [(tags, [_jpeg(rgb[..., c])
                                                  for c in range(3)])])
-    with pytest.raises(NotImplementedError, match="planar configuration 2"
-                       ".*M17"):
+    with pytest.raises(OSError):
+        jax_tiff.imread(path)
+    with pytest.raises(tiff.FallbackError, match="subsampled"):
+        tiff.imread(path)
+    tags = {256: (4, [10]), 257: (4, [8]), 258: (3, [8, 8, 8]),
+            259: (3, [1]), 262: (3, [6]), 277: (3, [3]), 284: (3, [1]),
+            530: (3, [2, 2])}
+    chip_smoke.write_segment_tiff(path, [(tags, [bytes(120)])])
+    with pytest.raises(NotImplementedError, match="M17"):
         tiff.imread(path)
 
 

@@ -4,29 +4,52 @@ The deploy path writes its ``I%05d_{Im,PM}.png`` pairs here, and
 ``utils/imtools`` reads and writes PNGs here; the JAX package does both
 through PIL, which this package does not use.
 
-* :func:`write_png` writes gray 8-bit, gray 16-bit and RGB 8-bit images,
-  every row with filter type 0 (none); pixels decode the same in any PNG
-  reader.
-* :func:`read_png` reads gray 8/16-bit, RGB 8-bit and RGBA 8-bit images
-  that are not interlaced, with the five row filters, and returns them as
-  PIL's ``np.asarray`` does: ``[H, W]`` uint8 or uint16, ``[H, W, 3]`` or
-  ``[H, W, 4]`` uint8.  Other PNGs raise ``NotImplementedError``, a
-  corrupt file ``ValueError``.
+* :func:`read_png` reads every PNG kind the standard defines (gray at
+  1/2/4/8/16 bits, RGB at 8/16, palette at 1/2/4/8, gray+alpha and RGBA
+  at 8/16), interlaced (Adam7) or not, with the five row filters, and
+  returns what PIL's ``np.asarray(Image.open(path))`` gives:
+
+  ====================  =====  ======================================
+  PNG                   mode   array
+  ====================  =====  ======================================
+  gray 1-bit            1      ``[H, W]`` bool
+  gray 2/4-bit          L      uint8, 85 and 17 a step
+  gray 8/16-bit         L      uint8 / ``I;16`` uint16
+  palette 1/2/4/8-bit   P      uint8, the indices as stored
+  gray+alpha 8-bit      LA     ``[H, W, 2]`` uint8
+  gray+alpha 16-bit     RGBA   ``[H, W, 4]``: L, L, L, A
+  RGB / RGBA            RGB(A) ``[H, W, 3 or 4]`` uint8
+  ====================  =====  ======================================
+
+  16-bit colour samples keep their high byte.  ``PLTE`` and ``tRNS``
+  change none of it (PIL keeps them beside the pixels).  A corrupt file
+  raises ``ValueError``.
+* :func:`write_png` writes what ``Image.fromarray(image).save(path)``
+  writes, each row with filter type 0: bool as 1-bit gray, uint8 planes,
+  gray+alpha, RGB and RGBA at 8 bits, uint16 planes at 16 bits, and
+  PIL's mode ``I`` (int8 read as its bytes, int16, int32, uint32 read as
+  int32) at 16 bits, clipped to 0..65535.  It raises where PIL raises:
+  ``TypeError`` for a dtype or shape ``fromarray`` has no mode for,
+  ``OSError`` for float planes (mode ``F``).
 """
 
 from __future__ import annotations
 
 import struct
 import zlib
+from typing import Tuple
 
 import numpy as np
 
 from unmicst_tpu_torch.io import _native
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# (colour type, bit depth) -> (samples per pixel, numpy dtype)
-_LAYOUTS = {(0, 8): (1, np.uint8), (0, 16): (1, np.uint16),
-            (2, 8): (3, np.uint8), (6, 8): (4, np.uint8)}
+# colour type -> (samples per pixel, the bit depths the standard allows)
+_KINDS = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
+          4: (2, (8, 16)), 6: (4, (8, 16))}
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 # the largest image read: far beyond any toolbox image, and it bounds the
 # buffers an untrusted header sizes
 _MAX_BYTES = 1 << 32
@@ -37,27 +60,73 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
-    """Write a ``[H, W]`` uint8 or uint16 plane, or a ``[H, W, 3]``
-    uint8 image, as a PNG."""
+# -- PIL's modes for an array (``Image.fromarray``) ---------------------------
+
+# (channels, dtype kind + size) -> PIL's mode; big-endian uint16 is I;16B
+_ARRAY_MODES = {(1, "b1"): "1", (1, "u1"): "L", (2, "u1"): "LA",
+                (3, "u1"): "RGB", (4, "u1"): "RGBA", (1, "i1"): "I",
+                (1, "u2"): "I;16", (1, "i2"): "I", (1, "u4"): "I",
+                (1, "i4"): "I", (1, "f4"): "F", (1, "f8"): "F"}
+
+
+def array_mode(image) -> Tuple[str, np.ndarray]:
+    """PIL's mode for ``image`` as ``Image.fromarray`` picks it, and the
+    pixels as that mode holds them: ``[H, W]`` or ``[H, W, C]`` (a 1-D
+    array is one column); bool as 0/1 uint8; mode ``I`` as int64 (int8
+    read as its unsigned bytes, uint32 as int32).  ``TypeError`` with
+    PIL's message where it has no mode."""
     img = np.asarray(image)
-    layout = {(2, np.dtype(np.uint8)): (0, 8),
-              (2, np.dtype(np.uint16)): (0, 16),
-              (3, np.dtype(np.uint8)): (2, 8)}.get((img.ndim, img.dtype))
-    if layout is None or (img.ndim == 3 and img.shape[2] != 3):
-        raise ValueError(
-            f"write_png takes a [H, W] uint8 or uint16 plane or a [H, W, 3] "
-            f"uint8 image, got {img.shape} {img.dtype}")
-    colour, depth = layout
+    if img.ndim == 1:
+        img = img[:, None]
+    channels = img.shape[2] if img.ndim == 3 else 1
+    key = (channels if img.ndim <= 3 else 0,
+           img.dtype.kind + str(img.dtype.itemsize))
+    mode = _ARRAY_MODES.get(key)
+    if mode is None or (img.ndim == 3 and channels == 1):
+        shape = (1, 1) + img.shape[2:]
+        raise TypeError(f"Cannot handle this data type: {shape}, "
+                        f"{img.dtype.str}")
+    if mode == "I;16" and img.dtype.byteorder == ">":
+        mode = "I;16B"
+    if mode == "1":
+        return mode, (img.view(np.uint8) != 0).astype(np.uint8)
+    if mode == "I":
+        if img.dtype.itemsize == 1:
+            img = img.view(np.uint8)
+        elif img.dtype.kind == "u":
+            img = img.astype(img.dtype.newbyteorder("=")).view(np.int32)
+        return mode, img.astype(np.int64)
+    return mode, img
+
+
+def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
+    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes a
+    PNG (see the module docstring)."""
+    mode, img = array_mode(image)
+    if mode == "F":
+        raise OSError(f"cannot write mode {mode} as PNG")
+    if 0 in img.shape:
+        raise SystemError("tile cannot extend outside image")
+    colour = {"LA": 4, "RGB": 2, "RGBA": 6}.get(mode, 0)
     h, w = img.shape[:2]
-    raw = np.ascontiguousarray(img.astype(">u2") if depth == 16 else img)
-    rows = np.zeros((h, 1 + raw[0].nbytes), np.uint8)  # a filter byte a row
-    rows[:, 1:] = raw.view(np.uint8).reshape(h, -1)
+    if mode == "1":
+        depth, raw = 1, np.packbits(img, axis=1)
+    elif mode in ("I", "I;16", "I;16B"):
+        depth = 16
+        raw = np.clip(img, 0, 65535).astype(">u2").view(np.uint8)
+    else:
+        depth, raw = 8, np.ascontiguousarray(img, np.uint8)
+    raw = raw.reshape(h, -1)
+    rows = np.zeros((h, 1 + raw.shape[1]), np.uint8)  # a filter byte a row
+    rows[:, 1:] = raw
     header = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(_SIGNATURE + _chunk(b"IHDR", header)
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
                 + _chunk(b"IEND", b""))
+
+
+# -- reading ------------------------------------------------------------------
 
 
 def _unfilter(data: np.ndarray, bpp: int) -> np.ndarray:
@@ -106,8 +175,50 @@ def _unfilter_py(data: np.ndarray, bpp: int) -> np.ndarray:
     return out[1:]
 
 
+def _samples(rows: np.ndarray, w: int, spp: int, depth: int) -> np.ndarray:
+    """Unfiltered rows -> ``[n, w, spp]`` samples: uint16 at 16 bits,
+    uint8 otherwise, sub-byte samples unpacked most significant first."""
+    n = rows.shape[0]
+    if depth == 16:
+        return rows.view(">u2").reshape(n, w, spp).astype(np.uint16)
+    if depth == 8:
+        return rows.reshape(n, w, spp)
+    bits = np.unpackbits(rows, axis=1)[:, : w * depth].reshape(n, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(axis=2, dtype=np.uint8)[:, :, None]
+
+
+def _pixels(raw: bytes, w: int, h: int, spp: int, depth: int,
+            interlace: int) -> np.ndarray:
+    """The inflated IDAT bytes -> ``[h, w, spp]`` samples, pass by pass
+    where the image is interlaced (a pass without pixels has no bytes)."""
+    bpp = max(1, spp * depth // 8)
+    passes = _ADAM7 if interlace else ((0, 0, 1, 1),)
+    out = np.empty((h, w, spp), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for x0, y0, dx, dy in passes:
+        pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+        if pw <= 0 or ph <= 0:
+            continue
+        stride = (pw * spp * depth + 7) // 8
+        n = ph * (stride + 1)
+        if pos + n > len(raw):
+            raise ValueError("truncated PNG data")
+        rows = _unfilter(np.frombuffer(raw, np.uint8, n, pos).reshape(
+            ph, stride + 1), bpp)
+        pos += n
+        out[y0::dy, x0::dx] = _samples(rows, pw, spp, depth)
+    return out
+
+
+def _image_size(w: int, h: int, spp: int, depth: int) -> int:
+    """The inflated size of a non-interlaced image (an interlaced one's
+    is at most about twice as large)."""
+    return h * ((w * spp * depth + 7) // 8 + 1)
+
+
 def read_png(path: str) -> np.ndarray:
-    """Read a PNG (see the module docstring for the kinds it reads)."""
+    """Read a PNG as PIL does (see the module docstring)."""
     with open(path, "rb") as f:
         blob = f.read()
     if not blob.startswith(_SIGNATURE):
@@ -132,26 +243,30 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG without a header")
     w, h, depth, colour, _comp, _filt, interlace = header
-    layout = _LAYOUTS.get((colour, depth))
-    if layout is None or interlace:
-        raise NotImplementedError(
-            f"{path}: PNG colour type {colour} at {depth} bits"
-            f"{', interlaced' if interlace else ''} is not supported "
-            "(gray 8/16-bit and RGB/RGBA 8-bit, not interlaced, are; "
-            "ROADMAP M17)")
-    spp, dtype = layout
-    bpp = spp * depth // 8
-    stride = w * bpp
-    if not (w and h) or h * (stride + 1) > _MAX_BYTES:
+    spp, depths = _KINDS.get(colour, (0, ()))
+    if depth not in depths or interlace > 1:
+        raise ValueError(f"{path}: corrupt PNG header (colour type {colour}"
+                         f" at {depth} bits, interlace {interlace})")
+    size = _image_size(w, h, spp, depth)
+    if not (w and h) or size > _MAX_BYTES:
         raise ValueError(f"{path}: implausible PNG size {w}x{h}")
     try:
-        raw = zlib.decompressobj().decompress(b"".join(idat),
-                                              h * (stride + 1))
+        raw = zlib.decompressobj().decompress(b"".join(idat), 2 * size + h)
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt PNG data: {e}") from None
-    if len(raw) != h * (stride + 1):
-        raise ValueError(f"{path}: truncated PNG data")
-    px = _unfilter(np.frombuffer(raw, np.uint8).reshape(h, stride + 1), bpp)
-    if depth == 16:
-        return px.view(">u2").reshape(h, w).astype(np.uint16)
-    return px.reshape((h, w) if spp == 1 else (h, w, spp)).astype(dtype)
+    try:
+        px = _pixels(raw, w, h, spp, depth, interlace)
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+    if colour in (0, 3):
+        px = px[:, :, 0]
+        if colour == 0 and depth == 1:
+            return px.astype(bool)
+        if colour == 0 and depth in (2, 4):
+            return px * np.uint8(255 // ((1 << depth) - 1))
+        return px
+    if depth == 16:  # PIL's RGB;16B, RGBA;16B and LA;16B: the high bytes
+        px = (px >> 8).astype(np.uint8)
+        if colour == 4:
+            px = px[:, :, [0, 0, 0, 1]]
+    return px

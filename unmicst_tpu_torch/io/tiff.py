@@ -23,16 +23,19 @@ loads, and through the Python codecs below when it does not:
 Where the reader refuses a page, ``imread`` (and ``slides.read_channel``)
 turn to :func:`read_page_fallback`, the port's stand-in for the JAX
 package's PIL fallback, which opens the file by content and reads whole:
-a PNG or JPEG under a TIFF name; JPEG-compressed pages (compression 7),
-gray or colour; old-style JPEG pages (6); float32 pages with the
-floating-point predictor (3); gray 1-, 2-, 4- and 12-bit pages, CCITT
-bilevel ones (2-4, :mod:`unmicst_tpu_torch.io.ccitt`) among them; 8-bit
-RGB pages stored plane by plane.  The windowed and pyramid reads keep
-refusing them, as the JAX package's do.
+a PNG, JPEG or BMP under a TIFF name; JPEG-compressed pages (compression
+7), gray, colour or plane by plane; old-style JPEG pages (6), in either
+form, one strip or several; float32 pages with the floating-point
+predictor (3); gray and palette 1-, 2- and 4-bit pages and gray 12-bit
+ones, CCITT bilevel ones (2-4, :mod:`unmicst_tpu_torch.io.ccitt`) among
+them; subsampled YCbCr pages; 8-bit RGB, RGBA and YCbCr pages stored
+plane by plane.  The windowed and pyramid reads keep refusing them, as
+the JAX package's do.
 """
 
 from __future__ import annotations
 
+import functools
 import lzma
 import os
 import struct
@@ -71,12 +74,19 @@ TAG_FILL_ORDER = 266
 TAG_T4_OPTIONS = 292
 TAG_JPEG_IF_OFFSET = 513  # old-style JPEG: a complete JPEG stream
 TAG_JPEG_IF_LENGTH = 514
+TAG_JPEG_RESTART_INTERVAL = 515
+TAG_JPEG_QTABLES = 519  # old-style JPEG's table form: offsets of tables
+TAG_JPEG_DCTABLES = 520
+TAG_JPEG_ACTABLES = 521
 TAG_YCBCR_COEFFICIENTS = 529
 TAG_YCBCR_SUBSAMPLING = 530
 TAG_REFERENCE_BLACK_WHITE = 532
+TAG_EXTRA_SAMPLES = 338
 _FALLBACK_TAGS = (TAG_FILL_ORDER, TAG_T4_OPTIONS, TAG_JPEG_IF_OFFSET,
-                  TAG_JPEG_IF_LENGTH, TAG_YCBCR_COEFFICIENTS,
-                  TAG_YCBCR_SUBSAMPLING, TAG_REFERENCE_BLACK_WHITE)
+                  TAG_JPEG_IF_LENGTH, TAG_JPEG_RESTART_INTERVAL,
+                  TAG_JPEG_QTABLES, TAG_JPEG_DCTABLES, TAG_JPEG_ACTABLES,
+                  TAG_YCBCR_COEFFICIENTS, TAG_YCBCR_SUBSAMPLING,
+                  TAG_REFERENCE_BLACK_WHITE, TAG_EXTRA_SAMPLES)
 
 COMPRESSION_NONE = 1
 COMPRESSION_CCITT_RLE = 2  # bilevel, Modified Huffman rows (io/ccitt.py)
@@ -676,72 +686,90 @@ def _segment_grid(page: TiffPage):
             yield k, r0, 0, min(rps, page.height - r0), page.width
 
 
-def _jpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
-    """A JPEG-compressed page (compression 7), as libtiff's ``tif_jpeg.c``
-    and libjpeg-turbo decode it under PIL: each strip or tile one JPEG
-    stream, abbreviated after the page's ``JPEGTables`` or complete; the
-    stream's SOF sets its size, which must be the tile's, or the strip's
-    rows (the last strip may be coded taller, and is cropped, as libtiff
-    allows).  Gray 8-bit pages: WhiteIsZero pages, and pages without the
-    tag (PIL's default), come back inverted.  Colour pages (3 samples,
-    interleaved): photometric 6 (YCbCr) converted to RGB at the stream's
-    sampling, which must be the ``YCbCrSubsampling`` tag's where there is
-    one; photometric 2 (RGB) as the components are, every one at h1v1."""
+def _jpeg_segment(tf: TiffFile, page: TiffPage, k: int, r0: int, rows: int,
+                  cols: int, tables, components: int, sampling=None):
+    """Segment ``k`` of a JPEG-compressed page (compression 7), landing at
+    row ``r0``, as libtiff's ``tif_jpeg.c`` decodes it under PIL: one JPEG
+    stream, abbreviated after the page's ``JPEGTables`` or complete,
+    whose SOF sets its size, which must be the tile's, or the strip's rows
+    (the last strip may be coded taller, and is cropped, as libtiff
+    allows).  A colour segment (``components`` 3) must be sampled as
+    ``sampling`` (h, v) says where it is given, its chroma at h1v1; it
+    comes back converted from YCbCr to RGB (photometric 6) or as its
+    components are (photometric 2).  Returns ``[rows, cols]`` or ``[rows,
+    cols, 3]`` uint8, and the luma's sampling."""
     from unmicst_tpu_torch.io import jpeg
 
     where = f"{tf.path}: JPEG page"
-    colour = page.samples == 3 and page.planar == 1 and page.photometric in (
-        2, 6)
+    kind = "tile" if page.tiled else "strip"
+    try:
+        data = tf._stored(page, k)
+        frame, _ = jpeg.parse(data, tables=tables)
+        h, w = frame.height, frame.width
+        taller = (not page.tiled and r0 + rows == page.height
+                  and rows < h <= page.rows_per_strip)
+        if w != cols or (h != rows and not taller):
+            raise FallbackError(f"{where}: {kind} {k} is coded {h}x{w}, "
+                                f"expected {rows}x{cols}")
+        if len(frame.components) != components:
+            raise FallbackError(
+                f"{where}: {kind} {k} holds {len(frame.components)} "
+                f"component(s) for {components} sample(s)")
+        luma = (frame.components[0].h, frame.components[0].v)
+        if components == 3:
+            chroma = {(c.h, c.v) for c in frame.components[1:]}
+            if chroma != {(1, 1)} or (sampling or luma) != luma:
+                raise FallbackError(
+                    f"{where}: {kind} {k} is sampled {luma}, photometric "
+                    f"{page.photometric} with YCbCrSubsampling {sampling}: "
+                    "libtiff refuses it")
+        px = jpeg.decode(data, (h, w), tables, colour=(
+            "rgb" if page.photometric == 2 else "ycbcr"))
+    except ValueError as e:  # JpegError, or the segment past EOF
+        raise FallbackError(f"{where}: {kind} {k}: {e}") from None
+    return px[:rows], luma
+
+
+def _jpeg_tables(tf: TiffFile, page: TiffPage):
+    """The page's ``JPEGTables`` (tag 347), parsed, or None."""
+    from unmicst_tpu_torch.io import jpeg
+
+    if page.jpeg_tables is None:
+        return None
+    try:
+        return jpeg.parse_tables(page.jpeg_tables)
+    except jpeg.JpegError as e:
+        raise FallbackError(f"{tf.path}: JPEG page: JPEGTables: {e}") from None
+
+
+def _jpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
+    """A JPEG-compressed page (compression 7) stored interleaved, each
+    strip or tile one stream (:func:`_jpeg_segment`).  Gray 8-bit pages:
+    WhiteIsZero pages, and pages without the tag (PIL's default), come
+    back inverted.  Colour pages (3 samples): photometric 6 (YCbCr)
+    converted to RGB at the stream's sampling, which must be the
+    ``YCbCrSubsampling`` tag's where there is one, and the same in every
+    segment; photometric 2 (RGB) as the components are, every one at
+    h1v1.  Pages stored plane by plane are :func:`_planar_page`'s."""
+    where = f"{tf.path}: JPEG page"
+    colour = page.samples == 3 and page.photometric in (2, 6)
     if not colour and (page.samples != 1
                        or page.photometric not in (None, 0, 1)):
         raise NotImplementedError(
             f"{where} of {page.samples} samples, photometric "
             f"{page.photometric}, planar configuration {page.planar}: "
             "ROADMAP M17")
-    if page.bits != 8 or page.sample_format != 1:
-        raise NotImplementedError(
-            f"{where} of {page.bits}-bit samples of format "
-            f"{page.sample_format}: 12-bit JPEG is ROADMAP M17")
-    tables = None
-    if page.jpeg_tables is not None:
-        try:
-            tables = jpeg.parse_tables(page.jpeg_tables)
-        except jpeg.JpegError as e:
-            raise FallbackError(f"{where}: JPEGTables: {e}") from None
-    sampling = page.fallback_tags.get(TAG_YCBCR_SUBSAMPLING)
-    sampling = None if sampling is None else tuple(int(x) for x in sampling)
+    _check_jpeg_bits(tf, page)
+    tables = _jpeg_tables(tf, page)
+    sampling = None
+    if colour:
+        sampling = (1, 1) if page.photometric == 2 else _sampling(page, None)
     out = np.empty((page.height, page.width) + ((3,) if colour else ()),
                    np.uint8)
-    kind = "tile" if page.tiled else "strip"
     for k, r0, c0, rows, cols in _segment_grid(page):
-        try:
-            data = tf._stored(page, k)
-            frame, _ = jpeg.parse(data, tables=tables)
-            h, w = frame.height, frame.width
-            taller = (not page.tiled and r0 + rows == page.height
-                      and rows < h <= page.rows_per_strip)
-            if w != cols or (h != rows and not taller):
-                raise FallbackError(
-                    f"{where}: {kind} {k} is coded {h}x{w}, expected "
-                    f"{rows}x{cols}")
-            if len(frame.components) != (3 if colour else 1):
-                raise FallbackError(
-                    f"{where}: {kind} {k} holds {len(frame.components)} "
-                    f"component(s) for {page.samples} sample(s)")
-            if colour:
-                luma = (frame.components[0].h, frame.components[0].v)
-                chroma = {(c.h, c.v) for c in frame.components[1:]}
-                want = (1, 1) if page.photometric == 2 else sampling
-                if chroma != {(1, 1)} or (want or luma) != luma:
-                    raise FallbackError(
-                        f"{where}: {kind} {k} is sampled {luma}, photometric"
-                        f" {page.photometric} with YCbCrSubsampling "
-                        f"{sampling}: libtiff refuses it")
-                sampling = luma
-            px = jpeg.decode(data, (h, w), tables, colour=(
-                "rgb" if page.photometric == 2 else "ycbcr"))
-        except ValueError as e:  # JpegError, or the segment past EOF
-            raise FallbackError(f"{where}: {kind} {k}: {e}") from None
+        px, luma = _jpeg_segment(tf, page, k, r0, rows, cols, tables,
+                                 3 if colour else 1, sampling)
+        sampling = sampling or luma  # the first segment sets it
         b, d = min(rows, page.height - r0), min(cols, page.width - c0)
         out[r0 : r0 + b, c0 : c0 + d] = px[:b, :d]
     if not colour and page.photometric != 1:
@@ -749,25 +777,89 @@ def _jpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
     return out
 
 
-def _tiff_ycc_tables():
-    """libtiff's ``TIFFYCbCrToRGBInit`` at its default luma coefficients
-    and ReferenceBlackWhite: the factors computed in float32, then
-    16-bit fixed point."""
+def _check_jpeg_bits(tf: TiffFile, page: TiffPage) -> None:
+    if page.bits != 8 or page.sample_format != 1:
+        raise NotImplementedError(
+            f"{tf.path}: JPEG page of {page.bits}-bit samples of format "
+            f"{page.sample_format}: 12-bit JPEG is ROADMAP M17")
+
+
+def _sampling(page: TiffPage, default):
+    """The ``YCbCrSubsampling`` tag as ``(h, v)``, or ``default``."""
+    tag = page.fallback_tags.get(TAG_YCBCR_SUBSAMPLING)
+    if tag is None or len(tag) != 2:
+        return default
+    return int(tag[0]), int(tag[1])
+
+
+# libtiff's defaults for the YCbCr conversion: Rec. 601 luma, and the
+# ReferenceBlackWhite it gives a YCbCr page without the tag
+_LUMA = (0.299, 0.587, 0.114)
+_REFERENCE_BW = (0.0, 255.0, 128.0, 255.0, 128.0, 255.0)
+
+
+@functools.lru_cache(maxsize=16)
+def _tiff_ycc_tables(luma=_LUMA, ref=_REFERENCE_BW):
+    """libtiff's ``TIFFYCbCrToRGBInit`` at ``luma`` (YCbCrCoefficients)
+    and ``ref`` (ReferenceBlackWhite): the factors computed in float32,
+    clamped to [0, 2] and taken to 16-bit fixed point; the code values
+    mapped through ``Code2V`` in float32, clamped to +-4096 and truncated.
+    Returns the Y, Cr->R, Cb->B, Cr->G and Cb->G tables, each indexed by
+    the sample value."""
     f32 = np.float32
-    red, green, blue = f32(0.299), f32(0.587), f32(0.114)
-    f1 = f32(2) - f32(2) * red
-    f3 = f32(2) - f32(2) * blue
-    d1, d2, d3, d4 = (int(float(f) * 65536 + 0.5) for f in (
-        f1, red * f1 / green, f3, blue * f3 / green))
+    red, green, blue = (f32(v) for v in luma)
+    ref = [f32(v) for v in ref]
+
+    def fix(f):
+        return int(float(min(max(f, f32(0)), f32(2))) * 65536 + 0.5)
+
+    f1, f3 = f32(2) - f32(2) * red, f32(2) - f32(2) * blue
+    d1, d2, d3, d4 = fix(f1), fix(red * f1 / green), fix(f3), fix(
+        blue * f3 / green)
+
+    def code2v(c, black, white, top):
+        span = f32(white - black)
+        num = (c - int(black)).astype(f32) * f32(top)
+        return num / (span if span != 0 else f32(1))
+
+    def clampw(v):
+        v = np.where(v < f32(-4096), f32(-4096), np.where(
+            v > f32(4096), f32(4096), v))
+        return np.trunc(v).astype(np.int64)
+
     x = np.arange(-128, 128, dtype=np.int64)
-    return ((d1 * x + (1 << 15)) >> 16, (d3 * x + (1 << 15)) >> 16,
-            -d2 * x, -d4 * x + (1 << 15))
+    cr = clampw(code2v(x, ref[4] - f32(128), ref[5] - f32(128), 127))
+    cb = clampw(code2v(x, ref[2] - f32(128), ref[3] - f32(128), 127))
+    y = clampw(code2v(x + 128, ref[0], ref[1], 255))
+    return (y, (d1 * cr + (1 << 15)) >> 16, (d3 * cb + (1 << 15)) >> 16,
+            -d2 * cr, -d4 * cb + (1 << 15))
 
 
-def _tiff_ycc_to_rgb(y, cb, cr) -> np.ndarray:
-    """``TIFFYCbCrtoRGB`` over whole planes: ``[H, W, 3]`` uint8."""
-    cr_r, cb_b, cr_g, cb_g = _tiff_ycc_tables()
-    y = y.astype(np.int64)
+def _ycc_params(tf: TiffFile, page: TiffPage):
+    """The page's YCbCrCoefficients and ReferenceBlackWhite as libtiff
+    takes them (a tag of another count is ignored, as libtiff ignores
+    it), checked as ``initYCbCrConversion`` checks them."""
+    tags = page.fallback_tags
+    luma = tags.get(TAG_YCBCR_COEFFICIENTS)
+    luma = _LUMA if luma is None or len(luma) != 3 else tuple(
+        float(np.float32(v)) for v in luma)
+    ref = tags.get(TAG_REFERENCE_BLACK_WHITE)
+    ref = _REFERENCE_BW if ref is None or len(ref) != 6 else tuple(
+        float(np.float32(v)) for v in ref)
+    if any(np.isnan(luma)) or abs(luma[1]) < np.finfo(np.float32).tiny:
+        raise FallbackError(f"{tf.path}: invalid YCbCrCoefficients {luma}:"
+                            " libtiff refuses the page")
+    if not all(-0x7FFFFFFF + 128 < v < 0x7FFFFFFF for v in ref):
+        raise FallbackError(f"{tf.path}: invalid ReferenceBlackWhite {ref}:"
+                            " libtiff refuses the page")
+    return luma, ref
+
+
+def _tiff_ycc_to_rgb(y, cb, cr, luma=_LUMA, ref=_REFERENCE_BW) -> np.ndarray:
+    """``TIFFYCbCrtoRGB`` over whole planes of the same size: ``[H, W,
+    3]`` uint8."""
+    y_tab, cr_r, cb_b, cr_g, cb_g = _tiff_ycc_tables(luma, ref)
+    y = y_tab[y]
     out = np.empty(y.shape + (3,), np.uint8)
     out[..., 0] = np.clip(y + cr_r[cr], 0, 255)
     out[..., 1] = np.clip(y + ((cb_g[cb] + cr_g[cr]) >> 16), 0, 255)
@@ -775,73 +867,297 @@ def _tiff_ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return out
 
 
+def _replicate(planes, sizes, height: int, width: int) -> list:
+    """Subsampled planes brought to ``height x width`` as libtiff's
+    ``putcontig8bitYCbCr*`` routines do: each sample repeated over its
+    ``(h, v)`` block, the padding cropped."""
+    return [np.repeat(np.repeat(p, v, 0), h, 1)[:height, :width]
+            for p, (h, v) in zip(planes, sizes)]
+
+
+# -- old-style JPEG (compression 6), as libtiff's tif_ojpeg.c rebuilds it -----
+
+_SOI, _SOS, _DRI, _DQT, _DHT = 0xD8, 0xDA, 0xDD, 0xDB, 0xC4
+_OJPEG_SOF = (0xC0, 0xC1, 0xC3)  # the frames tif_ojpeg.c takes
+
+
+class _OJpegHeader:
+    """What ``OJPEGReadHeaderInfoSec`` collects: the tables by id, the
+    restart interval and the frame and scan parameters."""
+
+    def __init__(self, restart: int):
+        self.q, self.dc, self.ac = {}, {}, {}  # id -> a whole segment
+        self.restart = restart
+        self.sof = None  # (marker, height, width, [(c, hv, tq)])
+        self.sos = None  # [(c, tables)]
+
+
+def _ojpeg_sources(tf: TiffFile, page: TiffPage, n: int):
+    """The bytes ``OJPEGReadBufferFill`` reads in turn: the
+    JPEGInterchangeFormat stream (offset and length fixed up as libtiff
+    fixes them; ``b""`` without one), then each of the ``n`` strips or
+    tiles (one at offset 0 reads nothing, one with no byte count runs to
+    the end of the file)."""
+    tags, fsize = page.fallback_tags, tf._fsize
+
+    def read(off, count):
+        if not off or off >= fsize:
+            return b""
+        if not count or off + count > fsize:
+            count = fsize - off
+        tf._fh.seek(off)
+        return tf._fh.read(count)
+
+    jif = read(int(tags.get(TAG_JPEG_IF_OFFSET, [0])[0]),
+               int(tags.get(TAG_JPEG_IF_LENGTH, [0])[0]))
+    if n > len(page.offsets):
+        raise FallbackError(f"the page holds {len(page.offsets)} "
+                            f"segments, needs {n}")
+    return jif, [read(int(page.offsets[k]), int(page.counts[k]))
+                 for k in range(n)]
+
+
+def _ojpeg_header(data: bytes, head: _OJpegHeader, samples: int,
+                  sampling) -> int:
+    """``OJPEGReadHeaderInfoSec``'s walk of the markers at the start of
+    ``data``: up to the first byte that is not a marker's (the table
+    form's bare scan) or past the SOS header, a SOF's components checked
+    against ``sampling`` (h, v) unless it is None.  Returns where the
+    compressed data starts."""
+    pos, n = 0, len(data)
+
+    def word(at):
+        if at + 2 > n:
+            raise FallbackError("old-style JPEG header ends early")
+        return struct.unpack_from(">H", data, at)[0]
+
+    while pos < n and data[pos] == 0xFF:
+        while pos < n and data[pos] == 0xFF:
+            pos += 1
+        if pos >= n:
+            raise FallbackError("old-style JPEG header ends early")
+        m, pos = data[pos], pos + 1
+        if m == _SOI:
+            continue
+        length = word(pos)
+        body = data[pos + 2 : pos + length]
+        if length < 2 or len(body) != length - 2:
+            raise FallbackError(f"corrupt JPEG marker 0x{m:02X}")
+        seg = bytes((0xFF, m)) + data[pos : pos + length]
+        pos += length
+        if m == 0xFE or 0xE0 <= m <= 0xEF:
+            continue
+        if m == _DRI:
+            if length != 4:
+                raise FallbackError("corrupt DRI marker in JPEG data")
+            head.restart = struct.unpack(">H", body)[0]
+        elif m == _DQT:
+            while body:
+                if len(body) < 65 or body[0] >> 4 or body[0] & 15 > 3:
+                    raise FallbackError("corrupt DQT marker in JPEG data")
+                head.q[body[0] & 15] = (b"\xff\xdb\x00\x43" + body[:65])
+                body = body[65:]
+        elif m == _DHT:
+            if not body or body[0] >> 4 > 1 or body[0] & 15 > 3:
+                raise FallbackError("corrupt DHT marker in JPEG data")
+            (head.ac if body[0] >> 4 else head.dc)[body[0] & 15] = seg
+        elif m in _OJPEG_SOF:
+            nc = body[5] if len(body) > 5 else 0
+            if head.sof is not None or body[:1] != b"\x08" or (
+                    nc != samples or len(body) != 6 + 3 * nc):
+                raise FallbackError("corrupt or unexpected SOF marker in "
+                                    "JPEG data")
+            comps = [tuple(body[6 + 3 * k : 9 + 3 * k]) for k in range(nc)]
+            if sampling and [c[1] for c in comps] != [
+                    (sampling[0] << 4) | sampling[1]] + [0x11] * (nc - 1):
+                raise FallbackError("JPEG compressed data indicates "
+                                    "unexpected subsampling values")
+            height, width = struct.unpack_from(">HH", body, 1)
+            head.sof = (m, height, width, comps)
+        elif m == _SOS:
+            if head.sof is None or length != 6 + 2 * samples or (
+                    body[0] != samples):
+                raise FallbackError("corrupt SOS marker in JPEG data")
+            head.sos = [(body[1 + 2 * k], body[2 + 2 * k])
+                        for k in range(samples)]
+            return pos
+        else:
+            raise FallbackError(f"unknown marker type 0x{m:02X} in JPEG "
+                                "data")
+    if pos >= n:
+        raise FallbackError("old-style JPEG data holds no scan")
+    return pos
+
+
+def _ojpeg_tables(tf: TiffFile, page: TiffPage, head: _OJpegHeader,
+                  samples: int) -> list:
+    """The table form: ``OJPEGReadHeaderInfoSecTables*`` reading
+    JPEGQTables, JPEGDCTables and JPEGACTables (519-521; a 64-byte
+    table, or 16 counts and their values, at each offset) into DQT and
+    DHT segments, table ``m`` for component ``m``, a component whose
+    offset repeats its predecessor's sharing its table.  Returns each
+    component's (quantisation table, DC table, AC table) ids."""
+    ids = [[0, 0, 0] for _ in range(samples)]
+    for j, tag in enumerate((TAG_JPEG_QTABLES, TAG_JPEG_DCTABLES,
+                             TAG_JPEG_ACTABLES)):
+        offs = [int(v) for v in page.fallback_tags.get(tag, [])][:3]
+        offs += [0] * (samples - len(offs))
+        if not offs or not offs[0]:
+            raise FallbackError("missing JPEG tables (JPEGQTables, "
+                                "JPEGDCTables, JPEGACTables)")
+        for m in range(samples):
+            if not offs[m] or (m and offs[m] == offs[m - 1]):
+                ids[m][j] = ids[m - 1][j]
+                continue
+            if offs[m] in offs[: max(m - 1, 0)]:
+                raise FallbackError("corrupt JPEG table tags")
+            tf._fh.seek(offs[m])
+            if j == 0:
+                table = tf._fh.read(64)
+                seg = b"\xff\xdb\x00\x43" + bytes((m,)) + table
+            else:
+                counts = tf._fh.read(16)
+                table = counts + tf._fh.read(sum(counts))
+                seg = b"\xff\xc4" + struct.pack(">HB", 19 + sum(counts), (
+                    16 if j == 2 else 0) | m) + table
+            if len(table) != (64 if j == 0 else 16 + sum(table[:16])):
+                raise FallbackError("a JPEG table runs past the end of the "
+                                    "file")
+            (head.q, head.dc, head.ac)[j][m] = seg
+            ids[m][j] = m
+    return ids
+
+
+def _ojpeg_stream(tf: TiffFile, page: TiffPage, colour: bool) -> bytes:
+    """The JPEG stream libtiff's ``tif_ojpeg.c`` hands libjpeg for an
+    old-style JPEG page: the header read from the JPEGInterchangeFormat
+    stream or the first strip (or, in the table form, from tags 519-521,
+    with a baseline SOF of the strip's or tile column's size and
+    components 0, 1, 2), regenerated as SOI, DQT, DHT, DRI, SOF and SOS;
+    then the compressed data from where the header ended, through the
+    rest of that source and every strip or tile after it, an RST marker
+    after each strip or tile but the last; then EOI.  Strips or tiles
+    shorter than the page make the restart interval one strip's or tile's
+    MCUs, unless the stream's own DRI says otherwise.  A colour page's
+    sampling is its stream's where the header has a SOF, else the
+    ``YCbCrSubsampling`` tag's (2x2 by default); a gray page's 1x1.
+    ``JPEGProc`` is not read, as libtiff does not read it."""
+    tiled = page.tiled
+    width = page.tile_width if tiled else page.width
+    length = page.tile_length if tiled else page.rows_per_strip
+    n = len(list(_segment_grid(page)))
+    total = -(-page.height // length) * length if tiled else page.height
+    restart = int(page.fallback_tags.get(TAG_JPEG_RESTART_INTERVAL, [0])[0])
+    jif, striles = _ojpeg_sources(tf, page, n)
+    sources = [jif] + striles
+    flat = b"".join(sources)
+    sampling = (1, 1)
+    if colour:  # OJPEGSubsamplingCorrect: a probe of the header
+        probe = _OJpegHeader(0)
+        try:
+            _ojpeg_header(flat, probe, page.samples, None)
+        except FallbackError:
+            pass
+        sampling = _sampling(page, (2, 2))
+        if probe.sof is not None:
+            hv = [c[1] for c in probe.sof[3]]
+            sampling = (hv[0] >> 4, hv[0] & 15)
+            if (set(hv[1:]) != {0x11} or sampling[0] not in (1, 2, 4)
+                    or sampling[1] not in (1, 2, 4)):
+                raise NotImplementedError(
+                    f"{tf.path}: an old-style JPEG page sampled "
+                    f"{[divmod(v, 16) for v in hv]}, which libjpeg "
+                    "upsamples itself: ROADMAP M17")
+    if length < page.height:
+        hs, vs = sampling
+        if hs not in (1, 2, 4) or vs not in (1, 2, 4) or length % (8 * vs):
+            raise FallbackError(
+                f"strips or tiles of {length} "
+                f"rows at subsampling {sampling}: libtiff refuses them")
+        restart = -(-width // (8 * hs)) * (length // (8 * vs))
+    head = _OJpegHeader(restart)
+    start = _ojpeg_header(flat, head, page.samples, sampling)
+    if head.sof is None:  # the table form
+        ids = _ojpeg_tables(tf, page, head, page.samples)
+        hv = [(sampling[0] << 4) | sampling[1]] + [0x11] * (page.samples - 1)
+        head.sof = (0xC0, total, width, [(m, hv[m], ids[m][0])
+                                         for m in range(page.samples)])
+        head.sos = [(m, (ids[m][1] << 4) | ids[m][2])
+                    for m in range(page.samples)]
+    marker, height, frame_w, comps = head.sof
+    if (height < min(page.height, total) or frame_w > width
+            or frame_w < min(page.width, width)):
+        raise FallbackError(
+            f"the stream is {height}x{frame_w}, the "
+            f"page {page.height}x{page.width}: libtiff refuses it")
+    if marker == 0xC3:
+        raise NotImplementedError(f"{tf.path}: a lossless (SOF3) old-style"
+                                  " JPEG page: ROADMAP M17")
+    ns = len(head.sos)
+    out = [b"\xff\xd8"]
+    for tables in (head.q, head.dc, head.ac):
+        out += [tables[i] for i in sorted(tables)]
+    if head.restart:
+        out.append(struct.pack(">BBHH", 0xFF, _DRI, 4, head.restart))
+    out.append(struct.pack(">BBHBHHB", 0xFF, marker, 8 + 3 * len(comps), 8,
+                           height, frame_w, len(comps))
+               + b"".join(bytes(c) for c in comps))
+    out.append(struct.pack(">BBHB", 0xFF, _SOS, 6 + 2 * ns, ns)
+               + b"".join(bytes(c) for c in head.sos) + b"\x00\x3f\x00")
+    at, rst = 0, 0
+    for i, src in enumerate(sources):
+        piece = src[max(start - at, 0):]
+        at += len(src)
+        if not piece:
+            continue
+        out.append(piece)
+        if i and i < len(sources) - 1:  # a strip or tile with more after
+            out.append(bytes((0xFF, 0xD0 + rst)))
+            rst = (rst + 1) % 8
+    out.append(b"\xff\xd9")
+    return b"".join(out)
+
+
 def _ojpeg_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
-    """An old-style JPEG page (compression 6) whose one strip is, or whose
-    ``JPEGInterchangeFormat`` (tags 513/514) points at, a complete JPEG
-    stream of the page's size, as libtiff's ``tif_ojpeg.c`` reads it
-    under PIL: baseline or extended sequential frames only; gray pages as
-    decoded, whatever their photometric; colour pages (photometric 2 or
-    6) from libjpeg's raw component samples, chroma repeated to the full
-    size and converted by libtiff's own YCbCr tables.  The table form
-    (tags 512, 519-521, bare scans in the strips), pages of several
-    strips or tiles and colour pages with their own YCbCrCoefficients or
-    ReferenceBlackWhite are ROADMAP M17."""
+    """An old-style JPEG page (compression 6) as libtiff's ``tif_ojpeg.c``
+    reads it under PIL (:func:`_ojpeg_stream`): baseline or extended
+    sequential frames, the JPEGInterchangeFormat form (tags 513/514) and
+    the table form (JPEGQTables, JPEGDCTables, JPEGACTables and bare
+    scans), in one strip or several, or in one column of tiles.  Gray
+    pages come back as decoded, whatever their photometric.  Colour pages
+    (photometric 2, which libtiff takes for 6, or 6) from libjpeg's raw
+    component samples, chroma repeated to the full size and converted by
+    libtiff's own YCbCr tables at the page's YCbCrCoefficients and
+    ReferenceBlackWhite; their sampling is the stream's where it has a
+    SOF, the ``YCbCrSubsampling`` tag's (2x2 by default) in the table
+    form.  Tiles in more than one column are ROADMAP M17: libtiff's frame
+    is one tile wide there."""
     from unmicst_tpu_torch.io import jpeg
 
     where = f"{tf.path}: old-style JPEG page"
-    tags = page.fallback_tags
-    if page.tiled or len(page.offsets) != 1:
-        kind = "tiles" if page.tiled else "strips"
-        raise NotImplementedError(
-            f"{where} in {len(page.offsets)} {kind}: ROADMAP M17")
-    try:
-        if TAG_JPEG_IF_OFFSET in tags and TAG_JPEG_IF_LENGTH in tags:
-            off = int(tags[TAG_JPEG_IF_OFFSET][0])
-            n = int(tags[TAG_JPEG_IF_LENGTH][0])
-            if off < 0 or n < 0 or off + n > tf._fsize:
-                raise FallbackError(f"{where}: its JPEG stream extends past "
-                                    "the end of the file")
-            tf._fh.seek(off)
-            stream = tf._fh.read(n)
-        else:
-            stream = tf._stored(page, 0)
-    except ValueError as e:  # the strip past EOF
-        raise FallbackError(f"{where}: {e}") from None
-    if not stream.startswith(b"\xff\xd8"):
-        raise NotImplementedError(
-            f"{where} in the table form (JPEGProc, JPEGQTables and bare "
-            "scans): ROADMAP M17")
-    colour = page.samples == 3 and page.photometric in (2, 6)
-    if colour and (TAG_YCBCR_COEFFICIENTS in tags
-                   or TAG_REFERENCE_BLACK_WHITE in tags):
-        raise NotImplementedError(
-            f"{where} with its own YCbCrCoefficients or ReferenceBlackWhite:"
-            " ROADMAP M17")
+    colour = (page.samples == 3 and page.photometric in (2, 6)
+              and page.planar == 1)
     if not colour and (page.samples != 1 or page.photometric not in (
             None, 0, 1)):
         raise NotImplementedError(
             f"{where} of {page.samples} samples, photometric "
-            f"{page.photometric}: ROADMAP M17")
+            f"{page.photometric}, planar configuration {page.planar}: "
+            "ROADMAP M17")
+    if page.tiled and page.tile_width < page.width:
+        raise NotImplementedError(
+            f"{where} in {-(-page.width // page.tile_width)} columns of "
+            "tiles: ROADMAP M17")
+    if colour:
+        luma, ref = _ycc_params(tf, page)
     try:
-        frame, _ = jpeg.parse(stream)
-        if frame.progressive:
-            raise FallbackError(f"{where}: a progressive stream, which "
-                                "libtiff refuses")
-        if (frame.height, frame.width) != (page.height, page.width) or len(
-                frame.components) != page.samples:
-            raise FallbackError(
-                f"{where}: the stream is {frame.height}x{frame.width} of "
-                f"{len(frame.components)} component(s), the page "
-                f"{page.height}x{page.width} of {page.samples} sample(s)")
-        if not colour:
-            return jpeg.decode(stream)
-        frame, planes = jpeg.decode_planes(stream)
-    except ValueError as e:
+        frame, planes = jpeg.decode_planes(_ojpeg_stream(tf, page, colour))
+    except (ValueError, FallbackError) as e:  # JpegError, libtiff's checks
         raise FallbackError(f"{where}: {e}") from None
-    full = [np.repeat(np.repeat(p, frame.vmax // c.v, 0), frame.hmax // c.h,
-                      1)[: page.height, : page.width]
-            for p, c in zip(planes, frame.components)]
-    return _tiff_ycc_to_rgb(*full)
+    if not colour:
+        return np.ascontiguousarray(planes[0][: page.height, : page.width])
+    sizes = [(frame.hmax // c.h, frame.vmax // c.v) for c in frame.components]
+    return _tiff_ycc_to_rgb(*_replicate(planes, sizes, page.height,
+                                        page.width), luma, ref)
 
 
 # the sample widths the fallback unpacks, with PIL's scale to 8 bits
@@ -887,26 +1203,32 @@ def _ccitt_segment(data: bytes, cols: int, rows: int,
 
 
 def _packed_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
-    """A gray page of 1-, 2-, 4- or 12-bit samples, as PIL reads it: each
-    row unpacked most significant bit first, rows byte-padded, under the
-    codecs :func:`_decode` speaks or CCITT (1-bit only); FillOrder 2
-    reverses each stored byte's bits first.  1-bit pages come back
-    ``bool``, 2- and 4-bit pages ``uint8`` at 85 and 17 a step, 12-bit
-    pages ``uint16`` as stored.  WhiteIsZero pages, and pages without the
-    tag (PIL's default), are inverted.  Where PIL has no mode for the page
-    (12-bit pages other than little-endian BlackIsZero at FillOrder 1,
-    signed or float samples) or libtiff refuses it (predictor 2 under a
-    codec that applies it), :class:`FallbackError`."""
+    """A gray or palette page of 1-, 2-, 4- or 12-bit samples, as PIL
+    reads it: each row unpacked most significant bit first, rows
+    byte-padded, under the codecs :func:`_decode` speaks or CCITT (1-bit
+    only); FillOrder 2 reverses each stored byte's bits first.  Gray
+    1-bit pages come back ``bool``, 2- and 4-bit pages ``uint8`` at 85 and
+    17 a step, 12-bit pages ``uint16`` as stored; WhiteIsZero pages, and
+    pages without the tag (PIL's default), are inverted.  Palette pages
+    (photometric 3, PIL's mode ``P``) come back as their ``uint8``
+    indices, 1-bit ones too.  Where PIL has no mode for the page (12-bit
+    pages other than little-endian BlackIsZero at FillOrder 1,
+    uncompressed palette pages at FillOrder 2, which libtiff does not
+    decode for PIL, signed or float samples) or
+    libtiff refuses it (predictor 2 under a codec that applies it),
+    :class:`FallbackError`."""
     fill = int(page.fallback_tags.get(TAG_FILL_ORDER, [1])[0])
     ccitt_coded = page.compression in _CCITT
-    where = f"{tf.path}: {page.bits}-bit page" + (
-        f" under CCITT compression {page.compression}" if ccitt_coded
-        else "")
+    palette = page.photometric == 3
+    where = f"{tf.path}: {page.bits}-bit {'palette ' if palette else ''}" \
+        "page" + (f" under CCITT compression {page.compression}"
+                  if ccitt_coded else "")
     if ccitt_coded and page.bits != 1:
         raise FallbackError(f"{where}: libtiff codes 1-bit pages only")
     if page.sample_format != 1 or page.bits not in _PACKED_SCALE or (
             page.bits == 12 and (tf.byteorder != "<" or fill != 1
-                                 or page.photometric != 1)):
+                                 or page.photometric != 1)) or (
+            palette and fill != 1 and page.compression == COMPRESSION_NONE):
         raise FallbackError(
             f"{where} of format {page.sample_format}, byte order "
             f"{tf.byteorder}, FillOrder {fill}, photometric "
@@ -937,6 +1259,8 @@ def _packed_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
             raise FallbackError(f"{where}: segment {k}: {e}") from None
         b, d = min(rows, page.height - r0), min(cols, page.width - c0)
         out[r0 : r0 + b, c0 : c0 + d] = _unpack(packed, bits, cols)[:b, :d]
+    if palette:
+        return out
     if page.photometric != 1:
         np.subtract((1 << bits) - 1, out, out=out)
     if bits == 1:
@@ -946,31 +1270,151 @@ def _packed_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
     return out
 
 
+def _segment_bytes(tf: TiffFile, page: TiffPage, k: int, nbytes: int,
+                   where: str) -> np.ndarray:
+    """Segment ``k`` decoded by :func:`_decode` to exactly ``nbytes``
+    uint8."""
+    try:
+        buf = _decode(tf._stored(page, k), page.compression, nbytes)
+    except ValueError as e:
+        raise FallbackError(f"{where}: segment {k}: {e}") from None
+    if len(buf) < nbytes:
+        raise FallbackError(f"{where}: segment {k} decodes to {len(buf)} "
+                            f"of {nbytes} bytes")
+    return np.frombuffer(buf, np.uint8, nbytes)
+
+
 def _planar_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
-    """An 8-bit RGB page stored plane by plane (PlanarConfiguration 2),
-    as PIL reads it: ``[H, W, 3]`` uint8, the planes' strips or tiles one
-    plane after another, predictor 2 undone per plane where libtiff
-    applies it."""
-    where = f"{tf.path}: planar RGB page"
+    """An 8-bit page stored plane by plane (PlanarConfiguration 2), as PIL
+    reads it: the planes' strips or tiles one plane after another, each
+    under the codecs :func:`_decode` speaks (predictor 2 undone per plane
+    where libtiff applies it) or one 1-component JPEG stream
+    (compression 7, :func:`_jpeg_segment`).
+
+    * RGB (3 samples) comes back ``[H, W, 3]`` as stored.
+    * RGBA (4 samples) comes back ``[H, W, 4]`` as stored where its
+      ExtraSamples tag says unassociated alpha, or where it has none and
+      is uncompressed.  libtiff takes a compressed page without the tag,
+      or with associated alpha, as premultiplied, and PIL divides the
+      alpha out (``c * 255 // a``, clipped; 0 where ``a`` is 0).  PIL
+      refuses the other kinds (:class:`FallbackError`).
+    * YCbCr (photometric 6): PIL's own reader returns an uncompressed
+      page's stored planes as RGB, whatever its subsampling tag.
+      libtiff converts a compressed one by ``TIFFYCbCrtoRGB`` (at the
+      page's coefficients and reference black and white) where its
+      ``YCbCrSubsampling`` tag says 1x1, and refuses it otherwise."""
+    where = f"{tf.path}: planar page"
+    compressed = page.compression != COMPRESSION_NONE
+    extra = page.fallback_tags.get(TAG_EXTRA_SAMPLES)
+    extra = None if extra is None else [int(v) for v in extra]
+    premultiplied = page.samples == 4 and compressed and extra in (None, [1])
+    if page.samples == 4 and extra not in (None, [2]) and not premultiplied:
+        raise FallbackError(f"{where} with ExtraSamples {extra}: PIL has no "
+                            "mode for it")
+    ycbcr = page.photometric == 6 and compressed
+    if ycbcr:
+        luma, ref = _ycc_params(tf, page)
+        if _sampling(page, (2, 2)) != (1, 1):
+            raise FallbackError(f"{where}: YCbCr planes subsampled "
+                                f"{_sampling(page, (2, 2))}, which libtiff "
+                                "refuses")
+    jpeg_coded = page.compression == COMPRESSION_JPEG
+    if jpeg_coded:
+        _check_jpeg_bits(tf, page)
+        tables = _jpeg_tables(tf, page)
     grid = list(_segment_grid(page))
-    out = np.empty((page.height, page.width, 3), np.uint8)
-    for plane in range(3):
+    out = np.empty((page.height, page.width, page.samples), np.uint8)
+    for plane in range(page.samples):
         for k, r0, c0, rows, cols in grid:
             seg = plane * len(grid) + k
-            nbytes = rows * cols
-            try:
-                buf = _decode(tf._stored(page, seg), page.compression, nbytes)
-            except ValueError as e:
-                raise FallbackError(f"{where}: segment {seg}: {e}") from None
-            if len(buf) < nbytes:
-                raise FallbackError(f"{where}: segment {seg} decodes to "
-                                    f"{len(buf)} of {nbytes} bytes")
-            px = np.frombuffer(buf, np.uint8, nbytes).reshape(rows, cols, 1)
-            if page.predictor == 2 and page.compression in _PREDICTED:
-                px = _undo_predictor(px.copy())
+            if jpeg_coded:
+                px = _jpeg_segment(tf, page, seg, r0, rows, cols, tables,
+                                   1)[0]
+            else:
+                px = _segment_bytes(tf, page, seg, rows * cols,
+                                    where).reshape(rows, cols, 1)
+                if page.predictor == 2 and page.compression in _PREDICTED:
+                    px = _undo_predictor(px.copy())
+                px = px[..., 0]
             b, d = min(rows, page.height - r0), min(cols, page.width - c0)
-            out[r0 : r0 + b, c0 : c0 + d, plane] = px[:b, :d, 0]
+            out[r0 : r0 + b, c0 : c0 + d, plane] = px[:b, :d]
+    if ycbcr:
+        return _tiff_ycc_to_rgb(out[..., 0], out[..., 1], out[..., 2], luma,
+                                ref)
+    if premultiplied:  # PIL's "RGBa" unpacker: c * 255 // a, clipped
+        a = out[..., 3:].astype(np.int32)
+        rgb = np.minimum(out[..., :3].astype(np.int32) * 255
+                         // np.maximum(a, 1), 255)
+        out[..., :3] = np.where(a > 0, rgb, 0)
     return out
+
+
+# the subsamplings libtiff's RGBA interface converts (putcontig8bitYCbCr*)
+_YCC_SAMPLINGS = ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4))
+
+
+def _ycbcr_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
+    """An 8-bit YCbCr page stored interleaved and subsampled (photometric
+    6, ``YCbCrSubsampling`` h x v, 2x2 without the tag), as PIL reads a
+    compressed one through libtiff's RGBA interface: each strip or tile
+    a run of data units (h * v luma samples, row by row, then Cb and Cr)
+    over its blocks, edge blocks whole; each luma sample converted with
+    its block's chroma by ``TIFFYCbCrtoRGB`` at the page's coefficients
+    and reference black and white.  Predictor 2 is undone as libtiff
+    undoes it, with a stride of 3 bytes over rows of a strip's block row
+    bytes / v, or of a tile's width times 3 (a row that is not a multiple
+    of 3 bytes is ROADMAP M17).  libtiff refuses other subsamplings
+    (:class:`FallbackError`).  ROADMAP M17 holds two kinds PIL returns
+    garbage for: uncompressed pages, which PIL's own reader reads as
+    samples that are not subsampled, and strips at v = 4 whose block row
+    is not a multiple of 4 bytes, which libtiff reads short."""
+    where = f"{tf.path}: subsampled YCbCr page"
+    hs, vs = _sampling(page, (2, 2))
+    if page.compression == COMPRESSION_NONE:
+        raise NotImplementedError(
+            f"{where}, uncompressed: PIL's own reader reads its bytes as "
+            "samples that are not subsampled, past each strip's end: "
+            "ROADMAP M17")
+    if (hs, vs) not in _YCC_SAMPLINGS:
+        raise FallbackError(f"{where} at {hs}x{vs}: libtiff cannot handle "
+                            "it")
+    unit = hs * vs + 2
+    if not page.tiled and -(-page.width // hs) * unit % vs:
+        raise NotImplementedError(
+            f"{where} at {hs}x{vs}, {page.width} wide, in strips: libtiff "
+            "reads each strip short (its scanline size rounds down) and "
+            "PIL returns what its buffer held: ROADMAP M17")
+    luma, ref = _ycc_params(tf, page)
+    y = np.empty((-(-page.height // vs) * vs, -(-page.width // hs) * hs),
+                 np.uint8)
+    cb = np.empty((y.shape[0] // vs, y.shape[1] // hs), np.uint8)
+    cr = np.empty_like(cb)
+    for k, r0, c0, rows, cols in _segment_grid(page):
+        brows, bcols = -(-rows // vs), -(-cols // hs)
+        data = _segment_bytes(tf, page, k, brows * bcols * unit, where)
+        if page.predictor == 2 and page.compression in _PREDICTED:
+            # libtiff's predictor row: a tile's width in samples, or a
+            # strip's block row over v
+            line = 3 * cols if page.tiled else bcols * unit // vs
+            if line % 3 or len(data) % line:
+                raise NotImplementedError(
+                    f"{where}: predictor 2 over {line}-byte rows of 3 "
+                    "bytes, where libtiff fails and PIL returns its buffer:"
+                    " ROADMAP M17")
+            data = _undo_predictor(data.reshape(-1, line // 3, 3).copy())
+        units = data.reshape(brows, bcols, unit)
+        lum = units[..., : hs * vs].reshape(brows, bcols, vs, hs)
+        lum = lum.transpose(0, 2, 1, 3).reshape(brows * vs, bcols * hs)
+        b = min(brows * vs, y.shape[0] - r0)
+        d = min(bcols * hs, y.shape[1] - c0)
+        y[r0 : r0 + b, c0 : c0 + d] = lum[:b, :d]
+        cb[r0 // vs : (r0 + b) // vs, c0 // hs : (c0 + d) // hs] = units[
+            : b // vs, : d // hs, -2]
+        cr[r0 // vs : (r0 + b) // vs, c0 // hs : (c0 + d) // hs] = units[
+            : b // vs, : d // hs, -1]
+    y = y[: page.height, : page.width]
+    cb, cr = _replicate([cb, cr], [(hs, vs)] * 2, page.height, page.width)
+    return _tiff_ycc_to_rgb(y, cb, cr, luma, ref)
 
 
 def _undo_float_predictor(rows: np.ndarray, itemsize: int) -> np.ndarray:
@@ -1010,15 +1454,8 @@ def _float_predictor_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
     grid = list(_segment_grid(page))
     out = np.empty((page.height, page.width), np.float32)
     for k, r0, c0, rows, cols in grid:
-        nbytes = rows * cols * 4
-        try:
-            buf = _decode(tf._stored(page, k), page.compression, nbytes)
-        except ValueError as e:
-            raise FallbackError(f"{where}: segment {k}: {e}") from None
-        if len(buf) < nbytes:
-            raise FallbackError(f"{where}: segment {k} decodes to {len(buf)}"
-                                f" of {nbytes} bytes")
-        raw = np.frombuffer(buf, np.uint8, nbytes).reshape(rows, cols * 4)
+        raw = _segment_bytes(tf, page, k, rows * cols * 4, where).reshape(
+            rows, cols * 4)
         if page.compression in _PREDICTED:
             px = _undo_float_predictor(raw.copy(), 4).view(np.float32)
         else:
@@ -1030,17 +1467,22 @@ def _float_predictor_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8"
+_BMP_MAGIC = b"BM"
 
 
 def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
-    """A PNG or JPEG file under a TIFF name, as PIL opens it by content:
-    its one frame, ``EOFError`` past it."""
+    """A PNG, JPEG or BMP file under a TIFF name, as PIL opens it by
+    content: its one frame, ``EOFError`` past it."""
     if index > 0:
         raise EOFError("attempt to seek outside sequence")
     if magic.startswith(_PNG_MAGIC):
         from unmicst_tpu_torch.io import png
 
         read, kind = png.read_png, "PNG"
+    elif magic.startswith(_BMP_MAGIC):
+        from unmicst_tpu_torch.io import bmp
+
+        read, kind = bmp.read_bmp, "BMP"
     else:
         from unmicst_tpu_torch.io import jpeg
 
@@ -1054,18 +1496,24 @@ def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
 def _fallback_reader(page: TiffPage):
     """The decoder of :func:`read_page_fallback` that takes ``page``, or
     None."""
-    if page.compression == COMPRESSION_JPEG:
+    if page.compression == COMPRESSION_JPEG and (page.planar == 1
+                                                 or page.samples == 1):
         return _jpeg_page
     if page.compression == COMPRESSION_OJPEG:
         return _ojpeg_page
     if page.predictor == 3:
         return _float_predictor_page
-    if page.samples == 1 and page.photometric in (None, 0, 1) and (
+    if page.samples == 1 and page.photometric in (None, 0, 1, 3) and (
             page.compression in _CCITT or page.bits in _PACKED_SCALE):
         return _packed_page
-    if (page.samples == 3 and page.planar == 2 and page.photometric == 2
-            and page.bits == 8 and page.sample_format == 1):
+    if page.bits != 8 or page.sample_format != 1:
+        return None
+    if page.planar == 2 and (
+            (page.samples == 3 and page.photometric in (2, 6))
+            or (page.samples == 4 and page.photometric == 2)):
         return _planar_page
+    if page.planar == 1 and page.samples == 3 and page.photometric == 6:
+        return _ycbcr_page
     return None
 
 
@@ -1075,15 +1523,17 @@ def read_page_fallback(path: str, index: int, cause: Exception
     :class:`TiffFile` refused it with ``cause``: the JAX package's PIL
     fallback (``unmicst_tpu/io/tiff.py:1285-1291``,
     ``io/slides.py:77-97``) without PIL, for the pages of ROADMAP M17.
-    The file is opened by content, as PIL opens it: a PNG or JPEG file
-    under a TIFF name gives its one frame (:func:`_single_frame`).  A
-    TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no
+    The file is opened by content, as PIL opens it: a PNG, JPEG or BMP
+    file under a TIFF name gives its one frame (:func:`_single_frame`).
+    A TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no
     OME mapping applies.  It reads JPEG pages, gray or colour
     (:func:`_jpeg_page`), old-style JPEG pages (:func:`_ojpeg_page`),
     float32 pages with the floating-point predictor
-    (:func:`_float_predictor_page`), gray 1-, 2-, 4- and 12-bit pages,
-    CCITT-coded ones among them (:func:`_packed_page`), and 8-bit RGB
-    pages stored plane by plane (:func:`_planar_page`).  Past the chain's
+    (:func:`_float_predictor_page`), gray and palette 1-, 2- and 4-bit
+    pages and gray 12-bit ones, CCITT-coded ones among them
+    (:func:`_packed_page`), subsampled YCbCr pages (:func:`_ycbcr_page`)
+    and 8-bit pages stored plane by plane, JPEG-coded ones among them
+    (:func:`_planar_page`).  Past the chain's
     end it raises ``EOFError``; where PIL refuses such a page too, or its
     data does not decode, :class:`FallbackError` (an ``OSError``); for
     the pages of these kinds still queued ``NotImplementedError`` naming
@@ -1092,7 +1542,7 @@ def read_page_fallback(path: str, index: int, cause: Exception
     fallback in either package."""
     with open(path, "rb") as f:
         magic = f.read(8)
-    if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC)):
+    if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC, _BMP_MAGIC)):
         return _single_frame(path, index, magic)
     if magic[:2] not in (b"II", b"MM"):
         raise cause

@@ -21,11 +21,13 @@ float64, and return numpy arrays in scipy's output dtypes:
   (``border_value=0``).
 
 The index-only helpers (the nearest-neighbour resizes, ``normalize``,
-``snormalize``, ``cat``, ``size``, ``stack2list``) stay in numpy.  TIFFs
-read and write through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
-:mod:`unmicst_tpu_torch.io.png` and JPEGs read through
-:mod:`unmicst_tpu_torch.io.jpeg` (gray, and colour as ``[H, W, 3]``);
-other formats, which the JAX package reaches through PIL, raise
+``snormalize``, ``cat``, ``size``, ``stack2list``) stay in numpy.
+:func:`imread` opens a file by content, as PIL does for the JAX package:
+TIFFs through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
+:mod:`unmicst_tpu_torch.io.png`, JPEGs through
+:mod:`unmicst_tpu_torch.io.jpeg` and BMPs through
+:mod:`unmicst_tpu_torch.io.bmp`; :func:`imwrite` writes TIFF, PNG and
+BMP.  Other formats (GIF, WebP, JPEG write) raise
 ``NotImplementedError`` (ROADMAP M17).
 :func:`imshow` and :func:`imshowlist` keep the JAX package's headless
 contract without matplotlib: they write a PNG and return its path.
@@ -33,7 +35,10 @@ contract without matplotlib: they write a PNG and return its path.
 On an integer image the feature stacks and :func:`imgradmag` give what
 numpy gives: the derivatives are stored in the image's dtype, their
 squares and sums wrap in it, and the root takes numpy's float type for
-it (float16 for 8 bits, float32 for 16, float64 wider).
+it (float16 for 8 bits, float32 for 16, float64 wider).  On a bool image
+the filters keep scipy's stored bytes (see :func:`_cast`), numpy reads
+each as 0 or 1, and the Laplacian's negation raises ``TypeError``, as
+numpy's ``-`` does for the JAX package.
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from unmicst_tpu_torch.io import jpeg, png
+from unmicst_tpu_torch.io import bmp, jpeg, png
 from unmicst_tpu_torch.io.preprocess import im2double, resize  # noqa: F401
 from unmicst_tpu_torch.io.tiff import imread as _tiff_read
 from unmicst_tpu_torch.io.tiff import imwrite as _tiff_write
@@ -69,38 +74,55 @@ def size(image: np.ndarray) -> List[int]:
     return list(image.shape)
 
 
+# magic bytes -> the reader of a file opened by content, as PIL's
+# ``Image.open`` tells them apart (TIFF is the port's own reader)
+_BY_CONTENT = ((b"II", _tiff_read), (b"MM", _tiff_read),
+               (b"\x89PNG\r\n\x1a\n", png.read_png),
+               (b"\xff\xd8\xff", jpeg.read_jpeg), (b"BM", bmp.read_bmp))
+
+
 def imread(path: str) -> np.ndarray:
-    """Generic image read: TIFF, PNG (gray 8/16-bit, RGB/RGBA 8-bit) and
-    JPEG (gray ``[H, W]``, colour ``[H, W, 3]`` uint8, as PIL's
-    ``np.asarray`` gives them); other formats raise
-    ``NotImplementedError``."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in (".tif", ".tiff"):
+    """Generic image read, as the JAX toolbox's: a ``.tif``/``.tiff``
+    name goes to the TIFF reader (whose fallback opens a PNG, JPEG or
+    BMP under that name by content); any other file is opened by content,
+    as ``Image.open`` opens it: a TIFF, PNG, JPEG or BMP whatever its
+    name, each as PIL's ``np.asarray`` gives it.  Other formats (GIF
+    among them) raise ``NotImplementedError`` (ROADMAP M17)."""
+    if path.lower().endswith((".tif", ".tiff")):
         return _tiff_read(path)
-    if ext == ".png":
-        return png.read_png(path)
-    if ext in (".jpg", ".jpeg"):
-        return jpeg.read_jpeg(path)
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    for head, read in _BY_CONTENT:
+        if magic.startswith(head):
+            return read(path)
     raise NotImplementedError(
-        f"imread: {ext or 'no extension'} files are not supported by "
-        "unmicst_tpu_torch (TIFF, PNG and JPEG are; the JAX package "
-        "reads the rest through PIL: ROADMAP M17)")
+        f"imread: {os.path.basename(path)} is none of TIFF, PNG, JPEG and "
+        "BMP, which unmicst_tpu_torch reads; the JAX package reads other "
+        "formats through PIL (ROADMAP M17)")
 
 
 def imwrite(image: np.ndarray, path: str) -> None:
-    """Generic image write: TIFF, and PNG of gray 8/16-bit or RGB 8-bit;
-    other formats raise ``NotImplementedError``."""
-    ext = os.path.splitext(path)[1].lower()
-    if ext in (".tif", ".tiff"):
+    """Generic image write, as the JAX toolbox's: a ``.tif``/``.tiff``
+    name writes a TIFF page; any other is ``Image.fromarray(image)
+    .save(path)``, whose format the extension picks: PNG and BMP here
+    (PIL's modes, and its ``TypeError`` / ``OSError`` where it has none).
+    Other formats, JPEG and GIF among them, raise ``NotImplementedError``
+    (ROADMAP M17)."""
+    if path.lower().endswith((".tif", ".tiff")):
         _tiff_write(path, image, bigtiff=False)
         return
+    ext = os.path.splitext(path)[1].lower()
     if ext == ".png":
         png.write_png(path, image)
         return
+    if ext == ".bmp":
+        bmp.write_bmp(path, image)
+        return
+    png.array_mode(image)  # fromarray's TypeError comes first in PIL
     raise NotImplementedError(
         f"imwrite: {ext or 'no extension'} files are not supported by "
-        "unmicst_tpu_torch (TIFF and PNG are; the JAX package writes the "
-        "rest, JPEG among them, through PIL: ROADMAP M17)")
+        "unmicst_tpu_torch (TIFF, PNG and BMP are; the JAX package writes "
+        "the rest, JPEG among them, through PIL: ROADMAP M17)")
 
 
 def _display_u8(image: np.ndarray) -> np.ndarray:
@@ -255,11 +277,17 @@ _FLOAT_DTYPES = {np.dtype(np.float16): torch.float16,
 def _cast(x: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
     """The values a float64 result takes when scipy stores it in
     ``dtype``: floats round to it (and stay float64 for the next pass);
-    integers truncate and wrap, as C's cast does; bool is ``!= 0``."""
+    integers truncate and wrap, as C's cast does.  A bool result is C's
+    cast of the double into the bool's byte, as x86 compiles it for
+    scipy: truncated to a 32-bit integer (0 where it is out of range or
+    NaN), then its low 8 bits, so -1 stores 255 and 300.7 stores 44; a
+    later pass reads that byte back as a number."""
     if dtype in _FLOAT_DTYPES:
         return x.to(_FLOAT_DTYPES[dtype]).to(torch.float64)
     if dtype == np.bool_:
-        return (x != 0).to(torch.float64)
+        t = torch.trunc(x)
+        return torch.where((t >= -2.0**31) & (t < 2.0**31),
+                           torch.remainder(t, 256.0), 0.0)
     info = np.iinfo(dtype)
     span = float(info.max) - float(info.min) + 1
     return torch.remainder(torch.trunc(x) - float(info.min), span) + float(
@@ -267,11 +295,32 @@ def _cast(x: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
 
 
 def _to_numpy(x: torch.Tensor, dtype: np.dtype) -> np.ndarray:
+    """A result in ``dtype``; a bool one keeps its stored bytes (0-255),
+    as scipy's output array does."""
+    if dtype == np.bool_:
+        return x.cpu().numpy().astype(np.uint8).view(np.bool_)
     return x.cpu().numpy().astype(dtype)
 
 
 def _as_tensor(image, dev) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(image, np.float64), device=dev)
+    """``image`` as float64; a bool image as its bytes, which scipy's
+    filters read as numbers."""
+    image = np.asarray(image)
+    if image.dtype == np.bool_:
+        image = image.view(np.uint8)
+    return torch.as_tensor(image.astype(np.float64), device=dev)
+
+
+def _numpy_value(x: torch.Tensor, dtype: np.dtype) -> torch.Tensor:
+    """What numpy reads from a stored result: a bool's byte as 0 or 1
+    (its ``**``, ``+`` and casts to float), anything else as it is."""
+    return (x != 0).to(torch.float64) if dtype == np.bool_ else x
+
+
+def _negate_check(dtype: np.dtype) -> None:
+    """The JAX package negates the Laplacian with numpy's unary ``-``,
+    which raises ``TypeError`` on bool arrays."""
+    np.negative(np.zeros((), dtype))
 
 
 def _per_axis(value, ndim: int, name: str) -> list:
@@ -399,6 +448,7 @@ def imlogfilt(image: np.ndarray, sigma, device=None) -> np.ndarray:
     """Negated Laplacian-of-Gaussian (blob enhancer)."""
     image = np.asarray(image)
     x = _as_tensor(image, resolve_device(device))
+    _negate_check(image.dtype)
     return _to_numpy(_cast(-_laplace(x, image.dtype, sigma), image.dtype),
                      image.dtype)
 
@@ -424,6 +474,7 @@ def _norm(dtype: np.dtype, *parts: torch.Tensor) -> torch.Tensor:
     products wrap mod 2**64, which keeps every narrower dtype's low
     bits), and the root is taken of that value."""
     sq, root = _root_dtype(dtype)
+    parts = [_numpy_value(p, dtype) for p in parts]
     if dtype in _FLOAT_DTYPES:
         total = _cast(parts[0] * parts[0], dtype)
         for p in parts[1:]:
@@ -631,7 +682,7 @@ def _derivatives(x, dtype, sigmas, ndim) -> List[torch.Tensor]:
     planes = []
     for sigma in sigmas:
         def g(order):
-            return _gauss(x, dtype, sigma, order)
+            return _numpy_value(_gauss(x, dtype, sigma, order), dtype)
 
         if ndim == 2:
             dx, dy = g([0, 1]), g([1, 0])
@@ -684,6 +735,8 @@ def _features(image, sigma_deriv, sigma_log, loc_stats_rad, device,
     dev = resolve_device(device)
     x = _as_tensor(image, dev)
     planes = _derivatives(x, image.dtype, sigma_deriv, ndim)
+    if sigma_log:
+        _negate_check(image.dtype)
     planes += [_cast(-_laplace(x, image.dtype, s), image.dtype)
                for s in sigma_log]
     if loc_stats_rad > 1:
