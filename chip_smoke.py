@@ -110,9 +110,11 @@ printing any result):
     (median of 5), its calibration seconds, peak memory and profile by
     kind; int8 against bfloat16 at the JAX CLI's int8 bar; the card
     against the CPU with one QuantState (seeded weights: few pixels
-    apart; blobDemo: 2 levels on 5%); the scaled slide at 0.5, the 8192^2
-    stream and its 4-rank sharded form, the duo net at 4096^2, with the
-    launches of K1, K2 and K3; ``--precision int8`` through ``cli.main``;
+    apart; blobDemo: 2 levels on 5%); blobDemo's calibration from fresh
+    threads, half under load, to the same scales; the scaled slide at
+    0.5, the 8192^2 stream and its 4-rank sharded form, the duo net at
+    4096^2, with the launches of K1, K2 and K3; ``--precision int8``
+    through ``cli.main``;
 11. serving (``unmicst_tpu_torch.serve`` live on the card in threads, the
     legacy net at nucleiDAPI's widths with seeded weights written by
     ``save_tf1_params``): ``POST /infer`` of a 4096^2 slide in float32 and
@@ -237,9 +239,20 @@ printing any result):
     ``tests/fixtures/torch_tiff_pages`` and ``torch_image_formats`` equal
     to PIL's read, ``imtools.imwrite`` of each dtype read back to PIL's
     read; ``imgaussfilt``, ``imgradmag`` and ``imderivatives`` of a bool
-    image on the card byte-equal to scipy's.  The ``kernels`` line gives
-    each path's launches under ``launches_slice16`` and
-    ``launches_slice17``.
+    image on the card byte-equal to scipy's;
+20. GIF, JPEG write and lossless JPEG (M17, fourth part;
+    ``phase_slice18``, the same net): a 4096^2 two-frame GIF under a
+    ``.tif`` name (frame 0 with every gray level, written by the port's
+    GIF writer) through ``cli.main`` at channels 1 and 2, and a 4096^2
+    lossless (SOF3, predictor 1) JPEG under a ``.tif`` name, each
+    byte-equal to its pixels as a plain TIFF, K1 and one K2 epilogue
+    counted, with the decode seconds; a palette GIF's RGB frame refused
+    with ``ValueError``; ``imtools.imwrite`` of the 4096^2 class map as
+    ``.gif`` and ``.jpg`` with seconds; every committed fixture of
+    ``tests/fixtures/torch_gif`` and ``torch_jpeg_write`` read equal to
+    PIL's read and written byte-equal to PIL's file.  The ``kernels`` line
+    gives each path's launches under ``launches_slice16``,
+    ``launches_slice17`` and ``launches_slice18``.
 """
 
 from __future__ import annotations
@@ -2898,6 +2911,46 @@ def phase_int8(dev) -> None:
         "(bar: 2 levels on 5%)")
     check(ok, f"blobDemo int8 card and CPU disagree: {worst} levels on "
               f"{share:.3e}")
+
+    # the int8 calibration without autotuning: the same scales from fresh
+    # threads (PyTorch's cuDNN plan cache is per thread), half of them
+    # calibrating while a matmul loop on another stream loads the card;
+    # autotuned, the timing runs' choice follows the load
+    def calibrated_scales(load: bool):
+        import threading
+
+        stop = threading.Event()
+
+        def busy():
+            a = torch.randn(8192, 8192, device=dev)
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                while not stop.is_set():
+                    a = (a @ a).clamp_(-1, 1)
+                    torch.cuda.current_stream(dev).synchronize()
+
+        noise = threading.Thread(target=busy) if load else None
+        if noise:
+            noise.start()
+        try:
+            e = InferenceEngine.from_bundle(bundle, demo_params, device=dev,
+                                            compute_dtype=bf, quantized=True)
+            e._quant_for_raw(blobs, -1, False)
+        finally:
+            stop.set()
+            if noise:
+                noise.join()
+        return {k: v.cpu() for k, v in e._quant["scales"].items()}
+
+    t = time.perf_counter()
+    runs = [in_new_thread(lambda i=i: calibrated_scales(i % 2 == 1))
+            for i in range(6)]
+    same = all(r.keys() == on_card._quant["scales"].keys() and all(
+        torch.equal(r[k], on_card._quant["scales"][k].cpu()) for k in r)
+        for r in runs)
+    log(f"[int8] blobDemo calibration in 6 fresh threads (3 with the card "
+        f"loaded from another stream) and the engine's: scales identical "
+        f"{same} ({time.perf_counter() - t:.2f} s)")
+    check(same, "the int8 calibration's scales change with the card's load")
 
     # a scaled slide: its own calibration on resized row bands
     q05 = InferenceEngine(lhp, lstate, "legacy", LEGACY_MEAN, LEGACY_STD,
@@ -6467,6 +6520,432 @@ def phase_slice17(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+# -- phase 20: GIF, JPEG write, lossless JPEG (M17, fourth part) -------------
+
+GIF_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_gif")
+JPEG_WRITE_FIXTURES = os.path.join(ROOT, "tests", "fixtures",
+                                   "torch_jpeg_write")
+
+
+def gif_file(width: int, height: int, frames, palette: bytes = None,
+             background: int = 0, version: bytes = b"89a") -> bytes:
+    """A GIF built here: a logical screen ``width`` x ``height`` with the
+    global colour table ``palette`` (RGB bytes, padded to a power of two;
+    None: none), then ``frames``, each a dict with ``pixels`` (``[h, w]``
+    indices) and optionally ``x``, ``y`` (its offset), ``palette`` (a
+    local table), ``transparency``, ``disposal``, ``interlace``, ``bits``
+    (the LZW minimum code size, 8 by default) and ``comment``; the LZW
+    codes are Pillow's encoder's (``io/gif.py``)."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io import gif
+
+    def table(pal):
+        size = max(0, (len(pal) // 3 - 1).bit_length() - 1)
+        return size, bytes(pal) + bytes(3 * (2 << size) - len(pal))
+
+    flags, body = 0, b""
+    if palette is not None:
+        size, body = table(palette)
+        flags = 128 | size
+    out = [b"GIF" + version + struct.pack("<HHBBB", width, height, flags,
+                                          background, 0) + body]
+    for fr in frames:
+        if fr.get("comment"):
+            out.append(b"!\xfe" + bytes([len(fr["comment"])]) + fr["comment"]
+                       + b"\0")
+        t, disposal = fr.get("transparency"), fr.get("disposal", 0)
+        if t is not None or disposal:
+            out.append(b"!\xf9\x04" + struct.pack(
+                "<BHBB", (t is not None) | (disposal << 2), 0, t or 0, 0))
+        px = np.asarray(fr["pixels"], np.uint8)
+        h, w = px.shape
+        fl, local = (64 if fr.get("interlace") else 0), b""
+        if fr.get("palette") is not None:
+            size, local = table(fr["palette"])
+            fl |= 128 | size
+        out.append(b"," + struct.pack("<HHHHB", fr.get("x", 0), fr.get("y", 0),
+                                      w, h, fl) + local)
+        if fr.get("interlace"):
+            px = np.concatenate([px[0::8], px[4::8], px[2::4], px[1::2]])
+        bits = fr.get("bits", 8)
+        out.append(bytes([bits]) + gif.sub_blocks(
+            gif.lzw_codes(np.ascontiguousarray(px).tobytes(), bits), w)
+            + b"\0")
+    return b"".join(out) + b";"
+
+
+def gif_two_frames(frame0, frame1) -> bytes:
+    """The port's GIF writer's file of the uint8 ``frame0`` with a second
+    frame, ``frame1``'s values under the same global table, appended."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io import gif
+
+    h, w = frame1.shape
+    px = np.ascontiguousarray(frame1, np.uint8)
+    return (gif.encode_gif(frame0)[:-1] + b"," + struct.pack(
+        "<HHHHB", 0, 0, w, h, 0) + b"\x08"
+        + gif.sub_blocks(gif.lzw_codes(px.tobytes(), 8), w) + b"\0;")
+
+
+# a lossless stream's Huffman table: categories 0-16, 5 bits each
+_LOSSLESS_BITS = bytes([0, 0, 0, 0, 17] + [0] * 11)
+
+
+def lossless_jpeg(img, predictor: int = 1, pt: int = 0,
+                  restart_rows: int = 0, ids=None, jfif: bool = False,
+                  repeat: int = 1) -> bytes:
+    """A lossless (SOF3) JPEG of the uint8 ``[h, w]`` or ``[h, w, 3]``
+    ``img`` (one scan, components interleaved, 1x1): samples ``>> pt``,
+    each predicted by ``predictor`` (1-7; the first row of the scan and of
+    each restart interval from the left, from ``2**(7 - pt)`` at its
+    start, later rows' first sample from above), the differences modulo
+    2**16 coded by category under one table of 5-bit codes; a restart
+    marker every ``restart_rows`` rows (0: none); component ids ``ids``
+    (1, 2, 3 by default); a JFIF APP0 where ``jfif``.  ``repeat`` > 1
+    stacks the image that many times, each copy's restart intervals (one
+    a copy where ``restart_rows`` is 0, else dividing its rows) the
+    first's data again.  The
+    interval, ``restart_rows * width`` MCUs, must fit DRI's 16 bits.
+    Vectorised: a 2048^2 plane takes about 2 s."""
+    import numpy as np
+
+    planes = [img] if img.ndim == 2 else [img[..., k] for k in
+                                          range(img.shape[2])]
+    nc = len(planes)
+    h, w = planes[0].shape
+    first = np.zeros(h, bool)
+    first[0] = True
+    if restart_rows:
+        first[::restart_rows] = True
+    diffs = []
+    for plane in planes:
+        x = plane.astype(np.int64) >> pt
+        ra, rb, rc = (np.zeros_like(x) for _ in range(3))
+        ra[:, 1:], rb[1:], rc[1:, 1:] = x[:, :-1], x[:-1], x[:-1, :-1]
+        pred = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc,
+                5: ra + ((rb - rc) >> 1), 6: rb + ((ra - rc) >> 1),
+                7: (ra + rb) >> 1}[predictor].copy()
+        pred[:, 0] = rb[:, 0]
+        pred[first] = ra[first]
+        pred[first, 0] = 1 << (7 - pt)
+        diffs.append((x - pred) & 0xFFFF)
+    d = np.stack(diffs, -1).reshape(h, w * nc)
+    signed = np.where(d > 32768, d - 65536, d)
+    cat = np.where(d == 32768, 16, np.ceil(np.log2(np.abs(signed) + 1))
+                   ).astype(np.int64)
+    extra = np.where(signed < 0, signed - 1, signed) & ((1 << cat) - 1)
+    extra = np.where(cat == 16, 0, extra)
+    nbits = 5 + np.where(cat == 16, 0, cat)
+    code = (cat << (nbits - 5)) | extra
+    ids = list(ids or range(1, nc + 1))
+    head = [b"\xff\xd8"]
+    if jfif:
+        head.append(b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00"
+                    b"\x01\x00\x00")
+    if repeat > 1 and not restart_rows:
+        restart_rows = h
+    if repeat > 1 and h % restart_rows:
+        raise ValueError(f"{restart_rows}-row restart intervals do not "
+                         f"tile a {h}-row copy")
+    if restart_rows * w > 65535:
+        raise ValueError(f"a restart interval of {restart_rows} rows of {w}"
+                         " MCUs does not fit DRI's 16 bits")
+    sof = struct.pack(">BHHB", 8, h * repeat, w, nc) + b"".join(
+        bytes([i, 0x11, 0]) for i in ids)
+    head.append(b"\xff\xc3" + struct.pack(">H", len(sof) + 2) + sof)
+    dht = b"\x00" + _LOSSLESS_BITS + bytes(range(17))
+    head.append(b"\xff\xc4" + struct.pack(">H", len(dht) + 2) + dht)
+    if restart_rows:
+        head.append(b"\xff\xdd\x00\x04" + struct.pack(">H",
+                                                     restart_rows * w))
+    sos = bytes([nc]) + b"".join(bytes([i, 0]) for i in ids) + bytes(
+        [predictor, 0, pt])
+    head.append(b"\xff\xda" + struct.pack(">H", len(sos) + 2) + sos)
+    chunks = []
+    starts = list(np.flatnonzero(first)) + [h]
+    lane = np.arange(32)
+    for k, (r0, r1) in enumerate(zip(starts[:-1], starts[1:])):
+        n, v = nbits[r0:r1].ravel(), code[r0:r1].ravel()
+        packed, carry = [], np.zeros(0, np.uint8)
+        for a in range(0, len(n), 1 << 20):  # each code's bits, MSB first
+            nn = n[a : a + (1 << 20)]
+            words = (v[a : a + (1 << 20)] << (32 - nn)).astype(">u4")
+            bits = np.unpackbits(words.view(np.uint8)).reshape(-1, 32)[
+                lane < nn[:, None]]
+            bits = np.concatenate([carry, bits])
+            cut = len(bits) // 8 * 8
+            packed.append(np.packbits(bits[:cut]))
+            carry = bits[cut:]
+        if len(carry):  # the interval's last byte padded with ones
+            packed.append(np.packbits(np.concatenate(
+                [carry, np.ones(8 - len(carry), np.uint8)])))
+        data = np.concatenate(packed)
+        data = np.insert(data, np.flatnonzero(data == 0xFF) + 1, 0)
+        chunks.append(data.tobytes())
+    out = [b"".join(head)]
+    for k, chunk in enumerate(chunks * repeat):
+        if k:
+            out.append(bytes([0xFF, 0xD0 + (k - 1) % 8]))
+        out.append(chunk)
+    return b"".join(out) + b"\xff\xd9"
+
+
+def sampled_jpeg(height: int, width: int, planes, hv) -> bytes:
+    """A baseline colour JPEG of ``height`` x ``width`` (JFIF, components
+    1-3, quality 75's tables, the standard Huffman tables) of the uint8
+    component ``planes``, each at its sampled size (``ceil(height * v /
+    vmax)`` rows), sampled ``hv`` = ``[(h, v), ...]``: each plane's edges
+    repeated out to whole MCUs, the port's forward DCT and entropy coder
+    (``io/jpegenc.py``), the MCUs interleaved."""
+    import numpy as np
+
+    from unmicst_tpu_torch.io import jpegenc as je
+
+    h, w = height, width
+    hmax, vmax = max(a for a, _ in hv), max(b for _, b in hv)
+    mr, mc = -(-h // (8 * vmax)), -(-w // (8 * hmax))
+    qs = [je.quant_table(je._BASE_LUMA), je.quant_table(je._BASE_CHROMA)]
+    grids = [je._component(je._pad(p, mr * v * 8, mc * a * 8), qs[min(k, 1)])
+             for k, (p, (a, v)) in enumerate(zip(planes, hv))]
+    blocks, slots = [], []
+    for my in range(mr):
+        for mx in range(mc):
+            for k, (a, v) in enumerate(hv):
+                for by in range(v):
+                    for bx in range(a):
+                        blocks.append(grids[k][my * v + by, mx * a + bx])
+                        slots.append(k)
+    coef = np.ascontiguousarray(np.stack(blocks), np.int16)
+    dc = [je.huff_codes(je._STD_HUFF[(0, min(k, 1))]) for k in range(3)]
+    ac = [je.huff_codes(je._STD_HUFF[(1, min(k, 1))]) for k in range(3)]
+    scan = je.encode_blocks_py(coef, np.array(slots, np.uint8), dc, ac)
+    sof = struct.pack(">BHHB", 8, h, w, 3) + b"".join(
+        bytes([k + 1, (a << 4) | v, min(k, 1)]) for k, (a, v) in
+        enumerate(hv))
+    return (b"\xff\xd8" + je._JFIF + je._dqt(0, qs[0]) + je._dqt(1, qs[1])
+            + je._segment(0xC0, sof) + je._dht(0, 0) + je._dht(1, 0)
+            + je._dht(0, 1) + je._dht(1, 1)
+            + je._segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63,
+                                       0]))
+            + scan + b"\xff\xd9")
+
+
+def phase_slice18(dev) -> dict:
+    """GIF read and write, JPEG write and lossless JPEG frames (M17,
+    fourth part), through ``cli.main`` on the card (the legacy net at
+    nucleiDAPI's widths, seeded weights), each slide byte-equal to its
+    plain twin: a 4096^2 two-frame GIF under a ``.tif`` name (frame 0 8-bit
+    gray with all 256 levels, so the table is the identity ramp and the
+    frames read as gray planes; written by the port's GIF writer), channel
+    1 (frame 0) and channel 2 (frame 1) against the same pixels as plain
+    uint8 TIFFs, and a two-frame palette GIF's channel 2 (an RGB plane)
+    refused with ``ValueError`` as the CPU test pins it; a 4096^2 lossless
+    (SOF3, predictor 1) JPEG under a ``.tif`` name against its twin; the
+    decode seconds of each; ``imtools.imwrite`` of the GIF slide's 4096^2
+    class map as ``.gif`` (read back equal) and ``.jpg``, with seconds;
+    every committed fixture of ``tests/fixtures/torch_gif`` and
+    ``torch_jpeg_write`` read equal to PIL's read, every committed write
+    byte-equal to PIL's file.  Returns, per kernel, its launches on each
+    counted path."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import gif, jpeg, jpegenc, slides
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+    from unmicst_tpu_torch.utils import imtools
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice18_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def argv(src, name, channel):
+            return [src, "--tool", "unmicst-legacy", "--model",
+                    "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                    "--channel", str(channel), "--outputPath",
+                    os.path.join(tmp, "out", name)]
+
+        def run(src, name, channel=1):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv(src, name, channel), device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        def against_twin(path, channel, twin, label, name, twin_name):
+            t_maps, t_secs = run(twin, twin_name)
+            c_maps, c_secs = run(path, name, channel)
+            same = len(c_maps) == len(t_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(c_maps, t_maps))
+            for key, secs in ((name, c_secs), (twin_name, t_secs)):
+                n = launches[key]
+                log(f"[slice18] {label}, {key}: cli.main {secs:.2f} s; K1 "
+                    f"{n['softmax_blend']}, K2 epilogue "
+                    f"{n['blend_fold_epilogue']}, K2 stripe "
+                    f"{n['blend_fold_stripe']} | {card}")
+                check(n["softmax_blend"] > 0
+                      and n["blend_fold_epilogue"] == 1
+                      and n["blend_fold_stripe"] == 0,
+                      f"{label} ({key}) did not run K1 and one K2 "
+                      f"epilogue: {n}")
+            log(f"[slice18] {label}: pages byte-equal to the twin's: {same}")
+            check(same, f"{label}: pages differ from the plain twin's")
+            return c_maps
+
+        def decode_s(path, channel):
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                got = slides.read_channel(path, "tif", channel)
+                secs.append(time.perf_counter() - t0)
+            return secs, got
+
+        # -- 1. a 4096^2 two-frame GIF under a TIFF name ---------------------
+        rng = np.random.RandomState(SEED + 18)
+        frames = [(np.clip(blob_slide(rng, SLIDE, SLIDE, 40000), 0, 1)
+                   * 255).astype(np.uint8) for _ in range(2)]
+        frames[0][0, :256] = np.arange(256)  # every level: the identity
+        t0 = time.perf_counter()
+        data = gif_two_frames(*frames)
+        write_s = time.perf_counter() - t0
+        gif_path = os.path.join(tmp, "two_frames.tif")
+        with open(gif_path, "wb") as f:
+            f.write(data)
+        log(f"[slice18] GIF {SLIDE}^2, two frames ({len(data) / 1e6:.3f} MB):"
+            f" written in {write_s:.3f} s (frame 0 by the port's writer) | "
+            f"{card}")
+        maps = None
+        for channel, frame in ((1, frames[0]), (2, frames[1])):
+            secs, got = decode_s(gif_path, channel - 1)
+            log(f"[slice18] GIF frame {channel - 1}: decode {secs[0]:.3f} s "
+                f"first, {secs[1]:.3f} s again = "
+                f"{SLIDE * SLIDE / 1e6 / min(secs):.1f} Mpx/s | {card}")
+            check(got.dtype == np.uint8 and np.array_equal(got, frame),
+                  f"GIF frame {channel - 1} does not decode to its pixels")
+            plain = os.path.join(tmp, f"gif_plain{channel}.tif")
+            imwrite(plain, frame)
+            c_maps = against_twin(gif_path, channel, plain,
+                                  f"GIF {SLIDE}^2 channel {channel}",
+                                  f"gif_channel{channel}",
+                                  f"gif_plain{channel}")
+            maps = maps if maps is not None else c_maps
+        small = os.path.join(tmp, "palette_frames.tif")
+        prng = np.random.RandomState(SEED + 48)
+        with open(small, "wb") as f:
+            f.write(gif_file(64, 48, [
+                dict(pixels=prng.randint(0, 256, (48, 64))),
+                dict(pixels=prng.randint(0, 256, (20, 30)), x=5, y=9)],
+                prng.randint(0, 256, 768).astype(np.uint8).tobytes()))
+        try:
+            cli.main(argv(small, "palette_rgb", 2), device=dev)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        log(f"[slice18] a palette GIF's channel 2 (frame 1, RGB): cli.main "
+            f"raises ValueError as JAX's: {refused}")
+        check(refused is not None and "(48, 64, 3)" in refused,
+              "the RGB frame was not refused as the JAX CLI refuses it")
+
+        # -- 2. a 4096^2 lossless JPEG under a TIFF name ---------------------
+        band = (np.clip(blob_slide(rng, 256, SLIDE, 2500), 0, 1)
+                * 255).astype(np.uint8)
+        stream = lossless_jpeg(band, 1, restart_rows=8,
+                               repeat=SLIDE // 256)
+        ljpeg = os.path.join(tmp, "lossless.tif")
+        with open(ljpeg, "wb") as f:
+            f.write(stream)
+        plane = np.tile(band, (SLIDE // 256, 1))
+        secs, got = decode_s(ljpeg, 0)
+        log(f"[slice18] lossless JPEG {SLIDE}^2, predictor 1 "
+            f"({len(stream) / 1e6:.3f} MB, {SLIDE // 8} restart "
+            f"intervals): decode {secs[0]:.3f} s first, {secs[1]:.3f} s "
+            f"again = {len(stream) / 1e6 / min(secs):.2f} MB/s | {card}")
+        check(got.dtype == np.uint8 and np.array_equal(got, plane),
+              "the lossless JPEG does not decode to its pixels")
+        plain = os.path.join(tmp, "lossless_plain.tif")
+        imwrite(plain, plane)
+        against_twin(ljpeg, 1, plain, f"lossless JPEG {SLIDE}^2",
+                     "lossless", "lossless_plain")
+        del plane, got, frames
+
+        # -- 3. the writers on the GIF slide's class map ---------------------
+        cls = np.argmax(np.stack(maps), 0).astype(np.uint8)
+        for ext in ("gif", "jpg"):
+            out = os.path.join(tmp, f"classes.{ext}")
+            t0 = time.perf_counter()
+            imtools.imwrite(cls, out)
+            secs = time.perf_counter() - t0
+            back = imtools.imread(out)
+            log(f"[slice18] imwrite of the {SLIDE}^2 class map as .{ext}: "
+                f"{secs:.3f} s, {os.path.getsize(out) / 1e6:.3f} MB | "
+                f"{card}")
+            check(back.shape == cls.shape and back.dtype == np.uint8,
+                  f"the .{ext} class map does not read back")
+            if ext == "gif":
+                check(np.array_equal(back, cls),
+                      "the GIF class map does not read back equal")
+
+        # -- 4. the committed fixtures ---------------------------------------
+        bad, reads, writes = [], 0, 0
+        for f in sorted(os.listdir(GIF_FIXTURES)):
+            path = os.path.join(GIF_FIXTURES, f)
+            if f.endswith(".npz"):
+                ref = np.load(path)
+                with open(path[:-4] + ".gif", "rb") as g:
+                    data = g.read()
+                for k in range(len(ref.files)):
+                    reads += 1
+                    px = gif.read_frame(data, k)
+                    want = ref[f"frame{k}"]
+                    if px.dtype != want.dtype or not np.array_equal(px, want):
+                        bad.append(f"{f[:-4]} frame {k}")
+            elif f.startswith("write_") and f.endswith(".npy"):
+                writes += 1
+                with open(path[:-4] + ".gif", "rb") as g:
+                    if gif.encode_gif(np.load(path)) != g.read():
+                        bad.append(f[:-4] + ".gif")
+        for f in sorted(os.listdir(JPEG_WRITE_FIXTURES)):
+            path = os.path.join(JPEG_WRITE_FIXTURES, f)
+            if not f.endswith(".jpg"):
+                continue
+            with open(path, "rb") as g:
+                data = g.read()
+            if f.startswith("write_"):
+                writes += 1
+                if jpegenc.encode_jpeg(np.load(path[:-4] + ".npy")) != data:
+                    bad.append(f)
+            else:
+                reads += 1
+                px, want = jpeg.decode(data), np.load(path[:-4] + ".npy")
+                if px.dtype != want.dtype or not np.array_equal(px, want):
+                    bad.append(f)
+        log(f"[slice18] {reads} fixture reads (GIF frames, lossless and "
+            f"sampled JPEGs) equal to PIL's and {writes} writes (GIF, JPEG) "
+            f"byte-equal to PIL's files: {reads + writes - len(bad)}; "
+            f"differing: {bad}")
+        check(not bad, f"fixtures differ from PIL's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice18] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -6513,6 +6992,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice16"] = per_path
     for name, per_path in phase_slice17(dev).items():
         stats[name]["launches_slice17"] = per_path
+    for name, per_path in phase_slice18(dev).items():
+        stats[name]["launches_slice18"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -6523,7 +7004,8 @@ def main(argv=None) -> int:
                if k.endswith("processes")
                or k in ("launches_formats", "launches_slice12",
                         "launches_slice13", "launches_slice15",
-                        "launches_slice16", "launches_slice17")}})
+                        "launches_slice16", "launches_slice17",
+                        "launches_slice18")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

@@ -157,18 +157,27 @@ def test_imread_opens_by_content(tmp_path):
 
 
 def test_other_formats_stay_queued(tmp_path):
-    """GIF and WebP read, and JPEG and GIF write, raise
-    ``NotImplementedError`` naming ROADMAP M17 (PIL reads and writes
-    them)."""
+    """WebP read and write, and RGB GIF write (Pillow's median-cut
+    quantizer), raise ``NotImplementedError`` naming ROADMAP M17 (PIL
+    reads and writes them); GIF read and JPEG and gray GIF write are the
+    JAX package's since the fourth part of M17."""
     gray = np.arange(48, dtype=np.uint8).reshape(6, 8)
-    for name in ("g.gif", "g.webp"):
-        Image.fromarray(gray).save(str(tmp_path / name))
-        assert J.imread(str(tmp_path / name)).shape[:2] == gray.shape
+    Image.fromarray(gray).save(str(tmp_path / "g.webp"))
+    assert J.imread(str(tmp_path / "g.webp")).shape[:2] == gray.shape
+    with pytest.raises(NotImplementedError, match="M17"):
+        T.imread(str(tmp_path / "g.webp"))
+    for x, name in ((gray, "o.webp"), (np.stack([gray] * 3, -1), "o.gif")):
         with pytest.raises(NotImplementedError, match="M17"):
-            T.imread(str(tmp_path / name))
+            T.imwrite(x, str(tmp_path / name))
+    Image.fromarray(gray).save(str(tmp_path / "g.gif"))
+    _equal(T.imread(str(tmp_path / "g.gif")), J.imread(str(tmp_path /
+                                                            "g.gif")))
     for name in ("o.jpg", "o.gif", "o.jpeg"):
-        with pytest.raises(NotImplementedError, match="M17"):
-            T.imwrite(gray, str(tmp_path / name))
+        J.imwrite(gray, str(tmp_path / f"j{name}"))
+        T.imwrite(gray, str(tmp_path / f"t{name}"))
+        with open(str(tmp_path / f"j{name}"), "rb") as f, open(
+                str(tmp_path / f"t{name}"), "rb") as g:
+            assert f.read() == g.read()
 
 
 def _bmp(w, h, bits, data, palette, compression=0):

@@ -350,12 +350,16 @@ def test_tiff_jpeg_and_refused_formats(tmp_path, rng):
         got.astype(int) - want.astype(int)).max() <= 1
     for name in ("g.bmp", "g.gif", "g.webp"):
         Image.fromarray((x >> 8).astype(np.uint8)).save(str(tmp_path / name))
-        if name == "g.bmp":  # BMP reads and writes as PIL's
+        if name in ("g.bmp", "g.gif"):  # BMP and GIF read and write as PIL's
             _equal(T.imread(str(tmp_path / name)),
                    J.imread(str(tmp_path / name)))
             T.imwrite((x >> 8).astype(np.uint8), str(tmp_path / f"o{name}"))
-            _equal(J.imread(str(tmp_path / f"o{name}")), (x >> 8).astype(
-                np.uint8))
+            J.imwrite((x >> 8).astype(np.uint8), str(tmp_path / f"j{name}"))
+            _equal(J.imread(str(tmp_path / f"o{name}")),
+                   J.imread(str(tmp_path / f"j{name}")))
+            if name == "g.bmp":  # a GIF reads back as its palette's ranks
+                _equal(J.imread(str(tmp_path / f"o{name}")),
+                       (x >> 8).astype(np.uint8))
             continue
         with pytest.raises(NotImplementedError, match=name[1:]):
             T.imread(str(tmp_path / name))

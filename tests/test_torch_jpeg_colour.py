@@ -145,8 +145,9 @@ def test_refusals_name_what_is_unsupported():
     data = bytearray(_encode(_colour(np.random.RandomState(4), 16, 16),
                              subsampling=0))
     sof = data.index(b"\xff\xc0")
-    data[sof + 11] = 0x12  # luma 1x2 against 1x1 chroma: h1v2
-    with pytest.raises(ValueError, match="sampling factors 1x2/1x1/1x1"):
+    data[sof + 11] = 0x31  # luma 3x1 against Cb 2x1: a fractional ratio
+    data[sof + 14] = 0x21
+    with pytest.raises(ValueError, match="sampling factors 3x1/2x1/1x1"):
         jpeg.decode(bytes(data))
 
 

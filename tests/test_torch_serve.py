@@ -928,3 +928,26 @@ def test_conv_flags_hold_across_overlapping_threads():
             with port_infer._conv_precision(True):
                 pass
     assert (matmul.allow_tf32, cudnn.allow_tf32) == before[:2]
+
+
+def test_int8_work_takes_cudnn_heuristics():
+    """The int8 mode's convolutions and its calibration's float32 forward
+    run without autotuning (deterministic algorithms, TF32 as the mode
+    sets it); nesting the autotuned setting inside one on a thread raises.
+    The flags come back as they were."""
+    from unmicst_tpu_torch.core import quant as port_quant
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = (matmul.allow_tf32, cudnn.allow_tf32, cudnn.benchmark,
+              cudnn.deterministic, cudnn.enabled)
+    with port_quant._precision(torch.device("cuda")):
+        assert (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+                matmul.allow_tf32) == (False, True, False, False)
+        with pytest.raises(RuntimeError, match="autotuning"):
+            with port_infer._conv_precision(False):
+                pass
+    with port_infer._conv_precision(True, autotune=False):
+        assert (cudnn.benchmark, cudnn.deterministic, cudnn.allow_tf32,
+                matmul.allow_tf32) == (False, True, True, True)
+    assert (matmul.allow_tf32, cudnn.allow_tf32, cudnn.benchmark,
+            cudnn.deterministic, cudnn.enabled) == before

@@ -224,8 +224,8 @@ def test_pages_still_queued(tmp_path, rng):
 
 def test_both_clis_refuse_a_planar_rgb_slide(tmp_path, rng):
     """JAX's CLI unpacks the plane's shape and raises ``ValueError``; the
-    port's exits naming the shape, as it does for an interleaved RGB
-    page."""
+    port's raises ``ValueError`` naming the shape, as it does for an
+    interleaved RGB page."""
     root = tmp_path / "s"
     root.mkdir()
     path = str(root / "planar.tif")
@@ -237,5 +237,5 @@ def test_both_clis_refuse_a_planar_rgb_slide(tmp_path, rng):
             "--modelRoot", MODELS, "--outputPath", str(tmp_path / "out")]
     with pytest.raises(ValueError):
         jax_cli.main(argv)
-    with pytest.raises(SystemExit, match=r"\(45, 70, 3\)"):
+    with pytest.raises(ValueError, match=r"\(45, 70, 3\)"):
         cli.main(argv, device="cpu")

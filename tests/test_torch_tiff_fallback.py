@@ -234,7 +234,7 @@ def test_colour_jpeg_pages_stay_refused(tmp_path, rng):
             "--modelRoot", MODELS, "--outputPath", str(tmp_path / "out")]
     with pytest.raises(ValueError):
         jax_cli.main(argv)
-    with pytest.raises(SystemExit, match=r"\(32, 40, 3\)"):
+    with pytest.raises(ValueError, match=r"\(32, 40, 3\)"):
         cli.main(argv, device="cpu")
 
 

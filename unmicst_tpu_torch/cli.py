@@ -565,8 +565,9 @@ def main(argv: Optional[List[str]] = None, *, device="cuda") -> int:
         raise SystemExit(str(e))
     planes = [by_chan[c] for c in chans]
     for raw in planes:
-        if raw.ndim != 2:
-            raise SystemExit(f"expected a single-sample plane, got {raw.shape}")
+        if raw.ndim != 2:  # JAX's CLI fails unpacking the shape: ValueError
+            raise ValueError(f"expected a single-sample plane, got "
+                             f"{raw.shape}")
     on_card = _device_slide_ok(args, planes)
     if on_card:
         preview = pp.preview_u8_from_raw(planes[-1])  # duo: the last channel

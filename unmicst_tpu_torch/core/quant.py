@@ -188,12 +188,14 @@ def _float_model(state, hp: HParams, variant: str, device) -> UNet:
 
 
 def _precision(device: torch.device):
-    """TF32 off on the card for the calibration's float32 convolutions."""
+    """TF32 off on the card for the calibration's float32 convolutions, and
+    cuDNN's heuristic algorithms: the scales must not depend on which
+    algorithm a timing run picked (``infer._conv_precision``)."""
     if device.type != "cuda":
         return contextlib.nullcontext()
     from unmicst_tpu_torch.infer import _conv_precision
 
-    return _conv_precision(False)
+    return _conv_precision(False, autotune=False)
 
 
 def calibrate(state, tiles: np.ndarray, hp: HParams, variant: str, *,

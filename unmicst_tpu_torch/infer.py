@@ -142,29 +142,31 @@ def pick_tile_batch(hp: HParams, device: torch.device,
 class _FlagGuard:
     """The process-wide cuDNN and matmul flags, shared by the threads that
     run device work.  The first holder saves the flags and sets them; later
-    holders that want the same TF32 setting join it, one that wants the
-    other waits until the last holder has left and restored them.  A
-    thread that nests a different setting inside its own raises instead of
-    waiting for itself."""
+    holders that want the same setting (TF32, autotuning) join it, one
+    that wants another waits until the last holder has left and restored
+    them.  A thread that nests a different setting inside its own raises
+    instead of waiting for itself."""
 
     def __init__(self):
         self._cond = threading.Condition()
-        self._tf32: Optional[bool] = None
+        self._setting: Optional[tuple] = None
         self._holders = {}  # thread id -> depth
         self._undo = None
 
     @contextlib.contextmanager
-    def hold(self, tf32: bool):
+    def hold(self, tf32: bool, autotune: bool = True):
         me = threading.get_ident()
+        setting = (tf32, autotune)
         with self._cond:
-            if self._holders.get(me) and self._tf32 != tf32:
+            if self._holders.get(me) and self._setting != setting:
                 raise RuntimeError(
-                    "nested engine work with another TF32 setting")
-            while self._holders and self._tf32 != tf32:
+                    "nested engine work with another TF32 or autotuning "
+                    "setting")
+            while self._holders and self._setting != setting:
                 self._cond.wait()
             if not self._holders:
-                self._undo = self._set(tf32)
-                self._tf32 = tf32
+                self._undo = self._set(tf32, autotune)
+                self._setting = setting
             self._holders[me] = self._holders.get(me, 0) + 1
         try:
             yield
@@ -175,16 +177,16 @@ class _FlagGuard:
                     del self._holders[me]
                 if not self._holders:
                     self._undo()
-                    self._tf32 = None
+                    self._setting = None
                     self._cond.notify_all()
 
     @staticmethod
-    def _set(tf32: bool):
+    def _set(tf32: bool, autotune: bool):
         """Set the flags; returns the function that restores them."""
         matmul = torch.backends.cuda.matmul
         saved = matmul.allow_tf32
         matmul.allow_tf32 = tf32
-        scope = torch.backends.cudnn.flags(enabled=True, benchmark=True,
+        scope = torch.backends.cudnn.flags(enabled=True, benchmark=autotune,
                                            deterministic=True,
                                            allow_tf32=tf32)
         scope.__enter__()
@@ -199,7 +201,7 @@ class _FlagGuard:
 _FLAGS = _FlagGuard()
 
 
-def _conv_precision(tf32: bool):
+def _conv_precision(tf32: bool, autotune: bool = True):
     """cuDNN and matmul TF32 set for the engine's work only, and restored
     after.  The float32 modes run with TF32 off (cuDNN convolutions default
     to TF32; the JAX float32 modes are 3-pass or full f32, ``cli.py:237-
@@ -212,8 +214,18 @@ def _conv_precision(tf32: bool):
     engine, and a server's repeated requests must answer alike).  The
     flags are global to the process: overlapping calls from several
     threads share them through :class:`_FlagGuard`, so no call runs with
-    another's setting."""
-    return _FLAGS.hold(tf32)
+    another's setting.
+
+    ``autotune=False`` (the int8 mode and its calibration) takes cuDNN's
+    heuristic choice instead of timing the algorithms.  Which algorithm a
+    timing run picks depends on what else loads the card, and in the int8
+    mode a float ulp that moves an activation across a rounding edge moves
+    its neighbourhood by a whole int8 step: the calibration's scales and
+    the maps would change from run to run with the card's load.  PyTorch
+    keeps a thread's chosen cuDNN plans keyed by the convolution and these
+    flags, not by autotuning: a thread that autotuned the same convolution
+    earlier reuses that plan."""
+    return _FLAGS.hold(tf32, autotune)
 
 
 def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
@@ -261,7 +273,8 @@ def weigh_tiles(model: UNet, canvas: torch.Tensor, grid: tiler.TileGrid,
         return model.forward_nchw(x, return_logits=True, quant=q)
 
     on_card = device.type == "cuda"
-    flags = (_conv_precision(model.compute_dtype is not None)
+    flags = (_conv_precision(model.compute_dtype is not None,
+                             autotune=quant is None)
              if on_card else contextlib.nullcontext())
     with torch.inference_mode(), flags:
         graph = None

@@ -40,7 +40,8 @@ import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "native", name)
-                for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp"))
+                for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp",
+                             "gifcodec.cpp", "jpegenc.cpp"))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 LIB_NAME = "libunmicst_tiffcodec.so"
@@ -137,6 +138,28 @@ def _load(path: str) -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_char_p, ll, ll, vp, vp, vp, ll, ll,
                    ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
                    ctypes.c_char_p, it, it, it, it, it, it, it, ll]
+    fn = lib.unmicst_jpeg_lossless_scan
+    fn.restype = ll
+    # src, len, pos, diffs, scan components, h, w, dc bits, dc values,
+    # dc mask, restart interval (MCUs)
+    fn.argtypes = [ctypes.c_char_p, ll, ll, vp, it, ll, ll, ctypes.c_char_p,
+                   ctypes.c_char_p, it, ll]
+    fn = lib.unmicst_jpeg_undifference
+    fn.restype = None
+    # diff, out, h, w, predictor, point transform, restart rows
+    fn.argtypes = [vp, vp, ll, ll, it, it, ll]
+    fn = lib.unmicst_gif_lzw_decode
+    fn.restype = ll
+    # file, len, first sub-block, bits, out, stride, xsize, ysize,
+    # interlace, transparency, read chunk
+    fn.argtypes = [ctypes.c_char_p, ll, ll, it, vp, ll, ll, ll, it, it, ll]
+    fn = lib.unmicst_gif_lzw_encode
+    fn.restype = ll
+    fn.argtypes = [ctypes.c_char_p, ll, it, vp, ll]  # src, n, bits, dst, cap
+    fn = lib.unmicst_jpeg_huff_encode
+    fn.restype = ll
+    # coef, slots, n, dc codes, dc sizes, ac codes, ac sizes, slots, dst, cap
+    fn.argtypes = [vp, vp, ll, vp, vp, vp, vp, it, vp, ll]
     return lib
 
 
@@ -392,6 +415,18 @@ _JPEG_ERRORS = {
 }
 
 
+def _huff_tables(ts):
+    """Up to four Huffman tables (``io/jpeg.py`` ``HuffTable`` or None) as
+    the native decoders take them: BITS, HUFFVAL and a mask of slots."""
+    bits, vals, mask = bytearray(64), bytearray(1024), 0
+    for k, t in enumerate(ts):
+        if t is not None:
+            bits[16 * k : 16 * k + 16] = t.bits
+            vals[256 * k : 256 * k + len(t.values)] = t.values
+            mask |= 1 << k
+    return bytes(bits), bytes(vals), mask
+
+
 def jpeg_scan(data: bytes, scan, progressive: bool, coef: np.ndarray,
               order: np.ndarray, slots: np.ndarray,
               per_mcu: int) -> Optional[int]:
@@ -415,17 +450,8 @@ def jpeg_scan(data: bytes, scan, progressive: bool, coef: np.ndarray,
     if lib is None:
         return None
 
-    def tables(ts):
-        bits, vals, mask = bytearray(64), bytearray(1024), 0
-        for k, t in enumerate(ts):
-            if t is not None:
-                bits[16 * k : 16 * k + 16] = t.bits
-                vals[256 * k : 256 * k + len(t.values)] = t.values
-                mask |= 1 << k
-        return bytes(bits), bytes(vals), mask
-
-    dc_bits, dc_vals, dc_mask = tables(scan.dc)
-    ac_bits, ac_vals, ac_mask = tables(scan.ac)
+    dc_bits, dc_vals, dc_mask = _huff_tables(scan.dc)
+    ac_bits, ac_vals, ac_mask = _huff_tables(scan.ac)
     rc = lib.unmicst_jpeg_scan(
         data, len(data), scan.pos, _ptr(coef), _ptr(order), _ptr(slots),
         len(order), per_mcu, dc_bits, dc_vals, ac_bits, ac_vals, dc_mask,
@@ -453,4 +479,113 @@ def png_unfilter(rows: np.ndarray, bpp: int) -> Optional[np.ndarray]:
     rc = lib.unmicst_png_unfilter(_ptr(rows), h, stride, bpp, _ptr(out))
     if rc:
         raise ValueError(f"corrupt PNG: row filter type {rows[rc - 1, 0]}")
+    return out
+
+
+def gif_lzw_decode(data: bytes, offset: int, bits: int, out: np.ndarray,
+                   interlace: bool, transparency: int,
+                   chunk: int) -> Optional[int]:
+    """Decode one GIF frame whose sub-blocks start at ``data[offset]``
+    into ``out`` (``[ysize, xsize]`` uint8 with unit column stride, a view
+    of the screen), as ``io/gif.py``'s ``lzw_decode_py``: 0 once its last
+    pixel is written, else a negative error code; None without the
+    library."""
+    if out.dtype != np.uint8 or out.ndim != 2 or out.strides[1] != 1 \
+            or 0 in out.shape:
+        raise ValueError("gif_lzw_decode needs a 2-D uint8 view with unit "
+                         "column stride")
+    if not 0 <= offset <= len(data):
+        raise ValueError("gif_lzw_decode: offset outside the file")
+    lib = get_lib()
+    if lib is None:
+        return None
+    return lib.unmicst_gif_lzw_decode(
+        data, len(data), offset, bits, out.ctypes.data_as(ctypes.c_void_p),
+        out.strides[0], out.shape[1], out.shape[0], int(interlace),
+        transparency, chunk)
+
+
+def gif_lzw_encode(pixels: bytes, bits: int) -> Optional[bytes]:
+    """Pillow's GIF LZW code stream for ``pixels`` (``io/gif.py``'s
+    ``lzw_encode_py``); None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    # codes of at most 12 bits for at least one byte each, plus clears
+    cap = 2 * len(pixels) + 64
+    buf = np.empty(cap, np.uint8)
+    n = lib.unmicst_gif_lzw_encode(pixels, len(pixels), bits, _ptr(buf), cap)
+    if n < 0:
+        raise ValueError("native GIF encode: output buffer undersized")
+    return buf[:n].tobytes()
+
+
+def jpeg_huff_encode(coef: np.ndarray, slots: np.ndarray, dc_tables,
+                     ac_tables) -> Optional[bytes]:
+    """Huffman-code a baseline scan (``io/jpegenc.py``'s
+    ``encode_blocks_py``): ``coef`` C-contiguous int16 ``[n, 64]`` in
+    natural order and scan order, ``slots`` the scan component of each
+    block, ``dc_tables`` / ``ac_tables`` a (codes, sizes) pair of 256
+    entries per component; None without the library."""
+    if coef.dtype != np.int16 or coef.ndim != 2 or coef.shape[1] != 64 \
+            or not coef.flags["C_CONTIGUOUS"] or len(slots) != len(coef):
+        raise ValueError("jpeg_huff_encode needs C-contiguous int16 [n, 64] "
+                         "blocks and one slot each")
+    lib = get_lib()
+    if lib is None:
+        return None
+    slots = np.ascontiguousarray(slots, np.uint8)
+    tabs = [np.ascontiguousarray(np.stack([t[k] for t in ts]), np.int32)
+            for ts in (dc_tables, ac_tables) for k in (0, 1)]
+    cap = coef.shape[0] * 64 * 8 + 64
+    buf = np.empty(cap, np.uint8)
+    n = lib.unmicst_jpeg_huff_encode(_ptr(coef), _ptr(slots), len(coef),
+                                     *(_ptr(t) for t in tabs), len(dc_tables),
+                                     _ptr(buf), cap)
+    if n < 0:
+        raise ValueError("native JPEG Huffman encode: a slot without tables "
+                         "or an undersized buffer")
+    return buf[:n].tobytes()
+
+
+def jpeg_lossless_scan(data: bytes, scan, diffs: np.ndarray) -> Optional[int]:
+    """Entropy-decode one lossless scan of ``io/jpeg.py`` into the
+    C-contiguous int32 ``[scan components, h, w]`` ``diffs``, as its
+    ``lossless_scan_py``; returns the offset of the marker after the scan,
+    or None without the library.  A corrupt or truncated scan raises
+    ``ValueError``."""
+    if diffs.dtype != np.int32 or diffs.ndim != 3 \
+            or not diffs.flags["C_CONTIGUOUS"] \
+            or diffs.shape[0] != len(scan.comps):
+        raise ValueError("jpeg_lossless_scan needs a C-contiguous int32 "
+                         "[components, h, w] array")
+    if not 0 <= scan.pos <= len(data):
+        raise ValueError("jpeg_lossless_scan: scan offset outside the stream")
+    lib = get_lib()
+    if lib is None:
+        return None
+    bits, vals, mask = _huff_tables(scan.dc)
+    rc = lib.unmicst_jpeg_lossless_scan(
+        data, len(data), scan.pos, _ptr(diffs), diffs.shape[0],
+        diffs.shape[1], diffs.shape[2], bits, vals, mask,
+        scan.restart_interval)
+    if rc < 0:
+        raise ValueError(f"JPEG {_JPEG_ERRORS.get(rc, f'error {rc}')}")
+    return rc
+
+
+def jpeg_undifference(diff: np.ndarray, predictor: int, pt: int,
+                      restart_rows: int) -> Optional[np.ndarray]:
+    """One lossless component's samples from its ``[h, w]`` differences,
+    as ``io/jpeg.py``'s ``undifference_py``: ``[h, w]`` uint8, or None
+    without the library."""
+    if not 1 <= predictor <= 7 or not 0 <= pt <= 7 or diff.ndim != 2:
+        raise ValueError("jpeg_undifference: predictor 1-7, pt 0-7, [h, w]")
+    lib = get_lib()
+    if lib is None:
+        return None
+    diff = np.ascontiguousarray(diff, np.int32)
+    out = np.empty(diff.shape, np.uint8)
+    lib.unmicst_jpeg_undifference(_ptr(diff), _ptr(out), diff.shape[0],
+                                  diff.shape[1], predictor, pt, restart_rows)
     return out

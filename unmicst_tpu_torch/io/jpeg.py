@@ -10,16 +10,20 @@ What it decodes (ITU T.81):
 * SOF0 baseline and SOF1 extended sequential, SOF2 progressive (DC first
   and refine, interleaved or not; AC first with end-of-band runs, AC
   refine), all Huffman coded, 8-bit samples;
+* SOF3 lossless frames, Huffman coded: predictors 1-7, any point
+  transform, restart intervals of whole rows, one component or three
+  (RGB; libjpeg-turbo converts no lossless YCbCr), sampled 1x1;
 * gray frames (one component) and colour frames (three components) at
-  the samplings PIL writes: h1v1, h2v1 and h2v2 chroma;
+  every integral sampling libjpeg-turbo upsamples: h2v1, h1v2 and h2v2
+  "fancy", the other factors by replication;
 * SOI, APPn (JFIF and Adobe read for the colour space), COM, JPGn
   (skipped), DQT (8- and 16-bit tables), DHT, DRI, SOS, RST0-7 and EOI;
 * abbreviated streams whose tables came before, in a tables-only stream
   (:func:`parse_tables`; a TIFF's ``JPEGTables``, tag 347).
 
-Everything else raises ``ValueError`` naming the marker: SOF3 (lossless),
-SOF5-7 and DHP/EXP (hierarchical), SOF9-11 and DAC (arithmetic coding),
-DNL, 12-bit samples, frames of 2 or 4 components and other samplings.  A
+Everything else raises ``ValueError`` naming the marker: SOF5-7 and
+DHP/EXP (hierarchical), SOF9-11 and DAC (arithmetic coding), DNL, 12-bit
+samples, frames of 2 or 4 components and fractional samplings.  A
 stream cut short anywhere, EOI included, raises as PIL does.
 
 The decode follows libjpeg: canonical Huffman codes from BITS/HUFFVAL,
@@ -33,9 +37,10 @@ what libjpeg-turbo runs under PIL.
 
 Each scan's entropy decode runs in the port's native host library
 (``io/_native.py``, ``native/jpegdec.cpp``) when it loads, and otherwise
-in :func:`decode_scan_py`, the plain version that the tests hold the
-native one to: both give the same coefficients bit for bit, and fail on
-the same inputs.
+in :func:`decode_scan_py` (lossless: :func:`lossless_scan_py`, and the
+predictor's :func:`undifference_py`), the plain versions that the tests
+hold the native ones to: both give the same coefficients or samples bit
+for bit, and fail on the same inputs.
 """
 
 from __future__ import annotations
@@ -59,7 +64,6 @@ NATURAL_ORDER = (
 
 # the markers this decoder refuses, by name
 _REFUSED = {
-    0xC3: "SOF3 (lossless)",
     0xC5: "SOF5 (hierarchical)", 0xC6: "SOF6 (hierarchical)",
     0xC7: "SOF7 (hierarchical)", 0xC8: "JPG (reserved)",
     0xC9: "SOF9 (arithmetic coding)", 0xCA: "SOF10 (arithmetic coding)",
@@ -134,6 +138,7 @@ class Frame:
     progressive: bool
     components: List[Component]
     colour: str = "gray"  # "gray", "ycbcr" or "rgb"
+    lossless: bool = False  # SOF3: predicted samples, no DCT
 
     @property
     def hmax(self) -> int:
@@ -242,8 +247,6 @@ def _parse_dht(body: bytes, dc: Dict[int, HuffTable],
         if tc > 1 or th > 3 or count > 256 or p + 17 + count > len(body):
             raise JpegError("corrupt JPEG DHT segment")
         table = HuffTable(bytes(bits), bytes(body[p + 17 : p + 17 + count]))
-        if tc == 0 and any(v > 15 for v in table.values):
-            raise JpegError("corrupt JPEG DHT segment: DC symbol above 15")
         huffman_codes(table)  # validates the code lengths
         (ac if tc else dc)[th] = table
         p += 17 + count
@@ -264,9 +267,6 @@ def huffman_codes(table: HuffTable) -> List[Tuple[int, int, int]]:
     return out
 
 
-# the samplings a colour frame may have, (hmax / h, vmax / v) of each
-# component: the ones PIL writes (4:4:4, 4:2:2 and 4:2:0)
-_SAMPLINGS = ((1, 1), (2, 1), (2, 2))
 _MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
 
 
@@ -297,28 +297,36 @@ def _parse_sof(body: bytes, m: int, shape) -> Frame:
         # a lone component's sampling factors do not matter (libjpeg)
         comps.append(Component(cid, hv >> 4 if nc > 1 else 1,
                                hv & 15 if nc > 1 else 1, tq))
-    frame = Frame(h, w, m == 0xC2, comps)
-    for c in comps:
-        ratio = (frame.hmax // c.h, frame.vmax // c.v)
-        if (frame.hmax % c.h or frame.vmax % c.v
-                or ratio not in _SAMPLINGS):
+    frame = Frame(h, w, m == 0xC2, comps, lossless=m == 0xC3)
+    if frame.lossless:
+        if frame.hmax > 1 or frame.vmax > 1:
+            raise JpegError(
+                "lossless JPEG colour frames sampled "
+                f"{'/'.join(f'{x.h}x{x.v}' for x in comps)} are not "
+                "supported (1x1 only; ROADMAP M17)")
+        return frame
+    for c in comps:  # libjpeg upsamples by integral factors only
+        if frame.hmax % c.h or frame.vmax % c.v:
             raise JpegError(
                 "JPEG sampling factors "
-                f"{'/'.join(f'{x.h}x{x.v}' for x in comps)} are not "
-                "supported (h1v1, h2v1 and h2v2 chroma are; ROADMAP M17)")
+                f"{'/'.join(f'{x.h}x{x.v}' for x in comps)} need fractional "
+                "upsampling, which libjpeg does not implement")
     return frame
 
 
 def _colour_space(nc: int, jfif: bool, adobe: Optional[int],
-                  ids: List[int]) -> str:
-    """libjpeg's ``default_decompress_parms`` for 1 and 3 components."""
+                  ids: List[int], lossless: bool = False) -> str:
+    """libjpeg-turbo's ``default_decompress_parms`` for 1 and 3
+    components: without a JFIF or Adobe marker a lossless frame is RGB."""
     if nc == 1:
         return "gray"
     if jfif:
         return "ycbcr"
     if adobe is not None:
         return "rgb" if adobe == 0 else "ycbcr"
-    return "rgb" if ids == [82, 71, 66] else "ycbcr"  # 'R', 'G', 'B'
+    if lossless or ids == [82, 71, 66]:  # 'R', 'G', 'B'
+        return "rgb"
+    return "ycbcr"
 
 
 def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
@@ -346,9 +354,9 @@ def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
             raise JpegError("corrupt JPEG stream: a second SOI")
         body = _segment(data, pos)
         end = pos + 2 + len(body)
-        if tables_only and m in (0xC0, 0xC1, 0xC2, 0xDA):
+        if tables_only and m in (0xC0, 0xC1, 0xC2, 0xC3, 0xDA):
             raise JpegError("JPEG tables stream holds an image")
-        if m in (0xC0, 0xC1, 0xC2):
+        if m in (0xC0, 0xC1, 0xC2, 0xC3):
             if frame is not None:
                 raise JpegError("corrupt JPEG stream: a second frame")
             frame = _parse_sof(body, m, shape)
@@ -366,7 +374,7 @@ def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
             if not scans:
                 frame.colour = _colour_space(
                     len(frame.components), jfif, adobe,
-                    [c.cid for c in frame.components])
+                    [c.cid for c in frame.components], frame.lossless)
             scans.append(_parse_sos(body, end, frame, tables, restart))
             end = _scan_end(data, end)
         elif m == 0xE0:
@@ -402,6 +410,20 @@ def _parse_sos(body: bytes, pos: int, frame: Frame, tables: Tables,
         sel.append((t >> 4, t & 15))
     ss, se = body[1 + 2 * ns], body[2 + 2 * ns]
     ah, al = body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15
+    if frame.lossless:  # ss is the predictor, al the point transform
+        if not 1 <= ss <= 7 or se or ah or al >= 8:
+            raise JpegError(
+                f"SOF3 (lossless) scan with predictor {ss}, Se {se}, Ah {ah}"
+                f", Al {al}: libjpeg-turbo takes predictors 1-7, Se 0, Ah 0 "
+                "and Al 0-7")
+        if any(tables.dc.get(td) is None for td, _ in sel):
+            raise JpegError("JPEG Huffman table missing")
+        dcs = tuple(tables.dc[td] for td, _ in sel)
+        if any(v > 16 for t in dcs for v in t.values):
+            raise JpegError("corrupt JPEG DHT segment: lossless symbol "
+                            "above 16")
+        return Scan(pos, tuple(comps), dcs, (None,) * ns, ss, se, ah, al,
+                    restart)
     if frame.progressive:
         bad = (se != 0) if ss == 0 else (ss > se or se > 63 or ns != 1)
         if bad or (ah and al != ah - 1) or al > 13:
@@ -422,6 +444,8 @@ def _parse_sos(body: bytes, pos: int, frame: Frame, tables: Tables,
     if any((need_dc and td not in tables.dc)
            or (need_ac and ta not in tables.ac) for td, ta in sel):
         raise JpegError("JPEG Huffman table missing")
+    if need_dc and any(v > 15 for td, _ in sel for v in tables.dc[td].values):
+        raise JpegError("corrupt JPEG DHT segment: DC symbol above 15")
     return Scan(pos, tuple(comps),
                 tuple(tables.dc[td] if need_dc else None for td, _ in sel),
                 tuple(tables.ac[ta] if need_ac else None for _, ta in sel),
@@ -661,6 +685,131 @@ def decode_scan_py(data: bytes, frame: Frame, scan: Scan, coef: np.ndarray,
     return pos
 
 
+# -- lossless frames (libjpeg-turbo's jdlhuff.c, jdpred.c, jdlossls.c) --------
+
+
+def _lossless_restart_rows(frame: Frame, scan: Scan) -> int:
+    """The restart interval in sample rows (0: none); libjpeg-turbo takes
+    only whole rows of MCUs."""
+    ri = scan.restart_interval
+    if ri and ri % frame.width:
+        raise JpegError(f"SOF3 (lossless) restart interval {ri} is not a "
+                        f"multiple of the {frame.width} MCUs in a row")
+    return ri // frame.width
+
+
+def lossless_scan_py(data: bytes, frame: Frame, scan: Scan,
+                     diffs: np.ndarray) -> int:
+    """Entropy-decode one lossless scan into ``diffs`` (int32, ``[scan
+    components, height, width]``): each MCU holds one sample of each scan
+    component, coded as its difference category (0-16; 16 is 32768) and
+    the difference's bits.  Returns the offset of the marker after the
+    scan.  The plain version of the native decoder."""
+    ns, h, w = diffs.shape
+    luts = [_lut(t) for t in scan.dc]
+    out = diffs.reshape(ns, -1)
+    ri = (_lossless_restart_rows(frame, scan) * w) or h * w
+    pos = scan.pos
+    for start in range(0, h * w, ri):
+        bits = _Bits(data, pos)
+        for i in range(start, min(start + ri, h * w)):
+            for k in range(ns):
+                s = bits.symbol(luts[k])
+                if s == 16:
+                    d = 32768
+                elif s:
+                    d = _extend(bits.take(s), s)
+                else:
+                    d = 0
+                out[k, i] = d
+        pos = _next_marker(data, bits.end)
+        m = data[pos + 1]
+        last = start + ri >= h * w
+        if last and 0xD0 <= m <= 0xD7:
+            raise JpegError("corrupt JPEG stream: unexpected restart marker")
+        if not last:
+            if m != 0xD0 + (start // ri) % 8:
+                raise JpegError("corrupt JPEG stream: restart marker "
+                                "missing or out of order")
+            pos += 2
+    return pos
+
+
+def undifference_py(diff: np.ndarray, predictor: int, pt: int,
+                    restart_rows: int) -> np.ndarray:
+    """``jdpred.c`` over one component's differences (``[h, w]``): the
+    first row of the scan and of each restart interval predicted from the
+    left (its first sample from ``2**(7 - pt)``), each later row's first
+    sample from above and the rest by ``predictor``, all modulo 2**16;
+    then ``jdlossls.c``'s point transform, ``<< pt`` into the 8-bit
+    sample.  ``[h, w]`` uint8.  The plain version of the native one."""
+    h, w = diff.shape
+    d = diff.tolist()
+    out = np.empty((h, w), np.uint8)
+    prev: List[int] = []
+    for r in range(h):
+        row, dr = [0] * w, d[r]
+        if r == 0 or (restart_rows and r % restart_rows == 0):
+            ra = (dr[0] + (1 << (7 - pt))) & 0xFFFF
+            row[0] = ra
+            for x in range(1, w):
+                ra = (dr[x] + ra) & 0xFFFF
+                row[x] = ra
+        else:
+            rb = prev[0]
+            ra = (dr[0] + rb) & 0xFFFF
+            row[0] = ra
+            for x in range(1, w):
+                rc, rb = rb, prev[x]
+                if predictor == 1:
+                    p = ra
+                elif predictor == 2:
+                    p = rb
+                elif predictor == 3:
+                    p = rc
+                elif predictor == 4:
+                    p = ra + rb - rc
+                elif predictor == 5:
+                    p = ra + ((rb - rc) >> 1)
+                elif predictor == 6:
+                    p = rb + ((ra - rc) >> 1)
+                else:
+                    p = (ra + rb) >> 1
+                ra = (dr[x] + p) & 0xFFFF
+                row[x] = ra
+        out[r] = [(v << pt) & 0xFF for v in row]
+        prev = row
+    return out
+
+
+def decode_lossless(data: bytes, frame: Frame, scans: List[Scan]
+                    ) -> List[np.ndarray]:
+    """The samples of a lossless frame, one ``[H, W]`` uint8 plane per
+    component: each scan's differences through the native library when
+    it loads (else :func:`lossless_scan_py`), then each component's
+    undifferencing (:func:`undifference_py` the plain version)."""
+    planes: List[Optional[np.ndarray]] = [None] * len(frame.components)
+    native = _native.get_lib() is not None
+    for scan in scans:
+        diffs = np.zeros((len(scan.comps), frame.height, frame.width),
+                         np.int32)
+        rows = _lossless_restart_rows(frame, scan)
+        if native:
+            _native.jpeg_lossless_scan(data, scan, diffs)
+        else:
+            lossless_scan_py(data, frame, scan, diffs)
+        for k, i in enumerate(scan.comps):
+            plane = _native.jpeg_undifference(diffs[k], scan.ss, scan.al,
+                                              rows)
+            if plane is None:
+                plane = undifference_py(diffs[k], scan.ss, scan.al, rows)
+            planes[i] = plane
+    if any(p is None for p in planes):
+        raise JpegError("lossless JPEG frame with a component no scan "
+                        "codes")
+    return planes
+
+
 # -- the inverse DCT --------------------------------------------------------------
 
 # jidctint.c's FIX(x) = round(x * 2**13)
@@ -731,9 +880,16 @@ def decode_coefficients(data: bytes, shape: Optional[Tuple[int, int]] = None,
     """Parse and entropy-decode: ``(frame, coef)`` with ``coef`` int16
     ``[blocks, 64]`` in natural order, each component's padded block grid
     in turn (``frame.offsets``), each scan through the native library when
-    it loads and through :func:`decode_scan_py` otherwise."""
+    it loads and through :func:`decode_scan_py` otherwise.  A lossless
+    frame has none, and raises."""
     data = bytes(data)
     frame, scans = parse(data, shape, tables)
+    if frame.lossless:
+        raise JpegError("a SOF3 (lossless) frame has no DCT coefficients")
+    return frame, _coefficients(data, frame, scans)
+
+
+def _coefficients(data: bytes, frame: Frame, scans: List[Scan]) -> np.ndarray:
     coef = np.zeros((frame.offsets[-1], 64), np.int16)
     native = _native.get_lib() is not None
     for scan in scans:
@@ -743,7 +899,7 @@ def decode_coefficients(data: bytes, shape: Optional[Tuple[int, int]] = None,
                               slots, per_mcu)
         else:
             decode_scan_py(data, frame, scan, coef, order, slots, per_mcu)
-    return frame, coef
+    return coef
 
 
 # -- upsampling and colour (libjpeg-turbo's jdsample.c and jdcolor.c) ---------
@@ -758,18 +914,24 @@ def _edge(x: np.ndarray, axis: int, step: int) -> np.ndarray:
 
 
 def upsample(plane: np.ndarray, ratio: Tuple[int, int]) -> np.ndarray:
-    """A chroma plane ``[dh, dw]`` (uint8) brought to ``ratio = (h, v)``
-    times its size as libjpeg-turbo does under PIL: h2v1 and h2v2 "fancy"
-    (triangle) upsampling with their alternating rounding, context rows
-    and columns repeated at the edges, and plain replication where the
-    plane is 2 columns wide or less."""
+    """A component's plane ``[dh, dw]`` (uint8) brought to ``ratio = (h,
+    v)`` times its size as libjpeg-turbo's ``jdsample.c`` does under PIL:
+    h2v1, h1v2 and h2v2 "fancy" (triangle) upsampling with their
+    alternating rounding, context rows and columns repeated at the edges;
+    h2v1 and h2v2 of a plane 2 columns wide or less, and every other
+    integral ratio (``int_upsample``), by replication."""
     if ratio == (1, 1):
         return plane
     dh, dw = plane.shape
-    if dw <= 2:  # h2v1_upsample / h2v2_upsample
-        out = np.repeat(plane, 2, axis=1)
-        return np.repeat(out, 2, axis=0) if ratio == (2, 2) else out
     x = plane.astype(np.int32)
+    if ratio == (1, 2):  # h1v2_fancy_upsample
+        out = np.empty((2 * dh, dw), np.uint8)
+        out[0::2] = (3 * x + _edge(x, 0, -1) + 1) >> 2
+        out[1::2] = (3 * x + _edge(x, 0, 1) + 2) >> 2
+        return out
+    if ratio not in ((2, 1), (2, 2)) or dw <= 2:
+        return np.repeat(np.repeat(plane, ratio[1], axis=0), ratio[0],
+                         axis=1)
     if ratio == (2, 1):  # h2v1_fancy_upsample
         out = np.empty((dh, 2 * dw), np.uint8)
         out[:, 0::2] = (3 * x + _edge(x, 1, -1) + 1) >> 2
@@ -810,8 +972,13 @@ def decode_planes(data: bytes, shape: Optional[Tuple[int, int]] = None,
     """``(frame, planes)``: each component's samples at its own sampling
     (``frame.size(i)``, uint8), before any upsampling or colour
     conversion: what libjpeg's raw-data output gives (libtiff's old-style
-    JPEG reads colour pages this way)."""
-    frame, coef = decode_coefficients(data, shape, tables)
+    JPEG reads colour pages this way).  A lossless frame's planes are its
+    samples (:func:`decode_lossless`)."""
+    data = bytes(data)
+    frame, scans = parse(data, shape, tables)
+    if frame.lossless:
+        return frame, decode_lossless(data, frame, scans)
+    coef = _coefficients(data, frame, scans)
     offs, planes = frame.offsets, []
     for i, comp in enumerate(frame.components):
         bh, bw = frame.grid(i)
@@ -841,6 +1008,10 @@ def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
     interpretation).  Every failure raises :class:`JpegError` (a
     ``ValueError``)."""
     frame, planes = decode_planes(data, shape, tables)
+    if frame.lossless and len(planes) == 3 and (colour or frame.colour) \
+            == "ycbcr":
+        raise JpegError("libjpeg-turbo converts no lossless JPEG colour "
+                        "(YCbCr to RGB)")
     planes = [upsample(img, (frame.hmax // comp.h, frame.vmax // comp.v))[
         : frame.height, : frame.width]
         for img, comp in zip(planes, frame.components)]

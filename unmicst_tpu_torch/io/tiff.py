@@ -1468,11 +1468,22 @@ def _float_predictor_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8"
 _BMP_MAGIC = b"BM"
+_GIF_MAGICS = (b"GIF87a", b"GIF89a")
 
 
 def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
-    """A PNG, JPEG or BMP file under a TIFF name, as PIL opens it by
-    content: its one frame, ``EOFError`` past it."""
+    """A PNG, JPEG, BMP or GIF file under a TIFF name, as PIL opens it by
+    content: frame ``index`` (a GIF's, :func:`gif.read_frame`; the others
+    have one), ``EOFError`` past the last."""
+    if magic.startswith(_GIF_MAGICS):
+        from unmicst_tpu_torch.io import gif
+
+        with open(path, "rb") as f:
+            data = f.read()
+        try:
+            return gif.read_frame(data, index)
+        except (ValueError, OSError) as e:  # corrupt; M17 refusals pass
+            raise FallbackError(f"{path}: GIF file: {e}") from None
     if index > 0:
         raise EOFError("attempt to seek outside sequence")
     if magic.startswith(_PNG_MAGIC):
@@ -1524,7 +1535,8 @@ def read_page_fallback(path: str, index: int, cause: Exception
     fallback (``unmicst_tpu/io/tiff.py:1285-1291``,
     ``io/slides.py:77-97``) without PIL, for the pages of ROADMAP M17.
     The file is opened by content, as PIL opens it: a PNG, JPEG or BMP
-    file under a TIFF name gives its one frame (:func:`_single_frame`).
+    file under a TIFF name gives its one frame, a GIF its frame ``index``
+    (:func:`_single_frame`).
     A TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no
     OME mapping applies.  It reads JPEG pages, gray or colour
     (:func:`_jpeg_page`), old-style JPEG pages (:func:`_ojpeg_page`),
@@ -1542,7 +1554,7 @@ def read_page_fallback(path: str, index: int, cause: Exception
     fallback in either package."""
     with open(path, "rb") as f:
         magic = f.read(8)
-    if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC, _BMP_MAGIC)):
+    if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC, _BMP_MAGIC) + _GIF_MAGICS):
         return _single_frame(path, index, magic)
     if magic[:2] not in (b"II", b"MM"):
         raise cause

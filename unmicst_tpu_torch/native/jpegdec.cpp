@@ -2,7 +2,10 @@
 // unmicst_tpu_torch/io/jpeg.py: baseline and extended sequential scans,
 // one component or several interleaved, and the four progressive kinds (DC
 // first and DC refine, interleaved or not; AC first with end-of-band runs
-// and AC refine, one component each).  The marker structure, the tables,
+// and AC refine, one component each); and for lossless (SOF3) frames the
+// scan's differences (libjpeg-turbo's jdlhuff.c) and their undoing by the
+// predictor (jdpred.c, with jdlossls.c's point transform), which is
+// sequential along each row.  The marker structure, the tables,
 // the block order of the scan's MCUs, the inverse DCT, the upsampling and
 // the colour conversion stay in Python; this is the bit-serial loop, which
 // runs at about 1 MB/s there.
@@ -313,6 +316,110 @@ long long unmicst_jpeg_scan(const uint8_t* src, long long len, long long pos,
     pos = at;
   }
   return pos;
+}
+
+// Decode one lossless scan starting at src[pos] into diffs (int32, ns
+// planes of h x w, each MCU one sample of each of the ns scan components):
+// a difference category (0-16) from the component slot's table, then its
+// bits (16 means 32768, with none).  dc_bits/dc_vals hold four tables (by
+// slot), bit s of dc_mask says slot s has one.  restart_interval counts
+// MCUs.  Returns the offset of the marker after the scan, or a negative
+// error code (k* above).
+long long unmicst_jpeg_lossless_scan(const uint8_t* src, long long len,
+                                     long long pos, int32_t* diffs, int ns,
+                                     long long h, long long w,
+                                     const uint8_t* dc_bits,
+                                     const uint8_t* dc_vals, int dc_mask,
+                                     long long restart_interval) {
+  static thread_local Huff dc[4];
+  if (ns < 1 || ns > 4) return kErrTable;
+  for (int t = 0; t < ns; ++t) {
+    if (!((dc_mask >> t) & 1)) return kErrTable;
+    build(dc_bits + 16 * t, dc_vals + 256 * t, dc[t]);
+  }
+  const long long n = h * w;
+  const long long ri = restart_interval > 0 ? restart_interval : n;
+  Reader rd{src, len, pos, 0, 0, false};
+  uint32_t v;
+  for (long long start = 0; start < n; start += ri) {
+    const long long stop = start + ri < n ? start + ri : n;
+    for (long long i = start; i < stop; ++i) {
+      for (int k = 0; k < ns; ++k) {
+        int s = rd.symbol(dc[k]);
+        if (s < 0) return s;
+        int d = 0;
+        if (s == 16) {
+          d = 32768;
+        } else if (s) {
+          if (!rd.take(s, &v)) return kErrEnds;
+          d = extend(v, s);
+        }
+        diffs[k * n + i] = d;
+      }
+    }
+    long long at = next_marker(src, len, rd.pos);
+    if (at < 0) return kErrStream;
+    const int m = src[at + 1];
+    if (stop < n) {
+      if (m != 0xD0 + (int)((start / ri) % 8)) return kErrRestart;
+      at += 2;
+    } else if (m >= 0xD0 && m <= 0xD7) {
+      return kErrRestart;
+    }
+    rd = Reader{src, len, at, 0, 0, false};
+    pos = at;
+  }
+  return pos;
+}
+
+// Undo one component's differences (h x w int32) into 8-bit samples: the
+// first row, and the first after each restart_rows rows, predicted from
+// the left (its first sample from 2**(7 - pt)); every other row's first
+// sample from above and the rest by the predictor (1-7), modulo 2**16;
+// then each sample << pt, stored in a byte.
+void unmicst_jpeg_undifference(const int32_t* diff, uint8_t* out,
+                               long long h, long long w, int predictor,
+                               int pt, long long restart_rows) {
+  uint32_t* prev = new uint32_t[w];
+  uint32_t* row = new uint32_t[w];
+  for (long long r = 0; r < h; ++r) {
+    const int32_t* d = diff + r * w;
+    if (r == 0 || (restart_rows > 0 && r % restart_rows == 0)) {
+      int32_t ra = (d[0] + (1 << (7 - pt))) & 0xFFFF;
+      row[0] = (uint32_t)ra;
+      for (long long x = 1; x < w; ++x) {
+        ra = (d[x] + ra) & 0xFFFF;
+        row[x] = (uint32_t)ra;
+      }
+    } else {
+      int32_t rb = (int32_t)prev[0], rc;
+      int32_t ra = (d[0] + rb) & 0xFFFF;
+      row[0] = (uint32_t)ra;
+      for (long long x = 1; x < w; ++x) {
+        rc = rb;
+        rb = (int32_t)prev[x];
+        int32_t p;
+        switch (predictor) {
+          case 1: p = ra; break;
+          case 2: p = rb; break;
+          case 3: p = rc; break;
+          case 4: p = ra + rb - rc; break;
+          case 5: p = ra + ((rb - rc) >> 1); break;
+          case 6: p = rb + ((ra - rc) >> 1); break;
+          default: p = (ra + rb) >> 1; break;
+        }
+        ra = (d[x] + p) & 0xFFFF;
+        row[x] = (uint32_t)ra;
+      }
+    }
+    uint8_t* o = out + r * w;
+    for (long long x = 0; x < w; ++x) o[x] = (uint8_t)(row[x] << pt);
+    uint32_t* t = prev;
+    prev = row;
+    row = t;
+  }
+  delete[] prev;
+  delete[] row;
 }
 
 }  // extern "C"

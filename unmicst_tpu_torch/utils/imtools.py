@@ -25,9 +25,10 @@ The index-only helpers (the nearest-neighbour resizes, ``normalize``,
 :func:`imread` opens a file by content, as PIL does for the JAX package:
 TIFFs through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
 :mod:`unmicst_tpu_torch.io.png`, JPEGs through
-:mod:`unmicst_tpu_torch.io.jpeg` and BMPs through
-:mod:`unmicst_tpu_torch.io.bmp`; :func:`imwrite` writes TIFF, PNG and
-BMP.  Other formats (GIF, WebP, JPEG write) raise
+:mod:`unmicst_tpu_torch.io.jpeg`, BMPs through
+:mod:`unmicst_tpu_torch.io.bmp` and GIFs through
+:mod:`unmicst_tpu_torch.io.gif`; :func:`imwrite` writes TIFF, PNG, BMP,
+GIF and JPEG.  Other formats (WebP among them) and RGB GIF writes raise
 ``NotImplementedError`` (ROADMAP M17).
 :func:`imshow` and :func:`imshowlist` keep the JAX package's headless
 contract without matplotlib: they write a PNG and return its path.
@@ -49,7 +50,7 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from unmicst_tpu_torch.io import bmp, jpeg, png
+from unmicst_tpu_torch.io import bmp, gif, jpeg, jpegenc, png
 from unmicst_tpu_torch.io.preprocess import im2double, resize  # noqa: F401
 from unmicst_tpu_torch.io.tiff import imread as _tiff_read
 from unmicst_tpu_torch.io.tiff import imwrite as _tiff_write
@@ -78,7 +79,15 @@ def size(image: np.ndarray) -> List[int]:
 # ``Image.open`` tells them apart (TIFF is the port's own reader)
 _BY_CONTENT = ((b"II", _tiff_read), (b"MM", _tiff_read),
                (b"\x89PNG\r\n\x1a\n", png.read_png),
-               (b"\xff\xd8\xff", jpeg.read_jpeg), (b"BM", bmp.read_bmp))
+               (b"\xff\xd8\xff", jpeg.read_jpeg), (b"BM", bmp.read_bmp),
+               (b"GIF87a", gif.read_gif), (b"GIF89a", gif.read_gif))
+
+
+# extension -> the writer of ``Image.fromarray(image).save(path)``
+_BY_EXTENSION = {".png": png.write_png, ".bmp": bmp.write_bmp,
+                 ".gif": gif.write_gif, ".jpg": jpegenc.write_jpeg,
+                 ".jpeg": jpegenc.write_jpeg, ".jpe": jpegenc.write_jpeg,
+                 ".jfif": jpegenc.write_jpeg}
 
 
 def imread(path: str) -> np.ndarray:
@@ -86,8 +95,9 @@ def imread(path: str) -> np.ndarray:
     name goes to the TIFF reader (whose fallback opens a PNG, JPEG or
     BMP under that name by content); any other file is opened by content,
     as ``Image.open`` opens it: a TIFF, PNG, JPEG or BMP whatever its
-    name, each as PIL's ``np.asarray`` gives it.  Other formats (GIF
-    among them) raise ``NotImplementedError`` (ROADMAP M17)."""
+    name, each as PIL's ``np.asarray`` gives it, a GIF its first frame.
+    Other formats (WebP among them) raise ``NotImplementedError``
+    (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         return _tiff_read(path)
     with open(path, "rb") as f:
@@ -96,33 +106,32 @@ def imread(path: str) -> np.ndarray:
         if magic.startswith(head):
             return read(path)
     raise NotImplementedError(
-        f"imread: {os.path.basename(path)} is none of TIFF, PNG, JPEG and "
-        "BMP, which unmicst_tpu_torch reads; the JAX package reads other "
+        f"imread: {os.path.basename(path)} is none of TIFF, PNG, JPEG, BMP "
+        "and GIF, which unmicst_tpu_torch reads; the JAX package reads other "
         "formats through PIL (ROADMAP M17)")
 
 
 def imwrite(image: np.ndarray, path: str) -> None:
     """Generic image write, as the JAX toolbox's: a ``.tif``/``.tiff``
     name writes a TIFF page; any other is ``Image.fromarray(image)
-    .save(path)``, whose format the extension picks: PNG and BMP here
-    (PIL's modes, and its ``TypeError`` / ``OSError`` where it has none).
-    Other formats, JPEG and GIF among them, raise ``NotImplementedError``
-    (ROADMAP M17)."""
+    .save(path)``, whose format the extension picks: PNG, BMP, GIF
+    (:mod:`unmicst_tpu_torch.io.gif`) and JPEG at PIL's defaults
+    (:mod:`unmicst_tpu_torch.io.jpegenc`) here, byte for byte (PIL's
+    modes, and its ``TypeError`` / ``OSError`` where it has none).  Other
+    formats, and RGB GIFs, raise ``NotImplementedError`` (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         _tiff_write(path, image, bigtiff=False)
         return
     ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        png.write_png(path, image)
-        return
-    if ext == ".bmp":
-        bmp.write_bmp(path, image)
+    writer = _BY_EXTENSION.get(ext)
+    if writer is not None:
+        writer(path, image)
         return
     png.array_mode(image)  # fromarray's TypeError comes first in PIL
     raise NotImplementedError(
         f"imwrite: {ext or 'no extension'} files are not supported by "
-        "unmicst_tpu_torch (TIFF, PNG and BMP are; the JAX package writes "
-        "the rest, JPEG among them, through PIL: ROADMAP M17)")
+        "unmicst_tpu_torch (TIFF, PNG, BMP, GIF and JPEG are; the JAX "
+        "package writes the rest through PIL: ROADMAP M17)")
 
 
 def _display_u8(image: np.ndarray) -> np.ndarray:
