@@ -250,9 +250,25 @@ printing any result):
     with ``ValueError``; ``imtools.imwrite`` of the 4096^2 class map as
     ``.gif`` and ``.jpg`` with seconds; every committed fixture of
     ``tests/fixtures/torch_gif`` and ``torch_jpeg_write`` read equal to
-    PIL's read and written byte-equal to PIL's file.  The ``kernels`` line
-    gives each path's launches under ``launches_slice16``,
-    ``launches_slice17`` and ``launches_slice18``.
+    PIL's read and written byte-equal to PIL's file;
+21. MPO, arithmetic JPEG and Netpbm (M17, fifth part; ``phase_slice19``,
+    the same net): a 4096^2 gray SOF9 JPEG under a ``.tif`` name (coded by
+    the test-side encoder of ``tests/fixtures/torch_jpeg_arith/make.py``
+    from the coefficients of the port's baseline JPEG of a flat slide
+    with 350 nuclei, its scan within the 64 KiB PIL reads at once), a
+    4096^2 gray 3-frame MPO under a ``.tif`` name at ``--channel 2``
+    (frame 1) and a 4096^2 P5 PGM at maxval 65535 under a ``.tif`` name
+    through ``cli.main``, each byte-equal to its pixels as a plain TIFF
+    (int32 for the PGM, as PIL reads it), K1 and one K2 epilogue counted,
+    with the encode and decode seconds; the entropy decode alone of the
+    SOF9 stream beside the Huffman one of the same coefficients, and the
+    SOF9 stream behind a 40000-byte APP15 segment under a ``.tif`` name
+    refused with ``ValueError`` (PIL's 64 KiB read); every committed
+    fixture of
+    ``tests/fixtures/torch_jpeg_arith``, ``torch_mpo`` and ``torch_pnm``
+    read equal to PIL's read and written byte-equal to PIL's file.  The
+    ``kernels`` line gives each path's launches under
+    ``launches_slice16`` to ``launches_slice19``.
 """
 
 from __future__ import annotations
@@ -441,11 +457,13 @@ def seeded_state(hp, variant: str, seed: int) -> dict:
     return state
 
 
-def blob_slide(rng, h: int, w: int, n_blobs: int):
-    """The tests/test_demo_model.py blob recipe at a larger size."""
+def blob_slide(rng, h: int, w: int, n_blobs: int, background=None):
+    """The tests/test_demo_model.py blob recipe at a larger size; on a
+    flat ``background`` level in place of its noise where one is given."""
     import numpy as np
 
-    img = rng.rand(h, w).astype(np.float32) * 0.15
+    img = (rng.rand(h, w).astype(np.float32) * 0.15 if background is None
+           else np.full((h, w), background, np.float32))
     for _ in range(n_blobs):
         r, c = rng.randint(20, h - 20), rng.randint(20, w - 20)
         rad = rng.randint(5, 9)
@@ -3229,6 +3247,79 @@ def k2_trim_ab(trees) -> None:
             if line.startswith("[K2t-ab]"):
                 log(line)
         check(res.returncode == 0, f"K2t A/B in {tree}: rc "
+              f"{res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    log(card_label())
+
+
+def idct_times(side: int = SLIDE) -> dict:
+    """Host seconds of the JPEG reads the islow IDCT dominates, in the
+    package this process imports: the IDCT alone over the coefficients of
+    phase 16's mosaic (64 tiles of 512^2, three passes), then the
+    ``side``^2 JPEG CZI of those tiles (:func:`jpeg_mosaic`, through
+    ``czi.read_czi_channel``) and the ``side``^2 JPEG TIFF of complete
+    tiles (:func:`jpeg_tiff`, through ``tiff.imread``), each read whole
+    twice; with a digest of the pixels of both reads."""
+    import hashlib
+
+    from unmicst_tpu_torch.io import czi, jpeg
+    from unmicst_tpu_torch.io.tiff import imread
+
+    tiles = [jpeg_fixture(n)[0] for n in MOSAIC_TILES]
+    # the first decode also builds the host library
+    coefs = [jpeg.decode_coefficients(tiles[k % len(tiles)])
+             for k in range(64)]
+    out = {"idct_mosaic_s": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for frame, coef in coefs:
+            jpeg.idct_islow(coef, frame.components[0].qtable)
+        out["idct_mosaic_s"].append(time.perf_counter() - t0)
+    digest = hashlib.sha256()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_idct_")
+    try:
+        for key, write, read in (
+                ("czi", lambda p: jpeg_mosaic(p, side),
+                 lambda p: czi.read_czi_channel(p, 0)),
+                ("tiff", lambda p: jpeg_tiff(p, side, False), imread)):
+            path = os.path.join(tmp, key)
+            write(path)
+            out[f"{key}_read_s"] = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                px = read(path)
+                out[f"{key}_read_s"].append(time.perf_counter() - t0)
+            digest.update(px.tobytes())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["pixels_sha256"] = digest.hexdigest()[:16]
+    return out
+
+
+def idct_ab(trees) -> None:
+    """:func:`idct_times` in each of ``trees`` (directories holding a
+    copy of the repository, such as a ``git archive`` of another commit),
+    in that order, each in a process of its own; one ``[IDCT-ab]`` line
+    each.  Run as ``python3 -c "import chip_smoke as c;
+    c.idct_ab(['parent', '.', '.', 'parent'])"``."""
+    code = (
+        "import importlib.util, json, sys\n"
+        "spec = importlib.util.spec_from_file_location('smoke', sys.argv[2])\n"
+        "c = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(c)\n"
+        "sys.path.insert(0, sys.argv[1])  # before the module's own root\n"
+        "import unmicst_tpu_torch as u\n"
+        "assert u.__file__.startswith(sys.argv[1] + '/'), u.__file__\n"
+        "print('[IDCT-ab] ' + sys.argv[1] + ' ' + json.dumps("
+        "c.idct_times()), flush=True)\n")
+    for tree in trees:
+        tree = os.path.abspath(tree)
+        res = subprocess.run([sys.executable, "-c", code, tree,
+                              os.path.abspath(__file__)], cwd=tree,
+                             capture_output=True, text=True, timeout=600)
+        for line in res.stdout.splitlines():
+            if line.startswith("[IDCT-ab]"):
+                log(line)
+        check(res.returncode == 0, f"IDCT A/B in {tree}: rc "
               f"{res.returncode}\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
     log(card_label())
 
@@ -6946,6 +7037,274 @@ def phase_slice18(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+ARITH_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_jpeg_arith")
+MPO_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_mpo")
+PNM_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_pnm")
+
+
+def mpo_file(streams, byteorder: str = "<") -> bytes:
+    """An MPO (CIPA DC-007) of the JPEG ``streams``: the first with an
+    APP2 ``MPF`` segment right after its SOI, a TIFF header in
+    ``byteorder`` ("<" II, ">" MM) and an IFD of MPFVersion,
+    NumberOfImages and MPEntry, each entry's DataOffset counted from that
+    header (the first's 0); the others after it, as they are."""
+    n, bo = len(streams), byteorder
+    ifd_len = 2 + 3 * 12 + 4
+    seg_len = 2 + 4 + 8 + ifd_len + 16 * n
+    first = len(streams[0]) + 2 + seg_len
+    offsets, at = [0], first
+    for data in streams[1:]:
+        offsets.append(at - 10)  # SOI, marker, length, "MPF\0"
+        at += len(data)
+    entries = b"".join(struct.pack(
+        bo + "LLLHH", (0x20030000 if k == 0 else 0x00020002),
+        len(streams[k]) + (seg_len + 2 if k == 0 else 0), offsets[k], 0, 0)
+        for k in range(n))
+    ifd = (struct.pack(bo + "H", 3)
+           + struct.pack(bo + "HHL", 0xB000, 7, 4) + b"0100"
+           + struct.pack(bo + "HHLL", 0xB001, 4, 1, n)
+           + struct.pack(bo + "HHLL", 0xB002, 7, 16 * n, 8 + ifd_len)
+           + bytes(4))
+    head = (b"II*\0" if bo == "<" else b"MM\0*") + struct.pack(bo + "L", 8)
+    seg = (b"\xff\xe2" + struct.pack(">H", seg_len) + b"MPF\0" + head + ifd
+           + entries)
+    return streams[0][:2] + seg + streams[0][2:] + b"".join(streams[1:])
+
+
+def arith_encoder():
+    """The test-side arithmetic JPEG encoder (``jcarith.c``):
+    ``tests/fixtures/torch_jpeg_arith/make.py``, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "arith_make", os.path.join(ARITH_FIXTURES, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_slice19(dev) -> dict:
+    """MPO frames, arithmetic-coded JPEG and Netpbm (M17, fifth part),
+    through ``cli.main`` on the card (the legacy net at nucleiDAPI's
+    widths, seeded weights), each slide byte-equal to its plain twin: a
+    4096^2 gray SOF9 JPEG under a ``.tif`` name, coded by the test-side
+    encoder from the coefficients of the port's baseline JPEG of a flat
+    slide with 350 nuclei (its scan fits the 64 KiB PIL hands libjpeg at
+    once, so JAX reads it too), against the baseline's pixels as a plain
+    TIFF, with the encode and decode seconds; the entropy decode alone
+    (``jpeg.decode_coefficients``) of that stream beside the baseline's
+    Huffman one, the same coefficients; that stream behind a 40000-byte
+    APP15 segment, so that its scan crosses PIL's first read, under a
+    ``.tif`` name refused with ``ValueError`` as JAX (PIL) refuses it; a
+    4096^2 gray 3-frame MPO of the baseline JPEG and one of a slide with
+    1500 nuclei (``mpo_file``) under a ``.tif`` name at ``--channel 2``
+    (frame 1, the 1500-nuclei slide) against frame 1's
+    pixels; a 4096^2 P5 PGM at maxval 65535 (that slide widened to 16
+    bits with seeded low bytes) under a ``.tif`` name against its samples
+    as an int32 TIFF (the dtype PIL gives); every committed fixture of
+    ``tests/fixtures/torch_jpeg_arith``, ``torch_mpo`` and ``torch_pnm``
+    read equal to PIL's read, every committed Netpbm write byte-equal to
+    PIL's file.  Returns, per kernel, its launches on each counted path."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import jpeg, jpegenc, mpo, pnm, slides
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    enc = arith_encoder()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice19_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name, channel):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--channel", str(channel), "--outputPath", out],
+                          device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        def against_twin(path, channel, plane, label, name):
+            twin = os.path.join(tmp, f"{name}_plain.tif")
+            imwrite(twin, plane)
+            t_maps, t_secs = run(twin, f"{name}_plain", 1)
+            c_maps, c_secs = run(path, name, channel)
+            same = len(c_maps) == len(t_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(c_maps, t_maps))
+            for key, secs in ((name, c_secs), (f"{name}_plain", t_secs)):
+                n = launches[key]
+                log(f"[slice19] {label}, {key}: cli.main {secs:.2f} s; K1 "
+                    f"{n['softmax_blend']}, K2 epilogue "
+                    f"{n['blend_fold_epilogue']}, K2 stripe "
+                    f"{n['blend_fold_stripe']} | {card}")
+                check(n["softmax_blend"] > 0
+                      and n["blend_fold_epilogue"] == 1
+                      and n["blend_fold_stripe"] == 0,
+                      f"{label} ({key}) did not run K1 and one K2 "
+                      f"epilogue: {n}")
+            log(f"[slice19] {label}: pages byte-equal to the twin's: {same}")
+            check(same, f"{label}: pages differ from the plain twin's")
+
+        def read_timed(path, channel):
+            t0 = time.perf_counter()
+            got = slides.read_channel(path, "tif", channel)
+            return got, time.perf_counter() - t0
+
+        # -- 1. a 4096^2 arithmetic JPEG under a TIFF name ------------------
+        rng = np.random.RandomState(SEED + 19)
+        base = jpegenc.encode_jpeg((blob_slide(
+            rng, SLIDE, SLIDE, 350, 0.1) * 255).astype(np.uint8))
+        frame, coef = jpeg.decode_coefficients(base)
+        t0 = time.perf_counter()
+        stream = enc.encode(coef, [(1, 1, 1, 0)], SLIDE, SLIDE,
+                            {0: frame.components[0].qtable})
+        enc_s = time.perf_counter() - t0
+        plane = jpeg.decode(base)
+        path = os.path.join(tmp, "arith.tif")
+        with open(path, "wb") as f:
+            f.write(stream)
+        check(len(stream) < jpeg.PIL_FEED,
+              f"the SOF9 slide is {len(stream)} bytes, past PIL's first read")
+        got, secs = read_timed(path, 0)
+        log(f"[slice19] SOF9 JPEG {SLIDE}^2 ({len(stream)} bytes; baseline "
+            f"{len(base)} bytes): encoded in {enc_s:.3f} s (test-side "
+            f"encoder), read in {secs:.3f} s = "
+            f"{len(stream) / 1e6 / secs:.3f} MB/s, "
+            f"{SLIDE * SLIDE / 1e6 / secs:.1f} Mpx/s | {card}")
+        check(got.dtype == np.uint8 and np.array_equal(got, plane),
+              "the SOF9 JPEG does not decode to its baseline's pixels")
+        against_twin(path, 1, plane, f"SOF9 JPEG {SLIDE}^2", "arith")
+        first = base
+
+        # -- 2. the entropy decode's rate, and PIL's 64 KiB read -------------
+        secs = {"arithmetic": [], "Huffman": []}
+        for _ in range(2):
+            for kind, data in (("arithmetic", stream), ("Huffman", base)):
+                t0 = time.perf_counter()
+                _, c = jpeg.decode_coefficients(data)
+                secs[kind].append(time.perf_counter() - t0)
+                check(np.array_equal(c, coef), f"the {kind} stream's "
+                      "coefficients differ from the baseline's")
+        log(f"[slice19] entropy decode alone (jpeg.decode_coefficients, "
+            f"native) of the same {SLIDE}^2 coefficients, "
+            f"{len(coef)} blocks: " + ", ".join(
+                f"{k} {n} bytes in {min(secs[k]):.4f} s (of "
+                f"{', '.join(f'{t:.4f}' for t in secs[k])}) = "
+                f"{n / 1e6 / min(secs[k]):.3f} MB/s, "
+                f"{SLIDE * SLIDE / 1e6 / min(secs[k]):.1f} Mpx/s"
+                for k, n in (("arithmetic", len(stream)),
+                             ("Huffman", len(base)))) + f" | {card}")
+        # an APP15 segment after SOI moves the scan across PIL's first read
+        pad = 40000
+        big = os.path.join(tmp, "arith_big.tif")
+        with open(big, "wb") as f:
+            f.write(stream[:2] + b"\xff\xef" + struct.pack(">H", pad + 2)
+                    + bytes(pad) + stream[2:])
+        try:
+            slides.read_channel(big, "tif", 0)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        log(f"[slice19] that SOF9 stream under .tif behind a {pad}-byte "
+            f"APP15 segment ({len(stream) + pad + 4} bytes): ValueError as "
+            f"JAX's (PIL's 64 KiB read): {refused is not None}")
+        check(refused is not None and "65536" in refused,
+              f"the SOF9 scan past PIL's first read was not refused: "
+              f"{refused}")
+        base = jpegenc.encode_jpeg((blob_slide(
+            rng, SLIDE, SLIDE, 1500, 0.1) * 255).astype(np.uint8))
+        plane = jpeg.decode(base)
+
+        # -- 3. a 4096^2 gray 3-frame MPO under a TIFF name -------------------
+        data = mpo_file([first, base, first])
+        path = os.path.join(tmp, "frames.tif")
+        with open(path, "wb") as f:
+            f.write(data)
+        got, secs = read_timed(path, 1)
+        log(f"[slice19] MPO {SLIDE}^2, 3 frames ({len(data) / 1e6:.3f} MB): "
+            f"frame 1 read in {secs:.3f} s | {card}")
+        check(np.array_equal(got, plane), "MPO frame 1 differs from its JPEG")
+        against_twin(path, 2, plane, f"MPO {SLIDE}^2 frame 1", "mpo")
+
+        # -- 4. a 4096^2 16-bit PGM under a TIFF name --------------------------
+        plane = plane.astype(np.uint16) * 256 + rng.randint(
+            0, 256, plane.shape).astype(np.uint16)
+        path = os.path.join(tmp, "gray16.tif")
+        with open(path, "wb") as f:
+            f.write(b"P5\n%d %d\n65535\n" % (SLIDE, SLIDE)
+                    + plane.astype(">u2").tobytes())
+        got, secs = read_timed(path, 0)
+        log(f"[slice19] P5 PGM {SLIDE}^2 at maxval 65535: read in {secs:.3f} "
+            f"s as {got.dtype} | {card}")
+        check(got.dtype == np.int32 and np.array_equal(got, plane),
+              "the PGM does not read as its samples in int32")
+        against_twin(path, 1, plane.astype(np.int32), f"PGM {SLIDE}^2",
+                     "pgm")
+        del plane, got, data, coef
+
+        # -- 5. the committed fixtures -------------------------------------------
+        bad, reads, writes = [], 0, 0
+        for name in sorted(enc.CASES):
+            reads += 1
+            with open(os.path.join(ARITH_FIXTURES, name + ".jpg"), "rb") as f:
+                data = f.read()
+            want = np.load(os.path.join(ARITH_FIXTURES, name + ".npy"))
+            px = jpeg.decode(data, feed=jpeg.PIL_FEED)
+            if enc.case(name, **enc.CASES[name]) != data or \
+                    px.dtype != want.dtype or not np.array_equal(px, want):
+                bad.append(name)
+        for f in sorted(os.listdir(MPO_FIXTURES)):
+            if not f.endswith(".mpo"):
+                continue
+            with open(os.path.join(MPO_FIXTURES, f), "rb") as g:
+                data = g.read()
+            ref = np.load(os.path.join(MPO_FIXTURES, f[:-4] + ".npz"))
+            for k in range(len(ref.files)):
+                reads += 1
+                px, want = mpo.read_frame(data, k), ref[f"frame{k}"]
+                if px.dtype != want.dtype or not np.array_equal(px, want):
+                    bad.append(f"{f} frame {k}")
+        for f in sorted(os.listdir(PNM_FIXTURES)):
+            path = os.path.join(PNM_FIXTURES, f)
+            if f.startswith("write_") and f.endswith(".npy"):
+                writes += 1
+                (out,) = [g for g in os.listdir(PNM_FIXTURES)
+                          if g.startswith(f[:-3]) and not g.endswith(".npy")]
+                with open(os.path.join(PNM_FIXTURES, out), "rb") as g:
+                    if pnm.encode_pnm(np.load(path)) != g.read():
+                        bad.append(out)
+            elif f.endswith(".pnm") and not f.startswith("write_"):
+                reads += 1
+                px, want = pnm.read_frame(path), np.load(path[:-4] + ".npy")
+                if px.dtype != want.dtype or not np.array_equal(px, want):
+                    bad.append(f)
+        log(f"[slice19] {reads} fixture reads (arithmetic JPEGs, MPO frames, "
+            f"Netpbm) equal to PIL's and {writes} Netpbm writes byte-equal to "
+            f"PIL's files: {reads + writes - len(bad)}; differing: {bad}")
+        check(not bad, f"fixtures differ from PIL's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice19] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -6994,6 +7353,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice17"] = per_path
     for name, per_path in phase_slice18(dev).items():
         stats[name]["launches_slice18"] = per_path
+    for name, per_path in phase_slice19(dev).items():
+        stats[name]["launches_slice19"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -7005,7 +7366,7 @@ def main(argv=None) -> int:
                or k in ("launches_formats", "launches_slice12",
                         "launches_slice13", "launches_slice15",
                         "launches_slice16", "launches_slice17",
-                        "launches_slice18")}})
+                        "launches_slice18", "launches_slice19")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

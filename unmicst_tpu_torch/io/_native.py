@@ -138,6 +138,14 @@ def _load(path: str) -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_char_p, ll, ll, vp, vp, vp, ll, ll,
                    ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p,
                    ctypes.c_char_p, it, it, it, it, it, it, it, ll]
+    fn = lib.unmicst_jpeg_arith_scan
+    fn.restype = ll
+    # src, len, pos, limit, coef, order, slots, nblocks, blocks per MCU,
+    # each slot's DC and AC conditioning table, L, U and Kx (4 bytes
+    # each), ss, se, ah, al, progressive, restart interval (MCUs)
+    cp = ctypes.c_char_p
+    fn.argtypes = [cp, ll, ll, ll, vp, vp, vp, ll, ll, cp, cp, cp, cp, cp,
+                   it, it, it, it, it, ll]
     fn = lib.unmicst_jpeg_lossless_scan
     fn.restype = ll
     # src, len, pos, diffs, scan components, h, w, dc bits, dc values,
@@ -412,6 +420,9 @@ _JPEG_ERRORS = {
     -3: "restart marker missing, out of order or stray",
     -4: "Huffman table missing",
     -5: "truncated stream (no marker after a scan)",
+    -6: "arithmetic-coded scan needs data past the 65536-byte read of the "
+        "stream that holds its SOS header: libjpeg's arithmetic decoder "
+        "cannot wait for the next read, and PIL raises 'broken data stream'",
 }
 
 
@@ -457,6 +468,41 @@ def jpeg_scan(data: bytes, scan, progressive: bool, coef: np.ndarray,
         len(order), per_mcu, dc_bits, dc_vals, ac_bits, ac_vals, dc_mask,
         ac_mask, scan.ss, scan.se, scan.ah, scan.al, int(progressive),
         scan.restart_interval)
+    if rc < 0:
+        raise ValueError(f"JPEG {_JPEG_ERRORS.get(rc, f'error {rc}')}")
+    return rc
+
+
+def jpeg_arith_scan(data: bytes, scan, progressive: bool, coef: np.ndarray,
+                    order: np.ndarray, slots: np.ndarray, per_mcu: int,
+                    limit: int) -> Optional[int]:
+    """Decode one arithmetic-coded scan of ``io/jpeg.py`` (a ``Scan``
+    with its ``cond``) into ``coef`` as ``jpeg_scan`` does, reading no
+    byte at or past ``limit``; as its ``arith_scan_py``.  Returns the
+    offset of the marker after the scan, or None without the library.  A
+    scan that needs a byte past ``limit`` raises ``ValueError``."""
+    if coef.dtype != np.int16 or coef.ndim != 2 or coef.shape[1] != 64 \
+            or not coef.flags["C_CONTIGUOUS"]:
+        raise ValueError("jpeg_arith_scan needs a C-contiguous int16 [n, 64] "
+                         "array")
+    order = np.ascontiguousarray(order, np.int64)
+    slots = np.ascontiguousarray(slots, np.uint8)
+    if len(order) != len(slots) or (len(order) and (
+            order.min() < 0 or order.max() >= coef.shape[0])) \
+            or per_mcu < 1 or len(scan.cond) > 4:
+        raise ValueError("jpeg_arith_scan: block order outside the "
+                         "coefficients")
+    if not 0 <= scan.pos <= len(data):
+        raise ValueError("jpeg_arith_scan: scan offset outside the stream")
+    lib = get_lib()
+    if lib is None:
+        return None
+    cond = list(scan.cond) + [scan.cond[0]] * (4 - len(scan.cond))
+    dc, ac, lows, ups, kxs = (bytes(x[k] for x in cond) for k in range(5))
+    rc = lib.unmicst_jpeg_arith_scan(
+        data, len(data), scan.pos, limit, _ptr(coef), _ptr(order),
+        _ptr(slots), len(order), per_mcu, dc, ac, lows, ups, kxs, scan.ss,
+        scan.se, scan.ah, scan.al, int(progressive), scan.restart_interval)
     if rc < 0:
         raise ValueError(f"JPEG {_JPEG_ERRORS.get(rc, f'error {rc}')}")
     return rc

@@ -183,8 +183,9 @@ def _decode_pixels(raw: bytes, entry: SubBlockEntry,
             raise ValueError(f"{where} decodes to uint8, directory "
                              f"declares {dtype}")
         try:
-            # the directory's size caps every allocation the header drives
-            img = jpeg.decode(raw, (h, w))
+            # the directory's size caps every allocation the header
+            # drives; PIL reads the sub-block in its 64 KiB reads
+            img = jpeg.decode(raw, (h, w), feed=jpeg.PIL_FEED)
         except ValueError as e:
             raise ValueError(f"{where} failed to decode: {e}") from None
         if img.shape != (h, w):  # a colour frame, as JAX refuses it

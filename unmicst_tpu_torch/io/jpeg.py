@@ -2,14 +2,19 @@
 counterpart of PIL's decode of CZI JPEG sub-blocks
 (``unmicst_tpu/io/czi.py:177-207``), of the JPEG-compressed TIFF pages
 the JAX package reads through PIL (``unmicst_tpu/io/tiff.py:1274-1291``,
-``io/slides.py:66-97``; :mod:`unmicst_tpu_torch.io.tiff`) and of ``.jpg``
-files in ``utils/imtools.imread``.
+``io/slides.py:66-97``; :mod:`unmicst_tpu_torch.io.tiff`) and of JPEG
+and MPO files (:mod:`unmicst_tpu_torch.io.mpo`) in ``utils/imtools.imread``
+and under a TIFF name.
 
 What it decodes (ITU T.81):
 
 * SOF0 baseline and SOF1 extended sequential, SOF2 progressive (DC first
   and refine, interleaved or not; AC first with end-of-band runs, AC
   refine), all Huffman coded, 8-bit samples;
+* SOF9 sequential and SOF10 progressive frames, arithmetic coded (Annex
+  D's QM decoder, with DAC conditioning), as libjpeg-turbo's
+  ``jdarith.c`` decodes them, its quiet recovery from bad data included
+  (see :func:`arith_scan_py`);
 * SOF3 lossless frames, Huffman coded: predictors 1-7, any point
   transform, restart intervals of whole rows, one component or three
   (RGB; libjpeg-turbo converts no lossless YCbCr), sampled 1x1;
@@ -22,23 +27,35 @@ What it decodes (ITU T.81):
   (:func:`parse_tables`; a TIFF's ``JPEGTables``, tag 347).
 
 Everything else raises ``ValueError`` naming the marker: SOF5-7 and
-DHP/EXP (hierarchical), SOF9-11 and DAC (arithmetic coding), DNL, 12-bit
-samples, frames of 2 or 4 components and fractional samplings.  A
-stream cut short anywhere, EOI included, raises as PIL does.
+DHP/EXP (hierarchical), SOF11 and SOF13-15 (arithmetic lossless and
+hierarchical, which libjpeg-turbo refuses too), DNL, 12-bit samples,
+frames of 2 or 4 components and fractional samplings.  A stream cut short
+anywhere, EOI included, raises as PIL does.
+
+PIL hands a JPEG file to libjpeg in reads of 65536 bytes
+(``ImageFile.MAXBLOCK``), and libjpeg's arithmetic decoder cannot wait for
+the next read: a scan whose decode needs a byte past the read that holds
+its SOS header makes PIL raise "broken data stream".  ``feed`` (at
+:data:`PIL_FEED` for a file PIL opens) makes the decode refuse such a
+scan as PIL does; libtiff hands a TIFF page's strip or tile over whole,
+so a JPEG-compressed page has no such limit.
 
 The decode follows libjpeg: canonical Huffman codes from BITS/HUFFVAL,
 byte stuffing undone, DC predictors and the end-of-band run reset at each
 restart marker, coefficients kept as int16 in natural order, then the
 dequantise and the integer "islow" inverse DCT of IJG ``jidctint.c``
-(13-bit constants, 2 pass-1 bits, its range-limit table) over all blocks
-at once; colour frames then take ``jdsample.c``'s fancy (triangle)
+(13-bit constants, 2 pass-1 bits) over all blocks at once, the samples
+saturated as libjpeg-turbo's SIMD version saturates them (its 16-bit
+lanes, where corrupt coefficients overflow them: :func:`idct_islow`);
+colour frames then take ``jdsample.c``'s fancy (triangle)
 upsampling and ``jdcolor.c``'s fixed-point YCbCr to RGB tables.  That is
 what libjpeg-turbo runs under PIL.
 
 Each scan's entropy decode runs in the port's native host library
 (``io/_native.py``, ``native/jpegdec.cpp``) when it loads, and otherwise
-in :func:`decode_scan_py` (lossless: :func:`lossless_scan_py`, and the
-predictor's :func:`undifference_py`), the plain versions that the tests
+in :func:`decode_scan_py` (arithmetic: :func:`arith_scan_py`; lossless:
+:func:`lossless_scan_py`, and the predictor's :func:`undifference_py`),
+the plain versions that the tests
 hold the native ones to: both give the same coefficients or samples bit
 for bit, and fail on the same inputs.
 """
@@ -66,10 +83,9 @@ NATURAL_ORDER = (
 _REFUSED = {
     0xC5: "SOF5 (hierarchical)", 0xC6: "SOF6 (hierarchical)",
     0xC7: "SOF7 (hierarchical)", 0xC8: "JPG (reserved)",
-    0xC9: "SOF9 (arithmetic coding)", 0xCA: "SOF10 (arithmetic coding)",
-    0xCB: "SOF11 (arithmetic coding)", 0xCC: "DAC (arithmetic coding)",
-    0xCD: "SOF13 (arithmetic coding)", 0xCE: "SOF14 (arithmetic coding)",
-    0xCF: "SOF15 (arithmetic coding)", 0xDC: "DNL",
+    0xCB: "SOF11 (arithmetic coding)", 0xCD: "SOF13 (arithmetic coding)",
+    0xCE: "SOF14 (arithmetic coding)", 0xCF: "SOF15 (arithmetic coding)",
+    0xDC: "DNL",
     0xDE: "DHP (hierarchical)", 0xDF: "EXP (hierarchical)",
 }
 # the largest plane decoded without a caller-given shape (a standalone
@@ -78,6 +94,10 @@ _MAX_PIXELS = 1 << 30
 # blocks per pass of the inverse DCT: about 20 int64 temporaries of this
 # many coefficients bound its memory
 _IDCT_CHUNK = 1 << 14
+# the bytes PIL reads from a JPEG file per call of its decoder
+# (``ImageFile.MAXBLOCK``)
+PIL_FEED = 65536
+_SOFS = (0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA)
 
 
 class JpegError(ValueError):
@@ -129,6 +149,9 @@ class Scan:
     ah: int
     al: int
     restart_interval: int  # in MCUs
+    # arithmetic coding: each scan component's (DC table, AC table, L, U,
+    # Kx), the conditioning in force at the SOS (DAC's or T.81's default)
+    cond: Optional[Tuple[Tuple[int, int, int, int, int], ...]] = None
 
 
 @dataclasses.dataclass
@@ -139,6 +162,7 @@ class Frame:
     components: List[Component]
     colour: str = "gray"  # "gray", "ycbcr" or "rgb"
     lossless: bool = False  # SOF3: predicted samples, no DCT
+    arith: bool = False  # SOF9 / SOF10: arithmetic-coded scans
 
     @property
     def hmax(self) -> int:
@@ -297,7 +321,8 @@ def _parse_sof(body: bytes, m: int, shape) -> Frame:
         # a lone component's sampling factors do not matter (libjpeg)
         comps.append(Component(cid, hv >> 4 if nc > 1 else 1,
                                hv & 15 if nc > 1 else 1, tq))
-    frame = Frame(h, w, m == 0xC2, comps, lossless=m == 0xC3)
+    frame = Frame(h, w, m in (0xC2, 0xCA), comps, lossless=m == 0xC3,
+                  arith=m in (0xC9, 0xCA))
     if frame.lossless:
         if frame.hmax > 1 or frame.vmax > 1:
             raise JpegError(
@@ -339,6 +364,7 @@ def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
     scans: List[Scan] = []
     restart = 0
     jfif, adobe = False, None
+    cond = ([0] * 16, [1] * 16, [5] * 16)  # L, U, Kx; SOI's defaults
     pos = 2
     while True:
         pos = _next_marker(data, pos)
@@ -354,9 +380,9 @@ def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
             raise JpegError("corrupt JPEG stream: a second SOI")
         body = _segment(data, pos)
         end = pos + 2 + len(body)
-        if tables_only and m in (0xC0, 0xC1, 0xC2, 0xC3, 0xDA):
+        if tables_only and m in _SOFS + (0xDA,):
             raise JpegError("JPEG tables stream holds an image")
-        if m in (0xC0, 0xC1, 0xC2, 0xC3):
+        if m in _SOFS:
             if frame is not None:
                 raise JpegError("corrupt JPEG stream: a second frame")
             frame = _parse_sof(body, m, shape)
@@ -375,8 +401,10 @@ def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
                 frame.colour = _colour_space(
                     len(frame.components), jfif, adobe,
                     [c.cid for c in frame.components], frame.lossless)
-            scans.append(_parse_sos(body, end, frame, tables, restart))
+            scans.append(_parse_sos(body, end, frame, tables, restart, cond))
             end = _scan_end(data, end)
+        elif m == 0xCC:
+            _parse_dac(body, cond)
         elif m == 0xE0:
             jfif = jfif or (len(body) >= 14 and body[:5] == b"JFIF\0")
         elif m == 0xEE:
@@ -394,8 +422,27 @@ def _walk(data: bytes, tables: Tables, shape=None, tables_only=False):
     return frame, scans
 
 
+def _parse_dac(body: bytes, cond) -> None:
+    """A DAC segment into ``cond`` (L, U and Kx of the 16 tables), as
+    libjpeg's ``get_dac``: DC tables 0-15 take ``U << 4 | L`` (L <= U),
+    AC tables 16-31 their Kx."""
+    if len(body) % 2:
+        raise JpegError("corrupt JPEG DAC segment: odd length")
+    for p in range(0, len(body), 2):
+        index, val = body[p], body[p + 1]
+        if index >= 32:
+            raise JpegError(f"corrupt JPEG DAC segment: table {index}")
+        if index >= 16:
+            cond[2][index - 16] = val
+        elif val & 15 > val >> 4:
+            raise JpegError(f"corrupt JPEG DAC segment: L {val & 15} above "
+                            f"U {val >> 4}")
+        else:
+            cond[0][index], cond[1][index] = val & 15, val >> 4
+
+
 def _parse_sos(body: bytes, pos: int, frame: Frame, tables: Tables,
-               restart: int) -> Scan:
+               restart: int, cond=None) -> Scan:
     ns = body[0] if body else 0
     if not 1 <= ns <= 4 or len(body) != 4 + 2 * ns:
         raise JpegError("corrupt JPEG SOS segment")
@@ -439,6 +486,11 @@ def _parse_sos(body: bytes, pos: int, frame: Frame, tables: Tables,
             if c.tq not in tables.q:
                 raise JpegError("JPEG quantisation table missing")
             c.qtable = tables.q[c.tq]
+    if frame.arith:  # 16 conditioning tables, each with its defaults
+        return Scan(pos, tuple(comps), (None,) * ns, (None,) * ns, ss, se,
+                    ah, al, restart, tuple(
+                        (td, ta, cond[0][td], cond[1][td], cond[2][ta])
+                        for td, ta in sel))
     need_dc = ss == 0 and ah == 0
     need_ac = ss > 0 or not frame.progressive
     if any((need_dc and td not in tables.dc)
@@ -685,6 +737,320 @@ def decode_scan_py(data: bytes, frame: Frame, scan: Scan, coef: np.ndarray,
     return pos
 
 
+# -- arithmetic-coded scans (libjpeg-turbo's jdarith.c, jaricom.c) -----------
+
+# jaricom.c's Table D.2, packed as Qe << 16 | Next_Index_MPS << 8 |
+# Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed bin's
+# (probability 0.5, never adapted)
+ARITAB = (
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171,
+)
+
+_PAST_FEED = ("JPEG arithmetic-coded scan needs data past the 65536-byte read "
+              "of the stream that holds its SOS header: libjpeg's arithmetic "
+              "decoder cannot wait for the next read, and PIL raises "
+              "'broken data stream'")
+
+
+class _QMDecoder:
+    """``jdarith.c``'s ``arith_decode`` (T.81 D.2) over one scan's data
+    from ``pos``: the C and A registers and the bit counter ``ct`` (-16
+    before the first two bytes, -1 once the decode gave up until the next
+    restart).  At a marker it feeds zeros and leaves the marker unread
+    (``unread``: its code, ``pos`` past it), as libjpeg does.  No byte at
+    or past ``limit`` is read."""
+
+    def __init__(self, data: bytes, pos: int, limit: int):
+        self.data, self.limit, self.pos, self.unread = data, limit, pos, 0
+        self.reset()
+
+    def reset(self) -> None:
+        self.c, self.a, self.ct = 0, 0, -16
+
+    def _byte(self) -> int:
+        p = self.pos
+        if p >= self.limit:
+            raise JpegError(_PAST_FEED if self.limit < len(self.data)
+                            else "JPEG entropy-coded data ends early")
+        self.pos = p + 1
+        return self.data[p]
+
+    def next_marker(self) -> None:
+        """libjpeg's ``next_marker`` from ``pos``: extraneous bytes, fill
+        bytes and stuffed zeros skipped, the marker left unread."""
+        while True:
+            b = self._byte()
+            while b != 0xFF:
+                b = self._byte()
+            b = self._byte()
+            while b == 0xFF:
+                b = self._byte()
+            if b:
+                self.unread = b
+                return
+
+    def restart(self, n: int) -> None:
+        """``read_restart_marker`` expecting RSTn, with
+        ``jpeg_resync_to_restart`` where another marker comes: an earlier
+        restart or a marker below SOF0 is skipped for the next one, the
+        next two restarts and any other marker stay unread (the interval
+        then decodes from zeros), any other restart is taken as RSTn."""
+        if not self.unread:
+            self.next_marker()
+        while self.unread != 0xD0 + n:
+            m = self.unread
+            if 0xD0 <= m <= 0xD7:
+                if (m - 0xD0 - n) % 8 in (1, 2):
+                    break
+                if (m - 0xD0 - n) % 8 in (6, 7):
+                    self.next_marker()
+                    continue
+            elif m >= 0xC0:
+                break
+            else:
+                self.next_marker()
+                continue
+            self.unread = 0
+            break
+        else:
+            self.unread = 0
+        self.reset()
+
+    def end(self) -> int:
+        """The offset of the marker after the scan's data."""
+        return self.pos - 2 if self.unread else _next_marker(self.data,
+                                                             self.pos)
+
+    def decode(self, st, i: int) -> int:
+        """One binary decision with the statistics bin ``st[i]``."""
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                if self.unread:
+                    b = 0
+                else:
+                    b = self._byte()
+                    if b == 0xFF:
+                        b = self._byte()
+                        while b == 0xFF:
+                            b = self._byte()
+                        if b == 0:
+                            b = 0xFF
+                        else:
+                            self.unread, b = b, 0
+                c = (c << 8) | b
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000
+            a <<= 1
+        sv = st[i]
+        t = ARITAB[sv & 0x7F]
+        qe = t >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                st[i] = (sv & 0x80) ^ ((t >> 8) & 0xFF)
+            else:
+                st[i] = (sv & 0x80) ^ (t & 0xFF)
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ (t & 0xFF)
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ ((t >> 8) & 0xFF)
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+class _GiveUp(Exception):
+    """``jdarith.c``'s ``ct = -1``: a magnitude or spectral overflow."""
+
+
+def _arith_value(dec, st, i: int, sign: int, first: int, kbins: int) -> int:
+    """Figures F.23-F.24 from bin ``i`` (past the sign): the magnitude
+    category, then its bits; ``first`` is 1 where the category's first
+    decision is already taken (DC), ``kbins`` the bin of the further
+    decisions (X1: 20 for DC, 189 or 217 for AC)."""
+    m = dec(st, i)
+    if m:
+        if first or dec(st, i):
+            if not first:
+                m <<= 1
+            i = kbins
+            while dec(st, i):
+                m <<= 1
+                if m == 0x8000:
+                    raise _GiveUp
+                i += 1
+    v = m
+    i += 14
+    m >>= 1
+    while m:
+        if dec(st, i):
+            v |= m
+        m >>= 1
+    return -(v + 1) if sign else v + 1
+
+
+def arith_scan_py(data: bytes, frame: Frame, scan: Scan, coef: np.ndarray,
+                  order: np.ndarray, slots: np.ndarray, per_mcu: int,
+                  limit: Optional[int] = None) -> int:
+    """Decode one arithmetic-coded scan into ``coef`` (int16, ``[blocks,
+    64]``, natural order, in place), visiting the blocks of
+    :func:`scan_blocks`, as libjpeg-turbo's ``jdarith.c`` does: the
+    statistics areas (64 DC and 256 AC bins a table, shared by the scan's
+    components that name the table) and the DC contexts start at zero, and
+    again at each restart marker with the decoder's registers; a
+    magnitude or spectral overflow (bad data) leaves the rest of the
+    restart interval's blocks as they are, where libjpeg sets ``ct = -1``;
+    at a marker the decoder reads zeros, and a restart marker out of order
+    is resynchronised as libjpeg does (:meth:`_QMDecoder.restart`).  No
+    byte at or past ``limit``
+    (default: the stream's end) is read.  Returns the offset of the marker
+    after the scan.  The plain version of the native decoder."""
+    limit = len(data) if limit is None else min(limit, len(data))
+    c = coef.reshape(-1).tolist()
+    bases = (np.asarray(order, np.int64) * 64).tolist()
+    slot_of = np.asarray(slots).tolist()
+    nat = NATURAL_ORDER
+    prog = frame.progressive
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    dc_first = ss == 0 and ah == 0
+    uses_dc, uses_ac = not prog or dc_first, not prog or ss > 0
+    tds = [x[0] for x in scan.cond]
+    tas = [x[1] for x in scan.cond]
+    lows = [(1 << x[2]) >> 1 for x in scan.cond]
+    ups = [(1 << x[3]) >> 1 for x in scan.cond]
+    kxs = [x[4] for x in scan.cond]
+    dc_stats: Dict[int, bytearray] = {}
+    ac_stats: Dict[int, bytearray] = {}
+    fixed = bytearray([113])
+    last_dc, ctx = [0] * 4, [0] * 4
+
+    def reset_stats():
+        for t in tds if uses_dc else ():
+            dc_stats[t] = bytearray(64)
+        for t in tas if uses_ac else ():
+            ac_stats[t] = bytearray(256)
+        last_dc[:], ctx[:] = [0] * 4, [0] * 4
+
+    reset_stats()
+    qm = _QMDecoder(data, scan.pos, limit)
+    dec = qm.decode
+    p1, m1 = 1 << al, -1 << al
+
+    def dc_block(base, t):
+        st, s0 = dc_stats[tds[t]], ctx[t]
+        if dec(st, s0) == 0:
+            ctx[t] = 0
+        else:
+            sign = dec(st, s0 + 1)
+            v = _arith_value(dec, st, s0 + 2 + sign, sign, 1, 20)
+            m = abs(v) - 1
+            m = 1 << (m.bit_length() - 1) if m else 0
+            ctx[t] = 0 if m < lows[t] else (12 if m > ups[t] else 4) + 4 * sign
+            last_dc[t] = (last_dc[t] + v) & 0xFFFF
+        c[base] = _i16(last_dc[t] << al)
+
+    def ac_block(base, t, k, end):
+        st, kx = ac_stats[tas[t]], kxs[t]
+        while k <= end:
+            i = 3 * (k - 1)
+            if dec(st, i):
+                break
+            while dec(st, i + 1) == 0:
+                i += 3
+                k += 1
+                if k > end:
+                    raise _GiveUp
+            sign = dec(fixed, 0)
+            v = _arith_value(dec, st, i + 2, sign, 0,
+                             189 if k <= kx else 217)
+            c[base + nat[k]] = _i16(v << al)
+            k += 1
+
+    def refine_block(base, t):
+        st = ac_stats[tas[t]]
+        kex = se
+        while kex > 0 and c[base + nat[kex]] == 0:
+            kex -= 1
+        k = ss
+        while k <= se:
+            i = 3 * (k - 1)
+            if k > kex and dec(st, i):
+                break
+            while True:
+                j = base + nat[k]
+                if c[j]:
+                    if dec(st, i + 2):
+                        c[j] = _i16(c[j] + (m1 if c[j] < 0 else p1))
+                    break
+                if dec(st, i + 1):
+                    c[j] = _i16(m1 if dec(fixed, 0) else p1)
+                    break
+                i += 3
+                k += 1
+                if k > se:
+                    raise _GiveUp
+            k += 1
+
+    ri = scan.restart_interval
+    togo, rst = ri, 0
+    for mcu in range(len(bases) // per_mcu):
+        if ri:
+            if togo == 0:
+                qm.restart(rst)
+                rst = (rst + 1) & 7
+                reset_stats()
+                togo = ri
+            togo -= 1
+        if qm.ct == -1:
+            continue
+        try:
+            for b in range(mcu * per_mcu, (mcu + 1) * per_mcu):
+                base, t = bases[b], slot_of[b]
+                if uses_dc:
+                    dc_block(base, t)
+                    if not prog:
+                        ac_block(base, t, 1, 63)
+                elif ss == 0:  # DC refine: one bit, fixed probability
+                    if dec(fixed, 0):
+                        c[base] = _i16(c[base] | p1)
+                elif ah == 0:
+                    ac_block(base, t, ss, se)
+                else:
+                    refine_block(base, t)
+        except _GiveUp:
+            qm.ct = -1
+    coef.reshape(-1)[:] = np.asarray(c, np.int64).astype(np.int16)
+    return qm.end()
+
+
 # -- lossless frames (libjpeg-turbo's jdlhuff.c, jdpred.c, jdlossls.c) --------
 
 
@@ -818,6 +1184,16 @@ _F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
 _F1961, _F2053, _F2562, _F3072 = 16069, 16819, 20995, 25172
 
 
+def _w16(x):
+    """``x`` wrapped to int16, as a 16-bit SIMD lane keeps it."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _w32(x):
+    """``x`` wrapped to int32, as a 32-bit SIMD lane keeps it."""
+    return ((x + 0x80000000) & 0xFFFFFFFF) - 0x80000000
+
+
 def _idct_1d(x):
     """The even/odd butterflies of ``jpeg_idct_islow`` on 8 int64 arrays
     (inputs 0..7); returns the 8 undescaled outputs."""
@@ -844,31 +1220,105 @@ def _idct_1d(x):
             t13 - o0, t12 - o1, t11 - o2, t10 - o3)
 
 
+def _idct_1d_lanes(x):
+    """:func:`_idct_1d` as libjpeg-turbo's SSE2/AVX2 version
+    (``jidctint-sse2.asm``) keeps its lanes: the sums ``in0 +- in4``,
+    ``in3 + in7`` and ``in1 + in5`` in 16 bits, each rotation a pair of
+    16-bit products summed in 32 bits, the rest in 32 bits."""
+    z2, z3 = x[2], x[6]
+    tmp3 = z2 * (_F0541 + _F0765) + z3 * _F0541
+    tmp2 = z2 * _F0541 + z3 * (_F0541 - _F1847)
+    tmp0 = _w16(x[0] + x[4]) << 13
+    tmp1 = _w16(x[0] - x[4]) << 13
+    t10, t13 = _w32(tmp0 + tmp3), _w32(tmp0 - tmp3)
+    t11, t12 = _w32(tmp1 + tmp2), _w32(tmp1 - tmp2)
+    z3, z4 = _w16(x[3] + x[7]), _w16(x[1] + x[5])
+    z3, z4 = (z3 * (_F1175 - _F1961) + z4 * _F1175,
+              z3 * _F1175 + z4 * (_F1175 - _F0390))
+    o0 = _w32(x[7] * (_F0298 - _F0899) - x[1] * _F0899 + z3)
+    o3 = _w32(x[1] * (_F1501 - _F0899) - x[7] * _F0899 + z4)
+    o1 = _w32(x[5] * (_F2053 - _F2562) - x[3] * _F2562 + z4)
+    o2 = _w32(x[3] * (_F3072 - _F2562) - x[5] * _F2562 + z3)
+    return tuple(_w32(v) for v in (t10 + o3, t11 + o2, t12 + o1, t13 + o0,
+                                   t13 - o0, t12 - o1, t11 - o2, t10 - o3))
+
+
 def _descale(x, n: int):
     return (x + (1 << (n - 1))) >> n
 
 
-# libjpeg's post-IDCT range limit, indexed by (value & 1023): a clamp to
-# 0..255 around the +128 level shift for |value| < 512, a wrap beyond
-_RANGE_LIMIT = np.concatenate([
-    np.arange(128, 256), np.full(384, 255), np.zeros(384), np.arange(128),
-]).astype(np.uint8)
+def _descale16(x, n: int):
+    """:func:`_descale` in a 32-bit lane, saturated to int16 (``paddd``,
+    ``psrad``, ``packssdw``)."""
+    return np.clip(_w32(x + (1 << (n - 1))) >> n, -32768, 32767)
+
+
+# Within these bounds every lane of the SIMD version holds its value
+# exactly, so the exact arithmetic gives its result: the dequantised terms
+# (the shortcut shifts a DC term left 2 in 16 bits; a rotation's gain on 8
+# inputs is below 2**16, so 32 bits hold it) and pass 1's outputs (pass 2
+# sums them in pairs in 16 bits)
+_EXACT_TERMS, _EXACT_PASS1 = 8191, 16383
+
+
+def _within(a: np.ndarray, bound: int) -> bool:
+    return -bound <= a.min() and a.max() <= bound
+
+
+def _idct_exact(z: np.ndarray) -> Optional[np.ndarray]:
+    """``jidctint.c``'s two passes on one chunk of dequantised blocks
+    (``[8, 8, n]``), ``[row, col, n]`` before the level shift; None where a
+    term leaves :data:`_EXACT_TERMS` or :data:`_EXACT_PASS1`."""
+    if not _within(z, _EXACT_TERMS):
+        return None
+    # pass 1 down the columns, scaled up by 2**2: ws[row] is [col, n]
+    ws = [_descale(v, 11) for v in _idct_1d(z)]
+    if not all(_within(w, _EXACT_PASS1) for w in ws):
+        return None
+    # pass 2 along the rows, descaled by 2**(13 + 2 + 3)
+    px = _idct_1d([np.stack([w[k] for w in ws]) for k in range(8)])
+    return np.stack([_descale(v, 18) for v in px], 1)
+
+
+def _idct_lanes(raw: np.ndarray, z: np.ndarray) -> np.ndarray:
+    """The two passes of ``jsimd_idct_islow`` on one chunk (``raw`` the
+    coefficients and ``z`` them dequantised, both ``[8, 8, n]``), lane
+    widths and all: the dequantised terms kept to 16 bits, a block whose
+    rows 1-7 are all zero taking pass 1's shortcut (the DC row shifted
+    left 2 in 16 bits), each pass's outputs saturated to 16 bits.
+    Returns ``[row, col, n]`` before the level shift."""
+    z = _w16(z)
+    ws = [_descale16(v, 11) for v in _idct_1d_lanes(z)]
+    flat = ~raw[1:].any(axis=(0, 1))
+    if flat.any():  # the shortcut, block by block
+        dc = _w16(z[0] << 2)
+        ws = [np.where(flat, dc, w) for w in ws]
+    px = _idct_1d_lanes([np.stack([w[k] for w in ws]) for k in range(8)])
+    return np.stack([_descale16(v, 18) for v in px], 1)
 
 
 def idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
     """Dequantise and inverse-DCT ``[n, 64]`` int16 coefficient blocks
-    into ``[n, 8, 8]`` uint8 samples, bit for bit as ``jidctint.c``."""
+    into ``[n, 8, 8]`` uint8 samples, bit for bit as libjpeg-turbo's
+    SIMD ``jsimd_idct_islow`` (the one PIL runs on x86-64), the samples
+    saturated to -128..127 before the +128 level shift.  A chunk of
+    blocks runs ``jidctint.c``'s exact arithmetic (:func:`_idct_exact`),
+    which gives the SIMD result wherever its terms stay within
+    :data:`_EXACT_TERMS` and :data:`_EXACT_PASS1` (every stream a real
+    encoder writes); a chunk past them (corrupt data) runs the lanes
+    (:func:`_idct_lanes`)."""
     out = np.empty((coef.shape[0], 8, 8), np.uint8)
+    q = qtable.reshape(8, 8)[:, :, None]
     for a in range(0, coef.shape[0], _IDCT_CHUNK):
-        blk = coef[a : a + _IDCT_CHUNK]
         # [vertical frequency, horizontal frequency, block], contiguous
-        z = (blk.astype(np.int64) * qtable).T.reshape(8, 8, -1)
-        # pass 1 down the columns, scaled up by 2**2: ws[row] is [col, n]
-        ws = [_descale(v, 11) for v in _idct_1d(z)]
-        # pass 2 along the rows, descaled by 2**(13 + 2 + 3)
-        px = _idct_1d([np.stack([w[k] for w in ws]) for k in range(8)])
-        px = np.stack([_descale(v, 18) for v in px], 1)  # [row, col, n]
-        out[a : a + _IDCT_CHUNK] = _RANGE_LIMIT[px & 1023].transpose(2, 0, 1)
+        raw = coef[a : a + _IDCT_CHUNK].T.reshape(8, 8, -1)
+        z = raw.astype(np.int64) * q
+        px = _idct_exact(z)
+        if px is None:
+            px = _idct_lanes(raw, z)
+        px += 128
+        out[a : a + _IDCT_CHUNK] = np.clip(px, 0, 255, out=px).transpose(
+            2, 0, 1)
     return out
 
 
@@ -876,25 +1326,39 @@ def idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
 
 
 def decode_coefficients(data: bytes, shape: Optional[Tuple[int, int]] = None,
-                        tables: Optional[Tables] = None):
+                        tables: Optional[Tables] = None,
+                        feed: Optional[int] = None):
     """Parse and entropy-decode: ``(frame, coef)`` with ``coef`` int16
     ``[blocks, 64]`` in natural order, each component's padded block grid
     in turn (``frame.offsets``), each scan through the native library when
-    it loads and through :func:`decode_scan_py` otherwise.  A lossless
-    frame has none, and raises."""
+    it loads and through :func:`decode_scan_py` (:func:`arith_scan_py`)
+    otherwise.  ``feed``: the stream reaches the decoder in reads of this
+    many bytes (:data:`PIL_FEED` for a file PIL opens), and an
+    arithmetic-coded scan that needs a byte past the read holding its SOS
+    header raises.  A lossless frame has no coefficients, and raises."""
     data = bytes(data)
     frame, scans = parse(data, shape, tables)
     if frame.lossless:
         raise JpegError("a SOF3 (lossless) frame has no DCT coefficients")
-    return frame, _coefficients(data, frame, scans)
+    return frame, _coefficients(data, frame, scans, feed)
 
 
-def _coefficients(data: bytes, frame: Frame, scans: List[Scan]) -> np.ndarray:
+def _coefficients(data: bytes, frame: Frame, scans: List[Scan],
+                  feed: Optional[int] = None) -> np.ndarray:
     coef = np.zeros((frame.offsets[-1], 64), np.int16)
     native = _native.get_lib() is not None
     for scan in scans:
         order, slots, per_mcu = scan_blocks(frame, scan)
-        if native:
+        if frame.arith:
+            limit = len(data) if not feed else min(
+                len(data), -(-scan.pos // feed) * feed)
+            if native:
+                _native.jpeg_arith_scan(data, scan, frame.progressive, coef,
+                                        order, slots, per_mcu, limit)
+            else:
+                arith_scan_py(data, frame, scan, coef, order, slots,
+                              per_mcu, limit)
+        elif native:
             _native.jpeg_scan(data, scan, frame.progressive, coef, order,
                               slots, per_mcu)
         else:
@@ -967,18 +1431,53 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return out
 
 
+# the natural-order positions of the quantisers libjpeg-turbo's block
+# smoothing divides by: DC and the first nine AC terms in zigzag order
+_SMOOTHING_Q = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _smoothed(frame: Frame, scans: List[Scan]) -> bool:
+    """Whether libjpeg-turbo's ``smoothing_ok`` holds after every scan of
+    a progressive frame: each component latched a table with no zero
+    among those quantisers and saw its DC, and some component's first ten
+    coefficients (zigzag) are not all at full precision (a coefficient no
+    scan coded counts as short)."""
+    bits = [[-1] * 10 for _ in frame.components]
+    for scan in scans:
+        for i in scan.comps:
+            for k in range(scan.ss, min(scan.se, 9) + 1):
+                bits[i][k] = scan.al
+    useful = False
+    for comp, b in zip(frame.components, bits):
+        if comp.qtable is None or not all(comp.qtable[list(_SMOOTHING_Q)]) \
+                or b[0] < 0:
+            return False
+        useful = useful or any(b[1:])
+    return useful
+
+
 def decode_planes(data: bytes, shape: Optional[Tuple[int, int]] = None,
-                  tables: Optional[Tables] = None):
+                  tables: Optional[Tables] = None,
+                  feed: Optional[int] = None):
     """``(frame, planes)``: each component's samples at its own sampling
     (``frame.size(i)``, uint8), before any upsampling or colour
     conversion: what libjpeg's raw-data output gives (libtiff's old-style
     JPEG reads colour pages this way).  A lossless frame's planes are its
-    samples (:func:`decode_lossless`)."""
+    samples (:func:`decode_lossless`).  ``feed`` as
+    :func:`decode_coefficients` takes it.  A progressive frame libjpeg
+    would smooth (:func:`_smoothed`) raises ``NotImplementedError``
+    naming ROADMAP M17."""
     data = bytes(data)
     frame, scans = parse(data, shape, tables)
     if frame.lossless:
         return frame, decode_lossless(data, frame, scans)
-    coef = _coefficients(data, frame, scans)
+    if frame.progressive and _smoothed(frame, scans):
+        raise NotImplementedError(
+            "progressive JPEG whose scans leave its first ten coefficients "
+            "short of full precision: libjpeg smooths such blocks "
+            "(jdcoefct.c decompress_smooth_data), which unmicst_tpu_torch "
+            "does not (ROADMAP M17)")
+    coef = _coefficients(data, frame, scans, feed)
     offs, planes = frame.offsets, []
     for i, comp in enumerate(frame.components):
         bh, bw = frame.grid(i)
@@ -995,7 +1494,8 @@ def decode_planes(data: bytes, shape: Optional[Tuple[int, int]] = None,
 
 def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
            tables: Optional[Tables] = None,
-           colour: Optional[str] = None) -> np.ndarray:
+           colour: Optional[str] = None,
+           feed: Optional[int] = None) -> np.ndarray:
     """A JPEG stream -> ``[H, W]`` uint8 (gray) or ``[H, W, 3]`` uint8
     (colour, RGB), as PIL decodes it.
 
@@ -1005,9 +1505,11 @@ def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
     overrides the colour space libjpeg would pick for a colour frame:
     ``"ycbcr"`` converts to RGB, ``"rgb"`` returns the components as they
     are (libtiff's choice for a JPEG TIFF page by its photometric
-    interpretation).  Every failure raises :class:`JpegError` (a
-    ``ValueError``)."""
-    frame, planes = decode_planes(data, shape, tables)
+    interpretation).  ``feed`` as :func:`decode_coefficients` takes it.
+    Every failure raises :class:`JpegError` (a ``ValueError``); what the
+    port does not decode yet and PIL does, ``NotImplementedError``
+    (:func:`decode_planes`)."""
+    frame, planes = decode_planes(data, shape, tables, feed)
     if frame.lossless and len(planes) == 3 and (colour or frame.colour) \
             == "ycbcr":
         raise JpegError("libjpeg-turbo converts no lossless JPEG colour "
@@ -1020,9 +1522,3 @@ def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
     if (colour or frame.colour) == "rgb":
         return np.stack(planes, -1)
     return ycc_to_rgb(*planes)
-
-
-def read_jpeg(path: str) -> np.ndarray:
-    """A JPEG file -> ``[H, W]`` (gray) or ``[H, W, 3]`` (colour) uint8."""
-    with open(path, "rb") as f:
-        return decode(f.read())

@@ -1469,11 +1469,14 @@ _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _JPEG_MAGIC = b"\xff\xd8"
 _BMP_MAGIC = b"BM"
 _GIF_MAGICS = (b"GIF87a", b"GIF89a")
+# PIL's PPM ``_accept``: "P" and one of 0-6, f and y
+_PNM_MAGICS = tuple(b"P" + bytes([c]) for c in b"0123456fy")
 
 
 def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
-    """A PNG, JPEG, BMP or GIF file under a TIFF name, as PIL opens it by
-    content: frame ``index`` (a GIF's, :func:`gif.read_frame`; the others
+    """A PNG, JPEG (or MPO), BMP, GIF or Netpbm file under a TIFF name, as
+    PIL opens it by content: frame ``index`` (a GIF's,
+    :func:`gif.read_frame`; an MPO's, :func:`mpo.read_frame`; the others
     have one), ``EOFError`` past the last."""
     if magic.startswith(_GIF_MAGICS):
         from unmicst_tpu_torch.io import gif
@@ -1484,20 +1487,29 @@ def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
             return gif.read_frame(data, index)
         except (ValueError, OSError) as e:  # corrupt; M17 refusals pass
             raise FallbackError(f"{path}: GIF file: {e}") from None
+    if magic.startswith(_JPEG_MAGIC):
+        from unmicst_tpu_torch.io import mpo
+
+        with open(path, "rb") as f:
+            data = f.read()
+        try:  # EOFError, and seek's ValueError and SyntaxError, pass
+            return mpo.read_frame(data, index)
+        except mpo.MpoError as e:
+            raise FallbackError(f"{path}: JPEG file: {e}") from None
+    if magic.startswith(_PNM_MAGICS):
+        from unmicst_tpu_torch.io import pnm
+
+        return pnm.read_frame(path, index)  # PIL's classes, PIL's way
     if index > 0:
         raise EOFError("attempt to seek outside sequence")
     if magic.startswith(_PNG_MAGIC):
         from unmicst_tpu_torch.io import png
 
         read, kind = png.read_png, "PNG"
-    elif magic.startswith(_BMP_MAGIC):
+    else:
         from unmicst_tpu_torch.io import bmp
 
         read, kind = bmp.read_bmp, "BMP"
-    else:
-        from unmicst_tpu_torch.io import jpeg
-
-        read, kind = jpeg.read_jpeg, "JPEG"
     try:
         return read(path)
     except ValueError as e:  # corrupt; NotImplementedError names M17
@@ -1534,9 +1546,9 @@ def read_page_fallback(path: str, index: int, cause: Exception
     :class:`TiffFile` refused it with ``cause``: the JAX package's PIL
     fallback (``unmicst_tpu/io/tiff.py:1285-1291``,
     ``io/slides.py:77-97``) without PIL, for the pages of ROADMAP M17.
-    The file is opened by content, as PIL opens it: a PNG, JPEG or BMP
-    file under a TIFF name gives its one frame, a GIF its frame ``index``
-    (:func:`_single_frame`).
+    The file is opened by content, as PIL opens it: a PNG, JPEG, BMP or
+    Netpbm file under a TIFF name gives its one frame, a GIF or an MPO its
+    frame ``index`` (:func:`_single_frame`).
     A TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no
     OME mapping applies.  It reads JPEG pages, gray or colour
     (:func:`_jpeg_page`), old-style JPEG pages (:func:`_ojpeg_page`),
@@ -1554,8 +1566,11 @@ def read_page_fallback(path: str, index: int, cause: Exception
     fallback in either package."""
     with open(path, "rb") as f:
         magic = f.read(8)
-    if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC, _BMP_MAGIC) + _GIF_MAGICS):
+    if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC, _BMP_MAGIC) + _GIF_MAGICS
+                        + _PNM_MAGICS):
         return _single_frame(path, index, magic)
+    if magic.startswith(b"P"):  # PFM, PAM, ...: no Netpbm kind PIL opens
+        raise FallbackError(f"cannot identify image file {path!r}")
     if magic[:2] not in (b"II", b"MM"):
         raise cause
     with TiffFile(path, chain=False) as tf:

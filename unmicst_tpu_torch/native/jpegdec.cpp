@@ -2,7 +2,10 @@
 // unmicst_tpu_torch/io/jpeg.py: baseline and extended sequential scans,
 // one component or several interleaved, and the four progressive kinds (DC
 // first and DC refine, interleaved or not; AC first with end-of-band runs
-// and AC refine, one component each); and for lossless (SOF3) frames the
+// and AC refine, one component each); the same scans arithmetic coded
+// (SOF9 / SOF10, libjpeg-turbo's jdarith.c: unmicst_jpeg_arith_scan,
+// whose plain version is jpeg.py's arith_scan_py); and for lossless (SOF3)
+// frames the
 // scan's differences (libjpeg-turbo's jdlhuff.c) and their undoing by the
 // predictor (jdpred.c, with jdlossls.c's point transform), which is
 // sequential along each row.  The marker structure, the tables,
@@ -39,6 +42,7 @@ enum {
   kErrRestart = -3,  // a restart marker missing, out of order or stray
   kErrTable = -4,    // a Huffman table the decode needs is missing
   kErrStream = -5,   // the stream ends with no marker after the scan
+  kErrFeed = -6,     // an arithmetic scan reads at or past its limit
 };
 
 const int kLookBits = 9;
@@ -157,6 +161,167 @@ long long next_marker(const uint8_t* src, long long len, long long pos) {
     else
       return pos;
   }
+}
+
+// jaricom.c's Table D.2: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7
+// | Next_Index_LPS; the last entry is the fixed bin's.
+const uint32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// jdarith.c's decoder state over one scan (see jpeg.py's _QMDecoder): at a
+// marker it feeds zeros and leaves the marker unread; no byte at or past
+// limit is read (fail is set instead, and the scan then returns kErrFeed,
+// or kErrEnds where limit is the stream's end).
+struct QM {
+  const uint8_t* src;
+  long long limit;
+  long long pos;
+  int unread;  // the code of a marker reached and not yet taken, or 0
+  int64_t c;
+  int64_t a;
+  int ct;
+  bool fail;
+
+  void reset() {
+    c = 0;
+    a = 0;
+    ct = -16;
+  }
+  int byte() {
+    if (pos >= limit) {
+      fail = true;
+      return 0;
+    }
+    return src[pos++];
+  }
+  void next_marker() {
+    for (;;) {
+      int b = byte();
+      while (b != 0xFF && !fail) b = byte();
+      b = byte();
+      while (b == 0xFF && !fail) b = byte();
+      if (fail) return;
+      if (b) {
+        unread = b;
+        return;
+      }
+    }
+  }
+  // read_restart_marker expecting RSTn, with jpeg_resync_to_restart
+  void restart(int n) {
+    if (!unread) next_marker();
+    while (!fail && unread != 0xD0 + n) {
+      const int m = unread;
+      if (m >= 0xD0 && m <= 0xD7) {
+        const int d = (m - 0xD0 - n + 16) % 8;
+        if (d == 1 || d == 2) break;
+        if (d == 6 || d == 7) {
+          next_marker();
+          continue;
+        }
+      } else if (m >= 0xC0) {
+        break;
+      } else {
+        next_marker();
+        continue;
+      }
+      unread = 0;
+      break;
+    }
+    if (unread == 0xD0 + n) unread = 0;
+    reset();
+  }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int b = 0;
+        if (!unread) {
+          b = byte();
+          if (b == 0xFF) {
+            b = byte();
+            while (b == 0xFF && !fail) b = byte();
+            if (b == 0) {
+              b = 0xFF;
+            } else {
+              unread = b;
+              b = 0;
+            }
+          }
+          if (fail) return 0;
+        }
+        c = (c << 8) | b;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    const uint32_t t = kAritab[sv & 0x7F];
+    const int nl = t & 0xFF, nm = (t >> 8) & 0xFF;
+    const int64_t qe = t >> 16;
+    a -= qe;
+    const int64_t temp = a << ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+      a = qe;
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// Figures F.23-F.24 from bin st (past the sign): the magnitude category
+// (its first decision already taken where first, as for DC), then its
+// bits; false on a magnitude overflow (jdarith.c's ct = -1).
+bool arith_value(QM& q, uint8_t* stats, int i, int sign, bool first,
+                 int kbins, int* out) {
+  int m = q.decode(stats + i);
+  if (m) {
+    if (first || q.decode(stats + i)) {
+      if (!first) m <<= 1;
+      i = kbins;
+      while (q.decode(stats + i)) {
+        if ((m <<= 1) == 0x8000) return false;
+        ++i;
+      }
+    }
+  }
+  int v = m;
+  i += 14;
+  while (m >>= 1)
+    if (q.decode(stats + i)) v |= m;
+  *out = sign ? -(v + 1) : v + 1;
+  return true;
 }
 
 }  // namespace
@@ -316,6 +481,159 @@ long long unmicst_jpeg_scan(const uint8_t* src, long long len, long long pos,
     pos = at;
   }
   return pos;
+}
+
+// Decode one arithmetic-coded scan starting at src[pos] into coef (int16,
+// natural order, updated in place), visiting the blocks as
+// unmicst_jpeg_scan does.  dc_tbl / ac_tbl give each scan slot's
+// conditioning table (0-15; statistics are shared by slots naming the same
+// one), lows / ups / kxs its DC L and U and its AC Kx (four entries each;
+// a slot the scan lacks names a table the scan's own slots reset anyway).  No byte at or past
+// limit is read.  Returns the offset of the marker after the scan, or
+// when the decode needs a byte at or past limit kErrFeed (limit is short of
+// the stream's end: a read's) or kErrEnds (it is the stream's end).
+long long unmicst_jpeg_arith_scan(const uint8_t* src, long long len,
+                                  long long pos, long long limit,
+                                  int16_t* coef, const int64_t* order,
+                                  const uint8_t* slot, long long nblocks,
+                                  long long per_mcu, const uint8_t* dc_tbl,
+                                  const uint8_t* ac_tbl, const uint8_t* lows,
+                                  const uint8_t* ups, const uint8_t* kxs,
+                                  int ss, int se, int ah, int al,
+                                  int progressive, long long restart_interval) {
+  static thread_local uint8_t dc_stats[16][64], ac_stats[16][256];
+  if (limit > len) limit = len;
+  const long long past = limit < len ? kErrFeed : kErrEnds;
+  for (long long b = 0; b < nblocks; ++b)
+    if (slot[b] > 3) return kErrTable;
+  const bool prog = progressive != 0;
+  const bool dc_first = ss == 0 && ah == 0;
+  const bool uses_dc = !prog || dc_first, uses_ac = !prog || ss > 0;
+  int lo[4], up[4];
+  for (int t = 0; t < 4; ++t) {
+    lo[t] = (1 << (lows[t] & 15)) >> 1;
+    up[t] = (1 << (ups[t] & 15)) >> 1;
+  }
+  int32_t last_dc[4];
+  int ctx[4];
+  uint8_t fixed = 113;
+  auto reset_stats = [&]() {
+    for (int t = 0; t < 4; ++t) {
+      if (uses_dc) std::memset(dc_stats[dc_tbl[t] & 15], 0, 64);
+      if (uses_ac) std::memset(ac_stats[ac_tbl[t] & 15], 0, 256);
+      last_dc[t] = 0;
+      ctx[t] = 0;
+    }
+  };
+  reset_stats();
+  QM q{src, limit, pos, 0, 0, 0, -16, false};
+  const int p1 = 1 << al, m1 = (int)(~0u << al);
+  const long long ri = restart_interval > 0 ? restart_interval : 0;
+  long long togo = ri;
+  int rst = 0;
+  const long long nmcus = nblocks / per_mcu;
+  for (long long mcu = 0; mcu < nmcus; ++mcu) {
+    if (ri) {
+      if (togo == 0) {
+        q.restart(rst);
+        if (q.fail) return past;
+        rst = (rst + 1) & 7;
+        reset_stats();
+        togo = ri;
+      }
+      --togo;
+    }
+    if (q.ct == -1) continue;
+    bool give_up = false;
+    for (long long b = mcu * per_mcu; b < (mcu + 1) * per_mcu && !give_up;
+         ++b) {
+      int16_t* c = coef + order[b] * 64;
+      const int t = slot[b];
+      if (uses_dc) {
+        uint8_t* st = dc_stats[dc_tbl[t] & 15];
+        const int s0 = ctx[t];
+        if (q.decode(st + s0) == 0) {
+          ctx[t] = 0;
+        } else {
+          const int sign = q.decode(st + s0 + 1);
+          int v;
+          if (!arith_value(q, st, s0 + 2 + sign, sign, true, 20, &v)) {
+            give_up = true;
+            break;
+          }
+          int m = (v < 0 ? -v : v) - 1, top = 0;
+          while (m) {
+            top = m;
+            m &= m - 1;
+          }
+          ctx[t] = top < lo[t] ? 0 : (top > up[t] ? 12 : 4) + 4 * sign;
+          last_dc[t] = (int32_t)(((uint32_t)last_dc[t] + (uint32_t)v) &
+                                 0xFFFF);
+        }
+        c[0] = (int16_t)((uint32_t)last_dc[t] << al);
+        if (prog) continue;
+      } else if (ss == 0) {  // DC refine
+        if (q.decode(&fixed)) c[0] = (int16_t)(c[0] | p1);
+        continue;
+      }
+      if (!prog || ah == 0) {  // sequential AC, or AC first
+        uint8_t* st = ac_stats[ac_tbl[t] & 15];
+        const int end = prog ? se : 63;
+        for (int k = prog ? ss : 1; k <= end; ++k) {
+          int i = 3 * (k - 1);
+          if (q.decode(st + i)) break;
+          while (q.decode(st + i + 1) == 0) {
+            i += 3;
+            if (++k > end) {
+              give_up = true;
+              break;
+            }
+          }
+          if (give_up) break;
+          const int sign = q.decode(&fixed);
+          int v;
+          if (!arith_value(q, st, i + 2, sign, false,
+                           k <= kxs[t] ? 189 : 217, &v)) {
+            give_up = true;
+            break;
+          }
+          c[kNaturalOrder[k]] = (int16_t)((uint32_t)v << al);
+        }
+      } else {  // AC refine
+        uint8_t* st = ac_stats[ac_tbl[t] & 15];
+        int kex = se;
+        while (kex > 0 && c[kNaturalOrder[kex]] == 0) --kex;
+        for (int k = ss; k <= se; ++k) {
+          int i = 3 * (k - 1);
+          if (k > kex && q.decode(st + i)) break;
+          for (;;) {
+            int16_t* x = c + kNaturalOrder[k];
+            if (*x) {
+              if (q.decode(st + i + 2))
+                *x = (int16_t)(*x + (*x < 0 ? m1 : p1));
+              break;
+            }
+            if (q.decode(st + i + 1)) {
+              *x = (int16_t)(q.decode(&fixed) ? m1 : p1);
+              break;
+            }
+            i += 3;
+            if (++k > se) {
+              give_up = true;
+              break;
+            }
+          }
+          if (give_up) break;
+        }
+      }
+    }
+    if (q.fail) return past;
+    if (give_up) q.ct = -1;
+  }
+  if (q.fail) return past;
+  if (q.unread) return q.pos - 2;
+  const long long at = next_marker(src, len, q.pos);
+  return at < 0 ? kErrStream : at;
 }
 
 // Decode one lossless scan starting at src[pos] into diffs (int32, ns

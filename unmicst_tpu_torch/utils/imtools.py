@@ -24,12 +24,13 @@ The index-only helpers (the nearest-neighbour resizes, ``normalize``,
 ``snormalize``, ``cat``, ``size``, ``stack2list``) stay in numpy.
 :func:`imread` opens a file by content, as PIL does for the JAX package:
 TIFFs through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
-:mod:`unmicst_tpu_torch.io.png`, JPEGs through
-:mod:`unmicst_tpu_torch.io.jpeg`, BMPs through
-:mod:`unmicst_tpu_torch.io.bmp` and GIFs through
-:mod:`unmicst_tpu_torch.io.gif`; :func:`imwrite` writes TIFF, PNG, BMP,
-GIF and JPEG.  Other formats (WebP among them) and RGB GIF writes raise
-``NotImplementedError`` (ROADMAP M17).
+:mod:`unmicst_tpu_torch.io.png`, JPEGs and MPOs through
+:mod:`unmicst_tpu_torch.io.mpo`, BMPs through
+:mod:`unmicst_tpu_torch.io.bmp`, GIFs through
+:mod:`unmicst_tpu_torch.io.gif` and Netpbm files through
+:mod:`unmicst_tpu_torch.io.pnm`; :func:`imwrite` writes TIFF, PNG, BMP,
+GIF, JPEG and Netpbm.  Other formats (WebP among them) and RGB GIF
+writes raise ``NotImplementedError`` (ROADMAP M17).
 :func:`imshow` and :func:`imshowlist` keep the JAX package's headless
 contract without matplotlib: they write a PNG and return its path.
 
@@ -50,7 +51,7 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from unmicst_tpu_torch.io import bmp, gif, jpeg, jpegenc, png
+from unmicst_tpu_torch.io import bmp, gif, jpegenc, mpo, png, pnm
 from unmicst_tpu_torch.io.preprocess import im2double, resize  # noqa: F401
 from unmicst_tpu_torch.io.tiff import imread as _tiff_read
 from unmicst_tpu_torch.io.tiff import imwrite as _tiff_write
@@ -76,26 +77,34 @@ def size(image: np.ndarray) -> List[int]:
 
 
 # magic bytes -> the reader of a file opened by content, as PIL's
-# ``Image.open`` tells them apart (TIFF is the port's own reader)
+# ``Image.open`` tells them apart (TIFF is the port's own reader; a JPEG
+# is an MPO's frame 0, or its one frame); any other file that starts
+# with "P" (PFM's "PF" and PAM's "P7" among them) PIL cannot identify
 _BY_CONTENT = ((b"II", _tiff_read), (b"MM", _tiff_read),
                (b"\x89PNG\r\n\x1a\n", png.read_png),
-               (b"\xff\xd8\xff", jpeg.read_jpeg), (b"BM", bmp.read_bmp),
-               (b"GIF87a", gif.read_gif), (b"GIF89a", gif.read_gif))
+               (b"\xff\xd8\xff", mpo.read_mpo), (b"BM", bmp.read_bmp),
+               (b"GIF87a", gif.read_gif), (b"GIF89a", gif.read_gif)) + tuple(
+    (b"P" + bytes([c]), pnm.read_frame) for c in b"0123456fy")
 
 
 # extension -> the writer of ``Image.fromarray(image).save(path)``
 _BY_EXTENSION = {".png": png.write_png, ".bmp": bmp.write_bmp,
                  ".gif": gif.write_gif, ".jpg": jpegenc.write_jpeg,
                  ".jpeg": jpegenc.write_jpeg, ".jpe": jpegenc.write_jpeg,
-                 ".jfif": jpegenc.write_jpeg}
+                 ".jfif": jpegenc.write_jpeg, **dict.fromkeys(
+                     (".pbm", ".pgm", ".ppm", ".pnm", ".pfm"), pnm.write_pnm)}
 
 
 def imread(path: str) -> np.ndarray:
     """Generic image read, as the JAX toolbox's: a ``.tif``/``.tiff``
-    name goes to the TIFF reader (whose fallback opens a PNG, JPEG or
-    BMP under that name by content); any other file is opened by content,
-    as ``Image.open`` opens it: a TIFF, PNG, JPEG or BMP whatever its
-    name, each as PIL's ``np.asarray`` gives it, a GIF its first frame.
+    name goes to the TIFF reader (whose fallback opens a PNG, JPEG, BMP,
+    GIF or Netpbm file under that name by content); any other file is
+    opened by content,
+    as ``Image.open`` opens it: a TIFF, PNG, JPEG, BMP or Netpbm file
+    whatever its name, each as PIL's ``np.asarray`` gives it, a GIF or an
+    MPO its first frame; a JPEG that does not decode raises ``OSError``
+    as PIL does, and so does any other file that starts with "P" (PFM and
+    PAM among them), which PIL does not open.
     Other formats (WebP among them) raise ``NotImplementedError``
     (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
@@ -105,20 +114,25 @@ def imread(path: str) -> np.ndarray:
     for head, read in _BY_CONTENT:
         if magic.startswith(head):
             return read(path)
+    if magic.startswith(b"P"):
+        raise pnm.UnidentifiedImageError(
+            f"cannot identify image file {path!r}")
     raise NotImplementedError(
-        f"imread: {os.path.basename(path)} is none of TIFF, PNG, JPEG, BMP "
-        "and GIF, which unmicst_tpu_torch reads; the JAX package reads other "
-        "formats through PIL (ROADMAP M17)")
+        f"imread: {os.path.basename(path)} is none of TIFF, PNG, JPEG, BMP, "
+        "GIF and Netpbm, which unmicst_tpu_torch reads; the JAX package "
+        "reads other formats through PIL (ROADMAP M17)")
 
 
 def imwrite(image: np.ndarray, path: str) -> None:
     """Generic image write, as the JAX toolbox's: a ``.tif``/``.tiff``
     name writes a TIFF page; any other is ``Image.fromarray(image)
     .save(path)``, whose format the extension picks: PNG, BMP, GIF
-    (:mod:`unmicst_tpu_torch.io.gif`) and JPEG at PIL's defaults
-    (:mod:`unmicst_tpu_torch.io.jpegenc`) here, byte for byte (PIL's
-    modes, and its ``TypeError`` / ``OSError`` where it has none).  Other
-    formats, and RGB GIFs, raise ``NotImplementedError`` (ROADMAP M17)."""
+    (:mod:`unmicst_tpu_torch.io.gif`), JPEG at PIL's defaults
+    (:mod:`unmicst_tpu_torch.io.jpegenc`) and Netpbm (``.pbm``, ``.pgm``,
+    ``.ppm``, ``.pnm``, ``.pfm``: :mod:`unmicst_tpu_torch.io.pnm`) here,
+    byte for byte (PIL's modes, and its ``TypeError`` / ``OSError`` where
+    it has none).  Other formats, and RGB GIFs, raise
+    ``NotImplementedError`` (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         _tiff_write(path, image, bigtiff=False)
         return
@@ -130,8 +144,8 @@ def imwrite(image: np.ndarray, path: str) -> None:
     png.array_mode(image)  # fromarray's TypeError comes first in PIL
     raise NotImplementedError(
         f"imwrite: {ext or 'no extension'} files are not supported by "
-        "unmicst_tpu_torch (TIFF, PNG, BMP, GIF and JPEG are; the JAX "
-        "package writes the rest through PIL: ROADMAP M17)")
+        "unmicst_tpu_torch (TIFF, PNG, BMP, GIF, JPEG and Netpbm are; the "
+        "JAX package writes the rest through PIL: ROADMAP M17)")
 
 
 def _display_u8(image: np.ndarray) -> np.ndarray:
