@@ -266,9 +266,19 @@ printing any result):
     refused with ``ValueError`` (PIL's 64 KiB read); every committed
     fixture of
     ``tests/fixtures/torch_jpeg_arith``, ``torch_mpo`` and ``torch_pnm``
-    read equal to PIL's read and written byte-equal to PIL's file.  The
-    ``kernels`` line gives each path's launches under
-    ``launches_slice16`` to ``launches_slice19``.
+    read equal to PIL's read and written byte-equal to PIL's file;
+22. TGA, SGI, PCX, DCX and GIF frames past the logical screen (M17,
+    sixth part, and the F7 repair; ``phase_slice20``, the same net): one
+    seeded 4096^2 slide with nuclei and its plain TIFF twin against a
+    gray PCX (the port's writer), a gray RLE TGA (type 11, bottom-up), a
+    2-byte RLE SGI (read as its high bytes), a 3-frame DCX at
+    ``--channel 2`` and a GIF at ``--channel 2`` whose frame 1 grows
+    the screen, each under a ``.tif`` name through ``cli.main``, pages
+    byte-equal to the twin's, K1 and one K2 epilogue counted, with the
+    build, read and native RLE decode seconds; every committed fixture of
+    ``tests/fixtures/torch_rle`` read equal to PIL's read and written
+    byte-equal to PIL's file.  The ``kernels`` line gives each path's
+    launches under ``launches_slice16`` to ``launches_slice20``.
 """
 
 from __future__ import annotations
@@ -7305,6 +7315,201 @@ def phase_slice19(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+# -- phase 22: TGA, SGI, PCX, DCX and grown GIF frames (M17, sixth part) ------
+
+RLE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_rle")
+
+
+def rle_files():
+    """The test-side TGA, SGI, PCX and DCX file writers and RLE encoders:
+    ``tests/fixtures/torch_rle/make.py``, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "rle_make", os.path.join(RLE_FIXTURES, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_slice20(dev, side: int = SLIDE) -> dict:
+    """TGA, SGI, PCX and DCX read (F7: such a file under a TIFF name) and
+    GIF frames past the logical screen (M17, sixth part), through
+    ``cli.main`` on the card (the legacy net at nucleiDAPI's widths,
+    seeded weights): one seeded ``side``^2 slide with nuclei on a flat
+    background, and one plain TIFF twin of it, against five files under a
+    ``.tif`` name, each page byte-equal to the twin's: a gray PCX (the
+    port's writer, PIL's form: RLE), a gray RLE TGA (type 11, bottom-up,
+    raw packets across rows), a 2-byte RLE SGI (the slide the high bytes,
+    seeded low bytes on the nuclei), a 3-frame DCX at ``--channel 2``
+    (frame 1) and a GIF at ``--channel 2`` whose frame 1 grows the
+    ``side - 96``-row screen of frame 0 (every gray level in frame 0, so
+    the screen stays 2-D), with the build, read and native RLE decode
+    seconds; every committed fixture of ``tests/fixtures/torch_rle`` read
+    equal to PIL's read, every committed write byte-equal to PIL's file.
+    Returns, per kernel, its launches on each counted path."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import _native, gif, pcx, sgi, slides, tga
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mk = rle_files()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice20_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name, channel):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--channel", str(channel), "--outputPath", out],
+                          device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            n = launches[name]
+            log(f"[slice20] {name}: cli.main {secs:.2f} s; K1 "
+                f"{n['softmax_blend']}, K2 epilogue "
+                f"{n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            return [imread(maps, k) for k in range(num_pages(maps))]
+
+        rng = np.random.RandomState(SEED + 20)
+        plane = (blob_slide(rng, side, side, 350, 0.1) * 255).astype(
+            np.uint8)
+        twin = os.path.join(tmp, "plain.tif")
+        imwrite(twin, plane)
+        t_maps = run(twin, "plain", 1)
+        k1 = launches["plain"]["softmax_blend"]
+        check(k1 > 0 and launches["plain"]["blend_fold_epilogue"] == 1,
+              f"the plain twin did not run K1 and one K2 epilogue: "
+              f"{launches['plain']}")
+
+        # -- the five files, each built here -----------------------------------
+        files = {}
+        t0 = time.perf_counter()
+        files["pcx"] = (pcx.encode_pcx(plane), 1)
+        built = {"pcx": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        files["tga"] = (mk.tga(11, 8, side, side,
+                               mk.tga_rle(plane[::-1, :, None])), 1)
+        built["tga"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        low = np.where(plane == plane[0, 0], 0x55, rng.randint(
+            0, 256, plane.shape)).astype(np.uint16)
+        files["sgi"] = (mk.sgi((plane.astype(np.uint16) << 8) | low, bpc=2,
+                               rle=True), 1)
+        built["sgi"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        files["dcx"] = (mk.dcx([pcx.encode_pcx(255 - plane), files["pcx"][0],
+                                pcx.encode_pcx(plane // 2)]), 2)
+        built["dcx"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        first = plane[: side - 96].copy()
+        first[0, :256] = np.arange(256)  # every level: the identity table
+        files["gif"] = (gif_two_frames(first, plane), 2)
+        built["gif"] = time.perf_counter() - t0
+        check(gif.Screen(files["gif"][0]).height == side - 96,
+              "frame 1 of the GIF does not grow its screen")
+
+        # -- the native RLE decode alone --------------------------------------
+        decode = {}
+        for kind, fn in (
+                ("pcx", lambda d: _native.pcx_rle_decode(
+                    d, 128, np.empty((side, side), np.uint8))),
+                ("tga", lambda d: _native.tga_rle_decode(
+                    d, 18, np.empty((side, side), np.uint8), 1)),
+                ("sgi", lambda d: _native.sgi_rle_decode(
+                    d, np.empty((side, 1, 2 * side), np.uint8), 2))):
+            data = files[kind][0]
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                rc = fn(data)
+                secs.append(time.perf_counter() - t0)
+            check(rc == 0, f"native {kind} RLE decode: {rc}")
+            decode[kind] = min(secs)
+            log(f"[slice20] native {kind.upper()} RLE decode of "
+                f"{len(data)} bytes: {min(secs):.4f} s (of "
+                f"{', '.join(f'{t:.4f}' for t in secs)}) = "
+                f"{len(data) / 1e6 / min(secs):.1f} MB/s, "
+                f"{side * side / 1e6 / min(secs):.1f} Mpx/s | {card}")
+
+        # -- each file under a TIFF name through cli.main ----------------------
+        for kind, (data, channel) in files.items():
+            path = os.path.join(tmp, f"{kind}.tif")
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            got = slides.read_channel(path, "tif", channel - 1)
+            read_s = time.perf_counter() - t0
+            log(f"[slice20] {kind.upper()} {side}^2 ({len(data)} bytes): "
+                f"built in {built[kind]:.3f} s, read_channel "
+                f"{channel - 1} in {read_s:.3f} s | {card}")
+            check(got.dtype == np.uint8 and np.array_equal(got, plane),
+                  f"the {kind} file's channel {channel - 1} differs from "
+                  "the slide")
+            c_maps = run(path, kind, channel)
+            n = launches[kind]
+            check(n["softmax_blend"] == k1 and n["blend_fold_epilogue"] == 1
+                  and n["blend_fold_stripe"] == 0,
+                  f"{kind} did not run K1 {k1} times and one K2 epilogue: "
+                  f"{n}")
+            same = len(c_maps) == len(t_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(c_maps, t_maps))
+            log(f"[slice20] {kind.upper()}: pages byte-equal to the twin's: "
+                f"{same}")
+            check(same, f"{kind}: pages differ from the plain twin's")
+        del plane, files
+
+        # -- the committed fixtures -------------------------------------------
+        bad, reads, writes = [], 0, 0
+        cases, arrays = mk.read_cases(), mk.write_arrays()
+        for name, (ext, data) in sorted(cases.items()):
+            with open(os.path.join(RLE_FIXTURES, f"{name}.{ext}"), "rb") as f:
+                if f.read() != data:
+                    bad.append(f"{name}.{ext} (not make.py's bytes)")
+            ref = np.load(os.path.join(RLE_FIXTURES, f"{name}.npz"))
+            read = {"tga": tga.read_frame, "sgi": sgi.read_frame}.get(
+                ext, pcx.read_frame)
+            for k in range(len(ref.files)):
+                reads += 1
+                px, want = read(data, k), ref[f"frame{k}"]
+                if px.dtype != want.dtype or not np.array_equal(px, want):
+                    bad.append(f"{name} frame {k}")
+        for name, (x, ext) in sorted(arrays.items()):
+            writes += 1
+            path = os.path.join(RLE_FIXTURES, f"write_{name}{ext}")
+            encode = {"tga": tga.encode_tga, "pcx": pcx.encode_pcx}.get(
+                name[:3], lambda a: sgi.encode_sgi(a, path))
+            with open(path, "rb") as f:
+                if encode(x) != f.read():
+                    bad.append(f"write_{name}{ext}")
+        log(f"[slice20] {reads} fixture reads (TGA, SGI, PCX, DCX frames) "
+            f"equal to PIL's and {writes} writes byte-equal to PIL's files: "
+            f"{reads + writes - len(bad)}; differing: {bad}")
+        check(not bad, f"fixtures differ from PIL's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice20] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -7355,6 +7560,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice18"] = per_path
     for name, per_path in phase_slice19(dev).items():
         stats[name]["launches_slice19"] = per_path
+    for name, per_path in phase_slice20(dev).items():
+        stats[name]["launches_slice20"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -7366,7 +7573,8 @@ def main(argv=None) -> int:
                or k in ("launches_formats", "launches_slice12",
                         "launches_slice13", "launches_slice15",
                         "launches_slice16", "launches_slice17",
-                        "launches_slice18", "launches_slice19")}})
+                        "launches_slice18", "launches_slice19",
+                        "launches_slice20")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

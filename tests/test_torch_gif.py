@@ -164,6 +164,70 @@ def test_random_gifs_read_as_pil_reads_them(seed, codecs):
             _equal(got, want)
 
 
+def _grown_gif(screen: str, disposal: int, trans0, trans1) -> bytes:
+    """A 5 x 4 logical screen (a global table, the identity ramp, or
+    none) whose frame 0 (4 x 3, transparency ``trans0``, disposal
+    ``disposal``) fills most of it, frame 1 (3 x 3 at (3, 2), transparency
+    ``trans1``, disposal ``disposal``) reaching past it, and frame 2 (2 x 2
+    at (4, 3)) inside the grown image."""
+    rng = np.random.RandomState(disposal + 7 * (trans0 or 0))
+    pal = {"palette": rng.randint(0, 256, 48).astype(np.uint8).tobytes(),
+           "ramp": bytes(i // 3 for i in range(48)), "none": None}[screen]
+    return chip_smoke.gif_file(5, 4, [
+        dict(pixels=rng.randint(0, 16, (3, 4)), transparency=trans0,
+             disposal=disposal, bits=4),
+        dict(pixels=rng.randint(0, 16, (3, 3)), x=3, y=2,
+             transparency=trans1, disposal=disposal, bits=4),
+        dict(pixels=rng.randint(0, 16, (2, 2)), x=4, y=3, bits=4)], pal,
+        background=3)
+
+
+@pytest.mark.parametrize("disposal", range(4))
+@pytest.mark.parametrize("screen,trans0,trans1", [
+    ("palette", None, None), ("palette", 5, 6), ("palette", 5, None),
+    ("palette", None, 6), ("ramp", None, None), ("none", None, None),
+    ("none", 5, 6)])
+def test_frames_past_the_logical_screen_read_as_pil_reads_them(
+        screen, trans0, trans1, disposal, codecs, tmp_path):
+    """A frame past the logical screen grows the image as PIL's does, at
+    frame 0 and at frame 1, under each disposal of the frame before (the
+    previous contents as they were before the image grew, zeros past
+    them), with and without transparency, on a palette, a gray-ramp and a
+    table-less screen: frames 0-2 equal PIL's through ``read_frame``,
+    ``imread`` (frame 0) and ``read_channel`` / ``tiff.imread`` under a
+    TIFF name.  An RGB screen grown by a transparent frame, where PIL's
+    array reads past the end of its bytes, raises ``NotImplementedError``
+    naming M17."""
+    data = _grown_gif(screen, disposal, trans0, trans1)
+    grown0 = chip_smoke.gif_file(2, 2, [dict(pixels=np.arange(12).reshape(
+        3, 4) % 4, x=1, transparency=trans0, bits=2)])
+    _equal(gif.read_frame(grown0, 0), _pil_frame(grown0, 0)[0])
+    as_tif = str(tmp_path / "g.tif")
+    with open(as_tif, "wb") as f:
+        f.write(data)
+    path = str(tmp_path / "g.gif")
+    with open(path, "wb") as f:
+        f.write(data)
+    _equal(T.imread(path), J.imread(path))
+    for k in range(3):
+        (want, err), (got, err2) = _pil_frame(data, k), _port_frame(data, k)
+        if screen == "palette" and trans1 is not None and trans0 is None \
+                and k >= 1:
+            assert err2 is NotImplementedError
+            with pytest.raises(NotImplementedError, match="M17"):
+                gif.read_frame(data, k)
+            continue
+        assert (err is None) == (err2 is None), (k, err, err2)
+        if err is not None:
+            assert issubclass(err2, err) or issubclass(err, err2)
+            continue
+        assert want.shape[:2] == (5, 6) or k == 0
+        _equal(got, want)
+        _equal(slides.read_channel(as_tif, "tif", k),
+               jax_slides.read_channel(as_tif, "tif", k))
+        _equal(tiff.imread(as_tif, k), jax_tiff.imread(as_tif, k))
+
+
 @pytest.mark.parametrize("size", SIZES)
 def test_sizes_read_as_pil_reads_them(size, codecs):
     """One-frame and two-frame files at 1x1, 13x17 and 257x300, with a
@@ -184,9 +248,11 @@ def test_corrupt_gifs_fail_where_pil_fails():
     """Truncated and byte-flipped files: PIL and the port fail together
     (``OSError`` or ``EOFError``, or a ``ValueError`` where PIL's own
     ``np.asarray`` fails) or give the same pixels; the native and plain
-    decoders give the same outcome.  Frames past the logical screen,
-    where PIL grows the image, raise ``NotImplementedError`` naming M17
-    and are counted apart."""
+    decoders give the same outcome.  Frames past the logical screen grow
+    the image as PIL's do (its decompression-bomb check included), but
+    for an RGB screen grown into RGBA, where PIL's array reads past the
+    end of its bytes: that raises ``NotImplementedError`` naming M17 and
+    is counted apart."""
     rng = np.random.RandomState(11)
     grown = agree = 0
     for _ in range(150):
@@ -217,6 +283,8 @@ def test_corrupt_gifs_fail_where_pil_fails():
                 _equal(got, want)
             elif issubclass(err, EOFError):
                 assert err2 is EOFError
+            elif err.__name__ == "DecompressionBombError":
+                assert err2.__name__ == "DecompressionBombError"
             else:
                 assert issubclass(err2, (OSError, ValueError)), err2
             agree += 1

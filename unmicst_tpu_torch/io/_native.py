@@ -7,11 +7,13 @@ and floating-point predictor (3) undo, one-call strip decode, the
 greedy and chain deflate encoders, and the CCITT bilevel decode (TIFF
 compressions 2-4; ``io/ccitt.py`` is its plain version);
 and, in the same library, the entropy decode of a JPEG scan
-(``native/jpegdec.cpp``, for ``io/jpeg.py``) and the PNG row filters' undo
-(``native/pngfilter.cpp``, for ``io/png.py``).  Every function returns
-None when the library is absent, and the callers (``io/tiff.py``,
-``io/jpeg.py``, ``io/png.py``) then take their pure-Python versions:
-correct, only slow.
+(``native/jpegdec.cpp``, for ``io/jpeg.py``), the PNG row filters' undo
+(``native/pngfilter.cpp``, for ``io/png.py``), GIF's LZW and the JPEG
+Huffman encode (``native/gifcodec.cpp``, ``native/jpegenc.cpp``) and the
+PCX, TGA and SGI run-length codings (``native/rlecodec.cpp``, for
+``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``).  Every function returns
+None when the library is absent, and the callers then take their
+pure-Python versions: correct, only slow.
 
 The library builds at first use with the host's ``g++ -O3 -shared -fPIC``
 (portable flags, no ``-march=native``: a build directory copied to an
@@ -41,7 +43,7 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "native", name)
                 for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp",
-                             "gifcodec.cpp", "jpegenc.cpp"))
+                             "gifcodec.cpp", "jpegenc.cpp", "rlecodec.cpp"))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 LIB_NAME = "libunmicst_tiffcodec.so"
@@ -168,6 +170,21 @@ def _load(path: str) -> ctypes.CDLL:
     fn.restype = ll
     # coef, slots, n, dc codes, dc sizes, ac codes, ac sizes, slots, dst, cap
     fn.argtypes = [vp, vp, ll, vp, vp, vp, vp, it, vp, ll]
+    fn = lib.unmicst_pcx_rle_decode
+    fn.restype = ll
+    fn.argtypes = [ctypes.c_char_p, ll, ll, vp, ll, ll]  # src, len, pos,
+    # out, rows, row bytes
+    fn = lib.unmicst_tga_rle_decode
+    fn.restype = ll
+    fn.argtypes = [ctypes.c_char_p, ll, ll, vp, ll, ll, it]  # ..., depth
+    fn = lib.unmicst_sgi_rle_decode
+    fn.restype = ll
+    # file, len, out, ysize, zsize, xsize, bytes a sample
+    fn.argtypes = [ctypes.c_char_p, ll, vp, ll, ll, ll, it]
+    fn = lib.unmicst_pcx_rle_encode
+    fn.restype = ll
+    fn.argtypes = [vp, ll, ll, it, vp, ll]  # rows, h, row bytes, planes,
+    # dst, cap
     return lib
 
 
@@ -635,3 +652,75 @@ def jpeg_undifference(diff: np.ndarray, predictor: int, pt: int,
     lib.unmicst_jpeg_undifference(_ptr(diff), _ptr(out), diff.shape[0],
                                   diff.shape[1], predictor, pt, restart_rows)
     return out
+
+
+def _rows_view(out: np.ndarray, name: str) -> None:
+    if out.dtype != np.uint8 or not out.flags["C_CONTIGUOUS"] \
+            or 0 in out.shape:
+        raise ValueError(f"{name} needs a C-contiguous uint8 array")
+
+
+def pcx_rle_decode(data: bytes, pos: int, out: np.ndarray) -> Optional[int]:
+    """PCX's RLE from ``data[pos]`` into ``out`` (``[rows, row_bytes]``),
+    as ``io/pcx.py``'s ``rle_decode_py``: its result code, or None without
+    the library."""
+    _rows_view(out, "pcx_rle_decode")
+    if out.ndim != 2 or pos < 0:
+        raise ValueError("pcx_rle_decode: [rows, row_bytes] and an offset "
+                         "of 0 or more")
+    lib = get_lib()
+    if lib is None:
+        return None
+    return lib.unmicst_pcx_rle_decode(data, len(data), pos, _ptr(out),
+                                      out.shape[0], out.shape[1])
+
+
+def tga_rle_decode(data: bytes, pos: int, out: np.ndarray,
+                   depth: int) -> Optional[int]:
+    """TGA's RLE from ``data[pos]`` into ``out`` (``[rows, row_bytes]``),
+    ``depth`` bytes a pixel, as ``io/tga.py``'s ``rle_decode_py``: its
+    result code, or None without the library."""
+    _rows_view(out, "tga_rle_decode")
+    if out.ndim != 2 or pos < 0 or not 0 <= depth <= 4:
+        raise ValueError("tga_rle_decode: [rows, row_bytes], an offset of 0 "
+                         "or more and 0-4 bytes a pixel")
+    lib = get_lib()
+    if lib is None:
+        return None
+    return lib.unmicst_tga_rle_decode(data, len(data), pos, _ptr(out),
+                                      out.shape[0], out.shape[1], depth)
+
+
+def sgi_rle_decode(data: bytes, out: np.ndarray, bpc: int) -> Optional[int]:
+    """SGI's RLE over the file ``data`` into ``out`` (``[ysize, zsize,
+    xsize * bpc]``), as ``io/sgi.py``'s ``rle_decode_py``: its result
+    code, or None without the library."""
+    _rows_view(out, "sgi_rle_decode")
+    if out.ndim != 3 or bpc not in (1, 2) or out.shape[2] % bpc:
+        raise ValueError("sgi_rle_decode: [ysize, zsize, xsize * bpc] and 1 "
+                         "or 2 bytes a sample")
+    lib = get_lib()
+    if lib is None:
+        return None
+    return lib.unmicst_sgi_rle_decode(data, len(data), _ptr(out),
+                                      out.shape[0], out.shape[1],
+                                      out.shape[2] // bpc, bpc)
+
+
+def pcx_rle_encode(rows: np.ndarray, planes: int) -> Optional[bytes]:
+    """PCX's RLE of ``rows`` (``[h, planes * plane_bytes]``), as
+    ``io/pcx.py``'s ``rle_encode_py``; None without the library."""
+    _rows_view(rows, "pcx_rle_encode")
+    if rows.ndim != 2 or planes < 1 or rows.shape[1] % planes:
+        raise ValueError("pcx_rle_encode: [h, planes * plane_bytes]")
+    lib = get_lib()
+    if lib is None:
+        return None
+    # at worst two bytes a byte, and a pad byte a plane
+    cap = 2 * rows.size + rows.shape[0] * planes
+    buf = np.empty(cap, np.uint8)
+    n = lib.unmicst_pcx_rle_encode(_ptr(rows), rows.shape[0], rows.shape[1],
+                                   planes, _ptr(buf), cap)
+    if n < 0:
+        raise ValueError("native PCX encode: output buffer undersized")
+    return buf[:n].tobytes()

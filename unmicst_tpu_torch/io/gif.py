@@ -8,8 +8,8 @@ frame).
 
 * GIF87a and GIF89a; the global and local colour tables, the graphic
   control extension (transparency, disposal), comment and application
-  extensions (skipped), interlaced frames, frames at an offset within
-  the logical screen;
+  extensions (skipped), interlaced frames, frames at an offset, also
+  past the logical screen (below);
 * frame 0 as PIL loads it: the palette indices (mode ``P``), or, where
   neither table is needed (none, or the identity gray ramp), the values
   (mode ``L``); pixels outside the frame are 0, or the transparent index;
@@ -28,9 +28,22 @@ wider after the code ``2**width - 1`` is added, the table full at 4096
 that is passed over while the file has bytes beyond those read so far
 (PIL reads 64 KiB at a time) and is the end of the data otherwise.  Data
 that ends early or holds a code not yet defined raises :class:`GifError`
-(an ``OSError``, as PIL's).  A frame reaching past the logical screen
-(where PIL grows the image) raises ``NotImplementedError`` naming ROADMAP
-M17.
+(an ``OSError``, as PIL's).
+
+A frame reaching past the logical screen grows the image to hold it, as
+PIL's ``_seek`` and ``load_prepare`` / ``load_end`` do (with the
+decompression-bomb check on the new size): frame 0 is decoded on the
+grown screen; a later ``L`` or ``P`` screen grows with zeros below and to
+the right; an RGB screen under a frame without transparency grows in its
+table's first colour (``ValueError`` where the frame has no table, as
+PIL's ``getpalette``), an RGBA screen under a transparent frame in
+transparent black.  A disposal to the previous contents restores them as
+they were before the frame grew the image, zeros past their edges.  An
+RGBA screen under an opaque frame becomes RGB, and ``np.asarray``, which
+packs with the mode before the load, gives the RGBA bytes (the old
+alpha in the fourth) cut to ``[h, w, 3]``; an RGB screen under a
+transparent frame becomes RGBA, where PIL's array reads past the end of
+its RGB bytes: that raises ``NotImplementedError`` naming ROADMAP M17.
 
 :func:`write_gif` writes ``Image.fromarray(image).save(path)``'s bytes
 for 2-D images: mode ``1`` (bool) as 0/255 under the full gray palette;
@@ -60,6 +73,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 
 from unmicst_tpu_torch.io import _native
+from unmicst_tpu_torch.io import _pil
 from unmicst_tpu_torch.io.png import array_mode
 
 MAGICS = (b"GIF87a", b"GIF89a")
@@ -368,16 +382,17 @@ def read_frame(data: bytes, index: int) -> np.ndarray:
     method = 0
     dispose = None
     for f in range(index + 1):
+        to_p = False  # this frame's load turns mode L into P
+        to_rgb = False  # this frame's load turns mode RGBA into RGB
         try:
             desc, pos = next_frame(data, pos, f)
         except EOFError:
             if f == 0:  # Image.open finds no image: not a GIF it reads
                 raise GifError("cannot identify image file") from None
             raise
-        if desc.x1 > w or desc.y1 > h:
-            raise NotImplementedError(
-                "GIF frame beyond the logical screen, where PIL grows the "
-                "image: ROADMAP M17")
+        if desc.x1 > w or desc.y1 > h:  # PIL grows the image to hold it
+            w, h = max(desc.x1, w), max(desc.y1, h)
+            _pil.bomb_check(w, h)
         if desc.x1 <= desc.x0 or desc.y1 <= desc.y0:
             raise GifError("tile cannot extend outside image")
         ext = (slice(desc.y0, desc.y1), slice(desc.x0, desc.x1))
@@ -415,8 +430,8 @@ def read_frame(data: bytes, index: int) -> np.ndarray:
                 fill = (_rgb(fpal, color) + (255,)) if rgb_mode else color
             dispose = (ext, np.asarray(fill, np.uint8))
         elif method >= 3:
-            if im is not None:
-                dispose = (ext, im[ext].copy())
+            if im is not None:  # the image before this frame grows it
+                dispose = (ext, _crop(im, desc))
             elif desc.transparency is not None:
                 t = desc.transparency
                 fill = (_rgb(fpal, t) + (0,)) if rgb_mode else t
@@ -434,12 +449,33 @@ def read_frame(data: bytes, index: int) -> np.ndarray:
             continue
         if not rgb_mode:
             if fpal and mode == "L":
-                mode, core_l = "P", True
+                mode, to_p = "P", True
+                if im.shape == (h, w):
+                    core_l = True
+                else:  # the grown "L" core takes the frame's table: "P"
+                    lut, core_l = _lut(fpal), False
+            im = _grown(im, h, w, 0)
             _decode(data, desc, im[ext], trans)
             continue
         canvas = np.full((h, w), (desc.transparency or 0) if fpal else 0,
                          np.uint8)
         _decode(data, desc, canvas[ext], trans)
+        if im.shape[:2] != (h, w):  # load_end grows the screen
+            if desc.transparency is not None:
+                if mode == "RGB":
+                    raise NotImplementedError(
+                        f"GIF frame {f} grows an RGB screen into RGBA, where "
+                        "PIL's array reads past the end of its RGB bytes: "
+                        "ROADMAP M17")
+                im = _grown(im, h, w, 0)
+            else:
+                if not fpal:  # the frame's "L" canvas has no palette
+                    raise ValueError("image has no palette")
+                # the table's first colour; an RGBA screen keeps its alpha
+                # bytes in the grown RGB image's fourth
+                fill = np.frombuffer(fpal[:3], np.uint8).tolist() + [255]
+                im = _grown(im, h, w, fill)
+                to_rgb, mode = mode == "RGBA", "RGB"
         frame_lut = _lut(fpal if fpal else None)
         px = canvas[ext]
         if desc.transparency is not None:
@@ -448,11 +484,34 @@ def read_frame(data: bytes, index: int) -> np.ndarray:
             im[ext] = np.where(keep[..., None], im[ext], frame_lut[px])
         else:
             im[ext] = frame_lut[px]
-    if core_l:  # the mode says P, the pixels are L: np.asarray's error
+    if to_p:  # np.asarray packs with the mode before the load: L
         raise ValueError("No packer found from P to L")
+    if to_rgb:  # ... here RGBA: four bytes a pixel, cut to RGB's count
+        return np.frombuffer(im.tobytes()[: 3 * h * w], np.uint8).reshape(
+            h, w, 3)
     if mode == "RGB":
         return np.ascontiguousarray(im[..., :3])
     return im
+
+
+def _crop(im: np.ndarray, desc: FrameDesc) -> np.ndarray:
+    """``im`` over the frame's extent, zeros past its edges (PIL's
+    crop)."""
+    out = np.zeros((desc.y1 - desc.y0, desc.x1 - desc.x0) + im.shape[2:],
+                   np.uint8)
+    part = im[desc.y0 : desc.y1, desc.x0 : desc.x1]
+    out[: part.shape[0], : part.shape[1]] = part
+    return out
+
+
+def _grown(im: np.ndarray, h: int, w: int, fill) -> np.ndarray:
+    """``im`` at the top left of an ``h`` x ``w`` image of ``fill``."""
+    if im.shape[:2] == (h, w):
+        return im
+    out = np.empty((h, w) + im.shape[2:], np.uint8)
+    out[...] = fill
+    out[: im.shape[0], : im.shape[1]] = im
+    return out
 
 
 def read_gif(path: str) -> np.ndarray:

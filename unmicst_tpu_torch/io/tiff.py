@@ -1466,7 +1466,7 @@ def _float_predictor_page(tf: TiffFile, page: TiffPage) -> np.ndarray:
 
 
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
-_JPEG_MAGIC = b"\xff\xd8"
+_JPEG_MAGIC = b"\xff\xd8\xff"  # PIL's JPEG _accept
 _BMP_MAGIC = b"BM"
 _GIF_MAGICS = (b"GIF87a", b"GIF89a")
 # PIL's PPM ``_accept``: "P" and one of 0-6, f and y
@@ -1516,6 +1516,25 @@ def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
         raise FallbackError(f"{path}: {kind} file: {e}") from None
 
 
+def _by_plugin_order(path: str, index: int, magic: bytes,
+                     cause: Exception) -> np.ndarray:
+    """A file no magic bytes above take, as ``Image.open`` tries its other
+    plugins (:mod:`identify`): frame ``index`` of a PCX, DCX, SGI or TGA
+    file (PIL's exceptions pass, ``EOFError`` past the last frame),
+    ``NotImplementedError`` naming ROADMAP M17 for a format PIL opens and
+    the port does not read; where no plugin opens it, ``cause`` again
+    (:class:`FallbackError` for a file that starts with "P": PFM, PAM)."""
+    from unmicst_tpu_torch.io import identify
+
+    with open(path, "rb") as f:
+        px = identify.read(f.read(), index, path)
+    if px is not None:
+        return px
+    if magic.startswith(b"P"):
+        raise FallbackError(f"cannot identify image file {path!r}")
+    raise cause
+
+
 def _fallback_reader(page: TiffPage):
     """The decoder of :func:`read_page_fallback` that takes ``page``, or
     None."""
@@ -1548,7 +1567,9 @@ def read_page_fallback(path: str, index: int, cause: Exception
     ``io/slides.py:77-97``) without PIL, for the pages of ROADMAP M17.
     The file is opened by content, as PIL opens it: a PNG, JPEG, BMP or
     Netpbm file under a TIFF name gives its one frame, a GIF or an MPO its
-    frame ``index`` (:func:`_single_frame`).
+    frame ``index`` (:func:`_single_frame`); any other file goes through
+    PIL's other plugins in their order (:func:`_by_plugin_order`): a PCX,
+    SGI or TGA file gives its one frame, a DCX file its frame ``index``.
     A TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no
     OME mapping applies.  It reads JPEG pages, gray or colour
     (:func:`_jpeg_page`), old-style JPEG pages (:func:`_ojpeg_page`),
@@ -1561,18 +1582,17 @@ def read_page_fallback(path: str, index: int, cause: Exception
     end it raises ``EOFError``; where PIL refuses such a page too, or its
     data does not decode, :class:`FallbackError` (an ``OSError``); for
     the pages of these kinds still queued ``NotImplementedError`` naming
-    ROADMAP M17.  Any other page or file raises ``cause`` again: the
-    reader's own refusal.  Streamed and pyramid reads have no such
+    ROADMAP M17, as do files PIL opens as a format the port does not
+    read.  Any other page or file raises ``cause`` again: the reader's own
+    refusal.  Streamed and pyramid reads have no such
     fallback in either package."""
     with open(path, "rb") as f:
         magic = f.read(8)
     if magic.startswith((_PNG_MAGIC, _JPEG_MAGIC, _BMP_MAGIC) + _GIF_MAGICS
                         + _PNM_MAGICS):
         return _single_frame(path, index, magic)
-    if magic.startswith(b"P"):  # PFM, PAM, ...: no Netpbm kind PIL opens
-        raise FallbackError(f"cannot identify image file {path!r}")
     if magic[:2] not in (b"II", b"MM"):
-        raise cause
+        return _by_plugin_order(path, index, magic, cause)
     with TiffFile(path, chain=False) as tf:
         page = tf.page_at(index)
         reader = _fallback_reader(page)

@@ -27,10 +27,12 @@ TIFFs through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
 :mod:`unmicst_tpu_torch.io.png`, JPEGs and MPOs through
 :mod:`unmicst_tpu_torch.io.mpo`, BMPs through
 :mod:`unmicst_tpu_torch.io.bmp`, GIFs through
-:mod:`unmicst_tpu_torch.io.gif` and Netpbm files through
-:mod:`unmicst_tpu_torch.io.pnm`; :func:`imwrite` writes TIFF, PNG, BMP,
-GIF, JPEG and Netpbm.  Other formats (WebP among them) and RGB GIF
-writes raise ``NotImplementedError`` (ROADMAP M17).
+:mod:`unmicst_tpu_torch.io.gif`, Netpbm files through
+:mod:`unmicst_tpu_torch.io.pnm`, and the files PIL tells apart by trying
+its other plugins in turn (PCX, DCX, SGI and TGA, through
+:mod:`unmicst_tpu_torch.io.identify`); :func:`imwrite` writes TIFF, PNG,
+BMP, GIF, JPEG, Netpbm, PCX, TGA and SGI.  Other formats (WebP among them)
+and RGB GIF writes raise ``NotImplementedError`` (ROADMAP M17).
 :func:`imshow` and :func:`imshowlist` keep the JAX package's headless
 contract without matplotlib: they write a PNG and return its path.
 
@@ -51,7 +53,8 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from unmicst_tpu_torch.io import bmp, gif, jpegenc, mpo, png, pnm
+from unmicst_tpu_torch.io import (bmp, gif, identify, jpegenc, mpo, pcx, png,
+                                  pnm, sgi, tga)
 from unmicst_tpu_torch.io.preprocess import im2double, resize  # noqa: F401
 from unmicst_tpu_torch.io.tiff import imread as _tiff_read
 from unmicst_tpu_torch.io.tiff import imwrite as _tiff_write
@@ -77,35 +80,42 @@ def size(image: np.ndarray) -> List[int]:
 
 
 # magic bytes -> the reader of a file opened by content, as PIL's
-# ``Image.open`` tells them apart (TIFF is the port's own reader; a JPEG
-# is an MPO's frame 0, or its one frame); any other file that starts
-# with "P" (PFM's "PF" and PAM's "P7" among them) PIL cannot identify
-_BY_CONTENT = ((b"II", _tiff_read), (b"MM", _tiff_read),
-               (b"\x89PNG\r\n\x1a\n", png.read_png),
-               (b"\xff\xd8\xff", mpo.read_mpo), (b"BM", bmp.read_bmp),
-               (b"GIF87a", gif.read_gif), (b"GIF89a", gif.read_gif)) + tuple(
-    (b"P" + bytes([c]), pnm.read_frame) for c in b"0123456fy")
+# ``Image.open`` tells them apart (TIFF, by the prefixes PIL's _accept
+# takes, is the port's own reader; a JPEG
+# is an MPO's frame 0, or its one frame); any other file goes through
+# PIL's other plugins in their order (io/identify.py)
+_TIFF_MAGICS = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a",
+                b"MM\x00\x2b", b"II\x2b\x00")
+_BY_CONTENT = (
+    tuple((head, _tiff_read) for head in _TIFF_MAGICS)
+    + ((b"\x89PNG\r\n\x1a\n", png.read_png), (b"\xff\xd8\xff", mpo.read_mpo),
+       (b"BM", bmp.read_bmp), (b"GIF87a", gif.read_gif),
+       (b"GIF89a", gif.read_gif))
+    + tuple((b"P" + bytes([c]), pnm.read_frame) for c in b"0123456fy"))
 
 
 # extension -> the writer of ``Image.fromarray(image).save(path)``
 _BY_EXTENSION = {".png": png.write_png, ".bmp": bmp.write_bmp,
                  ".gif": gif.write_gif, ".jpg": jpegenc.write_jpeg,
                  ".jpeg": jpegenc.write_jpeg, ".jpe": jpegenc.write_jpeg,
-                 ".jfif": jpegenc.write_jpeg, **dict.fromkeys(
-                     (".pbm", ".pgm", ".ppm", ".pnm", ".pfm"), pnm.write_pnm)}
+                 ".jfif": jpegenc.write_jpeg, ".pcx": pcx.write_pcx,
+                 **dict.fromkeys((".pbm", ".pgm", ".ppm", ".pnm", ".pfm"),
+                                 pnm.write_pnm),
+                 **dict.fromkeys(tga.EXTENSIONS, tga.write_tga),
+                 **dict.fromkeys(sgi.EXTENSIONS, sgi.write_sgi)}
 
 
 def imread(path: str) -> np.ndarray:
     """Generic image read, as the JAX toolbox's: a ``.tif``/``.tiff``
     name goes to the TIFF reader (whose fallback opens a PNG, JPEG, BMP,
-    GIF or Netpbm file under that name by content); any other file is
-    opened by content,
-    as ``Image.open`` opens it: a TIFF, PNG, JPEG, BMP or Netpbm file
-    whatever its name, each as PIL's ``np.asarray`` gives it, a GIF or an
-    MPO its first frame; a JPEG that does not decode raises ``OSError``
-    as PIL does, and so does any other file that starts with "P" (PFM and
-    PAM among them), which PIL does not open.
-    Other formats (WebP among them) raise ``NotImplementedError``
+    GIF, Netpbm, PCX, DCX, SGI or TGA file under that name by content);
+    any other file is opened by content,
+    as ``Image.open`` opens it: a TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI
+    or TGA file whatever its name, each as PIL's ``np.asarray`` gives it,
+    a GIF, an MPO or a DCX its first frame, with PIL's exceptions (a JPEG
+    that does not decode raises ``OSError``; a file no plugin of PIL
+    opens, PFM and PAM among them, ``OSError``).  Files PIL opens as
+    other formats (WebP among them) raise ``NotImplementedError``
     (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         return _tiff_read(path)
@@ -114,13 +124,12 @@ def imread(path: str) -> np.ndarray:
     for head, read in _BY_CONTENT:
         if magic.startswith(head):
             return read(path)
-    if magic.startswith(b"P"):
+    with open(path, "rb") as f:
+        px = identify.read(f.read(), 0, f"imread: {os.path.basename(path)}")
+    if px is None:
         raise pnm.UnidentifiedImageError(
             f"cannot identify image file {path!r}")
-    raise NotImplementedError(
-        f"imread: {os.path.basename(path)} is none of TIFF, PNG, JPEG, BMP, "
-        "GIF and Netpbm, which unmicst_tpu_torch reads; the JAX package "
-        "reads other formats through PIL (ROADMAP M17)")
+    return px
 
 
 def imwrite(image: np.ndarray, path: str) -> None:
@@ -128,11 +137,15 @@ def imwrite(image: np.ndarray, path: str) -> None:
     name writes a TIFF page; any other is ``Image.fromarray(image)
     .save(path)``, whose format the extension picks: PNG, BMP, GIF
     (:mod:`unmicst_tpu_torch.io.gif`), JPEG at PIL's defaults
-    (:mod:`unmicst_tpu_torch.io.jpegenc`) and Netpbm (``.pbm``, ``.pgm``,
-    ``.ppm``, ``.pnm``, ``.pfm``: :mod:`unmicst_tpu_torch.io.pnm`) here,
-    byte for byte (PIL's modes, and its ``TypeError`` / ``OSError`` where
-    it has none).  Other formats, and RGB GIFs, raise
-    ``NotImplementedError`` (ROADMAP M17)."""
+    (:mod:`unmicst_tpu_torch.io.jpegenc`), Netpbm (``.pbm``, ``.pgm``,
+    ``.ppm``, ``.pnm``, ``.pfm``: :mod:`unmicst_tpu_torch.io.pnm`), PCX
+    (:mod:`unmicst_tpu_torch.io.pcx`), TGA (``.tga``, ``.icb``, ``.vda``,
+    ``.vst``: :mod:`unmicst_tpu_torch.io.tga`) and SGI (``.sgi``, ``.bw``,
+    ``.rgb``, ``.rgba``: :mod:`unmicst_tpu_torch.io.sgi`) here, byte for
+    byte (PIL's modes, and its exceptions where it has none).  A ``.dcx``
+    name raises PIL's ``KeyError`` (PIL reads DCX and has no writer for
+    it).  Other formats, and RGB GIFs, raise ``NotImplementedError``
+    (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         _tiff_write(path, image, bigtiff=False)
         return
@@ -142,10 +155,13 @@ def imwrite(image: np.ndarray, path: str) -> None:
         writer(path, image)
         return
     png.array_mode(image)  # fromarray's TypeError comes first in PIL
+    if ext == ".dcx":
+        raise KeyError("DCX")
     raise NotImplementedError(
         f"imwrite: {ext or 'no extension'} files are not supported by "
-        "unmicst_tpu_torch (TIFF, PNG, BMP, GIF, JPEG and Netpbm are; the "
-        "JAX package writes the rest through PIL: ROADMAP M17)")
+        "unmicst_tpu_torch (TIFF, PNG, BMP, GIF, JPEG, Netpbm, PCX, TGA and "
+        "SGI are; the JAX package writes the rest through PIL: ROADMAP "
+        "M17)")
 
 
 def _display_u8(image: np.ndarray) -> np.ndarray:
