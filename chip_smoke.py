@@ -277,8 +277,22 @@ printing any result):
     byte-equal to the twin's, K1 and one K2 epilogue counted, with the
     build, read and native RLE decode seconds; every committed fixture of
     ``tests/fixtures/torch_rle`` read equal to PIL's read and written
-    byte-equal to PIL's file.  The ``kernels`` line gives each path's
-    launches under ``launches_slice16`` to ``launches_slice20``.
+    byte-equal to PIL's file.
+23. The toolbox's remaining PIL writes and their reads (M17, seventh
+    part; ``phase_slice21``, the same net): one seeded 4096^2 slide and
+    its plain TIFF twins (uint8 and uint16) against an IM (``I;16``) of
+    the uint16 plane, a DIB and an uncompressed DDS of the uint8 plane,
+    and an RGB GIF of the twin's three uint8 maps stacked as RGB (the
+    port's median cut; its twin a TIFF of the index plane the port's
+    GIF reader gives), each under a ``.tif`` name through ``cli.main``,
+    pages byte-equal to the twin's, K1 and one K2 epilogue counted; an
+    RGBA GIF (the fast octree), a QOI, an XBM and an MSP written and read
+    back equal to their input; the median cut's and the octree's seconds
+    at 4096^2; every committed fixture of ``tests/fixtures/torch_write``
+    written byte-equal to PIL's file (APNG: read equal, the port's
+    deflate is its own) and read equal to PIL's read.  The ``kernels``
+    line gives each path's launches under ``launches_slice16`` to
+    ``launches_slice21``.
 """
 
 from __future__ import annotations
@@ -7510,6 +7524,230 @@ def phase_slice20(dev, side: int = SLIDE) -> dict:
                          "blend_fold_stripe")}
 
 
+WRITE_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_write")
+
+
+def write_files():
+    """The seeded arrays and extra read cases of the toolbox's remaining
+    PIL writes and reads: ``tests/fixtures/torch_write/make.py``, loaded
+    by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "write_make", os.path.join(WRITE_FIXTURES, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_slice21(dev, side: int = SLIDE) -> dict:
+    """The toolbox's remaining PIL writes and their reads (M17, seventh
+    part) through ``cli.main`` on the card (the legacy net at
+    nucleiDAPI's widths, seeded weights): one seeded ``side``^2 slide and
+    its plain TIFF twins against four files under a ``.tif`` name, each
+    page byte-equal to its twin's: an IM (``I;16``) of the uint16 plane,
+    a DIB and an uncompressed DDS of the uint8 plane, and an RGB GIF of
+    the uint8 twin's three maps stacked as RGB (the port's median cut;
+    its twin a TIFF of the index plane the port's reader gives).  An RGBA
+    GIF (the fast octree), a QOI, an XBM and an MSP written and read back
+    equal to their input, with the quantizers' seconds; every committed
+    fixture of ``tests/fixtures/torch_write`` written byte-equal to PIL's
+    file (APNG read equal: the port's deflate is its own) and read equal
+    to PIL's read.  Returns, per kernel, its launches on each counted
+    path."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import (_native, bmp, dds, gif, identify, im,
+                                      msp, png, qoi, quant, slides, xbm)
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+    from unmicst_tpu_torch.utils import imtools
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mk = write_files()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice21_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--channel", "1", "--outputPath", out],
+                          device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            n = launches[name]
+            log(f"[slice21] {name}: cli.main {secs:.2f} s; K1 "
+                f"{n['softmax_blend']}, K2 epilogue "
+                f"{n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            return [imread(maps, k) for k in range(num_pages(maps))]
+
+        def against_twin(kind, data, want, twin_maps):
+            path = os.path.join(tmp, f"{kind}.tif")
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            got = slides.read_channel(path, "tif", 0)
+            read_s = time.perf_counter() - t0
+            log(f"[slice21] {kind} {side}^2 ({len(data)} bytes): "
+                f"read_channel 0 in {read_s:.3f} s | {card}")
+            check(got.dtype == want.dtype and np.array_equal(got, want),
+                  f"the {kind} file's channel 0 differs from its plane")
+            maps = run(path, kind)
+            n = launches[kind]
+            check(n["softmax_blend"] == k1 and n["blend_fold_epilogue"] == 1
+                  and n["blend_fold_stripe"] == 0,
+                  f"{kind} did not run K1 {k1} times and one K2 epilogue: "
+                  f"{n}")
+            same = len(maps) == len(twin_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(maps, twin_maps))
+            log(f"[slice21] {kind}: pages byte-equal to the twin's: {same}")
+            check(same, f"{kind}: pages differ from the plain twin's")
+
+        rng = np.random.RandomState(SEED + 21)
+        plane = (blob_slide(rng, side, side, 350, 0.1) * 255).astype(
+            np.uint8)
+        wide = (plane.astype(np.uint16) << 8) | rng.randint(
+            0, 256, plane.shape).astype(np.uint16)
+        twin8, twin16 = (os.path.join(tmp, f"plain{b}.tif") for b in (8, 16))
+        imwrite(twin8, plane)
+        imwrite(twin16, wide)
+        maps8 = run(twin8, "plain8")
+        k1 = launches["plain8"]["softmax_blend"]
+        check(k1 > 0 and launches["plain8"]["blend_fold_epilogue"] == 1,
+              f"the plain twin did not run K1 and one K2 epilogue: "
+              f"{launches['plain8']}")
+        maps16 = run(twin16, "plain16")
+        check(launches["plain16"]["softmax_blend"] == k1,
+              f"the uint16 twin's K1 launches: {launches['plain16']}")
+
+        # -- IM, DIB and DDS of the slide -------------------------------------
+        for kind, data, want, maps in (
+                ("im", im.encode_im(wide, "slide.im"), wide, maps16),
+                ("dib", bmp.encode_bmp(plane, file_header=False), plane,
+                 maps8),
+                ("dds", dds.encode_dds(plane), plane, maps8)):
+            against_twin(kind, data, want, maps)
+
+        # -- the RGB GIF of the twin's maps: the median cut at side^2 ---------
+        t0 = time.perf_counter()
+        check(_native.get_lib() is not None,
+              "the native host library (quant.cpp) did not build or load")
+        log(f"[slice21] native host library ready in "
+            f"{time.perf_counter() - t0:.2f} s (g++ where not built yet)")
+        rgb = np.ascontiguousarray(np.stack(maps8, -1))
+        px = quant.pixels(rgb)
+        t0 = time.perf_counter()
+        idx, pal = quant.median_cut(px)
+        cut_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data = gif.encode_gif(rgb)
+        gif_s = time.perf_counter() - t0
+        colours = np.count_nonzero(np.bincount(
+            px[:, 0].astype(np.int64) << 16 | px[:, 1].astype(np.int64) << 8
+            | px[:, 2], minlength=1 << 24))
+        log(f"[slice21] median cut of {side}^2 RGB ({colours} colours) to "
+            f"{len(pal)} entries: {cut_s:.3f} s; RGB GIF write "
+            f"{gif_s:.3f} s ({len(data)} bytes) | {card}")
+        check(len(pal) == 256 or colours <= 256,
+              f"the median cut gave {len(pal)} entries")
+        index = gif.read_frame(data, 0)
+        check(np.array_equal(index, idx.reshape(side, side)),
+              "the RGB GIF's index plane is not the median cut's")
+        twin_gif = os.path.join(tmp, "index.tif")
+        imwrite(twin_gif, index)
+        against_twin("gif_rgb", data, index, run(twin_gif, "index"))
+
+        # -- written and read back: RGBA GIF, QOI, XBM, MSP -------------------
+        rgba = np.concatenate([rgb, np.where(plane > plane[0, 0], 255, 0)
+                               .astype(np.uint8)[..., None]], -1)
+        t0 = time.perf_counter()
+        oidx, opal = quant.octree(quant.pixels(rgba))
+        oct_s = time.perf_counter() - t0
+        data = gif.encode_gif(rgba)
+        back = gif.read_frame(data, 0)
+        check(np.array_equal(back, oidx.reshape(side, side)),
+              "the RGBA GIF's index plane is not the octree's")
+        bits = plane > plane[0, 0]
+        times = {}
+        for kind, x, encode, read in (
+                ("qoi", rgba, qoi.encode_qoi, qoi.read_frame),
+                ("xbm", bits, xbm.encode_xbm, xbm.read_frame),
+                ("msp", bits, msp.encode_msp, msp.read_frame)):
+            if kind == "msp" and side > 65535:
+                continue
+            t0 = time.perf_counter()
+            blob = encode(x)
+            t1 = time.perf_counter()
+            y = read(blob, 0)
+            times[kind] = (t1 - t0, time.perf_counter() - t1, len(blob))
+            check(y.dtype == x.dtype and np.array_equal(y, x),
+                  f"{kind}: read back differs from what was written")
+        log(f"[slice21] fast octree of {side}^2 RGBA: {oct_s:.3f} s; "
+            f"RGBA GIF, QOI, XBM, MSP read back equal; write / read s: "
+            + ", ".join(f"{k} {w:.3f} / {r:.3f} ({n} bytes)"
+                        for k, (w, r, n) in times.items()) + f" | {card}")
+        del plane, wide, rgb, rgba, px, index, back, bits
+
+        # -- the committed fixtures -------------------------------------------
+        bad, reads, writes = [], 0, 0
+        ref = np.load(os.path.join(WRITE_FIXTURES, "reads.npz"))
+        for name, (x, ext) in sorted(mk.write_arrays().items()):
+            fname = f"write_{name}{ext}"
+            with open(os.path.join(WRITE_FIXTURES, fname), "rb") as f:
+                want = f.read()
+            writes += 1
+            if ext == ".apng":
+                if not np.array_equal(png.read_png(os.path.join(
+                        WRITE_FIXTURES, fname)), x):
+                    bad.append(fname)
+                continue
+            path = os.path.join(tmp, "w", fname)
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            imtools._BY_EXTENSION[ext](path, x)
+            with open(path, "rb") as f:
+                if f.read() != want:
+                    bad.append(fname)
+        for name, (ext, data) in sorted(mk.read_cases().items()):
+            with open(os.path.join(WRITE_FIXTURES, f"read_{name}{ext}"),
+                      "rb") as f:
+                if f.read() != data:
+                    bad.append(f"read_{name}{ext} (not make.py's bytes)")
+        for key in ref.files:
+            fname, _, frame = key.partition("#")
+            with open(os.path.join(WRITE_FIXTURES, fname), "rb") as f:
+                data = f.read()
+            reads += 1
+            px = identify.read(data, int(frame or 0), fname)
+            if px is None or px.dtype != ref[key].dtype or not np.array_equal(
+                    px, ref[key]):
+                bad.append(key)
+        log(f"[slice21] {writes} fixture writes byte-equal to PIL's files "
+            f"(APNG read equal) and {reads} reads equal to PIL's: "
+            f"{reads + writes - len(bad)}; differing: {bad}")
+        check(not bad, f"fixtures differ from PIL's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice21] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -7562,6 +7800,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice19"] = per_path
     for name, per_path in phase_slice20(dev).items():
         stats[name]["launches_slice20"] = per_path
+    for name, per_path in phase_slice21(dev).items():
+        stats[name]["launches_slice21"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -7574,7 +7814,7 @@ def main(argv=None) -> int:
                         "launches_slice13", "launches_slice15",
                         "launches_slice16", "launches_slice17",
                         "launches_slice18", "launches_slice19",
-                        "launches_slice20")}})
+                        "launches_slice20", "launches_slice21")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

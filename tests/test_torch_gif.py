@@ -448,25 +448,27 @@ def test_committed_writes_are_byte_equal(name):
 
 
 @pytest.mark.parametrize("shape,dtype,port_error", [
-    ((5, 6, 3), np.uint8, NotImplementedError),
-    ((5, 6, 4), np.uint8, NotImplementedError),
+    ((5, 6, 3), np.uint8, None),
+    ((5, 6, 4), np.uint8, None),
     ((5, 6, 3), np.uint16, TypeError),
     ((5, 6, 3), np.float32, TypeError),
     ((5, 6), np.int64, TypeError),
     ((5, 6), np.complex64, TypeError),
     ((0, 6), np.uint8, SystemError)])
 def test_imwrite_gif_refusals(shape, dtype, port_error, tmp_path):
-    """RGB and RGBA need Pillow's median-cut quantizer: the port refuses
-    them naming M17 (PIL writes them); a dtype PIL has no mode for raises
-    ``TypeError`` in both, an empty image ``SystemError``."""
+    """A dtype PIL has no mode for raises ``TypeError`` in both, an empty
+    image ``SystemError``; RGB and RGBA (Pillow's median cut and fast
+    octree, ``tests/test_torch_gif_rgb.py``) write PIL's bytes."""
     x = np.zeros(shape, dtype)
-    with pytest.raises(port_error, match="M17" if port_error is
-                       NotImplementedError else None):
+    if port_error is None:
         T.imwrite(x, str(tmp_path / "p.gif"))
-    if port_error is not NotImplementedError:
-        with pytest.raises(port_error):
-            J.imwrite(x, str(tmp_path / "j.gif"))
-    else:
+        J.imwrite(x, str(tmp_path / "j.gif"))
+        assert (tmp_path / "p.gif").read_bytes() == (
+            tmp_path / "j.gif").read_bytes()
+        return
+    with pytest.raises(port_error):
+        T.imwrite(x, str(tmp_path / "p.gif"))
+    with pytest.raises(port_error):
         J.imwrite(x, str(tmp_path / "j.gif"))
 
 

@@ -157,18 +157,22 @@ def test_imread_opens_by_content(tmp_path):
 
 
 def test_other_formats_stay_queued(tmp_path):
-    """WebP read and write, and RGB GIF write (Pillow's median-cut
-    quantizer), raise ``NotImplementedError`` naming ROADMAP M17 (PIL
-    reads and writes them); GIF read and JPEG and gray GIF write are the
-    JAX package's since the fourth part of M17."""
+    """WebP read and write raise ``NotImplementedError`` naming ROADMAP
+    M17 (PIL reads and writes them); GIF read and JPEG and gray GIF write
+    are the JAX package's since the fourth part of M17, RGB GIF write
+    (Pillow's median cut) since its seventh."""
     gray = np.arange(48, dtype=np.uint8).reshape(6, 8)
     Image.fromarray(gray).save(str(tmp_path / "g.webp"))
     assert J.imread(str(tmp_path / "g.webp")).shape[:2] == gray.shape
     with pytest.raises(NotImplementedError, match="M17"):
         T.imread(str(tmp_path / "g.webp"))
-    for x, name in ((gray, "o.webp"), (np.stack([gray] * 3, -1), "o.gif")):
-        with pytest.raises(NotImplementedError, match="M17"):
-            T.imwrite(x, str(tmp_path / name))
+    with pytest.raises(NotImplementedError, match="M17"):
+        T.imwrite(gray, str(tmp_path / "o.webp"))
+    rgb = np.stack([gray, gray[::-1], gray.T.reshape(6, 8)], -1)
+    J.imwrite(rgb, str(tmp_path / "j_rgb.gif"))
+    T.imwrite(rgb, str(tmp_path / "t_rgb.gif"))
+    assert (tmp_path / "t_rgb.gif").read_bytes() == (
+        tmp_path / "j_rgb.gif").read_bytes()
     Image.fromarray(gray).save(str(tmp_path / "g.gif"))
     _equal(T.imread(str(tmp_path / "g.gif")), J.imread(str(tmp_path /
                                                             "g.gif")))

@@ -31,7 +31,8 @@ from unmicst_tpu.io import slides as jax_slides
 from unmicst_tpu.io import tiff as jax_tiff
 from unmicst_tpu.utils import imtools as J
 from unmicst_tpu_torch import cli
-from unmicst_tpu_torch.io import _native, identify, pcx, slides, tiff
+from unmicst_tpu_torch.io import (_native, bmp, dds, identify, im, msp, pcx,
+                                  qoi, slides, tiff, xbm)
 from unmicst_tpu_torch.utils import imtools as T
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -430,11 +431,19 @@ def _identified_as_pil(data: bytes):
     # the readers the port picks by magic bytes, before the plugin order
     by_magic = data.startswith(tuple(head for head, _ in T._BY_CONTENT))
     compare = fmt in identify.READ or (fmt is None and not by_magic)
-    if fmt in identify.READ:
+    if fmt == "DDS" and dds.open_header(data).codec == "bcn":
+        # block-compressed DDS: PIL decodes it, the port queues it (M17)
+        # but where the data runs out first, as PIL's decoder does
+        if got != want:
+            with pytest.raises(NotImplementedError, match="M17"):
+                T.imread(path)
+        compare = False
+    elif fmt in identify.READ:
         assert got == want, (fmt, got, want)
     elif fmt is None:
         assert not isinstance(got, tuple), (got, want)
-        if got == "NotImplementedError":  # a plugin PIL's _open refuses
+        if got == "NotImplementedError" != want:  # a plugin PIL's _open
+            # refuses (PIL's own NotImplementedError escapes Image.open)
             assert identify.open_image(data) in (identify.MAGIC_ONLY
                                                  + identify.PARTLY_CHECKED)
             compare = False
@@ -450,6 +459,7 @@ def _identified_as_pil(data: bytes):
         want = _outcome(lambda: jax_slides.read_channel(tif, "tif", ch))
         if compare:
             assert got == want, (fmt, ch, got, want)
+    return fmt
 
 
 _SETTINGS = settings(derandomize=True, deadline=None, max_examples=150,
@@ -543,21 +553,168 @@ def _built_files(draw):
     return data
 
 
+def _changed(draw, data: bytes) -> bytes:
+    """``data`` as it is, with one byte changed, or cut."""
+    change = draw(st.sampled_from(["none", "byte", "cut"]))
+    if change == "byte" and data:
+        k = draw(st.integers(0, len(data) - 1))
+        data = data[:k] + bytes([draw(st.integers(0, 255))]) + data[k + 1 :]
+    elif change == "cut":
+        data = data[: draw(st.integers(0, len(data)))]
+    return data
+
+
+def _drawn_image(draw, modes):
+    h, w = draw(st.integers(1, 5)), draw(st.integers(1, 12))
+    rng = np.random.RandomState(draw(st.integers(0, 2**16)))
+    mode = draw(st.sampled_from(modes))
+    shape = {"1": (h, w), "L": (h, w), "LA": (h, w, 2), "RGB": (h, w, 3),
+             "RGBA": (h, w, 4), "I;16": (h, w), "F": (h, w), "I": (h, w)}
+    x = rng.randint(0, 256, shape[mode])
+    return {"1": x > 127, "I;16": (x * 257).astype(np.uint16),
+            "F": (x / 7).astype(np.float32), "I": x.astype(np.int32) - 99
+            }.get(mode, x.astype(np.uint8))
+
+
+@st.composite
+def _msp_files(draw):
+    """A written MSP file, or a version 1 or 2 header of drawn fields
+    (checksum right or not) and a drawn body."""
+    if draw(st.booleans()):
+        return _changed(draw, msp.encode_msp(_drawn_image(draw, ["1"])))
+    words = [draw(st.integers(0, 4)) for _ in range(16)]
+    words[:2] = struct.unpack("<2H", draw(st.sampled_from([b"DanM",
+                                                           b"LinS"])))
+    words[2], words[3] = draw(st.integers(0, 12)), draw(st.integers(0, 5))
+    words[12] = 0
+    check = 0
+    for v in words:
+        check ^= v
+    words[12] = check ^ draw(st.sampled_from([0, 0, 0, 1]))
+    return struct.pack("<16H", *words) + draw(_BODY)
+
+
+@st.composite
+def _qoi_files(draw):
+    """A written QOI file, or a header of drawn fields and a drawn body
+    of chunks."""
+    if draw(st.booleans()):
+        return _changed(draw, qoi.encode_qoi(_drawn_image(draw, ["RGB",
+                                                                 "RGBA"])))
+    head = qoi.MAGIC + struct.pack(
+        ">IIBB", draw(st.integers(0, 6)), draw(st.integers(0, 4)),
+        draw(st.sampled_from([3, 4, 0, 5])), draw(st.integers(0, 1)))
+    return draw(st.sampled_from([head, head[:12], head[:9]])) + draw(_BODY)
+
+
+@st.composite
+def _dds_files(draw):
+    """A written DDS file, or a header of drawn flags, bit count, masks
+    and FourCC (DX10 among them) and a drawn body."""
+    if draw(st.booleans()):
+        return _changed(draw, dds.encode_dds(_drawn_image(
+            draw, ["L", "LA", "RGB", "RGBA"])))
+    flags = draw(st.sampled_from([0x40, 0x41, 0x20000, 0x20001, 0x20, 0x4,
+                                  0]))
+    fourcc = draw(st.sampled_from([0, 0x31545844, 0x30315844, 0x12345678]))
+    masks = draw(st.sampled_from([(0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+                                  (0xF800, 0x7E0, 0x1F, 0),
+                                  (0x7C00, 0x3E0, 0x1F, 0x8000),
+                                  (0xFF, 0xFF, 0xFF, 0xFF00)]))
+    head = (dds.MAGIC + struct.pack(
+        "<7I", draw(st.sampled_from([124, 124, 100])), 0x100F,
+        draw(st.integers(0, 4)), draw(st.integers(0, 6)), 0, 0, 0)
+        + bytes(44) + struct.pack("<4I", 32, flags, fourcc, draw(
+            st.sampled_from([8, 16, 24, 32, 0]))) + struct.pack("<4I", *masks)
+        + bytes(20))
+    dx10 = struct.pack("<5I", draw(st.sampled_from([28, 71, 2])), 3, 0, 0, 1)
+    return head + (dx10 if fourcc == 0x30315844 else b"") + draw(
+        st.sampled_from([b"", bytes(range(256)) * 4])) + draw(_BODY)
+
+
+@st.composite
+def _xbm_files(draw):
+    """A written XBM file, or a header of drawn sizes (and hotspot) and
+    a body of hex bytes, some of them cut or odd."""
+    if draw(st.booleans()):
+        return _changed(draw, xbm.encode_xbm(_drawn_image(draw, ["1"])))
+    head = b"#define t_width %d\n#define t_height %d\n" % (
+        draw(st.integers(0, 12)), draw(st.integers(0, 4)))
+    if draw(st.booleans()):
+        head += b"#define t_x_hot 1\n#define t_y_hot 2\n"
+    cells = draw(st.lists(st.sampled_from([b"0x1f,", b"0xA0, ", b"0xx3,",
+                                           b"0x", b"x9,", b"\n", b"0xG7,"]),
+                          max_size=20))
+    return draw(st.sampled_from([b"", b"  ", b"\n"])) + head + \
+        b"static char t_bits[] = {\n" + b"".join(cells) + b"};\n"
+
+
+@st.composite
+def _im_files(draw):
+    """A written IM file, or a header of drawn keys (image type, size,
+    frames, Lut) and a drawn body."""
+    if draw(st.booleans()):
+        return _changed(draw, im.encode_im(_drawn_image(
+            draw, ["1", "L", "LA", "RGB", "RGBA", "I;16", "F", "I"]),
+            "t.im"))
+    kind = draw(st.sampled_from(sorted(im.OPEN) + ["Foo image"]))
+    lines = [b"Image type: " + kind.encode()]
+    lines.append(b"Image size (x*y): %d*%d" % (draw(st.integers(0, 6)),
+                                               draw(st.integers(0, 3))))
+    if draw(st.booleans()):
+        lines.append(b"File size (no of images): %d" % draw(
+            st.integers(1, 3)))
+    if draw(st.booleans()):
+        lines.append(b"Lut: 1")
+    if draw(st.booleans()):
+        lines.insert(0, draw(st.sampled_from([b"Bad line", b"x" * 120])))
+    head = b"\r\n".join(lines) + b"\r\n"
+    head += bytes(draw(st.sampled_from([0, 40]))) + b"\x1a"
+    return head + draw(st.sampled_from([b"", bytes(range(256)) * 3])) + \
+        draw(_BODY)
+
+
+@st.composite
+def _dib_files(draw):
+    """A written DIB file, or a BITMAPINFOHEADER of drawn depth,
+    compression and palette size and a drawn body."""
+    if draw(st.booleans()):
+        return _changed(draw, bmp.encode_bmp(_drawn_image(
+            draw, ["1", "L", "RGB", "RGBA"]), file_header=False))
+    bits = draw(st.sampled_from([1, 4, 8, 16, 24, 32, 2]))
+    head = struct.pack("<IiiHHIIiiII", draw(st.sampled_from([40, 40, 12,
+                                                             108])),
+                       draw(st.integers(1, 9)), draw(st.sampled_from(
+                           [1, 3, -2])), 1, bits, draw(st.sampled_from(
+                               [0, 0, 1, 2, 3])), 0, 0, 0,
+                       draw(st.sampled_from([0, 2, 3])), 0)
+    return head + draw(_BODY)
+
+
 @pytest.mark.parametrize("strategy", ["tga", "sgi", "pcx", "dcx", "built",
-                                      "random"])
+                                      "random", "msp", "qoi", "dds", "xbm",
+                                      "im", "dib"])
 def test_identification_and_reads_match_pil(strategy):
     """Byte strings that start with each format's header (fields drawn
     from the values PIL tells apart), whole files of each format with a
     byte changed or the end cut, or random bytes: where each plugin of
     PIL's takes the file, hands it on or lets its error escape, the port
-    agrees (see ``_identified_as_pil``)."""
+    agrees (see ``_identified_as_pil``).  The MSP, QOI, DDS, XBM, IM and
+    DIB strategies reach the plugins the port reads since slice 21 in
+    full, and check that they do."""
     strategies = {"tga": _tga_headers(), "sgi": _sgi_headers(),
                   "pcx": _pcx_headers(), "dcx": _dcx_files(),
-                  "built": _built_files(), "random": st.binary(max_size=64)}
+                  "built": _built_files(), "random": st.binary(max_size=64),
+                  "msp": _msp_files(), "qoi": _qoi_files(),
+                  "dds": _dds_files(), "xbm": _xbm_files(),
+                  "im": _im_files(), "dib": _dib_files()}
 
     @_SETTINGS
     @given(strategies[strategy])
     def check(data):
-        _identified_as_pil(data)
+        seen.add(_identified_as_pil(data))
 
+    seen = set()
     check()
+    if strategy in ("msp", "qoi", "dds", "xbm", "im", "dib"):
+        assert strategy.upper() in seen, seen

@@ -11,9 +11,12 @@ and, in the same library, the entropy decode of a JPEG scan
 (``native/pngfilter.cpp``, for ``io/png.py``), GIF's LZW and the JPEG
 Huffman encode (``native/gifcodec.cpp``, ``native/jpegenc.cpp``) and the
 PCX, TGA and SGI run-length codings (``native/rlecodec.cpp``, for
-``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``).  Every function returns
-None when the library is absent, and the callers then take their
-pure-Python versions: correct, only slow.
+``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``), the QOI coding
+(``native/qoicodec.cpp``, for ``io/qoi.py``) and Pillow's quantizers
+(``native/quant.cpp``, for ``io/quant.py``).  Every codec function
+returns None when the library is absent, and the callers then take their
+pure-Python versions: correct, only slow.  The quantizers raise instead:
+their plain versions are for the tests.
 
 The library builds at first use with the host's ``g++ -O3 -shared -fPIC``
 (portable flags, no ``-march=native``: a build directory copied to an
@@ -43,7 +46,8 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "native", name)
                 for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp",
-                             "gifcodec.cpp", "jpegenc.cpp", "rlecodec.cpp"))
+                             "gifcodec.cpp", "jpegenc.cpp", "rlecodec.cpp",
+                             "quant.cpp", "qoicodec.cpp"))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 LIB_NAME = "libunmicst_tiffcodec.so"
@@ -185,6 +189,19 @@ def _load(path: str) -> ctypes.CDLL:
     fn.restype = ll
     fn.argtypes = [vp, ll, ll, it, vp, ll]  # rows, h, row bytes, planes,
     # dst, cap
+    fn = lib.unmicst_qoi_encode
+    fn.restype = ll
+    fn.argtypes = [vp, ll, it, vp, ll]  # pixels, n, bands, dst, cap
+    fn = lib.unmicst_qoi_decode
+    fn.restype = ll
+    fn.argtypes = [ctypes.c_char_p, ll, ll, vp, ll, it]  # src, len, pos,
+    # out, n, bands
+    fn = lib.unmicst_quant_median_cut
+    fn.restype = ll
+    fn.argtypes = [vp, ll, it, vp, vp]  # pixels, n, colours, idx, palette
+    fn = lib.unmicst_quant_octree
+    fn.restype = ll
+    fn.argtypes = [vp, ll, it, it, vp, vp]  # ..., with alpha, idx, palette
     return lib
 
 
@@ -724,3 +741,81 @@ def pcx_rle_encode(rows: np.ndarray, planes: int) -> Optional[bytes]:
     if n < 0:
         raise ValueError("native PCX encode: output buffer undersized")
     return buf[:n].tobytes()
+
+
+def qoi_encode(px: np.ndarray) -> Optional[bytes]:
+    """QOI's chunks and end marker for ``px`` (``[n, 3 or 4]`` uint8), as
+    ``io/qoi.py``'s ``encode_py``; None without the library."""
+    _rows_view(px, "qoi_encode")
+    if px.ndim != 2 or px.shape[1] not in (3, 4):
+        raise ValueError("qoi_encode: [n, 3 or 4] pixels")
+    lib = get_lib()
+    if lib is None:
+        return None
+    cap = 5 * len(px) + 9
+    buf = np.empty(cap, np.uint8)
+    n = lib.unmicst_qoi_encode(_ptr(px), len(px), px.shape[1], _ptr(buf),
+                               cap)
+    if n < 0:
+        raise ValueError("native QOI encode: output buffer undersized")
+    return buf[:n].tobytes()
+
+
+def qoi_decode(data: bytes, pos: int, n: int,
+               bands: int) -> Optional[np.ndarray]:
+    """QOI's chunks from ``data[pos]`` as ``n * bands`` bytes, as
+    ``io/qoi.py``'s ``decode_py``; None without the library, or where
+    the data ends first (the plain version then raises PIL's error)."""
+    if bands not in (3, 4) or n <= 0 or pos < 0:
+        raise ValueError("qoi_decode: 3 or 4 bands, n > 0, pos >= 0")
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.empty(n * bands, np.uint8)
+    if lib.unmicst_qoi_decode(data, len(data), pos, _ptr(out), n, bands):
+        return None
+    return out
+
+
+def _quant_lib(name: str) -> ctypes.CDLL:
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError(
+            f"{name}: the native host library (native/quant.cpp) did not "
+            "build or load, and the quantizers have no fallback")
+    return lib
+
+
+def _quant_pixels(px: np.ndarray, colors: int, name: str) -> np.ndarray:
+    if px.dtype != np.uint8 or px.ndim != 2 or px.shape[1] != 4 \
+            or not len(px):
+        raise ValueError(f"{name} needs n x 4 uint8 pixels, n > 0")
+    if not 1 <= colors <= 256:
+        raise ValueError("bad number of colors")
+    return np.ascontiguousarray(px)
+
+
+def quant_median_cut(px: np.ndarray, colors: int):
+    """Pillow's median cut of ``px`` (n x 4 uint8): (indices, palette
+    ``[entries, 3]``), as ``io/quant.py``'s ``median_cut_py``.  Raises
+    ``RuntimeError`` without the library."""
+    px = _quant_pixels(px, colors, "quant_median_cut")
+    lib = _quant_lib("quant_median_cut")
+    idx = np.empty(len(px), np.uint8)
+    pal = np.zeros((256, 4), np.uint8)
+    k = lib.unmicst_quant_median_cut(_ptr(px), len(px), colors, _ptr(idx),
+                                     _ptr(pal))
+    return idx, pal[:k, :3].copy()
+
+
+def quant_octree(px: np.ndarray, colors: int, with_alpha: bool):
+    """Pillow's fast octree of ``px`` (n x 4 uint8): (indices, palette
+    ``[colors, 4]``), as ``io/quant.py``'s ``octree_py``.  Raises
+    ``RuntimeError`` without the library."""
+    px = _quant_pixels(px, colors, "quant_octree")
+    lib = _quant_lib("quant_octree")
+    idx = np.empty(len(px), np.uint8)
+    pal = np.zeros((256, 4), np.uint8)
+    k = lib.unmicst_quant_octree(_ptr(px), len(px), colors, int(with_alpha),
+                                 _ptr(idx), _ptr(pal))
+    return idx, pal[:k].copy()

@@ -37,6 +37,13 @@ def bomb_check(w: int, h: int) -> None:
             "attack.")
 
 
+def setimage_check(width: int, bits: int) -> None:
+    """A C decoder's ``setimage`` (``decode.c``): ``MemoryError`` where a
+    row of ``width`` pixels of ``bits`` bits would overflow its int."""
+    if width > (2**31 - 1) // bits - 7:
+        raise MemoryError
+
+
 def truncated(unread: int) -> OSError:
     """``ImageFile.load``'s error where the data ends before the image."""
     return OSError(f"{TRUNCATED} ({unread} bytes not processed)")

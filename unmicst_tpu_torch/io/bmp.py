@@ -17,19 +17,24 @@
   ``v * 255 // max``), 24-bit and 32-bit (the fourth byte dropped) as
   RGB; 32-bit BITFIELDS layouts with an alpha mask as RGBA.
 
+:func:`read_frame` reads a DIB file (``DibImageFile``: the info header
+first, the pixels where PIL's reads of the header, the masks and the
+palette leave the file) the same way.
+
 Other depths, compressions (JPEG, PNG) and BITFIELDS layouts raise
 ``OSError`` with PIL's message, as does raw data that ends early; RLE
-data that ends early, and RLE under a black/white palette,
-``ValueError``.  An 8-bit "L" or "P" image PIL maps from the file where
-it holds every row's stride: a 4-bit image with the identity gray
-palette, which PIL reads as 8-bit "L" at the 4-bit stride, then reads
-each row's ``w`` bytes on into the next row (and refuses it, as a codec
-configuration error, where the file is shorter).
+data that ends early, and RLE under a black/white palette or at a
+depth above 8 bits, ``ValueError``.  An 8-bit "L" or "P" image PIL maps
+from the file where it holds every row's stride: a 4-bit image with the
+identity gray palette, which PIL reads as 8-bit "L" at the 4-bit stride,
+then reads each row's ``w`` bytes on into the next row (and refuses it,
+as a codec configuration error, where the file is shorter).
 
 :func:`write_bmp` writes ``Image.fromarray(image).save(path)``'s bytes:
 bool as a 1-bit black/white image, uint8 planes as 8-bit with the gray
 ramp, RGB as 24-bit and RGBA as 32-bit BGRA (which PIL reads back as
-RGB), bottom-up, rows padded to 4 bytes, 96 dpi.  Every other mode raises
+RGB), bottom-up, rows padded to 4 bytes, 96 dpi; :func:`write_dib` the
+same bytes without the 14-byte file header.  Every other mode raises
 PIL's ``OSError`` (``cannot write mode I;16 as BMP``), and a dtype PIL
 has no mode for its ``TypeError`` (:func:`png.array_mode`).
 """
@@ -40,6 +45,7 @@ import struct
 
 import numpy as np
 
+from unmicst_tpu_torch.io import _pil
 from unmicst_tpu_torch.io.png import array_mode
 
 _HEADERS = (12, 40, 52, 56, 64, 108, 124)
@@ -127,7 +133,38 @@ def _unpack_bits(rows: np.ndarray, w: int, bits: int) -> np.ndarray:
 def read_bmp(path: str) -> np.ndarray:
     """Read a BMP file as PIL does (see the module docstring)."""
     with open(path, "rb") as f:
-        blob = f.read()
+        return decode_bmp(f.read(), path)
+
+
+def dib_start(data: bytes) -> int:
+    """Where ``DibImageFile`` finds a DIB's pixels: after its header, the
+    three BITFIELDS masks of a 40-byte header, and (1 to 8 bits) the
+    palette, as far as the file holds them."""
+    size = _u32(data, 0)
+    at = size
+    compression = _u32(data, 16) if size >= 20 else _RAW
+    if size == 40 and compression == _BITFIELDS:
+        at += 12
+    bits = _u16(data, 10 if size == 12 else 14)
+    if bits <= 8:
+        colors = (_u32(data, 32) if size > 12 else 0) or (1 << bits)
+        at += (3 if size == 12 else 4) * colors
+    return min(at, len(data))
+
+
+def read_frame(data: bytes, index: int = 0) -> np.ndarray:
+    """Frame ``index`` of a DIB file's bytes (a BMP without its 14-byte
+    file header, ``DibImageFile``): ``EOFError`` past frame 0, else the
+    pixels as :func:`read_bmp` reads them from where PIL reads them."""
+    if index != 0:
+        raise EOFError("attempt to seek outside sequence")
+    head = b"BM" + struct.pack("<IHHI", 0, 0, 0, 14 + dib_start(data))
+    return decode_bmp(head + data, "DIB")
+
+
+def decode_bmp(blob: bytes, path: str) -> np.ndarray:
+    """The pixels of the BMP file ``blob`` (``path`` names it in
+    errors)."""
     if blob[:2] != b"BM" or len(blob) < 18:
         raise ValueError(f"{path}: not a BMP file")
     offset, size = _u32(blob, 10), _u32(blob, 14)
@@ -187,7 +224,8 @@ def read_bmp(path: str) -> np.ndarray:
         mode = ("1" if colors == 2 else "L") if gray else "P"
     if compression in (_RLE8, _RLE4):
         px = _rle(blob, offset, w, h, compression == _RLE4)
-        if mode == "1":  # PIL sets a "P" raw mode into a mode-1 image
+        if mode not in ("L", "P"):  # PIL sets a "P" raw mode into a mode-1
+            # image, or into the RGB image of a depth above 8 bits
             raise ValueError("unknown raw mode for given image mode")
         return px if down else px[::-1]
     stride = ((w * bits + 31) >> 3) & ~3
@@ -202,6 +240,7 @@ def read_bmp(path: str) -> np.ndarray:
         # the end of the file as zeros
         body = np.frombuffer(blob + bytes(w), np.uint8)[offset:]
     else:
+        _pil.setimage_check(w, bits_read)
         if row_bytes > stride:
             raise OSError("codec configuration error when reading image "
                           "file")
@@ -230,9 +269,10 @@ def read_bmp(path: str) -> np.ndarray:
     return px[:, :, order]
 
 
-def write_bmp(path: str, image: np.ndarray) -> None:
-    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes a
-    BMP (see the module docstring)."""
+def encode_bmp(image: np.ndarray, file_header: bool = True) -> bytes:
+    """The bytes ``Image.fromarray(image).save(path)`` writes for a BMP
+    name, or without the 14-byte file header for a DIB name (see the
+    module docstring)."""
     mode, img = array_mode(image)
     if mode not in _SAVE:
         raise OSError(f"cannot write mode {mode} as BMP")
@@ -255,9 +295,24 @@ def write_bmp(path: str, image: np.ndarray) -> None:
     body[:, : rows.shape[1]] = rows[::-1]
     image_size = stride * h
     offset = 14 + 40 + 4 * colors
+    head = b"BM" + struct.pack("<III", offset + image_size, 0, offset) \
+        if file_header else b""
+    return head + struct.pack("<IiiHHIIiiII", 40, w, h, 1, bits, 0,
+                              image_size, _PPM, _PPM, colors,
+                              colors) + palette + body.tobytes()
+
+
+def write_bmp(path: str, image: np.ndarray) -> None:
+    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes a
+    BMP (see the module docstring)."""
+    data = encode_bmp(image)
     with open(path, "wb") as f:
-        f.write(b"BM" + struct.pack("<IIIIiiHHIIiiII", offset + image_size,
-                                    0, offset, 40, w, h, 1, bits, 0,
-                                    image_size, _PPM, _PPM, colors, colors))
-        f.write(palette)
-        f.write(body.tobytes())
+        f.write(data)
+
+
+def write_dib(path: str, image: np.ndarray) -> None:
+    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes a
+    DIB: the BMP's bytes without the file header."""
+    data = encode_bmp(image, file_header=False)
+    with open(path, "wb") as f:
+        f.write(data)

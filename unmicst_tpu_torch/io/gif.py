@@ -54,9 +54,14 @@ Pillow's palette optimisation (the gray levels used, in order, the pixels
 their ranks); interlaced unless a side is under 16 pixels; Pillow's LZW
 encoder (``GifEncode.c``: 8-bit codes, a clear when the table is full)
 in sub-blocks of 255 bytes but where ``ImageFile._save``'s buffer of
-``max(65536, 4 * width)`` bytes ends.  RGB and RGBA (Pillow's median-cut
-quantizer) raise ``NotImplementedError`` naming ROADMAP M17; a dtype PIL
-has no mode for its ``TypeError``.
+``max(65536, 4 * width)`` bytes ends.  RGB goes through Pillow's median
+cut and RGBA through its fast octree (:mod:`unmicst_tpu_torch.io.quant`)
+to a ``P`` image, whose palette is optimised as Pillow's
+``_get_optimize`` decides (under 512 x 512 pixels, where an index past
+the count of those used is used or the table would halve) and whose
+RGBA palette's first entry of alpha 0 is the transparent index (a
+GIF89a with a graphic control extension).  A dtype PIL has no mode for
+raises its ``TypeError``.
 
 Both LZW coders run in the port's native host library
 (``native/gifcodec.cpp``) when it loads, and otherwise in
@@ -73,7 +78,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 
 from unmicst_tpu_torch.io import _native
-from unmicst_tpu_torch.io import _pil
+from unmicst_tpu_torch.io import _pil, quant
 from unmicst_tpu_torch.io.png import array_mode
 
 MAGICS = (b"GIF87a", b"GIF89a")
@@ -627,20 +632,58 @@ def _table_size(n: int) -> int:
     return 1 if n < 3 else (n - 1).bit_length() - 1
 
 
+def _optimised(px: np.ndarray, entries: int) -> Optional[np.ndarray]:
+    """``_get_optimize`` of a ``P`` image with ``entries`` palette
+    entries: the indices in use where Pillow remaps to them, else None."""
+    if px.size >= 512 * 512:
+        return None
+    used = np.flatnonzero(np.bincount(px.ravel(), minlength=256))
+    if used[-1] >= len(used):
+        return used
+    current = 1 << (entries - 1).bit_length()
+    if len(used) <= current // 2 and current > 2:
+        return used
+    return None
+
+
+def _quantized(mode: str, img: np.ndarray):
+    """``convert("P", palette=ADAPTIVE)`` and ``_normalize_palette`` of an
+    RGB or RGBA image: (indices, the RGB palette bytes, the transparent
+    index or None)."""
+    px = quant.pixels(img)
+    if mode == "RGB":
+        idx, pal = quant.median_cut(px)
+        trans = None
+    else:
+        idx, pal = quant.octree(px)
+        clear = np.flatnonzero(pal[:, 3] == 0)
+        trans = int(clear[0]) if len(clear) else None
+    idx = idx.reshape(img.shape[:2])
+    used = _optimised(idx, len(pal))
+    if used is not None:
+        rank = np.zeros(256, np.uint8)
+        rank[used] = np.arange(len(used), dtype=np.uint8)
+        idx, pal = rank[idx], pal[used]
+        if trans is not None:
+            trans = int(rank[trans]) if trans in used else None
+    return idx, np.ascontiguousarray(pal[:, :3]).tobytes(), trans
+
+
 def encode_gif(image: np.ndarray) -> bytes:
     """The bytes of ``Image.fromarray(image).save(f, "GIF")`` for a 2-D
-    image (see the module docstring)."""
+    image, or an RGB or RGBA one (see the module docstring)."""
     mode, img = array_mode(image)
     if mode == "LA":  # convert("L") drops the alpha
         mode, img = "L", np.ascontiguousarray(img[..., 0])
-    if mode in ("RGB", "RGBA"):
-        raise NotImplementedError(
-            f"GIF write of mode {mode} needs Pillow's median-cut "
-            "quantizer: ROADMAP M17")
-    h, w = img.shape
+    h, w = img.shape[:2]
+    if (h == 0 or w == 0) and mode in ("RGB", "RGBA"):  # _get_optimize
+        raise ValueError("max() iterable argument is empty")
     if h == 0 or w == 0:
         raise SystemError("tile cannot extend outside image")
-    if mode == "1":  # kept as is: no palette optimisation
+    trans = None
+    if mode in ("RGB", "RGBA"):
+        px, palette, trans = _quantized(mode, img)
+    elif mode == "1":  # kept as is: no palette optimisation
         px = _to_l(mode, img)
         palette = bytes(i // 3 for i in range(768))
     else:
@@ -656,9 +699,12 @@ def encode_gif(image: np.ndarray) -> bytes:
     if interlace:
         px = _interlaced(px)
     blocks = sub_blocks(lzw_codes(np.ascontiguousarray(px).tobytes(), 8), w)
-    head = b"GIF87a" + struct.pack("<HHBBB", w, h, 128 + size, 0, 0)
+    version = b"GIF87a" if trans is None else b"GIF89a"
+    head = version + struct.pack("<HHBBB", w, h, 128 + size, 0, 0)
+    control = b"" if trans is None else struct.pack("<3sBHBB", b"!\xf9\x04",
+                                                    1, 0, trans, 0)
     desc = b"," + struct.pack("<HHHHB", 0, 0, w, h, 64 if interlace else 0)
-    return head + palette + desc + b"\x08" + blocks + b"\0;"
+    return head + palette + control + desc + b"\x08" + blocks + b"\0;"
 
 
 def write_gif(path: str, image: np.ndarray) -> None:

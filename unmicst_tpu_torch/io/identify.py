@@ -14,18 +14,19 @@ a size that is not above zero, hand the file to the next plugin, any
 other exception escapes ``Image.open``.  :func:`open_image` walks the
 same order and names the format of the first plugin to open the file,
 with the decompression-bomb check of ``Image.open``; :func:`read` reads
-a frame of the formats the port reads (PCX, DCX, SGI and TGA:
-:mod:`pcx`, :mod:`sgi`, :mod:`tga`) and refuses the others with
-``NotImplementedError`` naming ROADMAP M17.  The plugins that take a
-  file without a magic number (IM, IMT, IPTC, PCD, SPIDER) and those
-  whose magic a TGA header can hold (DIB, CUR, ICO, MPEG, GBR, FLI,
-  McIDAS) run their header checks here as PIL's do (ICO's and FLI's
-  only so far: ``PARTLY_CHECKED``); the others (``MAGIC_ONLY``) open any
-  file their magic bytes start (the port does
-  not check whether their ``_open`` would refuse it and hand it on: none
-  of their magic numbers can start a TGA, SGI, PCX or DCX file that PIL
-  reads, but for AVIF's, which is checked as far as its first two
-  boxes).
+a frame of the formats the port reads (``READ``: PCX, DCX, SGI, TGA,
+DIB, IM, MSP, XBM, QOI and DDS, through :mod:`pcx`, :mod:`sgi`,
+:mod:`tga`, :mod:`bmp`, :mod:`im`, :mod:`msp`, :mod:`xbm`, :mod:`qoi`
+and :mod:`dds`) and refuses the others with ``NotImplementedError``
+naming ROADMAP M17.  The plugins the port reads, the plugins that take a
+file without a magic number (IMT, IPTC, PCD, SPIDER) and those whose
+magic a TGA header can hold (CUR, ICO, MPEG, GBR, FLI, McIDAS) run their
+header checks here as PIL's do (ICO's and FLI's only so far:
+``PARTLY_CHECKED``); the others (``MAGIC_ONLY``) open any file their
+magic bytes start (the port does not check whether their ``_open`` would
+refuse it and hand it on: none of their magic numbers can start a file
+of a format the port reads, but for AVIF's, which is checked as far as
+its first two boxes).
 
 None where no plugin opens the file (PIL's ``UnidentifiedImageError``).
 """
@@ -41,7 +42,7 @@ from typing import Optional, Tuple
 import numpy as np
 
 from unmicst_tpu_torch.io import _pil
-from unmicst_tpu_torch.io import pcx, sgi, tga
+from unmicst_tpu_torch.io import bmp, dds, im, msp, pcx, qoi, sgi, tga, xbm
 
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 _BMP_BITS = (1, 4, 8, 16, 24, 32)
@@ -54,10 +55,6 @@ _BMP_MASKS = {
     24: [(0xFF0000, 0xFF00, 0xFF)],
     16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)],
 }
-_IM_SPLIT = re.compile(rb"^([A-Za-z][^:]*):[ \t]*(.*)[ \t]*$")
-_IM_TAGS = ("Comment", "Date", "Digitalization equipment",
-            "File size (no of images)", "Lut", "Name", "Scale (x,y)",
-            "Image size (x*y)", "Image type")
 _IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
 _SPIDER_IFORMS = (1, 3, -11, -12, -21, -22)
 
@@ -202,58 +199,9 @@ def _mcidas(data: bytes):
 
 
 def _im(data: bytes):
-    """``ImImageFile._open``: a text header of ``key: value`` lines, one
-    of them a key PIL knows, then a 0x1A byte."""
-    fp = io.BytesIO(data)
-    if b"\n" not in fp.read(100):
-        return None
-    fp.seek(0)
-    info = {"Image type": "L", "Image size (x*y)": (512, 512)}
-    n = 0
-    while True:
-        s = fp.read(1)
-        if s == b"\r":
-            continue
-        if not s or s == b"\0" or s == b"\x1a":
-            break
-        s = s + fp.readline()
-        if len(s) > 100:
-            return None
-        if s.endswith(b"\r\n"):
-            s = s[:-2]
-        elif s.endswith(b"\n"):
-            s = s[:-1]
-        m = _IM_SPLIT.match(s)
-        if not m:
-            return None
-        k, v = (g.decode("latin-1", "replace") for g in m.group(1, 2))
-        if k in ("File size (no of images)", "Scale (x,y)",
-                 "Image size (x*y)"):
-            v = v.replace("*", ",")
-            v = tuple(_number(t) for t in v.split(","))
-            if len(v) == 1:
-                v = v[0]
-        info[k] = v
-        n += k in _IM_TAGS
-    if not n:
-        return None
-    size = info["Image size (x*y)"]
-    while s and not s.startswith(b"\x1a"):
-        s = fp.read(1)
-    if not s:
-        return None
-    if "Lut" in info and len(fp.read(768)) < 768:
-        return None  # the palette's IndexError
-    if not info["Image type"]:
-        return None
-    return _opens("IM", size[0], size[1])
-
-
-def _number(s: str):
-    try:
-        return int(s)
-    except ValueError:
-        return float(s)
+    """``ImImageFile._open`` (:func:`im.open_header`)."""
+    hdr = im.open_header(data)
+    return "IM", (hdr.width, hdr.height)
 
 
 def _imt(data: bytes):
@@ -447,9 +395,31 @@ def _webp(data: bytes):
 
 
 def _xbm(data: bytes):
-    if data[:16].lstrip().startswith(b"#define"):
-        return "XBM", None
-    return None
+    if not xbm.accept(data[:16]):
+        return None
+    w, h, _ = xbm.open_header(data)
+    return "XBM", (w, h)
+
+
+def _msp(data: bytes):
+    if not msp.accept(data[:16]):
+        return None
+    hdr = msp.open_header(data)
+    return "MSP", (hdr.width, hdr.height)
+
+
+def _qoi(data: bytes):
+    if not data.startswith(qoi.MAGIC):
+        return None
+    w, h, _ = qoi.open_header(data)
+    return "QOI", (w, h)
+
+
+def _dds(data: bytes):
+    if not data.startswith(dds.MAGIC):
+        return None
+    hdr = dds.open_header(data)
+    return "DDS", (hdr.width, hdr.height)
 
 
 def _pcx(data: bytes):
@@ -481,8 +451,8 @@ def _tga(data: bytes):
 # Image.ID after BMP, GIF, JPEG, PPM and PNG, in this installation's order
 _PLUGINS = (
     _dib, _avif, _magic("BLP", b"BLP1", b"BLP2"),
-    _magic("BUFR", b"BUFR", b"ZCZC"), _cur, _pcx, _dcx,
-    _magic("DDS", b"DDS "), _eps, _magic("FITS", b"SIMPLE"), _fli,
+    _magic("BUFR", b"BUFR", b"ZCZC"), _cur, _pcx, _dcx, _dds, _eps,
+    _magic("FITS", b"SIMPLE"), _fli,
     _magic("FTEX", b"FTEX"), _gbr, _grib,
     _magic("HDF5", b"\x89HDF\r\n\x1a\n"),
     _magic("JPEG2000", b"\xff\x4f\xff\x51",
@@ -490,22 +460,25 @@ _PLUGINS = (
     _magic("ICNS", b"icns"), _ico, _im, _imt, _iptc, _mcidas, _mpeg,
     _magic("TIFF", b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
            b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00"),
-    _magic("MSP", b"DanM", b"LinS"), _pcd,
+    _msp, _pcd,
     _magic("PIXAR", b"\200\350\000\000"), _magic("PSD", b"8BPS"),
-    _magic("QOI", b"qoif"), _sgi, _spider, _sun, _tga, _webp,
+    _qoi, _sgi, _spider, _sun, _tga, _webp,
     _magic("WMF", b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _xbm,
     _magic("XPM", b"/* XPM */"), _magic("XVTHUMB", b"P7 332"),
 )
 # the formats the port reads, by their readers of frame k
 _READERS = {"PCX": pcx.read_frame, "DCX": pcx.read_frame,
-            "SGI": sgi.read_frame, "TGA": tga.read_frame}
+            "SGI": sgi.read_frame, "TGA": tga.read_frame,
+            "DIB": bmp.read_frame, "IM": im.read_frame,
+            "MSP": msp.read_frame, "XBM": xbm.read_frame,
+            "QOI": qoi.read_frame, "DDS": dds.read_frame}
 READ = tuple(_READERS)
 # the plugins that open any file their magic bytes start (AVIF: any with
 # its first two boxes): the port does not check whether their _open would
 # refuse it and hand it on
-MAGIC_ONLY = ("AVIF", "BLP", "BUFR", "DDS", "EPS", "FITS", "FTEX", "GRIB",
-              "HDF5", "JPEG2000", "ICNS", "TIFF", "MSP", "PIXAR", "PSD", "QOI",
-              "SUN", "WEBP", "WMF", "XBM", "XPM", "XVTHUMB")
+MAGIC_ONLY = ("AVIF", "BLP", "BUFR", "EPS", "FITS", "FTEX", "GRIB", "HDF5",
+              "JPEG2000", "ICNS", "TIFF", "PIXAR", "PSD", "SUN", "WEBP",
+              "WMF", "XPM", "XVTHUMB")
 # the plugins whose header checks stop short of PIL's: ICO (PIL loads the
 # first icon while it opens the file), FLI (its first chunks)
 PARTLY_CHECKED = ("ICO", "FLI")

@@ -326,11 +326,11 @@ def encode_jpeg(image: np.ndarray) -> bytes:
     """The bytes of ``Image.fromarray(image).save(f, "JPEG")`` (see the
     module docstring)."""
     mode, img = array_mode(image)
+    h, w = img.shape[:2]
+    if h == 0 or w == 0:  # PIL's first check, before the mode's
+        raise ValueError("cannot write empty image as JPEG")
     if mode not in ("1", "L", "RGB"):
         raise OSError(f"cannot write mode {mode} as JPEG")
-    h, w = img.shape[:2]
-    if h == 0 or w == 0:
-        raise ValueError("cannot write empty image as JPEG")
     if h > 65500 or w > 65500:  # libjpeg's JPEG_MAX_DIMENSION
         raise OSError("broken data stream when writing image file")
     qy = quant_table(_BASE_LUMA)

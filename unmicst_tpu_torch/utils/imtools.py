@@ -29,10 +29,12 @@ TIFFs through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
 :mod:`unmicst_tpu_torch.io.bmp`, GIFs through
 :mod:`unmicst_tpu_torch.io.gif`, Netpbm files through
 :mod:`unmicst_tpu_torch.io.pnm`, and the files PIL tells apart by trying
-its other plugins in turn (PCX, DCX, SGI and TGA, through
-:mod:`unmicst_tpu_torch.io.identify`); :func:`imwrite` writes TIFF, PNG,
-BMP, GIF, JPEG, Netpbm, PCX, TGA and SGI.  Other formats (WebP among them)
-and RGB GIF writes raise ``NotImplementedError`` (ROADMAP M17).
+its other plugins in turn (PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI
+and uncompressed DDS, through :mod:`unmicst_tpu_torch.io.identify`);
+:func:`imwrite` writes TIFF and every format PIL 12 saves (RGB and RGBA
+GIFs through :mod:`unmicst_tpu_torch.io.quant`) but ICO, ICNS, PDF, WebP,
+JPEG 2000 and AVIF, which raise ``NotImplementedError`` (ROADMAP M17), as
+reads of other formats (WebP among them) do.
 :func:`imshow` and :func:`imshowlist` keep the JAX package's headless
 contract without matplotlib: they write a PNG and return its path.
 
@@ -53,8 +55,9 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from unmicst_tpu_torch.io import (bmp, gif, identify, jpegenc, mpo, pcx, png,
-                                  pnm, sgi, tga)
+from unmicst_tpu_torch.io import (bmp, dds, eps, gif, identify, im, jpegenc,
+                                  mpo, msp, palm, pcx, png, pnm, qoi, sgi,
+                                  tga, xbm)
 from unmicst_tpu_torch.io.preprocess import im2double, resize  # noqa: F401
 from unmicst_tpu_torch.io.tiff import imread as _tiff_read
 from unmicst_tpu_torch.io.tiff import imwrite as _tiff_write
@@ -95,28 +98,48 @@ _BY_CONTENT = (
 
 
 # extension -> the writer of ``Image.fromarray(image).save(path)``
-_BY_EXTENSION = {".png": png.write_png, ".bmp": bmp.write_bmp,
+_BY_EXTENSION = {".png": png.write_png, ".apng": png.write_png,
+                 ".bmp": bmp.write_bmp, ".dib": bmp.write_dib,
                  ".gif": gif.write_gif, ".jpg": jpegenc.write_jpeg,
                  ".jpeg": jpegenc.write_jpeg, ".jpe": jpegenc.write_jpeg,
-                 ".jfif": jpegenc.write_jpeg, ".pcx": pcx.write_pcx,
+                 ".jfif": jpegenc.write_jpeg, ".mpo": jpegenc.write_jpeg,
+                 ".pcx": pcx.write_pcx, ".im": im.write_im,
+                 ".msp": msp.write_msp, ".palm": palm.write_palm,
+                 ".xbm": xbm.write_xbm, ".qoi": qoi.write_qoi,
+                 ".eps": eps.write_eps, ".ps": eps.write_eps,
+                 ".dds": dds.write_dds,
                  **dict.fromkeys((".pbm", ".pgm", ".ppm", ".pnm", ".pfm"),
                                  pnm.write_pnm),
                  **dict.fromkeys(tga.EXTENSIONS, tga.write_tga),
                  **dict.fromkeys(sgi.EXTENSIONS, sgi.write_sgi)}
+# extensions of PIL's formats without a save handler (``Image.save``'s
+# KeyError), of save handlers that refuse every image ``fromarray`` makes
+# or are stubs, and of the writers still queued (ROADMAP M17)
+_NO_SAVE = {".cur": "CUR", ".dcx": "DCX", ".fit": "FITS", ".fits": "FITS",
+            ".flc": "FLI", ".fli": "FLI", ".ftc": "FTEX", ".ftu": "FTEX",
+            ".gbr": "GBR", ".iim": "IPTC", ".mpeg": "MPEG", ".mpg": "MPEG",
+            ".pcd": "PCD", ".psd": "PSD", ".pxr": "PIXAR", ".ras": "SUN",
+            ".xpm": "XPM"}
+_STUBS = {".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5",
+          ".wmf": "WMF", ".emf": "WMF"}
+QUEUED = (".ico", ".icns", ".pdf", ".webp", ".j2c", ".j2k", ".jp2", ".jpc",
+          ".jpf", ".jpx", ".avif", ".avifs")
 
 
 def imread(path: str) -> np.ndarray:
     """Generic image read, as the JAX toolbox's: a ``.tif``/``.tiff``
     name goes to the TIFF reader (whose fallback opens a PNG, JPEG, BMP,
-    GIF, Netpbm, PCX, DCX, SGI or TGA file under that name by content);
-    any other file is opened by content,
-    as ``Image.open`` opens it: a TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI
-    or TGA file whatever its name, each as PIL's ``np.asarray`` gives it,
-    a GIF, an MPO or a DCX its first frame, with PIL's exceptions (a JPEG
+    GIF, Netpbm, PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI or DDS file
+    under that name by content); any other file is opened by content, as
+    ``Image.open`` opens it, each as PIL's ``np.asarray`` gives it: a
+    TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI, TGA, DIB, MSP, XBM, QOI or
+    uncompressed DDS file whatever its name, a GIF, an MPO, a DCX or an
+    IM file its first frame (IM's ``I;16`` as uint16, ``F`` as float32;
+    MSP's and XBM's mode ``1`` as bool), with PIL's exceptions (a JPEG
     that does not decode raises ``OSError``; a file no plugin of PIL
     opens, PFM and PAM among them, ``OSError``).  Files PIL opens as
-    other formats (WebP among them) raise ``NotImplementedError``
-    (ROADMAP M17)."""
+    other formats (WebP among them), and block-compressed DDS files,
+    raise ``NotImplementedError`` (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         return _tiff_read(path)
     with open(path, "rb") as f:
@@ -135,17 +158,22 @@ def imread(path: str) -> np.ndarray:
 def imwrite(image: np.ndarray, path: str) -> None:
     """Generic image write, as the JAX toolbox's: a ``.tif``/``.tiff``
     name writes a TIFF page; any other is ``Image.fromarray(image)
-    .save(path)``, whose format the extension picks: PNG, BMP, GIF
-    (:mod:`unmicst_tpu_torch.io.gif`), JPEG at PIL's defaults
+    .save(path)``, whose format the extension picks (``_BY_EXTENSION``),
+    byte for byte with PIL's modes, and its exceptions where it has none:
+    PNG and APNG, BMP and DIB (:mod:`unmicst_tpu_torch.io.bmp`), GIF (RGB
+    by Pillow's median cut, RGBA by its fast octree:
+    :mod:`unmicst_tpu_torch.io.gif`), JPEG and MPO at PIL's defaults
     (:mod:`unmicst_tpu_torch.io.jpegenc`), Netpbm (``.pbm``, ``.pgm``,
-    ``.ppm``, ``.pnm``, ``.pfm``: :mod:`unmicst_tpu_torch.io.pnm`), PCX
-    (:mod:`unmicst_tpu_torch.io.pcx`), TGA (``.tga``, ``.icb``, ``.vda``,
-    ``.vst``: :mod:`unmicst_tpu_torch.io.tga`) and SGI (``.sgi``, ``.bw``,
-    ``.rgb``, ``.rgba``: :mod:`unmicst_tpu_torch.io.sgi`) here, byte for
-    byte (PIL's modes, and its exceptions where it has none).  A ``.dcx``
-    name raises PIL's ``KeyError`` (PIL reads DCX and has no writer for
-    it).  Other formats, and RGB GIFs, raise ``NotImplementedError``
-    (ROADMAP M17)."""
+    ``.ppm``, ``.pnm``, ``.pfm``), PCX, TGA (``.tga``, ``.icb``, ``.vda``,
+    ``.vst``), SGI (``.sgi``, ``.bw``, ``.rgb``, ``.rgba``), IM, MSP,
+    Palm, XBM, QOI, EPS (``.eps``, ``.ps``) and uncompressed DDS, each
+    through its module of :mod:`unmicst_tpu_torch.io`.  PNG and APNG are
+    PIL's pixels, not its bytes (the port's deflate is its own).  Where
+    PIL has no writer (``.dcx``, ``.psd`` ...) its ``KeyError``; where its
+    handler is a stub (``.bufr``, ``.grib``, ``.h5``, ``.hdf``, ``.wmf``,
+    ``.emf``) its ``OSError``; ``.blp`` its ``ValueError``; an unknown
+    extension its ``ValueError``.  ICO, ICNS, PDF, WebP, JPEG 2000 and
+    AVIF (``QUEUED``) raise ``NotImplementedError`` (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         _tiff_write(path, image, bigtiff=False)
         return
@@ -155,13 +183,17 @@ def imwrite(image: np.ndarray, path: str) -> None:
         writer(path, image)
         return
     png.array_mode(image)  # fromarray's TypeError comes first in PIL
-    if ext == ".dcx":
-        raise KeyError("DCX")
+    if ext in _NO_SAVE:
+        raise KeyError(_NO_SAVE[ext])
+    if ext in _STUBS:
+        raise OSError(f"{_STUBS[ext]} save handler not installed")
+    if ext == ".blp":
+        raise ValueError("Unsupported BLP image mode")
+    if ext not in QUEUED:
+        raise ValueError(f"unknown file extension: {ext}")
     raise NotImplementedError(
-        f"imwrite: {ext or 'no extension'} files are not supported by "
-        "unmicst_tpu_torch (TIFF, PNG, BMP, GIF, JPEG, Netpbm, PCX, TGA and "
-        "SGI are; the JAX package writes the rest through PIL: ROADMAP "
-        "M17)")
+        f"imwrite: {ext} files are not written by unmicst_tpu_torch (the "
+        "JAX package writes them through PIL: ROADMAP M17)")
 
 
 def _display_u8(image: np.ndarray) -> np.ndarray:
