@@ -290,9 +290,17 @@ printing any result):
     back equal to their input; the median cut's and the octree's seconds
     at 4096^2; every committed fixture of ``tests/fixtures/torch_write``
     written byte-equal to PIL's file (APNG: read equal, the port's
-    deflate is its own) and read equal to PIL's read.  The ``kernels``
-    line gives each path's launches under ``launches_slice16`` to
-    ``launches_slice21``.
+    deflate is its own) and read equal to PIL's read.
+24. JPEG 2000 read (M17, eighth part; ``phase_slice22``, the same net):
+    the two committed 4096^2 slides of ``tests/fixtures/torch_j2k`` (a
+    lossy JP2 at ``irreversible=True, quality_layers=[40]`` in 1024^2
+    tiles, a lossless 5/3 J2K), each decoded by the port on the native
+    library to PIL's sha256, with the tier 2, tier 1 and wavelet seconds
+    and ``read_channel``'s, then under a ``.tif`` name through
+    ``cli.main`` against a plain TIFF twin of its pixels, pages
+    byte-equal, K1 and one K2 epilogue counted; every small fixture there
+    read equal to PIL's committed read.  The ``kernels`` line gives each
+    path's launches under ``launches_slice16`` to ``launches_slice22``.
 """
 
 from __future__ import annotations
@@ -7748,6 +7756,138 @@ def phase_slice21(dev, side: int = SLIDE) -> dict:
                          "blend_fold_stripe")}
 
 
+J2K_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_j2k")
+
+
+def phase_slice22(dev) -> dict:
+    """JPEG 2000 read (M17, eighth part) through ``cli.main`` on the card
+    (the legacy net at nucleiDAPI's widths, seeded weights): the two
+    committed 4096^2 slides (``tests/fixtures/torch_j2k``: a lossy JP2,
+    9/7 at ``quality_layers=[40]`` in 1024^2 tiles, and a lossless 5/3
+    J2K), each decoded by the port on the native library with its stage
+    seconds and held to the sha256 of PIL's read, read by
+    ``read_channel`` under a ``.tif`` name, then through ``cli.main``
+    against a plain TIFF twin of its pixels, pages byte-equal, K1 and one
+    K2 epilogue counted; every small fixture there read equal to PIL's
+    committed read.  Returns, per kernel, its launches on each counted
+    path."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import _native, jpeg2000, slides
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice22_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--channel", "1", "--outputPath", out],
+                          device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            n = launches[name]
+            log(f"[slice22] {name}: cli.main {secs:.2f} s; K1 "
+                f"{n['softmax_blend']}, K2 epilogue "
+                f"{n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            return [imread(maps, k) for k in range(num_pages(maps))]
+
+        t0 = time.perf_counter()
+        check(_native.get_lib() is not None,
+              "the native host library (j2kdec.cpp) did not build or load")
+        log(f"[slice22] native host library ready in "
+            f"{time.perf_counter() - t0:.2f} s (g++ where not built yet)")
+        with open(os.path.join(J2K_FIXTURES, "slides.json")) as f:
+            ref = json.load(f)
+        k1 = None
+        for fname in ("slide_lossy.jp2", "slide_lossless.j2k"):
+            kind = fname.split(".")[0].split("_")[1]
+            with open(os.path.join(J2K_FIXTURES, fname), "rb") as f:
+                data = f.read()
+            times = {}
+            t0 = time.perf_counter()
+            px = jpeg2000.load(data, jpeg2000.open_header(data), times)
+            secs = time.perf_counter() - t0
+            digest = hashlib.sha256(px.tobytes()).hexdigest()
+            log(f"[slice22] {fname} ({len(data)} bytes, {px.shape[0]}x"
+                f"{px.shape[1]} {px.dtype}): decode {secs:.3f} s (tier 2 "
+                f"{times['tier2']:.3f}, tier 1 {times['tier1']:.3f}, "
+                f"wavelet {times['wavelet']:.3f}, rest {times['rest']:.3f})"
+                f"; sha256 equal to PIL's read: "
+                f"{digest == ref[fname]['sha256']} | {card}")
+            check(digest == ref[fname]["sha256"]
+                  and str(px.dtype) == ref[fname]["dtype"]
+                  and list(px.shape) == ref[fname]["shape"],
+                  f"{fname}: the port's decode differs from PIL's read")
+            path = os.path.join(tmp, f"{kind}.tif")
+            with open(path, "wb") as f:
+                f.write(data)
+            t0 = time.perf_counter()
+            got = slides.read_channel(path, "tif", 0)
+            log(f"[slice22] {fname} under a .tif name: read_channel 0 in "
+                f"{time.perf_counter() - t0:.3f} s | {card}")
+            check(got.dtype == px.dtype and np.array_equal(got, px),
+                  f"{fname}: read_channel differs from the decode")
+            twin = os.path.join(tmp, f"{kind}_plain.tif")
+            imwrite(twin, px)
+            twin_maps = run(twin, f"{kind}_plain")
+            if k1 is None:
+                k1 = launches[f"{kind}_plain"]["softmax_blend"]
+            n = launches[f"{kind}_plain"]
+            check(k1 > 0 and n["softmax_blend"] == k1
+                  and n["blend_fold_epilogue"] == 1,
+                  f"the plain twin did not run K1 and one K2 epilogue: {n}")
+            maps = run(path, kind)
+            n = launches[kind]
+            check(n["softmax_blend"] == k1 and n["blend_fold_epilogue"] == 1
+                  and n["blend_fold_stripe"] == 0,
+                  f"{kind} did not run K1 {k1} times and one K2 epilogue: "
+                  f"{n}")
+            same = len(maps) == len(twin_maps) == 3 and all(
+                np.array_equal(a, b) for a, b in zip(maps, twin_maps))
+            log(f"[slice22] {kind}: pages byte-equal to the twin's: {same}")
+            check(same, f"{kind}: pages differ from the plain twin's")
+            del px, got
+
+        # -- the committed small fixtures -------------------------------------
+        bad, reads = [], np.load(os.path.join(J2K_FIXTURES, "reads.npz"))
+        for fname in reads.files:
+            with open(os.path.join(J2K_FIXTURES, fname), "rb") as f:
+                px = jpeg2000.read_frame(f.read(), 0)
+            want = reads[fname]
+            if px.dtype != want.dtype or not np.array_equal(px, want):
+                bad.append(fname)
+        log(f"[slice22] {len(reads.files)} small fixtures read equal to "
+            f"PIL's committed reads: {len(reads.files) - len(bad)}; "
+            f"differing: {bad}")
+        check(not bad, f"fixtures differ from PIL's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice22] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -7802,6 +7942,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice20"] = per_path
     for name, per_path in phase_slice21(dev).items():
         stats[name]["launches_slice21"] = per_path
+    for name, per_path in phase_slice22(dev).items():
+        stats[name]["launches_slice22"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -7814,7 +7956,8 @@ def main(argv=None) -> int:
                         "launches_slice13", "launches_slice15",
                         "launches_slice16", "launches_slice17",
                         "launches_slice18", "launches_slice19",
-                        "launches_slice20", "launches_slice21")}})
+                        "launches_slice20", "launches_slice21",
+                        "launches_slice22")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

@@ -413,8 +413,12 @@ def _pil_outcome(path: str):
 def _identified_as_pil(data: bytes):
     """The port reads ``data`` exactly where PIL opens it as a PCX, DCX,
     SGI or TGA, with the same array (and the same exception class where
-    the pixels fail); a file PIL opens as a format the port does not read
-    raises ``NotImplementedError`` naming M17; a file PIL does not open
+    the pixels fail); where PIL opens it as JPEG 2000, PIL's array or
+    exception class, or ``NotImplementedError`` naming M17 (a layout
+    PIL's encoder cannot write), or ``OSError`` where PIL returns pixels
+    that openjpeg concealed; a file PIL opens as a format the port does
+    not read raises ``NotImplementedError`` naming M17; a file PIL does
+    not open
     is not read: through the plugin order, the same exception class, or
     ``NotImplementedError`` where a plugin the port does not check in
     full (``identify.MAGIC_ONLY``, ``PARTLY_CHECKED``) would refuse it;
@@ -438,6 +442,17 @@ def _identified_as_pil(data: bytes):
             with pytest.raises(NotImplementedError, match="M17"):
                 T.imread(path)
         compare = False
+    elif fmt == "JPEG2000":
+        # PIL's array or exception class; the port refuses what PIL's
+        # encoder cannot write (M17) and raises where openjpeg conceals a
+        # fault and returns pixels, never other pixels
+        if got == "NotImplementedError":
+            with pytest.raises(NotImplementedError, match="M17"):
+                T.imread(path)
+        else:
+            assert got == want or (got == "OSError" and isinstance(
+                want, tuple)), (fmt, got, want)
+        compare = got == want
     elif fmt in identify.READ:
         assert got == want, (fmt, got, want)
     elif fmt is None:
@@ -691,9 +706,63 @@ def _dib_files(draw):
     return head + draw(_BODY)
 
 
+_J2K = os.path.join(REPO, "tests", "fixtures", "torch_j2k")
+_J2K_BASES = [open(os.path.join(_J2K, f), "rb").read() for f in (
+    "l_rlcp_layers.j2k", "l_lrcp.jp2", "rgb_97_nomct.j2k", "p_palette.jp2",
+    "la_offsets.jp2")]
+
+
+@st.composite
+def _j2k_files(draw):
+    """A J2K or JP2 fixture with its SIZ fields, one box header, its JP2
+    header boxes or one byte drawn, or its end cut: PIL's ``_open``
+    refuses some (``SyntaxError`` and ``struct.error``: the next plugin;
+    ``OSError``, ``ValueError``: escape), openjpeg others."""
+    data = draw(st.sampled_from(_J2K_BASES))
+    kind = draw(st.sampled_from(["siz", "box", "jp2h", "byte", "cut"]))
+    if kind == "siz":
+        at = data.index(b"\xff\x51") + draw(st.sampled_from(
+            [2, 3, 9, 13, 17, 39, 40, 41, 42]))
+        return data[:at] + bytes([draw(st.sampled_from(
+            [0, 1, 2, 5, 0x80, 0xFF]))]) + data[at + 1 :]
+    if kind == "box":
+        at = draw(st.sampled_from([0, 3, 4, 7, 12, 15, 16, 20, 32, 35, 36,
+                                   40]))
+        return data[:at] + bytes([draw(st.sampled_from(
+            [0, 1, 8, 0x14, 0x2D, 0x6A, 0xFF]))]) + data[at + 1 :]
+    if kind == "jp2h":
+        cs = _J2K_BASES[0]
+        boxes = b""
+        for _ in range(draw(st.integers(0, 3))):
+            typ = draw(st.sampled_from([b"ihdr", b"colr", b"pclr", b"res ",
+                                        b"cmap", b"xml "]))
+            if typ == b"ihdr":
+                body = struct.pack(">IIHBBBB", draw(st.sampled_from(
+                    [37, 0, 1])), draw(st.sampled_from([29, 0, 2])),
+                    draw(st.integers(0, 5)), draw(st.sampled_from(
+                        [7, 15, 0x87])), 7, 0, 0)
+            elif typ == b"colr":
+                body = struct.pack(">BBBI", draw(st.integers(0, 3)), 0, 0,
+                                   draw(st.sampled_from([12, 16, 17, 18,
+                                                         99])))
+            elif typ == b"pclr":
+                n = draw(st.integers(0, 3))
+                body = struct.pack(">HB", draw(st.integers(0, 3)), n) + \
+                    bytes([7] * n) + bytes(draw(st.integers(0, 12)))
+            else:
+                body = bytes(draw(st.integers(0, 12)))
+            boxes += struct.pack(">I4s", 8 + len(body), typ) + body
+        data = (b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"
+                + struct.pack(">I4s", 20, b"ftyp") + b"jp2 \0\0\0\0jp2 "
+                + struct.pack(">I4s", 8 + len(boxes), b"jp2h") + boxes
+                + struct.pack(">I4s", 8 + len(cs), b"jp2c") + cs)
+    return _changed(draw, data) if kind != "jp2h" or draw(
+        st.booleans()) else data
+
+
 @pytest.mark.parametrize("strategy", ["tga", "sgi", "pcx", "dcx", "built",
                                       "random", "msp", "qoi", "dds", "xbm",
-                                      "im", "dib"])
+                                      "im", "dib", "jpeg2000"])
 def test_identification_and_reads_match_pil(strategy):
     """Byte strings that start with each format's header (fields drawn
     from the values PIL tells apart), whole files of each format with a
@@ -701,13 +770,15 @@ def test_identification_and_reads_match_pil(strategy):
     PIL's takes the file, hands it on or lets its error escape, the port
     agrees (see ``_identified_as_pil``).  The MSP, QOI, DDS, XBM, IM and
     DIB strategies reach the plugins the port reads since slice 21 in
-    full, and check that they do."""
+    full, and the JPEG 2000 one JPEG 2000 (read since slice 22), and
+    check that they do."""
     strategies = {"tga": _tga_headers(), "sgi": _sgi_headers(),
                   "pcx": _pcx_headers(), "dcx": _dcx_files(),
                   "built": _built_files(), "random": st.binary(max_size=64),
                   "msp": _msp_files(), "qoi": _qoi_files(),
                   "dds": _dds_files(), "xbm": _xbm_files(),
-                  "im": _im_files(), "dib": _dib_files()}
+                  "im": _im_files(), "dib": _dib_files(),
+                  "jpeg2000": _j2k_files()}
 
     @_SETTINGS
     @given(strategies[strategy])
@@ -716,5 +787,5 @@ def test_identification_and_reads_match_pil(strategy):
 
     seen = set()
     check()
-    if strategy in ("msp", "qoi", "dds", "xbm", "im", "dib"):
+    if strategy in ("msp", "qoi", "dds", "xbm", "im", "dib", "jpeg2000"):
         assert strategy.upper() in seen, seen

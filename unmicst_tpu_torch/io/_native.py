@@ -12,15 +12,16 @@ and, in the same library, the entropy decode of a JPEG scan
 Huffman encode (``native/gifcodec.cpp``, ``native/jpegenc.cpp``) and the
 PCX, TGA and SGI run-length codings (``native/rlecodec.cpp``, for
 ``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``), the QOI coding
-(``native/qoicodec.cpp``, for ``io/qoi.py``) and Pillow's quantizers
-(``native/quant.cpp``, for ``io/quant.py``).  Every codec function
-returns None when the library is absent, and the callers then take their
-pure-Python versions: correct, only slow.  The quantizers raise instead:
-their plain versions are for the tests.
+(``native/qoicodec.cpp``, for ``io/qoi.py``), Pillow's quantizers
+(``native/quant.cpp``, for ``io/quant.py``) and JPEG 2000's tier 1 and
+inverse wavelets (``native/j2kdec.cpp``, for ``io/jpeg2000.py``).  Every
+codec function returns None when the library is absent, and the callers
+then take their pure-Python versions: correct, only slow.  The
+quantizers raise instead: their plain versions are for the tests.
 
-The library builds at first use with the host's ``g++ -O3 -shared -fPIC``
-(portable flags, no ``-march=native``: a build directory copied to an
-older CPU must not trap on an instruction) into
+The library builds at first use with the host's ``g++ -O3 -shared -fPIC
+-ffp-contract=off`` (portable flags, no ``-march=native``: a build
+directory copied to an older CPU must not trap on an instruction) into
 ``build/torch_host/<hash>/`` at the repository root, the hash covering
 the source and the flags.  The compiler writes a per-process temporary
 name that ``os.replace`` puts in place, so processes building at the same
@@ -47,9 +48,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "native", name)
                 for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp",
                              "gifcodec.cpp", "jpegenc.cpp", "rlecodec.cpp",
-                             "quant.cpp", "qoicodec.cpp"))
+                             "quant.cpp", "qoicodec.cpp", "j2kdec.cpp"))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
-CXX_FLAGS = ("-O3", "-shared", "-fPIC")
+# no FMA contraction: the 9/7 wavelet is openjpeg's float32 arithmetic op
+# for op, on every host
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 LIB_NAME = "libunmicst_tiffcodec.so"
 
 _lock = threading.Lock()
@@ -202,6 +205,14 @@ def _load(path: str) -> ctypes.CDLL:
     fn = lib.unmicst_quant_octree
     fn.restype = ll
     fn.argtypes = [vp, ll, it, it, vp, vp]  # ..., with alpha, idx, palette
+    fn = lib.unmicst_j2k_t1
+    fn.restype = ll
+    fn.argtypes = [ctypes.c_char_p, vp, ll, vp, vp]  # data, blocks, n,
+    # segments, out
+    for name in ("unmicst_j2k_idwt53", "unmicst_j2k_idwt97"):
+        fn = getattr(lib, name)
+        fn.restype = None
+        fn.argtypes = [vp, ll, vp, ll]  # plane, row stride, bounds, levels+1
     return lib
 
 
@@ -819,3 +830,37 @@ def quant_octree(px: np.ndarray, colors: int, with_alpha: bool):
     k = lib.unmicst_quant_octree(_ptr(px), len(px), colors, int(with_alpha),
                                  _ptr(idx), _ptr(pal))
     return idx, pal[:k].copy()
+
+
+def j2k_t1(data: bytes, blocks: np.ndarray, segs: np.ndarray,
+           out: np.ndarray) -> Optional[int]:
+    """JPEG 2000 tier 1 of the code-blocks ``blocks`` (int64 rows of 8)
+    from the segments ``segs`` (int64 rows of 3) of ``data`` into the
+    flat int32 ``out``, as ``io/jpeg2000.py``'s ``t1_decode_py``: 0, or
+    -1 where a block has 31 or more bit-planes; None without the
+    library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    blocks = np.ascontiguousarray(blocks, np.int64).reshape(-1, 8)
+    segs = np.ascontiguousarray(segs, np.int64).reshape(-1, 3)
+    if out.dtype != np.int32 or not out.flags["C_CONTIGUOUS"]:
+        raise ValueError("j2k_t1 needs a C-contiguous int32 output")
+    return lib.unmicst_j2k_t1(data, _ptr(blocks), len(blocks), _ptr(segs),
+                              _ptr(out))
+
+
+def j2k_idwt(plane: np.ndarray, bounds: np.ndarray) -> Optional[bool]:
+    """The inverse 5/3 (int32 ``plane``) or 9/7 (float32) wavelet of a
+    JPEG 2000 tile-component in place, as ``io/jpeg2000.py``'s
+    ``idwt53_py`` / ``idwt97_py``; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    fn = {np.dtype(np.int32): lib.unmicst_j2k_idwt53,
+          np.dtype(np.float32): lib.unmicst_j2k_idwt97}[plane.dtype]
+    if plane.ndim != 2 or not plane.flags["C_CONTIGUOUS"]:
+        raise ValueError("j2k_idwt needs a C-contiguous 2-D plane")
+    bounds = np.ascontiguousarray(bounds, np.int64).reshape(-1, 4)
+    fn(_ptr(plane), plane.shape[1], _ptr(bounds), len(bounds))
+    return True

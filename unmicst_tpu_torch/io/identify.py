@@ -15,18 +15,18 @@ other exception escapes ``Image.open``.  :func:`open_image` walks the
 same order and names the format of the first plugin to open the file,
 with the decompression-bomb check of ``Image.open``; :func:`read` reads
 a frame of the formats the port reads (``READ``: PCX, DCX, SGI, TGA,
-DIB, IM, MSP, XBM, QOI and DDS, through :mod:`pcx`, :mod:`sgi`,
-:mod:`tga`, :mod:`bmp`, :mod:`im`, :mod:`msp`, :mod:`xbm`, :mod:`qoi`
-and :mod:`dds`) and refuses the others with ``NotImplementedError``
-naming ROADMAP M17.  The plugins the port reads, the plugins that take a
-file without a magic number (IMT, IPTC, PCD, SPIDER) and those whose
-magic a TGA header can hold (CUR, ICO, MPEG, GBR, FLI, McIDAS) run their
-header checks here as PIL's do (ICO's and FLI's only so far:
-``PARTLY_CHECKED``); the others (``MAGIC_ONLY``) open any file their
-magic bytes start (the port does not check whether their ``_open`` would
-refuse it and hand it on: none of their magic numbers can start a file
-of a format the port reads, but for AVIF's, which is checked as far as
-its first two boxes).
+DIB, IM, MSP, XBM, QOI, DDS and JPEG 2000, through :mod:`pcx`,
+:mod:`sgi`, :mod:`tga`, :mod:`bmp`, :mod:`im`, :mod:`msp`, :mod:`xbm`,
+:mod:`qoi`, :mod:`dds` and :mod:`jpeg2000`) and refuses the others with
+``NotImplementedError`` naming ROADMAP M17.  The plugins the port
+reads, the plugins that take a file without a magic number (IMT, IPTC,
+PCD, SPIDER) and those whose magic a TGA header can hold (CUR, ICO,
+MPEG, GBR, FLI, McIDAS) run their header checks here as PIL's do (ICO's
+and FLI's only so far: ``PARTLY_CHECKED``); the others (``MAGIC_ONLY``)
+open any file their magic bytes start (the port does not check whether
+their ``_open`` would refuse it and hand it on: none of their magic
+numbers can start a file of a format the port reads, but for AVIF's,
+which is checked as far as its first two boxes).
 
 None where no plugin opens the file (PIL's ``UnidentifiedImageError``).
 """
@@ -42,7 +42,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 from unmicst_tpu_torch.io import _pil
-from unmicst_tpu_torch.io import bmp, dds, im, msp, pcx, qoi, sgi, tga, xbm
+from unmicst_tpu_torch.io import (bmp, dds, im, jpeg2000, msp, pcx, qoi, sgi,
+                                  tga, xbm)
 
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 _BMP_BITS = (1, 4, 8, 16, 24, 32)
@@ -422,6 +423,13 @@ def _dds(data: bytes):
     return "DDS", (hdr.width, hdr.height)
 
 
+def _jpeg2000(data: bytes):
+    if not jpeg2000.accept(data[:16]):
+        return None
+    hdr = jpeg2000.open_header(data)
+    return _opens("JPEG2000", hdr.width, hdr.height)
+
+
 def _pcx(data: bytes):
     if not pcx.accept(data[:16]):
         return None
@@ -455,8 +463,7 @@ _PLUGINS = (
     _magic("FITS", b"SIMPLE"), _fli,
     _magic("FTEX", b"FTEX"), _gbr, _grib,
     _magic("HDF5", b"\x89HDF\r\n\x1a\n"),
-    _magic("JPEG2000", b"\xff\x4f\xff\x51",
-           b"\x00\x00\x00\x0cjP  \x0d\x0a\x87\x0a"),
+    _jpeg2000,
     _magic("ICNS", b"icns"), _ico, _im, _imt, _iptc, _mcidas, _mpeg,
     _magic("TIFF", b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
            b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00"),
@@ -471,13 +478,14 @@ _READERS = {"PCX": pcx.read_frame, "DCX": pcx.read_frame,
             "SGI": sgi.read_frame, "TGA": tga.read_frame,
             "DIB": bmp.read_frame, "IM": im.read_frame,
             "MSP": msp.read_frame, "XBM": xbm.read_frame,
-            "QOI": qoi.read_frame, "DDS": dds.read_frame}
+            "QOI": qoi.read_frame, "DDS": dds.read_frame,
+            "JPEG2000": jpeg2000.read_frame}
 READ = tuple(_READERS)
 # the plugins that open any file their magic bytes start (AVIF: any with
 # its first two boxes): the port does not check whether their _open would
 # refuse it and hand it on
 MAGIC_ONLY = ("AVIF", "BLP", "BUFR", "EPS", "FITS", "FTEX", "GRIB", "HDF5",
-              "JPEG2000", "ICNS", "TIFF", "PIXAR", "PSD", "SUN", "WEBP",
+              "ICNS", "TIFF", "PIXAR", "PSD", "SUN", "WEBP",
               "WMF", "XPM", "XVTHUMB")
 # the plugins whose header checks stop short of PIL's: ICO (PIL loads the
 # first icon while it opens the file), FLI (its first chunks)

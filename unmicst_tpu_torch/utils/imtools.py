@@ -29,8 +29,10 @@ TIFFs through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
 :mod:`unmicst_tpu_torch.io.bmp`, GIFs through
 :mod:`unmicst_tpu_torch.io.gif`, Netpbm files through
 :mod:`unmicst_tpu_torch.io.pnm`, and the files PIL tells apart by trying
-its other plugins in turn (PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI
-and uncompressed DDS, through :mod:`unmicst_tpu_torch.io.identify`);
+its other plugins in turn (PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI,
+uncompressed DDS and JPEG 2000, through
+:mod:`unmicst_tpu_torch.io.identify`; JPEG 2000 J2K codestreams and JP2
+files through :mod:`unmicst_tpu_torch.io.jpeg2000`);
 :func:`imwrite` writes TIFF and every format PIL 12 saves (RGB and RGBA
 GIFs through :mod:`unmicst_tpu_torch.io.quant`) but ICO, ICNS, PDF, WebP,
 JPEG 2000 and AVIF, which raise ``NotImplementedError`` (ROADMAP M17), as
@@ -129,17 +131,22 @@ QUEUED = (".ico", ".icns", ".pdf", ".webp", ".j2c", ".j2k", ".jp2", ".jpc",
 def imread(path: str) -> np.ndarray:
     """Generic image read, as the JAX toolbox's: a ``.tif``/``.tiff``
     name goes to the TIFF reader (whose fallback opens a PNG, JPEG, BMP,
-    GIF, Netpbm, PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI or DDS file
-    under that name by content); any other file is opened by content, as
-    ``Image.open`` opens it, each as PIL's ``np.asarray`` gives it: a
-    TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI, TGA, DIB, MSP, XBM, QOI or
-    uncompressed DDS file whatever its name, a GIF, an MPO, a DCX or an
+    GIF, Netpbm, PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI, DDS or JPEG
+    2000 file under that name by content); any other file is opened by
+    content, as ``Image.open`` opens it, each as PIL's ``np.asarray``
+    gives it: a TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI, TGA, DIB, MSP,
+    XBM, QOI, uncompressed DDS or JPEG 2000 file (a J2K codestream or a
+    JP2 file: ``.jp2``, ``.j2k``, ``.jpc``, ``.jpf``, ``.jpx``, ``.j2c``
+    or any other name; ``I;16`` as uint16, a palette file's indices)
+    whatever its name, a GIF, an MPO, a DCX or an
     IM file its first frame (IM's ``I;16`` as uint16, ``F`` as float32;
     MSP's and XBM's mode ``1`` as bool), with PIL's exceptions (a JPEG
     that does not decode raises ``OSError``; a file no plugin of PIL
     opens, PFM and PAM among them, ``OSError``).  Files PIL opens as
-    other formats (WebP among them), and block-compressed DDS files,
-    raise ``NotImplementedError`` (ROADMAP M17)."""
+    other formats (WebP among them), block-compressed DDS files and the
+    JPEG 2000 files PIL's encoder cannot write (see
+    :mod:`unmicst_tpu_torch.io.jpeg2000`) raise ``NotImplementedError``
+    (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         return _tiff_read(path)
     with open(path, "rb") as f:
