@@ -299,8 +299,23 @@ printing any result):
     and ``read_channel``'s, then under a ``.tif`` name through
     ``cli.main`` against a plain TIFF twin of its pixels, pages
     byte-equal, K1 and one K2 epilogue counted; every small fixture there
-    read equal to PIL's committed read.  The ``kernels`` line gives each
-    path's launches under ``launches_slice16`` to ``launches_slice22``.
+    read equal to PIL's committed read.
+25. The raster plugins PIL decodes itself (M17, ninth part;
+    ``phase_slice23``, the same net): three 4096^2 files written from a
+    seed by ``tests/fixtures/torch_rasters/make.py``'s ``slide_files``
+    (a big-endian float32 SPIDER stack of 3, a 16-bit FITS, a gray
+    PackBits PSD with two layers), each file and each read held to the
+    sha256 ``slides.json`` records from PIL, then under a ``.tif`` name
+    through ``cli.main`` against a plain TIFF twin of the read: the
+    SPIDER stack at ``--channel 2`` (``seek(1)``, its second image, on
+    the host float path: K2's float32 epilogue), the FITS at ``--channel
+    1``, the PSD at ``--channel 2`` (``seek(1)``, the composite) and
+    ``--channel 3`` (``seek(2)``, PIL's second layer); pages byte-equal
+    to the twin's, K1 and one K2 epilogue counted on each; the PSD's
+    channel 0 refused as the JAX CLI refuses it (``IndexError``); every
+    small fixture there read as PIL's committed read or exception.  The
+    ``kernels`` line gives each path's launches under
+    ``launches_slice16`` to ``launches_slice23``.
 """
 
 from __future__ import annotations
@@ -7888,6 +7903,178 @@ def phase_slice22(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+RASTER_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_rasters")
+
+
+def raster_files():
+    """The test-side SPIDER, FITS, McIDAS, PSD, Sun raster and other
+    writers, and ``slide_files``: ``tests/fixtures/torch_rasters/
+    make.py``, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "rasters_make", os.path.join(RASTER_FIXTURES, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_slice23(dev) -> dict:
+    """The raster plugins PIL decodes itself (M17, ninth part) through
+    ``cli.main`` on the card (the legacy net at nucleiDAPI's widths,
+    seeded weights): ``slide_files``' three 4096^2 files, each file's and
+    each read's sha256 held to PIL's (``slides.json``), each read under a
+    ``.tif`` name against a plain TIFF twin of its pixels, pages
+    byte-equal, K1 and one K2 epilogue counted per path; the committed
+    small fixtures read as PIL's reads.  Returns, per kernel, its
+    launches on each counted path."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import _native, identify, slides
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice23_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name, channel):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--channel", str(channel), "--outputPath", out],
+                          device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            n = launches[name]
+            log(f"[slice23] {name}: cli.main {secs:.2f} s; K1 "
+                f"{n['softmax_blend']}, K2 epilogue "
+                f"{n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        t0 = time.perf_counter()
+        check(_native.get_lib() is not None,
+              "the native host library (rlecodec.cpp) did not build or load")
+        log(f"[slice23] native host library ready in "
+            f"{time.perf_counter() - t0:.2f} s (g++ where not built yet)")
+        mk = raster_files()
+        with open(os.path.join(RASTER_FIXTURES, "slides.json")) as f:
+            ref = json.load(f)
+        t0 = time.perf_counter()
+        files = mk.slide_files()
+        log(f"[slice23] slide_files wrote {len(files)} files in "
+            f"{time.perf_counter() - t0:.2f} s")
+        k1 = None
+        for fname, (data, seeks) in files.items():
+            kind = fname.split(".")[0]
+            digest = hashlib.sha256(data).hexdigest()
+            check(digest == ref[fname]["file_sha256"],
+                  f"{fname}: the written file differs from the one PIL read")
+            path = os.path.join(tmp, fname)
+            with open(path, "wb") as f:
+                f.write(data)
+            for k in seeks:
+                want = ref[fname][f"seek{k}"]
+                t0 = time.perf_counter()
+                px = identify.read(data, k, fname)
+                secs = time.perf_counter() - t0
+                same = (hashlib.sha256(px.tobytes()).hexdigest()
+                        == want["sha256"] and str(px.dtype) == want["dtype"]
+                        and list(px.shape) == want["shape"])
+                log(f"[slice23] {fname} ({len(data)} bytes) seek({k}): "
+                    f"{px.shape[0]}x{px.shape[1]} {px.dtype} decoded in "
+                    f"{secs:.3f} s; sha256 equal to PIL's read: {same} | "
+                    f"{card}")
+                check(same, f"{fname} seek({k}): the port's read differs "
+                      "from PIL's")
+                name = f"{kind}_seek{k}"
+                twin = os.path.join(tmp, f"{name}_plain.tif")
+                imwrite(twin, px)
+                twin_maps, twin_secs = run(twin, f"{name}_plain", 1)
+                if k1 is None:
+                    k1 = launches[f"{name}_plain"]["softmax_blend"]
+                n = launches[f"{name}_plain"]
+                check(k1 > 0 and n["softmax_blend"] == k1
+                      and n["blend_fold_epilogue"] == 1,
+                      f"the plain twin did not run K1 and one K2 epilogue: "
+                      f"{n}")
+                maps, secs = run(path, name, k + 1)
+                n = launches[name]
+                check(n["softmax_blend"] == k1
+                      and n["blend_fold_epilogue"] == 1
+                      and n["blend_fold_stripe"] == 0,
+                      f"{name} did not run K1 {k1} times and one K2 "
+                      f"epilogue: {n}")
+                same = len(maps) == len(twin_maps) == 3 and all(
+                    np.array_equal(a, b) for a, b in zip(maps, twin_maps))
+                log(f"[slice23] {name}: pages byte-equal to the twin's: "
+                    f"{same}; cli.main {secs:.2f} s against the twin's "
+                    f"{twin_secs:.2f} s | {card}")
+                check(same, f"{name}: pages differ from the plain twin's")
+                del px
+            if kind.startswith("psd"):
+                try:
+                    slides.read_channel(path, "tif", 0)
+                    refused = False
+                except IndexError:
+                    refused = True
+                log(f"[slice23] {fname} channel 0 (seek(0)) refused with "
+                    f"IndexError, as the JAX package: {refused}")
+                check(refused, f"{fname}: channel 0 was not refused")
+        del files
+
+        # -- the committed small fixtures -------------------------------------
+        reads = np.load(os.path.join(RASTER_FIXTURES, "reads.npz"))
+        with open(os.path.join(RASTER_FIXTURES, "errors.json")) as f:
+            errors = json.load(f)
+        bad, n_reads = [], 0
+        for name in sorted(mk.small_cases()):
+            with open(os.path.join(RASTER_FIXTURES, name), "rb") as f:
+                data = f.read()
+            for k in mk.SEEKS:
+                key = name if k is None else f"{name}@{k}"
+                n_reads += 1
+                try:
+                    px = identify.read(data, k, name)
+                except Exception as e:  # noqa: BLE001 -- held to PIL's class
+                    want = errors.get(key)
+                    got = type(e).__name__
+                    if want != got and not (
+                            isinstance(e, OSError) and want in (
+                                "OSError", "UnidentifiedImageError")):
+                        bad.append(key)
+                    continue
+                want = reads[key] if key in reads.files else None
+                if want is None or px.dtype != want.dtype or \
+                        not np.array_equal(px, want):
+                    bad.append(key)
+        log(f"[slice23] {n_reads} reads of the small fixtures as PIL's: "
+            f"{n_reads - len(bad)}; differing: {bad}")
+        check(not bad, f"fixture reads differ from PIL's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice23] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -7944,6 +8131,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice21"] = per_path
     for name, per_path in phase_slice22(dev).items():
         stats[name]["launches_slice22"] = per_path
+    for name, per_path in phase_slice23(dev).items():
+        stats[name]["launches_slice23"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -7957,7 +8146,7 @@ def main(argv=None) -> int:
                         "launches_slice16", "launches_slice17",
                         "launches_slice18", "launches_slice19",
                         "launches_slice20", "launches_slice21",
-                        "launches_slice22")}})
+                        "launches_slice22", "launches_slice23")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

@@ -416,9 +416,12 @@ def _identified_as_pil(data: bytes):
     the pixels fail); where PIL opens it as JPEG 2000, PIL's array or
     exception class, or ``NotImplementedError`` naming M17 (a layout
     PIL's encoder cannot write), or ``OSError`` where PIL returns pixels
-    that openjpeg concealed; a file PIL opens as a format the port does
-    not read raises ``NotImplementedError`` naming M17; a file PIL does
-    not open
+    that openjpeg concealed; where PIL opens it as one of the raster
+    formats PIL decodes itself (SPIDER, FITS, McIDAS, PSD, Sun raster,
+    PIXAR, XV thumbnail, XPM, IMT, GBR, IPTC, PhotoCD) or as a stub it
+    cannot load (BUFR, GRIB, HDF5, WMF, MPEG), PIL's array or exception
+    class; a file PIL opens as a format the port does not read raises
+    ``NotImplementedError`` naming M17; a file PIL does not open
     is not read: through the plugin order, the same exception class, or
     ``NotImplementedError`` where a plugin the port does not check in
     full (``identify.MAGIC_ONLY``, ``PARTLY_CHECKED``) would refuse it;
@@ -431,10 +434,12 @@ def _identified_as_pil(data: bytes):
     with open(path, "wb") as f:
         f.write(data)
     fmt, want = _pil_outcome(path)
+    fmt = {"XVThumb": "XVTHUMB"}.get(fmt, fmt)  # Image.ID's key
     got = _outcome(lambda: T.imread(path))
     # the readers the port picks by magic bytes, before the plugin order
     by_magic = data.startswith(tuple(head for head, _ in T._BY_CONTENT))
-    compare = fmt in identify.READ or (fmt is None and not by_magic)
+    compare = fmt in identify.READ or fmt in identify.NO_LOADER or (
+        fmt is None and not by_magic)
     if fmt == "DDS" and dds.open_header(data).codec == "bcn":
         # block-compressed DDS: PIL decodes it, the port queues it (M17)
         # but where the data runs out first, as PIL's decoder does
@@ -453,7 +458,7 @@ def _identified_as_pil(data: bytes):
             assert got == want or (got == "OSError" and isinstance(
                 want, tuple)), (fmt, got, want)
         compare = got == want
-    elif fmt in identify.READ:
+    elif fmt in identify.READ or fmt in identify.NO_LOADER:
         assert got == want, (fmt, got, want)
     elif fmt is None:
         assert not isinstance(got, tuple), (got, want)
@@ -706,6 +711,80 @@ def _dib_files(draw):
     return head + draw(_BODY)
 
 
+_RASTERS = importlib.util.spec_from_file_location(
+    "rasters_make", os.path.join(REPO, "tests", "fixtures", "torch_rasters",
+                                 "make.py"))
+rk = importlib.util.module_from_spec(_RASTERS)
+_RASTERS.loader.exec_module(rk)
+
+
+@st.composite
+def _raster_files(draw, kind):
+    """A SPIDER, FITS, PSD, Sun raster or XPM file from the slice-23
+    writers (``tests/fixtures/torch_rasters/make.py``), one header field
+    drawn from the values PIL tells apart, then a byte changed or the end
+    cut."""
+    h, w = draw(st.integers(1, 5)), draw(st.integers(1, 6))
+    x = (np.arange(h * w, dtype=np.uint8).reshape(h, w) * 29)
+    if kind == "spider":
+        order = draw(st.sampled_from([">", "<"]))
+        n = draw(st.integers(1, 3))
+        data = rk.spider([x.astype(np.float32)] * n, order,
+                         stack=n > 1 or draw(st.booleans()))
+        word = draw(st.sampled_from([5, 24, 27, 13, 22]))
+        head = rk.spider_header(h, w, order, **{f"w{word}": draw(
+            st.sampled_from([1, 0, 2, -11, 3]))})
+        if draw(st.booleans()):
+            data = head + data[len(head) :]
+    elif kind == "fits":
+        data = rk.fits(x, draw(st.sampled_from([8, 16, 32, -32, -64])),
+                       draw(st.booleans())) if draw(st.booleans()) else \
+            rk.fits_gzip(x, draw(st.sampled_from([8, 16, 32])))
+        at = draw(st.sampled_from([0, 10, 89, 169, 249]))
+        data = data[:at] + draw(st.sampled_from([b"S", b"X", b"1", b"E"])) + \
+            data[at + 1 :]
+    elif kind == "psd":
+        mode = draw(st.sampled_from([1, 3, 4, 9, 2, 6]))
+        n = {1: 1, 3: 3, 4: 4, 9: 3, 2: 1, 6: 1}[mode]
+        data = rk.psd([x] * n, mode, 8, draw(st.sampled_from([0, 1])),
+                      layers=[(0, 0, draw(st.sampled_from([[0], [0, 1, 2]])),
+                               [x[:2, :2]] * 3, b"a")][: draw(
+                                   st.integers(0, 1))])
+    elif kind == "sun":
+        depth = draw(st.sampled_from([1, 4, 8, 24, 32, 16]))
+        rows = np.repeat(x, 4, 1)[:, : (w * depth + 7) // 8]
+        data = rk.sun(rows, w, depth, draw(st.sampled_from([1, 2, 3, 7])),
+                      draw(st.sampled_from([b"", bytes(6), bytes(2000)])))
+    else:
+        cols = ["#%06x" % (k * 99991) for k in range(3)]
+        if draw(st.booleans()):
+            cols[1] = draw(st.sampled_from(["None", "blue"]))
+        data = rk.xpm(x % 3, cols, cpp=draw(st.sampled_from([1, 2])))
+    return _changed(draw, data)
+
+
+@st.composite
+def _metafile_and_stub_files(draw):
+    """A placeable WMF or an EMF header with its fields drawn, or the head
+    of a BUFR, GRIB, HDF5 or MPEG file, each with a drawn body."""
+    kind = draw(st.sampled_from(["wmf", "emf", "stub"]))
+    if kind == "wmf":
+        s = b"\xd7\xcd\xc6\x9a\0\0" + struct.pack(
+            "<hhhhH", 0, 0, draw(st.sampled_from([100, 0, -5])), 50,
+            draw(st.sampled_from([72, 0, 96]))) + bytes(6) + draw(
+                st.sampled_from([b"\x01\x00\t\x00", b"\x01\x00\x00\x00"]))
+    elif kind == "emf":
+        s = b"\x01\0\0\0" + bytes(4) + struct.pack(
+            "<8i", 0, 0, draw(st.sampled_from([10, 0])), 12, 0, 0,
+            draw(st.sampled_from([100, 0])), 90) + draw(
+                st.sampled_from([b" EMF", b"EMF "]))
+    else:
+        s = draw(st.sampled_from([b"BUFR", b"ZCZC", b"GRIB\0\0\0\x01",
+                                  b"GRIB\0\0\0\x00", b"\x89HDF\r\n\x1a\n",
+                                  b"\0\0\1\xb3\x01\x00\x10"]))
+    return _changed(draw, s + draw(st.binary(max_size=40)))
+
+
 _J2K = os.path.join(REPO, "tests", "fixtures", "torch_j2k")
 _J2K_BASES = [open(os.path.join(_J2K, f), "rb").read() for f in (
     "l_rlcp_layers.j2k", "l_lrcp.jp2", "rgb_97_nomct.j2k", "p_palette.jp2",
@@ -762,7 +841,9 @@ def _j2k_files(draw):
 
 @pytest.mark.parametrize("strategy", ["tga", "sgi", "pcx", "dcx", "built",
                                       "random", "msp", "qoi", "dds", "xbm",
-                                      "im", "dib", "jpeg2000"])
+                                      "im", "dib", "jpeg2000", "spider",
+                                      "fits", "psd", "sun", "xpm",
+                                      "metafiles"])
 def test_identification_and_reads_match_pil(strategy):
     """Byte strings that start with each format's header (fields drawn
     from the values PIL tells apart), whole files of each format with a
@@ -770,15 +851,19 @@ def test_identification_and_reads_match_pil(strategy):
     PIL's takes the file, hands it on or lets its error escape, the port
     agrees (see ``_identified_as_pil``).  The MSP, QOI, DDS, XBM, IM and
     DIB strategies reach the plugins the port reads since slice 21 in
-    full, and the JPEG 2000 one JPEG 2000 (read since slice 22), and
-    check that they do."""
+    full, the JPEG 2000 one JPEG 2000, the SPIDER, FITS, PSD, Sun raster
+    and XPM ones those formats and the metafile one WMF and the stubs
+    (read, or refused as PIL refuses them), and check that they do."""
     strategies = {"tga": _tga_headers(), "sgi": _sgi_headers(),
                   "pcx": _pcx_headers(), "dcx": _dcx_files(),
                   "built": _built_files(), "random": st.binary(max_size=64),
                   "msp": _msp_files(), "qoi": _qoi_files(),
                   "dds": _dds_files(), "xbm": _xbm_files(),
                   "im": _im_files(), "dib": _dib_files(),
-                  "jpeg2000": _j2k_files()}
+                  "jpeg2000": _j2k_files(),
+                  "metafiles": _metafile_and_stub_files(),
+                  **{k: _raster_files(k) for k in ("spider", "fits", "psd",
+                                                   "sun", "xpm")}}
 
     @_SETTINGS
     @given(strategies[strategy])
@@ -787,5 +872,8 @@ def test_identification_and_reads_match_pil(strategy):
 
     seen = set()
     check()
-    if strategy in ("msp", "qoi", "dds", "xbm", "im", "dib", "jpeg2000"):
+    if strategy in ("msp", "qoi", "dds", "xbm", "im", "dib", "jpeg2000",
+                    "spider", "fits", "psd", "sun", "xpm"):
         assert strategy.upper() in seen, seen
+    if strategy == "metafiles":
+        assert {"WMF", "BUFR", "GRIB", "HDF5", "MPEG"} <= seen, seen

@@ -10,8 +10,9 @@ and, in the same library, the entropy decode of a JPEG scan
 (``native/jpegdec.cpp``, for ``io/jpeg.py``), the PNG row filters' undo
 (``native/pngfilter.cpp``, for ``io/png.py``), GIF's LZW and the JPEG
 Huffman encode (``native/gifcodec.cpp``, ``native/jpegenc.cpp``) and the
-PCX, TGA and SGI run-length codings (``native/rlecodec.cpp``, for
-``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``), the QOI coding
+PCX, TGA, SGI, PSD (PackBits) and Sun raster run-length codings
+(``native/rlecodec.cpp``, for ``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``,
+``io/psd.py``, ``io/sun.py``), the QOI coding
 (``native/qoicodec.cpp``, for ``io/qoi.py``), Pillow's quantizers
 (``native/quant.cpp``, for ``io/quant.py``) and JPEG 2000's tier 1 and
 inverse wavelets (``native/j2kdec.cpp``, for ``io/jpeg2000.py``).  Every
@@ -188,6 +189,11 @@ def _load(path: str) -> ctypes.CDLL:
     fn.restype = ll
     # file, len, out, ysize, zsize, xsize, bytes a sample
     fn.argtypes = [ctypes.c_char_p, ll, vp, ll, ll, ll, it]
+    for name in ("unmicst_packbits_rows", "unmicst_sun_rle_rows"):
+        fn = getattr(lib, name)
+        fn.restype = ll
+        # src, len, pos, out, rows, row bytes, state[2]
+        fn.argtypes = [ctypes.c_char_p, ll, ll, vp, ll, ll, vp]
     fn = lib.unmicst_pcx_rle_encode
     fn.restype = ll
     fn.argtypes = [vp, ll, ll, it, vp, ll]  # rows, h, row bytes, planes,
@@ -733,6 +739,38 @@ def sgi_rle_decode(data: bytes, out: np.ndarray, bpc: int) -> Optional[int]:
     return lib.unmicst_sgi_rle_decode(data, len(data), _ptr(out),
                                       out.shape[0], out.shape[1],
                                       out.shape[2] // bpc, bpc)
+
+
+def _rows_state(fn_name: str, data: bytes, pos: int, out: np.ndarray):
+    _rows_view(out, fn_name)
+    if out.ndim != 2 or pos < 0:
+        raise ValueError(f"{fn_name}: [rows, row_bytes] and an offset of 0 "
+                         "or more")
+    lib = get_lib()
+    if lib is None:
+        return None
+    state = np.zeros(2, np.int64)
+    rc = getattr(lib, f"unmicst_{fn_name}")(data, len(data), pos, _ptr(out),
+                                           out.shape[0], out.shape[1],
+                                           _ptr(state))
+    return int(rc), int(state[0]), int(state[1])
+
+
+def packbits_rows(data: bytes, pos: int, out: np.ndarray):
+    """PSD's PackBits from ``data[pos]`` into ``out`` (``[rows,
+    row_bytes]``), as ``io/psd.py``'s ``packbits_rows_py``: ``(code, rows
+    stored, position of the first byte not consumed)``, or None without
+    the library."""
+    return _rows_state("packbits_rows", data, pos, out)
+
+
+def sun_rle_rows(data: bytes, pos: int, out: np.ndarray):
+    """Sun raster's RLE from ``data[pos]`` into ``out`` (``[rows,
+    row_bytes]``), as ``io/sun.py``'s ``rle_decode_py``: ``(code,
+    position of the first byte not consumed)``, or None without the
+    library."""
+    got = _rows_state("sun_rle_rows", data, pos, out)
+    return None if got is None else (got[0], got[2])
 
 
 def pcx_rle_encode(rows: np.ndarray, planes: int) -> Optional[bytes]:

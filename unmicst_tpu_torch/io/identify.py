@@ -15,35 +15,35 @@ other exception escapes ``Image.open``.  :func:`open_image` walks the
 same order and names the format of the first plugin to open the file,
 with the decompression-bomb check of ``Image.open``; :func:`read` reads
 a frame of the formats the port reads (``READ``: PCX, DCX, SGI, TGA,
-DIB, IM, MSP, XBM, QOI, DDS and JPEG 2000, through :mod:`pcx`,
-:mod:`sgi`, :mod:`tga`, :mod:`bmp`, :mod:`im`, :mod:`msp`, :mod:`xbm`,
-:mod:`qoi`, :mod:`dds` and :mod:`jpeg2000`) and refuses the others with
-``NotImplementedError`` naming ROADMAP M17.  The plugins the port
-reads, the plugins that take a file without a magic number (IMT, IPTC,
-PCD, SPIDER) and those whose magic a TGA header can hold (CUR, ICO,
-MPEG, GBR, FLI, McIDAS) run their header checks here as PIL's do (ICO's
-and FLI's only so far: ``PARTLY_CHECKED``); the others (``MAGIC_ONLY``)
-open any file their magic bytes start (the port does not check whether
-their ``_open`` would refuse it and hand it on: none of their magic
-numbers can start a file of a format the port reads, but for AVIF's,
-which is checked as far as its first two boxes).
+DIB, IM, MSP, XBM, QOI, DDS and JPEG 2000, and SPIDER, FITS, McIDAS,
+PSD, Sun raster, PIXAR, XV thumbnails, XPM, IMT, GBR, IPTC and PhotoCD,
+each through its module of this package), raises PIL's ``OSError`` for
+the plugins that open a file and cannot load it (``NO_LOADER``: the
+BUFR, GRIB, HDF5 and WMF stubs, MPEG) and refuses the others with
+``NotImplementedError`` naming ROADMAP M17.  Every plugin runs its
+header checks here as PIL's ``_open`` does but ICO's and FLI's
+(``PARTLY_CHECKED``) and those of ``MAGIC_ONLY``, which open any file
+their magic bytes start (the port does not check whether their
+``_open`` would refuse it and hand it on: none of their magic numbers
+can start a file of a format the port reads, but for AVIF's, which is
+checked as far as its first two boxes).
 
 None where no plugin opens the file (PIL's ``UnidentifiedImageError``).
 """
 
 from __future__ import annotations
 
-import io
 import math
-import re
 import struct
 from typing import Optional, Tuple
 
 import numpy as np
 
 from unmicst_tpu_torch.io import _pil
-from unmicst_tpu_torch.io import (bmp, dds, im, jpeg2000, msp, pcx, qoi, sgi,
-                                  tga, xbm)
+from unmicst_tpu_torch.io import (bmp, dds, fits, gbr, im, imt, iptc,
+                                  jpeg2000, mcidas, msp, pcd, pcx, pixar, psd,
+                                  qoi, sgi, spider, sun, tga, xbm, xpm,
+                                  xvthumb)
 
 _DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
 _BMP_BITS = (1, 4, 8, 16, 24, 32)
@@ -56,8 +56,6 @@ _BMP_MASKS = {
     24: [(0xFF0000, 0xFF00, 0xFF)],
     16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)],
 }
-_IMT_FIELD = re.compile(rb"([a-z]*) ([^ \r\n]*)")
-_SPIDER_IFORMS = (1, 3, -11, -12, -21, -22)
 
 
 def _bitmap(data: bytes, at: int) -> Tuple[int, int]:
@@ -164,18 +162,9 @@ def _mpeg(data: bytes):
 
 
 def _gbr(data: bytes):
-    if len(data) < 8 or _pil.u32be(data) < 20 or \
-            _pil.u32be(data, 4) not in (1, 2):
+    if not gbr.accept(data[:16]):
         return None
-    size, version, w, h, depth = (_pil.u32be(data[k : k + 4])
-                                  for k in range(0, 20, 4))
-    if w == 0 or h == 0 or depth not in (1, 4):
-        return None
-    if version == 2:
-        if data[20:24] != b"GIMP":
-            return None
-        _pil.u32be(data[24:28])
-    _pil.bomb_check(w, h)
+    w, h, _, _ = gbr.open_header(data)
     return _opens("GBR", w, h)
 
 
@@ -191,12 +180,10 @@ def _fli(data: bytes):
 
 
 def _mcidas(data: bytes):
-    if not data.startswith(b"\0\0\0\0\0\0\0\x04") or len(data) < 256:
+    if not mcidas.accept(data[:16]):
         return None
-    w = struct.unpack("!64i", data[:256])
-    if w[10] not in (1, 2, 4):
-        return None
-    return _opens("MCIDAS", w[9], w[8])
+    _, _, (w, h), _, _ = mcidas.open_header(data)
+    return _opens("MCIDAS", w, h)
 
 
 def _im(data: bytes):
@@ -206,147 +193,89 @@ def _im(data: bytes):
 
 
 def _imt(data: bytes):
-    """``ImtImageFile._open``: ``key value`` lines up to a form feed,
-    ``pixel n8`` and a size above zero."""
-    fp = io.BytesIO(data)
-    buffer = fp.read(100)
-    if b"\n" not in buffer:
-        return None
-    w = h = 0
-    mode = ""
-    while True:
-        if buffer:
-            s, buffer = buffer[:1], buffer[1:]
-        else:
-            s = fp.read(1)
-        if not s or s == b"\x0c":
-            break
-        if b"\n" not in buffer:
-            buffer += fp.read(100)
-        lines = buffer.split(b"\n")
-        s += lines.pop(0)
-        buffer = b"\n".join(lines)
-        if len(s) == 1 or len(s) > 100:
-            break
-        if s[0] == ord(b"*"):
-            continue
-        m = _IMT_FIELD.match(s)
-        if not m:
-            break
-        k, v = m.group(1, 2)
-        if k == b"width":
-            w = int(v)
-        elif k == b"height":
-            h = int(v)
-        elif k == b"pixel" and v == b"n8":
-            mode = "L"
-    return _opens("IMT", w, h) if mode else None
+    w, h, _, _ = imt.open_header(data)
+    return "IMT", (w, h)
 
 
 def _iptc(data: bytes):
-    """``IptcImageFile._open``: its fields up to the image data."""
-    fp = io.BytesIO(data)
-    info = {}
-    while True:
-        s = fp.read(5)
-        if not s.strip(b"\x00"):
-            tag = None
-            break
-        tag = s[1], s[2]
-        if s[0] != 0x1C or tag[0] not in (1, 2, 3, 4, 5, 6, 7, 8, 9, 240):
-            return None
-        size = s[3]
-        if size > 132:
-            raise OSError("illegal field length in IPTC/NAA file")
-        if size == 128:
-            size = 0
-        elif size > 128:
-            size = _pil.u32be((b"\0\0\0\0" + fp.read(size - 128))[-4:])
-        else:
-            size = _pil.u16be(s, 3)
-        if tag == (8, 10):
-            break
-        data_ = fp.read(size) if size else None
-        if tag in info:
-            old = info[tag]
-            info[tag] = old + [data_] if isinstance(old, list) else [old,
-                                                                     data_]
-        else:
-            info[tag] = data_
-    layers, component = info[(3, 60)][0], info[(3, 60)][1]
-    mode = ""
-    if layers == 1 and not component:
-        mode = "L"
-    else:
-        if layers == 3 and component:
-            mode = "RGB"
-        elif layers == 4 and component:
-            mode = "CMYK"
-        if (3, 65) in info:
-            info[(3, 65)][0] - 1  # noqa: B018 -- PIL's band
-
-    def getint(key):
-        return _pil.u32be((b"\0\0\0\0" + info[key])[-4:])
-
-    w, h = getint((3, 20)), getint((3, 30))
-    try:
-        if getint((3, 120)) not in (1, 5):
-            raise KeyError
-    except KeyError:
-        raise OSError("Unknown IPTC image compression") from None
-    return _opens("IPTC", w, h) if mode else None
+    hdr = iptc.open_header(data)
+    return "IPTC", (hdr.width, hdr.height)
 
 
 def _pcd(data: bytes):
-    s = data[2048 : 2048 + 1539]
-    if not s.startswith(b"PCD_"):
-        return None
-    s[1538]  # noqa: B018 -- PIL reads the orientation byte
-    return _opens("PCD", 768, 512)
+    pcd.open_header(data)
+    return "PCD", (768, 512)
 
 
 def _spider(data: bytes):
-    f = data[:108]
-    for order in (">27f", "<27f"):
-        try:
-            t = struct.unpack(order, f)
-        except struct.error:
-            return None
-        hdrlen = _spider_header(t)
-        if hdrlen:
-            break
+    hdr = spider.open_header(data)
+    return _opens("SPIDER", hdr.width, hdr.height)
+
+
+def _fits(data: bytes):
+    if not data.startswith(b"SIMPLE"):
+        return None
+    hdr = fits.open_header(data)
+    return "FITS", (hdr.width, hdr.height)
+
+
+def _pixar(data: bytes):
+    if not data.startswith(pixar.MAGIC):
+        return None
+    return "PIXAR", pixar.open_header(data)
+
+
+def _psd(data: bytes):
+    if not psd.accept(data[:16]):
+        return None
+    hdr = psd.open_header(data)
+    return _opens("PSD", hdr.width, hdr.height)
+
+
+def _xpm(data: bytes):
+    if not data.startswith(b"/* XPM */"):
+        return None
+    hdr = xpm.open_header(data)
+    return "XPM", (hdr.width, hdr.height)
+
+
+def _xvthumb(data: bytes):
+    if not data.startswith(xvthumb.MAGIC):
+        return None
+    w, h, _ = xvthumb.open_header(data)
+    return "XVTHUMB", (w, h)
+
+
+def _stub(name: str, accept):
+    """A plugin of PIL's that opens any file ``accept`` takes at 1 x 1
+    and has no loader (BUFR, GRIB, HDF5)."""
+    def plugin(data: bytes):
+        return (name, (1, 1)) if accept(data[:16]) else None
+    return plugin
+
+
+def _wmf(data: bytes):
+    """``WmfStubImageFile._open``: a placeable metafile (its bounding box
+    at 72 dots an inch) or an enhanced one (``" EMF"`` at 40)."""
+    if not data.startswith((b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00")):
+        return None
+    s = data[:44]
+    if s.startswith(b"\xd7\xcd\xc6\x9a\x00\x00"):
+        inch = _pil.u16le(s, 14)
+        if inch == 0:
+            raise ValueError("Invalid inch")
+        x0, y0, x1, y1 = struct.unpack_from("<4h", s, 6)
+        size = ((x1 - x0) * 72 // inch, (y1 - y0) * 72 // inch)
+        if s[22:26] != b"\x01\x00\t\x00":
+            raise SyntaxError("Unsupported WMF file format")
+    elif s.startswith(b"\x01\x00\x00\x00") and s[40:44] == b" EMF":
+        x0, y0, x1, y1, f0, f1, f2, f3 = struct.unpack_from("<8i", s, 8)
+        size = (x1 - x0, y1 - y0)
+        2540.0 * (x1 - x0) / (f2 - f0)  # noqa: B018 -- PIL's dpi
+        2540.0 * (y1 - y0) / (f3 - f1)  # noqa: B018
     else:
-        return None
-    h = (99,) + t
-    if int(h[5]) != 1:
-        return None
-    stack, number = int(h[24]), int(h[27])  # NaN: ValueError, as PIL's
-    if stack > 0 and number == 0:
-        int(h[26])
-    elif stack == 0 and number > 0:  # PIL reads a stack offset it lacks
-        raise AttributeError("'SpiderImageFile' object has no attribute "
-                             "'stkoffset'")
-    elif not (stack == 0 and number == 0):
-        return None
-    return _opens("SPIDER", int(h[12]), int(h[2]))
-
-
-def _spider_header(t) -> int:
-    h = (99,) + t
-    for i in (1, 2, 5, 12, 13, 22, 23):
-        if not _is_int(h[i]):
-            return 0
-    if int(h[5]) not in _SPIDER_IFORMS:
-        return 0
-    labrec, labbyt, lenbyt = int(h[13]), int(h[22]), int(h[23])
-    return labbyt if labbyt == labrec * lenbyt else 0
-
-
-def _is_int(f) -> bool:
-    try:
-        return f - int(f) == 0
-    except (ValueError, OverflowError):
-        return False
+        raise SyntaxError("Unsupported file format")
+    return _opens("WMF", *size)
 
 
 def _magic(name: str, *heads: bytes):
@@ -377,15 +306,10 @@ def _eps(data: bytes):
 
 
 def _sun(data: bytes):
-    if len(data) >= 4 and _pil.u32be(data) == 0x59A66A95:
-        return "SUN", None
-    return None
-
-
-def _grib(data: bytes):
-    if len(data) >= 8 and data.startswith(b"GRIB") and data[7] == 1:
-        return "GRIB", None
-    return None
+    if not sun.accept(data[:16]):
+        return None
+    hdr = sun.open_header(data)
+    return _opens("SUN", hdr.width, hdr.height)
 
 
 def _webp(data: bytes):
@@ -459,34 +383,57 @@ def _tga(data: bytes):
 # Image.ID after BMP, GIF, JPEG, PPM and PNG, in this installation's order
 _PLUGINS = (
     _dib, _avif, _magic("BLP", b"BLP1", b"BLP2"),
-    _magic("BUFR", b"BUFR", b"ZCZC"), _cur, _pcx, _dcx, _dds, _eps,
-    _magic("FITS", b"SIMPLE"), _fli,
-    _magic("FTEX", b"FTEX"), _gbr, _grib,
-    _magic("HDF5", b"\x89HDF\r\n\x1a\n"),
+    _stub("BUFR", lambda p: p.startswith((b"BUFR", b"ZCZC"))), _cur, _pcx,
+    _dcx, _dds, _eps, _fits, _fli,
+    _magic("FTEX", b"FTEX"), _gbr,
+    _stub("GRIB", lambda p: p.startswith(b"GRIB") and p[7] == 1),
+    _stub("HDF5", lambda p: p.startswith(b"\x89HDF\r\n\x1a\n")),
     _jpeg2000,
     _magic("ICNS", b"icns"), _ico, _im, _imt, _iptc, _mcidas, _mpeg,
     _magic("TIFF", b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
            b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00"),
-    _msp, _pcd,
-    _magic("PIXAR", b"\200\350\000\000"), _magic("PSD", b"8BPS"),
-    _qoi, _sgi, _spider, _sun, _tga, _webp,
-    _magic("WMF", b"\xd7\xcd\xc6\x9a\x00\x00", b"\x01\x00\x00\x00"), _xbm,
-    _magic("XPM", b"/* XPM */"), _magic("XVTHUMB", b"P7 332"),
+    _msp, _pcd, _pixar, _psd, _qoi, _sgi, _spider, _sun, _tga, _webp, _wmf,
+    _xbm, _xpm, _xvthumb,
 )
-# the formats the port reads, by their readers of frame k
+
+
+def _no_loader(name: str, message: str):
+    """The reader of a plugin that opens a file and cannot load it:
+    ``np.asarray`` raises PIL's ``OSError``, ``seek`` past frame 0
+    ``EOFError``."""
+    def read(data: bytes, index):
+        if index:
+            raise EOFError("no more images in file")
+        raise OSError(message)
+    return read
+
+
+# the formats the port reads, by their readers of frame k (None: no seek)
 _READERS = {"PCX": pcx.read_frame, "DCX": pcx.read_frame,
             "SGI": sgi.read_frame, "TGA": tga.read_frame,
             "DIB": bmp.read_frame, "IM": im.read_frame,
             "MSP": msp.read_frame, "XBM": xbm.read_frame,
             "QOI": qoi.read_frame, "DDS": dds.read_frame,
-            "JPEG2000": jpeg2000.read_frame}
+            "JPEG2000": jpeg2000.read_frame,
+            "SPIDER": spider.read_frame, "FITS": fits.read_frame,
+            "MCIDAS": mcidas.read_frame, "PSD": psd.read_frame,
+            "SUN": sun.read_frame, "PIXAR": pixar.read_frame,
+            "XVTHUMB": xvthumb.read_frame, "XPM": xpm.read_frame,
+            "IMT": imt.read_frame, "GBR": gbr.read_frame,
+            "IPTC": iptc.read_frame, "PCD": pcd.read_frame}
 READ = tuple(_READERS)
+# the readers that tell no seek from seek(0): the others get 0 for None
+_SEEKS = ("SPIDER", "PSD")
+# the plugins that open a file they cannot load: np.asarray raises PIL's
+# OSError (WMF's loader is Windows-only)
+NO_LOADER = {name: _no_loader(name, f"cannot find loader for this {name} "
+                              "file") for name in ("BUFR", "GRIB", "HDF5",
+                                                   "WMF")}
+NO_LOADER["MPEG"] = _no_loader("MPEG", "cannot load this image")
 # the plugins that open any file their magic bytes start (AVIF: any with
 # its first two boxes): the port does not check whether their _open would
 # refuse it and hand it on
-MAGIC_ONLY = ("AVIF", "BLP", "BUFR", "EPS", "FITS", "FTEX", "GRIB", "HDF5",
-              "ICNS", "TIFF", "PIXAR", "PSD", "SUN", "WEBP",
-              "WMF", "XPM", "XVTHUMB")
+MAGIC_ONLY = ("AVIF", "BLP", "EPS", "FTEX", "ICNS", "TIFF", "WEBP")
 # the plugins whose header checks stop short of PIL's: ICO (PIL loads the
 # first icon while it opens the file), FLI (its first chunks)
 PARTLY_CHECKED = ("ICO", "FLI")
@@ -511,17 +458,25 @@ def open_image(data: bytes) -> Optional[str]:
     return None
 
 
-def read(data: bytes, index: int, what: str) -> Optional[np.ndarray]:
+def read(data: bytes, index: Optional[int], what: str
+         ) -> Optional[np.ndarray]:
     """Frame ``index`` of the file ``data`` as ``Image.open``, ``seek``
     and ``np.asarray`` give it for a format in ``READ`` (PIL's exceptions,
-    ``EOFError`` past the last frame); ``NotImplementedError`` naming
-    ROADMAP M17 (with ``what``, the file's name) for a format PIL opens
-    and the port does not read; None where no plugin opens the file."""
+    ``EOFError`` past the last frame; ``index`` None: no seek, which only
+    SPIDER and PSD tell from ``seek(0)``); PIL's ``OSError`` for a format
+    PIL opens and cannot load (``NO_LOADER``); ``NotImplementedError``
+    naming ROADMAP M17 (with ``what``, the file's name) for a format PIL
+    opens and the port does not read; None where no plugin opens the
+    file."""
     name = open_image(data)
     if name is None:
         return None
+    if name in NO_LOADER:
+        return NO_LOADER[name](data, index)
     if name not in READ:
         raise NotImplementedError(
             f"{what}: PIL opens this file as {name}, which unmicst_tpu_torch "
             "does not read (ROADMAP M17)")
+    if index is None and name not in _SEEKS:
+        index = 0
     return _READERS[name](data, index)

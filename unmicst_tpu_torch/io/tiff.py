@@ -1519,9 +1519,9 @@ def _single_frame(path: str, index: int, magic: bytes) -> np.ndarray:
 def _by_plugin_order(path: str, index: int, magic: bytes,
                      cause: Exception) -> np.ndarray:
     """A file no magic bytes above take, as ``Image.open`` tries its other
-    plugins (:mod:`identify`): frame ``index`` of a PCX, DCX, SGI, TGA,
-    DIB, IM, MSP, XBM, QOI, DDS or JPEG 2000 file (PIL's exceptions pass,
-    ``EOFError`` past the last frame),
+    plugins (:mod:`identify`): frame ``index`` of a format in
+    ``identify.READ`` (PIL's exceptions pass, ``EOFError`` past the last
+    frame), PIL's ``OSError`` for a stub PIL opens and cannot load,
     ``NotImplementedError`` naming ROADMAP M17 for a format PIL opens and
     the port does not read; where no plugin opens it, ``cause`` again
     (:class:`FallbackError` for a file that starts with "P": PFM, PAM)."""
@@ -1571,8 +1571,11 @@ def read_page_fallback(path: str, index: int, cause: Exception
     frame ``index`` (:func:`_single_frame`); any other file goes through
     PIL's other plugins in their order (:func:`_by_plugin_order`): a PCX,
     SGI, TGA, DIB, MSP, XBM, QOI, DDS or JPEG 2000 file (a J2K codestream
-    or a JP2 file, :mod:`jpeg2000`) gives its one frame, a DCX or IM file
-    its frame ``index``.
+    or a JP2 file, :mod:`jpeg2000`), a FITS, McIDAS, Sun raster, PIXAR, XV
+    thumbnail, XPM, IMT, GBR, IPTC or PhotoCD file gives its one frame, a
+    DCX or IM file its frame ``index``, a SPIDER stack its image
+    ``index`` and a PSD PIL's ``seek(index)`` (1 the composite; see
+    :mod:`psd`).
     A TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no
     OME mapping applies.  It reads JPEG pages, gray or colour
     (:func:`_jpeg_page`), old-style JPEG pages (:func:`_ojpeg_page`),

@@ -1,9 +1,11 @@
-// The run-length codings of PCX, TGA and SGI files, for unmicst_tpu_torch/
-// io/pcx.py, io/tga.py and io/sgi.py: the decodes as Pillow's PcxDecode.c,
-// TgaRleDecode.c and SgiRleDecode.c run them under ImageFile.load, and the
-// encode of PcxEncode.c.  The modules' rle_decode_py and rle_encode_py are
-// the same algorithms in Python: the two give the same bytes and fail on
-// the same inputs.
+// The run-length codings of PCX, TGA, SGI, PSD and Sun raster files, for
+// unmicst_tpu_torch/io/pcx.py, io/tga.py, io/sgi.py, io/psd.py and
+// io/sun.py: the decodes as Pillow's PcxDecode.c, TgaRleDecode.c,
+// SgiRleDecode.c, PackDecode.c and SunRleDecode.c run them under
+// ImageFile.load, and the encode of PcxEncode.c.  The modules'
+// rle_decode_py, rle_encode_py and packbits_rows_py are the same
+// algorithms in Python: the two give the same bytes and fail on the same
+// inputs.
 //
 // Build: with tiffcodec.cpp into one library by unmicst_tpu_torch/io/
 //        _native.py (g++ -O3 -shared -fPIC, portable flags).
@@ -246,6 +248,88 @@ long long unmicst_pcx_rle_encode(const uint8_t* rows, long long h,
     }
   }
   return o;
+}
+
+// PackBits as PSD channels hold it: decode from src[pos] into out, rows
+// rows of row bytes.  A byte n below 0x80 copies the next n + 1 bytes,
+// 0x80 does nothing, any other byte repeats the next 257 - n times; the
+// bytes of a copy or run past the row's end are dropped, and the row ends
+// there.  Returns kOk once the last row is full, kTruncated where the data
+// end first; state[0] is the rows written, state[1] the position of the
+// first byte not consumed.
+long long unmicst_packbits_rows(const uint8_t* src, long long len,
+                                long long pos, uint8_t* out, long long rows,
+                                long long row, long long* state) {
+  long long x = 0, y = 0, rc;
+  uint8_t* line = out;
+  for (;;) {
+    if (pos >= len) { rc = kTruncated; break; }
+    const uint8_t c = src[pos];
+    long long n;
+    if (c & 0x80) {
+      if (c == 0x80) { ++pos; continue; }
+      if (len - pos < 2) { rc = kTruncated; break; }
+      n = 257 - c;
+      if (x < row) memset(line + x, src[pos + 1], x + n > row ? row - x : n);
+      pos += 2;
+    } else {
+      n = c + 1;
+      if (len - pos < n + 1) { rc = kTruncated; break; }
+      if (x < row) memcpy(line + x, src + pos + 1, x + n > row ? row - x : n);
+      pos += n + 1;
+    }
+    x += n;
+    if (x >= row) {
+      x = 0;
+      line += row;
+      if (++y >= rows) { rc = kOk; break; }
+    }
+  }
+  state[0] = y;
+  state[1] = pos;
+  return rc;
+}
+
+// Sun raster RLE: decode from src[pos] into out, rows rows of row bytes.
+// 0x80 0 is one 0x80, 0x80 n v is n + 1 times v (a run past the row's end
+// goes on in the next rows), any other byte itself.  Rows are written in
+// place: a row is whole once the decode moves past it.  Returns kOk once
+// the last row is full, kTruncated where the data end first; state[1] is
+// the position of the first byte not consumed.
+long long unmicst_sun_rle_rows(const uint8_t* src, long long len,
+                               long long pos, uint8_t* out, long long rows,
+                               long long row, long long* state) {
+  const long long total = rows * row;
+  long long at = 0, rc;
+  for (;;) {
+    if (pos >= len) { rc = kTruncated; break; }
+    const uint8_t c = src[pos];
+    long long n = 1;
+    uint8_t v = c;
+    if (c == 0x80) {
+      if (len - pos < 2) { rc = kTruncated; break; }
+      if (src[pos + 1] == 0) {
+        pos += 2;
+      } else {
+        if (len - pos < 3) { rc = kTruncated; break; }
+        n = (long long)src[pos + 1] + 1;
+        v = src[pos + 2];
+        pos += 3;
+      }
+    } else {
+      pos += 1;
+    }
+    if (at + n >= total) {
+      memset(out + at, v, total - at);
+      rc = kOk;
+      break;
+    }
+    memset(out + at, v, n);
+    at += n;
+  }
+  state[0] = at / row;
+  state[1] = pos;
+  return rc;
 }
 
 }  // extern "C"

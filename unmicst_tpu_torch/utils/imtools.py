@@ -131,18 +131,23 @@ QUEUED = (".ico", ".icns", ".pdf", ".webp", ".j2c", ".j2k", ".jp2", ".jpc",
 def imread(path: str) -> np.ndarray:
     """Generic image read, as the JAX toolbox's: a ``.tif``/``.tiff``
     name goes to the TIFF reader (whose fallback opens a PNG, JPEG, BMP,
-    GIF, Netpbm, PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI, DDS or JPEG
-    2000 file under that name by content); any other file is opened by
-    content, as ``Image.open`` opens it, each as PIL's ``np.asarray``
-    gives it: a TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI, TGA, DIB, MSP,
-    XBM, QOI, uncompressed DDS or JPEG 2000 file (a J2K codestream or a
-    JP2 file: ``.jp2``, ``.j2k``, ``.jpc``, ``.jpf``, ``.jpx``, ``.j2c``
-    or any other name; ``I;16`` as uint16, a palette file's indices)
-    whatever its name, a GIF, an MPO, a DCX or an
-    IM file its first frame (IM's ``I;16`` as uint16, ``F`` as float32;
-    MSP's and XBM's mode ``1`` as bool), with PIL's exceptions (a JPEG
-    that does not decode raises ``OSError``; a file no plugin of PIL
-    opens, PFM and PAM among them, ``OSError``).  Files PIL opens as
+    GIF, Netpbm, PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI, DDS, JPEG
+    2000, SPIDER, FITS, McIDAS, PSD, Sun raster, PIXAR, XV thumbnail,
+    XPM, IMT, GBR, IPTC or PhotoCD file under that name by content, at
+    ``seek(0)``); any other file is opened by content, as ``Image.open``
+    opens it, each as PIL's ``np.asarray`` gives it without a seek: a
+    TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI, TGA, DIB, MSP, XBM, QOI,
+    uncompressed DDS or JPEG 2000 file (a J2K codestream or a JP2 file:
+    ``.jp2``, ``.j2k``, ``.jpc``, ``.jpf``, ``.jpx``, ``.j2c`` or any
+    other name; ``I;16`` as uint16, a palette file's indices) whatever its
+    name, a GIF, an MPO, a DCX or an IM file its first frame (IM's
+    ``I;16`` as uint16, ``F`` as float32; MSP's and XBM's mode ``1`` as
+    bool), a SPIDER image or a stack's first image, a PSD's composite, and
+    the formats :mod:`unmicst_tpu_torch.io.identify` reads by PIL's plugin
+    order, with PIL's exceptions (a JPEG that does not decode raises
+    ``OSError``; a file no plugin of PIL opens, PFM and PAM among them,
+    ``OSError``, as do the stubs PIL opens and cannot load: BUFR, GRIB,
+    HDF5, WMF, MPEG).  Files PIL opens as
     other formats (WebP among them), block-compressed DDS files and the
     JPEG 2000 files PIL's encoder cannot write (see
     :mod:`unmicst_tpu_torch.io.jpeg2000`) raise ``NotImplementedError``
@@ -155,7 +160,8 @@ def imread(path: str) -> np.ndarray:
         if magic.startswith(head):
             return read(path)
     with open(path, "rb") as f:
-        px = identify.read(f.read(), 0, f"imread: {os.path.basename(path)}")
+        px = identify.read(f.read(), None,  # no seek, as PIL's
+                           f"imread: {os.path.basename(path)}")
     if px is None:
         raise pnm.UnidentifiedImageError(
             f"cannot identify image file {path!r}")
