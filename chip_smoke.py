@@ -313,9 +313,23 @@ printing any result):
     ``--channel 3`` (``seek(2)``, PIL's second layer); pages byte-equal
     to the twin's, K1 and one K2 epilogue counted on each; the PSD's
     channel 0 refused as the JAX CLI refuses it (``IndexError``); every
-    small fixture there read as PIL's committed read or exception.  The
-    ``kernels`` line gives each path's launches under
-    ``launches_slice16`` to ``launches_slice23``.
+    small fixture there read as PIL's committed read or exception.
+26. Icons, animations and textures (M17, tenth part; ``phase_slice24``,
+    the same net): ``tests/fixtures/torch_icons/make.py``'s
+    ``slide_files`` writes from a seed 4096^2 DDS files in BC1, BC7, BC6H
+    and BC4, a BLP2 DXT5, an FTEX DXT1 and a two-frame FLC, a 1024^2
+    ICNS ``ic10`` PNG and 256^2 ICOs (a 24-bit BMP with its AND mask, a
+    gray PNG); each file and each read held to the sha256 ``slides.json``
+    records from PIL and read again through ``read_channel`` under a
+    ``.tif`` name; the one-plane reads (the FLC at ``--channel 1`` and
+    ``2``, the BC4 DDS, the gray ICO) through ``cli.main`` against a
+    plain TIFF twin, pages byte-equal, K1 and one K2 epilogue counted on
+    each; a colour read refused by ``cli.main`` as by the JAX CLI
+    (``ValueError``: both take one-plane reads only); every small fixture
+    there read as PIL's committed read or exception (an EPS file's frame
+    0 refused naming M17: PIL needs Ghostscript).  The ``kernels`` line
+    gives each path's launches under ``launches_slice16`` to
+    ``launches_slice24``.
 """
 
 from __future__ import annotations
@@ -8075,6 +8089,213 @@ def phase_slice23(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+ICON_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_icons")
+
+
+def icon_files():
+    """The test-side ICO, CUR, ICNS, BLP, FTEX, DDS and FLI writers, and
+    ``slide_files``: ``tests/fixtures/torch_icons/make.py``, loaded by
+    path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "icons_make", os.path.join(ICON_FIXTURES, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_slice24(dev) -> dict:
+    """Icons, animations and textures (M17, tenth part) on the card:
+    ``slide_files``' 4096^2 DDS (BC1, BC7, BC6H, BC4), BLP2 DXT5, FTEX
+    DXT1 and two-frame FLC, the 1024^2 ICNS ``ic10`` PNG and the 256^2
+    ICOs, each file's and each read's sha256 held to PIL's
+    (``slides.json``) and each read under a ``.tif`` name through
+    ``read_channel``.  The reads that are one plane (the FLC's frames 0
+    and 1, the BC4 DDS, the gray-PNG ICO) go through ``cli.main`` (the
+    legacy net at nucleiDAPI's widths, seeded weights) against a plain
+    TIFF twin, pages byte-equal, K1 and one K2 epilogue counted per
+    path; a colour read through ``cli.main`` raises the ``ValueError``
+    both CLIs raise for a plane of several samples.  The committed small
+    fixtures read as PIL's reads (EPS's frame 0 refused naming M17).
+    Returns, per kernel, its launches on each counted path."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import _native, identify, slides
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    launches = {}
+    hp = legacy_hp()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice24_")
+    try:
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def cli_args(src, name, channel):
+            return [src, "--tool", "unmicst-legacy", "--model", "nucleiDAPI",
+                    "--modelRoot", zoo, "--stackOutput", "--channel",
+                    str(channel), "--outputPath", os.path.join(tmp, "out",
+                                                               name)]
+
+        def run(src, name, channel):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(cli_args(src, name, channel), device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            n = launches[name]
+            log(f"[slice24] {name}: cli.main {secs:.2f} s; K1 "
+                f"{n['softmax_blend']}, K2 epilogue "
+                f"{n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            return [imread(maps, k) for k in range(num_pages(maps))], secs
+
+        t0 = time.perf_counter()
+        check(_native.get_lib() is not None,
+              "the native host library (bcndec.cpp, flidec.cpp) did not "
+              "build or load")
+        log(f"[slice24] native host library ready in "
+            f"{time.perf_counter() - t0:.2f} s (g++ where not built yet)")
+        mk = icon_files()
+        with open(os.path.join(ICON_FIXTURES, "slides.json")) as f:
+            ref = json.load(f)
+        t0 = time.perf_counter()
+        files = mk.slide_files()
+        log(f"[slice24] slide_files wrote {len(files)} files in "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(sorted(files) == sorted(ref), "slide_files and slides.json "
+              "name different files")
+        k1 = {}
+        colour_checked = False
+        for fname, (data, seeks) in files.items():
+            kind = fname.split(".")[0]
+            check(hashlib.sha256(data).hexdigest() == ref[fname][
+                "file_sha256"], f"{fname}: the written file differs from "
+                "the one PIL read")
+            path = os.path.join(tmp, fname)
+            with open(path, "wb") as f:
+                f.write(data)
+            for k in seeks:
+                want = ref[fname][f"seek{k}"]
+                t0 = time.perf_counter()
+                px = identify.read(data, k, fname)
+                secs = time.perf_counter() - t0
+                same = (hashlib.sha256(px.tobytes()).hexdigest()
+                        == want["sha256"] and str(px.dtype) == want["dtype"]
+                        and list(px.shape) == want["shape"])
+                log(f"[slice24] {fname} ({len(data)} bytes) seek({k}): "
+                    f"{'x'.join(map(str, px.shape))} {px.dtype} decoded in "
+                    f"{secs:.3f} s; sha256 equal to PIL's read: {same} | "
+                    f"{card}")
+                check(same, f"{fname} seek({k}): the port's read differs "
+                      "from PIL's")
+                t0 = time.perf_counter()
+                got = slides.read_channel(path, "tif", k)
+                log(f"[slice24] {fname} under a .tif name: read_channel "
+                    f"{k} in {time.perf_counter() - t0:.3f} s | {card}")
+                check(got.dtype == px.dtype and np.array_equal(got, px),
+                      f"{fname}: read_channel {k} differs from the decode")
+                name = f"{kind}_seek{k}"
+                if px.ndim == 3:  # the CLIs take single-sample planes
+                    if not colour_checked and px.shape[0] <= 1024:
+                        try:
+                            cli.main(cli_args(path, name, k + 1), device=dev)
+                            refused = False
+                        except ValueError as e:  # the CLI's own refusal
+                            refused = "single-sample plane" in str(e)
+                        log(f"[slice24] {fname} through cli.main: the "
+                            f"colour plane refused with ValueError, as the "
+                            f"JAX CLI refuses it: {refused}")
+                        check(refused, f"{fname}: cli.main took a colour "
+                              "plane")
+                        colour_checked = True
+                    del px, got
+                    continue
+                side = px.shape[0]
+                twin = os.path.join(tmp, f"{name}_plain.tif")
+                imwrite(twin, px)
+                twin_maps, twin_secs = run(twin, f"{name}_plain", 1)
+                k1.setdefault(side, launches[f"{name}_plain"][
+                    "softmax_blend"])
+                n = launches[f"{name}_plain"]
+                check(k1[side] > 0 and n["softmax_blend"] == k1[side]
+                      and n["blend_fold_epilogue"] == 1,
+                      f"the plain twin did not run K1 and one K2 epilogue: "
+                      f"{n}")
+                maps, secs = run(path, name, k + 1)
+                n = launches[name]
+                check(n["softmax_blend"] == k1[side]
+                      and n["blend_fold_epilogue"] == 1
+                      and n["blend_fold_stripe"] == 0,
+                      f"{name} did not run K1 {k1[side]} times and one K2 "
+                      f"epilogue: {n}")
+                same = len(maps) == len(twin_maps) == 3 and all(
+                    np.array_equal(a, b) for a, b in zip(maps, twin_maps))
+                log(f"[slice24] {name}: pages byte-equal to the twin's: "
+                    f"{same}; cli.main {secs:.2f} s against the twin's "
+                    f"{twin_secs:.2f} s | {card}")
+                check(same, f"{name}: pages differ from the plain twin's")
+                del px, got
+        check(colour_checked, "no colour read went through cli.main")
+        check(k1.get(SLIDE) == 8, f"K1 at {SLIDE}^2: {k1}")
+        del files
+
+        # -- the committed small fixtures -------------------------------------
+        reads = np.load(os.path.join(ICON_FIXTURES, "reads.npz"))
+        with open(os.path.join(ICON_FIXTURES, "errors.json")) as f:
+            errors = json.load(f)
+        bad, n_reads = [], 0
+        for name in sorted(mk.small_cases()):
+            with open(os.path.join(ICON_FIXTURES, name), "rb") as f:
+                data = f.read()
+            for k in mk.SEEKS:
+                key = name if k is None else f"{name}@{k}"
+                n_reads += 1
+                try:
+                    px = identify.read(data, k, name)
+                except Exception as e:  # noqa: BLE001 -- held to PIL's class
+                    want = errors.get(key)
+                    got = type(e).__name__
+                    if name.startswith("eps") and not k and "M17" in str(e):
+                        # EPS: PIL needs Ghostscript for frame 0 (OSError
+                        # without it); the port refuses it naming M17
+                        continue
+                    if want != got and not (
+                            isinstance(e, OSError) and want in (
+                                "OSError", "UnidentifiedImageError")):
+                        bad.append(key)
+                    continue
+                if px is None:
+                    if errors.get(key) != "UnidentifiedImageError":
+                        bad.append(key)
+                    continue
+                want = reads[key] if key in reads.files else None
+                if want is None or px.dtype != want.dtype or \
+                        not np.array_equal(px, want):
+                    bad.append(key)
+        log(f"[slice24] {n_reads} reads of the small fixtures as PIL's: "
+            f"{n_reads - len(bad)}; differing: {bad}")
+        check(not bad, f"fixture reads differ from PIL's: {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice24] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -8133,6 +8354,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice22"] = per_path
     for name, per_path in phase_slice23(dev).items():
         stats[name]["launches_slice23"] = per_path
+    for name, per_path in phase_slice24(dev).items():
+        stats[name]["launches_slice24"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -8146,7 +8369,8 @@ def main(argv=None) -> int:
                         "launches_slice16", "launches_slice17",
                         "launches_slice18", "launches_slice19",
                         "launches_slice20", "launches_slice21",
-                        "launches_slice22", "launches_slice23")}})
+                        "launches_slice22", "launches_slice23",
+                        "launches_slice24")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

@@ -240,15 +240,29 @@ def test_frames_pil_refuses_raise_in_the_port(what, tmp_path):
         jpeg.decode(data)
 
 
-def test_subsampled_lossless_colour_stays_queued():
-    """A lossless colour frame whose luma is sampled 2x2 (here over a
-    stream coded 1x1): PIL returns pixels, the port raises naming M17."""
+def test_subsampled_lossless_colour_stays_queued(tmp_path):
+    """A lossless colour frame whose luma is sampled 2x2 (4:2:0, here
+    over a stream coded 1x1): PIL returns pixels, the port raises
+    ``NotImplementedError`` naming M17 (not the ``ValueError`` of a
+    corrupt stream), through the decoder, the toolbox's ``imread`` and,
+    under a TIFF name, ``tiff.imread``; ``read_channel`` reports it as
+    its one failure class, naming M17, where JAX returns the pixels."""
     rgb = np.random.RandomState(1).randint(0, 256, (9, 11, 3)).astype(
         np.uint8)
     data = _patch_sof(chip_smoke.lossless_jpeg(rgb), sampling=0x22)
     assert _pil(data).shape == (9, 11, 3)
-    with pytest.raises(ValueError, match="M17"):
+    with pytest.raises(NotImplementedError, match="M17"):
         jpeg.decode(data)
+    raw, tif = tmp_path / "s.jpg", tmp_path / "s.tif"
+    raw.write_bytes(data)
+    tif.write_bytes(data)
+    for read in (lambda: T.imread(str(raw)), lambda: T.imread(str(tif)),
+                 lambda: tiff.imread(str(tif))):
+        with pytest.raises(NotImplementedError, match="M17"):
+            read()
+    assert jax_slides.read_channel(str(tif), "tif", 0).shape == (9, 11, 3)
+    with pytest.raises(ValueError, match="M17"):
+        slides.read_channel(str(tif), "tif", 0)
 
 
 def test_a_lossless_old_style_jpeg_page_stays_queued(tmp_path):

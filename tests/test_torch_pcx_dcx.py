@@ -413,7 +413,9 @@ def _pil_outcome(path: str):
 def _identified_as_pil(data: bytes):
     """The port reads ``data`` exactly where PIL opens it as a PCX, DCX,
     SGI or TGA, with the same array (and the same exception class where
-    the pixels fail); where PIL opens it as JPEG 2000, PIL's array or
+    the pixels fail), as for every format of ``identify.READ`` (the
+    icons and textures among them); where PIL opens it as JPEG 2000,
+    PIL's array or
     exception class, or ``NotImplementedError`` naming M17 (a layout
     PIL's encoder cannot write), or ``OSError`` where PIL returns pixels
     that openjpeg concealed; where PIL opens it as one of the raster
@@ -423,8 +425,8 @@ def _identified_as_pil(data: bytes):
     class; a file PIL opens as a format the port does not read raises
     ``NotImplementedError`` naming M17; a file PIL does not open
     is not read: through the plugin order, the same exception class, or
-    ``NotImplementedError`` where a plugin the port does not check in
-    full (``identify.MAGIC_ONLY``, ``PARTLY_CHECKED``) would refuse it;
+    ``NotImplementedError`` where a plugin the port checks by magic alone
+    (``identify.MAGIC_ONLY``: AVIF, WebP, TIFF) would refuse it;
     through a reader the port picks by magic bytes (TIFF, PNG, JPEG, BMP,
     GIF, Netpbm: earlier slices' readers, with their own error classes)
     an exception.  All through ``imread`` under a name PIL does not know;
@@ -440,14 +442,7 @@ def _identified_as_pil(data: bytes):
     by_magic = data.startswith(tuple(head for head, _ in T._BY_CONTENT))
     compare = fmt in identify.READ or fmt in identify.NO_LOADER or (
         fmt is None and not by_magic)
-    if fmt == "DDS" and dds.open_header(data).codec == "bcn":
-        # block-compressed DDS: PIL decodes it, the port queues it (M17)
-        # but where the data runs out first, as PIL's decoder does
-        if got != want:
-            with pytest.raises(NotImplementedError, match="M17"):
-                T.imread(path)
-        compare = False
-    elif fmt == "JPEG2000":
+    if fmt == "JPEG2000":
         # PIL's array or exception class; the port refuses what PIL's
         # encoder cannot write (M17) and raises where openjpeg conceals a
         # fault and returns pixels, never other pixels
@@ -464,8 +459,7 @@ def _identified_as_pil(data: bytes):
         assert not isinstance(got, tuple), (got, want)
         if got == "NotImplementedError" != want:  # a plugin PIL's _open
             # refuses (PIL's own NotImplementedError escapes Image.open)
-            assert identify.open_image(data) in (identify.MAGIC_ONLY
-                                                 + identify.PARTLY_CHECKED)
+            assert identify.open_image(data) in identify.MAGIC_ONLY
             compare = False
         elif not by_magic:
             assert got == want, (got, want)
@@ -785,6 +779,67 @@ def _metafile_and_stub_files(draw):
     return _changed(draw, s + draw(st.binary(max_size=40)))
 
 
+_ICONS = importlib.util.spec_from_file_location(
+    "icons_make", os.path.join(REPO, "tests", "fixtures", "torch_icons",
+                               "make.py"))
+ik = importlib.util.module_from_spec(_ICONS)
+_ICONS.loader.exec_module(ik)
+_ICON_CASES = ik.small_cases()
+# the fixtures whose payload is a JPEG or JPEG 2000 stream: only the
+# header bytes that leave the stream whole are drawn here (the JPEG and
+# JPEG 2000 strategies hold those decoders to PIL, with openjpeg's
+# concealment of a cut stream exempt)
+_CODEC_PAYLOADS = {"blp1_jpeg": list(range(28)),
+                   "icns_ic09": [0, 1, 2, 3, 8, 9, 10, 11]}
+_EPS_LINES = [b"%!PS-Adobe-3.0", b"%!PS-Adobe-3.0 EPSF-3.0", b"%!PS",
+              b"%%BoundingBox: 0 0 5 4", b"%%BoundingBox: 1 1 1 9",
+              b"%%BoundingBox: (atend)", b"%%BoundingBox: 0 0 x 4",
+              b"%%EndComments", b"%%Trailer", b"%%EOF", b"%%Creator: x",
+              b"%ImageData: 7 3 8 3 0 1 1 \"b\"", b"%ImageData: 7 3 1 1",
+              b"%ImageData: 7 3 8 7", b"%ImageData: 7 3 4 3",
+              b"%ImageData: 0 3 8 1", b"%%BeginBinary: 3", b"showpage",
+              b"% a comment", b"%" + b"z" * 260, b"q" * 260, b""]
+
+
+@st.composite
+def _icon_files(draw, kind):
+    """A fixture of ``tests/fixtures/torch_icons`` of the kind (ICO, CUR,
+    ICNS, BLP, FTEX) with a header byte drawn from the values the plugins
+    tell apart, any byte changed, or its end cut; FLI: a random file of
+    every chunk type (:func:`make.fli_random`); EPS: DSC lines drawn,
+    behind ``%!PS`` or a DOS EPS header."""
+    if kind == "fli":
+        return ik.fli_random(np.random.RandomState(draw(st.integers(
+            0, 2**16))))
+    if kind == "eps":
+        lines = draw(st.lists(st.sampled_from(_EPS_LINES), max_size=8))
+        body = draw(st.sampled_from([b"\n", b"\r\n", b"\r"])).join(
+            [draw(st.sampled_from(_EPS_LINES[:3]))] + lines)
+        if draw(st.booleans()):
+            body = struct.pack("<III", 0xC6D3D0C5, draw(st.sampled_from(
+                [12, 30, 0, 9999])), len(body)) + bytes(18) + body
+        return body
+    names = sorted(n for n in _ICON_CASES if n.startswith(kind))
+    name = draw(st.sampled_from(names))
+    data = _ICON_CASES[name]
+    edit = draw(st.sampled_from(["none", "head", "byte", "cut"]))
+    heads = list(range(min(len(data), 40)))
+    for prefix, at in _CODEC_PAYLOADS.items():
+        if name.startswith(prefix):
+            edit, heads = "head" if edit != "none" else edit, at
+    if edit == "head":
+        k = draw(st.sampled_from(heads))
+        v = draw(st.sampled_from([0, 1, 2, 3, 4, 7, 8, 16, 24, 32, 40, 128,
+                                  255, 0x7F, 0x80]))
+        data = data[:k] + bytes([v]) + data[k + 1 :]
+    elif edit == "byte":
+        k = draw(st.integers(0, len(data) - 1))
+        data = data[:k] + bytes([draw(st.integers(0, 255))]) + data[k + 1 :]
+    elif edit == "cut":
+        data = data[: draw(st.integers(0, len(data)))]
+    return data
+
+
 _J2K = os.path.join(REPO, "tests", "fixtures", "torch_j2k")
 _J2K_BASES = [open(os.path.join(_J2K, f), "rb").read() for f in (
     "l_rlcp_layers.j2k", "l_lrcp.jp2", "rgb_97_nomct.j2k", "p_palette.jp2",
@@ -839,11 +894,14 @@ def _j2k_files(draw):
         st.booleans()) else data
 
 
+_ICON_KINDS = ("ico", "cur", "icns", "blp", "ftex", "fli", "eps")
+
+
 @pytest.mark.parametrize("strategy", ["tga", "sgi", "pcx", "dcx", "built",
                                       "random", "msp", "qoi", "dds", "xbm",
                                       "im", "dib", "jpeg2000", "spider",
                                       "fits", "psd", "sun", "xpm",
-                                      "metafiles"])
+                                      "metafiles", *_ICON_KINDS])
 def test_identification_and_reads_match_pil(strategy):
     """Byte strings that start with each format's header (fields drawn
     from the values PIL tells apart), whole files of each format with a
@@ -852,8 +910,10 @@ def test_identification_and_reads_match_pil(strategy):
     agrees (see ``_identified_as_pil``).  The MSP, QOI, DDS, XBM, IM and
     DIB strategies reach the plugins the port reads since slice 21 in
     full, the JPEG 2000 one JPEG 2000, the SPIDER, FITS, PSD, Sun raster
-    and XPM ones those formats and the metafile one WMF and the stubs
-    (read, or refused as PIL refuses them), and check that they do."""
+    and XPM ones those formats, the metafile one WMF and the stubs (read,
+    or refused as PIL refuses them), and the ICO, CUR, ICNS, BLP, FTEX,
+    FLI and EPS ones those formats, with PIL's full header checks (EPS
+    opened, its pixels refused naming M17), and check that they do."""
     strategies = {"tga": _tga_headers(), "sgi": _sgi_headers(),
                   "pcx": _pcx_headers(), "dcx": _dcx_files(),
                   "built": _built_files(), "random": st.binary(max_size=64),
@@ -863,7 +923,8 @@ def test_identification_and_reads_match_pil(strategy):
                   "jpeg2000": _j2k_files(),
                   "metafiles": _metafile_and_stub_files(),
                   **{k: _raster_files(k) for k in ("spider", "fits", "psd",
-                                                   "sun", "xpm")}}
+                                                   "sun", "xpm")},
+                  **{k: _icon_files(k) for k in _ICON_KINDS}}
 
     @_SETTINGS
     @given(strategies[strategy])
@@ -873,7 +934,7 @@ def test_identification_and_reads_match_pil(strategy):
     seen = set()
     check()
     if strategy in ("msp", "qoi", "dds", "xbm", "im", "dib", "jpeg2000",
-                    "spider", "fits", "psd", "sun", "xpm"):
+                    "spider", "fits", "psd", "sun", "xpm", *_ICON_KINDS):
         assert strategy.upper() in seen, seen
     if strategy == "metafiles":
         assert {"WMF", "BUFR", "GRIB", "HDF5", "MPEG"} <= seen, seen

@@ -192,11 +192,13 @@ def test_rle_decoders_are_pils_and_native_equals_plain():
 
 def test_none_is_seek0_but_for_spider_and_psd():
     """``identify.read`` without a seek equals ``seek(0)`` for every
-    format it reads (a fixture of each from this slice's and the earlier
-    slices' sets); for a single SPIDER image and a PSD they differ as
+    format it reads (a fixture of each from the rasters' set and the
+    other slices' sets, the icons' among them); for a single SPIDER image
+    and a PSD they differ as
     PIL's do: pixels without a seek, ``EOFError`` at ``seek(0)``."""
     roots = {"torch_rasters": CASES}
-    for sub in ("torch_rle", "torch_write", "torch_j2k", "torch_gif"):
+    for sub in ("torch_rle", "torch_write", "torch_j2k", "torch_gif",
+                "torch_icons"):
         d = os.path.join(REPO, "tests", "fixtures", sub)
         roots[sub] = sorted(f for f in os.listdir(d) if not f.endswith(
             (".py", ".npz", ".json", ".npy")))
@@ -229,9 +231,12 @@ def test_identification_of_stubs_and_metafiles_is_pils(tmp_path):
     """BUFR, GRIB, HDF5, MPEG and WMF/EMF files: the format ``Image.open``
     names (or its escaping exception), and the ``OSError`` of
     ``np.asarray`` (``EOFError`` past frame 0) through every entry point;
-    ``MAGIC_ONLY`` holds only the plugins still checked by magic alone."""
-    assert set(identify.MAGIC_ONLY) == {"AVIF", "BLP", "EPS", "FTEX",
-                                        "ICNS", "TIFF", "WEBP"}
+    ``MAGIC_ONLY`` holds only the plugins still checked by magic alone:
+    AVIF and WebP, whose ``_open`` is their codec's parser, and TIFF, the
+    port's own reader (BLP, EPS, FTEX, ICNS, ICO and FLI now run PIL's
+    checks: ``tests/test_torch_icons.py``)."""
+    assert set(identify.MAGIC_ONLY) == {"AVIF", "TIFF", "WEBP"}
+    assert not hasattr(identify, "PARTLY_CHECKED")
     emf = (b"\x01\0\0\0" + bytes(4)
            + np.array([0, 0, 10, 12, 0, 0, 100, 90], "<i4").tobytes()
            + b" EMF" + bytes(8))

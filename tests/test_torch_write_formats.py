@@ -223,8 +223,8 @@ def test_refused_headers_go_on_as_in_pil(tmp_path):
     file to the next plugin (here none opens it: ``OSError`` from both
     ``imread``s); a DDS header of another size lets PIL's ``OSError``
     escape, an unknown pixel format its ``NotImplementedError``, and a
-    block-compressed one (which PIL decodes) raises
-    ``NotImplementedError`` naming M17."""
+    block-compressed one (DXT1) reads as PIL reads it
+    (``tests/test_torch_bcn.py`` holds every block format)."""
     cases = {
         "qoi_zero": qoi.MAGIC + bytes(10),
         "qoi_short": qoi.MAGIC + b"\0\0",
@@ -246,9 +246,11 @@ def test_refused_headers_go_on_as_in_pil(tmp_path):
     path = str(tmp_path / "b.dds")
     with open(path, "wb") as f:
         f.write(dxt1)
-    assert J.imread(path).shape == (4, 4, 4)
-    with pytest.raises(NotImplementedError, match="M17"):
-        T.imread(path)
+    want = J.imread(path)
+    assert want.shape == (4, 4, 4)
+    got = T.imread(path)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("seed", range(6))

@@ -14,8 +14,10 @@ PCX, TGA, SGI, PSD (PackBits) and Sun raster run-length codings
 (``native/rlecodec.cpp``, for ``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``,
 ``io/psd.py``, ``io/sun.py``), the QOI coding
 (``native/qoicodec.cpp``, for ``io/qoi.py``), Pillow's quantizers
-(``native/quant.cpp``, for ``io/quant.py``) and JPEG 2000's tier 1 and
-inverse wavelets (``native/j2kdec.cpp``, for ``io/jpeg2000.py``).  Every
+(``native/quant.cpp``, for ``io/quant.py``), JPEG 2000's tier 1 and
+inverse wavelets (``native/j2kdec.cpp``, for ``io/jpeg2000.py``), the
+BCn texture blocks (``native/bcndec.cpp``, for ``io/bcn.py``) and the FLI
+frame chunks (``native/flidec.cpp``, for ``io/fli.py``).  Every
 codec function returns None when the library is absent, and the callers
 then take their pure-Python versions: correct, only slow.  The
 quantizers raise instead: their plain versions are for the tests.
@@ -49,10 +51,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG, "native", name)
                 for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp",
                              "gifcodec.cpp", "jpegenc.cpp", "rlecodec.cpp",
-                             "quant.cpp", "qoicodec.cpp", "j2kdec.cpp"))
+                             "quant.cpp", "qoicodec.cpp", "j2kdec.cpp",
+                             "bcndec.cpp", "flidec.cpp"))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 # no FMA contraction: the 9/7 wavelet is openjpeg's float32 arithmetic op
-# for op, on every host
+# for op, and BC6H's scaling Pillow's, on every host
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 LIB_NAME = "libunmicst_tiffcodec.so"
 
@@ -219,6 +222,13 @@ def _load(path: str) -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.restype = None
         fn.argtypes = [vp, ll, vp, ll]  # plane, row stride, bounds, levels+1
+    fn = lib.unmicst_bcn_decode
+    fn.restype = ll
+    fn.argtypes = [vp, ll, it, it, vp]  # blocks, n, decoder, signed, out
+    fn = lib.unmicst_fli_decode
+    fn.restype = ll
+    fn.argtypes = [ctypes.c_char_p, ll, vp, ll, ll]  # frame, bytes, image,
+    # ysize, xsize
     return lib
 
 
@@ -902,3 +912,36 @@ def j2k_idwt(plane: np.ndarray, bounds: np.ndarray) -> Optional[bool]:
     bounds = np.ascontiguousarray(bounds, np.int64).reshape(-1, 4)
     fn(_ptr(plane), plane.shape[1], _ptr(bounds), len(bounds))
     return True
+
+
+def fli_decode(buf: bytes, img: np.ndarray) -> Optional[int]:
+    """``FliDecode.c`` over one feed ``buf`` onto ``img`` (``[ysize,
+    xsize]`` uint8), as ``io/fli.py``'s ``decode_py``: its result, or
+    None without the library."""
+    _rows_view(img, "fli_decode")
+    if img.ndim != 2:
+        raise ValueError("fli_decode: [ysize, xsize]")
+    lib = get_lib()
+    if lib is None:
+        return None
+    return int(lib.unmicst_fli_decode(buf, len(buf), _ptr(img), img.shape[0],
+                                      img.shape[1]))
+
+
+def bcn_decode(blocks: np.ndarray, n: int,
+               signed: bool) -> Optional[np.ndarray]:
+    """``[k, 16, 4]`` uint8: the pixels of ``k`` blocks (``[k, size]``
+    uint8) of BCn decoder ``n`` (``signed``: BC5S, BC6HS), as
+    ``io/bcn.py``'s ``decode_blocks_py``; None without the library."""
+    if n not in range(1, 8) or blocks.dtype != np.uint8 or blocks.ndim != 2 \
+            or blocks.shape[1] != (8 if n in (1, 4) else 16):
+        raise ValueError("bcn_decode: decoder 1-7 and [k, block bytes] "
+                         "uint8")
+    lib = get_lib()
+    if lib is None:
+        return None
+    blocks = np.ascontiguousarray(blocks)
+    out = np.empty((len(blocks), 16, 4), np.uint8)
+    lib.unmicst_bcn_decode(_ptr(blocks), len(blocks), n, int(signed),
+                           _ptr(out))
+    return out

@@ -3,8 +3,9 @@ plugin, for the port's readers of the formats the JAX package reaches
 through PIL (``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``,
 ``io/identify.py``): the decompression-bomb check, the exceptions a
 plugin's ``_open`` may raise for ``Image.open`` to try the next plugin,
-the messages of the loader's decoder errors, and its ``raw`` decoder
-(:func:`raw_rows`, :func:`unpack`).
+the messages of the loader's decoder errors, its ``raw`` decoder
+(:func:`raw_rows`, :func:`unpack`), and its CMYK to RGB conversion
+(:func:`cmyk_to_rgb`).
 """
 
 from __future__ import annotations
@@ -151,3 +152,12 @@ def unpack(rows: np.ndarray, rawmode: str, w: int) -> np.ndarray:
     if rawmode == "I;16B":
         return px
     return px.astype(dtype[1:] if dtype[0] == ">" else dtype)
+
+
+def cmyk_to_rgb(px: np.ndarray) -> np.ndarray:
+    """PIL's ``cmyk2rgb`` (``Convert.c``): each of C, M, Y scaled by
+    ``255 - K`` and taken from it, rounded as ``MULDIV255``."""
+    px = px.astype(np.int64)
+    nk = 255 - px[..., 3:]
+    t = px[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)

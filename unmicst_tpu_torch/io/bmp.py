@@ -42,6 +42,7 @@ has no mode for its ``TypeError`` (:func:`png.array_mode`).
 from __future__ import annotations
 
 import struct
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -130,6 +131,61 @@ def _unpack_bits(rows: np.ndarray, w: int, bits: int) -> np.ndarray:
     return (flat.reshape(len(rows), w, bits) * weights).sum(2, dtype=np.uint8)
 
 
+DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
+_BMP_BITS = (1, 4, 8, 16, 24, 32)
+_BMP_MASKS = {
+    32: [(0xFF0000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0x0),
+         (0xFF000000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
+         (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
+         (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
+         (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0x0, 0x0, 0x0, 0x0)],
+    24: [(0xFF0000, 0xFF00, 0xFF)],
+    16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)],
+}
+
+
+def open_bitmap(data: bytes, at: int) -> Tuple[int, int]:
+    """``BmpImageFile._bitmap`` of the info header at ``data[at]``: the
+    size PIL opens, or its exception."""
+    hs = _pil.u32le(data[at : at + 4])
+    body = data[at + 4 : at + hs] if hs > 4 else b""
+    if len(body) < hs - 4:
+        raise OSError("Truncated File Read")
+    masks = None
+    if hs == 12:
+        w, h, _, bits = struct.unpack_from("<4H", body)
+        compression = colors = 0
+    elif hs in DIB_HEADERS[1:]:
+        w = _pil.u32le(body, 0)
+        h = _pil.u32le(body, 4)
+        if body[7] == 0xFF:
+            h = 2**32 - h
+        bits, compression = _pil.u16le(body, 10), _pil.u32le(body, 12)
+        colors = _pil.u32le(body, 28)
+        if compression == 3:
+            if len(body) >= 48:
+                masks = struct.unpack_from(
+                    "<4I" if len(body) >= 52 else "<3I", body, 36)
+            else:
+                masks = tuple(_pil.u32le(data[k : k + 4])
+                              for k in range(at + hs, at + hs + 12, 4))
+            masks = tuple(masks) + (0,) * (4 - len(masks))
+    else:
+        raise OSError(f"Unsupported BMP header type ({hs})")
+    colors = colors or (1 << bits)
+    if bits not in _BMP_BITS:
+        raise OSError(f"Unsupported BMP pixel depth ({bits})")
+    if compression == 3:
+        if not (bits == 32 and masks in _BMP_MASKS[32]) and not (
+                bits in (24, 16) and masks[:3] in _BMP_MASKS[bits]):
+            raise OSError("Unsupported BMP bitfields layout")
+    elif compression not in (0, 1, 2):
+        raise OSError(f"Unsupported BMP compression ({compression})")
+    if bits <= 8 and not 0 < colors <= 65536:
+        raise OSError(f"Unsupported BMP Palette size ({colors})")
+    return w, h
+
+
 def read_bmp(path: str) -> np.ndarray:
     """Read a BMP file as PIL does (see the module docstring)."""
     with open(path, "rb") as f:
@@ -162,9 +218,13 @@ def read_frame(data: bytes, index: int = 0) -> np.ndarray:
     return decode_bmp(head + data, "DIB")
 
 
-def decode_bmp(blob: bytes, path: str) -> np.ndarray:
+def decode_bmp(blob: bytes, path: str, mapped: bool = True,
+               info: Optional[dict] = None) -> np.ndarray:
     """The pixels of the BMP file ``blob`` (``path`` names it in
-    errors)."""
+    errors).  ``mapped`` False: PIL reads the file through its decoder,
+    never by a map (a DIB inside another file); ``info``, where given,
+    takes PIL's ``mode`` and, for a palette image, its ``palette`` bytes
+    (``entry`` bytes an entry, BGR first)."""
     if blob[:2] != b"BM" or len(blob) < 18:
         raise ValueError(f"{path}: not a BMP file")
     offset, size = _u32(blob, 10), _u32(blob, 14)
@@ -222,6 +282,12 @@ def decode_bmp(blob: bytes, path: str) -> np.ndarray:
         gray = all(palette[k * entry : k * entry + 3] == bytes((v,)) * 3
                    for k, v in enumerate(ramp))
         mode = ("1" if colors == 2 else "L") if gray else "P"
+        if info is not None:
+            info.update(palette=palette, entry=entry)
+        if mode == "P" and len(palette) // entry > 256:  # at load, first
+            raise ValueError("invalid palette size")
+    if info is not None:
+        info["mode"] = mode
     if compression in (_RLE8, _RLE4):
         px = _rle(blob, offset, w, h, compression == _RLE4)
         if mode not in ("L", "P"):  # PIL sets a "P" raw mode into a mode-1
@@ -233,7 +299,7 @@ def decode_bmp(blob: bytes, path: str) -> np.ndarray:
     # the stride of the stored depth
     bits_read = {"1": 1, "L": 8}.get(mode, bits)
     row_bytes = (w * bits_read + 7) // 8
-    if mode in ("L", "P") and bits_read == 8 and (
+    if mapped and mode in ("L", "P") and bits_read == 8 and (
             offset + h * stride <= len(blob)):
         # PIL maps the file: each row is the w bytes from its start, past
         # its stride where that is shorter (a 4-bit "L" image), and past

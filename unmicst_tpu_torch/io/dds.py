@@ -15,10 +15,13 @@ RGBA with the alpha flag) through ``DdsRgbDecoder`` (each pixel
 (8-bit ``L``, 16-bit ``LA`` with the alpha flag; other counts ``OSError``)
 and 8-bit palette indices (``P``, after a 1024-byte palette) raw; and the
 DX10 header's R8G8B8A8 formats (``RGBA``) raw; raw data that ends early
-raises ``OSError``.  The block-compressed formats PIL decodes (DXT1-5,
-BC4-BC7 and their DX10 names) raise ``NotImplementedError`` naming ROADMAP
-M17 (``OSError`` where the data holds fewer blocks than the image, as
-PIL's decoder fails there); unknown ones PIL's own
+raises ``OSError``.  The block-compressed formats go through
+:mod:`unmicst_tpu_torch.io.bcn` in PIL's modes: the fourcc forms DXT1,
+DXT3 and DXT5 (``RGBA``), BC4U and ATI1 (``L``), BC5U, ATI2 and BC5S
+(``RGB``), and the DX10 names BC1-BC3 (``RGBA``), BC4 (``L``), BC5 and
+BC5S, BC6H and BC6HS (``RGB``) and BC7 (``RGBA``); data that hold fewer
+blocks than the image raise PIL's ``OSError``.  Other formats (BC4S
+among them, which PIL names and does not open) raise PIL's own
 ``NotImplementedError``.
 
 Writing (:func:`encode_dds`): ``L``, ``LA``, ``RGB`` and ``RGBA``
@@ -36,7 +39,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from unmicst_tpu_torch.io import _pil
+from unmicst_tpu_torch.io import _pil, bcn
 from unmicst_tpu_torch.io.png import array_mode
 
 MAGIC = b"DDS "
@@ -50,6 +53,11 @@ _DX10 = 0x30315844
 _BCN_FOURCC = {0x31545844: "DXT1", 0x33545844: "DXT3", 0x35545844: "DXT5",
                0x55344342: "BC4", 0x31495441: "BC4", 0x53354342: "BC5S",
                0x55354342: "BC5", 0x32495441: "BC5"}
+# PIL's pixel formats -> its bcn decoder, signed, and the image's mode
+_BCN = {"DXT1": (1, False), "BC1": (1, False), "DXT3": (2, False),
+        "BC2": (2, False), "DXT5": (3, False), "BC3": (3, False),
+        "BC4": (4, False), "BC5": (5, False), "BC5S": (5, True),
+        "BC6H": (6, False), "BC6HS": (6, True), "BC7": (7, False)}
 # DXGI_FORMAT codes PIL decodes: BCn, and R8G8B8A8 (raw RGBA)
 _BCN_DXGI = {70: "BC1", 71: "BC1", 73: "BC2", 74: "BC2", 76: "BC3",
              77: "BC3", 79: "BC4", 80: "BC4", 82: "BC5", 83: "BC5",
@@ -119,7 +127,7 @@ def open_header(data: bytes) -> DdsHeader:
             raise NotImplementedError(
                 f"Unimplemented pixel format {fourcc!r}")
         if out.bcn:
-            out.mode, out.codec = "RGBA", "bcn"
+            out.mode, out.codec = bcn.FORMATS[_BCN[out.bcn][0]][1], "bcn"
     else:
         raise NotImplementedError(f"Unknown pixel format flags {pfflags}")
     if width <= 0 or height <= 0:
@@ -131,13 +139,16 @@ def _rgb(data: bytes, hdr: DdsHeader) -> np.ndarray:
     """``DdsRgbDecoder``: each mask's field of each pixel, scaled."""
     n = hdr.width * hdr.height
     nbytes = hdr.bitcount // 8
-    body = np.frombuffer(data, np.uint8)[hdr.offset : hdr.offset
-                                         + n * nbytes]
-    raw = np.zeros(n * nbytes, np.uint8)
-    raw[: len(body)] = body
+    buf = np.frombuffer(data, np.uint8)
     value = np.zeros(n, np.uint64)
-    for k in range(nbytes):
-        value |= raw[k::nbytes].astype(np.uint64) << np.uint64(8 * k)
+    # the masks are 32-bit: a pixel's bytes past its fourth do not count
+    start = hdr.offset + nbytes * np.arange(n, dtype=np.int64)
+    for k in range(min(nbytes, 4)):
+        at = start + k
+        inside = at < len(buf)
+        byte = np.zeros(n, np.uint64)
+        byte[inside] = buf[at[inside]]
+        value |= byte << np.uint64(8 * k)
     out = np.zeros((n, len(hdr.masks)), np.uint8)
     for i, mask in enumerate(hdr.masks):
         shift = 0
@@ -160,13 +171,8 @@ def read_frame(data: bytes, index: int = 0) -> np.ndarray:
     if index != 0:
         raise EOFError("attempt to seek outside sequence")
     if hdr.codec == "bcn":
-        blocks = ((hdr.width + 3) // 4) * ((hdr.height + 3) // 4)
-        size = 8 if hdr.bcn in ("DXT1", "BC1", "BC4") else 16
-        if len(data) - hdr.offset < blocks * size:  # PIL's decoder runs dry
-            raise _pil.truncated(max(0, len(data) - hdr.offset) % size)
-        raise NotImplementedError(
-            f"DDS {hdr.bcn} (block-compressed) data is not decoded by "
-            "unmicst_tpu_torch (ROADMAP M17)")
+        n, signed = _BCN[hdr.bcn]
+        return bcn.decode(data, hdr.offset, n, hdr.width, hdr.height, signed)
     if hdr.codec == "rgb":
         return _rgb(data, hdr)
     bands = {"L": 1, "P": 1, "LA": 2, "RGBA": 4}[hdr.mode]

@@ -15,90 +15,37 @@ other exception escapes ``Image.open``.  :func:`open_image` walks the
 same order and names the format of the first plugin to open the file,
 with the decompression-bomb check of ``Image.open``; :func:`read` reads
 a frame of the formats the port reads (``READ``: PCX, DCX, SGI, TGA,
-DIB, IM, MSP, XBM, QOI, DDS and JPEG 2000, and SPIDER, FITS, McIDAS,
-PSD, Sun raster, PIXAR, XV thumbnails, XPM, IMT, GBR, IPTC and PhotoCD,
-each through its module of this package), raises PIL's ``OSError`` for
-the plugins that open a file and cannot load it (``NO_LOADER``: the
-BUFR, GRIB, HDF5 and WMF stubs, MPEG) and refuses the others with
-``NotImplementedError`` naming ROADMAP M17.  Every plugin runs its
-header checks here as PIL's ``_open`` does but ICO's and FLI's
-(``PARTLY_CHECKED``) and those of ``MAGIC_ONLY``, which open any file
-their magic bytes start (the port does not check whether their
-``_open`` would refuse it and hand it on: none of their magic numbers
-can start a file of a format the port reads, but for AVIF's, which is
-checked as far as its first two boxes).
+DIB, IM, MSP, XBM, QOI, DDS (its block-compressed formats too) and JPEG
+2000, SPIDER, FITS, McIDAS, PSD, Sun raster, PIXAR, XV thumbnails, XPM,
+IMT, GBR, IPTC and PhotoCD, and ICO, CUR, ICNS, BLP, FTEX and FLI, each
+through its module of this package), raises PIL's ``OSError`` for the
+plugins that open a file and cannot load it (``NO_LOADER``: the BUFR,
+GRIB, HDF5 and WMF stubs, MPEG) and refuses the others with
+``NotImplementedError`` naming ROADMAP M17 (EPS among them, whose pixels
+PIL takes from Ghostscript; ``EOFError`` past its one frame).  Every
+plugin runs its header checks here as PIL's ``_open`` does (ICO's loads
+its largest entry, as PIL's does) but those of ``MAGIC_ONLY``: AVIF and
+WebP, whose ``_open`` is their codec's own parser, and TIFF, the port's
+own reader, open any file their magic bytes start (the port does not
+check whether their ``_open`` would refuse it and hand it on: none of
+their magic numbers can start a file of a format the port reads, and
+AVIF's is checked as far as its first two boxes).
 
 None where no plugin opens the file (PIL's ``UnidentifiedImageError``).
 """
 
 from __future__ import annotations
 
-import math
 import struct
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
 from unmicst_tpu_torch.io import _pil
-from unmicst_tpu_torch.io import (bmp, dds, fits, gbr, im, imt, iptc,
-                                  jpeg2000, mcidas, msp, pcd, pcx, pixar, psd,
-                                  qoi, sgi, spider, sun, tga, xbm, xpm,
-                                  xvthumb)
-
-_DIB_HEADERS = (12, 40, 52, 56, 64, 108, 124)
-_BMP_BITS = (1, 4, 8, 16, 24, 32)
-_BMP_MASKS = {
-    32: [(0xFF0000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0x0),
-         (0xFF000000, 0xFF00, 0xFF, 0x0), (0xFF000000, 0xFF0000, 0xFF00, 0xFF),
-         (0xFF, 0xFF00, 0xFF0000, 0xFF000000),
-         (0xFF0000, 0xFF00, 0xFF, 0xFF000000),
-         (0xFF000000, 0xFF00, 0xFF, 0xFF0000), (0x0, 0x0, 0x0, 0x0)],
-    24: [(0xFF0000, 0xFF00, 0xFF)],
-    16: [(0xF800, 0x7E0, 0x1F), (0x7C00, 0x3E0, 0x1F)],
-}
-
-
-def _bitmap(data: bytes, at: int) -> Tuple[int, int]:
-    """``BmpImageFile._bitmap`` of the info header at ``data[at]``: the
-    size PIL opens, or its exception."""
-    hs = _pil.u32le(data[at : at + 4])
-    body = data[at + 4 : at + hs] if hs > 4 else b""
-    if len(body) < hs - 4:
-        raise OSError("Truncated File Read")
-    masks = None
-    if hs == 12:
-        w, h, _, bits = struct.unpack_from("<4H", body)
-        compression = colors = 0
-    elif hs in _DIB_HEADERS[1:]:
-        w = _pil.u32le(body, 0)
-        h = _pil.u32le(body, 4)
-        if body[7] == 0xFF:
-            h = 2**32 - h
-        bits, compression = _pil.u16le(body, 10), _pil.u32le(body, 12)
-        colors = _pil.u32le(body, 28)
-        if compression == 3:
-            if len(body) >= 48:
-                masks = struct.unpack_from(
-                    "<4I" if len(body) >= 52 else "<3I", body, 36)
-            else:
-                masks = tuple(_pil.u32le(data[k : k + 4])
-                              for k in range(at + hs, at + hs + 12, 4))
-            masks = tuple(masks) + (0,) * (4 - len(masks))
-    else:
-        raise OSError(f"Unsupported BMP header type ({hs})")
-    colors = colors or (1 << bits)
-    if bits not in _BMP_BITS:
-        raise OSError(f"Unsupported BMP pixel depth ({bits})")
-    if compression == 3:
-        if not (bits == 32 and masks in _BMP_MASKS[32]) and not (
-                bits in (24, 16) and masks[:3] in _BMP_MASKS[bits]):
-            raise OSError("Unsupported BMP bitfields layout")
-    elif compression not in (0, 1, 2):
-        raise OSError(f"Unsupported BMP compression ({compression})")
-    if bits <= 8 and not 0 < colors <= 65536:
-        raise OSError(f"Unsupported BMP Palette size ({colors})")
-    return w, h
-
+from unmicst_tpu_torch.io import (blp, bmp, dds, eps, fits, fli, ftex, gbr,
+                                  icns, ico, im, imt, iptc, jpeg2000, mcidas,
+                                  msp, pcd, pcx, pixar, psd, qoi, sgi, spider,
+                                  sun, tga, xbm, xpm, xvthumb)
 
 def _opens(name: str, w, h):
     """``(name, size)`` where ``ImageFile.__init__`` keeps the image
@@ -107,50 +54,46 @@ def _opens(name: str, w, h):
 
 
 def _dib(data: bytes):
-    if _pil.u32le(data[:4]) not in _DIB_HEADERS:
+    if _pil.u32le(data[:4]) not in bmp.DIB_HEADERS:
         return None
-    return _opens("DIB", *_bitmap(data, 0))
+    return _opens("DIB", *bmp.open_bitmap(data, 0))
 
 
 def _cur(data: bytes):
     if not data.startswith(b"\0\0\2\0"):
         return None
-    m = b""
-    pos = 6
-    for _ in range(_pil.u16le(data, 4)):
-        s = data[pos : pos + 16]
-        pos += len(s)
-        if not m:
-            m = s
-        elif s[0] > m[0] and s[1] > m[1]:
-            m = s
-    if not m:
-        raise TypeError("No cursors were found")
-    at = _pil.u32le(m, 12)  # at 0, _bitmap reads on where the loop ends
-    w, h = _bitmap(data, at or pos)
-    return _opens("CUR", w, h // 2)
+    return "CUR", ico.cur_open_header(data)
 
 
 def _ico(data: bytes):
+    """``IcoImageFile._open``, which loads the largest entry: the size it
+    ends with, and the pixels, which :func:`read` then takes as they
+    are."""
     if not data.startswith(b"\0\0\1\0"):
         return None
-    n, pos, entries = _pil.u16le(data, 4), 6, []
-    for _ in range(n):
-        s = data[pos : pos + 16]
-        pos += len(s)
-        w, h, colors, bpp = s[0] or 256, s[1] or 256, s[2], _pil.u16le(s, 6)
-        entries.append((w * h, bpp or (colors != 0 and math.ceil(
-            math.log(colors, 2))) or 256, _pil.u32le(s, 12)))
-    entries.sort(key=lambda e: e[1])
-    entries.sort(key=lambda e: e[0], reverse=True)
-    offset = entries[0][2]  # IndexError without an entry
-    if data[offset : offset + 8] != b"\x89PNG\r\n\x1a\n":
-        # the frame PIL loads while it opens the file, as a DIB
-        w, h = _bitmap(data, offset)
-        if not (w > 0 and h > 0):
-            return None
-        _pil.bomb_check(w, h)
-    return "ICO", None
+    px = ico.load(data)
+    return "ICO", (px.shape[1], px.shape[0]), px
+
+
+def _icns(data: bytes):
+    if not data.startswith(icns.MAGIC):
+        return None
+    _, (w, h, scale) = icns.open_header(data)
+    return "ICNS", (w * scale, h * scale)
+
+
+def _blp(data: bytes):
+    if not data.startswith((b"BLP1", b"BLP2")):
+        return None
+    hdr = blp.open_header(data)
+    return "BLP", (hdr.width, hdr.height)
+
+
+def _ftex(data: bytes):
+    if not data.startswith(ftex.MAGIC):
+        return None
+    w, h, _, _ = ftex.open_header(data)
+    return "FTEX", (w, h)
 
 
 def _mpeg(data: bytes):
@@ -169,14 +112,10 @@ def _gbr(data: bytes):
 
 
 def _fli(data: bytes):
-    if len(data) < 16 or _pil.u16le(data, 4) not in (0xAF11, 0xAF12) or \
-            _pil.u16le(data, 14) not in (0, 3):
+    if not fli.accept(data[:16]):
         return None
-    s = data[:128]
-    if s[20:22] != bytes(2) or s[42:80] != bytes(38) or s[88:] != bytes(40):
-        return None
-    _pil.u16le(data[128:134], 4)  # the first chunk's type
-    return _opens("FLI", _pil.u16le(s, 8), _pil.u16le(s, 10))
+    hdr = fli.open_header(data)
+    return "FLI", (hdr.width, hdr.height)
 
 
 def _mcidas(data: bytes):
@@ -299,10 +238,10 @@ def _avif(data: bytes):
 
 
 def _eps(data: bytes):
-    if data.startswith(b"%!PS") or (
-            len(data) >= 4 and _pil.u32le(data) == 0xC6D3D0C5):
-        return "EPS", None
-    return None
+    if not (data.startswith(b"%!PS") or (
+            len(data) >= 4 and _pil.u32le(data) == 0xC6D3D0C5)):
+        return None
+    return "EPS", eps.open_header(data)
 
 
 def _sun(data: bytes):
@@ -382,14 +321,14 @@ def _tga(data: bytes):
 
 # Image.ID after BMP, GIF, JPEG, PPM and PNG, in this installation's order
 _PLUGINS = (
-    _dib, _avif, _magic("BLP", b"BLP1", b"BLP2"),
+    _dib, _avif, _blp,
     _stub("BUFR", lambda p: p.startswith((b"BUFR", b"ZCZC"))), _cur, _pcx,
     _dcx, _dds, _eps, _fits, _fli,
-    _magic("FTEX", b"FTEX"), _gbr,
+    _ftex, _gbr,
     _stub("GRIB", lambda p: p.startswith(b"GRIB") and p[7] == 1),
     _stub("HDF5", lambda p: p.startswith(b"\x89HDF\r\n\x1a\n")),
     _jpeg2000,
-    _magic("ICNS", b"icns"), _ico, _im, _imt, _iptc, _mcidas, _mpeg,
+    _icns, _ico, _im, _imt, _iptc, _mcidas, _mpeg,
     _magic("TIFF", b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00",
            b"II\x00\x2a", b"MM\x00\x2b", b"II\x2b\x00"),
     _msp, _pcd, _pixar, _psd, _qoi, _sgi, _spider, _sun, _tga, _webp, _wmf,
@@ -420,7 +359,10 @@ _READERS = {"PCX": pcx.read_frame, "DCX": pcx.read_frame,
             "SUN": sun.read_frame, "PIXAR": pixar.read_frame,
             "XVTHUMB": xvthumb.read_frame, "XPM": xpm.read_frame,
             "IMT": imt.read_frame, "GBR": gbr.read_frame,
-            "IPTC": iptc.read_frame, "PCD": pcd.read_frame}
+            "IPTC": iptc.read_frame, "PCD": pcd.read_frame,
+            "ICO": ico.read_frame, "CUR": ico.cur_read_frame,
+            "ICNS": icns.read_frame, "BLP": blp.read_frame,
+            "FTEX": ftex.read_frame, "FLI": fli.read_frame}
 READ = tuple(_READERS)
 # the readers that tell no seek from seek(0): the others get 0 for None
 _SEEKS = ("SPIDER", "PSD")
@@ -431,12 +373,25 @@ NO_LOADER = {name: _no_loader(name, f"cannot find loader for this {name} "
                                                    "WMF")}
 NO_LOADER["MPEG"] = _no_loader("MPEG", "cannot load this image")
 # the plugins that open any file their magic bytes start (AVIF: any with
-# its first two boxes): the port does not check whether their _open would
-# refuse it and hand it on
-MAGIC_ONLY = ("AVIF", "BLP", "EPS", "FTEX", "ICNS", "TIFF", "WEBP")
-# the plugins whose header checks stop short of PIL's: ICO (PIL loads the
-# first icon while it opens the file), FLI (its first chunks)
-PARTLY_CHECKED = ("ICO", "FLI")
+# its first two boxes): their _open is their codec's own parser (AVIF,
+# WebP) or the port's TIFF reader, so the port does not check whether it
+# would refuse the file and hand it on
+MAGIC_ONLY = ("AVIF", "TIFF", "WEBP")
+
+
+def _open(data: bytes):
+    """The first plugin's ``(name, size)``, with the pixels where its
+    ``_open`` loads them (ICO), or None (see :func:`open_image`)."""
+    for plugin in _PLUGINS:
+        try:
+            found = plugin(data)
+        except _pil.PASS:
+            continue
+        if found is not None:
+            if found[1] is not None:
+                _pil.bomb_check(*found[1])
+            return found
+    return None
 
 
 def open_image(data: bytes) -> Optional[str]:
@@ -445,17 +400,8 @@ def open_image(data: bytes) -> Optional[str]:
     opens it.  A plugin's exception that PIL lets escape escapes, as does
     the decompression-bomb check's (on the size the plugin found, where
     the port knows it)."""
-    for plugin in _PLUGINS:
-        try:
-            found = plugin(data)
-        except _pil.PASS:
-            continue
-        if found is not None:
-            name, size = found
-            if size is not None:
-                _pil.bomb_check(*size)
-            return name
-    return None
+    found = _open(data)
+    return None if found is None else found[0]
 
 
 def read(data: bytes, index: Optional[int], what: str
@@ -468,15 +414,20 @@ def read(data: bytes, index: Optional[int], what: str
     naming ROADMAP M17 (with ``what``, the file's name) for a format PIL
     opens and the port does not read; None where no plugin opens the
     file."""
-    name = open_image(data)
-    if name is None:
+    found = _open(data)
+    if found is None:
         return None
+    name, _, *loaded = found
     if name in NO_LOADER:
         return NO_LOADER[name](data, index)
+    if name == "EPS" and index:  # one frame: PIL's seek refuses the rest
+        raise EOFError("attempt to seek outside sequence")
     if name not in READ:
         raise NotImplementedError(
             f"{what}: PIL opens this file as {name}, which unmicst_tpu_torch "
             "does not read (ROADMAP M17)")
     if index is None and name not in _SEEKS:
         index = 0
+    if loaded:  # ICO: loaded while it opened, as PIL loads it once
+        return ico.read_frame(data, index, loaded[0])
     return _READERS[name](data, index)

@@ -11,9 +11,14 @@ or ``CMYK``, the data filling band (3, 65) - 1 (0 without it; -1 is the
 last) and the other bands 0.  PIL's ``load`` copies the data fields out,
 behind a ``P5`` header of the record's size for raw data, and opens that
 copy as an image: raw data read as a PGM (short data ``OSError``), JPEG
-data through :mod:`unmicst_tpu_torch.io.mpo` (frame 0).  A JPEG of
-other than 8-bit gray samples, or of another size than the record's,
-raises ``NotImplementedError`` naming ROADMAP M17.
+data through :mod:`unmicst_tpu_torch.io.mpo` (frame 0), whose own size
+and mode the loaded image keeps: a colour JPEG in an ``L`` record packs
+as ``L`` from its four bytes a pixel (each row's first bytes), and
+``Image.merge`` refuses it among the bands of an ``RGB`` or ``CMYK``
+record (``ValueError``).  ``np.asarray`` takes the record's shape from
+those bytes, the first of them where the image is larger than the
+record; where it is smaller PIL's array reads past the image's bytes
+(memory it does not own), and the port raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -104,7 +109,8 @@ def open_header(data: bytes) -> IptcHeader:
 
 
 def _inner(data: bytes, hdr: IptcHeader) -> np.ndarray:
-    """The image PIL opens from the data fields' copy, as ``L``."""
+    """The image PIL opens from the data fields' copy: the record's ``L``
+    plane for raw data; a JPEG's own array for JPEG data."""
     fp = io.BytesIO(data)
     fp.seek(hdr.offset)
     body = bytearray()
@@ -123,13 +129,29 @@ def _inner(data: bytes, hdr: IptcHeader) -> np.ndarray:
         return rows
     from unmicst_tpu_torch.io import mpo
 
-    px = mpo.read_frame(body, 0)
-    if px.dtype != np.uint8 or px.shape != (h, w):
-        raise NotImplementedError(
-            f"an IPTC record holding a JPEG of {px.shape} {px.dtype} "
-            f"samples for a {w}x{h} {hdr.mode} image is not read by "
-            "unmicst_tpu_torch (ROADMAP M17)")
-    return px
+    return mpo.read_frame(body, 0)
+
+
+def _packed(mem: np.ndarray, hdr: IptcHeader, bands: int) -> np.ndarray:
+    """``np.asarray`` of the record: ``tobytes`` packs the loaded image at
+    its own size (``mem``: its memory, ``[h', w', 4]`` for more than one
+    band), and the array takes the record's shape from those bytes."""
+    h, w = hdr.height, hdr.width
+    if mem.ndim == 2:
+        flat = mem.reshape(-1)
+    elif bands == 1:  # an L packer over four bytes a pixel: each row's
+        hj, wj = mem.shape[:2]  # first w' bytes
+        flat = mem.reshape(hj, 4 * wj)[:, :wj].reshape(-1)
+    else:
+        flat = mem[..., :bands].reshape(-1)
+    need = h * w * bands
+    if flat.size < need:
+        raise ValueError(
+            f"an IPTC record of {w}x{h} holding a {mem.shape[1]}x"
+            f"{mem.shape[0]} image: PIL's array reads past the image's "
+            "bytes, so unmicst_tpu_torch refuses it")
+    out = flat[:need]
+    return out.reshape((h, w) if bands == 1 else (h, w, bands))
 
 
 def read_frame(data: bytes, index) -> np.ndarray:
@@ -141,11 +163,17 @@ def read_frame(data: bytes, index) -> np.ndarray:
     if hdr.offset is None:
         raise OSError("cannot load this image")
     px = _inner(data, hdr)
+    if px.ndim == 3:  # RGB: the image's memory holds a fourth byte, 255
+        px = np.concatenate([px, np.full(px.shape[:2] + (1,), 255,
+                                         np.uint8)], 2)
     if hdr.band is None:
-        return px
+        return _packed(px, hdr, 1)
     bands = len(hdr.mode)
-    out = np.zeros(px.shape + (bands,), np.uint8)
     if not -bands <= hdr.band < bands:
         raise IndexError("list assignment index out of range")
-    out[..., hdr.band] = px
-    return out
+    if px.ndim == 3:  # Image.merge: the colour image among L bands
+        raise ValueError("image has wrong mode" if hdr.band in (0, -bands)
+                         else "mode mismatch")
+    mem = np.zeros(px.shape + (4,), np.uint8)
+    mem[..., hdr.band % bands] = px
+    return _packed(mem, hdr, bands)

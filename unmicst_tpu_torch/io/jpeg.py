@@ -294,6 +294,11 @@ def huffman_codes(table: HuffTable) -> List[Tuple[int, int, int]]:
 _MAX_BLOCKS_IN_MCU = 10  # libjpeg's D_MAX_BLOCKS_IN_MCU
 
 
+def _refuse_components(nc: int):
+    raise JpegError(f"JPEG frame has {nc} components; only gray (1) and "
+                    "colour (3) are supported")
+
+
 def _parse_sof(body: bytes, m: int, shape) -> Frame:
     if len(body) < 6:
         raise JpegError("corrupt JPEG SOF segment")
@@ -303,9 +308,8 @@ def _parse_sof(body: bytes, m: int, shape) -> Frame:
                         "(8-bit only)")
     if h == 0:
         raise JpegError("JPEG height defined by DNL is not supported")
-    if nc not in (1, 3):
-        raise JpegError(f"JPEG frame has {nc} components; only gray (1) and "
-                        "colour (3) are supported")
+    if nc not in (1, 3, 4):
+        _refuse_components(nc)
     if w == 0 or len(body) != 6 + 3 * nc:
         raise JpegError("corrupt JPEG SOF segment")
     if shape is not None and (h, w) != tuple(shape):
@@ -324,11 +328,11 @@ def _parse_sof(body: bytes, m: int, shape) -> Frame:
     frame = Frame(h, w, m in (0xC2, 0xCA), comps, lossless=m == 0xC3,
                   arith=m in (0xC9, 0xCA))
     if frame.lossless:
-        if frame.hmax > 1 or frame.vmax > 1:
-            raise JpegError(
+        if frame.hmax > 1 or frame.vmax > 1:  # libjpeg-turbo reads them
+            raise NotImplementedError(
                 "lossless JPEG colour frames sampled "
                 f"{'/'.join(f'{x.h}x{x.v}' for x in comps)} are not "
-                "supported (1x1 only; ROADMAP M17)")
+                "read by unmicst_tpu_torch (1x1 only; ROADMAP M17)")
         return frame
     for c in comps:  # libjpeg upsamples by integral factors only
         if frame.hmax % c.h or frame.vmax % c.v:
@@ -341,10 +345,14 @@ def _parse_sof(body: bytes, m: int, shape) -> Frame:
 
 def _colour_space(nc: int, jfif: bool, adobe: Optional[int],
                   ids: List[int], lossless: bool = False) -> str:
-    """libjpeg-turbo's ``default_decompress_parms`` for 1 and 3
-    components: without a JFIF or Adobe marker a lossless frame is RGB."""
+    """libjpeg-turbo's ``default_decompress_parms`` for 1, 3 and 4
+    components: without a JFIF or Adobe marker a lossless frame is RGB;
+    four components are CMYK, or YCCK where an Adobe marker's transform
+    is not 0."""
     if nc == 1:
         return "gray"
+    if nc == 4:
+        return "ycck" if adobe not in (None, 0) else "cmyk"
     if jfif:
         return "ycbcr"
     if adobe is not None:
@@ -514,7 +522,8 @@ def parse_tables(data: bytes) -> Tables:
 
 def parse(data: bytes, shape: Optional[Tuple[int, int]] = None,
           tables: Optional[Tables] = None):
-    """Parse the marker structure: ``(frame, scans)``.
+    """Parse the marker structure: ``(frame, scans)``, of 1, 3 or 4
+    (CMYK or YCCK) components.
 
     ``shape`` is the (height, width) the caller expects (a CZI
     directory's); a frame of another size raises before any buffer is
@@ -1469,8 +1478,16 @@ def decode_planes(data: bytes, shape: Optional[Tuple[int, int]] = None,
     naming ROADMAP M17."""
     data = bytes(data)
     frame, scans = parse(data, shape, tables)
+    if len(frame.components) == 4:
+        _refuse_components(4)
+    return frame, _planes(data, frame, scans, feed)
+
+
+def _planes(data: bytes, frame: Frame, scans: List[Scan],
+            feed: Optional[int]) -> List[np.ndarray]:
+    """:func:`decode_planes` of a parsed stream."""
     if frame.lossless:
-        return frame, decode_lossless(data, frame, scans)
+        return decode_lossless(data, frame, scans)
     if frame.progressive and _smoothed(frame, scans):
         raise NotImplementedError(
             "progressive JPEG whose scans leave its first ten coefficients "
@@ -1489,7 +1506,7 @@ def decode_planes(data: bytes, shape: Optional[Tuple[int, int]] = None,
             bh * 8, bw * 8)
         ch, cw = frame.size(i)
         planes.append(img[:ch, :cw])
-    return frame, planes
+    return planes
 
 
 def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
@@ -1506,10 +1523,18 @@ def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
     ``"ycbcr"`` converts to RGB, ``"rgb"`` returns the components as they
     are (libtiff's choice for a JPEG TIFF page by its photometric
     interpretation).  ``feed`` as :func:`decode_coefficients` takes it.
+    ``colour`` ``"cmyk"``: a frame of four components decodes too, as
+    libjpeg's CMYK output gives it from a stream it takes as CMYK
+    (``[H, W, 4]``, before the inversion of PIL's ``CMYK;I`` raw mode);
+    other callers get :class:`JpegError` for it.
     Every failure raises :class:`JpegError` (a ``ValueError``); what the
     port does not decode yet and PIL does, ``NotImplementedError``
     (:func:`decode_planes`)."""
-    frame, planes = decode_planes(data, shape, tables, feed)
+    data = bytes(data)
+    frame, scans = parse(data, shape, tables)
+    if len(frame.components) == 4 and colour != "cmyk":
+        _refuse_components(4)
+    planes = _planes(data, frame, scans, feed)
     if frame.lossless and len(planes) == 3 and (colour or frame.colour) \
             == "ycbcr":
         raise JpegError("libjpeg-turbo converts no lossless JPEG colour "
@@ -1519,6 +1544,6 @@ def decode(data: bytes, shape: Optional[Tuple[int, int]] = None,
         for img, comp in zip(planes, frame.components)]
     if frame.colour == "gray":
         return np.ascontiguousarray(planes[0])
-    if (colour or frame.colour) == "rgb":
+    if len(planes) == 4 or (colour or frame.colour) == "rgb":
         return np.stack(planes, -1)
     return ycc_to_rgb(*planes)

@@ -35,13 +35,14 @@ through PIL, which this package does not use.
 
 from __future__ import annotations
 
+import re
 import struct
 import zlib
 from typing import Tuple
 
 import numpy as np
 
-from unmicst_tpu_torch.io import _native
+from unmicst_tpu_torch.io import _native, _pil
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> (samples per pixel, the bit depths the standard allows)
@@ -217,19 +218,97 @@ def _image_size(w: int, h: int, spp: int, depth: int) -> int:
     return h * ((w * spp * depth + 7) // 8 + 1)
 
 
+_CID = re.compile(rb"\w\w\w\w")
+
+
+def check_header(blob: bytes) -> Tuple[int, int]:
+    """``PngImageFile._open`` of a PNG inside another file (an icon's
+    entry): the chunk walk to the first IDAT with PIL's exceptions
+    (``SyntaxError`` for a bad signature, chunk name, filter method or
+    checksum, or for a mode PIL does not know, ``struct.error`` for a
+    chunk header cut short, ``ValueError`` for a short IHDR, ``OSError``
+    for a chunk cut short)."""
+    if not blob.startswith(_SIGNATURE):
+        raise SyntaxError("not a PNG file")
+    pos, known, size = 8, False, (0, 0)
+    while True:
+        length = struct.unpack(">I", blob[pos : pos + 4])[0]
+        cid = blob[pos + 4 : pos + 8]
+        pos += 8
+        if not _CID.match(cid):
+            raise SyntaxError(f"broken PNG file (chunk {cid!r})")
+        if cid in (b"IDAT", b"IEND"):
+            break
+        body = blob[pos : pos + length]
+        if len(body) < length:
+            raise OSError("Truncated File Read")
+        pos += length
+        if cid == b"IHDR":
+            if length < 13:
+                raise ValueError("Truncated IHDR chunk")
+            w, h, depth, colour, _, filt, _ = struct.unpack_from(">IIBBBBB",
+                                                                  body)
+            size = (w, h)
+            known = depth in _KINDS.get(colour, (0, ()))[1]
+            if filt:
+                raise SyntaxError("unknown filter category")
+        crc = blob[pos : pos + 4]
+        pos += 4
+        if len(crc) < 4:
+            raise SyntaxError(f"broken PNG file (incomplete checksum in "
+                              f"{cid!r})")
+        if zlib.crc32(body, zlib.crc32(cid)) != struct.unpack(">I", crc)[0]:
+            raise SyntaxError(f"broken PNG file (bad header checksum in "
+                              f"{cid!r})")
+    if not known or size[0] <= 0 or size[1] <= 0:
+        raise SyntaxError("not identified by this driver")
+    return size
+
+
+def decode_embedded(blob: bytes, what: str) -> np.ndarray:
+    """A PNG inside another file as PIL opens and loads it: the header's
+    exceptions (:func:`check_header`), the decompression-bomb check, then
+    the pixels, data that do not decode raising ``OSError``."""
+    try:  # PngImageFile(f): ImageFile.__init__'s mapping
+        w, h = check_header(blob)
+    except _pil.PASS as e:
+        raise SyntaxError(str(e)) from None
+    _pil.bomb_check(w, h)
+    try:
+        return decode_png(blob, what, embedded=True)
+    except ValueError as e:
+        raise OSError(str(e)) from None
+
+
 def read_png(path: str) -> np.ndarray:
     """Read a PNG as PIL does (see the module docstring)."""
     with open(path, "rb") as f:
-        blob = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(blob: bytes, path: str, embedded: bool = False
+               ) -> np.ndarray:
+    """The pixels of the PNG file ``blob`` as :func:`read_png` reads them
+    (``path`` names it in errors).  ``embedded``: a PNG inside another
+    file, whose data PIL takes from the IDAT chunks that follow one
+    another, needing no IEND and no checksum after them."""
     if not blob.startswith(_SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
-    pos, header, idat = len(_SIGNATURE), None, []
+    pos, header, idat, bad_name = len(_SIGNATURE), None, [], False
     while True:
         if pos + 8 > len(blob):
+            if embedded and idat:
+                break
             raise ValueError(f"{path}: truncated PNG (no IEND)")
         n, kind = struct.unpack_from(">I4s", blob, pos)
+        if embedded and idat and kind != b"IDAT":
+            # PIL's data end at the first other chunk, whose name it reads
+            # where it needs more data
+            bad_name = _CID.match(kind) is None
+            break
         body = blob[pos + 8 : pos + 8 + n]
-        if len(body) != n or pos + 12 + n > len(blob):
+        if (len(body) != n or pos + 12 + n > len(blob)) and not (
+                embedded and kind == b"IDAT"):  # PIL decodes what is there
             raise ValueError(f"{path}: truncated PNG chunk {kind!r}")
         pos += 12 + n
         if kind == b"IHDR":
@@ -250,10 +329,14 @@ def read_png(path: str) -> np.ndarray:
     size = _image_size(w, h, spp, depth)
     if not (w and h) or size > _MAX_BYTES:
         raise ValueError(f"{path}: implausible PNG size {w}x{h}")
-    try:
-        raw = zlib.decompressobj().decompress(b"".join(idat), 2 * size + h)
+    try:  # PIL's decoder stops where the image is whole
+        raw = zlib.decompressobj().decompress(
+            b"".join(idat), size if embedded and not interlace
+            else 2 * size + h)
     except zlib.error as e:
         raise ValueError(f"{path}: corrupt PNG data: {e}") from None
+    if bad_name and not interlace and len(raw) < size:
+        raise SyntaxError(f"{path}: broken PNG file (a chunk's name)")
     try:
         px = _pixels(raw, w, h, spp, depth, interlace)
     except ValueError as e:

@@ -1570,10 +1570,13 @@ def read_page_fallback(path: str, index: int, cause: Exception
     Netpbm file under a TIFF name gives its one frame, a GIF or an MPO its
     frame ``index`` (:func:`_single_frame`); any other file goes through
     PIL's other plugins in their order (:func:`_by_plugin_order`): a PCX,
-    SGI, TGA, DIB, MSP, XBM, QOI, DDS or JPEG 2000 file (a J2K codestream
-    or a JP2 file, :mod:`jpeg2000`), a FITS, McIDAS, Sun raster, PIXAR, XV
-    thumbnail, XPM, IMT, GBR, IPTC or PhotoCD file gives its one frame, a
-    DCX or IM file its frame ``index``, a SPIDER stack its image
+    SGI, TGA, DIB, MSP, XBM, QOI, DDS (block-compressed too, through
+    :mod:`bcn`) or JPEG 2000 file (a J2K codestream or a JP2 file,
+    :mod:`jpeg2000`), a FITS, McIDAS, Sun raster, PIXAR, XV thumbnail,
+    XPM, IMT, GBR, IPTC or PhotoCD file, an ICO or CUR (:mod:`ico`), an
+    ICNS, a BLP or an FTEX file gives its one frame, a DCX or IM file its
+    frame ``index``, an FLI or FLC animation its frame ``index`` (frames
+    0 to ``index`` replayed, :mod:`fli`), a SPIDER stack its image
     ``index`` and a PSD PIL's ``seek(index)`` (1 the composite; see
     :mod:`psd`).
     A TIFF's chain is walked by index, as PIL's ``seek`` walks it, so no

@@ -30,9 +30,10 @@ TIFFs through :mod:`unmicst_tpu_torch.io.tiff`, PNGs through
 :mod:`unmicst_tpu_torch.io.gif`, Netpbm files through
 :mod:`unmicst_tpu_torch.io.pnm`, and the files PIL tells apart by trying
 its other plugins in turn (PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI,
-uncompressed DDS and JPEG 2000, through
-:mod:`unmicst_tpu_torch.io.identify`; JPEG 2000 J2K codestreams and JP2
-files through :mod:`unmicst_tpu_torch.io.jpeg2000`);
+DDS, JPEG 2000, ICO, CUR, ICNS, BLP, FTEX, FLI and the other raster
+plugins PIL decodes itself, through :mod:`unmicst_tpu_torch.io.identify`;
+JPEG 2000 J2K codestreams and JP2 files through
+:mod:`unmicst_tpu_torch.io.jpeg2000`);
 :func:`imwrite` writes TIFF and every format PIL 12 saves (RGB and RGBA
 GIFs through :mod:`unmicst_tpu_torch.io.quant`) but ICO, ICNS, PDF, WebP,
 JPEG 2000 and AVIF, which raise ``NotImplementedError`` (ROADMAP M17), as
@@ -133,14 +134,18 @@ def imread(path: str) -> np.ndarray:
     name goes to the TIFF reader (whose fallback opens a PNG, JPEG, BMP,
     GIF, Netpbm, PCX, DCX, SGI, TGA, DIB, IM, MSP, XBM, QOI, DDS, JPEG
     2000, SPIDER, FITS, McIDAS, PSD, Sun raster, PIXAR, XV thumbnail,
-    XPM, IMT, GBR, IPTC or PhotoCD file under that name by content, at
-    ``seek(0)``); any other file is opened by content, as ``Image.open``
+    XPM, IMT, GBR, IPTC, PhotoCD, ICO, CUR, ICNS, BLP, FTEX or FLI file
+    under that name by content, at ``seek(0)``); any other file is opened
+    by content, as ``Image.open``
     opens it, each as PIL's ``np.asarray`` gives it without a seek: a
     TIFF, PNG, JPEG, BMP, Netpbm, PCX, SGI, TGA, DIB, MSP, XBM, QOI,
-    uncompressed DDS or JPEG 2000 file (a J2K codestream or a JP2 file:
+    DDS (block-compressed ones through :mod:`unmicst_tpu_torch.io.bcn`),
+    ICO (its largest entry, RGBA or a PNG's own mode), CUR, ICNS, BLP,
+    FTEX or JPEG 2000 file (a J2K codestream or a JP2 file:
     ``.jp2``, ``.j2k``, ``.jpc``, ``.jpf``, ``.jpx``, ``.j2c`` or any
     other name; ``I;16`` as uint16, a palette file's indices) whatever its
-    name, a GIF, an MPO, a DCX or an IM file its first frame (IM's
+    name, a GIF, an MPO, a DCX, an FLI or FLC, or an IM file its first
+    frame (IM's
     ``I;16`` as uint16, ``F`` as float32; MSP's and XBM's mode ``1`` as
     bool), a SPIDER image or a stack's first image, a PSD's composite, and
     the formats :mod:`unmicst_tpu_torch.io.identify` reads by PIL's plugin
@@ -148,10 +153,9 @@ def imread(path: str) -> np.ndarray:
     ``OSError``; a file no plugin of PIL opens, PFM and PAM among them,
     ``OSError``, as do the stubs PIL opens and cannot load: BUFR, GRIB,
     HDF5, WMF, MPEG).  Files PIL opens as
-    other formats (WebP among them), block-compressed DDS files and the
-    JPEG 2000 files PIL's encoder cannot write (see
-    :mod:`unmicst_tpu_torch.io.jpeg2000`) raise ``NotImplementedError``
-    (ROADMAP M17)."""
+    other formats (WebP, AVIF and EPS among them) and the JPEG 2000 files
+    PIL's encoder cannot write (see :mod:`unmicst_tpu_torch.io.jpeg2000`)
+    raise ``NotImplementedError`` (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         return _tiff_read(path)
     with open(path, "rb") as f:
