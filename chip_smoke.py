@@ -327,9 +327,22 @@ printing any result):
     each; a colour read refused by ``cli.main`` as by the JAX CLI
     (``ValueError``: both take one-plane reads only); every small fixture
     there read as PIL's committed read or exception (an EPS file's frame
-    0 refused naming M17: PIL needs Ghostscript).  The ``kernels`` line
-    gives each path's launches under ``launches_slice16`` to
-    ``launches_slice24``.
+    0 refused naming M17: PIL needs Ghostscript).
+27. The toolbox's ICO, ICNS and PDF writes (M17, eleventh part;
+    ``phase_slice25``, the same net): ``tests/fixtures/torch_write25/
+    make.py``'s seeded 4096^2 uint8, bool, RGBA and uint16 planes through
+    ``imtools.imwrite`` to ``.ico``, ``.icns`` and ``.pdf`` (Pillow's
+    resampler, the port's PNG, JPEG and Group 4 encoders), each ICO's and
+    ICNS's skeleton and entry pixels and each PDF (its date fixed) held
+    to the sha256 ``writes.json`` records from PIL; the RGBA PDF refused
+    naming M17, the uint16 PDF with PIL's ``ValueError``; the resampler's
+    native passes equal to its numpy ones at 4096^2, the G4 encode's
+    seconds and round trip; ``cli.main`` on the uint8 plane, its nuclei
+    map written as an ICO, and that ICO under a ``.tif`` name (its 256^2
+    entry) through ``cli.main`` against a plain TIFF twin, pages
+    byte-equal, K1 8 and one K2 epilogue on the slide, K1 1 and one K2
+    epilogue on the entry and its twin.  The ``kernels`` line gives each
+    path's launches under ``launches_slice16`` to ``launches_slice25``.
 """
 
 from __future__ import annotations
@@ -8296,6 +8309,221 @@ def phase_slice24(dev) -> dict:
                          "blend_fold_stripe")}
 
 
+WRITE25_FIXTURES = os.path.join(ROOT, "tests", "fixtures", "torch_write25")
+
+
+def write25_files():
+    """The seeded planes, the entry splitter and the fixed date of the
+    ICO, ICNS and PDF writes: ``tests/fixtures/torch_write25/make.py``,
+    loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "write25_make", os.path.join(WRITE25_FIXTURES, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_slice25(dev) -> dict:
+    """The toolbox's ICO, ICNS and PDF writes (M17, eleventh part) on the
+    card's host: ``make.py``'s seeded 4096^2 uint8, bool, RGBA and uint16
+    planes through ``imtools.imwrite`` to ``.ico``, ``.icns`` and
+    ``.pdf`` (the PDF dated ``make.FIXED_DATE``), each ICO's and ICNS's
+    skeleton and entries (read by the port's PNG decoder) and each PDF
+    held to PIL's sha256 (``writes.json``), the RGBA PDF refused naming
+    M17 and the uint16 one with PIL's ``ValueError``; the resampler's
+    native passes against its numpy ones at 4096^2 (LANCZOS to 256^2,
+    BICUBIC to 1024^2), the Group 4 encode's seconds and its round trip.
+    Then the legacy net (nucleiDAPI's widths, seeded weights) runs
+    ``cli.main`` on the uint8 plane as a TIFF, its nuclei map is written
+    as an ICO, and that ICO under a ``.tif`` name (the port's read of its
+    256^2 entry) runs ``cli.main`` against a plain TIFF twin of the entry,
+    pages byte-equal.  Returns, per kernel, its launches on each counted
+    path."""
+    import numpy as np
+    import torch
+
+    from unmicst_tpu_torch import cli, kernels
+    from unmicst_tpu_torch.io import _native, ccitt, ico, png, resample
+    from unmicst_tpu_torch.io.tiff import imread, imwrite, num_pages
+    from unmicst_tpu_torch.utils import imtools
+
+    card = card_label()
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mk = write25_files()
+    with open(os.path.join(WRITE25_FIXTURES, "writes.json")) as f:
+        ref = json.load(f)
+    launches = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slice25_")
+    try:
+        t0 = time.perf_counter()
+        check(_native.get_lib() is not None,
+              "the native host library (resample.cpp, tiffcodec.cpp) did "
+              "not build or load")
+        log(f"[slice25] native host library ready in "
+            f"{time.perf_counter() - t0:.2f} s (g++ where not built yet)")
+        t0 = time.perf_counter()
+        planes = mk.planes()
+        log(f"[slice25] seeded {SLIDE}^2 planes made in "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(sorted(ref) == sorted(n + e for n in planes for e in mk.EXTS),
+              "make.planes and writes.json name different files")
+
+        # -- ICO, ICNS and PDF of each plane, held to PIL's -------------------
+        bad = []
+        for name, x in planes.items():
+            for ext in mk.EXTS:
+                key, want = name + ext, ref[name + ext]
+                path = os.path.join(tmp, key)
+                t0 = time.perf_counter()
+                try:
+                    with mk.fixed_gmtime():
+                        imtools.imwrite(x, path)
+                except Exception as e:  # noqa: BLE001 -- held to PIL's
+                    secs = time.perf_counter() - t0
+                    got = f"{type(e).__name__}: {e}"
+                    if "error" in want:
+                        ok = got == want["error"]
+                    else:  # PIL writes it through its JPEG 2000 encoder
+                        ok = (isinstance(e, NotImplementedError)
+                              and "M17" in str(e) and ext == ".pdf"
+                              and name == "rgba" and not os.path.exists(path))
+                    log(f"[slice25] {key}: refused in {secs:.4f} s "
+                        f"({got[:72]}); as expected: {ok}")
+                    if not ok:
+                        bad.append(key)
+                    continue
+                secs = time.perf_counter() - t0
+                with open(path, "rb") as f:
+                    data = f.read()
+                os.remove(path)
+                t0 = time.perf_counter()
+                try:
+                    rec = mk.record(data, ext, lambda b: png.decode_png(
+                        b, key))
+                except ValueError as e:  # lengths or offsets inconsistent
+                    rec = str(e)
+                same = rec == want
+                n = len(rec.get("entries", ())) if same else 0
+                log(f"[slice25] {key}: written in {secs:.3f} s "
+                    f"({len(data)} bytes"
+                    + (f", {n} PNG entries" if n else "") + "); "
+                    + ("skeleton and entry pixels" if n else "file")
+                    + f" sha256 equal to PIL's: {same} (checked in "
+                    f"{time.perf_counter() - t0:.3f} s) | {card}")
+                if not same:
+                    bad.append(key)
+        check(not bad, f"writes differ from PIL's: {bad}")
+
+        # -- the resampler native against numpy, the G4 encoder ---------------
+        gray = planes["uint8"]
+        for size, filt in (((256, 256), resample.LANCZOS),
+                           ((1024, 1024), resample.BICUBIC)):
+            t0 = time.perf_counter()
+            native = resample.resize(gray, "L", size, filt)
+            t1 = time.perf_counter()
+            lib = _native.get_lib
+            _native.get_lib = lambda: None
+            try:
+                plain = resample.resize(gray, "L", size, filt)
+            finally:
+                _native.get_lib = lib
+            t2 = time.perf_counter()
+            same = np.array_equal(native, plain)
+            log(f"[slice25] resize {SLIDE}^2 -> {size[0]}^2 "
+                f"{'LANCZOS' if filt == resample.LANCZOS else 'BICUBIC'}: "
+                f"native {t1 - t0:.3f} s, numpy {t2 - t1:.3f} s; equal: "
+                f"{same} | {card}")
+            check(same, f"native and numpy resize to {size} differ")
+        rows = np.packbits(planes["bool"].astype(np.uint8), axis=1)
+        t0 = time.perf_counter()
+        strip = ccitt.encode_g4(rows, SLIDE)
+        secs = time.perf_counter() - t0
+        back = ccitt.decode(strip, SLIDE, SLIDE, ccitt.COMPRESSION_T6)
+        log(f"[slice25] G4 encode of {SLIDE}^2 bilevel: {secs:.4f} s, "
+            f"{rows.nbytes / secs / 1e6:.1f} MB/s of packed rows, "
+            f"{SLIDE * SLIDE / secs / 1e6:.1f} Mpx/s ({len(strip)} bytes); "
+            f"decodes back: {np.array_equal(back, rows)} | {card}")
+        check(np.array_equal(back, rows), "the G4 strip does not decode "
+              "back to its rows")
+        del rows, back, strip
+
+        # -- cli.main: the slide, its nuclei map as an ICO, the ICO's entry ---
+        hp = legacy_hp()
+        zoo = os.path.join(tmp, "zoo")
+        write_model_dir(zoo, "nucleiDAPI", hp, seeded_state(
+            hp, "legacy", SEED), "legacy", LEGACY_MEAN, LEGACY_STD)
+
+        def run(src, name):
+            out = os.path.join(tmp, "out", name)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main([src, "--tool", "unmicst-legacy", "--model",
+                           "nucleiDAPI", "--modelRoot", zoo, "--stackOutput",
+                           "--channel", "1", "--outputPath", out],
+                          device=dev)
+            secs = time.perf_counter() - t0
+            launches[name] = kernels.launch_counts()
+            check(rc == 0, f"cli.main {name}: rc {rc}")
+            (maps,) = [os.path.join(out, f) for f in os.listdir(out)
+                       if "_Probabilities_" in f]
+            n = launches[name]
+            log(f"[slice25] {name}: cli.main {secs:.2f} s; K1 "
+                f"{n['softmax_blend']}, K2 epilogue "
+                f"{n['blend_fold_epilogue']}, K2 stripe "
+                f"{n['blend_fold_stripe']} | {card}")
+            return [imread(maps, k) for k in range(num_pages(maps))]
+
+        slide = os.path.join(tmp, "slide.tif")
+        imwrite(slide, gray)
+        del planes, gray
+        nuclei = run(slide, "slide")[0]
+        n = launches["slide"]
+        check(n["softmax_blend"] == 8 and n["blend_fold_epilogue"] == 1
+              and n["blend_fold_stripe"] == 0,
+              f"the {SLIDE}^2 slide did not run K1 8 times and one K2 "
+              f"epilogue: {n}")
+        path = os.path.join(tmp, "nuclei.ico")
+        t0 = time.perf_counter()
+        imtools.imwrite(nuclei, path)
+        secs = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            data = f.read()
+        entry = ico.read_frame(data, 0)
+        want = resample.thumbnail(nuclei, "L", (256, 256), resample.LANCZOS)
+        log(f"[slice25] the nuclei map as an ICO: written in {secs:.3f} s "
+            f"({len(data)} bytes, {len(ico.entries(data))} entries); its "
+            f"{entry.shape[0]}x{entry.shape[1]} {entry.dtype} entry is the "
+            f"map's LANCZOS thumbnail: {np.array_equal(entry, want)}")
+        check(entry.shape == (256, 256) and entry.dtype == np.uint8
+              and np.array_equal(entry, want),
+              "the ICO's 256^2 entry is not the map's thumbnail")
+        as_tif = os.path.join(tmp, "nuclei_ico.tif")
+        os.rename(path, as_tif)
+        twin = os.path.join(tmp, "nuclei_plain.tif")
+        imwrite(twin, entry)
+        twin_maps = run(twin, "ico_plain")
+        maps = run(as_tif, "ico")
+        for name in ("ico_plain", "ico"):
+            n = launches[name]
+            check(n["softmax_blend"] == 1 and n["blend_fold_epilogue"] == 1
+                  and n["blend_fold_stripe"] == 0,
+                  f"{name} did not run K1 once and one K2 epilogue: {n}")
+        same = len(maps) == len(twin_maps) == 3 and all(
+            np.array_equal(a, b) for a, b in zip(maps, twin_maps))
+        log(f"[slice25] the ICO under a .tif name: pages byte-equal to the "
+            f"twin's: {same}")
+        check(same, "the ICO's pages differ from the plain twin's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[slice25] phase {time.perf_counter() - t_phase:.1f}s")
+    return {name: {path: counts[name] for path, counts in launches.items()}
+            for name in ("softmax_blend", "blend_fold_epilogue",
+                         "blend_fold_stripe")}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -8356,6 +8584,8 @@ def main(argv=None) -> int:
         stats[name]["launches_slice23"] = per_path
     for name, per_path in phase_slice24(dev).items():
         stats[name]["launches_slice24"] = per_path
+    for name, per_path in phase_slice25(dev).items():
+        stats[name]["launches_slice25"] = per_path
     log(f"[done] {time.perf_counter() - t0:.1f}s")
     rows = []
     for name, row in stats.items():
@@ -8370,7 +8600,7 @@ def main(argv=None) -> int:
                         "launches_slice18", "launches_slice19",
                         "launches_slice20", "launches_slice21",
                         "launches_slice22", "launches_slice23",
-                        "launches_slice24")}})
+                        "launches_slice24", "launches_slice25")}})
     print(json.dumps({"kernels": rows}))
     print(card_label())
     print(json.dumps({"ok": True, "device": {

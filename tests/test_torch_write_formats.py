@@ -144,9 +144,9 @@ def test_imwrite_refuses_as_pil_refuses(ext, error, tmp_path):
 
 @pytest.mark.parametrize("ext", T.QUEUED)
 def test_queued_writes_name_m17(ext, tmp_path):
-    """ICO, ICNS, PDF, WebP, JPEG 2000 and AVIF, which PIL writes through
-    its resampler or codecs, raise ``NotImplementedError`` naming ROADMAP
-    M17; a dtype ``fromarray`` refuses raises its ``TypeError`` first."""
+    """WebP, JPEG 2000 and AVIF, which PIL writes through its codecs,
+    raise ``NotImplementedError`` naming ROADMAP M17; a dtype
+    ``fromarray`` refuses raises its ``TypeError`` first."""
     with pytest.raises(NotImplementedError, match="M17"):
         T.imwrite(_arrays(4)["uint8"], str(tmp_path / f"q{ext}"))
     with pytest.raises(TypeError):

@@ -52,7 +52,7 @@ SOURCES = tuple(os.path.join(_PKG, "native", name)
                 for name in ("tiffcodec.cpp", "jpegdec.cpp", "pngfilter.cpp",
                              "gifcodec.cpp", "jpegenc.cpp", "rlecodec.cpp",
                              "quant.cpp", "qoicodec.cpp", "j2kdec.cpp",
-                             "bcndec.cpp", "flidec.cpp"))
+                             "bcndec.cpp", "flidec.cpp", "resample.cpp"))
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
 # no FMA contraction: the 9/7 wavelet is openjpeg's float32 arithmetic op
 # for op, and BC6H's scaling Pillow's, on every host
@@ -139,6 +139,9 @@ def _load(path: str) -> ctypes.CDLL:
     # src, len, dst, width, rows, compression, T4Options, err row
     fn.argtypes = [ctypes.c_char_p, ll, vp, ll, ll, ctypes.c_int,
                    ctypes.c_int, ctypes.POINTER(ll)]
+    fn = lib.unmicst_g4_encode
+    fn.restype = ll
+    fn.argtypes = [vp, ll, ll, vp, ll]  # rows, width, row count, dst, cap
     fn = lib.unmicst_png_unfilter
     fn.restype = ll
     fn.argtypes = [vp, ll, ll, ll, vp]  # src, rows, stride, bpp, dst
@@ -229,6 +232,14 @@ def _load(path: str) -> ctypes.CDLL:
     fn.restype = ll
     fn.argtypes = [ctypes.c_char_p, ll, vp, ll, ll]  # frame, bytes, image,
     # ysize, xsize
+    fn = lib.unmicst_resample_pass
+    fn.restype = ll
+    # src, w, c, kind, axis, xmin, xmax, taps, ksize, out, offset, rows, dst
+    fn.argtypes = [vp, ll, ll, it, it, vp, vp, vp, ll, ll, ll, ll, vp]
+    fn = lib.unmicst_alpha_multiply
+    fn.restype = None
+    fn.argtypes = [vp, ll, ll, it]  # pixels (in place), count, channels,
+    # inverse
     return lib
 
 
@@ -473,6 +484,29 @@ def ccitt_decode(data: bytes, width: int, rows: int, compression: int,
         raise ValueError(f"CCITT row {err_row.value}: "
                          f"{_CCITT_ERRORS.get(rc, f'error {rc}')}")
     return out
+
+
+def g4_encode(rows: np.ndarray, width: int) -> Optional[bytes]:
+    """One Group 4 strip of ``rows`` (``[n, ceil(width / 8)]`` uint8,
+    packed MSB first, a set bit black), as :func:`io.ccitt.encode_g4`
+    returns it; None without the library."""
+    if rows.dtype != np.uint8 or rows.ndim != 2 or width <= 0 or \
+            rows.shape[1] != (width + 7) // 8:
+        raise ValueError("g4_encode: [n, ceil(width / 8)] uint8")
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = np.ascontiguousarray(rows)
+    cap = len(rows) * (width + 7) * 2 + 16  # 16 bits a pixel: past G4's worst
+    while True:
+        dst = np.empty(cap, np.uint8)
+        n = lib.unmicst_g4_encode(_ptr(rows), width, len(rows), _ptr(dst),
+                                  cap)
+        if n >= 0:
+            return dst[:n].tobytes()
+        if n != -1:
+            raise ValueError(f"g4_encode: error {n}")
+        cap *= 2
 
 
 _JPEG_ERRORS = {
@@ -944,4 +978,54 @@ def bcn_decode(blocks: np.ndarray, n: int,
     out = np.empty((len(blocks), 16, 4), np.uint8)
     lib.unmicst_bcn_decode(_ptr(blocks), len(blocks), n, int(signed),
                            _ptr(out))
+    return out
+
+
+_RESAMPLE_TYPES = ({np.dtype(np.uint8)}, {np.dtype("<u2")},
+                   {np.dtype(np.int32)}, {np.dtype(np.float32)})
+
+
+def resample_pass(src: np.ndarray, axis: int, xmin: np.ndarray,
+                  xmax: np.ndarray, k: np.ndarray, kind: int, offset: int = 0,
+                  rows: Optional[int] = None) -> Optional[np.ndarray]:
+    """One pass of ``Resample.c`` (``native/resample.cpp``), as
+    ``io/resample.py``'s ``pass_py`` takes and returns it; None without
+    the library."""
+    if src.ndim != 3 or src.dtype not in _RESAMPLE_TYPES[kind] or \
+            axis not in (0, 1):
+        raise ValueError("resample_pass: [h, w, c] of the kind's type, "
+                         "axis 0 or 1")
+    lib = get_lib()
+    if lib is None:
+        return None
+    h, w, c = src.shape
+    rows = h - offset if rows is None else rows
+    out = len(xmin)
+    if axis == 1 and (offset < 0 or offset + rows > h):
+        raise ValueError("resample_pass: rows outside the image")
+    if out and int((xmin + np.maximum(xmax, 0)).max()) > (w if axis else h):
+        raise ValueError("resample_pass: taps outside the image")
+    src = np.ascontiguousarray(src)
+    xmin = np.ascontiguousarray(xmin, np.int64)
+    xmax = np.ascontiguousarray(xmax, np.int64)
+    k = np.ascontiguousarray(k, np.int32 if kind == 0 else np.float64)
+    dst = np.empty((rows, out, c) if axis else (out, w, c), src.dtype)
+    lib.unmicst_resample_pass(_ptr(src), w, c, kind, axis, _ptr(xmin),
+                              _ptr(xmax), _ptr(k), k.shape[1], out, offset,
+                              rows, _ptr(dst))
+    return dst
+
+
+def alpha_multiply(px: np.ndarray, inverse: bool) -> Optional[np.ndarray]:
+    """``io/resample.py``'s premultiply (or, ``inverse``, its undoing) of
+    ``px`` (uint8, alpha last; ``native/resample.cpp``), as a new array;
+    None without the library."""
+    if px.dtype != np.uint8 or px.ndim < 1 or px.shape[-1] < 1:
+        raise ValueError("alpha_multiply: uint8 channels, alpha last")
+    lib = get_lib()
+    if lib is None:
+        return None
+    out = np.array(px, np.uint8, order="C")
+    lib.unmicst_alpha_multiply(_ptr(out), out.size // out.shape[-1],
+                               out.shape[-1], int(inverse))
     return out

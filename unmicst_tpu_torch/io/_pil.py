@@ -4,13 +4,16 @@ through PIL (``io/pcx.py``, ``io/tga.py``, ``io/sgi.py``,
 ``io/identify.py``): the decompression-bomb check, the exceptions a
 plugin's ``_open`` may raise for ``Image.open`` to try the next plugin,
 the messages of the loader's decoder errors, its ``raw`` decoder
-(:func:`raw_rows`, :func:`unpack`), and its CMYK to RGB conversion
-(:func:`cmyk_to_rgb`).
+(:func:`raw_rows`, :func:`unpack`), its CMYK to RGB conversion
+(:func:`cmyk_to_rgb`), and what ``Image.save`` does around a save
+handler (:func:`save_file`).
 """
 
 from __future__ import annotations
 
+import os
 import struct
+from typing import BinaryIO, Callable
 
 import numpy as np
 
@@ -161,3 +164,22 @@ def cmyk_to_rgb(px: np.ndarray) -> np.ndarray:
     nk = 255 - px[..., 3:]
     t = px[..., :3] * nk + 128
     return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+def save_file(path: str, write: Callable[[BinaryIO], None]) -> None:
+    """``Image.save`` of a file name around a save handler ``write``: the
+    file opened ``w+b``; where the handler raises, the file closed with
+    what it wrote, and removed if the save created it."""
+    created = not os.path.exists(path)
+    f = open(path, "w+b")
+    try:
+        write(f)
+    except Exception:
+        f.close()
+        if created:
+            try:
+                os.remove(path)
+            except PermissionError:
+                pass
+        raise
+    f.close()

@@ -2,7 +2,8 @@
 the port's native decoder (``native/tiffcodec.cpp``
 ``unmicst_ccitt_decode``), for the TIFF pages the JAX package reads
 through PIL and libtiff's ``tif_fax3.c`` (``unmicst_tpu/io/tiff.py:1274-
-1291``, ``io/slides.py:66-97``).
+1291``, ``io/slides.py:66-97``); and the Group 4 encoder PIL's PDF save
+of a mode ``1`` image reaches through libtiff (:func:`encode_g4`, below).
 
 Three TIFF compressions, each strip or tile coded on its own:
 
@@ -29,6 +30,7 @@ with the row padded (ROADMAP M17, "not queued").
 
 from __future__ import annotations
 
+import struct
 from bisect import bisect_right
 from typing import Dict, List
 
@@ -239,3 +241,127 @@ def decode(data: bytes, width: int, rows: int, compression: int,
         for k in range(0, len(ref), 2):  # black from each odd change
             out[r, ref[k] : ref[k + 1] if k + 1 < len(ref) else width] = 1
     return np.packbits(out, axis=1)
+
+
+# -- Group 4 encoding ---------------------------------------------------------
+
+EOFB = "000000000001" * 2
+# the vertical modes' codes by b1 - a1 + 3, as libtiff's vcodes
+_VCODES = ("0000011", "000011", "011", "1", "010", "000010", "0000010")
+
+
+def _span_codes(span: int, colour: int) -> str:
+    """libtiff's ``putspan``: make-up codes of 2560 while the run is
+    2624 or more, one make-up code, then the terminating code."""
+    term, makeup = ((WHITE_TERM, WHITE_MAKEUP), (BLACK_TERM,
+                                                   BLACK_MAKEUP))[colour]
+    out = []
+    while span >= 2624:
+        out.append(EXT_MAKEUP[-1])
+        span -= 2560
+    if span >= 64:
+        k = span >> 6
+        out.append(makeup[k - 1] if k <= 27 else EXT_MAKEUP[k - 28])
+        span -= 64 * k
+    out.append(term[span])
+    return "".join(out)
+
+
+def _finder(row: np.ndarray, width: int):
+    """libtiff's ``finddiff`` over one row of 0/1 pixels: from ``bs``,
+    past the run of ``colour`` (none where the pixel there differs),
+    ending at the row's end."""
+    changes = (np.flatnonzero(np.diff(row)) + 1).tolist() + [width]
+
+    def finddiff(bs: int, colour: int) -> int:
+        if bs >= width or row[bs] != colour:
+            return bs
+        return changes[bisect_right(changes, bs)]
+
+    return finddiff
+
+
+def _row_g4(cur: np.ndarray, ref: np.ndarray, width: int) -> str:
+    """``Fax3Encode2DRow``: one row coded against the row above."""
+    fc, fr = _finder(cur, width), _finder(ref, width)
+    out = []
+    a0 = 0
+    a1 = 0 if cur[0] else fc(0, 0)
+    b1 = 0 if ref[0] else fr(0, 0)
+    while True:
+        b2 = fr(b1, int(ref[b1])) if b1 < width else width
+        if b2 >= a1:
+            d = b1 - a1
+            if not -3 <= d <= 3:  # horizontal mode
+                a2 = fc(a1, int(cur[a1])) if a1 < width else width
+                first = 0 if a0 + a1 == 0 or cur[a0] == 0 else 1
+                out += ["001", _span_codes(a1 - a0, first),
+                        _span_codes(a2 - a1, first ^ 1)]
+                a0 = a2
+            else:  # vertical mode
+                out.append(_VCODES[d + 3])
+                a0 = a1
+        else:  # pass mode
+            out.append("0001")
+            a0 = b2
+        if a0 >= width:
+            break
+        colour = int(cur[a0])
+        a1 = fc(a0, colour)
+        b1 = fr(fr(a0, colour ^ 1), colour)
+    return "".join(out)
+
+
+def encode_g4_py(rows: np.ndarray, width: int) -> bytes:
+    """:func:`encode_g4` in Python, the plain version of
+    ``native/tiffcodec.cpp`` ``unmicst_g4_encode``."""
+    bits = np.unpackbits(np.asarray(rows, np.uint8), axis=1)[:, :width]
+    ref = np.zeros(width, np.uint8)
+    parts = []
+    for cur in bits:
+        parts.append(_row_g4(cur, ref, width))
+        ref = cur
+    code = "".join(parts) + EOFB
+    code += "0" * (-len(code) % 8)
+    return int(code, 2).to_bytes(len(code) // 8, "big")
+
+
+def encode_g4(rows: np.ndarray, width: int) -> bytes:
+    """libtiff 4.7's ``Fax4Encode`` of one strip: ``rows`` (``[n,
+    ceil(width / 8)]`` uint8, packed MSB first, a set bit coded as
+    black) row by row against the row above (all white above the first),
+    then EOFB, the last byte padded with zero bits.  In the native host
+    library when it loads, else :func:`encode_g4_py`."""
+    from unmicst_tpu_torch.io import _native
+
+    rows = np.ascontiguousarray(rows, np.uint8)
+    out = _native.g4_encode(rows, width)
+    return encode_g4_py(rows, width) if out is None else out
+
+
+def g4_tiff(image: np.ndarray) -> bytes:
+    """The TIFF PIL's libtiff save of a mode ``1`` image (``image``: 0/1)
+    writes with ``compression="group4"`` in one strip: the header, the
+    strip at 8, a zero byte where its length is odd, then the IFD of
+    libtiff's nine tags (ImageWidth, ImageLength, BitsPerSample 1,
+    Compression 4, Photometric 1 (BlackIsZero), StripOffsets,
+    RowsPerStrip, StripByteCounts, PlanarConfiguration 1)."""
+    h, w = image.shape
+    strip = encode_g4(np.packbits(np.asarray(image, np.uint8), axis=1), w)
+    pad = b"\0" * (len(strip) % 2)
+    ifd_at = 8 + len(strip) + len(pad)
+
+    def short_or_long(tag: int, value: int) -> bytes:
+        if value <= 0xFFFF:
+            return struct.pack("<HHIHH", tag, 3, 1, value, 0)
+        return struct.pack("<HHII", tag, 4, 1, value)
+
+    entries = [short_or_long(256, w), short_or_long(257, h),
+               short_or_long(258, 1), short_or_long(259, COMPRESSION_T6),
+               short_or_long(262, 1), struct.pack("<HHII", 273, 4, 1, 8),
+               short_or_long(278, h),
+               struct.pack("<HHII", 279, 4, 1, len(strip)),
+               short_or_long(284, 1)]
+    return (b"II*\0" + struct.pack("<I", ifd_at) + strip + pad
+            + struct.pack("<H", len(entries)) + b"".join(entries)
+            + bytes(4))

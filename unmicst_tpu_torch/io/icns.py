@@ -14,9 +14,9 @@ one, else the RGB one with its mask as alpha (``RGB`` without a mask):
 * ``ic07``-``ic14``, ``icp4``-``icp6``: a PNG, kept in its own mode
   (:mod:`unmicst_tpu_torch.io.png`), or a JPEG 2000 codestream or JP2
   file converted to RGBA (:mod:`unmicst_tpu_torch.io.jpeg2000`; from L,
-  LA, RGB and CMYK, a palette or 16-bit image raising
-  ``NotImplementedError`` naming ROADMAP M17); other data raise PIL's
-  ``ValueError``;
+  LA, RGB, CMYK, ``I;16`` (clipped to 255) and ``P``/``PA`` through the
+  ``pclr`` palette as PIL's ``putpalette`` holds it); other data raise
+  PIL's ``ValueError``;
 * ``is32``, ``il32``, ``ih32`` and ``it32`` (which starts with four zero
   bytes, else ``SyntaxError``): RGB, uncompressed where the block holds
   exactly three planes, else each plane in PIL's run-length coding
@@ -27,6 +27,17 @@ one, else the RGB one with its mask as alpha (``RGB`` without a mask):
 
 An image whose size is none PIL allows for the file raises PIL's
 ``ValueError``; planes cut short, its ``ValueError``.
+
+Writing (:func:`write_icns`, ``IcnsImagePlugin._save`` as the toolbox's
+``Image.fromarray(image).save(path)`` reaches it): the image resized to
+each side of 32, 64, 128, 256, 512 and 1024 at ``resize``'s default
+filter (:mod:`unmicst_tpu_torch.io.resample`: BICUBIC, NEAREST for mode
+``1``; the image itself where it has that size), each as a PNG
+(:func:`unmicst_tpu_torch.io.png.encode_pixels`: PIL's pixels, the
+port's deflate); then ``icns`` and the file's length, the ``TOC `` block
+and the eight entries ``ic07`` ... ``ic14`` in ``_save``'s order, each
+with its size's PNG.  A mode PNG cannot hold (``F``) raises PIL's
+``OSError`` and the file goes where ``Image.save`` removes it.
 """
 
 from __future__ import annotations
@@ -36,9 +47,12 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from unmicst_tpu_torch.io import _pil
+from unmicst_tpu_torch.io import _pil, resample
 
 MAGIC = b"icns"
+# IcnsImagePlugin._save's entries, in its order, and their sides
+SAVE_SIZES = {b"ic07": 128, b"ic08": 256, b"ic09": 512, b"ic10": 1024,
+              b"ic11": 32, b"ic12": 64, b"ic13": 256, b"ic14": 512}
 # (width, height, scale) -> the blocks PIL reads for it, in order
 SIZES = {
     (512, 512, 2): (b"ic10",), (512, 512, 1): (b"ic09",),
@@ -127,15 +141,23 @@ def _mask(data: bytes, start: int, side: int) -> np.ndarray:
     return np.frombuffer(raw, np.uint8).reshape(side, side)
 
 
-def _to_rgba(px: np.ndarray, mode: str) -> np.ndarray:
+def _to_rgba(px: np.ndarray, hdr) -> np.ndarray:
     """``convert("RGBA")`` of a JPEG 2000 image as ``jpeg2000`` reads it
-    in PIL's ``mode``."""
+    (``hdr`` its header: PIL's mode and a palette): ``P`` and ``PA``
+    through the palette as ``putpalette`` holds it (``PA``'s alpha its
+    own), ``I;16`` clipped to 255."""
+    mode = hdr.mode
     if mode == "CMYK":
         px = _pil.cmyk_to_rgb(px)
-    elif mode not in ("L", "LA", "RGB", "RGBA"):
-        raise NotImplementedError(
-            f"an ICNS entry of a {mode} JPEG 2000 image is not converted to "
-            "RGBA by unmicst_tpu_torch (ROADMAP M17)")
+    elif mode == "I;16":
+        px = np.minimum(px, 255).astype(np.uint8)
+    elif mode in ("P", "PA"):
+        table = hdr.palette.rgba()
+        if mode == "P":
+            return table[px]
+        out = table[px[..., 0]]
+        out[..., 3] = px[..., 1]
+        return out
     h, w = px.shape[:2]
     out = np.full((h, w, 4), 255, np.uint8)
     if px.ndim == 2:
@@ -170,7 +192,7 @@ def _png_or_jpeg2000(data: bytes, start: int, length: int) -> np.ndarray:
         if hdr.width <= 0 or hdr.height <= 0:
             raise SyntaxError("not identified by this driver")
         _pil.bomb_check(hdr.width, hdr.height)
-        return _to_rgba(jpeg2000.load(stream, hdr), hdr.mode)
+        return _to_rgba(jpeg2000.load(stream, hdr), hdr)
     raise ValueError("Unsupported icon subimage format")
 
 
@@ -232,3 +254,33 @@ def _as_rgba_bytes(px: np.ndarray, channels: dict) -> np.ndarray:
         return np.ascontiguousarray(mem).reshape(-1)[: h * w * 3].reshape(
             h, w, 3)
     raise ValueError("No packer found from this mode to RGBA")
+
+
+def _save(f, image: np.ndarray) -> None:
+    """``IcnsImagePlugin._save`` of ``Image.fromarray(image)`` onto ``f``
+    (see the module docstring)."""
+    from unmicst_tpu_torch.io import png
+
+    mode, px = png.array_mode(image)
+    streams = {}
+    for side in sorted(set(SAVE_SIZES.values())):
+        streams[side] = png.encode_pixels(
+            mode, resample.resize(px, mode, (side, side)))
+    toc = 8 + 8 * len(SAVE_SIZES)
+    blocks = [(code, 8 + len(streams[side]), streams[side])
+              for code, side in SAVE_SIZES.items()]
+    f.write(MAGIC + struct.pack(">i", 8 + toc + sum(b[1] for b in blocks)))
+    f.write(b"TOC " + struct.pack(">i", toc))
+    for code, size, _ in blocks:
+        f.write(code + struct.pack(">i", size))
+    for code, size, stream in blocks:
+        f.write(code + struct.pack(">i", size) + stream)
+
+
+def write_icns(path: str, image: np.ndarray) -> None:
+    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes an
+    ICNS file (see the module docstring)."""
+    from unmicst_tpu_torch.io import png
+
+    png.array_mode(image)  # fromarray's TypeError before the file opens
+    _pil.save_file(path, lambda f: _save(f, image))

@@ -21,6 +21,20 @@ for them raise PIL's ``ValueError``.
 CUR (:func:`cur_open_header`, :func:`cur_read_frame`, ``CurImageFile``):
 the largest cursor of the directory by PIL's comparison, its DIB read at
 half its height, without a mask.
+
+Writing (:func:`write_ico`, ``IcoImagePlugin._save`` as the toolbox's
+``Image.fromarray(image).save(path)`` reaches it: PNG entries, PIL's
+default sizes, no other images): one entry for each square side of
+16, 24, 32, 48, 64, 128 and 256 that fits the image's width and height,
+the image itself where it is that square, else its thumbnail
+(:func:`unmicst_tpu_torch.io.resample.thumbnail`, LANCZOS: the aspect
+kept, so a side shrinks below the square's); the 16-byte directory (0
+for a side of 256, no colours, 0 planes, 32 bits), then each entry's PNG
+(:func:`unmicst_tpu_torch.io.png.encode_pixels`: PIL's pixels, the
+port's deflate).  An image under 16 pixels a side has no entry.  A mode
+PNG cannot hold (``F``) raises PIL's ``OSError`` at the first entry,
+after the bytes PIL writes before it, and the file goes where
+``Image.save`` removes it.
 """
 
 from __future__ import annotations
@@ -33,9 +47,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from unmicst_tpu_torch.io import _pil, bmp
+from unmicst_tpu_torch.io import _pil, bmp, resample
 
 PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+# IcoImagePlugin._save's default sizes (squares), sorted
+SAVE_SIDES = (16, 24, 32, 48, 64, 128, 256)
 
 
 @dataclasses.dataclass
@@ -212,3 +228,37 @@ def cur_read_frame(data: bytes, index: int = 0) -> np.ndarray:
         raise EOFError("attempt to seek outside sequence")
     dib = _half_height(data[at:], h)
     return bmp.read_frame(dib, 0)
+
+
+def _save(f, image: np.ndarray) -> None:
+    """``IcoImagePlugin._save`` of ``Image.fromarray(image)`` onto ``f``
+    (see the module docstring)."""
+    from unmicst_tpu_torch.io import png
+
+    mode, px = png.array_mode(image)
+    f.write(b"\0\0\1\0")
+    h, w = px.shape[:2]
+    frames = [px if (w, h) == (side, side) else resample.thumbnail(
+        px, mode, (side, side), resample.LANCZOS)
+        for side in SAVE_SIDES if side <= w and side <= h]
+    f.write(struct.pack("<H", len(frames)))
+    offset = f.tell() + 16 * len(frames)
+    for frame in frames:
+        fh, fw = frame.shape[:2]
+        f.write(bytes((fw % 256, fh % 256, 0, 0, 0, 0)) + b"\x20\0")
+        data = png.encode_pixels(mode, frame)
+        f.write(struct.pack("<II", len(data), offset))
+        current = f.tell()
+        f.seek(offset)
+        f.write(data)
+        offset += len(data)
+        f.seek(current)
+
+
+def write_ico(path: str, image: np.ndarray) -> None:
+    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes an
+    ICO (see the module docstring)."""
+    from unmicst_tpu_torch.io import png
+
+    png.array_mode(image)  # fromarray's TypeError before the file opens
+    _pil.save_file(path, lambda f: _save(f, image))

@@ -154,29 +154,44 @@ class _BoxReader:
         return tbox
 
 
-class _Palette:
-    """What ``ImagePalette.getcolor`` keeps of a ``pclr`` palette: its
-    colours and byte count, for its "more than 256 colors" ``ValueError``."""
+class Palette:
+    """A ``pclr`` palette as ``ImagePalette.getcolor`` keeps it: its
+    colours by index and its bytes (a colour shorter or longer than the
+    mode's entry shifts the ones after it), and what ``putpalette``
+    makes of them (:meth:`rgba`)."""
 
     def __init__(self, mode: str):
         self.mode = mode
         self.colors: Dict[tuple, int] = {}
-        self.nbytes = 0
+        self.data = bytearray()
 
     def getcolor(self, color: tuple) -> int:
         if self.mode == "RGBA" and len(color) == 3:
             color += (255,)
         if color in self.colors:
             return self.colors[color]
-        index = self.nbytes // 3
+        n = len(self.mode)
+        index = len(self.data) // n
         if index >= 256:
             raise ValueError("cannot allocate more than 256 colors")
         self.colors[color] = index
-        if index * 3 < self.nbytes:  # a short colour before: overwritten
-            self.nbytes = index * 3 + len(color)
+        if index * n < len(self.data):  # a short colour before: overwritten
+            self.data[index * n :] = bytes(color) + self.data[index * n + n :]
         else:
-            self.nbytes += len(color)
+            self.data += bytes(color)
         return index
+
+    def rgba(self) -> np.ndarray:
+        """``[256, 4]`` uint8: the image's palette after ``putpalette``
+        (entries past the palette's bytes black and opaque, an RGB
+        palette's alpha 255)."""
+        n = len(self.mode)
+        table = np.zeros((256, 4), np.uint8)
+        table[:, 3] = 255
+        k = len(self.data) // n
+        table[:k, :n] = np.frombuffer(bytes(self.data[: k * n]),
+                                      np.uint8).reshape(k, n)
+        return table
 
 
 def _parse_codestream(fp) -> Tuple[Tuple[int, int], str]:
@@ -227,7 +242,7 @@ def _parse_jp2_header(fp):
             ne, npc = header.read_fields(">HB")
             depths = header.read_fields(">" + "B" * npc)
             if max((0,) + depths) <= 8:
-                palette = _Palette("RGBA" if npc == 4 else "RGB")
+                palette = Palette("RGBA" if npc == 4 else "RGB")
                 for _ in range(ne):
                     palette.getcolor(header.read_fields(">" + "B" * npc))
                 mode = "P" if mode == "L" else "PA"
@@ -239,7 +254,7 @@ def _parse_jp2_header(fp):
                     break
     if size is None or mode is None:
         raise SyntaxError("Malformed JP2 header")
-    return size, mode
+    return size, mode, palette
 
 
 def _parse_comment(fp) -> None:
@@ -260,12 +275,14 @@ def _parse_comment(fp) -> None:
 @dataclasses.dataclass
 class J2kHeader:
     """What ``Jpeg2KImageFile._open`` finds: ``codec`` ``"j2k"`` or
-    ``"jp2"``, the size and PIL's mode."""
+    ``"jp2"``, the size, PIL's mode and a ``P``/``PA`` image's
+    palette."""
 
     codec: str
     width: int
     height: int
     mode: str
+    palette: Optional[Palette] = None
 
 
 def accept(prefix: bytes) -> bool:
@@ -280,6 +297,7 @@ def open_header(data: bytes) -> J2kHeader:
     ``Image.open``)."""
     fp = _File(data)
     sig = fp.read(4)
+    palette = None
     if sig == J2K_MAGIC:
         codec = "j2k"
         size, mode = _parse_codestream(fp)
@@ -289,12 +307,12 @@ def open_header(data: bytes) -> J2kHeader:
         if sig != JP2_MAGIC:
             raise SyntaxError("not a JPEG 2000 file")
         codec = "jp2"
-        size, mode = _parse_jp2_header(fp)
+        size, mode, palette = _parse_jp2_header(fp)
         if fp.read(12).endswith(b"jp2c\xff\x4f\xff\x51"):
             length = _pil.u16be(fp.read(2))
             fp.seek(length - 2, os.SEEK_CUR)
             _parse_comment(fp)
-    return J2kHeader(codec, size[0], size[1], mode)
+    return J2kHeader(codec, size[0], size[1], mode, palette)
 
 
 # -- openjpeg's JP2 boxes -----------------------------------------------------

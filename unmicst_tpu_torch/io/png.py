@@ -25,7 +25,9 @@ through PIL, which this package does not use.
   change none of it (PIL keeps them beside the pixels).  A corrupt file
   raises ``ValueError``.
 * :func:`write_png` writes what ``Image.fromarray(image).save(path)``
-  writes, each row with filter type 0: bool as 1-bit gray, uint8 planes,
+  writes (:func:`encode_png` returns those bytes, :func:`encode_pixels`
+  those of an image given by its mode and pixels, for the icons that
+  embed PNGs), each row with filter type 0: bool as 1-bit gray, uint8 planes,
   gray+alpha, RGB and RGBA at 8 bits, uint16 planes at 16 bits, and
   PIL's mode ``I`` (int8 read as its bytes, int16, int32, uint32 read as
   int32) at 16 bits, clipped to 0..65535.  It raises where PIL raises:
@@ -100,10 +102,10 @@ def array_mode(image) -> Tuple[str, np.ndarray]:
     return mode, img
 
 
-def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
-    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes a
-    PNG (see the module docstring)."""
-    mode, img = array_mode(image)
+def encode_pixels(mode: str, img: np.ndarray, level: int = 6) -> bytes:
+    """PIL's PNG save of an image in ``mode`` whose pixels are ``img``
+    (as :func:`array_mode` gives them), as bytes: each row with filter
+    type 0, the port's own deflate."""
     if mode == "F":
         raise OSError(f"cannot write mode {mode} as PNG")
     if 0 in img.shape:
@@ -121,10 +123,22 @@ def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
     rows = np.zeros((h, 1 + raw.shape[1]), np.uint8)  # a filter byte a row
     rows[:, 1:] = raw
     header = struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
+            + _chunk(b"IEND", b""))
+
+
+def encode_png(image: np.ndarray, level: int = 6) -> bytes:
+    """The bytes :func:`write_png` writes for ``image``."""
+    return encode_pixels(*array_mode(image), level)
+
+
+def write_png(path: str, image: np.ndarray, level: int = 6) -> None:
+    """Write ``image`` as ``Image.fromarray(image).save(path)`` writes a
+    PNG (see the module docstring)."""
+    data = encode_png(image, level)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
-                + _chunk(b"IEND", b""))
+        f.write(data)
 
 
 # -- reading ------------------------------------------------------------------

@@ -1111,6 +1111,174 @@ extern "C" long long unmicst_ccitt_decode(const uint8_t* src, long long n,
 }
 
 // ---------------------------------------------------------------------------
+// CCITT Group 4 encode (ITU T.6) of one strip, as libtiff 4.7's Fax4Encode
+// writes it (tif_fax3.c Fax3Encode2DRow, putspan, Fax4PostEncode): the
+// native side of unmicst_tpu_torch/io/ccitt.py encode_g4, whose
+// encode_g4_py is the same algorithm in Python.
+
+namespace g4 {
+
+struct Code {
+  uint32_t bits;
+  int len;
+};
+
+Code code_of(const char* s) {
+  Code c{0, (int)strlen(s)};
+  for (int i = 0; i < c.len; ++i)
+    c.bits = (c.bits << 1) | (uint32_t)(s[i] - '0');
+  return c;
+}
+
+struct Codes {
+  Code term[2][64], makeup[2][41];  // makeup[colour][run / 64], 1..40
+  Code horiz, pass, v[7];           // v[b1 - a1 + 3]
+  Codes() {
+    for (int i = 0; i < 64; ++i) {
+      term[0][i] = code_of(ccitt::kWhiteTerm[i]);
+      term[1][i] = code_of(ccitt::kBlackTerm[i]);
+    }
+    for (int i = 0; i < 27; ++i) {
+      makeup[0][i + 1] = code_of(ccitt::kWhiteMakeup[i]);
+      makeup[1][i + 1] = code_of(ccitt::kBlackMakeup[i]);
+    }
+    for (int i = 0; i < 13; ++i)
+      makeup[0][28 + i] = makeup[1][28 + i] = code_of(ccitt::kExtMakeup[i]);
+    horiz = code_of("001");
+    pass = code_of("0001");
+    const char* vs[7] = {"0000011", "000011", "011", "1",
+                         "010",     "000010", "0000010"};
+    for (int i = 0; i < 7; ++i) v[i] = code_of(vs[i]);
+  }
+};
+
+const Codes& codes() {
+  static const Codes c;
+  return c;
+}
+
+struct BitWriter {
+  uint8_t* dst;
+  long long cap, n = 0;
+  uint64_t acc = 0;
+  int nacc = 0;
+  bool overflow = false;
+  void put(Code c) {
+    acc = (acc << c.len) | c.bits;
+    nacc += c.len;
+    while (nacc >= 8) {
+      nacc -= 8;
+      if (n < cap)
+        dst[n++] = (uint8_t)(acc >> nacc);
+      else
+        overflow = true;
+    }
+  }
+  void flush() {
+    if (nacc > 0) put(Code{0, 8 - nacc});
+  }
+};
+
+inline int pixel(const uint8_t* row, long long i) {
+  return (row[i >> 3] >> (7 - (i & 7))) & 1;
+}
+
+// libtiff's finddiff: bs past the run of `colour` starting there, at most
+// to be (whole bytes skipped at a time)
+long long finddiff(const uint8_t* row, long long bs, long long be,
+                   int colour) {
+  const uint8_t all = colour ? 0xFF : 0x00;
+  long long i = bs;
+  while (i < be) {
+    if ((i & 7) == 0 && i + 8 <= be && row[i >> 3] == all) {
+      i += 8;
+      continue;
+    }
+    if (pixel(row, i) != colour) break;
+    ++i;
+  }
+  return i;
+}
+
+inline long long finddiff2(const uint8_t* row, long long bs, long long be,
+                           int colour) {
+  return bs < be ? finddiff(row, bs, be, colour) : be;
+}
+
+void putspan(BitWriter& w, long long span, int colour) {
+  const Codes& c = codes();
+  while (span >= 2624) {
+    w.put(c.makeup[colour][40]);
+    span -= 2560;
+  }
+  if (span >= 64) {
+    w.put(c.makeup[colour][span >> 6]);
+    span &= 63;
+  }
+  w.put(c.term[colour][span]);
+}
+
+void encode_row(BitWriter& w, const uint8_t* bp, const uint8_t* rp,
+                long long bits) {
+  const Codes& c = codes();
+  long long a0 = 0;
+  long long a1 = pixel(bp, 0) != 0 ? 0 : finddiff(bp, 0, bits, 0);
+  long long b1 = pixel(rp, 0) != 0 ? 0 : finddiff(rp, 0, bits, 0);
+  for (;;) {
+    long long b2 = b1 < bits ? finddiff(rp, b1, bits, pixel(rp, b1)) : bits;
+    if (b2 >= a1) {
+      long long d = b1 - a1;
+      if (!(-3 <= d && d <= 3)) {  // horizontal mode
+        long long a2 = a1 < bits ? finddiff(bp, a1, bits, pixel(bp, a1))
+                                 : bits;
+        w.put(c.horiz);
+        int first = (a0 + a1 == 0 || pixel(bp, a0) == 0) ? 0 : 1;
+        putspan(w, a1 - a0, first);
+        putspan(w, a2 - a1, first ^ 1);
+        a0 = a2;
+      } else {  // vertical mode
+        w.put(c.v[d + 3]);
+        a0 = a1;
+      }
+    } else {  // pass mode
+      w.put(c.pass);
+      a0 = b2;
+    }
+    if (a0 >= bits) break;
+    int colour = pixel(bp, a0);
+    a1 = finddiff(bp, a0, bits, colour);
+    b1 = finddiff(rp, a0, bits, !colour);
+    b1 = finddiff(rp, b1, bits, colour);
+  }
+}
+
+}  // namespace g4
+
+// Encode `rows` rows of `width` pixels (src: rows x ceil(width / 8)
+// bytes, packed MSB first, a set bit black) as one Group 4 strip into
+// dst (at most cap bytes).  Returns the bytes written, -1 where cap is too
+// small, -2 for bad arguments.
+extern "C" long long unmicst_g4_encode(const uint8_t* src, long long width,
+                                       long long rows, uint8_t* dst,
+                                       long long cap) {
+  if (width <= 0 || rows < 0 || cap < 0) return -2;
+  const long long stride = (width + 7) >> 3;
+  std::vector<uint8_t> white((size_t)stride, 0);
+  g4::BitWriter w{dst, cap};
+  const uint8_t* ref = white.data();
+  for (long long r = 0; r < rows; ++r) {
+    const uint8_t* row = src + r * stride;
+    g4::encode_row(w, row, ref, width);
+    ref = row;
+  }
+  const g4::Code eol{1, 12};
+  w.put(eol);
+  w.put(eol);
+  w.flush();
+  return w.overflow ? -1 : w.n;
+}
+
+// ---------------------------------------------------------------------------
 // Fast zlib-wrapped DEFLATE encoder (RFC 1950/1951), written from the RFCs.
 //
 // Greedy single-probe hash matching (4-byte hash, 32K heads; inside a

@@ -35,9 +35,12 @@ plugins PIL decodes itself, through :mod:`unmicst_tpu_torch.io.identify`;
 JPEG 2000 J2K codestreams and JP2 files through
 :mod:`unmicst_tpu_torch.io.jpeg2000`);
 :func:`imwrite` writes TIFF and every format PIL 12 saves (RGB and RGBA
-GIFs through :mod:`unmicst_tpu_torch.io.quant`) but ICO, ICNS, PDF, WebP,
-JPEG 2000 and AVIF, which raise ``NotImplementedError`` (ROADMAP M17), as
-reads of other formats (WebP among them) do.
+GIFs through :mod:`unmicst_tpu_torch.io.quant`; ICO and ICNS through
+Pillow's resampler, :mod:`unmicst_tpu_torch.io.resample`; PDF through the
+JPEG and Group 4 encoders) but WebP, JPEG 2000 and AVIF, which raise
+``NotImplementedError`` (ROADMAP M17), as reads of other formats (WebP
+among them) do; so does a PDF of an ``LA`` or ``RGBA`` image, which PIL
+writes through its JPEG 2000 encoder.
 :func:`imshow` and :func:`imshowlist` keep the JAX package's headless
 contract without matplotlib: they write a PNG and return its path.
 
@@ -58,9 +61,9 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from unmicst_tpu_torch.io import (bmp, dds, eps, gif, identify, im, jpegenc,
-                                  mpo, msp, palm, pcx, png, pnm, qoi, sgi,
-                                  tga, xbm)
+from unmicst_tpu_torch.io import (bmp, dds, eps, gif, icns, ico, identify,
+                                  im, jpegenc, mpo, msp, palm, pcx, pdf, png,
+                                  pnm, qoi, sgi, tga, xbm)
 from unmicst_tpu_torch.io.preprocess import im2double, resize  # noqa: F401
 from unmicst_tpu_torch.io.tiff import imread as _tiff_read
 from unmicst_tpu_torch.io.tiff import imwrite as _tiff_write
@@ -110,7 +113,8 @@ _BY_EXTENSION = {".png": png.write_png, ".apng": png.write_png,
                  ".msp": msp.write_msp, ".palm": palm.write_palm,
                  ".xbm": xbm.write_xbm, ".qoi": qoi.write_qoi,
                  ".eps": eps.write_eps, ".ps": eps.write_eps,
-                 ".dds": dds.write_dds,
+                 ".dds": dds.write_dds, ".ico": ico.write_ico,
+                 ".icns": icns.write_icns, ".pdf": pdf.write_pdf,
                  **dict.fromkeys((".pbm", ".pgm", ".ppm", ".pnm", ".pfm"),
                                  pnm.write_pnm),
                  **dict.fromkeys(tga.EXTENSIONS, tga.write_tga),
@@ -125,8 +129,8 @@ _NO_SAVE = {".cur": "CUR", ".dcx": "DCX", ".fit": "FITS", ".fits": "FITS",
             ".xpm": "XPM"}
 _STUBS = {".bufr": "BUFR", ".grib": "GRIB", ".h5": "HDF5", ".hdf": "HDF5",
           ".wmf": "WMF", ".emf": "WMF"}
-QUEUED = (".ico", ".icns", ".pdf", ".webp", ".j2c", ".j2k", ".jp2", ".jpc",
-          ".jpf", ".jpx", ".avif", ".avifs")
+QUEUED = (".webp", ".j2c", ".j2k", ".jp2", ".jpc", ".jpf", ".jpx", ".avif",
+          ".avifs")
 
 
 def imread(path: str) -> np.ndarray:
@@ -183,14 +187,19 @@ def imwrite(image: np.ndarray, path: str) -> None:
     (:mod:`unmicst_tpu_torch.io.jpegenc`), Netpbm (``.pbm``, ``.pgm``,
     ``.ppm``, ``.pnm``, ``.pfm``), PCX, TGA (``.tga``, ``.icb``, ``.vda``,
     ``.vst``), SGI (``.sgi``, ``.bw``, ``.rgb``, ``.rgba``), IM, MSP,
-    Palm, XBM, QOI, EPS (``.eps``, ``.ps``) and uncompressed DDS, each
+    Palm, XBM, QOI, EPS (``.eps``, ``.ps``), uncompressed DDS, ICO and
+    ICNS (their entries resized by Pillow's resampler,
+    :mod:`unmicst_tpu_torch.io.resample`) and PDF (``1`` as Group 4,
+    ``L`` and ``RGB`` as JPEG; the date from ``time.gmtime()``), each
     through its module of :mod:`unmicst_tpu_torch.io`.  PNG and APNG are
-    PIL's pixels, not its bytes (the port's deflate is its own).  Where
-    PIL has no writer (``.dcx``, ``.psd`` ...) its ``KeyError``; where its
-    handler is a stub (``.bufr``, ``.grib``, ``.h5``, ``.hdf``, ``.wmf``,
-    ``.emf``) its ``OSError``; ``.blp`` its ``ValueError``; an unknown
-    extension its ``ValueError``.  ICO, ICNS, PDF, WebP, JPEG 2000 and
-    AVIF (``QUEUED``) raise ``NotImplementedError`` (ROADMAP M17)."""
+    PIL's pixels, not its bytes (the port's deflate is its own), and so
+    are the PNG entries of ICO and ICNS, whose other bytes are PIL's.
+    Where PIL has no writer (``.dcx``, ``.psd`` ...) its ``KeyError``;
+    where its handler is a stub (``.bufr``, ``.grib``, ``.h5``, ``.hdf``,
+    ``.wmf``, ``.emf``) its ``OSError``; ``.blp`` its ``ValueError``; an
+    unknown extension its ``ValueError``.  WebP, JPEG 2000 and AVIF
+    (``QUEUED``), and a PDF of an ``LA`` or ``RGBA`` image, raise
+    ``NotImplementedError`` (ROADMAP M17)."""
     if path.lower().endswith((".tif", ".tiff")):
         _tiff_write(path, image, bigtiff=False)
         return
